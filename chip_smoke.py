@@ -9,8 +9,8 @@ Phases (any failure exits non-zero before the result line):
    ``src/repro_torch/kernels/csrc`` (build seconds, ptxas register and
    shared-memory lines);
 2. each kernel against its plain PyTorch version on the card, at the
-   main path's bucket sizes and W = 2, f32 and bf16 w (norms rtol 1e-5
-   and bitwise across two runs; update atol 1e-5 f32 w / 2e-2 bf16 w),
+   main path's bucket sizes and W = 2, f32 and bf16 w (norms rtol 1e-5,
+   bitwise across two runs and on a misaligned copy; update atol 1e-5 f32 w / 2e-2 bf16 w),
    each timed with CUDA events (median per launch) beside its byte bound;
 3. the main path: ``repro_torch.launch.train.run`` on qwen3-0.6b at its
    published widths, depth cut 28 -> 4, DC-S3GD, W = 2, 4 x 256 tokens
@@ -81,13 +81,11 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 def phase_build(smi: str) -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.load_all()
-    print(f"[build] all kernels ready in {time.perf_counter() - t0:.2f} s "
-          f"({smi})")
-    for stem, b in libs.items():
-        print(f"[build] {stem}: nvcc {b.seconds:.2f} s -> {b.path.name}")
-        for line in b.ptxas:
-            print(f"[build]   {line}")
+    b = build.load()
+    print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s: nvcc "
+          f"{b.seconds:.2f} s -> {b.path.name} ({smi})")
+    for line in b.ptxas:
+        print(f"[build]   {line}")
 
 
 def phase_kernels(sizes, smi: str) -> dict:
@@ -108,8 +106,18 @@ def phase_kernels(sizes, smi: str) -> dict:
         ref = K.dc_norms_plain(g, d)
         torch.cuda.synchronize()
         rel = 0.0
-        for x, y, r in zip(a, b, (ref[:, 0], ref[:, 1])):
+        # the same values at a 4-byte (not 16-byte) aligned address
+        buf = torch.empty(2 * W * n + 1, device=dev)
+        gm = buf[1:W * n + 1].view(W, n)
+        dm = buf[W * n + 1:].view(W, n)
+        gm.copy_(g)
+        dm.copy_(d)
+        c = K.dc_norms(gm, dm)
+        del buf, gm, dm
+        for x, y, z, r in zip(a, b, c, (ref[:, 0], ref[:, 1])):
             check(torch.equal(x, y), f"dc_norms not bitwise run to run, n={n}")
+            check(torch.equal(x, z),
+                  f"dc_norms not bitwise on a misaligned view, n={n}")
             check(bool(((x - r).abs() <= 1e-5 * r.abs()).all()),
                   f"dc_norms vs plain beyond rtol 1e-5, n={n}: {x} {r}")
             acc["dc_norms"]["err"] = max(acc["dc_norms"]["err"],

@@ -118,9 +118,7 @@ class DCS3GD:
         shapes of a (W, ...) state tree."""
         from repro_torch.parallel import buckets as B
         return B.cached_plan(self._plan_cache, worker_params, self.buckets,
-                             strip_leading_axis=True,
-                             wire_dtype=getattr(self.reducer, "comm_dtype",
-                                                None))
+                             strip_leading_axis=True)
 
     def init(self, params: Tree) -> TrainState:
         sdt = _STATE_DTYPES[self.cfg.state_dtype]

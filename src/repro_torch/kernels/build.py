@@ -1,11 +1,11 @@
 """Build and load the CUDA kernels (plain C interface, bound with ctypes).
 
-Each source under ``csrc/`` is compiled by one ``nvcc`` call into its own
-shared library under ``<repo>/build/kernels/`` (git-ignored), at first
-use; the library name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  All
-sources build in parallel.  Nothing is compiled at import time: this
-module imports on a machine with no CUDA toolkit.
+``csrc/dc_update.cu`` is compiled by one ``nvcc`` call into a shared
+library under ``<repo>/build/kernels/`` (git-ignored), at first use; the
+library name carries a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  Nothing is
+compiled at import time: this module imports on a machine with no CUDA
+toolkit.
 """
 from __future__ import annotations
 
@@ -16,33 +16,30 @@ import os
 import shutil
 import subprocess
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("dc_update.cu",)
+SOURCE = CSRC / "dc_update.cu"
 
 _c = ctypes
 _P, _I64, _I32, _F32 = _c.c_void_p, _c.c_int64, _c.c_int, _c.c_float
-# argtypes of every C entry point, by library
+_UPDATE = [_P, _P, _P, _P, _P, _F32, _F32, _F32, _I64, _I64, _I32, _I32, _P,
+           _P, _P, _P]
+# argtypes of every C entry point of dc_update.cu
 SIGNATURES = {
-    "dc_update": {
-        "dc_norms_f32": [_P, _P, _I64, _I64, _I32, _I32, _P, _P, _P],
-        "dc_fused_update_f32w": [_P, _P, _P, _P, _P, _F32, _F32, _F32, _I64,
-                                 _I64, _I32, _I32, _P, _P, _P, _P],
-        "dc_fused_update_bf16w": [_P, _P, _P, _P, _P, _F32, _F32, _F32, _I64,
-                                  _I64, _I32, _I32, _P, _P, _P, _P],
-    },
+    "dc_norms_f32": [_P, _P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P],
+    "dc_fused_update_f32w": _UPDATE,
+    "dc_fused_update_bf16w": _UPDATE,
 }
 
 
 @dataclasses.dataclass
 class Built:
-    """One loaded library and what its build reported."""
+    """The loaded library and what its build reported."""
 
     lib: ctypes.CDLL
     path: Path
@@ -50,7 +47,7 @@ class Built:
     ptxas: List[str]        # the -Xptxas -v lines (registers, smem, spills)
 
 
-_LOADED: Dict[str, Built] = {}
+_LOADED: Optional[Built] = None
 
 
 def _nvcc() -> str:
@@ -64,47 +61,41 @@ def _nvcc() -> str:
                        "toolkit on PATH or under CUDA_HOME")
 
 
-def _build_one(source: str) -> Built:
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+def _build() -> Built:
+    digest = hashlib.sha256(SOURCE.read_bytes()
                             + " ".join(FLAGS).encode()).hexdigest()[:16]
-    stem = Path(source).stem
-    out = BUILD_DIR / f"{stem}-{digest}.so"
+    out = BUILD_DIR / f"{SOURCE.stem}-{digest}.so"
     log = out.with_suffix(".log")
     t0 = time.perf_counter()
     seconds = 0.0
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(SOURCE)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
         seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in log.read_text().splitlines()
              if "ptxas info" in ln] if log.exists() else []
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in SIGNATURES[stem].items():
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return Built(lib=lib, path=out, seconds=seconds, ptxas=ptxas)
 
 
-def load_all() -> Dict[str, Built]:
-    """Build (in parallel) and load every kernel library; cached."""
-    missing = [s for s in SOURCES if Path(s).stem not in _LOADED]
-    if missing:
-        with ThreadPoolExecutor(len(missing)) as ex:
-            for src, built in zip(missing, ex.map(_build_one, missing)):
-                _LOADED[Path(src).stem] = built
+def load() -> Built:
+    """Build (once) and load the kernel library; cached."""
+    global _LOADED
+    if _LOADED is None:
+        _LOADED = _build()
     return _LOADED
 
 
-def library(stem: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<stem>.cu``."""
-    if stem not in _LOADED:
-        load_all()
-    return _LOADED[stem].lib
+def library() -> ctypes.CDLL:
+    """The loaded library built from ``csrc/dc_update.cu``."""
+    return load().lib

@@ -18,8 +18,11 @@
 // grid.  Blocks here run in parallel and in no order, so the norms are a
 // two-pass reduction: pass 1 writes one (Σg², Σc²) pair per block, pass 2
 // sums the pairs of each worker row in a fixed order.  No float atomics:
-// the grid is a function of n only and every reduction tree is fixed, so
-// the sums are identical from run to run.
+// the grid and each thread's element order are functions of n only (groups
+// of four when n % 4 == 0), and every reduction tree is fixed, so the sums
+// are identical from run to run.  The operands' alignment picks only how a
+// group of four is loaded (one 16-byte load or four 4-byte ones), never
+// the order it is summed in, so a misaligned view sums to the same bits.
 //
 // Built with -fmad=false: each element is computed with the same roundings
 // as the plain PyTorch version (repro_torch/kernels/dc_update.py), so the
@@ -72,10 +75,19 @@ __device__ __forceinline__ void norm_acc(float g, float d, float& sg,
   sc += c * c;
 }
 
+// Four consecutive floats from p: one 16-byte load when p is 16-byte
+// aligned, else four 4-byte loads; the same values either way.
+__device__ __forceinline__ float4 load4_any(const float* p, int aligned) {
+  if (aligned) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
 // Pass 1: grid (blocks, rows); block x of row w strides over that row.
+// vec (n % 4 == 0): thread i sums groups of four; aligned: 16-byte loads.
 __global__ void __launch_bounds__(kThreads)
     norms_partial(const float* __restrict__ g, const float* __restrict__ d,
-                  int64_t n, int vec, float* __restrict__ partials) {
+                  int64_t n, int vec, int aligned,
+                  float* __restrict__ partials) {
   const int64_t row = blockIdx.y;
   const float* gw = g + row * n;
   const float* dw = d + row * n;
@@ -83,11 +95,9 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t start = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   float sg = 0.f, sc = 0.f;
   if (vec) {
-    const float4* g4 = reinterpret_cast<const float4*>(gw);
-    const float4* d4 = reinterpret_cast<const float4*>(dw);
     for (int64_t i = start; i < n / 4; i += stride) {
-      const float4 a = __ldg(g4 + i);
-      const float4 b = __ldg(d4 + i);
+      const float4 a = load4_any(gw + 4 * i, aligned);
+      const float4 b = load4_any(dw + 4 * i, aligned);
       norm_acc(a.x, b.x, sg, sc);
       norm_acc(a.y, b.y, sg, sc);
       norm_acc(a.z, b.z, sg, sc);
@@ -222,13 +232,14 @@ int launch_update(const float* g, const float* d, const float* m, const WT* w,
 
 extern "C" {
 
-// g, d: (rows, n) f32 contiguous; partials: (rows, nblocks, 2) f32 scratch;
+// g, d: (rows, n) f32 contiguous; vec: n % 4 == 0; aligned: vec and g, d
+// 16-byte aligned; partials: (rows, nblocks, 2) f32 scratch;
 // out: (rows, 2) f32 = [Σ g², Σ (g²·D)²] per row.
 int dc_norms_f32(const float* g, const float* d, int64_t rows, int64_t n,
-                 int vec, int nblocks, float* partials, float* out,
-                 cudaStream_t stream) {
+                 int vec, int aligned, int nblocks, float* partials,
+                 float* out, cudaStream_t stream) {
   norms_partial<<<dim3(nblocks, (unsigned)rows), kThreads, 0, stream>>>(
-      g, d, n, vec, partials);
+      g, d, n, vec, aligned, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   norms_final<<<(unsigned)rows, kThreads, 0, stream>>>(partials, nblocks, out);

@@ -34,15 +34,14 @@ class Engine:
         self.alg = alg
 
     def fit(self, state, batch_fn: Callable[[int], Tree], *, steps: int,
-            start: int = 0, log_every: int = 10, verbose: bool = True
-            ) -> Tuple[Any, list, float]:
-        """Run steps ``start .. steps-1``; returns (state, metric history,
+            log_every: int = 10) -> Tuple[Any, list, float]:
+        """Run steps ``0 .. steps-1``; returns (state, metric history,
         wall seconds).  Each history entry carries ``wall_s``, the seconds
         since the loop started, read after that step's metrics reached the
         host."""
         history = []
         t0 = time.perf_counter()
-        for it in range(start, steps):
+        for it in range(steps):
             batch = batch_fn(it)
             state, metrics = self.alg.step(state, batch,
                                            loss_fn=self.model.loss)
@@ -51,8 +50,7 @@ class Engine:
                 m["step"] = it
                 m["wall_s"] = time.perf_counter() - t0
                 history.append(m)
-                if verbose:
-                    print(f"[train] step {it:5d} loss={m['loss']:.4f} "
-                          f"lr={m['lr']:.4f} |D|={m['distance_norm']:.2e} "
-                          f"lam={m['lambda']:.3f}")
+                print(f"[train] step {it:5d} loss={m['loss']:.4f} "
+                      f"lr={m['lr']:.4f} |D|={m['distance_norm']:.2e} "
+                      f"lam={m['lambda']:.3f}")
         return state, history, time.perf_counter() - t0

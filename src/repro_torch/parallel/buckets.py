@@ -111,17 +111,13 @@ class BucketPlan:
 
 
 def cached_plan(cache: dict, tree: Tree, n_buckets: int, *,
-                block: Optional[int] = None,
-                strip_leading_axis: bool = False,
-                wire_dtype: Optional[str] = None) -> BucketPlan:
-    """Memoized `plan_buckets` keyed on the tree's (shape, dtype) layout,
-    the block and the wire dtype (plans of another alignment or wire must
-    never alias)."""
+                strip_leading_axis: bool = False) -> BucketPlan:
+    """Memoized `plan_buckets` (default block) keyed on the tree's
+    (shape, dtype) layout."""
     key = (tuple((tuple(x.shape), x.dtype) for x in T.leaves(tree)),
-           n_buckets, block, strip_leading_axis,
-           None if wire_dtype is None else str(wire_dtype))
+           n_buckets, strip_leading_axis)
     if key not in cache:
-        cache[key] = plan_buckets(tree, n_buckets, block=block,
+        cache[key] = plan_buckets(tree, n_buckets,
                                   strip_leading_axis=strip_leading_axis)
     return cache[key]
 

@@ -89,11 +89,15 @@ def test_tree_flattens_in_sorted_key_order_like_jax():
     assert T.unflatten(td, leaves) == tree
 
 
-def test_cached_plan_keys_on_block_and_wire():
+def test_cached_plan_is_memoized_on_layout():
     tree = params_from_numpy(_jax_tree(), device="cpu")
     cache = {}
     a = B.cached_plan(cache, tree, 2)
     assert B.cached_plan(cache, tree, 2) is a
-    b = B.cached_plan(cache, tree, 2, block=2 * B.BLOCK)
-    c = B.cached_plan(cache, tree, 2, wire_dtype="bfloat16")
-    assert len(cache) == 3 and b.block == 2 * B.BLOCK and c is not a
+    assert _layout(a) == _layout(B.plan_buckets(tree, 2))
+    # same shapes and dtypes, other values: the same plan
+    assert B.cached_plan(cache, T.map(torch.zeros_like, tree), 2) is a
+    b = B.cached_plan(cache, tree, 3)
+    stacked = T.map(lambda x: torch.stack([x, x]), tree)
+    c = B.cached_plan(cache, stacked, 2, strip_leading_axis=True)
+    assert len(cache) == 3 and b is not a and _layout(c) == _layout(a)

@@ -200,3 +200,23 @@ def test_cuda_kernels_match_plain_versions():
                 torch.testing.assert_close(x.float(), r.float(), rtol=0,
                                            atol=atol)
         torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_norms_bitwise_on_misaligned_view():
+    """On the card: the norms of a view at a 4-byte (not 16-byte) aligned
+    address are bitwise those of an aligned copy of the same values — the
+    alignment picks the load width, never the sum order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for n in (3 * JK.BLOCK, 100_004):
+        buf = torch.randn(2 * W * n + 1, generator=gen, device=dev)
+        g = buf[1:W * n + 1].view(W, n)
+        d = buf[W * n + 1:].view(W, n)
+        assert g.data_ptr() % 16 != 0
+        a = K.dc_norms(g, d)
+        b = K.dc_norms(g.clone(), d.clone())
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
