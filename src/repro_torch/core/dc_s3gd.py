@@ -12,11 +12,13 @@ Decentralized stale-synchronous SGD with delay compensation:
   corrected local update (Eq. 12).
 
 ``use_kernels=True`` runs the correction + momentum + Eq. 12 tail through
-the two hand-written CUDA kernels (`repro_torch.kernels`); on CPU tensors
+the two hand-written CUDA kernels (`repro_torch.kernels`), and a topk /
+topk_exact reducer's compression body through a third; on CPU tensors
 the same calls run their plain versions.  ``buckets > 0`` packs the wire
 state and the fused tail into a few flat buffers
 (`repro_torch.parallel.buckets`); within the port the bucketed and
-per-leaf trajectories are bitwise equal.
+per-leaf trajectories are bitwise equal.  A stateful (compressed) reducer
+carries its state in ``comm["reducer"]`` and needs ``buckets > 0``.
 
 The reference fences the wire and D with ``lax.optimization_barrier`` so
 XLA cannot fuse across them; eager PyTorch materialises every tensor, so
@@ -102,14 +104,14 @@ class DCS3GD:
         if getattr(self.reducer, "reduces_weights", False):
             raise NotImplementedError(
                 "weight-mixing reducers are not ported yet: ROADMAP A5")
-        if not getattr(self.reducer, "stateless", True):
-            raise NotImplementedError(
-                "stateful (compressed) reducers are not ported yet: "
-                "ROADMAP A8")
         if not self.staleness.stateless:
             raise NotImplementedError(
                 "stateful staleness policies are not ported yet: ROADMAP A5")
         self.use_kernels = use_kernels
+        # compressed reducers with a fused kernel share the knob: one flag
+        # routes both the tail and the compression through kernels
+        if use_kernels and hasattr(self.reducer, "use_kernels"):
+            self.reducer.use_kernels = True
         self.buckets = int(cfg.buckets if buckets is None else buckets)
         self._plan_cache: dict = {}
 
@@ -124,14 +126,24 @@ class DCS3GD:
         sdt = _STATE_DTYPES[self.cfg.state_dtype]
         wp = replicate_for_workers(params, self.n_workers)
         opt = T.map(lambda x: x.to(sdt), self.local_optimizer.init(wp))
+        device = T.leaves(wp)[0].device
         if self.buckets:
-            device = T.leaves(wp)[0].device
             delta_prev = self._plan(wp).zeros(sdt, lead=(self.n_workers,),
                                               device=device)
         else:
             delta_prev = T.map(lambda p: torch.zeros_like(p, dtype=sdt), wp)
-        return TrainState(params=wp, opt=opt, comm={"delta_prev": delta_prev},
-                          step=0)
+        comm = {"delta_prev": delta_prev}
+        # stateful (error-feedback compressed) reducers carry residuals /
+        # warm-started factors across steps under comm["reducer"]
+        if not self._reducer_stateless:
+            comm["reducer"] = self.reducer.init(
+                self.n_workers, self._plan(wp) if self.buckets else None,
+                device=device)
+        return TrainState(params=wp, opt=opt, comm=comm, step=0)
+
+    @property
+    def _reducer_stateless(self) -> bool:
+        return bool(getattr(self.reducer, "stateless", True))
 
     def step(self, state: TrainState, batch: Tree, *, loss_fn: LossFn
              ) -> Tuple[TrainState, Metrics]:
@@ -146,7 +158,12 @@ class DCS3GD:
         # --- MPI_Iallreduce of the carried deltas (bucketed when buckets>0);
         # depends only on carried state, not on this step's gradients
         delta_prev = state.comm["delta_prev"]
-        delta_bar = self.reducer(delta_prev)
+        rstate = None
+        if self._reducer_stateless:
+            delta_bar = self.reducer(delta_prev)
+        else:
+            delta_bar, rstate = self.reducer(delta_prev,
+                                             state.comm["reducer"])
 
         # --- g_i = ∇l(w_i): per-worker gradients
         grads, loss = _vgrads(loss_fn, state.params, batch, cfg.microbatches)
@@ -156,7 +173,8 @@ class DCS3GD:
         del delta_bar
 
         if self.use_kernels:
-            return self._fused_tail(state, grads, D, loss, lr, wd, plan=plan)
+            return self._fused_tail(state, grads, D, loss, lr, wd, plan=plan,
+                                    rstate=rstate)
 
         if plan is not None:
             # leave the flat-buffer world: unpack is a static slice, so
@@ -185,7 +203,7 @@ class DCS3GD:
         }
         delta_c = plan.pack(delta) if plan is not None else delta
         return TrainState(new_params, T.map(lambda x: x.to(sdt), opt),
-                          {"delta_prev": T.map(lambda d: d.to(sdt), delta_c)},
+                          _comm(T.map(lambda d: d.to(sdt), delta_c), rstate),
                           state.step + 1), metrics
 
     def eval_params(self, state: TrainState) -> Tree:
@@ -198,7 +216,8 @@ class DCS3GD:
             "elastic resize is not ported yet: ROADMAP queue A10")
 
     def _fused_tail(self, state: TrainState, grads, D, loss, lr: float,
-                    wd: float, *, plan=None) -> Tuple[TrainState, Metrics]:
+                    wd: float, *, plan=None, rstate=None
+                    ) -> Tuple[TrainState, Metrics]:
         if not (self.local_optimizer.name == "momentum"
                 and not getattr(self.local_optimizer, "nesterov", False)
                 and getattr(self.compensator, "mode", "global") == "global"):
@@ -225,7 +244,7 @@ class DCS3GD:
             }
             opt = {"m": T.map(lambda x: x.to(sdt), plan.unpack(m_nb))}
             return TrainState(plan.unpack(w_nb), opt,
-                              {"delta_prev": [b.to(sdt) for b in delta_b]},
+                              _comm([b.to(sdt) for b in delta_b], rstate),
                               state.step + 1), metrics
 
         gsq, csq = kops.dc_norms_tree(grads, D)
@@ -239,7 +258,7 @@ class DCS3GD:
             "delta_norm": _mean_worker_norm(delta),
         }
         return TrainState(new_params, {"m": T.map(lambda x: x.to(sdt), m_new)},
-                          {"delta_prev": T.map(lambda d: d.to(sdt), delta)},
+                          _comm(T.map(lambda d: d.to(sdt), delta), rstate),
                           state.step + 1), metrics
 
 
@@ -255,6 +274,15 @@ def _make_stale(cfg: DCS3GDConfig, **kw) -> DCS3GD:
 # ---------------------------------------------------------------------------
 # shared step internals
 # ---------------------------------------------------------------------------
+
+
+def _comm(delta_prev, rstate) -> dict:
+    """Next step's wire state: the carried deltas and, for a stateful
+    reducer, its state."""
+    comm = {"delta_prev": delta_prev}
+    if rstate is not None:
+        comm["reducer"] = rstate
+    return comm
 
 
 def _vgrads(loss_fn, params: Tree, batch: Tree, microbatches: int = 1):

@@ -4,6 +4,9 @@ Input trees carry a leading worker axis W on every leaf.
 ``mean_allreduce`` is the paper's MPI_Iallreduce mean: (1, ...) leaves,
 cast to ``comm_dtype`` on the simulated wire, f32 out.  The W workers
 live in one process, so the "all-reduce" is a mean over the leading axis.
+A quantized wire (int8/fp8, `repro_torch.core.quant`) carries each worker
+row as values plus one f32 scale, and the mean runs on the dequantized
+f32 payload.
 
 The mean adds the worker rows one after another in worker order: the
 result of every element then depends only on that element's W values,
@@ -17,11 +20,10 @@ from typing import Any
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core import quant as Q
 from repro_torch.core import registry
 
 Tree = Any
-
-_WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
@@ -30,6 +32,20 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
     for i in range(1, x.shape[0]):
         acc += x[i:i + 1]
     return acc
+
+
+def wire_mean(d: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The mean over the leading (worker) axis on a ``dt`` float wire,
+    keepdims, f32 out.  jnp.mean of a bf16/f16 array sums in f32 and
+    rounds the mean back to bf16/f16; of an f32 array it stays f32."""
+    return (_row_sum(d.to(dt).float()) / d.shape[0]).to(dt).float()
+
+
+def quantized_mean(d: torch.Tensor, comm_dtype: str) -> torch.Tensor:
+    """The mean over the leading axis of what a quantized wire delivers:
+    each row quantized with its own scale, dequantized, summed in f32."""
+    qv, s = Q.quantize(d, comm_dtype)
+    return _row_sum(Q.dequantize(qv, s)) / d.shape[0]
 
 
 @registry.register(registry.REDUCER, "mean_allreduce")
@@ -46,21 +62,28 @@ class MeanAllReduce:
     def __init__(self, cfg=None, *, comm_dtype: str | None = None):
         self.comm_dtype = comm_dtype if comm_dtype is not None else \
             (cfg.comm_dtype if cfg is not None else "float32")
-        if self.comm_dtype not in _WIRE_DTYPES:
-            raise NotImplementedError(
-                f"comm_dtype={self.comm_dtype!r}: only float32/bfloat16 "
-                "wires are ported (quantized wires: ROADMAP A8)")
+        if not Q.is_quantized(self.comm_dtype):
+            Q.float_wire(self.comm_dtype)   # raises on an unknown name
+
+    @property
+    def hparams(self) -> dict:
+        """Constructor knobs a checkpoint must round-trip."""
+        return {"comm_dtype": self.comm_dtype}
+
+    def wire_bytes(self, sizes) -> int:
+        """Per-worker wire payload per step for leaves/buckets of ``sizes``
+        elements; a quantized wire adds one f32 scale per leaf/bucket."""
+        sizes = list(sizes)
+        it = Q.wire_itemsize(self.comm_dtype)
+        if Q.is_quantized(self.comm_dtype):
+            return sum(sizes) * it + Q.SCALE_BYTES * len(sizes)
+        return sum(sizes) * it
 
     def __call__(self, tree: Tree) -> Tree:
-        dt = _WIRE_DTYPES[self.comm_dtype]
-
-        def red(d):
-            # jnp.mean of a bf16 array sums in f32 and rounds the mean
-            # back to bf16; of an f32 array it stays f32
-            s = _row_sum(d.to(dt).float()) / d.shape[0]
-            return s.to(dt).float()
-
-        return T.map(red, tree)
+        if Q.is_quantized(self.comm_dtype):
+            return T.map(lambda d: quantized_mean(d, self.comm_dtype), tree)
+        dt = Q.float_wire(self.comm_dtype)
+        return T.map(lambda d: wire_mean(d, dt), tree)
 
 
 def collapse_worker_axis(tree: Tree) -> Tree:

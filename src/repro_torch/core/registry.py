@@ -5,12 +5,12 @@ Call sites construct everything from config strings:
 
     registry.make("dc_s3gd", cfg, n_workers=32)            # Algorithm 1
     registry.make("stale",   cfg, n_workers=32)            # lambda0 = 0
+    registry.make("ssgd",    cfg, n_workers=32)            # synchronous
 
 Provider modules register themselves at import via ``@register``; lookups
 import the known providers lazily.  Only the modules the port has are
-providers, so a name that is not ported yet (``ssgd``, ``gossip``,
-``topk``, ``dynamic_ssp``, ``nesterov`` ...) raises a ``KeyError`` naming
-it.
+providers, so a name that is not ported yet (``dc_asgd``, ``gossip``,
+``dynamic_ssp``, ``nesterov`` ...) raises a ``KeyError`` naming it.
 """
 from __future__ import annotations
 
@@ -31,10 +31,12 @@ _REGISTRY: Dict[str, Dict[str, Callable[..., Any]]] = {
 # imported lazily, once, the first time a lookup runs
 _PROVIDERS = (
     "repro_torch.core.reduce",
+    "repro_torch.core.compress",
     "repro_torch.core.compensate",
     "repro_torch.core.staleness",
     "repro_torch.optim.local",
     "repro_torch.core.dc_s3gd",
+    "repro_torch.core.ssgd",
 )
 _loaded = False
 

@@ -1,9 +1,12 @@
-"""Weights across packages: numpy trees <-> trees of torch tensors.
+"""Weights and state across packages: numpy trees <-> trees of tensors.
 
 The JAX package initialises weights with ``jax.random``, which torch
 cannot reproduce, so parity runs carry the reference's weights over as
 numpy arrays.  Nesting, shapes and dtypes are kept; bfloat16 crosses as
-its 16-bit pattern (numpy has no native bfloat16).
+its 16-bit pattern (numpy has no native bfloat16).  A compressed
+reducer's ``TrainState.comm["reducer"]`` crosses the same way, except
+randk's ``step``, which is an int32 array in the reference and a host int
+in the port.
 """
 from __future__ import annotations
 
@@ -37,3 +40,21 @@ def params_from_numpy(tree, *, device="cuda"):
 def params_to_numpy(tree):
     """Tree of tensors -> same tree of numpy arrays on the host."""
     return T.map(_to_numpy, tree)
+
+
+def reducer_state_from_numpy(rstate, *, device="cuda"):
+    """A reference ``comm["reducer"]`` (residual list, randk's ``step``,
+    powersgd's ``q`` list) as numpy -> the port's layout."""
+    out = {k: params_from_numpy(v, device=device) for k, v in rstate.items()
+           if k != "step"}
+    if "step" in rstate:
+        out["step"] = int(np.asarray(rstate["step"]))
+    return out
+
+
+def reducer_state_to_numpy(rstate):
+    """The port's ``comm["reducer"]`` -> the reference's layout, as numpy."""
+    out = {k: params_to_numpy(v) for k, v in rstate.items() if k != "step"}
+    if "step" in rstate:
+        out["step"] = np.asarray(rstate["step"], np.int32)
+    return out

@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels of the update tail, their plain versions and
-wrappers."""
+"""Hand-written CUDA kernels (the update tail and the compression body),
+their plain versions and wrappers."""

@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels (plain C interface, bound with ctypes).
 
-``csrc/dc_update.cu`` is compiled by one ``nvcc`` call into a shared
-library under ``<repo>/build/kernels/`` (git-ignored), at first use; the
-library name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Nothing is
-compiled at import time: this module imports on a machine with no CUDA
-toolkit.
+Every source in ``csrc/`` (``dc_update.cu``, ``compress.cu``) is compiled
+by its own ``nvcc`` call into its own shared library under
+``<repo>/build/kernels/`` (git-ignored), at first use; each library's name
+carries a hash of its source and the flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  `load_all` starts the missing
+builds together and waits for all of them.  Nothing is compiled at import
+time: this module imports on a machine with no CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -17,29 +18,34 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCE = CSRC / "dc_update.cu"
 
 _c = ctypes
 _P, _I64, _I32, _F32 = _c.c_void_p, _c.c_int64, _c.c_int, _c.c_float
 _UPDATE = [_P, _P, _P, _P, _P, _F32, _F32, _F32, _I64, _I64, _I32, _I32, _P,
            _P, _P, _P]
-# argtypes of every C entry point of dc_update.cu
+# source stem -> argtypes of each of its C entry points
 SIGNATURES = {
-    "dc_norms_f32": [_P, _P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P],
-    "dc_fused_update_f32w": _UPDATE,
-    "dc_fused_update_bf16w": _UPDATE,
+    "dc_update": {
+        "dc_norms_f32": [_P, _P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P],
+        "dc_fused_update_f32w": _UPDATE,
+        "dc_fused_update_bf16w": _UPDATE,
+    },
+    "compress": {
+        "select_ef_mean_f32": [_P, _P, _I64, _I64, _I32, _I32, _F32, _I32,
+                               _I32, _P, _P, _P],
+    },
 }
 
 
 @dataclasses.dataclass
 class Built:
-    """The loaded library and what its build reported."""
+    """One loaded library and what its build reported."""
 
     lib: ctypes.CDLL
     path: Path
@@ -47,7 +53,7 @@ class Built:
     ptxas: List[str]        # the -Xptxas -v lines (registers, smem, spills)
 
 
-_LOADED: Optional[Built] = None
+_LOADED: Dict[str, Built] = {}
 
 
 def _nvcc() -> str:
@@ -61,41 +67,60 @@ def _nvcc() -> str:
                        "toolkit on PATH or under CUDA_HOME")
 
 
-def _build() -> Built:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def _target(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes()
                             + " ".join(FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{SOURCE.stem}-{digest}.so"
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _open(name: str, out: Path, seconds: float) -> Built:
     log = out.with_suffix(".log")
-    t0 = time.perf_counter()
-    seconds = 0.0
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-        seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in log.read_text().splitlines()
              if "ptxas info" in ln] if log.exists() else []
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return Built(lib=lib, path=out, seconds=seconds, ptxas=ptxas)
 
 
-def load() -> Built:
-    """Build (once) and load the kernel library; cached."""
-    global _LOADED
-    if _LOADED is None:
-        _LOADED = _build()
-    return _LOADED
+def load_all(names=tuple(SIGNATURES)) -> Dict[str, Built]:
+    """Build (once, one ``nvcc`` per source, all started together) and load
+    the named libraries; cached."""
+    t0 = time.perf_counter()
+    running = {}
+    for name in names:
+        if name in _LOADED:
+            continue
+        out = _target(name)
+        if out.exists():
+            _LOADED[name] = _open(name, out, 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running[name] = (proc, out, tmp)
+    failed = []
+    for name, (proc, out, tmp) in running.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{stderr}")
+            continue
+        out.with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, out)
+        _LOADED[name] = _open(name, out, seconds)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _LOADED[name] for name in names}
 
 
-def library() -> ctypes.CDLL:
-    """The loaded library built from ``csrc/dc_update.cu``."""
-    return load().lib
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``."""
+    if name not in _LOADED:
+        load_all((name,))
+    return _LOADED[name].lib

@@ -113,7 +113,7 @@ def dc_norms(g: torch.Tensor, d: torch.Tensor
     partials = torch.empty((W, nblocks, 2), dtype=torch.float32,
                            device=g.device)
     out = torch.empty((W, 2), dtype=torch.float32, device=g.device)
-    err = library().dc_norms_f32(
+    err = library("dc_update").dc_norms_f32(
         g.data_ptr(), d.data_ptr(), W, n, int(vec), int(_aligned(n, g, d)),
         nblocks, partials.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(g.device).cuda_stream)
@@ -148,7 +148,7 @@ def dc_fused_update(g, d, m, w, *, lam: torch.Tensor, mu: float, eta: float,
     delta = torch.empty_like(g)
     # elementwise: each output's bits are the same on either path
     vec = _aligned(n, g, d, m, w, w_new, m_new, delta)
-    lib = library()
+    lib = library("dc_update")
     fn = lib.dc_fused_update_f32w if w.dtype == torch.float32 \
         else lib.dc_fused_update_bf16w
     err = fn(g.data_ptr(), d.data_ptr(), m.data_ptr(), w.data_ptr(),

@@ -15,6 +15,9 @@ import torch
 
 Tree = Any
 
+# the metrics a step line shows, where the algorithm reports them
+_SHOWN = ("loss", "lr", "distance_norm", "lambda")
+
 
 def fetch_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
     """Device metrics -> host floats, in one copy."""
@@ -50,7 +53,6 @@ class Engine:
                 m["step"] = it
                 m["wall_s"] = time.perf_counter() - t0
                 history.append(m)
-                print(f"[train] step {it:5d} loss={m['loss']:.4f} "
-                      f"lr={m['lr']:.4f} |D|={m['distance_norm']:.2e} "
-                      f"lam={m['lambda']:.3f}")
+                print(f"[train] step {it:5d} " + " ".join(
+                    f"{k}={m[k]:.4g}" for k in _SHOWN if k in m))
         return state, history, time.perf_counter() - t0

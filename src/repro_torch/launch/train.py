@@ -35,12 +35,22 @@ def build_argparser():
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (widths kept)")
     ap.add_argument("--algo", choices=registry.names(), default="dc_s3gd",
-                    help="'stale' = DC-S3GD with lambda0=0 (no compensation)")
+                    help="'stale' = DC-S3GD with lambda0=0 (no compensation);"
+                         " 'ssgd' = the synchronous baseline")
     ap.add_argument("--reducer", choices=registry.names(registry.REDUCER),
-                    default="mean_allreduce")
+                    default="mean_allreduce",
+                    help="topk / topk_exact / randk / powersgd = error-"
+                         "feedback compressed; need --buckets > 0")
+    ap.add_argument("--compress-density", type=float, default=0.01,
+                    help="kept fraction per bucket for --reducer "
+                         "topk/topk_exact/randk")
+    ap.add_argument("--compress-rank", type=int, default=4,
+                    help="low-rank factor width for --reducer powersgd")
     ap.add_argument("--comm-dtype", default="float32",
-                    choices=["float32", "bfloat16"],
-                    help="wire dtype for the reducer payload")
+                    choices=["float32", "bfloat16", "float16", "int8",
+                             "fp8"],
+                    help="wire dtype for the reducer payload (int8/fp8 "
+                         "carry one f32 scale per worker row)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--batch-per-worker", type=int, default=8)
@@ -53,7 +63,8 @@ def build_argparser():
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", type=Path, default=None)
     ap.add_argument("--use-kernels", action="store_true",
-                    help="run the update tail through the fused kernels")
+                    help="run the update tail (and a topk/topk_exact "
+                         "reducer's compression) through the fused kernels")
     ap.add_argument("--buckets", type=int, default=0,
                     help="pack comm state into this many contiguous flat "
                          "buckets; 0 = per-leaf reduce/update")
@@ -86,7 +97,9 @@ def build(args, *, device=None):
     dc_cfg = DCS3GDConfig(
         learning_rate=args.lr, momentum=args.momentum, lambda0=args.lambda0,
         warmup_steps=max(int(args.warmup_frac * args.steps), 1),
-        total_steps=args.steps, comm_dtype=args.comm_dtype)
+        total_steps=args.steps, comm_dtype=args.comm_dtype,
+        compress_density=args.compress_density,
+        compress_rank=args.compress_rank)
 
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     n_params = sum(x.numel() for x in T.leaves(params))
@@ -97,7 +110,8 @@ def build(args, *, device=None):
     del params
     data = SyntheticLMDataset(cfg.vocab_size, args.seq, seed=args.seed)
     print(f"[train] {cfg.name} x{cfg.n_layers} layers "
-          f"({n_params / 1e6:.1f}M params) algo={alg.name} W={args.workers} "
+          f"({n_params / 1e6:.1f}M params) algo={alg.name} "
+          f"reducer={alg.reducer.name}/{args.comm_dtype} W={args.workers} "
           f"b={args.batch_per_worker} seq={args.seq} buckets={args.buckets} "
           f"kernels={args.use_kernels} device={device}")
 

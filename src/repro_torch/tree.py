@@ -17,35 +17,40 @@ TreeDef = Any
 def flatten(tree: Tree) -> Tuple[List[Any], TreeDef]:
     """(leaves in flatten order, a structure that `unflatten` rebuilds)."""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
 
-    def rec(t):
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return (dict, tuple(keys), tuple(rec(t[k]) for k in keys))
-        if isinstance(t, (list, tuple)):
-            return (type(t), None, tuple(rec(x) for x in t))
-        leaves.append(t)
-        return None
 
-    return leaves, rec(tree)
+# The recursions are module-level functions, not closures: a nested
+# function that calls itself is a reference cycle, and the cycle would
+# keep the leaves it closes over (model-sized tensors) alive until
+# Python's cyclic collector happens to run.
+def _flatten(t: Tree, leaves: List[Any]) -> TreeDef:
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return (dict, tuple(keys), tuple(_flatten(t[k], leaves)
+                                         for k in keys))
+    if isinstance(t, (list, tuple)):
+        return (type(t), None, tuple(_flatten(x, leaves) for x in t))
+    leaves.append(t)
+    return None
 
 
 def unflatten(treedef: TreeDef, leaves) -> Tree:
     it = iter(leaves)
-
-    def rec(d):
-        if d is None:
-            return next(it)
-        typ, keys, children = d
-        if typ is dict:
-            return {k: rec(c) for k, c in zip(keys, children)}
-        items = [rec(c) for c in children]
-        return typ(*items) if hasattr(typ, "_fields") else typ(items)
-
-    out = rec(treedef)
+    out = _unflatten(treedef, it)
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the structure holds")
     return out
+
+
+def _unflatten(d: TreeDef, it) -> Tree:
+    if d is None:
+        return next(it)
+    typ, keys, children = d
+    if typ is dict:
+        return {k: _unflatten(c, it) for k, c in zip(keys, children)}
+    items = [_unflatten(c, it) for c in children]
+    return typ(*items) if hasattr(typ, "_fields") else typ(items)
 
 
 def leaves(tree: Tree) -> List[Any]:

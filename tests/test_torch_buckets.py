@@ -101,3 +101,33 @@ def test_cached_plan_is_memoized_on_layout():
     stacked = T.map(lambda x: torch.stack([x, x]), tree)
     c = B.cached_plan(cache, stacked, 2, strip_leading_axis=True)
     assert len(cache) == 3 and b is not a and _layout(c) == _layout(a)
+
+
+@pytest.mark.parametrize("algo", ["dc_s3gd", "ssgd"])
+def test_dropped_state_is_freed_without_the_cycle_collector(algo):
+    """Tree ops and a training step leave no reference cycle around
+    tensors: with Python's cyclic collector off, a state that is dropped
+    is freed at once (a cycle would keep model-sized buffers alive until
+    the collector happens to run, and so raise peak device memory)."""
+    import gc
+    import weakref
+    from repro_torch.core import registry
+    from repro_torch.core.types import DCS3GDConfig
+
+    def loss_fn(p, b):
+        return ((b["x"] @ p["w"]) ** 2).mean() + p["b"].square().sum()
+
+    batch = {"x": torch.ones(2, 5, 4)}
+    alg = registry.make(algo, DCS3GDConfig(), n_workers=2, buckets=1,
+                        reducer="topk", use_kernels=True)
+    gc.collect()
+    gc.disable()
+    try:
+        state = alg.init({"b": torch.ones(3), "w": torch.ones(4, 3)})
+        for _ in range(2):
+            old = [weakref.ref(x) for x in T.leaves(state)
+                   if isinstance(x, torch.Tensor)]
+            state, _ = alg.step(state, batch, loss_fn=loss_fn)
+            assert old and all(r() is None for r in old), algo
+    finally:
+        gc.enable()

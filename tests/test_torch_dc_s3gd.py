@@ -13,6 +13,19 @@ compensation term differ by more than a few ulps; measured worst cases
 on this problem are 2.5e-5 (updates), 3e-6 (m, delta_prev) and 1e-6
 (metrics).  Within the port, bucketed == per-leaf bitwise, as
 ``tests/test_buckets.py`` pins within the reference.
+
+The compressed and quantized wires (``topk``, int8 ``mean_allreduce``) run
+through ``dc_s3gd`` and ``ssgd`` at the same tolerances.  Both are
+discontinuous in the wire: a coordinate at the top-k threshold, or at an
+int8 rounding boundary, flips with a one-ulp change of its input.  topk
+runs as a plain trajectory, and a failure reports how many residual
+support coordinates flipped.  On the int8 wire the packages' gradients
+(about 1e-7 apart) flip whole quanta, amax/127, at about 1e-4 of the
+coordinates each step, far beyond 1e-4 of a leaf.  So each reducer call of
+the port is fed the reference's wire of that step (recorded inside the
+jitted step), while the port's own wire is held to the reference's at the
+same 1e-4; the failure messages report how many int8 codes the port's own
+wire would have flipped.
 """
 import functools
 
@@ -62,28 +75,30 @@ def _weights():
                         JModel(cfg, remat=False).init(jax.random.PRNGKey(0)))
 
 
-def _jax_run(algo, W, form):
+def _jax_run(algo, W, form, reducer=None, **hp):
+    """``STEPS`` steps of the reference; ``reducer`` and ``hp`` (extra
+    `DCS3GDConfig` fields) pick the wire."""
     buckets, kernels = FORMS[form]
     cfg = reduced(get_config("qwen3-0.6b"))
     model = JModel(cfg, remat=False)
-    alg = jreg.make(algo, JConfig(**HP), n_workers=W, buckets=buckets,
-                    use_kernels=kernels)
+    alg = jreg.make(algo, JConfig(**HP, **hp), n_workers=W, buckets=buckets,
+                    use_kernels=kernels, reducer=reducer)
     step = jax.jit(functools.partial(alg.step, loss_fn=model.loss))
     state = alg.init(jax.tree.map(jnp.asarray, _weights()))
     data = JData(cfg.vocab_size, SEQ, seed=0)
     history = []
     for t in range(STEPS):
         state, m = step(state, j_worker_batches(data, t, W, BPW))
-        history.append({k: float(m[k]) for k in METRICS})
+        history.append({k: float(m[k]) for k in METRICS if k in m})
     return jax.tree.map(np.asarray, state), history
 
 
-def _torch_run(algo, W, form):
+def _torch_run(algo, W, form, reducer=None, **hp):
     buckets, kernels = FORMS[form]
     cfg = t_reduced(t_get_config("qwen3-0.6b"))
     model = TModel(cfg)
-    alg = treg.make(algo, TConfig(**HP), n_workers=W, buckets=buckets,
-                    use_kernels=kernels)
+    alg = treg.make(algo, TConfig(**HP, **hp), n_workers=W, buckets=buckets,
+                    use_kernels=kernels, reducer=reducer)
     state = alg.init(params_from_numpy(_weights(), device="cpu"))
     data = TData(cfg.vocab_size, SEQ, seed=0)
     history = []
@@ -91,7 +106,7 @@ def _torch_run(algo, W, form):
         state, m = alg.step(state, t_worker_batches(data, t, W, BPW,
                                                     device="cpu"),
                             loss_fn=model.loss)
-        history.append({k: float(m[k]) for k in METRICS})
+        history.append({k: float(m[k]) for k in METRICS if k in m})
     return alg, state, history
 
 
@@ -261,3 +276,109 @@ def test_quadratic_unfused_variants_match_jax(extra):
     """Gradient accumulation over microbatches and the Nesterov form of
     the momentum optimizer, on the unfused per-leaf path."""
     _quadratic_parity(0, False, **extra)
+
+
+# ---------------------------------------------------------------------------
+# the compressed and quantized wires through dc_s3gd and ssgd
+# ---------------------------------------------------------------------------
+
+WIRES = {"topk": ("topk", dict(compress_density=0.02)),
+         "int8": ("mean_allreduce", dict(comm_dtype="int8"))}
+
+
+class _RecordWire:
+    """A reference reducer that records each call's input wire (numpy),
+    through a host callback that runs inside the jitted step."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.wires = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, wire, *state):
+        jax.debug.callback(
+            lambda w: self.wires.append(jax.tree.map(np.array, w)), wire)
+        return self.inner(wire, *state)
+
+
+class _ReplayWire:
+    """A port reducer that keeps its own wire (numpy) and reduces the
+    reference's wire of the same call instead."""
+
+    def __init__(self, inner, wires):
+        self.inner = inner
+        self.wires = wires
+        self.own = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, wire, *state):
+        self.own.append(params_to_numpy(wire))
+        theirs = params_from_numpy(self.wires[len(self.own) - 1],
+                                   device="cpu")
+        return self.inner(theirs, *state)
+
+
+def _code_flips(own, theirs, comm_dtype) -> int:
+    """Coordinates whose quantized code differs between two wires."""
+    from repro_torch.core import quant as Q
+    flips = 0
+    for a, b in zip(T.leaves(own), jax.tree.leaves(theirs)):
+        qa, _ = Q.quantize(torch.from_numpy(np.array(a)), comm_dtype)
+        qb, _ = Q.quantize(torch.from_numpy(np.array(b)), comm_dtype)
+        flips += int((qa != qb).sum())
+    return flips
+
+
+def _support_flips(ours, theirs) -> int:
+    """Residual coordinates selected (zero) in one package only."""
+    return sum(int(((r.numpy() == 0) != (np.asarray(jr) == 0)).sum())
+               for r, jr in zip(ours["residual"], theirs["residual"]))
+
+
+# topk compresses per bucket (buckets=0 raises: test_torch_compress.py)
+@pytest.mark.parametrize("wire,form", [
+    ("topk", "bucketed"), ("topk", "fused_bucketed"), ("int8", "per_leaf"),
+    ("int8", "bucketed"), ("int8", "fused_bucketed")])
+@pytest.mark.parametrize("algo", ["dc_s3gd", "ssgd"])
+def test_compressed_wires_three_steps_match_jax(algo, wire, form):
+    name, hp = WIRES[wire]
+    W = 2
+    if wire == "int8":
+        rec = _RecordWire(jreg.make_reducer(name, JConfig(**HP, **hp)))
+        j_state, j_hist = _jax_run(algo, W, form, reducer=rec, **hp)
+        jax.effects_barrier()
+        assert len(rec.wires) == STEPS
+        rep = _ReplayWire(treg.make_reducer(name, TConfig(**HP, **hp)),
+                          rec.wires)
+        alg, t_state, t_hist = _torch_run(algo, W, form, reducer=rep, **hp)
+        flips = [_code_flips(o, r, "int8") for o, r in zip(rep.own,
+                                                            rec.wires)]
+        note = f"int8 codes the port's own wire would flip, per step: {flips}"
+        for t, (o, r) in enumerate(zip(rep.own, rec.wires)):
+            _close(params_from_numpy(o, device="cpu"), r,
+                   f"wire of step {t}; {note}")
+    else:
+        j_state, j_hist = _jax_run(algo, W, form, reducer=name, **hp)
+        alg, t_state, t_hist = _torch_run(algo, W, form, reducer=name, **hp)
+        note = ("flipped residual support coordinates: "
+                f"{_support_flips(t_state.comm['reducer'], j_state.comm['reducer'])}")
+    assert t_state.step == int(j_state.step) == STEPS
+    _close(t_state.params, j_state.params, f"params; {note}",
+           base=_weights())
+    _close(t_state.opt["m"], j_state.opt["m"], f"opt.m; {note}")
+    assert sorted(t_state.comm) == sorted(j_state.comm)
+    if "delta_prev" in j_state.comm:
+        _close(t_state.comm["delta_prev"], j_state.comm["delta_prev"],
+               f"delta_prev; {note}")
+    if "reducer" in j_state.comm:
+        _close(t_state.comm["reducer"]["residual"],
+               j_state.comm["reducer"]["residual"], f"residual; {note}")
+    for th, jh in zip(t_hist, j_hist):
+        assert sorted(th) == sorted(jh)
+        for k in th:
+            np.testing.assert_allclose(th[k], jh[k], rtol=RTOL_METRICS,
+                                       atol=1e-7, err_msg=f"{k}; {note}")

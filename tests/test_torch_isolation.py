@@ -38,7 +38,8 @@ def test_port_imports_with_jax_blocked():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from repro_torch.core import registry\n"
-        "assert registry.names() == ('dc_s3gd', 'stale'), registry.names()\n"
+        "assert registry.names() == ('dc_s3gd', 'ssgd', 'stale'), "
+        "registry.names()\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
@@ -51,9 +52,9 @@ def test_port_imports_with_jax_blocked():
 
 def test_unported_names_raise_key_errors_naming_them():
     from repro_torch.core import registry
-    for kind, name in ((registry.ALGORITHM, "ssgd"),
+    for kind, name in ((registry.ALGORITHM, "dc_asgd"),
                        (registry.REDUCER, "gossip"),
-                       (registry.REDUCER, "topk"),
+                       (registry.REDUCER, "hierarchical"),
                        (registry.STALENESS_POLICY, "dynamic_ssp"),
                        (registry.LOCAL_OPTIMIZER, "nesterov")):
         with pytest.raises(KeyError, match=name):

@@ -22,7 +22,10 @@ def _args(*extra):
 
 @pytest.mark.parametrize("extra", [(), ("--buckets", "2", "--use-kernels"),
                                    ("--algo", "stale", "--comm-dtype",
-                                    "bfloat16")])
+                                    "bfloat16"),
+                                   ("--reducer", "topk", "--buckets", "2",
+                                    "--use-kernels"),
+                                   ("--comm-dtype", "int8")])
 def test_run_on_cpu_gives_finite_metrics(extra, tmp_path):
     out = tmp_path / "metrics.json"
     result = train.run(_args(*extra, "--metrics-out", str(out)),
@@ -34,6 +37,16 @@ def test_run_on_cpu_gives_finite_metrics(extra, tmp_path):
             assert math.isfinite(h[k]), (k, h)
     assert result["state"].step == 2
     assert out.exists() and "state" not in out.read_text()
+
+
+@pytest.mark.parametrize("reducer", ["topk_exact", "randk", "powersgd"])
+def test_ssgd_with_a_compressed_reducer_runs_on_cpu(reducer):
+    result = train.run(_args("--algo", "ssgd", "--reducer", reducer,
+                             "--buckets", "2", "--use-kernels",
+                             "--comm-dtype", "fp8"), device="cpu")
+    for h in result["history"]:
+        assert math.isfinite(h["loss"]) and "lambda" not in h
+    assert result["state"].comm["reducer"]["residual"][0].any()
 
 
 def test_entry_point_without_a_device_raises_without_a_card():
