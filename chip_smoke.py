@@ -30,7 +30,27 @@ Phases (any failure exits non-zero before the result line):
    and power limit;
 6. two steady steps of each main path under torch.profiler (device time
    by kernel group, the device's idle share), then one more step under
-   PyTorch's sync debug mode (host synchronisations counted).
+   PyTorch's sync debug mode (host synchronisations counted);
+7. serving.  paged_attention against its plain version at the serving
+   shape (16 rows, 8 kv heads, G 2, hd 128, pages of 16, ragged lengths
+   1..577) for bf16, f32, int8 and fp8 pools (atol 1e-6 float, 2e-5
+   quantized), timed over one launch on each of 28 per-layer pools (as
+   the serve step reads them: no launch finds its pages in L2; device
+   time, the launches queued before the first starts) beside its
+   byte bound, the plain version and gather + SDPA, through a 640-wide and
+   a live-width block table (within 10 %: the kernel stops at each row's
+   last live page); then ``repro_torch.launch.serve`` serves 48 requests
+   (prompts 128..512, gen 32..64 from seed 0) with qwen3-0.6b at its
+   published widths and full depth (28 layers, f32 params, bf16 compute
+   and KV) over 16 slots and 641 pages of 16 with --paged-kernel and
+   decode bursts of 4: every request completes at its length,
+   paged_attention launches 28 times per decode step, the pool drains;
+   the first 16 requests again with int8 KV and without --paged-kernel
+   (on the card the kernel is the default route: it launches 28 times
+   per decode step there too); kernel path against gather path
+   teacher-forced over one group of 16 (bound stated in
+   phase_kernel_vs_gather); host synchronisations
+   inside one steady decode burst (must be 0) and two bursts profiled.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports nothing
@@ -39,6 +59,7 @@ of JAX.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -80,19 +101,27 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median over ``reps`` of one call's device time (CUDA events)."""
+def median_ms(fn, reps: int = 10, warmup: int = 2, batch: int = 1) -> float:
+    """Median over ``reps`` of one call's device time (CUDA events around
+    ``batch`` back-to-back calls, divided by ``batch``).  A batch is queued
+    behind a device-side sleep of ~25 ms, so the events time the device
+    work alone: a kernel of tens of µs is otherwise timed with the host's
+    time to launch it."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        if batch > 1:
+            torch.cuda._sleep(50_000_000)     # clock cycles
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -251,8 +280,10 @@ def phase_select(sizes, gen, smi: str) -> dict:
 def _counters():
     from repro_torch.kernels import compress as KC
     from repro_torch.kernels import dc_update as K
+    from repro_torch.kernels.paged_attention import paged_attention
     return {"dc_norms": K.dc_norms, "dc_fused_update": K.dc_fused_update,
-            "select_ef_mean": KC.select_ef_mean}
+            "select_ef_mean": KC.select_ef_mean,
+            "paged_attention": paged_attention}
 
 
 def phase_main(smi: str, extra=(), tag: str = "main"):
@@ -283,9 +314,10 @@ def phase_main(smi: str, extra=(), tag: str = "main"):
         for k in ("lambda", "distance_norm", "delta_norm"):
             check(math.isfinite(h[k]) and h[k] > 0, f"{k} at {h}")
     compressed = "--reducer" in extra
+    on_path = {"dc_norms", "dc_fused_update"} \
+        | ({"select_ef_mean"} if compressed else set())
     for name, n in launches.items():
-        want = 0 if name == "select_ef_mean" and not compressed \
-            else 6 * N_BUCKETS
+        want = 6 * N_BUCKETS if name in on_path else 0
         check(n == want, f"[{tag}] {name} launched {n} times, expected "
               f"{want} (6 steps x {N_BUCKETS} buckets on its path)")
     if compressed:
@@ -436,6 +468,420 @@ def phase_profile(smi: str, extra=(), tag: str = "profile") -> dict:
             "host_syncs_per_step": syncs}
 
 
+# ---------------------------------------------------------------------------
+# serving: qwen3-0.6b at full depth over the paged KV cache (kernel B4)
+# ---------------------------------------------------------------------------
+
+PAGE = 16
+SERVE_ARGS = ["--arch", "qwen3-0.6b", "--slots", "16", "--pages", "641",
+              "--page-size", str(PAGE), "--decode-burst", "4",
+              "--seed", "0"]
+SERVE_REQUESTS = 48
+PROMPT_LENS = (128, 256, 384, 512)
+# the serving shape of the kernel: 16 slots, qwen3's 8 kv heads of 128, two
+# query heads per kv head; ragged lengths 1 ... 577 (the longest request's
+# prompt + gen + 1), a length-1 row and partial last pages among them
+PA_SHAPE = (16, 8, 2, 128)
+PA_LENGTHS = [1 + (i * 576) // 15 for i in range(16)]
+PA_WIDTH = 640            # the serve run's block-table width: 640 pages
+PA_LIVE = -(-max(PA_LENGTHS) // PAGE)    # 37 pages hold the longest row
+# a timed sample launches once on each of the serve step's 28 per-layer
+# pools: 28 x the live k/v (0.53 GB at bf16) is ten times the H100's 50 MB
+# L2, so every launch reads its pages from HBM, as in the serve step
+PA_LAYERS = 28
+
+
+def _paged_case(gen, pool: str, width: int):
+    """q, pools of 641 pages, block tables, lengths and (quantized pools)
+    scales at the serving shape.  Each row's live pages are distinct; the
+    rest of its ``width``-wide table points at the scratch page 0, as the
+    scheduler leaves it."""
+    from repro_torch.models.cache import _quantize_tokens
+    dev = torch.device("cuda")
+    B, KV, G, hd = PA_SHAPE
+    n_pages = 641
+    q = torch.randn((B, KV, G, hd), generator=gen, device=dev)
+    k = torch.randn((n_pages, PAGE, KV, hd), generator=gen, device=dev)
+    v = torch.randn((n_pages, PAGE, KV, hd), generator=gen, device=dev)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bt = torch.zeros((B, width), dtype=torch.int32, device=dev)
+    at = 0
+    for b, n in enumerate(PA_LENGTHS):
+        live = -(-n // PAGE)
+        bt[b, :live] = perm[at:at + live].int()
+        at += live
+    lengths = torch.tensor(PA_LENGTHS, dtype=torch.int32, device=dev)
+    if pool in ("int8", "fp8"):
+        k, ks = _quantize_tokens(k, pool, 2)
+        v, vs = _quantize_tokens(v, pool, 2)
+        return q, k, v, bt, lengths, (ks, vs)
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[pool]
+    return q, k.to(dt), v.to(dt), bt, lengths, ()
+
+
+def _layers(t: torch.Tensor) -> torch.Tensor:
+    """``PA_LAYERS`` copies of one layer's pool, stacked as the serve
+    step's ``(L, num_pages, ...)`` pool."""
+    return t.unsqueeze(0).repeat((PA_LAYERS,) + (1,) * t.dim())
+
+
+def _rotating(fn):
+    """A no-argument call that runs ``fn(layer)`` on the next layer each
+    time, cycling over ``PA_LAYERS``."""
+    layers = itertools.cycle(range(PA_LAYERS))
+    return lambda: fn(next(layers))
+
+
+def _paged_bytes(q, k, scales) -> int:
+    """Bytes the function must move: each live k and v row (and its scale)
+    once, the live block-table entries and the lengths, q in, f32 out."""
+    B, KV, G, hd = q.shape
+    tokens = sum(PA_LENGTHS)
+    pages = sum(-(-n // PAGE) for n in PA_LENGTHS)
+    return (2 * tokens * KV * hd * k.element_size()
+            + (2 * tokens * 4 if scales else 0)
+            + 4 * pages + 4 * B + 2 * 4 * q.numel())
+
+
+def phase_paged_kernel(smi: str) -> dict:
+    """paged_attention against its plain version at the serving shape for
+    bf16, f32, int8 and fp8 pools (atol 1e-6 float pools, 2e-5 quantized:
+    the reference's own tolerances), timed (CUDA events, median of 10
+    samples after 2 warm-ups; a sample is one launch on each of 28 per-
+    layer pools, as the serve step reads them, so no launch finds its pages
+    in L2, queued before the first starts) beside its byte bound, the plain version, and gather +
+    scaled_dot_product_attention on the linearized view; the same lengths
+    through a 640-wide and a live-width block table take the same time
+    (the kernel stops at each row's last live page).  Returns the numbers
+    per pool dtype."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ref import paged_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, KV, G, hd = PA_SHAPE
+    rec = {}
+    for pool in ("bfloat16", "float32", "int8", "fp8"):
+        q, k, v, bt, ln, scales = _paged_case(gen, pool, PA_WIDTH)
+        kw = dict(zip(("k_scale", "v_scale"), scales))
+        narrow = bt[:, :PA_LIVE].contiguous()
+        got = paged_attention(q, k, v, bt, ln, **kw)
+        got_narrow = paged_attention(q, k, v, narrow, ln, **kw)
+        want = paged_attention_plain(q, k, v, bt, ln, *scales)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        atol = 2e-5 if scales else 1e-6
+        check(err <= atol, f"paged_attention {pool} pools: max abs err "
+              f"{err} > {atol}")
+        check(torch.equal(got, got_narrow), f"paged_attention {pool}: "
+              "640-wide and live-width block tables differ")
+        del got, got_narrow, want
+        kL, vL = _layers(k), _layers(v)
+        sL = tuple(_layers(s) for s in scales)
+
+        def launch(layer, table):
+            return paged_attention(q, kL[layer], vL[layer], table, ln,
+                                   **{n: s[layer] for n, s in zip(
+                                       ("k_scale", "v_scale"), sL)})
+
+        wide_ms = median_ms(_rotating(lambda i: launch(i, bt)),
+                            batch=PA_LAYERS)
+        narrow_ms = median_ms(_rotating(lambda i: launch(i, narrow)),
+                              batch=PA_LAYERS)
+        plain_ms = median_ms(_rotating(lambda i: paged_attention_plain(
+            q, kL[i], vL[i], bt, ln, *(s[i] for s in sL))), batch=PA_LAYERS)
+        nbytes = _paged_bytes(q, k, scales)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        flops = 4 * G * hd * KV * sum(PA_LENGTHS)
+        print(f"[paged] {pool} pools, B={B} KV={KV} G={G} hd={hd} page "
+              f"{PAGE}, lengths 1..{max(PA_LENGTHS)} ({sum(PA_LENGTHS)} "
+              f"live tokens): {wide_ms:.4f} ms/launch at width {PA_WIDTH}, "
+              f"{narrow_ms:.4f} ms at width {PA_LIVE}; plain {plain_ms:.4f} "
+              f"ms; byte bound {bound:.4f} ms ({nbytes} B; {flops} flops); "
+              f"max abs err {err:.3g} [{smi}]")
+        check(abs(wide_ms - narrow_ms) <= 0.1 * narrow_ms,
+              f"paged_attention {pool}: {wide_ms} ms at width {PA_WIDTH} "
+              f"vs {narrow_ms} ms at width {PA_LIVE}: not within 10 %")
+        rec[pool] = {"ms": wide_ms, "narrow_ms": narrow_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bytes": nbytes, "err": err}
+        if pool == "bfloat16":
+            # no single PyTorch call reads pages through a block table:
+            # gather the live pages, then one SDPA call (bf16 q)
+            def gather_sdpa(layer=0):
+                btl = narrow.long()
+                S = PA_LIVE * PAGE
+                kl = kL[layer][btl].reshape(B, S, KV, hd).transpose(1, 2)
+                vl = vL[layer][btl].reshape(B, S, KV, hd).transpose(1, 2)
+                mask = (torch.arange(S, device=q.device)[None, :]
+                        < ln[:, None].long())[:, None, None, :]
+                return F.scaled_dot_product_attention(
+                    q.reshape(B, KV * G, 1, hd).to(kl.dtype), kl, vl,
+                    attn_mask=mask, enable_gqa=True)
+            ref = paged_attention_plain(q, k, v, narrow, ln)
+            sdpa_err = float((gather_sdpa().float().reshape(ref.shape)
+                              - ref).abs().max())
+            rec[pool]["gather_sdpa_ms"] = median_ms(_rotating(gather_sdpa),
+                                                    batch=PA_LAYERS)
+            print(f"[paged] gather of the {PA_LIVE} live pages + "
+                  f"scaled_dot_product_attention (bf16): "
+                  f"{rec[pool]['gather_sdpa_ms']:.4f} ms (two calls, not "
+                  f"one: library_ms stays null; max abs diff {sdpa_err:.3g})"
+                  f" [{smi}]")
+        del q, k, v, bt, ln, scales, narrow, kL, vL, sL
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _write_requests() -> Path:
+    """48 requests, prompt_len cycling 128/256/384/512, gen drawn 32..64
+    from seed 0, as JSONL beside the run's other records."""
+    import numpy as np
+    gens = np.random.default_rng(0).integers(32, 65, SERVE_REQUESTS)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = out / "serve_requests.jsonl"
+    path.write_text("".join(
+        json.dumps({"id": i, "prompt_len": PROMPT_LENS[i % 4],
+                    "gen": int(g)}) + "\n" for i, g in enumerate(gens)))
+    return path
+
+
+def phase_serve(smi: str, path: Path, extra=(), n_requests=None,
+                tag: str = "serve", built=None):
+    """Serve the request file through ``repro_torch.launch.serve`` at full
+    depth (28 layers, published widths, f32 params, bf16 compute and KV
+    unless ``extra`` says otherwise).  Every kernel count is set to 0 just
+    before the run and read just after.  Returns (record, (model, params),
+    requests)."""
+    from repro_torch.launch import serve
+    args = serve.build_argparser().parse_args(
+        SERVE_ARGS + ["--requests", str(path), *extra])
+    model, params, _ = built or serve.build(args)
+    check(model.cfg.n_layers == 28, "full depth")
+    reqs = serve.load_requests(args.requests, model.cfg.vocab_size,
+                               args.gen, seed=args.seed)[:n_requests]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sch = serve.run_scheduler(model, params, reqs, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    peak = torch.cuda.max_memory_allocated()
+    done = {r.rid: r for r in sch.finished}
+    check(sorted(done) == sorted(r.rid for r in reqs),
+          f"[{tag}] {len(done)} of {len(reqs)} requests finished")
+    for r in reqs:
+        check(len(done[r.rid].out) == r.max_new,
+              f"[{tag}] request {r.rid}: {len(done[r.rid].out)} tokens, "
+              f"expected {r.max_new}")
+    steps = sch.stats["decode_steps"]
+    check(launches["paged_attention"] == 28 * steps,
+          f"[{tag}] paged_attention launched {launches['paged_attention']} "
+          f"times, expected 28 layers x {steps} decode steps")
+    check(all(n == 0 for k, n in launches.items() if k != "paged_attention"),
+          f"[{tag}] training kernels launched while serving: {launches}")
+    check(sch.pool.used_pages == 0, f"[{tag}] {sch.pool.used_pages} pages "
+          "still allocated after the run")
+    check(sch.stats["preemptions"] == 0, f"[{tag}] preempted: the pool "
+          "holds every request at full length")
+    quant = sch.layout.kv_quantized
+    pool = sch.cache[0]["b0"]["k"]
+    check(pool.dtype == (torch.int8 if quant else torch.bfloat16)
+          and ("k_scale" in sch.cache[0]["b0"]) == quant,
+          f"[{tag}] pool dtype {pool.dtype}")
+    s = sch.latency_summary()
+    decode_s = sum(sch.stats["step_walls"])
+    decode_tokens = s["tokens"] - len(reqs)
+    rec = {
+        "requests": len(reqs), "tokens": s["tokens"], "wall_s": wall,
+        "tokens_per_s": s["tokens"] / wall,
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "decode_steps": steps, "step_ms": decode_s / steps * 1e3,
+        "bursts": len(sch.stats["step_walls"]),
+        "prefills": s["prefills"], "launches": launches,
+        "peak_bytes": peak, "before_bytes": before,
+        "kv_dtype": s["kv_dtype"], "kv_bytes_per_token":
+            s["kv_bytes_per_token"],
+        **{k: s[k] for k in ("p50_token_latency_s", "p95_token_latency_s",
+                             "p50_ttft_s", "p95_ttft_s",
+                             "mean_pool_utilization")},
+    }
+    print(f"[{tag}] {len(reqs)} requests, {s['tokens']} tokens in "
+          f"{wall:.3f} s ({rec['tokens_per_s']:.1f} tok/s); decode "
+          f"{decode_tokens} tokens in {steps} steps, {decode_s:.3f} s "
+          f"({rec['decode_tokens_per_s']:.1f} tok/s, {rec['step_ms']:.3f} "
+          f"ms/step); {s['prefills']} prefills; paged_attention launches "
+          f"{launches['paged_attention']} = 28 x {steps} [{smi}]")
+    print(f"[{tag}] inter-token p50 {s['p50_token_latency_s'] * 1e3:.3f} "
+          f"ms p95 {s['p95_token_latency_s'] * 1e3:.3f} ms; TTFT p50 "
+          f"{s['p50_ttft_s'] * 1e3:.1f} ms p95 {s['p95_ttft_s'] * 1e3:.1f} "
+          f"ms; KV {s['kv_dtype']} {s['kv_bytes_per_token']} B/token; "
+          f"peak memory {peak / 2**30:.3f} GiB ({peak} B), of which "
+          f"{before / 2**20:.1f} MiB were allocated before the run [{smi}]")
+    del sch
+    torch.cuda.empty_cache()
+    return rec, (model, params), reqs
+
+
+def phase_kernel_vs_gather(smi: str, model, params, reqs,
+                           steps: int = 24) -> dict:
+    """Kernel path against gather path on one group of 16 prompts (the
+    first 16 requests cut to 128 tokens), teacher-forced: both layouts
+    take the gather path's greedy token every step.  At bf16 the gather
+    path rounds the softmax probabilities to bf16 before the PV product
+    (as the reference's attend_one does) and the kernel keeps them in
+    f32, so each attention output differs by up to bf16's unit roundoff
+    2^-9 relative; the bound held is 2^-7 of the largest logit (that
+    roundoff with a factor 4 for its growth through 28 layers).  The f32
+    pools, where the two paths differ only in summation order, are a
+    reference reading held to the same bound.  Also counts the steps on which free greedy runs of the
+    two paths agree."""
+    from repro_torch.models.cache import PagedLayout
+    dev = torch.device("cuda")
+    P, B = PROMPT_LENS[0], 16
+    V = model.cfg.vocab_size
+    prompts = torch.tensor([r.prompt[:P] for r in reqs[:B]], device=dev)
+    mp = -(-(P + steps + 1) // PAGE)
+    pages = torch.arange(1, B * mp + 1, device=dev).reshape(B, mp)
+    pos0 = torch.full((B,), P, device=dev)
+
+    def prefilled(use_kernel, kv_dtype):
+        lay = PagedLayout(model, n_slots=B, num_pages=B * mp + 1,
+                          page_size=PAGE, max_pages=mp,
+                          use_kernel=use_kernel, kv_dtype=kv_dtype)
+        cache = lay.init_cache(device=dev)
+        logits, cache = lay.prefill_into(params, cache, {"tokens": prompts},
+                                         pages[:, :lay.pages_for(P)])
+        return lay, cache, logits
+
+    rec = {}
+    for kv_dtype in (None, "float32"):
+        (lk, ck, _), (lg, cg, first) = (prefilled(True, kv_dtype),
+                                        prefilled(False, kv_dtype))
+        tok, pos, worst, top = first.argmax(-1), pos0, 0.0, 0.0
+        for _ in range(steps):
+            a, ck = lk.decode_step(params, ck, tok[:, None], pos, pages)
+            b, cg = lg.decode_step(params, cg, tok[:, None], pos, pages)
+            worst = max(worst, float((a - b)[:, :V].abs().max()))
+            top = max(top, float(b[:, :V].abs().max()))
+            tok, pos = b.argmax(-1), pos + 1
+        # free greedy: each path on its own tokens
+        (lk, ck, first_k), (lg, cg, first_g) = (prefilled(True, kv_dtype),
+                                                prefilled(False, kv_dtype))
+        tk, tg, pos = first_k.argmax(-1), first_g.argmax(-1), pos0
+        agree = int(torch.equal(tk, tg))
+        for _ in range(steps):
+            a, ck = lk.decode_step(params, ck, tk[:, None], pos, pages)
+            b, cg = lg.decode_step(params, cg, tg[:, None], pos, pages)
+            tk, tg, pos = a.argmax(-1), b.argmax(-1), pos + 1
+            agree += int(torch.equal(tk, tg))
+        name = kv_dtype or "bfloat16"
+        bound = 2 ** -7 * top
+        print(f"[kernel-vs-gather] {name} pools, 16 rows x {steps} "
+              f"teacher-forced steps at 28 layers: max |dlogit| "
+              f"{worst:.4g} (bound {bound:.4g} = 2^-7 x max |logit| "
+              f"{top:.4g}); free greedy tokens agree on {agree} of "
+              f"{steps + 1} steps, all 16 rows [{smi}]")
+        check(worst <= bound, f"kernel vs gather path, {name} pools: max "
+              f"|dlogit| {worst} > {bound}")
+        rec[name] = {"max_dlogit": worst, "max_logit": top, "bound": bound,
+                     "greedy_agree_steps": agree, "steps": steps + 1}
+        del ck, cg
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_profile(smi: str, model, params, reqs) -> dict:
+    """A steady decode burst of 16 slots: host synchronisations inside one
+    burst under PyTorch's sync debug mode (its inputs copied to the device
+    before the window), then two bursts under torch.profiler, device time
+    by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    from repro_torch.serve import Request, Scheduler
+    args = serve.build_argparser().parse_args(SERVE_ARGS)
+    sch = Scheduler(model, params, slots=args.slots, pages=args.pages,
+                    page_size=args.page_size, use_kernel=args.paged_kernel,
+                    decode_burst=args.decode_burst, seed=args.seed)
+    for r in reqs[:16]:
+        sch.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
+    for _ in range(3):          # admit all 16, then two steady bursts
+        sch.step()
+    burst = args.decode_burst
+    sch._grow(burst)
+    inputs = (sch._tensor(sch.next_tok), sch._tensor(sch.pos),
+              sch._tensor(sch.block_tables))
+    sch.decode(*inputs, burst)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sch.decode(*inputs, burst)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"[serve-profile] host synchronisations inside one decode burst "
+          f"({burst} steps, 16 slots): {syncs}")
+    check(syncs == 0, f"{syncs} host synchronisations inside a decode burst")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            sch.decode(*inputs, burst)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del sch
+    torch.cuda.empty_cache()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                     key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    groups = {"paged_attention kernel": ("paged_attention",),
+              "matmul (cuBLAS)": ("gemm", "gemv", "xmma", "cutlass",
+                                  "Kernel2"),
+              "index / scatter / gather": ("index", "scatter", "gather"),
+              "copies/cat": ("Memcpy", "copy", "Copy", "Cat")}
+    by_group = {g: 0.0 for g in groups}
+    by_group["other (elementwise, norms, softmax, argmax)"] = 0.0
+    for e in kernels:
+        g = next((g for g, keys in groups.items()
+                  if any(k in e.key for k in keys)),
+                 "other (elementwise, norms, softmax, argmax)")
+        by_group[g] += dev_us(e) / 1e3
+    launches = sum(e.count for e in kernels)
+    if busy_ms == 0:
+        print(f"[serve-profile] no device time in the trace: not measured "
+              f"[{smi}]")
+        return {"host_syncs_per_burst": syncs}
+    print(f"[serve-profile] 2 bursts ({2 * burst} decode steps): wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%, {launches} kernel "
+          f"launches ({launches / (2 * burst):.0f} per step) [{smi}]")
+    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"[serve-profile]   {g}: {ms:.3f} ms ({100 * ms / busy_ms:.1f}%"
+              f" of device time)")
+    for e in kernels[:12]:
+        print(f"[serve-profile]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "profile_serve.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=60))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": by_group,
+            "kernel_launches": launches, "host_syncs_per_burst": syncs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -478,12 +924,30 @@ def main() -> int:
     prof = phase_profile(smi)
     torch.cuda.empty_cache()
     c_prof = phase_profile(smi, COMPRESSED, "profile_compressed")
+    torch.cuda.empty_cache()
+
+    paged = phase_paged_kernel(smi)
+    requests = _write_requests()
+    served, (model, params), reqs = phase_serve(smi, requests,
+                                                ["--paged-kernel"])
+    launches["paged_attention"] = served["launches"]["paged_attention"]
+    served_int8, _, _ = phase_serve(smi, requests, ["--kv-dtype", "int8"],
+                                    16, "serve-int8", (model, params, None))
+    versus = phase_kernel_vs_gather(smi, model, params, reqs)
+    s_prof = phase_serve_profile(smi, model, params, reqs)
+    del model, params
+    bf16 = paged["bfloat16"]
+    kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
+                               "bound_ms": bf16["bound_ms"],
+                               "err": max(r["err"] for r in paged.values())}
 
     tokens = W * 4 * 256
     print(f"[times] step {step_s * 1e3:.3f} ms median of steps 2-5 "
           f"({tokens / step_s:.1f} tokens/s, W={W}, 4x256 tokens/worker, 4 "
           f"layers, metrics fetched every step) [{smi}]")
     for name, k in kern.items():
+        if name == "paged_attention":
+            continue
         print(f"[times] {name}: {k['ms']:.4f} ms per step ({N_BUCKETS} "
               f"launches), plain {k['plain_ms']:.4f} ms, byte bound "
               f"{k['bound_ms']:.4f} ms [{smi}]")
@@ -493,12 +957,23 @@ def main() -> int:
           f"of steps 2-5 ({tokens / c_step_s:.1f} tokens/s); peak memory "
           f"{c_peak / 2**30:.3f} GiB ({c_peak} B); magnitude_threshold "
           f"{threshold_ms:.4f} ms per step alone [{smi}]")
+    print(f"[times] serve qwen3-0.6b x28, 16 slots, bf16 KV, paged kernel: "
+          f"{served['decode_tokens_per_s']:.1f} decode tok/s, "
+          f"{served['step_ms']:.3f} ms/decode step, inter-token p50/p95 "
+          f"{served['p50_token_latency_s'] * 1e3:.3f}/"
+          f"{served['p95_token_latency_s'] * 1e3:.3f} ms, TTFT p50/p95 "
+          f"{served['p50_ttft_s'] * 1e3:.1f}/{served['p95_ttft_s'] * 1e3:.1f}"
+          f" ms, peak {served['peak_bytes'] / 2**30:.3f} GiB; paged_attention"
+          f" {bf16['ms']:.4f} ms/launch (bound {bf16['bound_ms']:.4f}, plain "
+          f"{bf16['plain_ms']:.4f}) [{smi}]")
 
     sources = {"dc_norms": "dc_update.cu", "dc_fused_update": "dc_update.cu",
-               "select_ef_mean": "compress.cu"}
+               "select_ef_mean": "compress.cu",
+               "paged_attention": "paged_attention.cu"}
     replaces = {"dc_norms": "src/repro/kernels/dc_update.py:58",
                 "dc_fused_update": "src/repro/kernels/dc_update.py:126",
-                "select_ef_mean": "src/repro/kernels/compress.py:80"}
+                "select_ef_mean": "src/repro/kernels/compress.py:80",
+                "paged_attention": "src/repro/kernels/paged_attention.py:159"}
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
@@ -511,7 +986,10 @@ def main() -> int:
               "compressed_peak_bytes": c_peak,
               "threshold_ms": threshold_ms, "others_s": others,
               "fused_vs_unfused_worst": worst, "profile": prof,
-              "profile_compressed": c_prof, "kernels": kernels}
+              "profile_compressed": c_prof, "paged_attention": paged,
+              "serve": served, "serve_int8": served_int8,
+              "kernel_vs_gather": versus, "profile_serve": s_prof,
+              "kernels": kernels}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=2))

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels (plain C interface, bound with ctypes).
 
-Every source in ``csrc/`` (``dc_update.cu``, ``compress.cu``) is compiled
+Every source in ``csrc/`` (``dc_update.cu``, ``compress.cu``,
+``paged_attention.cu``) is compiled
 by its own ``nvcc`` call into its own shared library under
 ``<repo>/build/kernels/`` (git-ignored), at first use; each library's name
 carries a hash of its source and the flags, so an edited source is rebuilt
@@ -29,6 +30,8 @@ _c = ctypes
 _P, _I64, _I32, _F32 = _c.c_void_p, _c.c_int64, _c.c_int, _c.c_float
 _UPDATE = [_P, _P, _P, _P, _P, _F32, _F32, _F32, _I64, _I64, _I32, _I32, _P,
            _P, _P, _P]
+_PAGED = [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+          _F32, _I32, _P, _P]
 # source stem -> argtypes of each of its C entry points
 SIGNATURES = {
     "dc_update": {
@@ -39,6 +42,10 @@ SIGNATURES = {
     "compress": {
         "select_ef_mean_f32": [_P, _P, _I64, _I64, _I32, _I32, _F32, _I32,
                                _I32, _P, _P, _P],
+    },
+    "paged_attention": {
+        f"paged_attention_{pool}": _PAGED
+        for pool in ("f32", "bf16", "f16", "i8", "fp8")
     },
 }
 

@@ -1,5 +1,6 @@
-"""The Engine's training loop (the port of ``repro.launch.engine.Engine``
-without the mesh, checkpoint, elastic and measured-skew branches).
+"""The Engine's training loop and one-shot generation (the port of
+``repro.launch.engine.Engine`` without the mesh, checkpoint, elastic and
+measured-skew branches).
 
 PyTorch runs eagerly, so there is nothing to jit: ``fit`` calls the
 algorithm's ``step`` directly.  The loop stays on the device's queue:
@@ -9,9 +10,11 @@ the last step), with one device-to-host copy for the whole dict.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.serve.oneshot import OneShotGenerator
 
 Tree = Any
 
@@ -30,11 +33,13 @@ def fetch_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
 
 
 class Engine:
-    """Runs one (model, algorithm) pair's step loop."""
+    """Runs one (model, algorithm) pair's step loop, or generates from a
+    model (the algorithm is then not needed)."""
 
-    def __init__(self, model, alg):
+    def __init__(self, model, alg=None):
         self.model = model
         self.alg = alg
+        self._oneshot: Optional[OneShotGenerator] = None
 
     def fit(self, state, batch_fn: Callable[[int], Tree], *, steps: int,
             log_every: int = 10) -> Tuple[Any, list, float]:
@@ -56,3 +61,20 @@ class Engine:
                 print(f"[train] step {it:5d} " + " ".join(
                     f"{k}={m[k]:.4g}" for k in _SHOWN if k in m))
         return state, history, time.perf_counter() - t0
+
+    def generate(self, params, prompts: torch.Tensor, *, gen: int,
+                 sampler: Optional[str] = None, temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 cache_len: Optional[int] = None) -> torch.Tensor:
+        """prompts: (B, P) int -> (B, gen) generated ids on the prompts'
+        device.  The one-shot case of the serve subsystem
+        (`repro_torch.serve.oneshot.OneShotGenerator`): one prefill, then
+        the decode loop over the dense layout.  ``sampler`` is a `SAMPLERS`
+        name; by default greedy at ``temperature <= 0`` and categorical
+        above, drawing from ``generator``.  For request streams (continuous
+        batching, paged KV) use `repro_torch.serve.scheduler.Scheduler`."""
+        if self._oneshot is None:
+            self._oneshot = OneShotGenerator(self.model)
+        return self._oneshot(params, prompts, gen=gen, sampler=sampler,
+                             temperature=temperature, generator=generator,
+                             cache_len=cache_len)

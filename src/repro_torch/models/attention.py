@@ -1,11 +1,18 @@
-"""Grouped-query attention for training: dense, causal, no window (the
-port of ``repro.models.attention.init_attention`` / ``attention_train``).
+"""Grouped-query attention: dense, causal, no window (the port of
+``repro.models.attention``'s ``init_attention`` / ``attention_train`` and,
+for decoding, ``init_kv_cache`` / ``decode_positions`` / ``attend_one`` /
+``attention_decode``).
 
 The attention core is plain tensor code, as the reference's is (it
 computes it with XLA, not with a Pallas kernel): the masked softmax is
 taken over the whole (short) sequence at once, where the reference
 streams KV blocks through an online softmax — the same function, up to
 rounding.  The Pallas ``flash_attention`` kernel is a later slice's port.
+
+Decoding writes the new token's k/v into the cache in place (the torch
+form of the reference's buffer donation).  The sliding-window ring,
+cross-attention and M-RoPE are not ported (ROADMAP A6): the dense family
+has none of them.
 """
 from __future__ import annotations
 
@@ -59,8 +66,10 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
 
 def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
                     *, rope_theta: float, qk_norm: bool = False,
-                    norm_eps: float = 1e-6) -> torch.Tensor:
-    """x: (B, S, d); positions: (S,).  Returns (B, S, d)."""
+                    norm_eps: float = 1e-6, return_kv: bool = False):
+    """x: (B, S, d); positions: (S,).  Returns (B, S, d), and with
+    ``return_kv`` also the (normed, roped) k and v (B, S, KV, hd) that a
+    decode cache stores."""
     B, S, _ = x.shape
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
@@ -74,4 +83,95 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
     H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
     out = causal_attention(q.reshape(B, S, KV, H // KV, hd), k, v)
     wo = params["wo"]
-    return matmul(out.reshape(B, S, H * hd), wo.reshape(H * hd, wo.shape[-1]))
+    y = matmul(out.reshape(B, S, H * hd), wo.reshape(H * hd, wo.shape[-1]))
+    return (y, k, v) if return_kv else y
+
+
+# ---------------------------------------------------------------------------
+# one-token decode against a KV cache
+# ---------------------------------------------------------------------------
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported: the dense family decodes with full causal "
+        "self-attention only (ROADMAP A6)")
+
+
+def init_kv_cache(batch: int, cache_len: int, n_kv: int, head_dim: int,
+                  dtype, device) -> dict:
+    """Zeroed dense k and v caches (batch, cache_len, n_kv, head_dim)."""
+    shape = (batch, cache_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_positions(pos: torch.Tensor) -> torch.Tensor:
+    """Positions for RoPE at decode: a 0-d ``pos`` (the dense layout, every
+    row at the same position) becomes (1,); a per-row (B,) vector (the
+    paged layout) becomes (B, 1)."""
+    return pos[None] if pos.dim() == 0 else pos[:, None]
+
+
+def attend_one(qg: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention core.  qg: (B, KV, G, hd); k/v caches:
+    (B, C, KV, hd); valid: (C,) shared or (B, C) per-row mask.  Returns
+    (B, KV, G, hd) f32.  Shared by the dense and paged cache layouts, so
+    the two are bitwise equal on matched inputs.  The probabilities are
+    rounded to the cache dtype before the PV product, as the reference
+    does (at bf16 this is where the gather path and the paged kernel,
+    which keeps them in f32, part)."""
+    hd = qg.shape[-1]
+    s = torch.einsum("bkgh,bckh->bkgc", qg.float(), k_cache.float()) \
+        * (hd ** -0.5)
+    mask = valid[None] if valid.dim() == 1 else valid
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgc,bckh->bkgh", p.to(v_cache.dtype).float(),
+                        v_cache.float())
+
+
+def attention_decode(params: dict, cache: dict, x: torch.Tensor,
+                     pos: torch.Tensor, *, rope_theta: float,
+                     window: int = 0, qk_norm: bool = False,
+                     norm_eps: float = 1e-6, cross: bool = False,
+                     cache_ops=None):
+    """One-token decode.  x: (B, 1, d); pos: 0-d int tensor (the dense
+    layout) or a per-row (B,) vector under a paged layout, on x's device.
+
+    Cache keys are stored post-RoPE.  ``cache_ops`` (a
+    `repro_torch.models.cache` layout's step ops) takes over the cache
+    update + attend, the seam the paged layout plugs into; ``None`` is the
+    dense path, which writes at ``pos`` in place.  Returns ((B, 1, d),
+    the cache)."""
+    if window > 0:
+        raise _unported("the sliding-window ring cache")
+    if cross:
+        raise _unported("cross-attention")
+    B = x.shape[0]
+    positions = decode_positions(pos)
+    q = _project(x, params["wq"])
+    k_new = _project(x, params["wk"])
+    v_new = _project(x, params["wv"])
+    if qk_norm:
+        q = rmsnorm(params["q_norm"], q, norm_eps)
+        k_new = rmsnorm(params["k_norm"], k_new, norm_eps)
+    if rope_theta > 0:
+        q = apply_rope(q, positions, rope_theta)
+        k_new = apply_rope(k_new, positions, rope_theta)
+    H, KV, hd = q.shape[2], k_new.shape[2], q.shape[3]
+    qg = q.reshape(B, KV, H // KV, hd)
+    if cache_ops is not None:
+        out, cache = cache_ops.kv_attend(cache, qg, k_new, v_new,
+                                         window=window)
+    else:
+        rows = torch.arange(B, device=x.device)
+        slot = pos.long().expand(B)
+        cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+        valid = torch.arange(cache["k"].shape[1], device=x.device) <= pos
+        out = attend_one(qg, cache["k"], cache["v"], valid)
+    out = out.reshape(B, 1, H * hd).to(x.dtype)
+    wo = params["wo"]
+    return matmul(out, wo.reshape(H * hd, wo.shape[-1])), cache

@@ -85,9 +85,10 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (..., S, H, head_dim); positions: (S,)."""
+    """x: (..., S, H, head_dim); positions: broadcastable to (..., S):
+    (S,) shared, or (B, 1) per row at decode."""
     inv = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions[:, None, None].float() * inv      # (S, 1, hd/2)
+    angles = positions[..., None, None].float() * inv    # (..., S, 1, hd/2)
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

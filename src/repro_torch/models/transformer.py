@@ -7,12 +7,19 @@ is padded to a multiple of 256 (``vocab_padded``; 152,064 for
 qwen3-0.6b).  The reference scans over the stacked layers; here a Python
 loop indexes them.  Functional: ``loss(params, batch)`` takes the tree,
 so per-worker gradients are ``torch.autograd.grad`` of it.
+
+Serving: ``prefill`` runs the prompt and returns the last position's
+logits with the dense cache tree ``[{"b0": {"k": (L, B, cache_len, KV,
+hd), "v": ...}}]``; ``decode_step`` advances one token and updates the
+cache tree (dense, or the one a `repro_torch.models.cache` layout's
+``cache_ops`` addresses) in place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree as T
 from repro_torch.core.types import ModelConfig
@@ -69,25 +76,44 @@ class Model:
     def _embed(self, params, batch) -> torch.Tensor:
         return params["embed"]["tok"][batch["tokens"]].to(self.compute_dtype)
 
-    def _block(self, p: dict, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+    def _block(self, p: dict, x: torch.Tensor, positions: torch.Tensor,
+               kv_out: Optional[list] = None) -> torch.Tensor:
         # bf16 + f32 promotes to f32 in torch as in jnp: with f32 weights
         # the residual stream is f32 from the first block on
         cfg = self.cfg
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        x = x + attn.attention_train(p["attn"], h, positions,
-                                     rope_theta=cfg.rope_theta,
-                                     qk_norm=cfg.qk_norm,
-                                     norm_eps=cfg.norm_eps)
+        h = attn.attention_train(p["attn"], h, positions,
+                                 rope_theta=cfg.rope_theta,
+                                 qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+                                 return_kv=kv_out is not None)
+        if kv_out is not None:
+            h, k, v = h
+            kv_out.append((k, v))
+        x = x + h
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
         return x + mlp(p["mlp"], h)
 
-    def _backbone(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _backbone(self, params, x: torch.Tensor,
+                  kv_out: Optional[list] = None) -> torch.Tensor:
         positions = torch.arange(x.shape[1], device=x.device)
         stage = params["stage0"]["b0"]
         for layer in range(self.cfg.n_layers):
-            x = self._block(T.map(lambda a: a[layer], stage), x, positions)
+            x = self._block(T.map(lambda a: a[layer], stage), x, positions,
+                            kv_out)
         return x
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Post-final-norm (..., d) -> f32 logits, the padded vocabulary's
+        columns masked to -1e30."""
+        logits = matmul(x, params["unembed"].to(x.dtype)).float()
+        return self._mask_pad_logits(logits)
+
+    def _mask_pad_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.vocab_padded == self.cfg.vocab_size:
+            return logits
+        pad = torch.arange(self.vocab_padded, device=logits.device) \
+            >= self.cfg.vocab_size
+        return logits.masked_fill(pad, -1e30)
 
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy over labels >= 0."""
@@ -95,6 +121,68 @@ class Model:
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return chunked_xent(x, params["unembed"], batch["labels"],
                             self.loss_chunk)
+
+    # -------------------------------------------------- prefill / decode
+
+    def init_cache(self, batch: int, cache_len: int, dtype=None, *,
+                   device) -> list:
+        """Zeroed dense caches, one (L, batch, cache_len, KV, hd) k and v
+        per stage unit: the reference's tree."""
+        cfg = self.cfg
+        c = attn.init_kv_cache(batch, cache_len, cfg.eff_n_kv_heads,
+                               cfg.resolved_head_dim,
+                               dtype or self.compute_dtype, device)
+        return [{"b0": {name: t.unsqueeze(0).repeat(
+            (cfg.n_layers,) + (1,) * t.dim()) for name, t in c.items()}}]
+
+    def prefill(self, params, batch, cache_len: int):
+        """Forward over the prompt (B, S); returns ((B, vocab_padded) f32
+        logits of the last position, the dense cache tree with S of its
+        ``cache_len`` positions filled)."""
+        kv: list = []
+        x = self._backbone(params, self._embed(params, batch), kv)
+        x = rmsnorm(params["final_norm"], x[:, -1], self.cfg.norm_eps)
+        caches = [{"b0": _kv_cache_from_seq(kv, cache_len)}]
+        return self._logits(params, x), caches
+
+    def decode_step(self, params, caches, batch, cache_ops=None):
+        """batch: ``tokens`` (B, 1) and ``pos`` (a 0-d int tensor, or a
+        per-row (B,) vector under a paged layout), on the params' device.
+        Returns ((B, vocab_padded) f32 logits, ``caches`` updated in
+        place).  ``cache_ops`` (a `repro_torch.models.cache` layout's step
+        ops) reroutes the cache update + attend: the paged-KV seam."""
+        x = self._embed(params, batch)
+        stage, cache = params["stage0"]["b0"], caches[0]["b0"]
+        for layer in range(self.cfg.n_layers):
+            x = self._decode_block(T.map(lambda a: a[layer], stage),
+                                   {k: v[layer] for k, v in cache.items()},
+                                   x, batch["pos"], cache_ops)
+        x = rmsnorm(params["final_norm"], x[:, 0], self.cfg.norm_eps)
+        return self._logits(params, x), caches
+
+    def _decode_block(self, p: dict, cache: dict, x: torch.Tensor,
+                      pos: torch.Tensor, cache_ops) -> torch.Tensor:
+        cfg = self.cfg
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        h, _ = attn.attention_decode(p["attn"], cache, h, pos,
+                                     rope_theta=cfg.rope_theta,
+                                     qk_norm=cfg.qk_norm,
+                                     norm_eps=cfg.norm_eps,
+                                     cache_ops=cache_ops)
+        x = x + h
+        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + mlp(p["mlp"], h)
+
+
+def _kv_cache_from_seq(kv, cache_len: int) -> Dict[str, torch.Tensor]:
+    """Each layer's (k, v) of the prompt, (B, S, KV, hd), zero-padded to
+    ``cache_len`` positions and stacked: {"k", "v"}: (L, B, cache_len, KV,
+    hd).  The reference recomputes them from the normed block input; here
+    they are the attention's own k and v, the same values."""
+    S = kv[0][0].shape[1]
+    pad = (0, 0, 0, 0, 0, cache_len - S)
+    return {"k": torch.stack([F.pad(k, pad) for k, _ in kv]),
+            "v": torch.stack([F.pad(v, pad) for _, v in kv])}
 
 
 def chunked_xent(x: torch.Tensor, unembed: torch.Tensor,
