@@ -50,7 +50,28 @@ Phases (any failure exits non-zero before the result line):
    per decode step there too); kernel path against gather path
    teacher-forced over one group of 16 (bound stated in
    phase_kernel_vs_gather); host synchronisations
-   inside one steady decode burst (must be 0) and two bursts profiled.
+   inside one steady decode burst (must be 0) and two bursts profiled;
+8. prefill kernels.  flash_attention against its plain version at the
+   qwen3-0.6b prefill's shapes (B 1, 8 kv heads, G 2, hd 128, causal, S
+   128/256/384/512, f32; atol 2e-5), a bf16 case (3e-2), a windowed and a
+   ragged Sq != Sk case, each timed (CUDA events, median of 10 after 2
+   warm-ups, 28 launches queued behind a device-side sleep per sample)
+   beside its bound, the plain version and scaled_dot_product_attention;
+   the qwen3 serve run of phase 7 launches it 28 times per prefill; the
+   qwen3 prefill's logits, kernel route against plain route
+   (bound stated in phase_prefill_routes).  ssm_scan against its plain
+   version at falcon-mamba-7b's prefill shapes (B 1, E 8,192, N 16, S
+   128/256/384/512, f32; atol 1e-4) and a ragged S, E case, timed the same
+   way (8 launches per sample) beside its byte bound and the plain version;
+9. serving falcon-mamba-7b at its published widths and full depth (64
+   layers, f32 params, bf16 compute, random weights from seed 0) through
+   ``repro_torch.launch.serve`` over the same 48 requests (token ids under
+   its 65,024 vocab), ``--slots 16 --decode-burst 4``, greedy: every
+   request completes at its length, the page pool is never touched,
+   ssm_scan launches 64 times per prefill, no host synchronisation inside
+   a steady decode burst; then its prefill logits, scan kernel route
+   against plain route, on 2 prompts (bound stated in
+   phase_prefill_routes).  qwen3's weights are freed before it.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports nothing
@@ -280,10 +301,13 @@ def phase_select(sizes, gen, smi: str) -> dict:
 def _counters():
     from repro_torch.kernels import compress as KC
     from repro_torch.kernels import dc_update as K
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
     return {"dc_norms": K.dc_norms, "dc_fused_update": K.dc_fused_update,
             "select_ef_mean": KC.select_ef_mean,
-            "paged_attention": paged_attention}
+            "paged_attention": paged_attention,
+            "flash_attention": flash_attention, "ssm_scan": ssm_scan}
 
 
 def phase_main(smi: str, extra=(), tag: str = "main"):
@@ -679,11 +703,16 @@ def phase_serve(smi: str, path: Path, extra=(), n_requests=None,
               f"[{tag}] request {r.rid}: {len(done[r.rid].out)} tokens, "
               f"expected {r.max_new}")
     steps = sch.stats["decode_steps"]
+    prefills = sch.stats["prefills"]
     check(launches["paged_attention"] == 28 * steps,
           f"[{tag}] paged_attention launched {launches['paged_attention']} "
           f"times, expected 28 layers x {steps} decode steps")
-    check(all(n == 0 for k, n in launches.items() if k != "paged_attention"),
-          f"[{tag}] training kernels launched while serving: {launches}")
+    check(launches["flash_attention"] == 28 * prefills,
+          f"[{tag}] flash_attention launched {launches['flash_attention']} "
+          f"times, expected 28 layers x {prefills} prefills")
+    check(all(n == 0 for k, n in launches.items()
+              if k not in ("paged_attention", "flash_attention")),
+          f"[{tag}] other kernels launched while serving: {launches}")
     check(sch.pool.used_pages == 0, f"[{tag}] {sch.pool.used_pages} pages "
           "still allocated after the run")
     check(sch.stats["preemptions"] == 0, f"[{tag}] preempted: the pool "
@@ -715,7 +744,8 @@ def phase_serve(smi: str, path: Path, extra=(), n_requests=None,
           f"{decode_tokens} tokens in {steps} steps, {decode_s:.3f} s "
           f"({rec['decode_tokens_per_s']:.1f} tok/s, {rec['step_ms']:.3f} "
           f"ms/step); {s['prefills']} prefills; paged_attention launches "
-          f"{launches['paged_attention']} = 28 x {steps} [{smi}]")
+          f"{launches['paged_attention']} = 28 x {steps}, flash_attention "
+          f"{launches['flash_attention']} = 28 x {prefills} [{smi}]")
     print(f"[{tag}] inter-token p50 {s['p50_token_latency_s'] * 1e3:.3f} "
           f"ms p95 {s['p95_token_latency_s'] * 1e3:.3f} ms; TTFT p50 "
           f"{s['p50_ttft_s'] * 1e3:.1f} ms p95 {s['p95_ttft_s'] * 1e3:.1f} "
@@ -795,7 +825,9 @@ def phase_kernel_vs_gather(smi: str, model, params, reqs,
     return rec
 
 
-def phase_serve_profile(smi: str, model, params, reqs) -> dict:
+def phase_serve_profile(smi: str, model, params, reqs, argv=SERVE_ARGS,
+                        tag: str = "serve-profile",
+                        out_name: str = "profile_serve.txt") -> dict:
     """A steady decode burst of 16 slots: host synchronisations inside one
     burst under PyTorch's sync debug mode (its inputs copied to the device
     before the window), then two bursts under torch.profiler, device time
@@ -804,7 +836,7 @@ def phase_serve_profile(smi: str, model, params, reqs) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     from repro_torch.serve import Request, Scheduler
-    args = serve.build_argparser().parse_args(SERVE_ARGS)
+    args = serve.build_argparser().parse_args(argv)
     sch = Scheduler(model, params, slots=args.slots, pages=args.pages,
                     page_size=args.page_size, use_kernel=args.paged_kernel,
                     decode_burst=args.decode_burst, seed=args.seed)
@@ -825,7 +857,7 @@ def phase_serve_profile(smi: str, model, params, reqs) -> dict:
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     syncs = sum("synchroniz" in str(w.message) for w in caught)
-    print(f"[serve-profile] host synchronisations inside one decode burst "
+    print(f"[{tag}] host synchronisations inside one decode burst "
           f"({burst} steps, 16 slots): {syncs}")
     check(syncs == 0, f"{syncs} host synchronisations inside a decode burst")
     with profile(activities=[ProfilerActivity.CPU,
@@ -860,32 +892,338 @@ def phase_serve_profile(smi: str, model, params, reqs) -> dict:
         by_group[g] += dev_us(e) / 1e3
     launches = sum(e.count for e in kernels)
     if busy_ms == 0:
-        print(f"[serve-profile] no device time in the trace: not measured "
-              f"[{smi}]")
+        print(f"[{tag}] no device time in the trace: not measured [{smi}]")
         return {"host_syncs_per_burst": syncs}
-    print(f"[serve-profile] 2 bursts ({2 * burst} decode steps): wall "
+    print(f"[{tag}] 2 bursts ({2 * burst} decode steps): wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%, {launches} kernel "
           f"launches ({launches / (2 * burst):.0f} per step) [{smi}]")
     for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"[serve-profile]   {g}: {ms:.3f} ms ({100 * ms / busy_ms:.1f}%"
+        print(f"[{tag}]   {g}: {ms:.3f} ms ({100 * ms / busy_ms:.1f}%"
               f" of device time)")
     for e in kernels[:12]:
-        print(f"[serve-profile]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
+        print(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
               f"{e.key[:90]}")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "profile_serve.txt").write_text(
+    (ROOT / "chiprun_out" / out_name).write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=60))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": by_group,
             "kernel_launches": launches, "host_syncs_per_burst": syncs}
 
 
+# ---------------------------------------------------------------------------
+# prefill kernels: flash_attention (B5) and ssm_scan (B6)
+# ---------------------------------------------------------------------------
+
+# qwen3-0.6b's attention: 8 kv heads, 2 query heads per kv head, hd 128
+FLASH_SHAPE = (8, 2, 128)
+# a timed sample is 28 back-to-back launches, as one qwen3 prefill makes
+PREFILL_LAYERS = 28
+PEAK_FLOPS = {torch.float32: 67e12,     # H100 SXM data sheet: f32, CUDA cores
+              torch.bfloat16: 989e12}   # and bf16 dense on the tensor cores
+# falcon-mamba-7b's scan: E = expand x d_model, N = state_dim
+SSM_E, SSM_N = 8192, 16
+
+
+def _live_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask leaves live: the work these inputs
+    need (the kernel skips tiles that are wholly masked)."""
+    i = torch.arange(sq)[:, None]
+    j = torch.arange(sk)[None, :]
+    live = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        live &= j <= i
+    if window > 0:
+        live &= (i - j) < window
+    return int(live.sum())
+
+
+def phase_flash_kernel(smi: str) -> dict:
+    """flash_attention against its plain version at the qwen3-0.6b
+    prefill's shapes (B 1, causal, S 128/256/384/512, f32: the path's
+    q, k, v are f32 since the f32 weights promote the bf16 activations),
+    a bf16 case, a windowed case and a ragged non-causal Sq != Sk case
+    (atol 2e-5 f32, 3e-2 bf16: the reference's tolerances), each timed
+    beside its bound (the larger of bytes over 3.35 TB/s and the live
+    pairs' 4 hd flops each over the peak for the input type), the plain
+    version and scaled_dot_product_attention (enable_gqa) on the same
+    inputs.  Returns the numbers per case."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    KV, G, hd = FLASH_SHAPE
+    H = KV * G
+    cases = [(f"S={S} f32", S, S, True, 0, torch.float32)
+             for S in PROMPT_LENS] + [
+        ("S=512 bf16", 512, 512, True, 0, torch.bfloat16),
+        ("S=512 f32 window 128", 512, 512, True, 128, torch.float32),
+        ("Sq=200 Sk=333 f32 non-causal", 200, 333, False, 0,
+         torch.float32)]
+    rec = {}
+    for name, sq, sk, causal, window, dt in cases:
+        q = torch.randn((1, sq, KV, G, hd), generator=gen,
+                        device="cuda").to(dt)
+        k = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
+        v = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
+        kw = dict(causal=causal, window=window)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        atol = 2e-5 if dt == torch.float32 else 3e-2
+        check(got.dtype == dt and err <= atol, f"flash_attention {name}: "
+              f"max abs err {err} > {atol}")
+        ms = median_ms(lambda: flash_attention(q, k, v, **kw),
+                       batch=PREFILL_LAYERS)
+        plain_ms = median_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                             batch=PREFILL_LAYERS)
+        # the library yardstick: one SDPA call on (B, heads, S, hd) views
+        qs, ks, vs = (q.reshape(1, sq, H, hd).transpose(1, 2),
+                      k.transpose(1, 2), v.transpose(1, 2))
+        mask = None
+        if window > 0:
+            i = torch.arange(sq, device="cuda")[:, None]
+            j = torch.arange(sk, device="cuda")[None, :]
+            mask = (j <= i) & ((i - j) < window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+        sdpa_err = float((sdpa().transpose(1, 2).reshape(want.shape).float()
+                          - want.float()).abs().max())
+        library_ms = median_ms(sdpa, batch=PREFILL_LAYERS)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * hd * H * _live_pairs(sq, sk, causal, window)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = flops / PEAK_FLOPS[dt] * 1e3
+        bound = max(byte_ms, op_ms)
+        by = "operations" if op_ms >= byte_ms else "bytes"
+        print(f"[flash] {name}: B=1 KV={KV} G={G} hd={hd}: {ms:.4f} "
+              f"ms/launch; plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} "
+              f"ms (max abs diff {sdpa_err:.3g}); bound {bound:.4f} ms by "
+              f"{by} ({nbytes} B, {flops} flops); max abs err {err:.3g} "
+              f"[{smi}]")
+        rec[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                     "flops": flops, "err": err, "sdpa_err": sdpa_err}
+        del q, k, v, got, want, qs, ks, vs, mask
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _ssm_case(gen, B: int, S: int, E: int):
+    """Scan inputs as the falcon-mamba prefill makes them: a_log of the
+    S4D-real init (A = -1..-N), dt a softplus near the init's 0.01-0.1,
+    dtx = dt * x, b and c of unit scale."""
+    dev = torch.device("cuda")
+    a_log = torch.log(torch.arange(1, SSM_N + 1, dtype=torch.float32,
+                                   device=dev)).expand(E, SSM_N).contiguous()
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, E), generator=gen, device=dev) - 3.5)
+    dtx = dt * torch.randn((B, S, E), generator=gen, device=dev)
+    b = torch.randn((B, S, SSM_N), generator=gen, device=dev)
+    c = torch.randn((B, S, SSM_N), generator=gen, device=dev)
+    return a_log, dt, dtx, b, c
+
+
+def phase_ssm_kernel(smi: str) -> dict:
+    """ssm_scan against its plain version at falcon-mamba-7b's prefill
+    shapes (B 1, E 8,192, N 16, S 128/256/384/512, f32) and a ragged case
+    (B 2, S 77, E 1,000): y and h_last within 1e-4 (the reference's
+    tolerance), timed (8 launches per sample) beside its bound (bytes: dt,
+    dtx, b, c, a_log read once, y and h_last written once; 7 flops per
+    (t, e, n)) and the plain version.  Returns the numbers per case."""
+    from repro_torch.kernels.ref import ssm_scan_plain
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(f"S={S}", 1, S, SSM_E) for S in PROMPT_LENS] + [
+        ("ragged B=2 S=77 E=1000", 2, 77, 1000)]
+    rec = {}
+    for name, B, S, E in cases:
+        args = _ssm_case(gen, B, S, E)
+        y, h = ssm_scan(*args)
+        yr, hr = ssm_scan_plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
+        check(err <= 1e-4, f"ssm_scan {name}: max abs err {err} > 1e-4")
+        ms = median_ms(lambda: ssm_scan(*args), batch=8)
+        plain_ms = median_ms(lambda: ssm_scan_plain(*args))
+        nbytes = 4 * (3 * B * S * E + 2 * B * S * SSM_N + E * SSM_N
+                      + B * E * SSM_N)
+        flops = 7 * B * S * E * SSM_N
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        bound = max(byte_ms, op_ms)
+        by = "operations" if op_ms >= byte_ms else "bytes"
+        print(f"[ssm] {name} N={SSM_N}: {ms:.4f} ms/launch; plain "
+              f"{plain_ms:.4f} ms; bound {bound:.4f} ms by {by} ({nbytes} "
+              f"B, {flops} flops); max abs err {err:.3g}; h_last bitwise "
+              f"the plain version's: {bool(torch.equal(h, hr))} [{smi}]")
+        rec[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "bytes": nbytes, "flops": flops,
+                     "err": err}
+        del args, y, h, yr, hr
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_prefill_routes(smi: str, model, params, prompts, tag: str,
+                         bound_log2: int) -> dict:
+    """Last-position logits of each prompt's prefill (one request at a
+    time, as the scheduler admits them), kernel route against plain route
+    (``Model(cfg, kernels=False)``) on the same weights.  The prefill sees
+    the whole prompt, so both routes are teacher-forced by construction.
+    The bound held is 2^-bound_log2 of the largest logit (the bounds are
+    stated with their reasons in PERF.md).  The kernel route must launch
+    and the plain route must not."""
+    from repro_torch.models.transformer import Model
+    plain = Model(model.cfg, kernels=False)
+    counted = _counters()
+    V = model.cfg.vocab_size
+    worst = top = 0.0
+    for p in prompts:
+        toks = torch.tensor([p], device="cuda")
+        before = {n: fn.launches for n, fn in counted.items()}
+        a, _ = model.prefill(params, {"tokens": toks}, cache_len=len(p))
+        mid = {n: fn.launches for n, fn in counted.items()}
+        b, _ = plain.prefill(params, {"tokens": toks}, cache_len=len(p))
+        after = {n: fn.launches for n, fn in counted.items()}
+        check(any(mid[n] > before[n] for n in counted)
+              and after == mid, f"[{tag}] routes: {before} {mid} {after}")
+        worst = max(worst, float((a - b)[:, :V].abs().max()))
+        top = max(top, float(b[:, :V].abs().max()))
+        del a, b
+    bound = 2.0 ** -bound_log2 * top
+    print(f"[{tag}] {len(prompts)} prompts ({[len(p) for p in prompts]} "
+          f"tokens), kernel route vs plain route: max |dlogit| {worst:.4g} "
+          f"(bound {bound:.4g} = 2^-{bound_log2} x max |logit| {top:.4g}) "
+          f"[{smi}]")
+    check(worst <= bound, f"[{tag}] max |dlogit| {worst} > {bound}")
+    torch.cuda.empty_cache()
+    return {"max_dlogit": worst, "max_logit": top, "bound": bound,
+            "prompts": [len(p) for p in prompts]}
+
+
+# ---------------------------------------------------------------------------
+# serving falcon-mamba-7b at full depth (kernel B6 in every prefill)
+# ---------------------------------------------------------------------------
+
+FM_ARGS = ["--arch", "falcon-mamba-7b", "--slots", "16", "--decode-burst",
+           "4", "--seed", "0"]
+FM_PARAMS = 7_272_665_088     # 64 x 105,312,256 + 2 x 65,024 x 4,096
+
+
+def phase_serve_ssm(smi: str, path: Path) -> dict:
+    """Serve the request file with falcon-mamba-7b at its published widths
+    and full depth through ``repro_torch.launch.serve`` (f32 params from
+    seed 0, bf16 compute, 16 slots, bursts of 4, greedy).  Every kernel
+    count is set to 0 just before the run and read just after: ssm_scan 64
+    times per prefill, nothing else.  Then the host synchronisations of a
+    steady burst, two bursts profiled, and the prefill's scan kernel route
+    against its plain route on 2 prompts."""
+    from repro_torch import tree as T
+    from repro_torch.launch import serve
+    args = serve.build_argparser().parse_args(
+        FM_ARGS + ["--requests", str(path)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, params, _ = serve.build(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    n_params = sum(x.numel() for x in T.leaves(params))
+    check(cfg.n_layers == 64 and cfg.d_model == 4096
+          and cfg.ssm.state_dim == SSM_N and n_params == FM_PARAMS,
+          f"falcon-mamba-7b at full depth and width: {cfg}, {n_params}")
+    reqs = serve.load_requests(args.requests, cfg.vocab_size, args.gen,
+                               seed=args.seed)
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.prompt),
+          "prompt ids under the vocabulary")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sch = serve.run_scheduler(model, params, reqs, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    peak = torch.cuda.max_memory_allocated()
+    done = {r.rid: r for r in sch.finished}
+    check(sorted(done) == sorted(r.rid for r in reqs),
+          f"[serve-ssm] {len(done)} of {len(reqs)} requests finished")
+    for r in reqs:
+        check(len(done[r.rid].out) == r.max_new,
+              f"[serve-ssm] request {r.rid}: {len(done[r.rid].out)} "
+              f"tokens, expected {r.max_new}")
+    prefills, steps = sch.stats["prefills"], sch.stats["decode_steps"]
+    check(launches["ssm_scan"] == 64 * prefills,
+          f"[serve-ssm] ssm_scan launched {launches['ssm_scan']} times, "
+          f"expected 64 layers x {prefills} prefills")
+    check(all(n == 0 for k, n in launches.items() if k != "ssm_scan"),
+          f"[serve-ssm] other kernels launched: {launches}")
+    check(not sch.layout.uses_pages and sch.pool.used_pages == 0
+          and sch.pool.total_allocs == 0, "[serve-ssm] the page pool was "
+          "touched")
+    state = sch.cache[0]["b0"]
+    check(state["conv"].dtype == torch.bfloat16
+          and state["ssm"].dtype == torch.float32
+          and tuple(state["ssm"].shape) == (64, 16, SSM_E, SSM_N),
+          f"[serve-ssm] slot state {state['conv'].dtype} "
+          f"{state['ssm'].dtype} {tuple(state['ssm'].shape)}")
+    state_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    s = sch.latency_summary()
+    decode_s = sum(sch.stats["step_walls"])
+    decode_tokens = s["tokens"] - len(reqs)
+    rec = {
+        "requests": len(reqs), "tokens": s["tokens"], "wall_s": wall,
+        "init_s": init_s, "params": n_params,
+        "tokens_per_s": s["tokens"] / wall,
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "decode_steps": steps, "step_ms": decode_s / steps * 1e3,
+        "bursts": len(sch.stats["step_walls"]), "prefills": prefills,
+        "launches": launches, "peak_bytes": peak, "before_bytes": before,
+        "slot_state_bytes": state_bytes,
+        **{k: s[k] for k in ("p50_token_latency_s", "p95_token_latency_s",
+                             "p50_ttft_s", "p95_ttft_s")},
+    }
+    print(f"[serve-ssm] falcon-mamba-7b x64 ({n_params} params, f32, init "
+          f"{init_s:.1f} s): {len(reqs)} requests, {s['tokens']} tokens in "
+          f"{wall:.3f} s ({rec['tokens_per_s']:.1f} tok/s); decode "
+          f"{decode_tokens} tokens in {steps} steps, {decode_s:.3f} s "
+          f"({rec['decode_tokens_per_s']:.1f} tok/s, {rec['step_ms']:.3f} "
+          f"ms/step); {prefills} prefills; ssm_scan launches "
+          f"{launches['ssm_scan']} = 64 x {prefills}; pool untouched "
+          f"[{smi}]")
+    print(f"[serve-ssm] inter-token p50 {s['p50_token_latency_s'] * 1e3:.3f}"
+          f" ms p95 {s['p95_token_latency_s'] * 1e3:.3f} ms; TTFT p50 "
+          f"{s['p50_ttft_s'] * 1e3:.1f} ms p95 {s['p95_ttft_s'] * 1e3:.1f} "
+          f"ms; slot state {state_bytes} B for 16 slots; peak memory "
+          f"{peak / 2**30:.3f} GiB ({peak} B), of which {before / 2**20:.1f}"
+          f" MiB were allocated before the run [{smi}]")
+    del sch, state
+    torch.cuda.empty_cache()
+    rec["profile"] = phase_serve_profile(smi, model, params, reqs, FM_ARGS,
+                                         "serve-ssm-profile",
+                                         "profile_serve_ssm.txt")
+    rec["routes"] = phase_prefill_routes(
+        smi, model, params, [reqs[0].prompt, reqs[3].prompt],
+        "prefill-routes falcon-mamba", 7)
+    del model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import tree as T
     from repro_torch.configs import get_config
@@ -927,26 +1265,51 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     paged = phase_paged_kernel(smi)
+    flash = phase_flash_kernel(smi)
+    scan = phase_ssm_kernel(smi)
     requests = _write_requests()
     served, (model, params), reqs = phase_serve(smi, requests,
                                                 ["--paged-kernel"])
     launches["paged_attention"] = served["launches"]["paged_attention"]
+    launches["flash_attention"] = served["launches"]["flash_attention"]
     served_int8, _, _ = phase_serve(smi, requests, ["--kv-dtype", "int8"],
                                     16, "serve-int8", (model, params, None))
     versus = phase_kernel_vs_gather(smi, model, params, reqs)
+    # f32 attention outputs differ in summation order only (~1e-7
+    # relative); 2^-10 of the largest logit leaves room for 28 layers
+    q_routes = phase_prefill_routes(smi, model, params,
+                                    [r.prompt for r in reqs[:4]],
+                                    "prefill-routes qwen3", 10)
     s_prof = phase_serve_profile(smi, model, params, reqs)
     del model, params
+    torch.cuda.empty_cache()
+    fm = phase_serve_ssm(smi, requests)
+    launches["ssm_scan"] = fm["launches"]["ssm_scan"]
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
                                "err": max(r["err"] for r in paged.values())}
+    # per launch, averaged over the path's four prompt lengths (each is a
+    # quarter of the prefills); the error is the worst of every case
+    for name, cases, path in (
+            ("flash_attention", flash,
+             [f"S={S} f32" for S in PROMPT_LENS]),
+            ("ssm_scan", scan, [f"S={S}" for S in PROMPT_LENS])):
+        k = {f: statistics.mean(cases[c][f] for c in path)
+             for f in ("ms", "plain_ms", "bound_ms")}
+        k["err"] = max(r["err"] for r in cases.values())
+        k["bound_by"] = cases[path[-1]]["bound_by"]
+        k["library_ms"] = statistics.mean(cases[c]["library_ms"]
+                                          for c in path) \
+            if name == "flash_attention" else None
+        kern[name] = k
 
     tokens = W * 4 * 256
     print(f"[times] step {step_s * 1e3:.3f} ms median of steps 2-5 "
           f"({tokens / step_s:.1f} tokens/s, W={W}, 4x256 tokens/worker, 4 "
           f"layers, metrics fetched every step) [{smi}]")
     for name, k in kern.items():
-        if name == "paged_attention":
+        if name in ("paged_attention", "flash_attention", "ssm_scan"):
             continue
         print(f"[times] {name}: {k['ms']:.4f} ms per step ({N_BUCKETS} "
               f"launches), plain {k['plain_ms']:.4f} ms, byte bound "
@@ -967,19 +1330,42 @@ def main() -> int:
           f" {bf16['ms']:.4f} ms/launch (bound {bf16['bound_ms']:.4f}, plain "
           f"{bf16['plain_ms']:.4f}) [{smi}]")
 
+    for name, what in (("flash_attention", "qwen3 prefill, B=1"),
+                       ("ssm_scan", "falcon-mamba prefill, B=1, E=8192")):
+        k = kern[name]
+        lib = "" if k["library_ms"] is None \
+            else f", sdpa {k['library_ms']:.4f}"
+        print(f"[times] {name} ({what}, mean over S 128/256/384/512): "
+              f"{k['ms']:.4f} ms/launch, plain {k['plain_ms']:.4f}{lib}, "
+              f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}; "
+              f"{launches[name]} launches on its serve path [{smi}]")
+    print(f"[times] serve falcon-mamba-7b x64, 16 slots: "
+          f"{fm['decode_tokens_per_s']:.1f} decode tok/s, "
+          f"{fm['step_ms']:.3f} ms/decode step, inter-token p50/p95 "
+          f"{fm['p50_token_latency_s'] * 1e3:.3f}/"
+          f"{fm['p95_token_latency_s'] * 1e3:.3f} ms, TTFT p50/p95 "
+          f"{fm['p50_ttft_s'] * 1e3:.1f}/{fm['p95_ttft_s'] * 1e3:.1f} ms, "
+          f"peak {fm['peak_bytes'] / 2**30:.3f} GiB [{smi}]")
+
     sources = {"dc_norms": "dc_update.cu", "dc_fused_update": "dc_update.cu",
                "select_ef_mean": "compress.cu",
-               "paged_attention": "paged_attention.cu"}
+               "paged_attention": "paged_attention.cu",
+               "flash_attention": "flash_attention.cu",
+               "ssm_scan": "ssm_scan.cu"}
     replaces = {"dc_norms": "src/repro/kernels/dc_update.py:58",
                 "dc_fused_update": "src/repro/kernels/dc_update.py:126",
                 "select_ef_mean": "src/repro/kernels/compress.py:80",
-                "paged_attention": "src/repro/kernels/paged_attention.py:159"}
+                "paged_attention": "src/repro/kernels/paged_attention.py:159",
+                "flash_attention": "src/repro/kernels/flash_attention.py:115",
+                "ssm_scan": "src/repro/kernels/ssm_scan.py:88"}
+    check(set(kern) == set(sources), f"kernels {sorted(kern)}")
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
         "replaces": replaces[name], "launches": launches[name],
         "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "bound_ms": k["bound_ms"], "bound_by": k.get("bound_by", "bytes"),
+        "library_ms": k.get("library_ms"),
     } for name, k in kern.items()]
     record = {"card": smi, "step_ms": step_s * 1e3, "peak_bytes": peak,
               "compressed_step_ms": c_step_s * 1e3,
@@ -989,7 +1375,12 @@ def main() -> int:
               "profile_compressed": c_prof, "paged_attention": paged,
               "serve": served, "serve_int8": served_int8,
               "kernel_vs_gather": versus, "profile_serve": s_prof,
+              "flash_attention": flash, "ssm_scan": scan,
+              "prefill_routes_qwen3": q_routes, "serve_ssm": fm,
               "kernels": kernels}
+    record["total_s"] = time.perf_counter() - t_start
+    print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "
+          f"included [{smi}]")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=2))

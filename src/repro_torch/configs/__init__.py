@@ -2,19 +2,20 @@
 
 Each config module exposes ``CONFIG`` (the full-size published config with
 its source); ``reduced(cfg)`` gives the 2-layer smoke variant the CPU
-tests use.  Only the configs the port can run are listed; the others are
-queued in ROADMAP.md.
+tests use.  Only the configs the port can run are listed (the dense
+qwen3-0.6b and the ssm falcon-mamba-7b); the others are queued in
+ROADMAP.md.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import qwen3_0_6b
+from repro_torch.configs import falcon_mamba_7b, qwen3_0_6b
 from repro_torch.core.types import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.CONFIG.name: c.CONFIG for c in (qwen3_0_6b,)
+    c.CONFIG.name: c.CONFIG for c in (qwen3_0_6b, falcon_mamba_7b)
 }
 
 
@@ -27,10 +28,11 @@ def get_config(name: str) -> ModelConfig:
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant of the same family: 2 layers, d_model<=256,
     small vocab, f32 compute — the reference's ``reduced`` for the dense
-    family."""
+    and ssm families (the ssm config is kept as it is)."""
     return dataclasses.replace(
         cfg,
         name=cfg.name + "-smoke",
+        ssm=cfg.ssm,
         n_layers=2,
         d_model=min(cfg.d_model, 256),
         n_heads=4,

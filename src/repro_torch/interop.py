@@ -2,8 +2,10 @@
 
 The JAX package initialises weights with ``jax.random``, which torch
 cannot reproduce, so parity runs carry the reference's weights over as
-numpy arrays.  Nesting, shapes and dtypes are kept; bfloat16 crosses as
-its 16-bit pattern (numpy has no native bfloat16).  A compressed
+numpy arrays.  Nesting, shapes and dtypes are kept (so falcon-mamba's
+``a_log``, ``dt_bias`` and ``d_skip`` stay f32 beside bf16 weights, as in
+the reference); bfloat16 crosses as its 16-bit pattern (numpy has no
+native bfloat16).  A compressed
 reducer's ``TrainState.comm["reducer"]`` crosses the same way, except
 randk's ``step``, which is an int32 array in the reference and a host int
 in the port.

@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels (plain C interface, bound with ctypes).
 
 Every source in ``csrc/`` (``dc_update.cu``, ``compress.cu``,
-``paged_attention.cu``) is compiled
+``paged_attention.cu``, ``flash_attention.cu``, ``ssm_scan.cu``) is compiled
 by its own ``nvcc`` call into its own shared library under
 ``<repo>/build/kernels/`` (git-ignored), at first use; each library's name
 carries a hash of its source and the flags, so an edited source is rebuilt
@@ -32,6 +32,8 @@ _UPDATE = [_P, _P, _P, _P, _P, _F32, _F32, _F32, _I64, _I64, _I32, _I32, _P,
            _P, _P, _P]
 _PAGED = [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
           _F32, _I32, _P, _P]
+_FLASH = [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+          _F32, _P]
 # source stem -> argtypes of each of its C entry points
 SIGNATURES = {
     "dc_update": {
@@ -46,6 +48,14 @@ SIGNATURES = {
     "paged_attention": {
         f"paged_attention_{pool}": _PAGED
         for pool in ("f32", "bf16", "f16", "i8", "fp8")
+    },
+    "flash_attention": {
+        "flash_attention_f32": _FLASH,
+        "flash_attention_bf16": _FLASH,
+    },
+    "ssm_scan": {
+        "ssm_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                         _P],
     },
 }
 

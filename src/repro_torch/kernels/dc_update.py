@@ -75,6 +75,12 @@ def _check(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
+def _contiguous16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a copy only where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _grid(n: int, vec: bool) -> int:
     threads = 256
     items = n // 4 if vec else n

@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the compression and paged-attention kernels
-(the port of ``repro/kernels/ref.py``'s ``select_ef_mean_ref`` and
-``paged_attention_ref``).
+"""Plain PyTorch versions of the compression, paged-attention, flash-
+attention and selective-scan kernels (the port of ``repro/kernels/
+ref.py``'s ``select_ef_mean_ref``, ``paged_attention_ref`` and
+``ssm_scan_ref``, and of the function ``_flash_kernel`` computes).
 
 The update-tail kernels keep theirs beside them in
 `repro_torch.kernels.dc_update`.
@@ -71,3 +72,64 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     s = torch.where(mask[:, None, None, :], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgs,bskh->bkgh", p, v_lin)
+
+
+NEG_INF = -1e30   # the reference's mask value
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0
+                          ) -> torch.Tensor:
+    """Forward GQA attention over a whole sequence, the function
+    ``repro/kernels/flash_attention.py::_flash_kernel`` computes.
+
+    q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd).  Positions are absolute
+    from 0 on both sides; ``causal`` masks ``kpos > qpos`` and ``window >
+    0`` masks ``qpos - kpos >= window``.  Scores, their ``hd**-0.5``
+    scale and the softmax are in f32; the unnormalised probabilities p =
+    exp(s - max s) are rounded to v's dtype before the PV product, their
+    f32 sum l is not, and the output is ``acc / max(l, 1e-30)`` in q's
+    dtype (the kernel's finalize, with one block spanning all keys).  A
+    row whose every key is masked is outside the function: the reference
+    averages whatever its padded blocks hold there."""
+    Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqkgh,bckh->bkgqc", q.float(), k.float()) \
+        * (hd ** -0.5)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgqc,bckh->bkgqh", p.to(v.dtype).float(), v.float())
+    out = acc / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def ssm_scan_plain(a_log: torch.Tensor, dt: torch.Tensor, dtx: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 selective scan as a sequential recurrence (the port of
+    ``ssm_scan_ref``):
+
+        h_t = exp(dt_t * A) * h_{t-1} + dtx_t * b_t,   y_t = <h_t, c_t>,
+
+    with A = -exp(a_log) and h_0 = 0.  a_log: (E, N); dt, dtx: (B, S, E);
+    b, c: (B, S, N); any S and E.  Returns (y (B, S, E) f32, h_last
+    (B, E, N) f32), h_last the state after step S."""
+    A = -torch.exp(a_log.float())                      # (E, N)
+    dt, dtx, b, c = dt.float(), dtx.float(), b.float(), c.float()
+    B_, S, E = dt.shape
+    h = torch.zeros((B_, E, A.shape[-1]), dtype=torch.float32,
+                    device=dt.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dt[:, t, :, None] * A)
+        h = dA * h + dtx[:, t, :, None] * b[:, t, None, :]
+        ys.append((h * c[:, t, None, :]).sum(dim=-1))
+    y = torch.stack(ys, dim=1) if ys else dt.new_zeros((B_, 0, E))
+    return y, h

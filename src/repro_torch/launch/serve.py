@@ -17,12 +17,20 @@ Three modes, as in the reference:
       --batch 4 --prompt-len 32 --gen 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --requests r.jsonl \\
       --slots 16 --pages 641 --page-size 16 --paged-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+      --requests r.jsonl --slots 16 --decode-burst 4
+
+``--arch`` is qwen3-0.6b (attention over the paged KV cache) or
+falcon-mamba-7b (the Mamba state, O(1) per request and slot-indexed: the
+page pool stays untouched and ``--pages`` / ``--page-size`` / ``--kv-dtype``
+do not apply to it).
 
 Runs on the card (``--device cuda``, the default) unless asked for the
 CPU.  On the card the paged decode reads the pages through the CUDA
 paged-attention kernel; on the CPU it gathers them, and ``--paged-kernel``
 routes it through the kernel's wrapper (its plain version there) as the
-reference's flag does.  Weights are random, drawn from ``--seed``.  Not
+reference's flag does.  Every prefill takes the flash-attention or the
+selective-scan kernel on the card and their plain versions on the CPU.  Weights are random, drawn from ``--seed``.  Not
 ported yet: ``--train-ckpt`` / ``--algo`` / ``--workers`` /
 ``--local-optimizer`` / ``--reducer`` (checkpoints, ROADMAP A7),
 ``--tuned-config`` / ``--autotune`` (A14), and ``--prefill-chunk`` /

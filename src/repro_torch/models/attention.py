@@ -3,11 +3,14 @@
 for decoding, ``init_kv_cache`` / ``decode_positions`` / ``attend_one`` /
 ``attention_decode``).
 
-The attention core is plain tensor code, as the reference's is (it
-computes it with XLA, not with a Pallas kernel): the masked softmax is
-taken over the whole (short) sequence at once, where the reference
-streams KV blocks through an online softmax — the same function, up to
-rounding.  The Pallas ``flash_attention`` kernel is a later slice's port.
+The full-sequence attention core has two routes, chosen by the caller
+(``core``): ``"plain"`` (`causal_attention`, plain tensor code that takes
+the masked softmax over the whole sequence at once, where the reference's
+XLA path streams KV blocks through an online softmax: the same function,
+up to rounding) for training, whose gradients autograd takes through it;
+and ``"flash"``, the hand-written kernel
+`repro_torch.kernels.flash_attention` (its plain version on the CPU),
+forward only, for the prefill.
 
 Decoding writes the new token's k/v into the cache in place (the torch
 form of the reference's buffer donation).  The sliding-window ring,
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_rope, dense_init, init_rmsnorm,
                                        matmul, rmsnorm)
 
@@ -66,10 +70,15 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
 
 def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
                     *, rope_theta: float, qk_norm: bool = False,
-                    norm_eps: float = 1e-6, return_kv: bool = False):
+                    norm_eps: float = 1e-6, return_kv: bool = False,
+                    core: str = "plain"):
     """x: (B, S, d); positions: (S,).  Returns (B, S, d), and with
     ``return_kv`` also the (normed, roped) k and v (B, S, KV, hd) that a
-    decode cache stores."""
+    decode cache stores.  ``core``: ``"plain"`` (`causal_attention`,
+    differentiable) or ``"flash"`` (the flash-attention kernel's wrapper,
+    forward only)."""
+    if core not in ("plain", "flash"):
+        raise ValueError(f"attention core {core!r}: 'plain' or 'flash'")
     B, S, _ = x.shape
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
@@ -81,7 +90,9 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
-    out = causal_attention(q.reshape(B, S, KV, H // KV, hd), k, v)
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    out = flash_attention(qg, k, v, causal=True) if core == "flash" \
+        else causal_attention(qg, k, v)
     wo = params["wo"]
     y = matmul(out.reshape(B, S, H * hd), wo.reshape(H * hd, wo.shape[-1]))
     return (y, k, v) if return_kv else y

@@ -1,15 +1,21 @@
 """Cache layouts: how decode state is stored, addressed and updated (the
-port of ``repro.models.cache`` for full causal attention).
+port of ``repro.models.cache`` for full causal attention and the Mamba
+state).
 
 * `DenseLayout` — one contiguous ``(B, cache_len, KV, hd)`` buffer per
-  layer: `Model.prefill` / `Model.decode_step` as they are.
-* `PagedLayout` — the paged layout behind continuous batching
-  (`repro_torch.serve.scheduler`): every layer's k and v live in a shared
-  pool ``(L, num_pages, page_size, KV, hd)``; logical position ``p`` of
-  decode slot ``s`` is at ``(block_table[s, p // page_size],
-  p % page_size)``.  With ``kv_dtype`` int8/fp8 each token slot also
-  carries one f32 scale in ``*_scale`` pools ``(L, num_pages,
-  page_size)``.
+  layer (or the (B, ...) Mamba state): `Model.prefill` /
+  `Model.decode_step` as they are.
+* `PagedLayout` — the layout behind continuous batching
+  (`repro_torch.serve.scheduler`), per block kind: attention's k and v
+  live in a shared pool ``(L, num_pages, page_size, KV, hd)``; logical
+  position ``p`` of decode slot ``s`` is at ``(block_table[s, p //
+  page_size], p % page_size)``.  With ``kv_dtype`` int8/fp8 each token
+  slot also carries one f32 scale in ``*_scale`` pools ``(L, num_pages,
+  page_size)``.  The Mamba state is O(1) per sequence and slot-indexed:
+  ``(L, n_slots, ...)``, row ``s`` for decode slot ``s``, never paged, at
+  the compute dtype for conv and f32 for ssm as the reference keeps it
+  (so under bf16 compute the slot's conv state is rounded where the dense
+  layout's is not).
 
 The decode math stays in `repro_torch.models.attention`: the layout owns
 the update and the view (`_PagedOps.kv_attend`).  The gather path feeds
@@ -28,7 +34,7 @@ Physical page 0 is the scratch page: inactive decode slots point their
 whole block table at it (and sit at position 0), so their writes land
 somewhere harmless and the step needs no per-slot mask.
 
-Not ported yet: the MLA, ring, SSM and RG-LRU kinds (ROADMAP A6), and
+Not ported yet: the MLA, ring and RG-LRU kinds (ROADMAP A6), and
 chunked prefill with prefix pages — ``_ChunkOps``, ``prefill_resume``,
 ``copy_page`` (ROADMAP A11).  ``chunkable`` is False until then.
 """
@@ -58,19 +64,25 @@ def _quantize_tokens(x: torch.Tensor, kv_dtype: str, lead: int
     return qv, sc.reshape(x.shape[:lead])
 
 
+_PORTED_KINDS = ("attention", "mamba")
+
+
 def resolved_window(cfg: ModelConfig, kind: str) -> int:
-    """The sliding window a block kind attends with (0 = full causal).
-    Only the dense family's ``attention`` kind is ported (ROADMAP A6)."""
-    if kind != "attention":
+    """The sliding window a block kind attends with (0 = full causal, and
+    0 for ``mamba``, which does not attend).  Only the ``attention`` and
+    ``mamba`` kinds are ported (ROADMAP A6)."""
+    if kind not in _PORTED_KINDS:
         raise NotImplementedError(f"{kind!r} blocks are not ported "
                                   "(ROADMAP A6)")
-    return cfg.sliding_window
+    return cfg.sliding_window if kind == "attention" else 0
 
 
 def paged_kinds(cfg: ModelConfig, kinds) -> List[str]:
     """The block kinds of one stage unit whose cache grows with sequence
-    length (and therefore lives in the page pool)."""
-    return [k for k in kinds if resolved_window(cfg, k) == 0]
+    length (and therefore lives in the page pool): full-causal attention;
+    the Mamba state is slot-indexed."""
+    return [k for k in kinds
+            if resolved_window(cfg, k) == 0 and k == "attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -176,8 +188,9 @@ class PagedLayout:
     ``n_slots`` — decode batch rows (one active request per slot);
     ``num_pages`` x ``page_size`` — the shared pool (page 0 = scratch);
     ``max_pages`` — block-table width = the most pages one slot holds;
-    ``kv_dtype`` — storage dtype of the pools: None/"auto" keeps the
-    compute dtype, a float name ("float32", "bfloat16", "float16")
+    ``kv_dtype`` — storage dtype of the pools (the paged kinds only: the
+    slot-indexed Mamba state stays at the compute dtype): None/"auto"
+    keeps the compute dtype, a float name ("float32", "bfloat16", "float16")
     overrides it, ``int8``/``fp8`` quantize every page write per token
     slot with an f32 scale stored in a sibling ``*_scale`` pool, and
     reads dequantize (in the gather or in the kernel) so the attention
@@ -200,6 +213,9 @@ class PagedLayout:
             else Q.canonical(kv_dtype)
         self.kv_quantized = self.kv_dtype is not None \
             and Q.is_quantized(self.kv_dtype)
+        # False for a slot-state-only model (falcon-mamba): no page is
+        # ever allocated and the pool stays untouched
+        self.uses_pages = bool(paged_kinds(model.cfg, (model.kind,)))
         # chunked prefill / prefix caching wait for _ChunkOps (ROADMAP A11)
         self.chunkable = False
 
@@ -211,8 +227,10 @@ class PagedLayout:
         return self.max_pages * self.page_size
 
     def pages_for(self, n_tokens: int) -> int:
-        """Pages needed to hold ``n_tokens`` cache positions."""
-        return -(-max(int(n_tokens), 1) // self.page_size)
+        """Pages needed to hold ``n_tokens`` cache positions (0 when no
+        kind is paged)."""
+        return -(-max(int(n_tokens), 1) // self.page_size) \
+            if self.uses_pages else 0
 
     def _pool_dtype(self, dtype) -> torch.dtype:
         """Storage dtype of the paged pools (``dtype`` = compute dtype)."""
@@ -223,10 +241,13 @@ class PagedLayout:
         return Q.float_wire(self.kv_dtype)
 
     def kv_bytes_per_token(self) -> int:
-        """Pool bytes one committed token slot occupies across every
+        """Pool bytes one committed token slot occupies across every paged
         layer's k and v pools: the payload at the storage dtype plus one
-        f32 scale per (pool, slot) when quantized."""
+        f32 scale per (pool, slot) when quantized (0 when no kind is
+        paged)."""
         cfg = self.model.cfg
+        if not self.uses_pages:
+            return 0
         it = self._pool_dtype(self.model.compute_dtype).itemsize
         sb = Q.SCALE_BYTES if self.kv_quantized else 0
         return cfg.n_layers * 2 * (cfg.eff_n_kv_heads
@@ -244,11 +265,16 @@ class PagedLayout:
     # -- cache init ---------------------------------------------------------
 
     def init_cache(self, dtype=None, *, device) -> Tree:
-        """Zeroed pools with the layers as the leading axis, in the
+        """Zeroed storage with the layers as the leading axis, in the
         reference's tree: ``[{"b0": {"k": (L, num_pages, page_size, KV,
         hd), "v": ..., ["k_scale", "v_scale": (L, num_pages,
-        page_size)]}}]``."""
-        pdt = self._pool_dtype(dtype or self.model.compute_dtype)
+        page_size)]}}]`` for attention, ``[{"b0": {"conv": (L, n_slots,
+        K-1, E), "ssm": (L, n_slots, E, N)}}]`` for mamba."""
+        dtype = dtype or self.model.compute_dtype
+        if not self.uses_pages:     # the slot-indexed Mamba state
+            return self.model.init_cache(self.n_slots, 0, dtype,
+                                         device=device)
+        pdt = self._pool_dtype(dtype)
         cfg = self.model.cfg
         shape = (cfg.n_layers, self.num_pages, self.page_size,
                  cfg.eff_n_kv_heads, cfg.resolved_head_dim)
@@ -263,25 +289,37 @@ class PagedLayout:
     # -- prefill-on-join ----------------------------------------------------
 
     def prefill_into(self, params, cache: Tree, batch: dict,
-                     pages: torch.Tensor) -> Tuple[torch.Tensor, Tree]:
+                     pages: torch.Tensor,
+                     slots: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Tree]:
         """Prefill a GROUP of joining requests (equal prompt lengths, one
-        batch row each) and write their k/v into ``pages`` ((k, n_pg)
-        physical page ids covering each prompt), in place.
+        batch row each) and write their caches in place: attention's k/v
+        into ``pages`` ((k, n_pg) physical page ids covering each prompt),
+        the Mamba state into slot rows ``slots`` ((k,) decode slots;
+        needed only by slot-indexed kinds).
 
         Runs `Model.prefill` as it is — the dense cache entries it returns
-        are the logical layout, scattered here into the pool — so a paged
-        prefill is bitwise the dense prefill at the same batch width.  (The
-        reference also takes the slot rows, which only its slot-indexed
-        kinds read.)"""
+        are the logical layout, scattered here into the pool and slot
+        storage — so a paged prefill is bitwise the dense prefill at the
+        same batch width."""
         P = batch["tokens"].shape[1]
         n_pg = int(pages.shape[1])
         cache_len = max(n_pg * self.page_size, P, 1)
         logits, entries = self.model.prefill(params, batch,
                                              cache_len=cache_len)
-        self._write_block(cache[0]["b0"], entries[0]["b0"], pages)
+        self._write_block(cache[0]["b0"], entries[0]["b0"], pages, slots)
         return logits, cache
 
-    def _write_block(self, c: dict, e: dict, pages: torch.Tensor) -> None:
+    def _write_block(self, c: dict, e: dict, pages: torch.Tensor,
+                     slots: Optional[torch.Tensor]) -> None:
+        if not self.uses_pages:     # to_slot: (L, k, ...) into the slots
+            if slots is None:
+                raise ValueError("prefill_into: the mamba state is "
+                                 "slot-indexed, pass the joining slots")
+            rows = slots.reshape(-1).long()
+            for name, buf in c.items():
+                buf[:, rows] = e[name].to(buf.dtype)
+            return
         ps = self.page_size
         k_grp, n_pg = pages.shape
         flat = pages.reshape(-1).long()
@@ -305,6 +343,9 @@ class PagedLayout:
         (B,) per-slot positions, ``block_tables`` (B, max_pages), all on
         the device.  Returns ((B, vocab_padded) logits, the cache updated
         in place)."""
+        if not self.uses_pages:     # decode row s is slot s's state row
+            return self.model.decode_step(params, cache,
+                                          {"tokens": tokens, "pos": pos})
         ops = _PagedOps(self, pos, block_tables)
         return self.model.decode_step(params, cache,
                                       {"tokens": tokens, "pos": ops.pos},

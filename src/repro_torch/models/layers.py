@@ -1,5 +1,6 @@
 """Shared building blocks (the port of ``repro.models.layers``): init
-helpers, rmsnorm, rotary embeddings and the gated MLP.
+helpers, rmsnorm, rotary embeddings, the gated MLP and the causal 1-d
+convolution of the Mamba block.
 
 Parameters are nested dicts of tensors with the reference's names,
 shapes and layouts (``(d, f)`` weights, used as ``x @ w``), so weights
@@ -9,7 +10,7 @@ explicit ``torch.Generator`` and lands on that generator's device.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +29,9 @@ def dense_init(gen: torch.Generator, shape, dtype,
     if fan_in is None:
         fan_in = int(math.prod(shape[:-1])) if len(shape) > 1 else shape[0]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(shape, generator=gen, device=gen.device) * scale
+    # scaled in place: a stacked weight (17 GB for falcon-mamba-7b's
+    # w_in) is never held twice
+    x = torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
     return x.to(dtype)
 
 
@@ -114,3 +117,40 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     """SiLU-gated MLP: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
     up = F.silu(matmul(x, params["w_gate"])) * matmul(x, params["w_up"])
     return matmul(up, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# causal 1-d convolution (the Mamba block's temporal conv)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv.  x: (B, S, C); w: (C, K), the reference's
+    layout.  K shifted multiply-adds, in the reference's order."""
+    k = w.shape[-1]
+    out = torch.zeros_like(x)
+    for i in range(k):
+        shift = k - 1 - i
+        xi = x if shift == 0 else F.pad(x, (0, 0, shift, 0))[:, :x.shape[1]]
+        out = out + xi * w[:, i]
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def causal_conv1d_update(conv_state: torch.Tensor, x_t: torch.Tensor,
+                         w: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step.  conv_state: (B, K-1, C) past inputs; x_t:
+    (B, C).  Returns (y_t, new_conv_state), both in the promoted dtype
+    (jnp's concatenate promotes; torch's einsum needs it spelled out)."""
+    k = w.shape[-1]
+    dt = torch.promote_types(torch.promote_types(conv_state.dtype,
+                                                 x_t.dtype), w.dtype)
+    window = torch.cat([conv_state.to(dt), x_t.to(dt)[:, None, :]], dim=1)
+    y = torch.einsum("bkc,ck->bc", window, w.to(dt))
+    if bias is not None:
+        y = y + bias
+    return y, (window[:, 1:] if k > 1 else conv_state)

@@ -25,6 +25,11 @@ of ``repro.serve.scheduler`` with whole-prompt prefill).
 Under greedy sampling each slot's tokens are bitwise the dense layout's
 at the same batch width and linearized cache length.
 
+A model with no paged kind (falcon-mamba: its state is O(1) and
+slot-indexed) is served by the same loop: the joining group's state is
+written into its slot rows, no page is ever allocated, ``_grow`` and the
+``max_len`` check of `submit` are skipped, and the pool stays untouched.
+
 Not ported yet: chunked prefill and the prefix cache (``prefill_chunk``,
 ``prefix_cache``; ROADMAP A11), and requests that carry encoder or
 vision inputs.
@@ -129,7 +134,7 @@ class Scheduler:
 
     def submit(self, req: Request) -> None:
         need = len(req.prompt) + req.max_new + 1
-        if need > self.layout.max_len:
+        if self.layout.uses_pages and need > self.layout.max_len:
             raise ValueError(
                 f"request {req.rid}: prompt+max_new+1 = {need} exceeds "
                 f"max_len {self.layout.max_len} (block-table width)")
@@ -217,7 +222,8 @@ class Scheduler:
                 {"tokens": self._tensor([r.resume_tokens
                                          for r, _, _ in group])},
                 self._tensor([p for _, _, p in group]).reshape(
-                    len(group), n_pg))
+                    len(group), n_pg),
+                self._tensor([s for _, s, _ in group]))
             toks = SAMPLERS[self.sampler](logits, self._gen,
                                           self.temperature).tolist()
             now = time.perf_counter()
@@ -246,7 +252,9 @@ class Scheduler:
     def _grow(self, burst: int) -> None:
         """Make sure every active slot has pages for the whole coming
         burst's write positions; preempt the youngest request when the
-        pool is dry."""
+        pool is dry.  Nothing to do when no kind is paged."""
+        if not self.layout.uses_pages:
+            return
         for slot in list(self._join_order):
             if self.slots[slot] is None:
                 continue
@@ -269,9 +277,10 @@ class Scheduler:
 
     def _used_tokens(self) -> int:
         """Live cache rows: each active slot's positions so far, capped by
-        the pages it holds."""
+        the pages it holds (uncapped when no kind is paged)."""
         ps = self.layout.page_size
         return sum(min(int(self.pos[s]) + 1, len(self._slot_pages[s]) * ps)
+                   if self.layout.uses_pages else int(self.pos[s]) + 1
                    for s in range(len(self.slots))
                    if self.slots[s] is not None)
 
@@ -303,8 +312,10 @@ class Scheduler:
         now = time.perf_counter()
         self.stats["decode_steps"] += burst
         self.stats["step_walls"].append(now - t0)
+        used = self._used_tokens()
         self.stats["occupancy"].append(
-            self.pool.stats(used_tokens=self._used_tokens()))
+            self.pool.stats(used_tokens=used) if self.layout.uses_pages
+            else {"used_tokens": used})
         for slot in active:
             req = self.slots[slot]
             for t in range(burst):
@@ -364,15 +375,17 @@ class Scheduler:
             "decode_steps": self.stats["decode_steps"],
             "prefills": self.stats["prefills"],
             "preemptions": self.stats["preemptions"],
-            # cache memory ever allocated, in token slots
-            "cache_tokens_allocated": pool.total_allocs * lay.page_size,
-            # what one token costs in pool bytes, and how many full-length
-            # users the pool holds at once
-            "kv_dtype": lay.kv_dtype_name,
-            "kv_bytes_per_token": lay.kv_bytes_per_token(),
-            "users_per_pool": (pool.num_pages - pool.reserved)
-            // lay.pages_for(lay.max_len),
         }
+        if self.layout.uses_pages:
+            # cache memory ever allocated, in token slots; what one token
+            # costs in pool bytes, and how many full-length users the pool
+            # holds at once
+            out["cache_tokens_allocated"] = \
+                pool.total_allocs * lay.page_size
+            out["kv_dtype"] = lay.kv_dtype_name
+            out["kv_bytes_per_token"] = lay.kv_bytes_per_token()
+            out["users_per_pool"] = (pool.num_pages - pool.reserved) \
+                // lay.pages_for(lay.max_len)
         if gaps:
             out["p50_token_latency_s"] = float(np.percentile(gaps, 50))
             out["p95_token_latency_s"] = float(np.percentile(gaps, 95))
@@ -380,7 +393,7 @@ class Scheduler:
             out["p50_ttft_s"] = float(np.percentile(ttfts, 50))
             out["p95_ttft_s"] = float(np.percentile(ttfts, 95))
         occ = self.stats["occupancy"]
-        if occ:
+        if occ and self.layout.uses_pages:
             out["mean_internal_fragmentation"] = float(
                 np.mean([o["internal_fragmentation"] for o in occ]))
             out["mean_pool_utilization"] = float(

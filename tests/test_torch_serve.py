@@ -304,6 +304,14 @@ def test_paged_kinds_match_reference():
         == jcache.resolved_window(jcfg, "attention") == 0
     assert cache_mod.paged_kinds(cfg, ("attention",)) \
         == jcache.paged_kinds(jcfg, ("attention",)) == ["attention"]
-    for kind in ("cross", "mla", "attention_local", "ssm"):
+    # the Mamba state is slot-indexed: no window, never paged
+    fcfg = t_get_config("falcon-mamba-7b")
+    jfcfg = get_config("falcon-mamba-7b")
+    assert cache_mod.resolved_window(fcfg, "mamba") \
+        == jcache.resolved_window(jfcfg, "mamba") == 0
+    assert cache_mod.paged_kinds(fcfg, ("mamba",)) \
+        == jcache.paged_kinds(jfcfg, ("mamba",)) == []
+    # "recurrent" is the RG-LRU kind, still unported
+    for kind in ("cross", "mla", "attention_local", "recurrent"):
         with pytest.raises(NotImplementedError, match="A6"):
             cache_mod.paged_kinds(cfg, (kind,))
