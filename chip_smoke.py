@@ -38,8 +38,9 @@ Phases (any failure exits non-zero before the result line):
    the serve step reads them: no launch finds its pages in L2; device
    time, the launches queued before the first starts) beside its
    byte bound, the plain version and gather + SDPA, through a 640-wide and
-   a live-width block table (within 10 %: the kernel stops at each row's
-   last live page); then ``repro_torch.launch.serve`` serves 48 requests
+   a live-width block table (bitwise equal and within 10 %: the split-K
+   ranges follow each row's length, never the table's width), bitwise
+   run to run, with its split count and CTAs per launch; then ``repro_torch.launch.serve`` serves 48 requests
    (prompts 128..512, gen 32..64 from seed 0) with qwen3-0.6b at its
    published widths and full depth (28 layers, f32 params, bf16 compute
    and KV) over 16 slots and 641 pages of 16 with --paged-kernel and
@@ -61,8 +62,11 @@ Phases (any failure exits non-zero before the result line):
    qwen3 prefill's logits, kernel route against plain route
    (bound stated in phase_prefill_routes).  ssm_scan against its plain
    version at falcon-mamba-7b's prefill shapes (B 1, E 8,192, N 16, S
-   128/256/384/512, f32; atol 1e-4) and a ragged S, E case, timed the same
-   way (8 launches per sample) beside its byte bound and the plain version;
+   128/256/384/512, f32; atol 1e-4 on y and h_last, h_last bitwise where
+   one chunk holds S, else its max |dh_last| printed) and a ragged S, E
+   case, bitwise run to run, with its chunk length, chunk count and CTAs
+   per launch, timed the same way (8 launches per sample) beside its byte
+   bound and the plain version;
 9. serving falcon-mamba-7b at its published widths and full depth (64
    layers, f32 params, bf16 compute, random weights from seed 0) through
    ``repro_torch.launch.serve`` over the same 48 requests (token ids under
@@ -513,6 +517,7 @@ PA_LIVE = -(-max(PA_LENGTHS) // PAGE)    # 37 pages hold the longest row
 # pools: 28 x the live k/v (0.53 GB at bf16) is ten times the H100's 50 MB
 # L2, so every launch reads its pages from HBM, as in the serve step
 PA_LAYERS = 28
+PA_POOLS = ("bfloat16", "float32", "int8", "fp8")
 
 
 def _paged_case(gen, pool: str, width: int):
@@ -579,16 +584,22 @@ def phase_paged_kernel(smi: str) -> dict:
     (the kernel stops at each row's last live page).  Returns the numbers
     per pool dtype."""
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention import paged_attention, splits_for
     from repro_torch.kernels.ref import paged_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(2)
     B, KV, G, hd = PA_SHAPE
-    rec = {}
-    for pool in ("bfloat16", "float32", "int8", "fp8"):
+    splits = splits_for(B, KV, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    print(f"[paged] split-K: {splits} splits per (kv head, row), "
+          f"{KV * B * splits} pass-1 CTAs and {KV * B} merge CTAs per "
+          f"launch [{smi}]")
+    rec = {"split_k": {"splits": splits, "ctas": KV * B * splits}}
+    for pool in PA_POOLS:
         q, k, v, bt, ln, scales = _paged_case(gen, pool, PA_WIDTH)
         kw = dict(zip(("k_scale", "v_scale"), scales))
         narrow = bt[:, :PA_LIVE].contiguous()
         got = paged_attention(q, k, v, bt, ln, **kw)
+        got_again = paged_attention(q, k, v, bt, ln, **kw)
         got_narrow = paged_attention(q, k, v, narrow, ln, **kw)
         want = paged_attention_plain(q, k, v, bt, ln, *scales)
         torch.cuda.synchronize()
@@ -598,7 +609,9 @@ def phase_paged_kernel(smi: str) -> dict:
               f"{err} > {atol}")
         check(torch.equal(got, got_narrow), f"paged_attention {pool}: "
               "640-wide and live-width block tables differ")
-        del got, got_narrow, want
+        check(torch.equal(got, got_again), f"paged_attention {pool}: "
+              "two launches differ")
+        del got, got_again, got_narrow, want
         kL, vL = _layers(k), _layers(v)
         sL = tuple(_layers(s) for s in scales)
 
@@ -878,7 +891,8 @@ def phase_serve_profile(smi: str, model, params, reqs, argv=SERVE_ARGS,
                       if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                      key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    groups = {"paged_attention kernel": ("paged_attention",),
+    groups = {"paged_attention kernel (both passes)": ("paged_partial",
+                                                       "paged_merge"),
               "matmul (cuBLAS)": ("gemm", "gemv", "xmma", "cutlass",
                                   "Kernel2"),
               "index / scatter / gather": ("index", "scatter", "gather"),
@@ -1038,18 +1052,37 @@ def phase_ssm_kernel(smi: str) -> dict:
     dtx, b, c, a_log read once, y and h_last written once; 7 flops per
     (t, e, n)) and the plain version.  Returns the numbers per case."""
     from repro_torch.kernels.ref import ssm_scan_plain
-    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ssm_scan import (chunk_length, ctas_per_chunk,
+                                              ssm_scan)
     gen = torch.Generator(device="cuda").manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(f"S={S}", 1, S, SSM_E) for S in PROMPT_LENS] + [
         ("ragged B=2 S=77 E=1000", 2, 77, 1000)]
     rec = {}
     for name, B, S, E in cases:
         args = _ssm_case(gen, B, S, E)
         y, h = ssm_scan(*args)
+        y2, h2 = ssm_scan(*args)
         yr, hr = ssm_scan_plain(*args)
         torch.cuda.synchronize()
         err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
         check(err <= 1e-4, f"ssm_scan {name}: max abs err {err} > 1e-4")
+        check(torch.equal(y, y2) and torch.equal(h, h2),
+              f"ssm_scan {name}: two launches differ")
+        L = chunk_length(B, S, E, SSM_N, sms)
+        chunks = -(-S // L)
+        ctas = ctas_per_chunk(B, E, SSM_N)
+        dh = float((h - hr).abs().max())
+        if chunks == 1:
+            # one chunk is the sequential chain: bitwise the plain version
+            check(torch.equal(h, hr), f"ssm_scan {name}: one chunk, h_last "
+                  "not bitwise the plain version's")
+            h_note = "h_last bitwise the plain version's (one chunk)"
+        else:
+            h_note = f"max |dh_last| {dh:.3g} (the carry rounds apart)"
+        print(f"[ssm] {name}: chunks of L={L}, C={chunks}: "
+              f"{ctas * (chunks - 1)} pass-1 and {ctas * max(chunks - 1, 1)}"
+              f" pass-2 CTAs per launch [{smi}]")
         ms = median_ms(lambda: ssm_scan(*args), batch=8)
         plain_ms = median_ms(lambda: ssm_scan_plain(*args))
         nbytes = 4 * (3 * B * S * E + 2 * B * S * SSM_N + E * SSM_N
@@ -1061,12 +1094,12 @@ def phase_ssm_kernel(smi: str) -> dict:
         by = "operations" if op_ms >= byte_ms else "bytes"
         print(f"[ssm] {name} N={SSM_N}: {ms:.4f} ms/launch; plain "
               f"{plain_ms:.4f} ms; bound {bound:.4f} ms by {by} ({nbytes} "
-              f"B, {flops} flops); max abs err {err:.3g}; h_last bitwise "
-              f"the plain version's: {bool(torch.equal(h, hr))} [{smi}]")
+              f"B, {flops} flops); max abs err {err:.3g}; {h_note} "
+              f"[{smi}]")
         rec[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "bytes": nbytes, "flops": flops,
-                     "err": err}
-        del args, y, h, yr, hr
+                     "err": err, "dh_last": dh, "chunk": L, "chunks": chunks}
+        del args, y, h, y2, h2, yr, hr
         torch.cuda.empty_cache()
     return rec
 
@@ -1288,7 +1321,7 @@ def main() -> int:
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
-                               "err": max(r["err"] for r in paged.values())}
+                               "err": max(paged[p]["err"] for p in PA_POOLS)}
     # per launch, averaged over the path's four prompt lengths (each is a
     # quarter of the prefills); the error is the worst of every case
     for name, cases, path in (

@@ -31,7 +31,7 @@ _P, _I64, _I32, _F32 = _c.c_void_p, _c.c_int64, _c.c_int, _c.c_float
 _UPDATE = [_P, _P, _P, _P, _P, _F32, _F32, _F32, _I64, _I64, _I32, _I32, _P,
            _P, _P, _P]
 _PAGED = [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
-          _F32, _I32, _P, _P]
+          _F32, _I32, _I32, _P, _P, _P]
 _FLASH = [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
           _F32, _P]
 # source stem -> argtypes of each of its C entry points
@@ -54,8 +54,8 @@ SIGNATURES = {
         "flash_attention_bf16": _FLASH,
     },
     "ssm_scan": {
-        "ssm_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                         _P],
+        "ssm_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                         _I32, _I32, _P],
     },
 }
 

@@ -25,6 +25,7 @@ the kernel or raises.  Each wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -96,6 +97,17 @@ def _aligned(n: int, *ts: torch.Tensor) -> bool:
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (a cached host query, no sync)."""
+    return _sms(device.index if device.index is not None
+                else torch.cuda.current_device())
 
 
 def dc_norms(g: torch.Tensor, d: torch.Tensor

@@ -5,7 +5,10 @@ the port's ``mamba_forward``, whose scan is the kernel's route, against
 the JAX one (its XLA chunked scan) on the same weights and inputs.
 
 Tolerance: atol 1e-4, the reference's own (``tests/test_kernels.py``).
-The ``gpu`` test holds the CUDA kernel against the plain version on the
+A plain-torch model of the CUDA kernel's algorithm (chunks scanned from a
+zero state, then each chunk rescanned from the carry of the chunks before
+it) is held against the JAX oracle at several chunk lengths.  The ``gpu``
+test holds the CUDA kernel against the plain version on the
 card and skips where there is none.
 """
 import jax
@@ -21,7 +24,7 @@ from repro.models import ssm as j_ssm
 from repro_torch.core.types import SSMConfig
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels.ref import ssm_scan_plain
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import chunk_length, ssm_scan
 from repro_torch.models import ssm as t_ssm
 
 ATOL = 1e-4
@@ -149,21 +152,99 @@ def test_wrapper_checks_its_arguments():
         ssm_scan(*(t.to("meta") for t in (a_log, dt, dtx, b, c)))
 
 
+def _chunk_carry(a_log, dt, dtx, b, c, L):
+    """The kernel's algorithm in plain torch.  Pass 1: every chunk of L
+    steps but the last is scanned from h = 0, giving its end state h_c
+    and its decay product P_c (the per-step factors multiplied in order).
+    Pass 2: chunk c starts from H = P_c' H + h_c' folded over c' < c and
+    is scanned again, writing y; the last chunk gives h_last."""
+    A = -torch.exp(a_log)
+    B, S, E = dt.shape
+    starts = list(range(0, S, L)) or [0]
+
+    def scan(h, t0, t1, ys=None, P=None):
+        for t in range(t0, t1):
+            dA = torch.exp(dt[:, t, :, None] * A)
+            h = dA * h + dtx[:, t, :, None] * b[:, t, None, :]
+            if P is not None:
+                P = P * dA
+            if ys is not None:
+                ys.append((h * c[:, t, None, :]).sum(dim=-1))
+        return h, P
+
+    zero = torch.zeros((B, E, A.shape[1]))
+    carries = [scan(zero, s0, min(S, s0 + L), P=torch.ones_like(zero))
+               for s0 in starts[:-1]]
+    ys = []
+    for ci, s0 in enumerate(starts):
+        h = zero
+        for h_c, P_c in carries[:ci]:
+            h = P_c * h + h_c
+        h, _ = scan(h, s0, min(S, s0 + L), ys)
+    y = torch.stack(ys, dim=1) if ys else dt.new_zeros((B, 0, E))
+    return y, h
+
+
+@pytest.mark.parametrize("L", [1, 3, 8, "S"])
+def test_chunk_and_carry_matches_jax_oracle(L):
+    """Chunk lengths 1, 3 and 8 (S = 46 leaves a ragged last chunk for 3
+    and 8) and S itself (one chunk: the sequential chain, bitwise the
+    plain version)."""
+    for B, S, E, N in [(2, 46, 40, 16), (1, 19, 8, 4)]:
+        arrays = _inputs(B, S, E, N, seed=5)
+        t = [torch.from_numpy(a.copy()) for a in arrays]
+        y, h = _chunk_carry(*t, S if L == "S" else L)
+        yr, hr = ssm_scan_ref(*(jnp.asarray(a) for a in arrays))
+        np.testing.assert_allclose(y.numpy(), np.asarray(yr), atol=ATOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(hr), atol=ATOL)
+        if L == "S":
+            yp, hp = ssm_scan_plain(*t)
+            assert torch.equal(y, yp) and torch.equal(h, hp)
+
+
+def test_chunk_length_fills_the_card():
+    """One chunk where S is short or the channels alone fill the SMs;
+    otherwise a power of two from 16 whose grid holds at most 4 CTAs per
+    SM: 128 at falcon-mamba's prefill (E 8,192, N 16) at S = 512."""
+    assert chunk_length(1, 512, 8192, 16, 132) == 128
+    assert chunk_length(1, 128, 8192, 16, 132) == 32
+    assert chunk_length(1, 16, 8192, 16, 132) == 16
+    assert chunk_length(1, 5, 8192, 16, 132) == 5
+    assert chunk_length(1, 0, 8192, 16, 132) == 1
+    assert chunk_length(16, 512, 8192, 16, 132) == 512
+    for S in (17, 77, 300, 4096):
+        L = chunk_length(2, S, 1000, 16, 132)
+        assert L >= 16 and L & (L - 1) == 0
+        assert 32 * -(-S // L) <= 4 * 132 or L >= S
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
-    """The test shapes, a ragged one, and falcon-mamba-7b's prefill (E
-    8,192, N 16, S 512): within 1e-4 of the plain version, h_last too."""
+    """The test shapes, a ragged one, the edge lengths S = 1, S = L (one
+    chunk) and S = L + 1 (a carry into a one-step chunk), and
+    falcon-mamba-7b's prefill (E 8,192, N 16, S 512): y and h_last within
+    1e-4 of the plain version, h_last bitwise where one chunk holds S, and
+    each launch bitwise equal to a second one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
     dev = torch.device("cuda")
-    for B, S, E, N in [s[:4] for s in SHAPES] + [(2, 45, 40, 16),
-                                                 (1, 512, 8192, 16)]:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    L = 16       # the shortest chunk: one holds S = 16, S = 17 takes two
+    assert chunk_length(2, L, 40, 16, sms) == L
+    assert chunk_length(2, L + 1, 40, 16, sms) == L
+    for B, S, E, N in [s[:4] for s in SHAPES] + [
+            (2, 45, 40, 16), (2, 1, 40, 16), (2, L, 40, 16),
+            (2, L + 1, 40, 16), (1, 512, 8192, 16)]:
         args = [torch.from_numpy(a.copy()).to(dev)
                 for a in _inputs(B, S, E, N)]
         before = ssm_scan.launches
         y, h = ssm_scan(*args)
+        y2, h2 = ssm_scan(*args)
         yr, hr = ssm_scan_plain(*args)
         torch.cuda.synchronize()
-        assert ssm_scan.launches == before + 1
+        assert ssm_scan.launches == before + 2
         assert float((y - yr).abs().max()) <= ATOL, (B, S, E, N)
         assert float((h - hr).abs().max()) <= ATOL, (B, S, E, N)
+        assert torch.equal(y, y2) and torch.equal(h, h2), (B, S, E, N)
+        if S <= chunk_length(B, S, E, N, sms):
+            assert torch.equal(h, hr), (B, S, E, N)
