@@ -52,12 +52,16 @@ Phases (any failure exits non-zero before the result line):
    teacher-forced over one group of 16 (bound stated in
    phase_kernel_vs_gather); host synchronisations
    inside one steady decode burst (must be 0) and two bursts profiled;
-8. prefill kernels.  flash_attention against its plain version at the
-   qwen3-0.6b prefill's shapes (B 1, 8 kv heads, G 2, hd 128, causal, S
-   128/256/384/512, f32; atol 2e-5), a bf16 case (3e-2), a windowed and a
-   ragged Sq != Sk case, each timed (CUDA events, median of 10 after 2
+8. prefill kernels.  flash_attention's SASS (every instantiation holds
+   tensor-core HMMA / HGMMA instructions, counted with cuobjdump), then
+   the kernel against its plain version at the qwen3-0.6b prefill's
+   shapes (B 1, 8 kv heads, G 2, hd 128, causal, S 128/256/384/512, f32
+   (atol 2e-5) and bf16 (3e-2)), a windowed and a ragged Sq != Sk case,
+   bitwise run to run, each timed (CUDA events, median of 10 after 2
    warm-ups, 28 launches queued behind a device-side sleep per sample)
-   beside its bound, the plain version and scaled_dot_product_attention;
+   beside its bound (f32 at the 3xTF32 ceiling, its CUDA-core bound
+   printed too), the plain version and scaled_dot_product_attention in
+   the same dtype;
    the qwen3 serve run of phase 7 launches it 28 times per prefill; the
    qwen3 prefill's logits, kernel route against plain route
    (bound stated in phase_prefill_routes).  ssm_scan against its plain
@@ -937,6 +941,9 @@ FLASH_SHAPE = (8, 2, 128)
 PREFILL_LAYERS = 28
 PEAK_FLOPS = {torch.float32: 67e12,     # H100 SXM data sheet: f32, CUDA cores
               torch.bfloat16: 989e12}   # and bf16 dense on the tensor cores
+# the ceilings of flash_attention's products: f32 as 3xTF32 (three TF32
+# products per f32 one at 495 TFLOP/s), bf16 on the tensor cores
+FLASH_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 # falcon-mamba-7b's scan: E = expand x d_model, N = state_dim
 SSM_E, SSM_N = 8192, 16
 
@@ -954,29 +961,63 @@ def _live_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return int(live.sum())
 
 
+def flash_mma_counts() -> dict:
+    """Tensor-core instructions (HMMA / HGMMA) in the SASS of each
+    flash_attention kernel instantiation, read with ``cuobjdump -sass`` from
+    the built library: {kernel name: (HMMA, HGMMA)}."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.load_all(("flash_attention",))[
+                               "flash_attention"].path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None and "HGMMA" in line:
+            counts[name][1] += 1
+        elif name is not None and "HMMA" in line:
+            counts[name][0] += 1
+    return {n: tuple(c) for n, c in counts.items()
+            if "flash_attention_kernel" in n}
+
+
 def phase_flash_kernel(smi: str) -> dict:
     """flash_attention against its plain version at the qwen3-0.6b
-    prefill's shapes (B 1, causal, S 128/256/384/512, f32: the path's
-    q, k, v are f32 since the f32 weights promote the bf16 activations),
-    a bf16 case, a windowed case and a ragged non-causal Sq != Sk case
-    (atol 2e-5 f32, 3e-2 bf16: the reference's tolerances), each timed
-    beside its bound (the larger of bytes over 3.35 TB/s and the live
-    pairs' 4 hd flops each over the peak for the input type), the plain
-    version and scaled_dot_product_attention (enable_gqa) on the same
-    inputs.  Returns the numbers per case."""
+    prefill's shapes (B 1, causal, S 128/256/384/512, in f32, the path's
+    dtype: the f32 weights promote the bf16 activations, and in bf16), a
+    windowed case and a ragged non-causal Sq != Sk case (atol 2e-5 f32,
+    3e-2 bf16: the reference's tolerances; bitwise equal across two
+    launches), each timed beside its bound, the plain version and
+    scaled_dot_product_attention (enable_gqa) in the same dtype on the same
+    inputs.  The bound is the larger of bytes over 3.35 TB/s and the live
+    pairs' 4 hd flops each over the ceiling of the kernel's products
+    (f32 as 3xTF32, 165 TFLOP/s; bf16 989); f32's CUDA-core bound (67
+    TFLOP/s) is printed beside it.  First, every instantiation's SASS must
+    hold tensor-core instructions.  Returns the numbers per case and the
+    SASS counts."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_plain
+    mma = flash_mma_counts()
+    check(len(mma) == 8, f"flash_attention: {len(mma)} kernels in the SASS")
+    for name, (hmma, hgmma) in mma.items():
+        print(f"[flash] SASS {name}: {hmma} HMMA, {hgmma} HGMMA")
+        check(hmma + hgmma > 0, f"flash_attention: no tensor-core "
+              f"instruction in {name}")
     gen = torch.Generator(device="cuda").manual_seed(3)
     KV, G, hd = FLASH_SHAPE
     H = KV * G
-    cases = [(f"S={S} f32", S, S, True, 0, torch.float32)
+    cases = [(f"S={S} {n}", S, S, True, 0, dt)
+             for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))
              for S in PROMPT_LENS] + [
-        ("S=512 bf16", 512, 512, True, 0, torch.bfloat16),
         ("S=512 f32 window 128", 512, 512, True, 128, torch.float32),
         ("Sq=200 Sk=333 f32 non-causal", 200, 333, False, 0,
          torch.float32)]
-    rec = {}
+    rec = {"sass_hmma_hgmma": mma}
     for name, sq, sk, causal, window, dt in cases:
         q = torch.randn((1, sq, KV, G, hd), generator=gen,
                         device="cuda").to(dt)
@@ -984,12 +1025,15 @@ def phase_flash_kernel(smi: str) -> dict:
         v = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
         kw = dict(causal=causal, window=window)
         got = flash_attention(q, k, v, **kw)
+        again = flash_attention(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         atol = 2e-5 if dt == torch.float32 else 3e-2
         check(got.dtype == dt and err <= atol, f"flash_attention {name}: "
               f"max abs err {err} > {atol}")
+        check(torch.equal(got, again), f"flash_attention {name}: two "
+              "launches differ")
         ms = median_ms(lambda: flash_attention(q, k, v, **kw),
                        batch=PREFILL_LAYERS)
         plain_ms = median_ms(lambda: flash_attention_plain(q, k, v, **kw),
@@ -1013,18 +1057,23 @@ def phase_flash_kernel(smi: str) -> dict:
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 4 * hd * H * _live_pairs(sq, sk, causal, window)
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = flops / PEAK_FLOPS[dt] * 1e3
+        op_ms = flops / FLASH_FLOPS[dt] * 1e3
         bound = max(byte_ms, op_ms)
         by = "operations" if op_ms >= byte_ms else "bytes"
+        core = "" if dt != torch.float32 else \
+            f"; CUDA-core f32 bound {flops / PEAK_FLOPS[dt] * 1e3:.4f} ms"
         print(f"[flash] {name}: B=1 KV={KV} G={G} hd={hd}: {ms:.4f} "
               f"ms/launch; plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} "
               f"ms (max abs diff {sdpa_err:.3g}); bound {bound:.4f} ms by "
-              f"{by} ({nbytes} B, {flops} flops); max abs err {err:.3g} "
-              f"[{smi}]")
+              f"{by} ({nbytes} B, {flops} flops at "
+              f"{FLASH_FLOPS[dt] / 1e12:.0f} TFLOP/s){core}; max abs err "
+              f"{err:.3g}, bitwise run to run [{smi}]")
         rec[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                      "flops": flops, "err": err, "sdpa_err": sdpa_err}
-        del q, k, v, got, want, qs, ks, vs, mask
+        if dt == torch.float32:
+            rec[name]["cuda_core_bound_ms"] = flops / PEAK_FLOPS[dt] * 1e3
+        del q, k, v, got, again, want, qs, ks, vs, mask
         torch.cuda.empty_cache()
     return rec
 
@@ -1330,7 +1379,7 @@ def main() -> int:
             ("ssm_scan", scan, [f"S={S}" for S in PROMPT_LENS])):
         k = {f: statistics.mean(cases[c][f] for c in path)
              for f in ("ms", "plain_ms", "bound_ms")}
-        k["err"] = max(r["err"] for r in cases.values())
+        k["err"] = max(r["err"] for r in cases.values() if "err" in r)
         k["bound_by"] = cases[path[-1]]["bound_by"]
         k["library_ms"] = statistics.mean(cases[c]["library_ms"]
                                           for c in path) \
@@ -1372,6 +1421,13 @@ def main() -> int:
               f"{k['ms']:.4f} ms/launch, plain {k['plain_ms']:.4f}{lib}, "
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}; "
               f"{launches[name]} launches on its serve path [{smi}]")
+    bf = [flash[f"S={S} bf16"] for S in PROMPT_LENS]
+    print(f"[times] flash_attention bf16 (qwen3 prefill shape, mean over S "
+          f"128/256/384/512): "
+          f"{statistics.mean(r['ms'] for r in bf):.4f} ms/launch, plain "
+          f"{statistics.mean(r['plain_ms'] for r in bf):.4f}, sdpa "
+          f"{statistics.mean(r['library_ms'] for r in bf):.4f}, bound "
+          f"{statistics.mean(r['bound_ms'] for r in bf):.4f} ms [{smi}]")
     print(f"[times] serve falcon-mamba-7b x64, 16 slots: "
           f"{fm['decode_tokens_per_s']:.1f} decode tok/s, "
           f"{fm['step_ms']:.3f} ms/decode step, inter-token p50/p95 "

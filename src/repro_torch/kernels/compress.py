@@ -67,11 +67,12 @@ def select_ef_mean(a: torch.Tensor, thresh: torch.Tensor, *,
     # the kernel multiplies by the same f32 reciprocal (exactly the
     # division when W is a power of two)
     inv_w = float(torch.tensor(1.0) / torch.tensor(float(W)))
-    err = library("compress").select_ef_mean_f32(
-        a.data_ptr(), thresh.data_ptr(), W, n, _WIRE_CODE[comm_dtype],
-        int(bool(union)), inv_w, int(vec), _grid(n, n % 4 == 0),
-        mean.data_ptr(), res.data_ptr(),
-        torch.cuda.current_stream(a.device).cuda_stream)
+    with torch.cuda.device(a.device):
+        err = library("compress").select_ef_mean_f32(
+            a.data_ptr(), thresh.data_ptr(), W, n, _WIRE_CODE[comm_dtype],
+            int(bool(union)), inv_w, int(vec), _grid(n, n % 4 == 0),
+            mean.data_ptr(), res.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(err, "select_ef_mean")
     select_ef_mean.launches += 1
     return mean, res

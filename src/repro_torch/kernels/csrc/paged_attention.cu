@@ -396,14 +396,19 @@ int launch_as(const float* q, const T* k_pool, const T* v_pool,
               cudaStream_t stream) {
   const size_t smem = (size_t)smem_bytes(groups, hd, (int)sizeof(T));
   // above 48 KB a block takes dynamic shared memory only once allowed;
-  // the kernel's own limit is raised once to the largest size asked for
-  static size_t allowed = 48 * 1024;
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_partial_kernel<T, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the attribute is the current device's: each device's limit is raised
+  // to the largest size asked for there
+  constexpr int kMaxDevices = 64;
+  static size_t allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > allowed[dev])) {
+    e = cudaFuncSetAttribute(paged_partial_kernel<T, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
-    allowed = smem;
+    if (dev < kMaxDevices) allowed[dev] = smem;
   }
   float* part_ml = work;
   float* part_acc = work + (int64_t)batch * kv_heads * splits * 2 * groups;
@@ -411,7 +416,7 @@ int launch_as(const float* q, const T* k_pool, const T* v_pool,
   paged_partial_kernel<T, VEC><<<grid, kThreads, smem, stream>>>(
       q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, kv_heads,
       groups, hd, page_size, max_pages, scale, part_ml, part_acc);
-  const cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t wsmem = (size_t)(splits + 1) * groups * sizeof(float);
   paged_merge_kernel<<<dim3(kv_heads, batch), kThreads, wsmem, stream>>>(

@@ -131,10 +131,11 @@ def dc_norms(g: torch.Tensor, d: torch.Tensor
     partials = torch.empty((W, nblocks, 2), dtype=torch.float32,
                            device=g.device)
     out = torch.empty((W, 2), dtype=torch.float32, device=g.device)
-    err = library("dc_update").dc_norms_f32(
-        g.data_ptr(), d.data_ptr(), W, n, int(vec), int(_aligned(n, g, d)),
-        nblocks, partials.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(g.device).cuda_stream)
+    with torch.cuda.device(g.device):
+        err = library("dc_update").dc_norms_f32(
+            g.data_ptr(), d.data_ptr(), W, n, int(vec),
+            int(_aligned(n, g, d)), nblocks, partials.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
     _raise_on(err, "dc_norms")
     dc_norms.launches += 1
     return out[:, 0], out[:, 1]
@@ -169,10 +170,12 @@ def dc_fused_update(g, d, m, w, *, lam: torch.Tensor, mu: float, eta: float,
     lib = library("dc_update")
     fn = lib.dc_fused_update_f32w if w.dtype == torch.float32 \
         else lib.dc_fused_update_bf16w
-    err = fn(g.data_ptr(), d.data_ptr(), m.data_ptr(), w.data_ptr(),
-             lam.data_ptr(), float(mu), float(eta), float(wd), W, n,
-             int(vec), _grid(n, vec), w_new.data_ptr(), m_new.data_ptr(),
-             delta.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
+    with torch.cuda.device(g.device):
+        err = fn(g.data_ptr(), d.data_ptr(), m.data_ptr(), w.data_ptr(),
+                 lam.data_ptr(), float(mu), float(eta), float(wd), W, n,
+                 int(vec), _grid(n, vec), w_new.data_ptr(), m_new.data_ptr(),
+                 delta.data_ptr(),
+                 torch.cuda.current_stream(g.device).cuda_stream)
     _raise_on(err, "dc_fused_update")
     dc_fused_update.launches += 1
     return w_new, m_new, delta

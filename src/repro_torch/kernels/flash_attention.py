@@ -6,13 +6,18 @@ sequence, causal and/or sliding-window, with an online softmax over key
 tiles, for f32 and bf16 inputs.  It is the attention core of
 `repro_torch.models.transformer.Model.prefill`.
 
-Bound on an H100: operations (about 2 S^2 hd flops per query head of a
-causal prompt of S tokens, f32 on the CUDA cores, against 4 S hd bytes
-per head of q, k, v and o).  The CUDA kernel (``csrc/flash_attention.cu``)
-runs one CTA per (32-row query tile, query head, batch row) and walks the
-key tiles a row can see, 64 at a time, skipping those past the causal
-diagonal or before the window, where the TPU grid visits and masks every
-key tile; scores stay in registers, k and v tiles in shared memory.
+Bound on an H100: operations (4 hd flops per live (query, key) pair
+against q, k, v and o read or written once).  The CUDA kernel
+(``csrc/flash_attention.cu``) runs both products on the tensor cores
+(``mma.sync``: bf16 inputs as bf16, f32 inputs as 3xTF32, three TF32
+products per f32 one, which holds the reference's 2e-5).  One CTA takes
+64 packed rows, the G query heads of one kv head at 64 / G positions, and
+walks the key tiles they can see (64 keys; 32 or 16 where shared memory
+is short), skipping those past the causal diagonal or before the window,
+where the TPU grid visits and masks every key tile.  Two warpgroups (three
+for bf16 at hd <= 128) share the tiles out, each through its own two-stage
+cp.async ring, and merge their softmax states at the end in a fixed
+order; scores and probabilities stay in registers.
 
 On a CPU tensor the wrapper runs the plain version
 (`repro_torch.kernels.ref.flash_attention_plain`); on a CUDA tensor it
@@ -29,7 +34,7 @@ from repro_torch.kernels.ref import flash_attention_plain
 # input dtype -> the C entry point (csrc/flash_attention.cu)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
-# the kernel's instantiations; its shared memory (174 KB at 256) fits all
+# the kernel's instantiations (226 KB of shared memory at most: bf16, 128)
 _HEAD_DIMS = (32, 64, 128, 256)
 
 
@@ -61,9 +66,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from repro_torch.kernels.build import library
     out = torch.empty_like(q)
     fn = getattr(library("flash_attention"), _ENTRY[q.dtype])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-             Sk, KV, G, hd, int(bool(causal)), int(window), hd ** -0.5,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                 Sq, Sk, KV, G, hd, int(bool(causal)), int(window),
+                 hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -125,12 +125,14 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     vec = (hd * k_pool.element_size()) % 16 == 0 \
         and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0
     fn = getattr(library("paged_attention"), _ENTRY[k_pool.dtype])
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             k_scale.data_ptr() if scales else None,
-             v_scale.data_ptr() if scales else None,
-             bt.data_ptr(), ln.data_ptr(), B, KV, G, hd, page_size, mp,
-             hd ** -0.5, int(vec), splits, work.data_ptr(), out.data_ptr(),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale.data_ptr() if scales else None,
+                 v_scale.data_ptr() if scales else None,
+                 bt.data_ptr(), ln.data_ptr(), B, KV, G, hd, page_size, mp,
+                 hd ** -0.5, int(vec), splits, work.data_ptr(),
+                 out.data_ptr(),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_attention")
     paged_attention.launches += 1
     return out

@@ -105,11 +105,12 @@ def ssm_scan(a_log: torch.Tensor, dt: torch.Tensor, dtx: torch.Tensor,
     # pass 1's (h_c, P_c) of every chunk but the last
     work = torch.empty(2 * B * (chunks - 1) * E * N, dtype=torch.float32,
                        device=dt.device) if chunks > 1 else None
-    err = library("ssm_scan").ssm_scan_f32(
-        a_log.data_ptr(), dt.data_ptr(), dtx.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-        work.data_ptr() if work is not None else None, B, S, E, N, L,
-        torch.cuda.current_stream(dt.device).cuda_stream)
+    with torch.cuda.device(dt.device):
+        err = library("ssm_scan").ssm_scan_f32(
+            a_log.data_ptr(), dt.data_ptr(), dtx.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+            work.data_ptr() if work is not None else None, B, S, E, N, L,
+            torch.cuda.current_stream(dt.device).cuda_stream)
     _raise_on(err, "ssm_scan")
     ssm_scan.launches += 1
     return y, h_last
