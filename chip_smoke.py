@@ -31,7 +31,22 @@ Phases (any failure exits non-zero before the result line):
 6. two steady steps of each main path under torch.profiler (device time
    by kernel group, the device's idle share), then one more step under
    PyTorch's sync debug mode (host synchronisations counted);
-7. serving.  paged_attention against its plain version at the serving
+7. the paper's CNN main path: ResNet-18's stage layout and widths
+   (stages (2, 2, 2, 2), width 64, 10 classes; 11,164,360 parameters in
+   29 leaves, 6 buckets at --buckets 4, the last holding the eight SkipInit
+   scalars) on 32 x 32 synthetic prototype images, f32, seed 0, through
+   the example twin (``repro_torch.examples.cnn_paper_repro.train``, the
+   §IV-A recipe), W = 8, 64 images per worker, fused tail, TF32 off for
+   cuBLAS and cuDNN: A1 and A2 against their plain versions at the CNN's
+   bucket sizes and W = 8; 6 steps each of dc_s3gd, stale and ssgd (finite
+   losses, λ and |D| 0 on steps 0-1, λ > 0 after for dc_s3gd only, A1 and
+   A2 once per bucket and step, B3-B6 never; step time, images/s, peak
+   memory; the host time of one step's batch); fused against unfused tail
+   over 3 steps under cudnn.deterministic; two steady steps profiled and
+   one under sync debug mode (0 host syncs); two untimed steps each of
+   nesterov, lars, adam, per-tensor λ, dc_asgd, dynamic_ssp under measured
+   skew, gossip and hierarchical;
+8. serving.  paged_attention against its plain version at the serving
    shape (16 rows, 8 kv heads, G 2, hd 128, pages of 16, ragged lengths
    1..577) for bf16, f32, int8 and fp8 pools (atol 1e-6 float, 2e-5
    quantized), timed over one launch on each of 28 per-layer pools (as
@@ -52,7 +67,7 @@ Phases (any failure exits non-zero before the result line):
    teacher-forced over one group of 16 (bound stated in
    phase_kernel_vs_gather); host synchronisations
    inside one steady decode burst (must be 0) and two bursts profiled;
-8. prefill kernels.  flash_attention's SASS (every instantiation holds
+9. prefill kernels.  flash_attention's SASS (every instantiation holds
    tensor-core HMMA / HGMMA instructions, counted with cuobjdump), then
    the kernel against its plain version at the qwen3-0.6b prefill's
    shapes (B 1, 8 kv heads, G 2, hd 128, causal, S 128/256/384/512, f32
@@ -62,7 +77,7 @@ Phases (any failure exits non-zero before the result line):
    beside its bound (f32 at the 3xTF32 ceiling, its CUDA-core bound
    printed too), the plain version and scaled_dot_product_attention in
    the same dtype;
-   the qwen3 serve run of phase 7 launches it 28 times per prefill; the
+   the qwen3 serve run of phase 8 launches it 28 times per prefill; the
    qwen3 prefill's logits, kernel route against plain route
    (bound stated in phase_prefill_routes).  ssm_scan against its plain
    version at falcon-mamba-7b's prefill shapes (B 1, E 8,192, N 16, S
@@ -71,7 +86,7 @@ Phases (any failure exits non-zero before the result line):
    case, bitwise run to run, with its chunk length, chunk count and CTAs
    per launch, timed the same way (8 launches per sample) beside its byte
    bound and the plain version;
-9. serving falcon-mamba-7b at its published widths and full depth (64
+10. serving falcon-mamba-7b at its published widths and full depth (64
    layers, f32 params, bf16 compute, random weights from seed 0) through
    ``repro_torch.launch.serve`` over the same 48 requests (token ids under
    its 65,024 vocab), ``--slots 16 --decode-burst 4``, greedy: every
@@ -166,9 +181,11 @@ def phase_build(smi: str) -> None:
             print(f"[build]   {line}")
 
 
-def phase_kernels(sizes, smi: str) -> dict:
-    """Kernels vs plain versions at the bucket sizes; returns the per-kernel
-    sums over one step's launches."""
+def phase_kernels(sizes, smi: str, W: int = W, select: bool = True,
+                  tag: str = "kernels") -> dict:
+    """Kernels vs plain versions at the bucket sizes and W workers; returns
+    the per-kernel sums over one step's launches (select_ef_mean's only
+    with ``select``)."""
     from repro_torch.kernels import dc_update as K
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -178,7 +195,7 @@ def phase_kernels(sizes, smi: str) -> dict:
     for n in sizes:
         g, d, m, w = (torch.randn((W, n), generator=gen, device=dev)
                       for _ in range(4))
-        lam = torch.tensor([0.3, 0.7], device=dev)
+        lam = torch.linspace(0.3, 0.7, W, device=dev)
         # norms: bitwise run to run, rtol 1e-5 against the plain version
         a, b = K.dc_norms(g, d), K.dc_norms(g, d)
         ref = K.dc_norms_plain(g, d)
@@ -207,7 +224,9 @@ def phase_kernels(sizes, smi: str) -> dict:
         acc["dc_norms"]["ms"] += k_ms
         acc["dc_norms"]["plain_ms"] += p_ms
         acc["dc_norms"]["bound_ms"] += bound
-        print(f"[kernels] dc_norms n={n} W={W}: {k_ms:.4f} ms/launch "
+        acc["dc_norms"].setdefault("per_launch", []).append(
+            {"n": n, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound})
+        print(f"[{tag}] dc_norms n={n} W={W}: {k_ms:.4f} ms/launch "
               f"(plain {p_ms:.4f} ms, byte bound {bound:.4f} ms, max rel "
               f"err {rel:.3g}) [{smi}]")
         for wt, atol, bpe in ((torch.float32, 1e-5, 28),
@@ -228,7 +247,7 @@ def phase_kernels(sizes, smi: str) -> dict:
             p_ms = median_ms(lambda: K.dc_fused_update_plain(
                 g, d, m, ww, lam=lam, **args))
             bound = bpe * W * n / HBM_BYTES_PER_S * 1e3
-            print(f"[kernels] dc_fused_update n={n} W={W} w={wt}: "
+            print(f"[{tag}] dc_fused_update n={n} W={W} w={wt}: "
                   f"{k_ms:.4f} ms/launch (plain {p_ms:.4f} ms, byte bound "
                   f"{bound:.4f} ms, max abs err {err:.3g}) [{smi}]")
             if wt == torch.float32:   # the main path's w dtype
@@ -237,9 +256,12 @@ def phase_kernels(sizes, smi: str) -> dict:
                 u["plain_ms"] += p_ms
                 u["bound_ms"] += bound
                 u["err"] = max(u["err"], err)
+                u.setdefault("per_launch", []).append(
+                    {"n": n, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound})
         del g, d, m, w
         torch.cuda.empty_cache()
-    acc["select_ef_mean"] = phase_select(sizes, gen, smi)
+    if select:
+        acc["select_ef_mean"] = phase_select(sizes, gen, smi)
     return acc
 
 
@@ -425,11 +447,31 @@ def phase_fused_vs_unfused(smi: str) -> float:
     return worst
 
 
+def _device_groups(prof, groups: dict, other: str):
+    """(kernels by device time, busy ms, ms by group) of a profile: each
+    kernel goes to the first group one of whose keys its name holds."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                     key=dev_us, reverse=True)
+    by_group = {g: 0.0 for g in groups}
+    by_group[other] = 0.0
+    for e in kernels:
+        g = next((g for g, keys in groups.items()
+                  if any(k in e.key for k in keys)), other)
+        by_group[g] += dev_us(e) / 1e3
+    return kernels, sum(dev_us(e) for e in kernels) / 1e3, by_group, dev_us
+
+
 def phase_profile(smi: str, extra=(), tag: str = "profile") -> dict:
     """Two steady steps of a main path (steps 2-3, after the lr-0 warm-up
     step and the first real one) under torch.profiler: device time by
     kernel, grouped, and the device's busy share of the window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import train
     args = train.build_argparser().parse_args(MAIN_ARGS + [
@@ -458,15 +500,6 @@ def phase_profile(smi: str, extra=(), tag: str = "profile") -> dict:
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     print(f"[{tag}] host synchronisations inside step 4: {syncs}")
     del state
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                     key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     groups = {"dc_update kernels": ("norms_", "fused_update"),
               "select_ef_mean kernel": ("select_ef_mean",),
               # the threshold search's torch.topk (multi/single-block)
@@ -474,12 +507,8 @@ def phase_profile(smi: str, extra=(), tag: str = "profile") -> dict:
               "matmul (cuBLAS)": ("gemm", "xmma", "cutlass", "Kernel2"),
               # torch.cat's kernel is CatArrayBatchedCopy
               "copies/cat": ("Memcpy", "copy", "Copy")}
-    by_group = {g: 0.0 for g in groups}
-    by_group["other"] = 0.0
-    for e in kernels:
-        g = next((g for g, keys in groups.items()
-                  if any(k in e.key for k in keys)), "other")
-        by_group[g] += dev_us(e) / 1e3
+    kernels, busy_ms, by_group, dev_us = _device_groups(prof, groups,
+                                                        "other")
     if busy_ms == 0:
         print(f"[{tag}] no device time in the trace: not measured [{smi}]")
         return {}
@@ -498,6 +527,260 @@ def phase_profile(smi: str, extra=(), tag: str = "profile") -> dict:
                                   row_limit=60))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": by_group,
             "host_syncs_per_step": syncs}
+
+
+# ---------------------------------------------------------------------------
+# the paper's CNN: ResNet-18's layout through the example twin (A1, A2)
+# ---------------------------------------------------------------------------
+
+RESNET18 = {"stages": (2, 2, 2, 2), "width": 64, "n_classes": 10}
+CNN_W, CNN_PER_WORKER, CNN_IMAGE = 8, 64, 32
+CNN_PARAMS = 11_164_360
+CNN_BUCKETS = (2_785_280, 1_179_648, 2_490_368, 2_359_296, 2_392_064,
+               32_768)
+CNN_STEPS = 6
+# two untimed steps each of the rest of training on the CNN
+CNN_VARIANTS = {
+    "nesterov": {"local_optimizer": "nesterov", "buckets": N_BUCKETS},
+    "lars": {"local_optimizer": "lars", "buckets": N_BUCKETS},
+    "adam": {"local_optimizer": "adam", "buckets": N_BUCKETS},
+    "per_tensor": {"per_tensor": True, "buckets": N_BUCKETS},
+    "dc_asgd": {"algo": "dc_asgd"},
+    "dynamic_ssp": {"staleness": "dynamic_ssp", "measure_skew": True,
+                    "use_kernels": True, "buckets": N_BUCKETS},
+    "gossip": {"reducer": "gossip", "use_kernels": True,
+               "buckets": N_BUCKETS},
+    "hierarchical": {"reducer": "hierarchical", "use_kernels": True,
+                     "buckets": N_BUCKETS},
+}
+
+
+def _cnn(algo: str, steps: int, **kw) -> dict:
+    """``steps`` steps of ``algo`` on ResNet-18's layout through the
+    example twin's entry point (§IV-A recipe, W = 8, 64 images of 32 x 32
+    per worker, seed 0), every step's metrics fetched."""
+    from repro_torch.examples import cnn_paper_repro as twin
+    if kw.pop("per_tensor", False):
+        from repro_torch.core.compensate import DelayCompensation
+        kw["compensator"] = DelayCompensation(lambda0=0.2, mode="per_tensor")
+    return twin.train(algo, CNN_W, steps, device="cuda", net=RESNET18,
+                      image_size=CNN_IMAGE, per_worker=CNN_PER_WORKER,
+                      log_every=1, **kw)
+
+
+def phase_cnn_main(smi: str) -> dict:
+    """Six steps each of dc_s3gd, stale and ssgd (fused tail, 4 buckets)
+    on ResNet-18's layout.  Every kernel count is set to 0 just before a
+    run and read just after it."""
+    from repro_torch.data.pipeline import SyntheticImageDataset, \
+        worker_batches
+    ds = SyntheticImageDataset(RESNET18["n_classes"], image_size=CNN_IMAGE,
+                               seed=0, noise=0.4)
+    host = []
+    for t in range(3):
+        t0 = time.perf_counter()
+        b = worker_batches(ds, t, CNN_W, CNN_PER_WORKER, device="cpu")
+        host.append(time.perf_counter() - t0)
+    batch_ms = statistics.median(host) * 1e3
+    print(f"[cnn] one step's batch on the host ({CNN_W} x {CNN_PER_WORKER} "
+          f"images {tuple(b['images'].shape[2:])}, numpy, median of 3): "
+          f"{batch_ms:.3f} ms; drawn on the prefetch thread while the "
+          f"previous step runs")
+    print(f"[cnn] cudnn.deterministic={torch.backends.cudnn.deterministic} "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark} "
+          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    out = {"batch_ms": batch_ms}
+    for algo in ("dc_s3gd", "stale", "ssgd"):
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in _counters().values():
+            fn.launches = 0
+        result = _cnn(algo, CNN_STEPS, use_kernels=True, buckets=N_BUCKETS)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in _counters().items()}
+        peak = torch.cuda.max_memory_allocated()
+        check(not torch.backends.cudnn.allow_tf32
+              and not torch.backends.cuda.matmul.allow_tf32,
+              "[cnn] the entry point left TF32 on")
+        hist = result["history"]
+        check([h["step"] for h in hist] == list(range(CNN_STEPS)),
+              f"[cnn] {algo} history steps")
+        for h in hist:
+            check(math.isfinite(h["loss"]), f"[cnn] {algo} loss: {h}")
+        fused = algo != "ssgd"
+        if fused:
+            # the warm-up step 0 runs at lr 0: D = 0 on steps 0-1
+            for h in hist[:2]:
+                check(h["lambda"] == 0.0 and h["distance_norm"] == 0.0,
+                      f"[cnn] {algo} prologue step with D != 0: {h}")
+            for h in hist[2:]:
+                check(h["distance_norm"] > 0 and math.isfinite(h["lambda"]),
+                      f"[cnn] {algo}: {h}")
+                check((h["lambda"] > 0) == (algo == "dc_s3gd"),
+                      f"[cnn] {algo} lambda: {h}")
+        for name, n in launches.items():
+            want = CNN_STEPS * len(CNN_BUCKETS) if fused and name in (
+                "dc_norms", "dc_fused_update") else 0
+            check(n == want, f"[cnn] {algo}: {name} launched {n} times, "
+                  f"expected {want} ({CNN_STEPS} steps x "
+                  f"{len(CNN_BUCKETS)} buckets on its path)")
+        walls = [h["wall_s"] for h in hist]
+        step_s = statistics.median(b - a for a, b in zip(walls[1:],
+                                                          walls[2:]))
+        images = CNN_W * CNN_PER_WORKER
+        for h in hist:
+            print(f"[cnn] {algo} step {h['step']} loss={h['loss']:.6f} "
+                  f"lambda={h.get('lambda', 0.0):.6g} "
+                  f"|D|={h.get('distance_norm', 0.0):.6g} lr={h['lr']:.6g}")
+        print(f"[cnn] {algo}: launches {launches}; step "
+              f"{step_s * 1e3:.3f} ms (median of steps 2-5, metrics fetched "
+              f"every step), {images / step_s:.1f} images/s; peak memory "
+              f"{peak / 2**30:.3f} GiB, of which {before / 2**20:.1f} MiB "
+              f"were allocated before the run; top-1 error "
+              f"{result['top1_err']:.3f} [{smi}]")
+        out[algo] = {"step_ms": step_s * 1e3,
+                     "images_per_s": images / step_s, "peak_bytes": peak,
+                     "allocated_before": before, "launches": launches,
+                     "losses": [h["loss"] for h in hist],
+                     "top1_err": result["top1_err"]}
+        del result
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cnn_fused_vs_unfused(smi: str) -> float:
+    """3 dc_s3gd steps from the same weights, fused kernels vs the unfused
+    torch tail, under cudnn.deterministic (the convolutions then give the
+    same gradients for the same inputs): every element of the final
+    weights within 1e-4 x its leaf's largest update + 1e-5 x its own
+    magnitude (the CPU parity tests' criterion; the rtol term covers the
+    leaves whose update is a few ulps of the weight, as SkipInit's
+    zero scale makes the second conv's)."""
+    from repro_torch import tree as T
+    from repro_torch.models.cnn import init_resnet
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        finals = {fused: T.leaves(_cnn("dc_s3gd", 3, use_kernels=fused,
+                                       buckets=N_BUCKETS)["state"].params)
+                  for fused in (True, False)}
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    w0 = T.leaves(init_resnet(torch.Generator(device="cuda").manual_seed(0),
+                              **RESNET18))
+    worst = 0.0
+    for a, b, z in zip(finals[True], finals[False], w0):
+        allowed = 1e-4 * (b - z).abs().max() + 1e-5 * b.abs()
+        ratio = float(((a - b).abs() / allowed.clamp_min(1e-30)).max())
+        worst = max(worst, ratio)
+        check(ratio <= 1.0, f"[cnn-fused] fused vs unfused beyond 1e-4 x "
+              f"update + 1e-5 x |w|: {ratio:.3g} of it")
+    print(f"[cnn-fused] 3 steps, fused vs unfused tail (cudnn "
+          f"deterministic): worst element at {worst:.3g} of its allowance "
+          f"(1e-4 x leaf update + 1e-5 x |w|) [{smi}]")
+    del finals
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_cnn_profile(smi: str) -> dict:
+    """Two steady dc_s3gd steps (steps 2-3) on ResNet-18's layout under
+    torch.profiler — device time by kernel group and the idle share —
+    then one step under PyTorch's sync debug mode (0 host syncs)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.examples import cnn_paper_repro as twin
+    model, alg, state, batch_fn, _ = twin.build(
+        "dc_s3gd", twin.recipe(CNN_W, CNN_STEPS), CNN_W, CNN_STEPS,
+        device="cuda", net=RESNET18, image_size=CNN_IMAGE,
+        per_worker=CNN_PER_WORKER, use_kernels=True, buckets=N_BUCKETS)
+    for it in range(2):
+        state, _ = alg.step(state, batch_fn(it), loss_fn=model.loss)
+    batches = [batch_fn(2), batch_fn(3), batch_fn(4)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[:2]:
+            state, _ = alg.step(state, b, loss_fn=model.loss)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state, _ = alg.step(state, batches[2], loss_fn=model.loss)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"[cnn-profile] host synchronisations inside step 4: {syncs}")
+    check(syncs == 0, f"[cnn] {syncs} host synchronisations inside a step")
+    del state, batches
+    torch.cuda.empty_cache()
+    groups = {"dc_update kernels": ("norms_", "fused_update"),
+              # cuDNN's convolution kernels (forward, dgrad, wgrad) and its
+              # layout transforms
+              "conv (cuDNN)": ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                               "implicit", "nhwc", "Nhwc", "nchw", "Nchw",
+                               "winograd"),
+              "matmul (cuBLAS)": ("gemm", "gemv", "xmma", "cutlass",
+                                  "Kernel2"),
+              "copies/cat": ("Memcpy", "copy", "Copy", "Cat")}
+    other = "other (elementwise, reductions, pad, softmax)"
+    kernels, busy_ms, by_group, dev_us = _device_groups(prof, groups, other)
+    if busy_ms == 0:
+        print(f"[cnn-profile] no device time in the trace: not measured "
+              f"[{smi}]")
+        return {"host_syncs_per_step": syncs}
+    launches = sum(e.count for e in kernels)
+    print(f"[cnn-profile] 2 steps: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%, {launches} kernel "
+          f"launches [{smi}]")
+    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"[cnn-profile]   {g}: {ms:.3f} ms ({100 * ms / busy_ms:.1f}% "
+              f"of device time)")
+    for e in kernels[:15]:
+        print(f"[cnn-profile]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:100]}")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "profile_cnn.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=60))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": by_group,
+            "kernel_launches": launches, "host_syncs_per_step": syncs}
+
+
+def phase_cnn_variants(smi: str) -> dict:
+    """Two untimed steps on ResNet-18's layout of each other local
+    optimizer, per-tensor λ, DC-ASGD, dynamic SSP under measured skew and
+    the two weight-mixing reducers: finite losses."""
+    out = {}
+    for name, kw in CNN_VARIANTS.items():
+        kw = dict(kw)
+        algo = kw.pop("algo", "dc_s3gd")
+        t0 = time.perf_counter()
+        result = _cnn(algo, 2, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        hist = result["history"]
+        losses = [h["loss"] for h in hist]
+        check(len(losses) == 2 and all(map(math.isfinite, losses)),
+              f"[cnn-variants] {name}: losses {losses}")
+        extra = ""
+        if name == "dynamic_ssp":
+            admit = [h["ssp_admit"] for h in hist]
+            skew = [h["measured_skew"] for h in hist]
+            check(admit == [1.0, 1.0], f"[cnn-variants] ssp_admit {admit}")
+            extra = f" ssp_admit {admit} measured_skew {skew}"
+        print(f"[cnn-variants] {name} ({algo}): losses {losses}{extra} in "
+              f"{secs:.2f} s [{smi}]")
+        out[name] = {"losses": losses, "s": secs}
+        del result
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -849,7 +1132,6 @@ def phase_serve_profile(smi: str, model, params, reqs, argv=SERVE_ARGS,
     burst under PyTorch's sync debug mode (its inputs copied to the device
     before the window), then two bursts under torch.profiler, device time
     by kernel group."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     from repro_torch.serve import Request, Scheduler
@@ -886,28 +1168,14 @@ def phase_serve_profile(smi: str, model, params, reqs, argv=SERVE_ARGS,
         wall_ms = (time.perf_counter() - t0) * 1e3
     del sch
     torch.cuda.empty_cache()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                     key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     groups = {"paged_attention kernel (both passes)": ("paged_partial",
                                                        "paged_merge"),
               "matmul (cuBLAS)": ("gemm", "gemv", "xmma", "cutlass",
                                   "Kernel2"),
               "index / scatter / gather": ("index", "scatter", "gather"),
               "copies/cat": ("Memcpy", "copy", "Copy", "Cat")}
-    by_group = {g: 0.0 for g in groups}
-    by_group["other (elementwise, norms, softmax, argmax)"] = 0.0
-    for e in kernels:
-        g = next((g for g, keys in groups.items()
-                  if any(k in e.key for k in keys)),
-                 "other (elementwise, norms, softmax, argmax)")
-        by_group[g] += dev_us(e) / 1e3
+    kernels, busy_ms, by_group, dev_us = _device_groups(
+        prof, groups, "other (elementwise, norms, softmax, argmax)")
     launches = sum(e.count for e in kernels)
     if busy_ms == 0:
         print(f"[{tag}] no device time in the trace: not measured [{smi}]")
@@ -1309,6 +1577,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import tree as T
     from repro_torch.configs import get_config
+    from repro_torch.models.cnn import init_resnet
     from repro_torch.models.transformer import Model
     from repro_torch.parallel.buckets import plan_buckets
 
@@ -1344,6 +1613,30 @@ def main() -> int:
     prof = phase_profile(smi)
     torch.cuda.empty_cache()
     c_prof = phase_profile(smi, COMPRESSED, "profile_compressed")
+    torch.cuda.empty_cache()
+
+    t_cnn = time.perf_counter()
+    cnn_params = init_resnet(torch.Generator(device="cuda").manual_seed(0),
+                             **RESNET18)
+    cnn_plan = plan_buckets(cnn_params, N_BUCKETS)
+    n_cnn = sum(x.numel() for x in T.leaves(cnn_params))
+    check(n_cnn == CNN_PARAMS and len(T.leaves(cnn_params)) == 29,
+          f"ResNet-18 layout: {n_cnn} params")
+    del cnn_params
+    check(cnn_plan.bucket_sizes == CNN_BUCKETS,
+          f"CNN bucket sizes {cnn_plan.bucket_sizes}")
+    check(cnn_plan.bucket_decay == (True,) * 5 + (False,), "CNN decay")
+    print(f"[plan] ResNet-18 layout: {n_cnn} params in 29 leaves, buckets "
+          f"{cnn_plan.bucket_sizes} decay {cnn_plan.bucket_decay}")
+    cnn_kern = phase_kernels(cnn_plan.bucket_sizes, smi, W=CNN_W,
+                             select=False, tag="kernels-cnn")
+    cnn = phase_cnn_main(smi)
+    cnn["fused_vs_unfused_worst"] = phase_cnn_fused_vs_unfused(smi)
+    cnn["profile"] = phase_cnn_profile(smi)
+    cnn["variants"] = phase_cnn_variants(smi)
+    cnn["kernels"] = cnn_kern
+    cnn["s"] = time.perf_counter() - t_cnn
+    print(f"[cnn] the CNN phases took {cnn['s']:.1f} s [{smi}]")
     torch.cuda.empty_cache()
 
     paged = phase_paged_kernel(smi)
@@ -1398,6 +1691,18 @@ def main() -> int:
               f"{k['bound_ms']:.4f} ms [{smi}]")
     print(f"[times] peak memory {peak / 2**30:.3f} GiB "
           f"({peak} B) [{smi}]")
+    for name in ("dc_norms", "dc_fused_update"):
+        k = cnn_kern[name]
+        print(f"[times] {name} on the CNN: {k['ms']:.4f} ms per step "
+              f"({len(CNN_BUCKETS)} launches, W={CNN_W}), plain "
+              f"{k['plain_ms']:.4f} ms, byte bound {k['bound_ms']:.4f} ms "
+              f"[{smi}]")
+    for algo in ("dc_s3gd", "stale", "ssgd"):
+        c = cnn[algo]
+        print(f"[times] ResNet-18 layout {algo}: step {c['step_ms']:.3f} ms, "
+              f"{c['images_per_s']:.1f} images/s (W={CNN_W}, "
+              f"{CNN_PER_WORKER} images/worker), peak "
+              f"{c['peak_bytes'] / 2**30:.3f} GiB [{smi}]")
     print(f"[times] compressed (topk 1%) step {c_step_s * 1e3:.3f} ms median "
           f"of steps 2-5 ({tokens / c_step_s:.1f} tokens/s); peak memory "
           f"{c_peak / 2**30:.3f} GiB ({c_peak} B); magnitude_threshold "
@@ -1456,6 +1761,16 @@ def main() -> int:
         "bound_ms": k["bound_ms"], "bound_by": k.get("bound_by", "bytes"),
         "library_ms": k.get("library_ms"),
     } for name, k in kern.items()]
+    for entry in kernels:
+        # A1 and A2 on the CNN main path: its launches (dc_s3gd, 6 steps)
+        # and the per-step sums over its 6 bucket sizes at W = 8
+        if entry["name"] in cnn_kern:
+            k = cnn_kern[entry["name"]]
+            entry["cnn"] = {
+                "launches": cnn["dc_s3gd"]["launches"][entry["name"]],
+                "max_abs_err": k["err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": "bytes"}
     record = {"card": smi, "step_ms": step_s * 1e3, "peak_bytes": peak,
               "compressed_step_ms": c_step_s * 1e3,
               "compressed_peak_bytes": c_peak,
@@ -1466,6 +1781,7 @@ def main() -> int:
               "kernel_vs_gather": versus, "profile_serve": s_prof,
               "flash_attention": flash, "ssm_scan": scan,
               "prefill_routes_qwen3": q_routes, "serve_ssm": fm,
+              "cnn": cnn,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start
     print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "

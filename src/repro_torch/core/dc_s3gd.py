@@ -20,6 +20,13 @@ state and the fused tail into a few flat buffers
 per-leaf trajectories are bitwise equal.  A stateful (compressed) reducer
 carries its state in ``comm["reducer"]`` and needs ``buckets > 0``.
 
+A weight-mixing reducer (``gossip``, ``hierarchical``: ``reduces_weights``)
+mixes the carried weights instead of the deltas (D-PSGD), D = R(w) − w,
+and carries no ``delta_prev``.  A stateful staleness policy
+(``dynamic_ssp``) keeps its counters in ``comm["staleness"]`` on the host,
+so its admit decision is a host branch and costs no device read; a
+revoked window replaces D by a blocking pull to the plain worker mean.
+
 The reference fences the wire and D with ``lax.optimization_barrier`` so
 XLA cannot fuse across them; eager PyTorch materialises every tensor, so
 the port needs no counterpart.
@@ -38,6 +45,8 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core import registry
 from repro_torch.core.api import LossFn, Metrics, TrainState
+from repro_torch.core.correction import worker_sq_sum
+from repro_torch.core.reduce import _row_sum
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.optim import local as local_opt
 from repro_torch.optim.schedules import linear_warmup_linear_decay
@@ -100,13 +109,7 @@ class DCS3GD:
         if overlap:
             raise NotImplementedError(
                 "overlap=True (the double-buffered bucket pipeline) is not "
-                "ported yet: ROADMAP queue A9")
-        if getattr(self.reducer, "reduces_weights", False):
-            raise NotImplementedError(
-                "weight-mixing reducers are not ported yet: ROADMAP A5")
-        if not self.staleness.stateless:
-            raise NotImplementedError(
-                "stateful staleness policies are not ported yet: ROADMAP A5")
+                "ported yet: ROADMAP queue A4")
         self.use_kernels = use_kernels
         # compressed reducers with a fused kernel share the knob: one flag
         # routes both the tail and the compression through kernels
@@ -125,14 +128,19 @@ class DCS3GD:
     def init(self, params: Tree) -> TrainState:
         sdt = _STATE_DTYPES[self.cfg.state_dtype]
         wp = replicate_for_workers(params, self.n_workers)
-        opt = T.map(lambda x: x.to(sdt), self.local_optimizer.init(wp))
+        opt = _cast_slots(self.local_optimizer.init(wp), sdt)
         device = T.leaves(wp)[0].device
-        if self.buckets:
-            delta_prev = self._plan(wp).zeros(sdt, lead=(self.n_workers,),
-                                              device=device)
+        # weight-mixing reducers never read the carried deltas
+        if self._reduces_weights:
+            comm = {}
+        elif self.buckets:
+            comm = {"delta_prev": self._plan(wp).zeros(
+                sdt, lead=(self.n_workers,), device=device)}
         else:
-            delta_prev = T.map(lambda p: torch.zeros_like(p, dtype=sdt), wp)
-        comm = {"delta_prev": delta_prev}
+            comm = {"delta_prev": T.map(
+                lambda p: torch.zeros_like(p, dtype=sdt), wp)}
+        if not self.staleness.stateless:
+            comm["staleness"] = self.staleness.init(self.n_workers)
         # stateful (error-feedback compressed) reducers carry residuals /
         # warm-started factors across steps under comm["reducer"]
         if not self._reducer_stateless:
@@ -145,6 +153,10 @@ class DCS3GD:
     def _reducer_stateless(self) -> bool:
         return bool(getattr(self.reducer, "stateless", True))
 
+    @property
+    def _reduces_weights(self) -> bool:
+        return bool(getattr(self.reducer, "reduces_weights", False))
+
     def step(self, state: TrainState, batch: Tree, *, loss_fn: LossFn
              ) -> Tuple[TrainState, Metrics]:
         """One DC-S3GD iteration for all workers at once.
@@ -155,26 +167,48 @@ class DCS3GD:
         lr, wd = schedules(state.step, cfg)
         plan = self._plan(state.params) if self.buckets else None
 
-        # --- MPI_Iallreduce of the carried deltas (bucketed when buckets>0);
-        # depends only on carried state, not on this step's gradients
-        delta_prev = state.comm["delta_prev"]
+        # --- MPI_Iallreduce of the carried deltas (bucketed when buckets>0),
+        # or of the weights themselves for a weight-mixing reducer; depends
+        # only on carried state, not on this step's gradients
+        if self._reduces_weights:
+            r_in = plan.pack(state.params) if plan is not None \
+                else state.params
+        else:
+            r_in = state.comm["delta_prev"]
         rstate = None
         if self._reducer_stateless:
-            delta_bar = self.reducer(delta_prev)
+            reduced = self.reducer(r_in)
         else:
-            delta_bar, rstate = self.reducer(delta_prev,
-                                             state.comm["reducer"])
+            reduced, rstate = self.reducer(r_in, state.comm["reducer"])
 
         # --- g_i = ∇l(w_i): per-worker gradients
         grads, loss = _vgrads(loss_fn, state.params, batch, cfg.microbatches)
 
-        # --- D_i = (1/N)·Δ̄w − Δw_i  (Eq. 9)
-        D = T.map(lambda db, d: db - d.float(), delta_bar, delta_prev)
-        del delta_bar
+        # --- D_i = (1/N)·Δ̄w − Δw_i  (Eq. 9); for a weight-mixing reducer
+        # D_i = R(w)_i − w_i, the same distance to the reduction target
+        D = T.map(lambda r, x: r - x.float(), reduced, r_in)
+        del reduced
+
+        # --- staleness policy: a revoked window falls back to a blocking
+        # pull toward the current worker mean (the SSP barrier analogue)
+        pstate, pol_metrics = None, {}
+        if not self.staleness.stateless:
+            admit, pstate = self.staleness.admit(state.comm["staleness"])
+            if not admit:
+                pull = T.map(lambda w: _row_sum(w.float()) / w.shape[0]
+                             - w.float(), state.params)
+                D = plan.pack(pull) if plan is not None else pull
+                if rstate is not None and hasattr(self.reducer, "revoke"):
+                    # the compressed payload never reached the trajectory:
+                    # it returns to the error-feedback residual
+                    rstate = self.reducer.revoke(r_in, state.comm["reducer"],
+                                                 rstate)
+            pol_metrics = {"ssp_admit": float(admit)}
 
         if self.use_kernels:
             return self._fused_tail(state, grads, D, loss, lr, wd, plan=plan,
-                                    rstate=rstate)
+                                    rstate=rstate, pstate=pstate,
+                                    pol_metrics=pol_metrics)
 
         if plan is not None:
             # leave the flat-buffer world: unpack is a static slice, so
@@ -196,15 +230,45 @@ class DCS3GD:
             state.params, D, delta)
 
         sdt = _STATE_DTYPES[cfg.state_dtype]
+        if isinstance(lam, torch.Tensor):
+            lam_metric = lam.mean()
+        else:   # per-tensor λ: the mean of the leaves' means
+            lam_metric = torch.stack([v.mean() for v in T.leaves(lam)]).mean()
         metrics = {
-            "loss": loss.mean(), "lr": lr, "wd": wd, "lambda": lam.mean(),
+            "loss": loss.mean(), "lr": lr, "wd": wd, "lambda": lam_metric,
             "distance_norm": _mean_worker_norm(D),
             "delta_norm": _mean_worker_norm(delta),
+            **pol_metrics,
         }
-        delta_c = plan.pack(delta) if plan is not None else delta
-        return TrainState(new_params, T.map(lambda x: x.to(sdt), opt),
-                          _comm(T.map(lambda d: d.to(sdt), delta_c), rstate),
+        return TrainState(new_params, _cast_slots(opt, sdt),
+                          self._comm(delta, sdt, rstate, pstate, plan=plan),
                           state.step + 1), metrics
+
+    def _comm(self, delta, sdt, rstate, pstate, *, plan=None) -> dict:
+        """Next step's wire state: the carried deltas (packed by ``plan``
+        where given; none for a weight-mixing reducer), a stateful
+        reducer's state and a stateful staleness policy's counters."""
+        comm = {}
+        if not self._reduces_weights:
+            wire = plan.pack(delta) if plan is not None else delta
+            comm["delta_prev"] = T.map(lambda d: d.to(sdt), wire)
+        if rstate is not None:
+            comm["reducer"] = rstate
+        if pstate is not None:
+            comm["staleness"] = pstate
+        return comm
+
+    def observe_progress(self, state: TrainState, worker_steps
+                         ) -> TrainState:
+        """Feed measured per-worker progress to the staleness policy (the
+        launch layer calls this between steps); a no-op for stateless
+        policies."""
+        if self.staleness.stateless:
+            return state
+        comm = dict(state.comm)
+        comm["staleness"] = self.staleness.observe(comm["staleness"],
+                                                   worker_steps)
+        return state._replace(comm=comm)
 
     def eval_params(self, state: TrainState) -> Tree:
         """w̄ for evaluation (paper Eq. 8), anchor-form consensus mean."""
@@ -213,11 +277,11 @@ class DCS3GD:
 
     def resize_state(self, state: TrainState, n_new: int) -> TrainState:
         raise NotImplementedError(
-            "elastic resize is not ported yet: ROADMAP queue A10")
+            "elastic resize is not ported yet: ROADMAP queue A5")
 
     def _fused_tail(self, state: TrainState, grads, D, loss, lr: float,
-                    wd: float, *, plan=None, rstate=None
-                    ) -> Tuple[TrainState, Metrics]:
+                    wd: float, *, plan=None, rstate=None, pstate=None,
+                    pol_metrics=None) -> Tuple[TrainState, Metrics]:
         if not (self.local_optimizer.name == "momentum"
                 and not getattr(self.local_optimizer, "nesterov", False)
                 and getattr(self.compensator, "mode", "global") == "global"):
@@ -241,10 +305,11 @@ class DCS3GD:
                 "loss": loss.mean(), "lr": lr, "wd": wd, "lambda": lam.mean(),
                 "distance_norm": _mean_worker_norm(D),
                 "delta_norm": _mean_worker_norm(delta_b),
+                **pol_metrics,
             }
             opt = {"m": T.map(lambda x: x.to(sdt), plan.unpack(m_nb))}
             return TrainState(plan.unpack(w_nb), opt,
-                              _comm([b.to(sdt) for b in delta_b], rstate),
+                              self._comm(delta_b, sdt, rstate, pstate),
                               state.step + 1), metrics
 
         gsq, csq = kops.dc_norms_tree(grads, D)
@@ -256,9 +321,10 @@ class DCS3GD:
             "loss": loss.mean(), "lr": lr, "wd": wd, "lambda": lam.mean(),
             "distance_norm": _mean_worker_norm(D),
             "delta_norm": _mean_worker_norm(delta),
+            **pol_metrics,
         }
         return TrainState(new_params, {"m": T.map(lambda x: x.to(sdt), m_new)},
-                          _comm(T.map(lambda d: d.to(sdt), delta), rstate),
+                          self._comm(delta, sdt, rstate, pstate),
                           state.step + 1), metrics
 
 
@@ -276,13 +342,10 @@ def _make_stale(cfg: DCS3GDConfig, **kw) -> DCS3GD:
 # ---------------------------------------------------------------------------
 
 
-def _comm(delta_prev, rstate) -> dict:
-    """Next step's wire state: the carried deltas and, for a stateful
-    reducer, its state."""
-    comm = {"delta_prev": delta_prev}
-    if rstate is not None:
-        comm["reducer"] = rstate
-    return comm
+def _cast_slots(opt: Tree, sdt: torch.dtype) -> Tree:
+    """Optimizer slots in the state dtype; 0-d slots (Adam's step count)
+    keep theirs."""
+    return T.map(lambda x: x.to(sdt) if x.dim() else x, opt)
 
 
 def _vgrads(loss_fn, params: Tree, batch: Tree, microbatches: int = 1):
@@ -329,6 +392,4 @@ def _vgrads(loss_fn, params: Tree, batch: Tree, microbatches: int = 1):
 
 def _mean_worker_norm(tree: Tree) -> torch.Tensor:
     """Mean over workers of the per-worker Euclidean norm of a tree."""
-    sq = sum(x.float().square().sum(dim=tuple(range(1, x.dim())))
-             for x in T.leaves(tree))
-    return torch.sqrt(sq).mean()
+    return torch.sqrt(sum(worker_sq_sum(x) for x in T.leaves(tree))).mean()

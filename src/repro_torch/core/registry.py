@@ -6,11 +6,11 @@ Call sites construct everything from config strings:
     registry.make("dc_s3gd", cfg, n_workers=32)            # Algorithm 1
     registry.make("stale",   cfg, n_workers=32)            # lambda0 = 0
     registry.make("ssgd",    cfg, n_workers=32)            # synchronous
+    registry.make("dc_asgd", cfg, n_workers=32)            # PS simulator
 
 Provider modules register themselves at import via ``@register``; lookups
-import the known providers lazily.  Only the modules the port has are
-providers, so a name that is not ported yet (``dc_asgd``, ``gossip``,
-``dynamic_ssp``, ``nesterov`` ...) raises a ``KeyError`` naming it.
+import the known providers lazily.  An unknown name raises a ``KeyError``
+naming it.
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ _PROVIDERS = (
     "repro_torch.optim.local",
     "repro_torch.core.dc_s3gd",
     "repro_torch.core.ssgd",
+    "repro_torch.core.dc_asgd",
 )
 _loaded = False
 
@@ -66,8 +67,8 @@ def _lookup(kind: str, name: str):
     try:
         return _REGISTRY[kind][name]
     except KeyError:
-        raise KeyError(f"unknown {kind} {name!r} (not ported yet, or not a "
-                       f"name); have {sorted(_REGISTRY[kind])}") from None
+        raise KeyError(f"unknown {kind} {name!r}; have "
+                       f"{sorted(_REGISTRY[kind])}") from None
 
 
 def names(kind: str = ALGORITHM) -> Tuple[str, ...]:

@@ -125,4 +125,4 @@ class SSGD:
 
     def resize_state(self, state: TrainState, n_new: int) -> TrainState:
         raise NotImplementedError(
-            "elastic resize is not ported yet: ROADMAP queue A10")
+            "elastic resize is not ported yet: ROADMAP queue A5")

@@ -8,7 +8,8 @@ the reference); bfloat16 crosses as its 16-bit pattern (numpy has no
 native bfloat16).  A compressed
 reducer's ``TrainState.comm["reducer"]`` crosses the same way, except
 randk's ``step``, which is an int32 array in the reference and a host int
-in the port.
+in the port.  Dynamic SSP's ``comm["staleness"]`` counters are a device
+int32 array in the reference and a host numpy int32 array in the port.
 """
 from __future__ import annotations
 
@@ -60,3 +61,10 @@ def reducer_state_to_numpy(rstate):
     if "step" in rstate:
         out["step"] = np.asarray(rstate["step"], np.int32)
     return out
+
+
+def staleness_counters(pstate):
+    """A ``comm["staleness"]`` of either package -> host int32 numpy
+    counters: the port's layout, and what the reference's jnp arrays
+    convert from."""
+    return {k: np.array(v, np.int32) for k, v in pstate.items()}

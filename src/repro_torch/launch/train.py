@@ -36,11 +36,16 @@ def build_argparser():
                     help="cut the depth to this many layers (widths kept)")
     ap.add_argument("--algo", choices=registry.names(), default="dc_s3gd",
                     help="'stale' = DC-S3GD with lambda0=0 (no compensation);"
-                         " 'ssgd' = the synchronous baseline")
+                         " 'ssgd' = the synchronous baseline; 'dc_asgd' = "
+                         "the parameter-server simulator")
     ap.add_argument("--reducer", choices=registry.names(registry.REDUCER),
                     default="mean_allreduce",
                     help="topk / topk_exact / randk / powersgd = error-"
-                         "feedback compressed; need --buckets > 0")
+                         "feedback compressed, need --buckets > 0; gossip /"
+                         " hierarchical mix the weights")
+    ap.add_argument("--gossip-neighbors", type=int, default=1,
+                    help="ring neighbors per side for --reducer gossip / "
+                         "hierarchical")
     ap.add_argument("--compress-density", type=float, default=0.01,
                     help="kept fraction per bucket for --reducer "
                          "topk/topk_exact/randk")
@@ -51,6 +56,21 @@ def build_argparser():
                              "fp8"],
                     help="wire dtype for the reducer payload (int8/fp8 "
                          "carry one f32 scale per worker row)")
+    ap.add_argument("--local-optimizer", default=None,
+                    choices=registry.names(registry.LOCAL_OPTIMIZER),
+                    help="override cfg.local_optimizer (momentum)")
+    ap.add_argument("--staleness", default="fixed",
+                    choices=registry.names(registry.STALENESS_POLICY),
+                    help="stale-window policy (dynamic_ssp = skew threshold)")
+    ap.add_argument("--ssp-threshold", type=int, default=4,
+                    help="max per-worker step skew for --staleness "
+                         "dynamic_ssp")
+    ap.add_argument("--measure-skew", action="store_true",
+                    help="drive the staleness policy from measured step "
+                         "times (synchronises every step; see Engine.fit)")
+    ap.add_argument("--skew-warmup", type=int, default=1,
+                    help="leading steps excluded from the measured-skew "
+                         "virtual clock")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--batch-per-worker", type=int, default=8)
@@ -98,20 +118,27 @@ def build(args, *, device=None):
         learning_rate=args.lr, momentum=args.momentum, lambda0=args.lambda0,
         warmup_steps=max(int(args.warmup_frac * args.steps), 1),
         total_steps=args.steps, comm_dtype=args.comm_dtype,
+        local_optimizer=args.local_optimizer or "momentum",
+        ssp_threshold=args.ssp_threshold,
+        gossip_neighbors=args.gossip_neighbors,
         compress_density=args.compress_density,
         compress_rank=args.compress_rank)
 
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     n_params = sum(x.numel() for x in T.leaves(params))
     alg = registry.make(args.algo, dc_cfg, n_workers=args.workers,
-                        reducer=args.reducer,
+                        reducer=args.reducer, staleness=args.staleness,
                         use_kernels=args.use_kernels, buckets=args.buckets)
     state = alg.init(params)
     del params
     data = SyntheticLMDataset(cfg.vocab_size, args.seq, seed=args.seed)
+    reducer = getattr(getattr(alg, "reducer", None), "name", "-")
     print(f"[train] {cfg.name} x{cfg.n_layers} layers "
           f"({n_params / 1e6:.1f}M params) algo={alg.name} "
-          f"reducer={alg.reducer.name}/{args.comm_dtype} W={args.workers} "
+          f"reducer={reducer}/{args.comm_dtype} "
+          f"optimizer={alg.local_optimizer.name} "
+          f"staleness={getattr(getattr(alg, 'staleness', None), 'name', '-')}"
+          f" W={args.workers} "
           f"b={args.batch_per_worker} seq={args.seq} buckets={args.buckets} "
           f"kernels={args.use_kernels} device={device}")
 
@@ -128,7 +155,8 @@ def run(args, *, device=None) -> dict:
     history; ``result["state"]`` is the final `TrainState`."""
     model, alg, state, batch_fn = build(args, device=device)
     state, history, wall = Engine(model, alg).fit(
-        state, batch_fn, steps=args.steps, log_every=args.log_every)
+        state, batch_fn, steps=args.steps, log_every=args.log_every,
+        measure_skew=args.measure_skew, skew_warmup=args.skew_warmup)
     result = {
         "arch": model.cfg.name, "n_layers": model.cfg.n_layers,
         "algo": args.algo, "steps": args.steps, "workers": args.workers,

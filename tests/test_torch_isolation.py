@@ -38,8 +38,8 @@ def test_port_imports_with_jax_blocked():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from repro_torch.core import registry\n"
-        "assert registry.names() == ('dc_s3gd', 'ssgd', 'stale'), "
-        "registry.names()\n"
+        "assert registry.names() == ('dc_asgd', 'dc_s3gd', 'ssgd', "
+        "'stale'), registry.names()\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
@@ -51,11 +51,13 @@ def test_port_imports_with_jax_blocked():
 
 
 def test_unported_names_raise_key_errors_naming_them():
+    """Every name of the reference is ported now: an unknown name of any
+    kind raises a KeyError naming it."""
     from repro_torch.core import registry
-    for kind, name in ((registry.ALGORITHM, "dc_asgd"),
-                       (registry.REDUCER, "gossip"),
-                       (registry.REDUCER, "hierarchical"),
-                       (registry.STALENESS_POLICY, "dynamic_ssp"),
-                       (registry.LOCAL_OPTIMIZER, "nesterov")):
+    for kind, name in ((registry.ALGORITHM, "async_ps"),
+                       (registry.REDUCER, "ring_allreduce"),
+                       (registry.STALENESS_POLICY, "bounded_delay"),
+                       (registry.LOCAL_OPTIMIZER, "adagrad"),
+                       (registry.COMPENSATOR, "taylor2")):
         with pytest.raises(KeyError, match=name):
             registry._lookup(kind, name)

@@ -25,7 +25,17 @@ def _args(*extra):
                                     "bfloat16"),
                                    ("--reducer", "topk", "--buckets", "2",
                                     "--use-kernels"),
-                                   ("--comm-dtype", "int8")])
+                                   ("--comm-dtype", "int8"),
+                                   ("--local-optimizer", "nesterov"),
+                                   ("--local-optimizer", "adam",
+                                    "--buckets", "2"),
+                                   ("--reducer", "gossip",
+                                    "--gossip-neighbors", "1",
+                                    "--buckets", "2", "--use-kernels"),
+                                   ("--reducer", "hierarchical"),
+                                   ("--staleness", "dynamic_ssp",
+                                    "--ssp-threshold", "2",
+                                    "--measure-skew", "--skew-warmup", "1")])
 def test_run_on_cpu_gives_finite_metrics(extra, tmp_path):
     out = tmp_path / "metrics.json"
     result = train.run(_args(*extra, "--metrics-out", str(out)),
@@ -47,6 +57,40 @@ def test_ssgd_with_a_compressed_reducer_runs_on_cpu(reducer):
     for h in result["history"]:
         assert math.isfinite(h["loss"]) and "lambda" not in h
     assert result["state"].comm["reducer"]["residual"][0].any()
+
+
+def test_new_flags_reach_the_algorithm():
+    """--local-optimizer / --staleness / --ssp-threshold / --gossip-neighbors
+    build the pieces they name; --measure-skew adds the measured skew to
+    the history (0 in the one-process lockstep) and dynamic SSP admits
+    every step."""
+    result = train.run(_args("--local-optimizer", "lars", "--staleness",
+                             "dynamic_ssp", "--ssp-threshold", "3",
+                             "--measure-skew", "--reducer", "gossip",
+                             "--gossip-neighbors", "2", "--workers", "4"),
+                       device="cpu")
+    assert [h["ssp_admit"] for h in result["history"]] == [1.0, 1.0]
+    assert [h["measured_skew"] for h in result["history"]] == [0, 0]
+    assert result["state"].comm["staleness"]["worker_steps"].tolist() \
+        == [1] * 4
+    args = _args("--local-optimizer", "lars", "--staleness", "dynamic_ssp",
+                 "--ssp-threshold", "3", "--reducer", "gossip",
+                 "--gossip-neighbors", "2")
+    _, alg, _, _ = train.build(args, device="cpu")
+    assert alg.local_optimizer.name == "lars"
+    assert alg.staleness.name == "dynamic_ssp" and alg.staleness.threshold \
+        == 3
+    assert alg.reducer.name == "gossip" and alg.reducer.neighbors == 2
+
+
+def test_dc_asgd_runs_on_cpu():
+    result = train.run(_args("--algo", "dc_asgd", "--local-optimizer",
+                             "adam"), device="cpu")
+    for h in result["history"]:
+        assert math.isfinite(h["loss"]) and math.isfinite(
+            h["staleness_dist"])
+    assert result["state"].step == 2
+    assert result["state"].comm["worker_params"]
 
 
 def test_entry_point_without_a_device_raises_without_a_card():
