@@ -14,8 +14,11 @@ Phases (any failure exits non-zero before the result line):
    across two runs and on a misaligned copy), the update (atol 1e-5 f32
    w / 2e-2 bf16 w) and select_ef_mean (bitwise, f32 and bf16 wire,
    union off and on, and on a misaligned copy), each timed with CUDA
-   events (median per launch) beside its byte bound; the torch threshold
-   search (magnitude_threshold) timed at the same sizes;
+   events (median per launch of 10 samples, each a pass over enough
+   copies of its operands that no launch finds them in the 50 MB L2, at
+   least two launches, queued behind a device-side sleep) beside its byte
+   bound; the torch threshold search (magnitude_threshold) timed at the
+   same sizes;
 3. the main path: ``repro_torch.launch.train.run`` on qwen3-0.6b at its
    published widths, depth cut 28 -> 4, DC-S3GD, W = 2, 4 x 256 tokens
    per worker, 4 buckets, fused kernels, 6 steps — finite losses, λ and
@@ -94,7 +97,27 @@ Phases (any failure exits non-zero before the result line):
    ssm_scan launches 64 times per prefill, no host synchronisation inside
    a steady decode burst; then its prefill logits, scan kernel route
    against plain route, on 2 prompts (bound stated in
-   phase_prefill_routes).  qwen3's weights are freed before it.
+   phase_prefill_routes).  qwen3's weights are freed before it;
+11. state across steps.  On ResNet-18's layout (W = 8, dc_s3gd, 4
+   buckets, fused tail, TF32 off, cudnn.deterministic): 6 steps with
+   --overlap against 6 inline, in turns, bitwise in params, m, delta_prev
+   and losses (A1/A2 once per bucket and step; step times, peak memory
+   and the bytes held in comm["pipeline"]); a checkpoint at step 3
+   restored into a fresh state, steps 3-5 bitwise the uninterrupted run
+   (file bytes, save and restore seconds); the elastic resume 8 -> 6 from
+   it (eval_params bitwise, 2 finite steps); a live elastic run over topk
+   1 % with a one-step dense window after the join, W 8 -> 6 -> 4 -> 5
+   over 8 steps (eval_params bitwise across each transition, residual
+   mass conserved within W·2^-24·Σ|r|, residual 0 after the dense step,
+   A1/A2 once per bucket and step at each W, B3 once per bucket outside
+   the window, the transition log equal to the CPU's for the same
+   schedule).  On qwen3-0.6b (depth 4, W = 2): 3 steps over topk 1 %
+   with --overlap against inline under deterministic algorithms,
+   bitwise; the main path with --ckpt (bytes, save seconds; the file
+   under a temporary directory, deleted after), served through
+   ``repro_torch.launch.serve --layers 4 --train-ckpt ... --paged-kernel``
+   for 4 of phase 8's requests: greedy tokens equal to serving
+   eval_params of the in-memory state.  The phase's seconds are printed.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports nothing
@@ -102,6 +125,7 @@ of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -117,6 +141,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+L2_BYTES = 50 * 2**20         # H100 SXM L2
 W = 2
 N_BUCKETS = 4
 MAIN_ARGS = ["--arch", "qwen3-0.6b", "--layers", "4", "--algo", "dc_s3gd",
@@ -169,6 +194,24 @@ def median_ms(fn, reps: int = 10, warmup: int = 2, batch: int = 1) -> float:
     return statistics.median(times)
 
 
+def _rotation(tensors, nbytes: int):
+    """Copies of ``tensors`` to cycle over, enough that one pass moves three
+    times the 50 MB L2: no launch then finds its operands there (a single
+    copy where one launch alone moves more)."""
+    k = max(1, -(-3 * L2_BYTES // nbytes))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(k - 1)]
+
+
+def cold_ms(fn, copies) -> float:
+    """``median_ms`` of ``fn(*operands)`` cycling over ``copies`` (from
+    `_rotation`), one pass of at least two launches queued behind the
+    device-side sleep per sample: the events time device work from HBM,
+    as the step's own launches find it."""
+    cyc = itertools.cycle(copies)
+    return median_ms(lambda: fn(*next(cyc)), batch=max(2, len(copies)))
+
+
 def phase_build(smi: str) -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -218,8 +261,10 @@ def phase_kernels(sizes, smi: str, W: int = W, select: bool = True,
             acc["dc_norms"]["err"] = max(acc["dc_norms"]["err"],
                                          float((x - r).abs().max()))
             rel = max(rel, float(((x - r).abs() / r.abs()).max()))
-        k_ms = median_ms(lambda: K.dc_norms(g, d))
-        p_ms = median_ms(lambda: K.dc_norms_plain(g, d))
+        ops = _rotation((g, d), 8 * W * n)
+        k_ms = cold_ms(K.dc_norms, ops)
+        p_ms = cold_ms(K.dc_norms_plain, ops)
+        del ops
         bound = 8 * W * n / HBM_BYTES_PER_S * 1e3
         acc["dc_norms"]["ms"] += k_ms
         acc["dc_norms"]["plain_ms"] += p_ms
@@ -242,10 +287,12 @@ def phase_kernels(sizes, smi: str, W: int = W, select: bool = True,
             check(err <= atol, f"dc_fused_update {wt} n={n}: max abs err "
                   f"{err} > {atol}")
             del out, ref
-            k_ms = median_ms(lambda: K.dc_fused_update(g, d, m, ww, lam=lam,
-                                                       **args))
-            p_ms = median_ms(lambda: K.dc_fused_update_plain(
-                g, d, m, ww, lam=lam, **args))
+            ops = _rotation((g, d, m, ww), bpe * W * n)
+            k_ms = cold_ms(lambda *o: K.dc_fused_update(*o, lam=lam, **args),
+                           ops)
+            p_ms = cold_ms(lambda *o: K.dc_fused_update_plain(
+                *o, lam=lam, **args), ops)
+            del ops
             bound = bpe * W * n / HBM_BYTES_PER_S * 1e3
             print(f"[{tag}] dc_fused_update n={n} W={W} w={wt}: "
                   f"{k_ms:.4f} ms/launch (plain {p_ms:.4f} ms, byte bound "
@@ -285,6 +332,7 @@ def phase_select(sizes, gen, smi: str) -> dict:
         print(f"[threshold] magnitude_threshold n={n} W={W} k={k}: "
               f"{t_ms:.4f} ms (torch; not a TPU kernel) [{smi}]")
         bound = (8 * W + 4) * n / HBM_BYTES_PER_S * 1e3
+        ops = _rotation((a, t), (8 * W + 4) * n)
         for dt in (torch.float32, torch.bfloat16):
             for union in (False, True):
                 got = KC.select_ef_mean(a, t, comm_dtype=dt, union=union)
@@ -297,10 +345,10 @@ def phase_select(sizes, gen, smi: str) -> dict:
                     check(torch.equal(x, y), f"select_ef_mean not bitwise "
                           f"the plain version: n={n} {dt} union={union}")
                 del got, want
-                k_ms = median_ms(lambda: KC.select_ef_mean(
-                    a, t, comm_dtype=dt, union=union))
-                p_ms = median_ms(lambda: KC.select_ef_mean_plain(
-                    a, t, comm_dtype=dt, union=union))
+                k_ms = cold_ms(lambda x, th: KC.select_ef_mean(
+                    x, th, comm_dtype=dt, union=union), ops)
+                p_ms = cold_ms(lambda x, th: KC.select_ef_mean_plain(
+                    x, th, comm_dtype=dt, union=union), ops)
                 print(f"[kernels] select_ef_mean n={n} W={W} wire={dt} "
                       f"union={union}: {k_ms:.4f} ms/launch (plain "
                       f"{p_ms:.4f} ms, byte bound {bound:.4f} ms, max abs "
@@ -320,7 +368,7 @@ def phase_select(sizes, gen, smi: str) -> dict:
                                           union=False)):
             check(torch.equal(x, y),
                   f"select_ef_mean not bitwise on a misaligned view, n={n}")
-        del a, t, buf, am
+        del a, t, buf, am, ops
         torch.cuda.empty_cache()
     print(f"[threshold] magnitude_threshold per step ({len(sizes)} buckets): "
           f"{thresh_ms:.4f} ms [{smi}]")
@@ -1569,6 +1617,450 @@ def phase_serve_ssm(smi: str, path: Path) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# state across steps: the overlap pipeline, checkpoints, elastic membership
+# ---------------------------------------------------------------------------
+
+CNN_STATE_STEPS = 6
+# two leaves at step 2 (the seeded victim w0, and w5), two at step 4 (the
+# seeded w2, and w6), one join at step 6: W runs 8 -> 6 -> 4 -> 5
+ELASTIC_SCHEDULE = {"seed": 0, "events": [
+    {"step": 2, "kind": "leave"}, {"step": 2, "kind": "leave",
+                                   "worker": "w5"},
+    {"step": 4, "kind": "leave"}, {"step": 4, "kind": "leave",
+                                   "worker": "w6"},
+    {"step": 6, "kind": "join", "count": 1}]}
+ELASTIC_STEPS = 8
+ELASTIC_W = [8, 8, 6, 6, 4, 4, 5, 5]
+DENSE_STEPS = (6,)    # the joiner's dense window: B3 does not launch
+
+
+def _zero_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _bitwise(a, b) -> bool:
+    """Two trees (tensors, host ints, numpy counters) equal bit for bit."""
+    import numpy as np
+    from repro_torch import tree as T
+    la, lb = T.leaves(a), T.leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor)
+        else bool(np.array_equal(x, y)) for x, y in zip(la, lb))
+
+
+def _step_ms(hist) -> float:
+    """Median host-clock step of steps 2.. (metrics fetched every step)."""
+    walls = [h["wall_s"] for h in hist]
+    return statistics.median(b - a for a, b in zip(walls[1:], walls[2:])) \
+        * 1e3
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN picks deterministic algorithms: equal inputs, equal grads."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def _scratch_dir(need: int):
+    """A temporary directory for a checkpoint of ``need`` bytes, under the
+    system's temporary directory or the checkout's ``build/``, whichever
+    has more room; removed with everything in it afterwards."""
+    import shutil
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = max((Path(tempfile.gettempdir()), ROOT / "build"),
+               key=lambda p: shutil.disk_usage(p).free)
+    free = shutil.disk_usage(root).free
+    check(free > 1.2 * need, f"{free} B free under {root}; the checkpoint "
+          f"needs {need}")
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        yield Path(tmp)
+
+
+def _cnn_twin(steps: int = CNN_STATE_STEPS, start: int = 0,
+              device: str = "cuda", **kw):
+    """dc_s3gd through the example twin's build (§IV-A recipe for
+    ``steps``, fused tail, 4 buckets, W = 8) on ResNet-18's layout, or on
+    the example's reduced ResNet when ``device`` is the CPU."""
+    from repro_torch.examples import cnn_paper_repro as twin
+    net = dict(net=RESNET18, image_size=CNN_IMAGE,
+               per_worker=CNN_PER_WORKER) if device == "cuda" else {}
+    return twin.build("dc_s3gd", twin.recipe(CNN_W, steps), CNN_W, steps,
+                      device=device, start=start, use_kernels=True,
+                      buckets=N_BUCKETS, **net, **kw)
+
+
+def phase_cnn_state(smi: str) -> dict:
+    """ResNet-18's layout, W = 8, dc_s3gd, 4 buckets, fused tail, TF32 off,
+    under cudnn.deterministic.  Overlap against inline, 6 steps each, in
+    turns (inline, overlap, overlap, inline): bitwise in params, m,
+    delta_prev and losses, A1/A2 once per bucket and step; a checkpoint
+    at step 3 restored into a fresh state and run to step 6, bitwise the
+    uninterrupted run; the elastic resume 8 -> 6 from that checkpoint
+    (eval_params bitwise, 2 finite steps).  Every kernel count is set to 0
+    just before a run and read just after it."""
+    from repro_torch.cluster import rebuild_algorithm
+    from repro_torch.launch.engine import Engine
+    rec = {"inline": [], "overlap": []}
+    first = {}
+    with _cudnn_deterministic():
+        for overlap in (False, True, True, False):
+            tag = "overlap" if overlap else "inline"
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            model, alg, state, batch_fn, _ = _cnn_twin(overlap=overlap)
+            state, hist, _ = Engine(model, alg).fit(
+                state, batch_fn, steps=CNN_STATE_STEPS, log_every=1)
+            torch.cuda.synchronize()
+            launches = _read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            losses = [h["loss"] for h in hist]
+            check(all(map(math.isfinite, losses)), f"[state] {tag}: {losses}")
+            for name, n in launches.items():
+                want = CNN_STATE_STEPS * len(CNN_BUCKETS) \
+                    if name in ("dc_norms", "dc_fused_update") else 0
+                check(n == want, f"[state] {tag}: {name} launched {n} "
+                      f"times, expected {want}")
+            landed = state.comm.get("pipeline", {}).get("reduced", [])
+            run = {"step_ms": _step_ms(hist), "peak_bytes": peak,
+                   "allocated_before": before, "losses": losses,
+                   "launches": launches,
+                   "pipeline_bytes": sum(x.numel() * x.element_size()
+                                         for x in landed)}
+            rec[tag].append(run)
+            print(f"[state] CNN {tag}: step {run['step_ms']:.3f} ms (median "
+                  f"of steps 2-5), peak {peak / 2**30:.3f} GiB ({peak} B; "
+                  f"{before / 2**20:.1f} MiB before), comm['pipeline'] "
+                  f"{run['pipeline_bytes']} B; launches {launches} [{smi}]")
+            first.setdefault(overlap, (state, losses))
+            del state, alg, model, batch_fn
+        (inline, l_in), (piped, l_pipe) = first[False], first[True]
+        for what in ("params", "opt"):
+            check(_bitwise(getattr(inline, what), getattr(piped, what)),
+                  f"[state] CNN overlap != inline in {what}")
+        check(_bitwise(inline.comm["delta_prev"], piped.comm["delta_prev"])
+              and l_in == l_pipe, "[state] CNN overlap != inline")
+        print(f"[state] CNN overlap == inline, bitwise (params, m, "
+              f"delta_prev, losses) over {CNN_STATE_STEPS} steps [{smi}]")
+        del piped, first
+
+        model, alg, state, batch_fn, _ = _cnn_twin()
+        engine = Engine(model, alg)
+        half, _, _ = engine.fit(state, batch_fn, steps=3, log_every=1)
+        del state
+        with _scratch_dir(2 * 2**30) as tmp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = engine.save(tmp / "cnn_w8.npz", half, step=3)
+            save_s = time.perf_counter() - t0
+            nbytes = path.stat().st_size
+            model, alg, fresh, batch_fn, _ = _cnn_twin(start=3)
+            engine = Engine(model, alg)
+            t0 = time.perf_counter()
+            restored = engine.restore(path, fresh)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            del fresh
+            check(_bitwise(restored, half), "[state] CNN restore != saved")
+            resumed, hist, _ = engine.fit(restored, batch_fn,
+                                          steps=CNN_STATE_STEPS, start=3,
+                                          log_every=1)
+            check([h["step"] for h in hist] == [3, 4, 5]
+                  and _bitwise(resumed, inline),
+                  "[state] CNN resumed at step 3 != uninterrupted")
+            print(f"[state] CNN checkpoint at step 3: {nbytes} B, save "
+                  f"{save_s:.3f} s, restore {restore_s:.3f} s; steps 3-5 "
+                  f"resumed == uninterrupted, bitwise [{smi}]")
+            del resumed, restored, inline, half
+
+            # elastic resume: the checkpoint's W = 8 resharded to 6
+            model, alg8, fresh, batch_fn, _ = _cnn_twin(start=3)
+            restored = Engine(model, alg8).restore(path, fresh)
+            del fresh
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resized = alg8.resize_state(restored, 6)
+            alg6 = rebuild_algorithm(alg8, 6)
+            torch.cuda.synchronize()
+            resize_s = time.perf_counter() - t0
+            check(_bitwise(alg8.eval_params(restored),
+                           alg6.eval_params(resized)),
+                  "[state] CNN eval_params changed across the 8 -> 6 resize")
+            del restored
+            state6, hist6, _ = Engine(model, alg6).fit(
+                resized, lambda it: batch_fn(it, 6), steps=5, start=3,
+                log_every=1)
+            losses6 = [h["loss"] for h in hist6]
+            check(len(losses6) == 2 and all(map(math.isfinite, losses6)),
+                  f"[state] CNN after the elastic resume: {losses6}")
+            print(f"[state] CNN elastic resume 8 -> 6: resize "
+                  f"{resize_s:.3f} s, eval_params bitwise, losses {losses6} "
+                  f"[{smi}]")
+            del state6, resized
+    rec.update(ckpt_bytes=nbytes, save_s=save_s, restore_s=restore_s,
+               resize_s=resize_s, resumed_losses=losses6)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_cnn_elastic(smi: str) -> dict:
+    """A live elastic run on ResNet-18's layout over topk 1 % with a
+    one-step dense window after the join, W = 8 -> 6 -> 4 -> 5 over 8
+    steps (``ELASTIC_SCHEDULE``): eval_params bitwise across each
+    transition, the residual's mass per bucket conserved within
+    W·2^-24·Σ|r|, every residual exactly 0 after the dense step, A1/A2
+    once per bucket and step at each W and B3 once per bucket outside the
+    window, and the transition log equal to the one the port computes on
+    the CPU (the example's reduced ResNet) for the same schedule and seed.
+    The counts are set to 0 just before the run and read before each step
+    and after the last."""
+    from repro_torch.cluster import FaultSchedule, Membership
+    from repro_torch.launch.engine import Engine
+
+    def mass(state):
+        return [(float(r.double().sum()),
+                 r.shape[0] * 2.0 ** -24 * float(r.double().abs().sum()))
+                for r in state.comm["reducer"]["residual"]]
+
+    class Watched(Membership):
+        """Checks each transition and records the counts before each
+        step."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.snaps, self.worst = [], 0.0
+
+        def poll(self, step):
+            torch.cuda.synchronize()
+            self.snaps.append(_read_counts())
+            return super().poll(step)
+
+        def apply(self, events, state, *, step):
+            if any(ev.kind == "dense_end" for ev in events):
+                check(not any(bool(r.any()) for r in
+                              state.comm["reducer"]["residual"]),
+                      f"[elastic] residual not 0 after the dense step "
+                      f"{step - 1}")
+            alg, pre = self.alg, self.alg.eval_params(state)
+            pre_mass = mass(state)
+            state, changed = super().apply(events, state, step=step)
+            if self.alg.n_workers != alg.n_workers:
+                check(_bitwise(pre, self.alg.eval_params(state)),
+                      f"[elastic] eval_params changed at step {step}")
+                for (a, bound), (b, _) in zip(pre_mass, mass(state)):
+                    check(abs(a - b) <= bound, f"[elastic] residual mass "
+                          f"{a} -> {b} at step {step} (bound {bound})")
+                    self.worst = max(self.worst, abs(a - b) / bound
+                                     if bound else 0.0)
+            return state, changed
+
+    model, alg, state, batch_fn, _ = _cnn_twin(ELASTIC_STEPS,
+                                               reducer="topk")
+    ms = Watched(alg, faults=FaultSchedule.from_json(ELASTIC_SCHEDULE),
+                 dense_after_join=1)
+    _zero_counts()
+    t0 = time.perf_counter()
+    state, hist, _ = Engine(model, alg).fit(state, batch_fn,
+                                            steps=ELASTIC_STEPS, log_every=1,
+                                            membership=ms)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    snaps = ms.snaps + [_read_counts()]
+    per_step = [{k: b[k] - a[k] for k in a} for a, b in zip(snaps,
+                                                            snaps[1:])]
+    workers = [h["n_workers"] for h in hist]
+    check(workers == ELASTIC_W, f"[elastic] W per step {workers}")
+    check(all(math.isfinite(h["loss"]) for h in hist), "[elastic] losses")
+    nb = len(CNN_BUCKETS)
+    for it, c in enumerate(per_step):
+        want = {"dc_norms": nb, "dc_fused_update": nb,
+                "select_ef_mean": 0 if it in DENSE_STEPS else nb}
+        for name, n in c.items():
+            check(n == want.get(name, 0), f"[elastic] step {it} (W="
+                  f"{workers[it]}): {name} launched {n} times, expected "
+                  f"{want.get(name, 0)}")
+    check(any(bool(r.any()) for r in state.comm["reducer"]["residual"]),
+          "[elastic] no residual after the window: compression did not "
+          "resume")
+    for it, c in enumerate(per_step):
+        print(f"[elastic] step {it} W={workers[it]}: dc_norms "
+              f"{c['dc_norms']}, dc_fused_update {c['dc_fused_update']}, "
+              f"select_ef_mean {c['select_ef_mean']}, loss "
+              f"{hist[it]['loss']:.6f}")
+    log = ms.log
+    del state, alg, model, batch_fn
+    torch.cuda.empty_cache()
+
+    # the same schedule and seed on the CPU, on the example's reduced net
+    model, alg, state, batch_fn, _ = _cnn_twin(ELASTIC_STEPS, device="cpu",
+                                               reducer="topk")
+    cpu = Membership(alg, faults=FaultSchedule.from_json(ELASTIC_SCHEDULE),
+                     dense_after_join=1)
+    Engine(model, alg).fit(state, batch_fn, steps=ELASTIC_STEPS,
+                           log_every=ELASTIC_STEPS, membership=cpu)
+    check(log == cpu.log, f"[elastic] transition log {log} != the CPU's "
+          f"{cpu.log}")
+    print(f"[elastic] transitions (== the CPU run's, dict for dict): "
+          f"{json.dumps(log)}")
+    print(f"[elastic] 8 steps, W {workers}, in {secs:.3f} s; eval_params "
+          f"bitwise across every transition; worst residual mass change "
+          f"{ms.worst:.3g} of its one-rounding bound; residual 0 after the "
+          f"dense step [{smi}]")
+    return {"W": workers, "per_step_launches": per_step, "log": log,
+            "s": secs, "mass_worst": ms.worst,
+            "losses": [h["loss"] for h in hist]}
+
+
+def phase_qwen3_state(smi: str, requests: Path) -> dict:
+    """qwen3-0.6b, depth 4, W = 2 (the main path's configuration).  3
+    steps over topk 1 % inline and with --overlap, under PyTorch's
+    deterministic algorithms (the embedding's backward accumulates with
+    atomics otherwise): bitwise in params, m, delta_prev and losses, A1
+    and A2 once per bucket and step, B3 once per bucket and reduce (one
+    reduce more under overlap: the priming issue in init).  Then the main
+    path (3 steps) with --ckpt, served through ``repro_torch.launch.serve
+    --layers 4 --train-ckpt ... --paged-kernel`` for 4 of the serve
+    requests: greedy tokens equal to serving eval_params of the in-memory
+    state, B4 and B5 launched 4 layers x decode steps and x prefills.
+    The checkpoint is written under a temporary directory and deleted."""
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.engine import algorithm_for_checkpoint
+    rec = {}
+    kept = None
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for overlap in (False, True):
+            tag = "overlap" if overlap else "inline"
+            args = train.build_argparser().parse_args(
+                MAIN_ARGS + ["--steps", "3", "--use-kernels", *COMPRESSED]
+                + (["--overlap"] if overlap else []))
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                result = train.run(args)
+            torch.cuda.synchronize()
+            launches = _read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            losses = [h["loss"] for h in result["history"]]
+            check(all(map(math.isfinite, losses)), f"[state] qwen3 {tag}")
+            # the tail once per bucket and step; topk's reduce too, and
+            # under overlap once more: init primes the pipeline, and the
+            # issue at the end of step 2 is the reduce step 3 would consume
+            wants = {"dc_norms": 3 * N_BUCKETS,
+                     "dc_fused_update": 3 * N_BUCKETS,
+                     "select_ef_mean": (3 + overlap) * N_BUCKETS}
+            for name, n in launches.items():
+                check(n == wants.get(name, 0), f"[state] qwen3 {tag}: "
+                      f"{name} launched {n} times, expected "
+                      f"{wants.get(name, 0)}")
+            nondet = sorted({str(w.message)[:120] for w in caught
+                             if "determinis" in str(w.message)})
+            st = result.pop("state")
+            walls = [h["wall_s"] for h in result["history"]]
+            rec[tag] = {"step2_ms": (walls[2] - walls[1]) * 1e3,
+                        "peak_bytes": peak, "allocated_before": before,
+                        "losses": losses, "launches": launches,
+                        "nondeterministic": nondet}
+            print(f"[state] qwen3 {tag} (topk 1 %): step 2 "
+                  f"{rec[tag]['step2_ms']:.3f} ms, peak {peak / 2**30:.3f} "
+                  f"GiB ({before / 2**30:.3f} GiB allocated before), "
+                  f"losses {losses}, launches {launches}; "
+                  f"nondeterministic-op warnings {nondet} [{smi}]")
+            if not overlap:
+                # held through the overlap run: its peak counts them
+                kept = (st.params, st.opt, st.comm["delta_prev"], losses)
+            else:
+                for a, b, what in zip(kept, (st.params, st.opt,
+                                             st.comm["delta_prev"], losses),
+                                      ("params", "m", "delta_prev",
+                                       "losses")):
+                    check(_bitwise(a, b) if what != "losses" else a == b,
+                          f"[state] qwen3 overlap != inline in {what}")
+            del st, result
+        print(f"[state] qwen3 overlap == inline over topk 1 %, bitwise "
+              f"(params, m, delta_prev, losses; deterministic algorithms) "
+              f"[{smi}]")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del kept
+    torch.cuda.empty_cache()
+
+    with _scratch_dir(10 * 2**30) as tmp:
+        ckpt = tmp / "qwen3_w2.npz"
+        args = train.build_argparser().parse_args(
+            MAIN_ARGS + ["--steps", "3", "--use-kernels", "--ckpt",
+                         str(ckpt)])
+        result = train.run(args)
+        alg, _ = algorithm_for_checkpoint(ckpt)
+        mem_params = alg.eval_params(result.pop("state"))
+        rec["ckpt"] = result["ckpt"]
+        del result
+        torch.cuda.empty_cache()
+        sargs = serve.build_argparser().parse_args(
+            SERVE_ARGS + ["--layers", "4", "--train-ckpt", str(ckpt),
+                          "--requests", str(requests), "--paged-kernel"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, params, _ = serve.build(sargs)
+        torch.cuda.synchronize()
+        rec["ckpt"]["serve_load_s"] = time.perf_counter() - t0
+    check(_bitwise(params, mem_params),
+          "[state] served weights != eval_params of the in-memory state")
+    outs = {}
+    for name, p in (("checkpoint", params), ("in-memory", mem_params)):
+        # fresh requests each run: the scheduler fills their outputs
+        reqs = serve.load_requests(sargs.requests, model.cfg.vocab_size,
+                                   sargs.gen, seed=sargs.seed)[:4]
+        _zero_counts()
+        sch = serve.run_scheduler(model, p, reqs, sargs)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        steps, prefills = sch.stats["decode_steps"], sch.stats["prefills"]
+        check(launches["paged_attention"] == 4 * steps
+              and launches["flash_attention"] == 4 * prefills,
+              f"[serve-ckpt] {name}: {launches}, {steps} decode steps, "
+              f"{prefills} prefills")
+        outs[name] = {r.rid: r.out for r in sch.finished}
+        check(sorted(outs[name]) == [r.rid for r in reqs]
+              and all(len(outs[name][r.rid]) == r.max_new for r in reqs),
+              f"[serve-ckpt] {name}: requests unfinished")
+        print(f"[serve-ckpt] {name} weights: paged_attention "
+              f"{launches['paged_attention']} = 4 x {steps} decode steps, "
+              f"flash_attention {launches['flash_attention']} = 4 x "
+              f"{prefills} prefills [{smi}]")
+        del sch
+    check(outs["checkpoint"] == outs["in-memory"],
+          "[serve-ckpt] tokens served from the checkpoint differ")
+    c = rec["ckpt"]
+    print(f"[state] qwen3 x4 W=2 checkpoint: {c['bytes']} B, save "
+          f"{c['save_s']:.3f} s, serve --train-ckpt load (template, read, "
+          f"eval_params) {c['serve_load_s']:.3f} s; 4 requests' greedy "
+          f"tokens equal to serving eval_params in memory [{smi}]")
+    del model, params, mem_params
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1660,6 +2152,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     fm = phase_serve_ssm(smi, requests)
     launches["ssm_scan"] = fm["launches"]["ssm_scan"]
+    torch.cuda.empty_cache()
+
+    state = {}
+    for name, phase in (("cnn", lambda: phase_cnn_state(smi)),
+                        ("elastic", lambda: phase_cnn_elastic(smi)),
+                        ("qwen3", lambda: phase_qwen3_state(smi, requests))):
+        t0 = time.perf_counter()
+        state[name] = phase()
+        state[name]["phase_s"] = time.perf_counter() - t0
+        print(f"[state] phase {name} took {state[name]['phase_s']:.1f} s "
+              f"[{smi}]")
+    state["s"] = sum(state[k]["phase_s"] for k in ("cnn", "elastic",
+                                                   "qwen3"))
+    print(f"[state] the state-across-steps phases took {state['s']:.1f} s "
+          f"[{smi}]")
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -1781,7 +2288,7 @@ def main() -> int:
               "kernel_vs_gather": versus, "profile_serve": s_prof,
               "flash_attention": flash, "ssm_scan": scan,
               "prefill_routes_qwen3": q_routes, "serve_ssm": fm,
-              "cnn": cnn,
+              "cnn": cnn, "state": state,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start
     print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "

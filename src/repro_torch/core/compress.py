@@ -467,3 +467,51 @@ class PowerSGDReduce(_ErrorFeedbackMean):
         new_state["residual"] = new_res
         new_state["q"] = new_q
         return out, new_state
+
+
+class DenseWindowReduce:
+    """A stateful error-feedback reducer made dense for a while: the joiner
+    catch-up window of ``Membership(dense_after_join=N)``.
+
+    A worker that joins an elastic run inherits a share of the residual
+    from the mass-conserving resize: payload that compression has not yet
+    delivered.  Draining it through the compressor takes many steps at
+    low density; inside the window this wrapper delivers it at once,
+
+        a = wire + residual  ->  the exact dense mean of a  ->  residual = 0,
+
+    so after one dense step the residual is exactly zero.  On a quantized
+    wire the whole payload crosses quantized and the residual keeps the
+    quantization error.  The carried state keeps the inner reducer's
+    structure (residuals zeroed, counters and warm starts untouched), so
+    swapping the wrapper in and out needs no state surgery.  Everything
+    else (``name``, ``hparams``, ``wire_bytes``, ``resize``, ``revoke``)
+    is the inner reducer's: a checkpoint written inside the window records
+    the inner reducer and resumes compressed.  It never runs a kernel."""
+
+    stateless = False
+    reduces_weights = False
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, wire, rstate: Tree) -> Tuple[List[torch.Tensor], Tree]:
+        buckets = _as_buckets(wire)
+        quantized = Q.is_quantized(self.inner.comm_dtype)
+        dt = None if quantized else Q.float_wire(self.inner.comm_dtype)
+        out, new_res = [], []
+        for b, d in enumerate(buckets):
+            a = d.float() + rstate["residual"][b]
+            if quantized:
+                cq = _quantized_roundtrip(a, self.inner.comm_dtype)
+                out.append(_row_sum(cq) / cq.shape[0])
+                new_res.append(a - cq)
+            else:
+                out.append(wire_mean(a, dt))
+                new_res.append(torch.zeros_like(a))
+        new_state = dict(rstate)
+        new_state["residual"] = new_res
+        return out, new_state

@@ -29,7 +29,11 @@ revoked window replaces D by a blocking pull to the plain worker mean.
 
 The reference fences the wire and D with ``lax.optimization_barrier`` so
 XLA cannot fuse across them; eager PyTorch materialises every tensor, so
-the port needs no counterpart.
+the port needs no counterpart.  ``overlap=True`` runs the double-buffered
+bucket pipeline (`repro_torch.parallel.pipeline`): each step's reduce is
+issued at its end and consumed at the top of the next, bitwise the
+inline schedule.  ``resize_state`` reshards the carried state to another
+worker count (elastic membership, `repro_torch.cluster`).
 
 The first iteration of Algorithm 1 (the plain step before the loop) is
 ``delta_prev = 0``: then D = 0, λ = 0 and the step is plain momentum SGD.
@@ -106,16 +110,20 @@ class DCS3GD:
             "dc" if compensator is None else compensator, cfg)
         self.staleness = registry.make_staleness_policy(
             "fixed" if staleness is None else staleness, cfg)
-        if overlap:
-            raise NotImplementedError(
-                "overlap=True (the double-buffered bucket pipeline) is not "
-                "ported yet: ROADMAP queue A4")
         self.use_kernels = use_kernels
         # compressed reducers with a fused kernel share the knob: one flag
         # routes both the tail and the compression through kernels
         if use_kernels and hasattr(self.reducer, "use_kernels"):
             self.reducer.use_kernels = True
         self.buckets = int(cfg.buckets if buckets is None else buckets)
+        # the double-buffered bucket pipeline (repro_torch.parallel.
+        # pipeline): issue each reduce at the end of the step, consume it
+        # at the top of the next — bitwise the inline schedule
+        self.overlap = bool(overlap or False)
+        if self.overlap:
+            from repro_torch.parallel import pipeline as PL
+            PL.validate(buckets=self.buckets, reducer=self.reducer,
+                        staleness=self.staleness)
         self._plan_cache: dict = {}
 
     def _plan(self, worker_params: Tree):
@@ -147,6 +155,17 @@ class DCS3GD:
             comm["reducer"] = self.reducer.init(
                 self.n_workers, self._plan(wp) if self.buckets else None,
                 device=device)
+        if self.overlap:
+            # prime the pipeline with the call the inline schedule makes on
+            # step 0: the reduce of the zero payload (the packed initial
+            # weights for a weight-mixing reducer)
+            from repro_torch.parallel import pipeline as PL
+            wire0 = self._plan(wp).pack(wp) if self._reduces_weights \
+                else comm["delta_prev"]
+            comm["pipeline"], rs = PL.issue(self.reducer, wire0,
+                                            comm.get("reducer"))
+            if rs is not None:
+                comm["reducer"] = rs
         return TrainState(params=wp, opt=opt, comm=comm, step=0)
 
     @property
@@ -176,7 +195,12 @@ class DCS3GD:
         else:
             r_in = state.comm["delta_prev"]
         rstate = None
-        if self._reducer_stateless:
+        if self.overlap:
+            # pipelined: the reduce of r_in was issued at the end of the
+            # previous step (`_comm`); this step consumes what landed
+            from repro_torch.parallel import pipeline as PL
+            reduced = PL.landed(state.comm)
+        elif self._reducer_stateless:
             reduced = self.reducer(r_in)
         else:
             reduced, rstate = self.reducer(r_in, state.comm["reducer"])
@@ -241,21 +265,41 @@ class DCS3GD:
             **pol_metrics,
         }
         return TrainState(new_params, _cast_slots(opt, sdt),
-                          self._comm(delta, sdt, rstate, pstate, plan=plan),
+                          self._comm(delta, sdt, rstate, pstate, plan=plan,
+                                     prev_comm=state.comm,
+                                     params=new_params),
                           state.step + 1), metrics
 
-    def _comm(self, delta, sdt, rstate, pstate, *, plan=None) -> dict:
+    def _comm(self, delta, sdt, rstate, pstate, *, plan=None,
+              packed: bool = False, prev_comm=None, params=None) -> dict:
         """Next step's wire state: the carried deltas (packed by ``plan``
-        where given; none for a weight-mixing reducer), a stateful
-        reducer's state and a stateful staleness policy's counters."""
+        unless ``packed`` says they already are; none for a weight-mixing
+        reducer), a stateful reducer's state and a stateful staleness
+        policy's counters.
+
+        Under ``overlap`` this is also where the next reduce goes on the
+        wire: the payload the inline schedule would reduce at the top of
+        the next step (the carried delta buckets, or the packed new
+        ``params`` for a weight-mixing reducer) is reduced now, and the
+        result rides in ``comm["pipeline"]``."""
         comm = {}
         if not self._reduces_weights:
-            wire = plan.pack(delta) if plan is not None else delta
+            wire = plan.pack(delta) if plan is not None and not packed \
+                else delta
             comm["delta_prev"] = T.map(lambda d: d.to(sdt), wire)
         if rstate is not None:
             comm["reducer"] = rstate
         if pstate is not None:
             comm["staleness"] = pstate
+        if self.overlap:
+            from repro_torch.parallel import pipeline as PL
+            wire = plan.pack(params) if self._reduces_weights \
+                else comm["delta_prev"]
+            rs_in = None if self._reducer_stateless \
+                else prev_comm["reducer"]
+            comm["pipeline"], rs_out = PL.issue(self.reducer, wire, rs_in)
+            if rs_out is not None:
+                comm["reducer"] = rs_out
         return comm
 
     def observe_progress(self, state: TrainState, worker_steps
@@ -276,8 +320,57 @@ class DCS3GD:
         return consensus_mean(state.params)
 
     def resize_state(self, state: TrainState, n_new: int) -> TrainState:
-        raise NotImplementedError(
-            "elastic resize is not ported yet: ROADMAP queue A5")
+        """Reshard the carried state to ``n_new`` workers (elastic resize).
+
+        A membership transition is a barrier: every worker-stacked piece
+        collapses to its anchor-form consensus over all old workers,
+        ``a[0] + mean(a − a[:1])`` in f32 (the formula of
+        `consensus_mean`), and is restacked at the new count:
+
+        * params and opt slots: leavers fold into the mean, joiners start
+          from it, so ``eval_params`` after the resize is bitwise the
+          value before (f32 params); 0-d slots (Adam's ``t``) stay;
+        * ``delta_prev``: every worker then sits at the consensus, so the
+          next step's D is zero, Algorithm 1's prologue after the barrier;
+        * ``comm["staleness"]`` / ``comm["reducer"]``: the piece's own
+          ``resize`` (counters collapse to the leader; error-feedback
+          residual mass is conserved);
+        * ``comm["pipeline"]``: `repro_torch.parallel.pipeline.resize`
+          against the resized wire.
+
+        The rows are materialised (``contiguous``), never expanded views:
+        the kernels take contiguous operands and an in-place update of an
+        expanded view would write every worker at once.  ``self`` still
+        targets the old count: rebuild it for ``n_new`` with
+        `repro_torch.cluster.membership.rebuild_algorithm`."""
+        n_new = int(n_new)
+
+        def restack(x):
+            if x.dim() == 0:
+                return x
+            a = x.float()
+            avg = a[0] + _row_sum(a - a[:1])[0] / a.shape[0]
+            return avg.to(x.dtype).unsqueeze(0) \
+                .expand((n_new,) + avg.shape).contiguous()
+
+        params = T.map(restack, state.params)
+        opt = T.map(restack, state.opt)
+        comm = {}
+        if "delta_prev" in state.comm:
+            comm["delta_prev"] = T.map(restack, state.comm["delta_prev"])
+        if "staleness" in state.comm:
+            comm["staleness"] = self.staleness.resize(
+                state.comm["staleness"], n_new)
+        if "reducer" in state.comm:
+            comm["reducer"] = self.reducer.resize(state.comm["reducer"],
+                                                  n_new)
+        if "pipeline" in state.comm:
+            from repro_torch.parallel import pipeline as PL
+            wire = self._plan(params).pack(params) \
+                if self._reduces_weights else comm["delta_prev"]
+            comm["pipeline"] = PL.resize(self.reducer,
+                                         state.comm["pipeline"], wire)
+        return TrainState(params, opt, comm, state.step)
 
     def _fused_tail(self, state: TrainState, grads, D, loss, lr: float,
                     wd: float, *, plan=None, rstate=None, pstate=None,
@@ -308,8 +401,12 @@ class DCS3GD:
                 **pol_metrics,
             }
             opt = {"m": T.map(lambda x: x.to(sdt), plan.unpack(m_nb))}
-            return TrainState(plan.unpack(w_nb), opt,
-                              self._comm(delta_b, sdt, rstate, pstate),
+            new_params = plan.unpack(w_nb)
+            return TrainState(new_params, opt,
+                              self._comm(delta_b, sdt, rstate, pstate,
+                                         plan=plan, packed=True,
+                                         prev_comm=state.comm,
+                                         params=new_params),
                               state.step + 1), metrics
 
         gsq, csq = kops.dc_norms_tree(grads, D)

@@ -124,5 +124,12 @@ class SSGD:
         return state.params
 
     def resize_state(self, state: TrainState, n_new: int) -> TrainState:
-        raise NotImplementedError(
-            "elastic resize is not ported yet: ROADMAP queue A5")
+        """Elastic resize: params and opt are shared (already the
+        consensus, so ``eval_params`` is unchanged); only a stateful
+        reducer's per-worker residuals carry a worker axis, and they go
+        through the reducer's own ``resize`` (mass-conserving)."""
+        comm = dict(state.comm)
+        if "reducer" in comm:
+            comm["reducer"] = self.reducer.resize(comm["reducer"],
+                                                  int(n_new))
+        return state._replace(comm=comm)

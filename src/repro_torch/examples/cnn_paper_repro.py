@@ -52,16 +52,21 @@ def recipe(n_workers: int, steps: int, eta_sn: float = 0.05
 def build(algo: str, cfg: DCS3GDConfig, n_workers: int, steps: int, *,
           device="cuda", params=None, seed: int = 0, net=None,
           image_size: int = IMAGE_SIZE, per_worker: int = PER_WORKER,
-          **make_kw):
+          start: int = 0, **make_kw):
     """A ResNet run ready to step: (model with ``.loss``, algorithm,
-    initial state, ``batch_fn(step)``, dataset), on ``device``.
+    initial state, ``batch_fn(step, n_workers=None)``, dataset), on
+    ``device``.
 
     ``net`` holds `init_resnet`'s keywords (default `NET`); ``params`` (a
     numpy tree) replaces the seeded init; ``make_kw`` (``use_kernels``,
-    ``buckets``, ``reducer``, ``local_optimizer``, ``staleness`` ...)
-    pass through to ``registry.make``.  Batches for steps ``0 ..
-    steps-1`` are drawn on a prefetch thread and copied to the device
-    when ``batch_fn`` is called, which must be in step order."""
+    ``buckets``, ``overlap``, ``reducer``, ``local_optimizer``,
+    ``staleness`` ...) pass through to ``registry.make``.  Batches for
+    steps ``start .. steps-1`` (``start``: a resumed run's step) are
+    drawn on a prefetch thread and copied to the device when ``batch_fn``
+    is called, which must be in step order.  An elastic run passes its
+    live worker count: worker w's batch depends on (seed, step, w) alone,
+    so a smaller count takes the first rows of the prefetched batch and a
+    larger one draws its batch there and then."""
     device = resolve_device(device)
     strict_f32()
     net = dict(NET if net is None else net)
@@ -73,11 +78,19 @@ def build(algo: str, cfg: DCS3GDConfig, n_workers: int, steps: int, *,
     alg = registry.make(algo, cfg, n_workers=n_workers, **make_kw)
     state = alg.init(params)
     del params
-    host = prefetch(worker_batches(ds, t, n_workers, per_worker, device="cpu")
-                    for t in range(steps))
+    host = prefetch((t, worker_batches(ds, t, n_workers, per_worker,
+                                       device="cpu"))
+                    for t in range(start, steps))
 
-    def batch_fn(it):
-        return T.map(lambda x: x.to(device), next(host))
+    def batch_fn(it, n=None):
+        t, batch = next(host)
+        if t != it:
+            raise ValueError(f"batch_fn({it}) called out of step order: the "
+                             f"next prefetched batch is step {t}")
+        n = n_workers if n is None else n
+        if n > n_workers:
+            batch = worker_batches(ds, it, n, per_worker, device="cpu")
+        return T.map(lambda x: x[:n].to(device), batch)
 
     model = types.SimpleNamespace(loss=cnn_loss_fn(resnet_apply))
     return model, alg, state, batch_fn, ds

@@ -30,15 +30,22 @@ CPU.  On the card the paged decode reads the pages through the CUDA
 paged-attention kernel; on the CPU it gathers them, and ``--paged-kernel``
 routes it through the kernel's wrapper (its plain version there) as the
 reference's flag does.  Every prefill takes the flash-attention or the
-selective-scan kernel on the card and their plain versions on the CPU.  Weights are random, drawn from ``--seed``.  Not
-ported yet: ``--train-ckpt`` / ``--algo`` / ``--workers`` /
-``--local-optimizer`` / ``--reducer`` (checkpoints, ROADMAP A7),
-``--tuned-config`` / ``--autotune`` (A14), and ``--prefill-chunk`` /
-``--prefix-cache`` (A11).
+selective-scan kernel on the card and their plain versions on the CPU.
+
+Weights are random, drawn from ``--seed``, unless ``--train-ckpt`` points
+at a `repro_torch.launch.train` checkpoint (or the reference's): its
+metadata rebuilds the algorithm that trained it (``--algo``,
+``--workers``, ``--local-optimizer`` and ``--reducer`` are fallbacks for a
+file without metadata), and its ``eval_params`` (the DC-S3GD worker
+average, paper Eq. 8, in anchor form) are served.  ``--layers`` cuts the
+depth as the training entry point's flag does, so a checkpoint of a cut
+model loads.  Not ported yet: ``--tuned-config`` / ``--autotune`` (A14)
+and ``--prefill-chunk`` / ``--prefix-cache`` (A11).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -46,8 +53,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import restore_pytree
 from repro_torch.configs import ARCHS, get_config, reduced
-from repro_torch.launch.engine import Engine
+from repro_torch.core import registry
+from repro_torch.launch.engine import Engine, algorithm_for_checkpoint
 from repro_torch.launch.train import resolve_device
 from repro_torch.models.transformer import Model
 from repro_torch.serve import SAMPLERS, Request, Scheduler
@@ -57,6 +66,9 @@ def build_argparser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths kept), "
+                         "as a cut training run's checkpoint holds")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -95,20 +107,62 @@ def build_argparser():
                     help="decode steps per dispatch, tokens left on the "
                          "device in between (admissions/evictions land on "
                          "burst boundaries)")
+    ap.add_argument("--train-ckpt", type=Path, default=None,
+                    help="serve eval_params of a training checkpoint (its "
+                         "metadata selects the algorithm)")
+    ap.add_argument("--algo", choices=registry.names(), default="dc_s3gd",
+                    help="fallback for a checkpoint without metadata")
+    ap.add_argument("--workers", type=int, default=4,
+                    help="fallback for a checkpoint without metadata")
+    ap.add_argument("--local-optimizer", default="momentum",
+                    choices=registry.names(registry.LOCAL_OPTIMIZER),
+                    help="fallback for a checkpoint without metadata")
+    ap.add_argument("--reducer", default="mean_allreduce",
+                    choices=registry.names(registry.REDUCER),
+                    help="fallback for a checkpoint without metadata")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda or cpu)")
     return ap
 
 
+def params_from_train_ckpt(model, path, *, algo: str, n_workers: int,
+                           local_optimizer: str = "momentum",
+                           reducer: str = "mean_allreduce", device="cuda"):
+    """Restore a training checkpoint on ``device`` and return (the served
+    weights, the resolved algorithm metadata): ``eval_params`` of the
+    state, through the algorithm its metadata records (the arguments are
+    fallbacks for a file without metadata)."""
+    alg, resolved = algorithm_for_checkpoint(
+        path, algo=algo, n_workers=n_workers,
+        local_optimizer=local_optimizer, reducer=reducer)
+    template = alg.init(model.init(torch.Generator(device=device)
+                                   .manual_seed(0)))
+    state = restore_pytree(path, template)
+    del template
+    return alg.eval_params(state), resolved
+
+
 def build(args):
-    """(model, random params from ``args.seed``, device) for ``args``."""
+    """(model, params, device) for ``args``: random params from
+    ``args.seed``, or the served weights of ``args.train_ckpt``."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = Model(cfg)
-    params = model.init(torch.Generator(device=device)
-                        .manual_seed(args.seed))
+    if args.train_ckpt is not None:
+        params, resolved = params_from_train_ckpt(
+            model, args.train_ckpt, algo=args.algo, n_workers=args.workers,
+            local_optimizer=args.local_optimizer, reducer=args.reducer,
+            device=device)
+        print(f"[serve] weights from {args.train_ckpt} (algo="
+              f"{resolved['algo']}, W={resolved['n_workers']}, "
+              f"eval_params)")
+    else:
+        params = model.init(torch.Generator(device=device)
+                            .manual_seed(args.seed))
     return model, params, device
 
 

@@ -61,3 +61,24 @@ def test_unported_names_raise_key_errors_naming_them():
                        (registry.COMPENSATOR, "taylor2")):
         with pytest.raises(KeyError, match=name):
             registry._lookup(kind, name)
+
+
+@pytest.mark.parametrize("package", ["checkpoint", "cluster"])
+def test_state_subpackages_are_covered_and_import_alone(package):
+    """The checkpoint and elastic-membership subpackages are among the
+    files checked above and import in a process where jax and repro
+    cannot be imported."""
+    files = {p.name for p in PORT_FILES
+             if p.parent.name == package and p.parent.parent.name ==
+             "repro_torch"}
+    assert "__init__.py" in files and len(files) >= 2, files
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            f"import repro_torch.{package} as m\n"
+            "print(sorted(m.__all__))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
