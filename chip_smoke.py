@@ -118,6 +118,29 @@ Phases (any failure exits non-zero before the result line):
    ``repro_torch.launch.serve --layers 4 --train-ckpt ... --paged-kernel``
    for 4 of phase 8's requests: greedy tokens equal to serving
    eval_params of the in-memory state.  The phase's seconds are printed.
+12. the rest of serving and of the dense family (the B5 / B4 shapes run
+   after phase 9's kernels, the prefix phase after phase 8's profile, the
+   dense family last).  flash_attention against its plain version at a
+   qwen3 chunk (128 rows at q_start 512 over 656 keys), stablelm-3b's hd
+   80 and granite-20b's G 48 (f32 2e-5, bf16 3e-2), timed beside bound,
+   plain version and SDPA, and one call's rows bitwise equal to the same
+   rows split over two calls at other q_starts; paged_attention at hd 80
+   (G 1, 32 kv heads) and G 48 (one kv head), four pool dtypes, held to
+   its plain version in float64 (1e-6 / 2e-5) and timed.  qwen3-0.6b at
+   full depth over 32 requests behind one 392-token system prompt
+   (request 0 first, then 31 together) through ``repro_torch.launch.
+   serve``'s scheduler with ``--prefill-chunk 128 --prefix-cache``: greedy
+   tokens bitwise the cold chunked run's, >= 31 hits, >= 1 copy-on-write,
+   fewer pages than cold, B5 at q_start > 0 (28 per chunk), B4 28 per
+   decode step, last-chunk logits within 2^-5 of the whole-prompt
+   prefill's largest logit, TTFT / inter-token latency beside the
+   whole-prompt run, a 120-page pool that preempts and finishes every
+   request; the chunk route against its plain route (2^-7).
+   stablelm-3b at full depth (32 layers, 2,796,098,560 params) serves 16
+   requests whole-prompt and chunked (B4 / B5 32 per step / prefill or
+   chunk), routes checked, and trains two dc_s3gd steps at depth 4, W =
+   2, fused tail, with A1/A2 held against their plain versions at its
+   bucket sizes; granite-20b cut to 12 of 52 layers serves 8 requests.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports nothing
@@ -855,14 +878,14 @@ PA_LAYERS = 28
 PA_POOLS = ("bfloat16", "float32", "int8", "fp8")
 
 
-def _paged_case(gen, pool: str, width: int):
+def _paged_case(gen, pool: str, width: int, shape=PA_SHAPE):
     """q, pools of 641 pages, block tables, lengths and (quantized pools)
-    scales at the serving shape.  Each row's live pages are distinct; the
-    rest of its ``width``-wide table points at the scratch page 0, as the
-    scheduler leaves it."""
+    scales at a serving shape (B, KV, G, hd), qwen3's by default.  Each
+    row's live pages are distinct; the rest of its ``width``-wide table
+    points at the scratch page 0, as the scheduler leaves it."""
     from repro_torch.models.cache import _quantize_tokens
     dev = torch.device("cuda")
-    B, KV, G, hd = PA_SHAPE
+    B, KV, G, hd = shape
     n_pages = 641
     q = torch.randn((B, KV, G, hd), generator=gen, device=dev)
     k = torch.randn((n_pages, PAGE, KV, hd), generator=gen, device=dev)
@@ -883,16 +906,16 @@ def _paged_case(gen, pool: str, width: int):
     return q, k.to(dt), v.to(dt), bt, lengths, ()
 
 
-def _layers(t: torch.Tensor) -> torch.Tensor:
-    """``PA_LAYERS`` copies of one layer's pool, stacked as the serve
-    step's ``(L, num_pages, ...)`` pool."""
-    return t.unsqueeze(0).repeat((PA_LAYERS,) + (1,) * t.dim())
+def _layers(t: torch.Tensor, n: int = PA_LAYERS) -> torch.Tensor:
+    """``n`` copies of one layer's pool, stacked as the serve step's
+    ``(L, num_pages, ...)`` pool."""
+    return t.unsqueeze(0).repeat((n,) + (1,) * t.dim())
 
 
-def _rotating(fn):
+def _rotating(fn, n: int = PA_LAYERS):
     """A no-argument call that runs ``fn(layer)`` on the next layer each
-    time, cycling over ``PA_LAYERS``."""
-    layers = itertools.cycle(range(PA_LAYERS))
+    time, cycling over ``n`` layers."""
+    layers = itertools.cycle(range(n))
     return lambda: fn(next(layers))
 
 
@@ -1019,17 +1042,21 @@ def _write_requests() -> Path:
 
 
 def phase_serve(smi: str, path: Path, extra=(), n_requests=None,
-                tag: str = "serve", built=None):
-    """Serve the request file through ``repro_torch.launch.serve`` at full
-    depth (28 layers, published widths, f32 params, bf16 compute and KV
-    unless ``extra`` says otherwise).  Every kernel count is set to 0 just
-    before the run and read just after.  Returns (record, (model, params),
-    requests)."""
+                tag: str = "serve", built=None, argv=SERVE_ARGS,
+                depth: int = 28):
+    """Serve the request file through ``repro_torch.launch.serve`` at
+    ``depth`` layers (qwen3-0.6b's full 28 unless ``argv`` names another
+    arch; published widths, f32 params, bf16 compute and KV unless
+    ``extra`` says otherwise).  Every kernel count is set to 0 just before
+    the run and read just after: paged_attention once per layer and
+    decode step, flash_attention once per layer and prefill (or chunk).
+    Returns (record, (model, params), requests)."""
     from repro_torch.launch import serve
     args = serve.build_argparser().parse_args(
-        SERVE_ARGS + ["--requests", str(path), *extra])
+        list(argv) + ["--requests", str(path), *extra])
     model, params, _ = built or serve.build(args)
-    check(model.cfg.n_layers == 28, "full depth")
+    L = model.cfg.n_layers
+    check(L == depth, f"[{tag}] {L} layers, expected {depth}")
     reqs = serve.load_requests(args.requests, model.cfg.vocab_size,
                                args.gen, seed=args.seed)[:n_requests]
     torch.cuda.synchronize()
@@ -1051,13 +1078,14 @@ def phase_serve(smi: str, path: Path, extra=(), n_requests=None,
               f"[{tag}] request {r.rid}: {len(done[r.rid].out)} tokens, "
               f"expected {r.max_new}")
     steps = sch.stats["decode_steps"]
-    prefills = sch.stats["prefills"]
-    check(launches["paged_attention"] == 28 * steps,
+    # a chunked run launches flash_attention once per layer and chunk
+    prefills = sch.stats["chunks"] or sch.stats["prefills"]
+    check(launches["paged_attention"] == L * steps,
           f"[{tag}] paged_attention launched {launches['paged_attention']} "
-          f"times, expected 28 layers x {steps} decode steps")
-    check(launches["flash_attention"] == 28 * prefills,
+          f"times, expected {L} layers x {steps} decode steps")
+    check(launches["flash_attention"] == L * prefills,
           f"[{tag}] flash_attention launched {launches['flash_attention']} "
-          f"times, expected 28 layers x {prefills} prefills")
+          f"times, expected {L} layers x {prefills} prefills")
     check(all(n == 0 for k, n in launches.items()
               if k not in ("paged_attention", "flash_attention")),
           f"[{tag}] other kernels launched while serving: {launches}")
@@ -1091,9 +1119,10 @@ def phase_serve(smi: str, path: Path, extra=(), n_requests=None,
           f"{wall:.3f} s ({rec['tokens_per_s']:.1f} tok/s); decode "
           f"{decode_tokens} tokens in {steps} steps, {decode_s:.3f} s "
           f"({rec['decode_tokens_per_s']:.1f} tok/s, {rec['step_ms']:.3f} "
-          f"ms/step); {s['prefills']} prefills; paged_attention launches "
-          f"{launches['paged_attention']} = 28 x {steps}, flash_attention "
-          f"{launches['flash_attention']} = 28 x {prefills} [{smi}]")
+          f"ms/step); {s['prefills']} prefills ({s['prefill_chunks']} "
+          f"chunks); paged_attention launches "
+          f"{launches['paged_attention']} = {L} x {steps}, flash_attention "
+          f"{launches['flash_attention']} = {L} x {prefills} [{smi}]")
     print(f"[{tag}] inter-token p50 {s['p50_token_latency_s'] * 1e3:.3f} "
           f"ms p95 {s['p95_token_latency_s'] * 1e3:.3f} ms; TTFT p50 "
           f"{s['p50_ttft_s'] * 1e3:.1f} ms p95 {s['p95_ttft_s'] * 1e3:.1f} "
@@ -1264,10 +1293,11 @@ FLASH_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 SSM_E, SSM_N = 8192, 16
 
 
-def _live_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+def _live_pairs(sq: int, sk: int, causal: bool, window: int,
+                q_start: int = 0) -> int:
     """(query, key) pairs the mask leaves live: the work these inputs
     need (the kernel skips tiles that are wholly masked)."""
-    i = torch.arange(sq)[:, None]
+    i = q_start + torch.arange(sq)[:, None]
     j = torch.arange(sk)[None, :]
     live = torch.ones((sq, sk), dtype=torch.bool)
     if causal:
@@ -1319,7 +1349,8 @@ def phase_flash_kernel(smi: str) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_plain
     mma = flash_mma_counts()
-    check(len(mma) == 8, f"flash_attention: {len(mma)} kernels in the SASS")
+    check(len(mma) == 10, f"flash_attention: {len(mma)} kernels in the "
+          "SASS")
     for name, (hmma, hgmma) in mma.items():
         print(f"[flash] SASS {name}: {hmma} HMMA, {hgmma} HGMMA")
         check(hmma + hgmma > 0, f"flash_attention: no tensor-core "
@@ -1504,6 +1535,544 @@ def phase_prefill_routes(smi: str, model, params, prompts, tag: str,
     torch.cuda.empty_cache()
     return {"max_dlogit": worst, "max_logit": top, "bound": bound,
             "prompts": [len(p) for p in prompts]}
+
+
+# ---------------------------------------------------------------------------
+# the rest of serving and of the dense family: B5 with a query offset, at
+# stablelm-3b's hd 80 and granite-20b's G 48; B4 at those shapes
+# ---------------------------------------------------------------------------
+
+# (name, KV, G, hd, layers of the model that runs the shape)
+DENSE_SHAPES = (("qwen3", 8, 2, 128, 28), ("stablelm", 32, 1, 80, 32),
+                ("granite", 1, 48, 128, 12))
+# the chunk case: chunk 5 (positions 512..639) of a 648-token prompt, the
+# longest of the prefix traffic below, over the 41 pages it fills
+CHUNK = 128
+CHUNK_Q0, CHUNK_SK = 512, 41 * PAGE
+
+
+def phase_flash_shapes(smi: str) -> dict:
+    """flash_attention against its plain version where this slice's paths
+    reach it: a qwen3 chunk at q_start 512 over the 656 keys of its view,
+    stablelm-3b's whole 512-token prompt at hd 80 (32 kv heads, G 1) and
+    granite-20b's at G 48 (one kv head), each in f32 and bf16 (atol 2e-5
+    / 3e-2, the reference's), bitwise run to run, timed (one launch per
+    layer of its model per sample, queued behind the device-side sleep)
+    beside its bound, the plain version and scaled_dot_product_attention
+    with the same mask.  Then the property the prefix cache rests on: the
+    rows of one call at q_start 400 are bitwise those of two calls that
+    split it at an unaligned row (100) with q_start 400 and 500 and the
+    second's longer key view, at qwen3's shape in f32 and bf16 and at
+    granite's G 48 in bf16."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes = {n: (kv, g, hd, layers) for n, kv, g, hd, layers in DENSE_SHAPES}
+    cases = []
+    for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cases += [(f"qwen3 chunk q_start={CHUNK_Q0} Sk={CHUNK_SK} {n}",
+                   "qwen3", CHUNK, CHUNK_SK, CHUNK_Q0, dt),
+                  (f"stablelm hd 80 S=512 {n}", "stablelm", 512, 512, 0, dt),
+                  (f"granite G 48 S=512 {n}", "granite", 512, 512, 0, dt)]
+    rec = {}
+    for name, model, sq, sk, q0, dt in cases:
+        KV, G, hd, layers = shapes[model]
+        H = KV * G
+        q = torch.randn((1, sq, KV, G, hd), generator=gen,
+                        device="cuda").to(dt)
+        k = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
+        v = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
+        kw = dict(causal=True, q_start=q0)
+        got = flash_attention(q, k, v, **kw)
+        again = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        atol = 2e-5 if dt == torch.float32 else 3e-2
+        check(got.dtype == dt and err <= atol, f"flash_attention {name}: "
+              f"max abs err {err} > {atol}")
+        check(torch.equal(got, again), f"flash_attention {name}: two "
+              "launches differ")
+        ms = median_ms(lambda: flash_attention(q, k, v, **kw), batch=layers)
+        plain_ms = median_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                             batch=layers)
+        qs, ks, vs = (q.reshape(1, sq, H, hd).transpose(1, 2),
+                      k.transpose(1, 2), v.transpose(1, 2))
+        i = q0 + torch.arange(sq, device="cuda")[:, None]
+        mask = torch.arange(sk, device="cuda")[None, :] <= i
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=None if q0 == 0 else mask,
+                is_causal=q0 == 0, enable_gqa=True)
+        sdpa_err = float((sdpa().transpose(1, 2).reshape(want.shape).float()
+                          - want.float()).abs().max())
+        library_ms = median_ms(sdpa, batch=layers)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * hd * H * _live_pairs(sq, sk, True, 0, q0)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = flops / FLASH_FLOPS[dt] * 1e3
+        bound = max(byte_ms, op_ms)
+        by = "operations" if op_ms >= byte_ms else "bytes"
+        print(f"[flash-shapes] {name}: KV={KV} G={G} hd={hd}: {ms:.4f} "
+              f"ms/launch; plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} "
+              f"ms (max abs diff {sdpa_err:.3g}); bound {bound:.4f} ms by "
+              f"{by} ({nbytes} B, {flops} flops); max abs err {err:.3g}, "
+              f"bitwise run to run [{smi}]")
+        rec[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                     "flops": flops, "err": err, "sdpa_err": sdpa_err}
+        del q, k, v, got, again, want, qs, ks, vs, mask
+        torch.cuda.empty_cache()
+    for model, dt in (("qwen3", torch.float32), ("qwen3", torch.bfloat16),
+                      ("granite", torch.bfloat16)):
+        KV, G, hd, _ = shapes[model]
+        q = torch.randn((1, 256, KV, G, hd), generator=gen,
+                        device="cuda").to(dt)
+        k = torch.randn((1, CHUNK_SK, KV, hd), generator=gen,
+                        device="cuda").to(dt)
+        v = torch.randn_like(k)
+        whole = flash_attention(q, k, v, q_start=400)
+        sk_a = (400 + 100 - 1) // PAGE * PAGE + PAGE
+        part_a = flash_attention(q[:, :100].contiguous(), k[:, :sk_a].
+                                 contiguous(), v[:, :sk_a].contiguous(),
+                                 q_start=400)
+        part_b = flash_attention(q[:, 100:].contiguous(), k, v, q_start=500)
+        torch.cuda.synchronize()
+        same = torch.equal(whole[:, :100], part_a) \
+            and torch.equal(whole[:, 100:], part_b)
+        print(f"[flash-shapes] {model} {str(dt)[6:]}: rows 0-255 at "
+              f"q_start 400 in one call == split at row 100 (q_start 400 "
+              f"over {sk_a} keys, 500 over {CHUNK_SK}): bitwise {same} "
+              f"[{smi}]")
+        check(same, f"flash_attention {model} {dt}: a row's bits depend on "
+              "where its chunk starts")
+        rec[f"split invariance {model} {str(dt)[6:]}"] = same
+    return rec
+
+
+def phase_paged_shapes(smi: str) -> dict:
+    """paged_attention against its plain version at stablelm-3b's shape (16
+    rows, 32 kv heads, G 1, hd 80: 160-byte bf16 rows) and granite-20b's
+    (16 rows, one kv head, G 48, hd 128), the serve phase's ragged lengths
+    1..577 and 640-wide tables, for bf16, f32, int8 and fp8 pools (atol
+    1e-6 float, 2e-5 quantized), bitwise run to run.  The plain version is
+    evaluated in float64 here: at G 48 over bf16 pages its f32 evaluation
+    strays 2.22e-6 from the float64 value by its own rounding, the kernel
+    5.9e-7, and the two 2.03e-6 from each other (all three printed), so
+    the kernel is held to the float64 evaluation.  Timed as
+    phase_paged_kernel times qwen3's (one launch on each of the model's
+    per-layer pools per sample) beside its byte bound and the plain
+    version."""
+    from repro_torch.kernels.paged_attention import paged_attention, smem_bytes
+    from repro_torch.kernels.ref import paged_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rec = {}
+    for model, KV, G, hd, layers in DENSE_SHAPES[1:]:
+        for pool in PA_POOLS:
+            name = f"{model} KV={KV} G={G} hd={hd} {pool}"
+            q, k, v, bt, ln, scales = _paged_case(gen, pool, PA_WIDTH,
+                                                  (16, KV, G, hd))
+            kw = dict(zip(("k_scale", "v_scale"), scales))
+            got = paged_attention(q, k, v, bt, ln, **kw)
+            again = paged_attention(q, k, v, bt, ln, **kw)
+            want = paged_attention_plain(q.double(), k, v, bt, ln, *scales)
+            want32 = paged_attention_plain(q, k, v, bt, ln, *scales)
+            torch.cuda.synchronize()
+            err = float((got.double() - want).abs().max())
+            err32 = float((got - want32).abs().max())
+            plain32 = float((want32.double() - want).abs().max())
+            atol = 2e-5 if scales else 1e-6
+            check(err <= atol, f"paged_attention {name}: max abs err {err}"
+                  f" > {atol}")
+            check(torch.equal(got, again), f"paged_attention {name}: two "
+                  "launches differ")
+            kL, vL = _layers(k, layers), _layers(v, layers)
+            sL = tuple(_layers(t, layers) for t in scales)
+
+            def launch(i):
+                return paged_attention(q, kL[i], vL[i], bt, ln, **{
+                    n: t[i] for n, t in zip(("k_scale", "v_scale"), sL)})
+            ms = median_ms(_rotating(launch, layers), batch=layers)
+            plain_ms = median_ms(_rotating(lambda i: paged_attention_plain(
+                q, kL[i], vL[i], bt, ln, *(t[i] for t in sL)), layers),
+                batch=layers)
+            nbytes = _paged_bytes(q, k, scales)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            smem = smem_bytes(G, hd, k.element_size())
+            print(f"[paged-shapes] {name}: {ms:.4f} ms/launch; plain "
+                  f"{plain_ms:.4f} ms; byte bound {bound:.4f} ms ({nbytes} "
+                  f"B); {smem} B of shared memory per CTA; max abs err "
+                  f"{err:.3g} (the plain version in f32: {err32:.3g}, its "
+                  f"own rounding {plain32:.3g}), bitwise run to run "
+                  f"[{smi}]")
+            rec[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                         "bytes": nbytes, "err": err, "err_f32_plain": err32,
+                         "f32_plain_rounding": plain32, "smem": smem}
+            del q, k, v, bt, ln, scales, kL, vL, sL, got, again, want, want32
+            torch.cuda.empty_cache()
+    return rec
+
+
+# the prefix traffic: 32 requests behind one 392-token system prompt (24.5
+# pages of 16, so the 25th page is shared up to its middle and copied on
+# the first write), each with its own 32-256-token suffix and 32-64 tokens
+# to generate, ids from seed 0
+SYSTEM_PROMPT = 392
+PREFIX_REQUESTS = 32
+PREFIX_ARGS = SERVE_ARGS + ["--paged-kernel", "--prefill-chunk", str(CHUNK)]
+SMALL_POOL = 120     # pages: 16 lanes of ~40 pages cannot all fit
+
+
+def _write_prefix_requests(vocab: int) -> Path:
+    import numpy as np
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, vocab, SYSTEM_PROMPT).tolist()
+    lines = []
+    for i in range(PREFIX_REQUESTS):
+        suffix = rng.integers(0, vocab, int(rng.integers(32, 257))).tolist()
+        lines.append(json.dumps({"id": i, "prompt": system + suffix,
+                                 "gen": int(rng.integers(32, 65))}) + "\n")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = out / "prefix_requests.jsonl"
+    path.write_text("".join(lines))
+    return path
+
+
+def _serve_warm_then_rest(smi: str, model, params, path: Path, argv,
+                          tag: str) -> dict:
+    """Serve the request file through ``repro_torch.launch.serve``'s
+    scheduler: request 0 alone first (a deployment warming its system
+    prompt), then the other 31 together.  Every kernel count is set to 0
+    just before and read just after; each request's last-chunk logits are
+    kept (chunked runs)."""
+    from repro_torch.launch import serve
+    args = serve.build_argparser().parse_args(
+        list(argv) + ["--requests", str(path)])
+    reqs = serve.load_requests(args.requests, model.cfg.vocab_size,
+                               args.gen, seed=args.seed)
+    sch = serve.make_scheduler(model, params, args)
+    V = model.cfg.vocab_size
+    last_logits, offsets = {}, []
+    resume = sch.layout.prefill_resume
+
+    def recording(params, cache, tokens, pos0, last, bt):
+        logits, cache = resume(params, cache, tokens, pos0, last, bt)
+        offsets.append(pos0)
+        req = sch.slots[sch._prefilling[0]]
+        if pos0 + last + 1 == len(req.resume_tokens):
+            last_logits[req.rid] = logits[0, :V].clone()
+        return logits, cache
+    sch.layout.prefill_resume = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    sch.run(reqs[:1])
+    sch.run(reqs[1:])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    s = serve.report(sch, wall, args)
+    done = {r.rid: r for r in sch.finished}
+    check(sorted(done) == list(range(len(reqs))),
+          f"[{tag}] {len(done)} of {len(reqs)} requests finished")
+    for r in reqs:
+        check(len(done[r.rid].out) == r.max_new, f"[{tag}] request "
+              f"{r.rid}: {len(done[r.rid].out)} tokens, expected "
+              f"{r.max_new}")
+    L = model.cfg.n_layers
+    steps, chunks = sch.stats["decode_steps"], sch.stats["chunks"]
+    check(launches["paged_attention"] == L * steps, f"[{tag}] "
+          f"paged_attention launched {launches['paged_attention']} times, "
+          f"expected {L} x {steps} decode steps")
+    check(launches["flash_attention"] == L * (chunks or s["prefills"]),
+          f"[{tag}] flash_attention launched "
+          f"{launches['flash_attention']} times, expected {L} x "
+          f"{chunks or s['prefills']}")
+    if sch.prefix is not None:
+        check(sch.pool.used_pages == len(sch.prefix.pages())
+              and all(sch.pool.refcount(p) == 1 for p in sch.prefix.pages()),
+              f"[{tag}] pages held after the drain beyond the cache's own")
+    else:
+        check(sch.pool.used_pages == 0, f"[{tag}] pages left allocated")
+    rec = {"wall_s": wall, "launches": launches,
+           "tokens": {r.rid: list(done[r.rid].out) for r in reqs},
+           "offset_chunks": sum(o > 0 for o in offsets),
+           "last_logits": last_logits, "peak_bytes":
+               torch.cuda.max_memory_allocated(),
+           **{k: s.get(k) for k in (
+               "p50_ttft_s", "p95_ttft_s", "p50_token_latency_s",
+               "p95_token_latency_s", "prefills", "prefill_chunks",
+               "cow_copies", "preemptions", "cache_tokens_allocated",
+               "prefix_hits", "prefix_hit_tokens", "prefix_evictions")}}
+    print(f"[{tag}] TTFT p50/p95 {s['p50_ttft_s'] * 1e3:.1f}/"
+          f"{s['p95_ttft_s'] * 1e3:.1f} ms, inter-token p50/p95 "
+          f"{s['p50_token_latency_s'] * 1e3:.3f}/"
+          f"{s['p95_token_latency_s'] * 1e3:.3f} ms; {chunks} chunks "
+          f"({rec['offset_chunks']} at q_start > 0: {L} B5 launches each), "
+          f"hits {s.get('prefix_hits', 0)}, hit tokens "
+          f"{s.get('prefix_hit_tokens', 0)}, CoW copies {s['cow_copies']},"
+          f" pages allocated {sch.pool.total_allocs} "
+          f"({s['cache_tokens_allocated']} token slots), preemptions "
+          f"{s['preemptions']}; paged_attention {launches['paged_attention']}"
+          f" = {L} x {steps}, flash_attention {launches['flash_attention']}"
+          f" [{smi}]")
+    del sch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_chunk_routes(smi: str, model, params, prompts, tag: str) -> dict:
+    """The last-chunk logits of each prompt's cold chunked prefill (chunks
+    of 128 into a 1-slot paged layout, bf16 pages), kernel route (B5 at
+    q_start over the gathered view) against plain route
+    (``Model(cfg, kernels=False)``: blocked_attention at kv_chunk 16).  The
+    plain route rounds the softmax probabilities to the pages' bf16 before
+    the PV product, as the reference does; the kernel route takes the view
+    in f32 and keeps them in f32: each attention output differs by up to
+    bf16's 2^-9, so the bound is phase_kernel_vs_gather's, 2^-7 of the
+    largest logit."""
+    from repro_torch.models.cache import PagedLayout
+    from repro_torch.models.transformer import Model
+    plain = Model(model.cfg, kernels=False)
+    V = model.cfg.vocab_size
+    worst = top = 0.0
+    counted = _counters()
+    for p in prompts:
+        mp = -(-len(p) // PAGE) + CHUNK // PAGE
+        outs = []
+        for m in (model, plain):
+            lay = PagedLayout(m, n_slots=1, num_pages=mp + 1, page_size=PAGE,
+                              max_pages=mp)
+            cache = lay.init_cache(device="cuda")
+            bt = torch.arange(1, mp + 1, device="cuda")[None]
+            before = counted["flash_attention"].launches
+            for s0 in range(0, len(p), CHUNK):
+                e = min(s0 + CHUNK, len(p))
+                toks = torch.tensor([p[s0:e] + [0] * (CHUNK - (e - s0))],
+                                    device="cuda")
+                logits, cache = lay.prefill_resume(params, cache, toks, s0,
+                                                   e - 1 - s0, bt)
+            n = counted["flash_attention"].launches - before
+            check(n == (model.cfg.n_layers * -(-len(p) // CHUNK)
+                        if m is model else 0), f"[{tag}] {n} B5 launches")
+            outs.append(logits[:, :V])
+            del cache
+        worst = max(worst, float((outs[0] - outs[1]).abs().max()))
+        top = max(top, float(outs[1].abs().max()))
+    bound = 2.0 ** -7 * top
+    print(f"[{tag}] {len(prompts)} prompts ({[len(p) for p in prompts]} "
+          f"tokens) in chunks of {CHUNK}, kernel route vs plain route: max "
+          f"|dlogit| {worst:.4g} (bound {bound:.4g} = 2^-7 x max |logit| "
+          f"{top:.4g}) [{smi}]")
+    check(worst <= bound, f"[{tag}] max |dlogit| {worst} > {bound}")
+    torch.cuda.empty_cache()
+    return {"max_dlogit": worst, "max_logit": top, "bound": bound}
+
+
+def phase_serve_prefix(smi: str, model, params) -> dict:
+    """qwen3-0.6b at full depth over the prefix traffic, through
+    ``repro_torch.launch.serve``'s scheduler with ``--prefill-chunk 128
+    --prefix-cache --slots 16 --pages 641 --page-size 16 --decode-burst 4
+    --paged-kernel``, greedy, seed 0: request 0 alone, then the other 31
+    together.  Checks: every request finishes at its length; the greedy
+    tokens are bitwise those of the same schedule without the prefix cache
+    (cold chunked); >= 31 hits, >= 1 copy-on-write, fewer token slots
+    allocated than the cold run; B5 launches at q_start > 0 and 28 times
+    per chunk, B4 28 times per decode step; each request's last-chunk
+    logits within 2^-5 of the largest logit of its whole-prompt prefill's
+    (the chunk route attends over the pages' bf16 keys and values, the
+    whole prompt over its f32 ones: bf16's 2^-9 in every layer's k and v,
+    with room for its growth through 28 layers), the count of first
+    tokens that agree printed; a 120-page pool (preemptions > 0) finishes
+    every request with no refcount error.  The whole-prompt run of the
+    same requests and schedule is printed beside them."""
+    from repro_torch.launch import serve
+    path = _write_prefix_requests(model.cfg.vocab_size)
+    rec = {"hot": _serve_warm_then_rest(
+        smi, model, params, path, PREFIX_ARGS + ["--prefix-cache"],
+        "prefix-hot")}
+    rec["cold"] = _serve_warm_then_rest(smi, model, params, path,
+                                        PREFIX_ARGS, "prefix-cold")
+    rec["whole"] = _serve_warm_then_rest(
+        smi, model, params, path, SERVE_ARGS + ["--paged-kernel"],
+        "prefix-whole")
+    hot, cold, whole = rec["hot"], rec["cold"], rec["whole"]
+    check(hot["tokens"] == cold["tokens"], "[prefix] prefix-hit greedy "
+          "tokens differ from the cold chunked run's")
+    check(hot["prefix_hits"] >= PREFIX_REQUESTS - 1 and hot["cow_copies"] >= 1
+          and hot["cache_tokens_allocated"] < cold["cache_tokens_allocated"],
+          f"[prefix] hits {hot['prefix_hits']}, CoW {hot['cow_copies']}, "
+          f"allocated {hot['cache_tokens_allocated']} vs cold "
+          f"{cold['cache_tokens_allocated']}")
+    check(hot["offset_chunks"] > 0, "[prefix] no chunk at q_start > 0")
+    args = serve.build_argparser().parse_args(SERVE_ARGS + ["--requests",
+                                                            str(path)])
+    reqs = serve.load_requests(args.requests, model.cfg.vocab_size, args.gen)
+    worst = top = 0.0
+    agree = 0
+    for r in reqs:
+        whole_logits, _ = model.prefill(
+            params, {"tokens": torch.tensor([r.prompt], device="cuda")},
+            cache_len=len(r.prompt))
+        w = whole_logits[0, :model.cfg.vocab_size]
+        c = hot["last_logits"][r.rid]
+        worst = max(worst, float((c - w).abs().max()))
+        top = max(top, float(w.abs().max()))
+        agree += int(c.argmax() == w.argmax())
+    bound = 2.0 ** -5 * top
+    print(f"[prefix] prefix hit == cold chunked, greedy tokens bitwise, all "
+          f"{len(reqs)} requests; last-chunk logits vs whole-prompt "
+          f"prefill: max |dlogit| {worst:.4g} (bound {bound:.4g} = 2^-5 x "
+          f"max |logit| {top:.4g}); first tokens agree on {agree} of "
+          f"{len(reqs)} [{smi}]")
+    check(worst <= bound, f"[prefix] last-chunk logits: max |dlogit| "
+          f"{worst} > {bound}")
+    for name in ("whole", "cold", "hot"):
+        r = rec[name]
+        print(f"[prefix] {name}: TTFT p50/p95 {r['p50_ttft_s'] * 1e3:.1f}/"
+              f"{r['p95_ttft_s'] * 1e3:.1f} ms, inter-token p50/p95 "
+              f"{r['p50_token_latency_s'] * 1e3:.3f}/"
+              f"{r['p95_token_latency_s'] * 1e3:.3f} ms, chunks "
+              f"{r['prefill_chunks']}, hits {r['prefix_hits'] or 0}, hit "
+              f"tokens {r['prefix_hit_tokens'] or 0}, CoW {r['cow_copies']}, "
+              f"token slots allocated {r['cache_tokens_allocated']} "
+              f"[{smi}]")
+    rec["small_pool"] = _serve_warm_then_rest(
+        smi, model, params, path, [a if a != "641" else str(SMALL_POOL)
+                                   for a in PREFIX_ARGS] + ["--prefix-cache"],
+        "prefix-small-pool")
+    small = rec["small_pool"]
+    same = sum(small["tokens"][i] == hot["tokens"][i]
+               for i in range(len(reqs)))
+    print(f"[prefix] {SMALL_POOL}-page pool: {small['preemptions']} "
+          f"preemptions, {small['prefix_evictions']} evictions, every request"
+          f" at its length; {same} of {len(reqs)} requests' tokens equal the "
+          f"641-page run's [{smi}]")
+    check(small["preemptions"] > 0, "[prefix] the small pool never preempted")
+    rec["chunk_routes"] = phase_chunk_routes(
+        smi, model, params, [r.prompt for r in reqs[:3]],
+        "chunk-routes qwen3")
+    rec["logits_vs_whole"] = {"max_dlogit": worst, "max_logit": top,
+                              "bound": bound, "first_tokens_agree": agree}
+    for r in ("hot", "cold", "whole", "small_pool"):
+        rec[r].pop("last_logits")
+        rec[r].pop("tokens")
+    return rec
+
+
+DENSE_ARGS = ["--slots", "16", "--pages", "641", "--page-size", str(PAGE),
+              "--decode-burst", "4", "--seed", "0", "--paged-kernel"]
+STABLELM_ARGS = ["--arch", "stablelm-3b", *DENSE_ARGS]
+STABLELM_LAYERS = 32
+STABLELM_PARAMS = 2_796_098_560      # the reference's init, 32 layers
+STABLELM_TRAIN = ["--arch", "stablelm-3b", "--layers", "4", "--algo",
+                  "dc_s3gd", "--workers", str(W), "--batch-per-worker", "4",
+                  "--seq", "256", "--buckets", str(N_BUCKETS), "--seed", "0",
+                  "--log-every", "1", "--steps", "2", "--use-kernels"]
+GRANITE_LAYERS = 12                  # 52 -> 12: 112.7 GB of f32 weights
+GRANITE_ARGS = ["--arch", "granite-20b", "--layers", str(GRANITE_LAYERS),
+                *DENSE_ARGS]
+GRANITE_PARAMS = 6_964_795_392       # 12 x 530,067,456 + 2 x 49,152 x 6,144
+                                     # + 6,144 (the reference's layout)
+
+
+def phase_dense_family(smi: str, path: Path) -> dict:
+    """stablelm-3b at full depth (32 layers, 2,796,098,560 params, f32
+    weights from seed 0, bf16 compute and KV): 16 of the serve phase's
+    requests whole-prompt and then in chunks of 128 through
+    ``repro_torch.launch.serve`` (every request at its length, B4 32 times
+    per decode step, B5 32 times per prefill or chunk), its prefill logits
+    kernel route against plain route (2^-10, as qwen3's) and its chunk
+    route's; two dc_s3gd steps at depth 4, W = 2, fused tail, with finite
+    losses and A1/A2 once per bucket and step (the layernorm biases ride
+    the buckets), then A1/A2 against their plain versions at that path's
+    bucket sizes and W (``phase_kernels``).  granite-20b at its published widths, depth cut 52 -> 12
+    (6,964,795,392 params): 8 requests whole-prompt (B5 and B4 at G 48 over
+    its one kv head), its prefill routes."""
+    from repro_torch import tree as T
+    from repro_torch.launch import serve, train
+    from repro_torch.parallel.buckets import plan_buckets
+    rec = {}
+    argv = STABLELM_ARGS
+    args = serve.build_argparser().parse_args(argv + ["--requests",
+                                                      str(path)])
+    model, params, _ = serve.build(args)
+    n_params = sum(x.numel() for x in T.leaves(params))
+    check(n_params == STABLELM_PARAMS, f"stablelm-3b: {n_params} params")
+    rec["stablelm"], _, reqs = phase_serve(
+        smi, path, (), 16, "serve-stablelm", (model, params, None), argv,
+        STABLELM_LAYERS)
+    rec["stablelm_chunked"], _, _ = phase_serve(
+        smi, path, ("--prefill-chunk", str(CHUNK)), 16,
+        "serve-stablelm-chunked", (model, params, None), argv,
+        STABLELM_LAYERS)
+    rec["stablelm_routes"] = phase_prefill_routes(
+        smi, model, params, [reqs[0].prompt, reqs[3].prompt],
+        "prefill-routes stablelm", 10)
+    rec["stablelm_chunk_routes"] = phase_chunk_routes(
+        smi, model, params, [reqs[3].prompt], "chunk-routes stablelm")
+    del model, params
+    torch.cuda.empty_cache()
+    targs = train.build_argparser().parse_args(STABLELM_TRAIN)
+    _zero_counts()
+    result = train.run(targs)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    plan = plan_buckets(result["state"].params, N_BUCKETS,
+                        strip_leading_axis=True)
+    n_buckets = len(plan.bucket_sizes)
+    losses = [h["loss"] for h in result["history"]]
+    biases = [p for p in _leaf_paths(result["state"].params)
+              if p.endswith("bias")]
+    check(len(losses) == 2 and all(map(math.isfinite, losses)),
+          f"[train-stablelm] losses {losses}")
+    check(launches["dc_norms"] == 2 * n_buckets
+          and launches["dc_fused_update"] == 2 * n_buckets
+          and sum(launches.values()) == 4 * n_buckets,
+          f"[train-stablelm] launches {launches}, {n_buckets} buckets")
+    check(len(biases) == 3, f"[train-stablelm] bias leaves {biases}")
+    print(f"[train-stablelm] stablelm-3b x4, W={W}, dc_s3gd, fused tail, "
+          f"{n_buckets} buckets: losses {losses}; launches {launches}; "
+          f"layernorm bias leaves "
+          f"{biases} in the buckets [{smi}]")
+    rec["stablelm_train"] = {"losses": losses, "launches": launches,
+                             "bucket_sizes": plan.bucket_sizes,
+                             "bucket_decay": plan.bucket_decay}
+    del result
+    torch.cuda.empty_cache()
+    # A1/A2 against their plain versions at this path's bucket sizes (the
+    # no-decay bucket carries the layernorm scales and biases)
+    rec["stablelm_kernels"] = phase_kernels(plan.bucket_sizes, smi, W=W,
+                                            select=False,
+                                            tag="kernels-stablelm")
+    torch.cuda.empty_cache()
+    argv = GRANITE_ARGS
+    args = serve.build_argparser().parse_args(argv + ["--requests",
+                                                      str(path)])
+    model, params, _ = serve.build(args)
+    n_params = sum(x.numel() for x in T.leaves(params))
+    check(n_params == GRANITE_PARAMS, f"granite-20b x12: {n_params} params")
+    rec["granite"], _, reqs = phase_serve(
+        smi, path, (), 8, "serve-granite", (model, params, None), argv,
+        GRANITE_LAYERS)
+    rec["granite_routes"] = phase_prefill_routes(
+        smi, model, params, [reqs[0].prompt, reqs[3].prompt],
+        "prefill-routes granite", 10)
+    del model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """'a/b/c' names of a nested dict's leaves, in the tree's order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
 
 
 # ---------------------------------------------------------------------------
@@ -2134,6 +2703,8 @@ def main() -> int:
     paged = phase_paged_kernel(smi)
     flash = phase_flash_kernel(smi)
     scan = phase_ssm_kernel(smi)
+    flash_shapes = phase_flash_shapes(smi)
+    paged_shapes = phase_paged_shapes(smi)
     requests = _write_requests()
     served, (model, params), reqs = phase_serve(smi, requests,
                                                 ["--paged-kernel"])
@@ -2148,6 +2719,11 @@ def main() -> int:
                                     [r.prompt for r in reqs[:4]],
                                     "prefill-routes qwen3", 10)
     s_prof = phase_serve_profile(smi, model, params, reqs)
+    t0 = time.perf_counter()
+    prefix = phase_serve_prefix(smi, model, params)
+    prefix["phase_s"] = time.perf_counter() - t0
+    print(f"[prefix] the prefix-cache phase took {prefix['phase_s']:.1f} s "
+          f"[{smi}]")
     del model, params
     torch.cuda.empty_cache()
     fm = phase_serve_ssm(smi, requests)
@@ -2167,6 +2743,11 @@ def main() -> int:
                                                    "qwen3"))
     print(f"[state] the state-across-steps phases took {state['s']:.1f} s "
           f"[{smi}]")
+    t0 = time.perf_counter()
+    dense = phase_dense_family(smi, requests)
+    dense["phase_s"] = time.perf_counter() - t0
+    print(f"[dense] the stablelm-3b and granite-20b phases took "
+          f"{dense['phase_s']:.1f} s [{smi}]")
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -2196,6 +2777,12 @@ def main() -> int:
         print(f"[times] {name}: {k['ms']:.4f} ms per step ({N_BUCKETS} "
               f"launches), plain {k['plain_ms']:.4f} ms, byte bound "
               f"{k['bound_ms']:.4f} ms [{smi}]")
+    for name in ("dc_norms", "dc_fused_update"):
+        k = dense["stablelm_kernels"][name]
+        print(f"[times] {name} on stablelm-3b x4: {k['ms']:.4f} ms per "
+              f"step ({len(dense['stablelm_train']['bucket_sizes'])} "
+              f"launches, W={W}), plain {k['plain_ms']:.4f} ms, byte bound "
+              f"{k['bound_ms']:.4f} ms, max abs err {k['err']:.3g} [{smi}]")
     print(f"[times] peak memory {peak / 2**30:.3f} GiB "
           f"({peak} B) [{smi}]")
     for name in ("dc_norms", "dc_fused_update"):
@@ -2268,6 +2855,28 @@ def main() -> int:
         "bound_ms": k["bound_ms"], "bound_by": k.get("bound_by", "bytes"),
         "library_ms": k.get("library_ms"),
     } for name, k in kern.items()]
+    # B4 and B5 on each serve path of this run (counts zeroed before each
+    # and read after), and at each new shape beside its bound
+    paths = {"serve qwen3 (main)": served["launches"],
+             "prefix qwen3 hot": prefix["hot"]["launches"],
+             "prefix qwen3 cold": prefix["cold"]["launches"],
+             "prefix qwen3 small pool": prefix["small_pool"]["launches"],
+             "serve stablelm-3b": dense["stablelm"]["launches"],
+             "serve stablelm-3b chunked":
+                 dense["stablelm_chunked"]["launches"],
+             "serve granite-20b x12": dense["granite"]["launches"]}
+    shapes = {"paged_attention": paged_shapes, "flash_attention":
+              {k: v for k, v in flash_shapes.items() if isinstance(v, dict)}}
+    for entry in kernels:
+        name = entry["name"]
+        if name in shapes:
+            entry["launches_by_path"] = {p: n[name] for p, n in paths.items()}
+            entry["shapes"] = {c: {f: r[f] for f in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "err")
+                if f in r} for c, r in shapes[name].items()}
+            check(all(n > 0 for n in entry["launches_by_path"].values()),
+                  f"{name}: a serve path launched it no time: "
+                  f"{entry['launches_by_path']}")
     for entry in kernels:
         # A1 and A2 on the CNN main path: its launches (dc_s3gd, 6 steps)
         # and the per-step sums over its 6 bucket sizes at W = 8
@@ -2275,6 +2884,15 @@ def main() -> int:
             k = cnn_kern[entry["name"]]
             entry["cnn"] = {
                 "launches": cnn["dc_s3gd"]["launches"][entry["name"]],
+                "max_abs_err": k["err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": "bytes"}
+            # and on stablelm-3b x4's training path (2 steps, W = 2), per
+            # step over its bucket sizes
+            k = dense["stablelm_kernels"][entry["name"]]
+            entry["stablelm"] = {
+                "launches": dense["stablelm_train"]["launches"][
+                    entry["name"]],
                 "max_abs_err": k["err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": "bytes"}
@@ -2288,7 +2906,9 @@ def main() -> int:
               "kernel_vs_gather": versus, "profile_serve": s_prof,
               "flash_attention": flash, "ssm_scan": scan,
               "prefill_routes_qwen3": q_routes, "serve_ssm": fm,
-              "cnn": cnn, "state": state,
+              "cnn": cnn, "state": state, "flash_shapes": flash_shapes,
+              "paged_shapes": paged_shapes, "serve_prefix": prefix,
+              "dense_family": dense,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start
     print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "

@@ -3,19 +3,21 @@
 Each config module exposes ``CONFIG`` (the full-size published config with
 its source); ``reduced(cfg)`` gives the 2-layer smoke variant the CPU
 tests use.  Only the configs the port can run are listed (the dense
-qwen3-0.6b and the ssm falcon-mamba-7b); the others are queued in
-ROADMAP.md.
+qwen3-0.6b, stablelm-3b and granite-20b, and the ssm falcon-mamba-7b);
+the others are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import falcon_mamba_7b, qwen3_0_6b
+from repro_torch.configs import (falcon_mamba_7b, granite_20b, qwen3_0_6b,
+                                 stablelm_3b)
 from repro_torch.core.types import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.CONFIG.name: c.CONFIG for c in (qwen3_0_6b, falcon_mamba_7b)
+    c.CONFIG.name: c.CONFIG
+    for c in (qwen3_0_6b, falcon_mamba_7b, stablelm_3b, granite_20b)
 }
 
 

@@ -33,7 +33,7 @@ _UPDATE = [_P, _P, _P, _P, _P, _F32, _F32, _F32, _I64, _I64, _I32, _I32, _P,
 _PAGED = [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
           _F32, _I32, _I32, _P, _P, _P]
 _FLASH = [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
-          _F32, _P]
+          _I32, _F32, _P]
 # source stem -> argtypes of each of its C entry points
 SIGNATURES = {
     "dc_update": {

@@ -1,13 +1,17 @@
 // Hopper (sm_90a) kernel for forward GQA attention over a whole sequence:
-// causal and/or sliding-window, Sq != Sk allowed, any lengths.
+// causal and/or sliding-window, Sq != Sk allowed, any lengths, queries
+// at an offset (a chunk of a longer prompt).
 //
 // It replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention: _flash_kernel).  For batch row b, query head
 // h = kv * groups + g and query position i,
 //
 //   s_ij  = (q[b, i, kv, g] . k[b, j, kv]) * hd^-0.5                     (f32)
-//   masked to -1e30 where j >= Sk, causal and j > i, or window > 0 and
-//   i - j >= window (positions absolute from 0 on both sides)
+//   masked to -1e30 where j >= Sk, causal and j > q_start + i, or
+//   window > 0 and q_start + i - j >= window (key j at absolute position
+//   j, query row i at q_start + i; q_start = 0 is the Pallas kernel's
+//   whole-sequence case, q_start > 0 a chunk of a prompt resumed over the
+//   keys already in its cache)
 //   out[b, i, kv, g] = sum_j p_ij v[b, j, kv] / max(sum_j p_ij, 1e-30)
 //
 // with the online softmax of _flash_kernel: over key tiles, m' = max(m,
@@ -48,7 +52,8 @@
 //   row's position R / G.  G > 64 spreads one position over CTAs.
 // * Two or three warpgroups per CTA split the key tiles of its 64 rows
 //   (tiles 0, W, 2W, ... for warpgroup 0 of W, 1, W + 1, ... for the
-//   next), each walking them through its own ring of two cp.async stages
+//   next, by absolute tile index, key tiles aligned to key 0), each
+//   walking them through its own ring of two cp.async stages
 //   (the copy of its next tile runs under the current tile's products; a
 //   named barrier per warpgroup), and warpgroups 1.. hand their (m, l,
 //   acc) to warpgroup 0 at the end, which merges them in a fixed order.
@@ -68,16 +73,26 @@
 //   them, so the result is the reference's.  Query tiles run heaviest
 //   first.  The sums run in a fixed order: the output is bitwise equal
 //   from run to run.
+// * A row's output does not depend on which rows share its CTA or where
+//   its chunk starts (q_start): its live key tiles are the same absolute
+//   tiles on the same warpgroups in the same order, a wholly masked tile
+//   after a live one is an exact no-op (corr = exp2(0) = 1, p = 0), and a
+//   warpgroup that saw no live key of the row is erased at the merge
+//   (weight exp2(-1e30 - m) = 0; warpgroup 0 always holds key 0, live for
+//   every causal row).  So a prefix-cache hit's chunks give bitwise the
+//   cold chunks' rows.
 // * The library builds with -fmad=false (for the bitwise kernels), which
 //   leaves mma alone; the softmax takes scores to the log2 domain with one
 //   product and ex2.approx, as the online softmax allows.
 //
 // Shared memory per instantiation (q tile + 2 stages of k and v per
 // warpgroup):
-//   f32 (2 warpgroups):  hd 32: 88,064 B; hd 64: 161,792 B; hd 128 (keys
-//         32): 172,032 B; hd 256 (keys 16): 201,728 B
-//   bf16 (3 warpgroups): hd 32: 66,560 B; hd 64: 119,808 B; hd 128:
-//         226,304 B; hd 256 (keys 32, 2 warpgroups): 168,960 B
+//   f32 (2 warpgroups):  hd 32: 88,064 B; hd 64: 161,792 B; hd 80:
+//         198,656 B; hd 128 (keys 32): 172,032 B; hd 256 (keys 16):
+//         201,728 B
+//   bf16 (3 warpgroups): hd 32: 66,560 B; hd 64: 119,808 B; hd 80:
+//         146,432 B; hd 128: 226,304 B; hd 256 (keys 32, 2 warpgroups):
+//         168,960 B
 //
 // The entry points launch on the caller's stream and current device,
 // allocate nothing and return cudaGetLastError().
@@ -105,7 +120,7 @@ constexpr int warpgroups() {
 // keys per tile: two stages per warpgroup must fit beside the q tile
 template <typename T, int HD>
 constexpr int key_tile() {
-  if (std::is_same<T, float>::value) return HD <= 64 ? 64 : HD == 128 ? 32 : 16;
+  if (std::is_same<T, float>::value) return HD <= 80 ? 64 : HD == 128 ? 32 : 16;
   return HD <= 128 ? 64 : 32;
 }
 
@@ -327,7 +342,7 @@ __global__ void __launch_bounds__(Tile<T, HD>::kThreads, 1)
                            const T* __restrict__ v, T* __restrict__ out,
                            int sq, int sk, int kv_heads, int groups,
                            int row_tiles, int causal, int window,
-                           float scale) {
+                           int q_start, float scale) {
   using L = Tile<T, HD>;
   constexpr int BN = L::BN;
   constexpr int NT = BN / 8;
@@ -359,13 +374,14 @@ __global__ void __launch_bounds__(Tile<T, HD>::kThreads, 1)
   const int64_t q_pos_stride = (int64_t)kv_heads * groups * HD;
   const int64_t q_base = ((int64_t)b * sq * kv_heads + kvh) * groups * HD;
 
-  // the key range any row of this tile can see; warpgroup w takes the
-  // key tiles w, w + kWG, ... of it
-  const int p_first = m0 / groups;
-  const int p_last = (min(m0 + kBM, rows) - 1) / groups;
+  // the key range any row of this tile can see (absolute positions: row
+  // R sits at q_start + R / groups); warpgroup w takes the key tiles of
+  // absolute index w mod kWG in it
+  const int p_first = q_start + m0 / groups;
+  const int p_last = q_start + (min(m0 + kBM, rows) - 1) / groups;
   const int k_end = causal ? min(sk, p_last + 1) : sk;
   const int k_begin = window > 0 ? max(0, p_first - window + 1) : 0;
-  const int k_first = (k_begin / BN) * BN + wg * BN;
+  const int k_first = ((k_begin / BN) / kWG * kWG + wg) * BN;
   T* my_ring = ring + wg * 2 * L::kStage;   // this warpgroup's two stages
 
   auto stage_kv = [&](int k0, int st) {
@@ -403,7 +419,8 @@ __global__ void __launch_bounds__(Tile<T, HD>::kThreads, 1)
   // this thread's rows g and g + 8 of its warp's 16, and their positions
   int pos[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) pos[i] = (m0 + warp * 16 + g + 8 * i) / groups;
+  for (int i = 0; i < 2; ++i)
+    pos[i] = q_start + (m0 + warp * 16 + g + 8 * i) / groups;
 
   const float sl = scale * kLog2e;   // scores in the log2 domain
   float m[2] = {kNegInf, kNegInf};
@@ -536,7 +553,7 @@ __global__ void __launch_bounds__(Tile<T, HD>::kThreads, 1)
 template <typename T, int HD>
 int launch_hd(const T* q, const T* k, const T* v, T* out, int batch, int sq,
               int sk, int kv_heads, int groups, int causal, int window,
-              float scale, cudaStream_t stream) {
+              int q_start, float scale, cudaStream_t stream) {
   constexpr int smem = Tile<T, HD>::kBytes;
   // above 48 KB a block takes dynamic shared memory only once allowed;
   // the attribute is the current device's: raised once on each
@@ -558,15 +575,16 @@ int launch_hd(const T* q, const T* k, const T* v, T* out, int batch, int sq,
   flash_attention_kernel<T, HD>
       <<<(unsigned)ctas, Tile<T, HD>::kThreads, smem, stream>>>(
       q, k, v, out, sq, sk, kv_heads, groups, (int)row_tiles, causal, window,
-      scale);
+      q_start, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int sq, int sk, int kv_heads, int groups, int hd, int causal,
-           int window, float scale, cudaStream_t stream) {
-  if (batch <= 0 || sq <= 0 || sk <= 0 || kv_heads <= 0 || groups <= 0)
+           int window, int q_start, float scale, cudaStream_t stream) {
+  if (batch <= 0 || sq <= 0 || sk <= 0 || kv_heads <= 0 || groups <= 0 ||
+      q_start < 0 || (int64_t)q_start + sq > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
@@ -575,16 +593,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   switch (hd) {
     case 32:
       return launch_hd<T, 32>(qq, kk, vv, oo, batch, sq, sk, kv_heads,
-                              groups, causal, window, scale, stream);
+                              groups, causal, window, q_start, scale,
+                              stream);
     case 64:
       return launch_hd<T, 64>(qq, kk, vv, oo, batch, sq, sk, kv_heads,
-                              groups, causal, window, scale, stream);
+                              groups, causal, window, q_start, scale,
+                              stream);
+    case 80:
+      return launch_hd<T, 80>(qq, kk, vv, oo, batch, sq, sk, kv_heads,
+                              groups, causal, window, q_start, scale,
+                              stream);
     case 128:
       return launch_hd<T, 128>(qq, kk, vv, oo, batch, sq, sk, kv_heads,
-                               groups, causal, window, scale, stream);
+                               groups, causal, window, q_start, scale,
+                               stream);
     case 256:
       return launch_hd<T, 256>(qq, kk, vv, oo, batch, sq, sk, kv_heads,
-                               groups, causal, window, scale, stream);
+                               groups, causal, window, q_start, scale,
+                               stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -596,22 +622,23 @@ extern "C" {
 
 // q: (batch, sq, kv_heads, groups, hd); k, v: (batch, sk, kv_heads, hd);
 // out: like q.  All in the entry point's dtype, contiguous, 16-byte
-// aligned, on the current device.  hd is 32, 64, 128 or 256; causal is 0
-// or 1; window <= 0 means no window; scale is hd^-0.5 as f32.
+// aligned, on the current device.  hd is 32, 64, 80, 128 or 256; causal
+// is 0 or 1; window <= 0 means no window; q_start >= 0 is query row 0's
+// absolute position; scale is hd^-0.5 as f32.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int batch, int sq, int sk, int kv_heads,
                         int groups, int hd, int causal, int window,
-                        float scale, cudaStream_t stream) {
+                        int q_start, float scale, cudaStream_t stream) {
   return launch<float>(q, k, v, out, batch, sq, sk, kv_heads, groups, hd,
-                       causal, window, scale, stream);
+                       causal, window, q_start, scale, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* out, int batch, int sq, int sk, int kv_heads,
                          int groups, int hd, int causal, int window,
-                         float scale, cudaStream_t stream) {
+                         int q_start, float scale, cudaStream_t stream) {
   return launch<__nv_bfloat16>(q, k, v, out, batch, sq, sk, kv_heads, groups,
-                               hd, causal, window, scale, stream);
+                               hd, causal, window, q_start, scale, stream);
 }
 
 }  // extern "C"

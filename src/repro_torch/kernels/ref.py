@@ -55,17 +55,20 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     before the attention math.
 
     Gathers each row's pages into logical order, masks positions
-    ``>= lengths[b]`` and softmax-attends in f32.  Returns
-    (B, KV, G, hd) f32."""
+    ``>= lengths[b]`` and softmax-attends in q's dtype promoted to at
+    least f32 (f32 for the model's queries, as the reference; a float64 q
+    evaluates the same function without f32's rounding).  Returns
+    (B, KV, G, hd) in that dtype."""
+    dtype = torch.promote_types(q.dtype, torch.float32)
     B, mp = block_tables.shape
     ps = k_pool.shape[1]
     bt = block_tables.long()
-    k_lin = k_pool[bt].reshape(B, mp * ps, *k_pool.shape[2:]).float()
-    v_lin = v_pool[bt].reshape(B, mp * ps, *v_pool.shape[2:]).float()
+    k_lin = k_pool[bt].reshape(B, mp * ps, *k_pool.shape[2:]).to(dtype)
+    v_lin = v_pool[bt].reshape(B, mp * ps, *v_pool.shape[2:]).to(dtype)
     if k_scale is not None:
         k_lin = k_lin * k_scale[bt].reshape(B, mp * ps)[:, :, None, None]
         v_lin = v_lin * v_scale[bt].reshape(B, mp * ps)[:, :, None, None]
-    s = torch.einsum("bkgh,bskh->bkgs", q.float(), k_lin) \
+    s = torch.einsum("bkgh,bskh->bkgs", q.to(dtype), k_lin) \
         * (q.shape[-1] ** -0.5)
     mask = torch.arange(mp * ps, device=q.device)[None, :] \
         < lengths[:, None]
@@ -78,14 +81,15 @@ NEG_INF = -1e30   # the reference's mask value
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int = 0
-                          ) -> torch.Tensor:
+                          *, causal: bool = True, window: int = 0,
+                          q_start: int = 0) -> torch.Tensor:
     """Forward GQA attention over a whole sequence, the function
     ``repro/kernels/flash_attention.py::_flash_kernel`` computes.
 
-    q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd).  Positions are absolute
-    from 0 on both sides; ``causal`` masks ``kpos > qpos`` and ``window >
-    0`` masks ``qpos - kpos >= window``.  Scores, their ``hd**-0.5``
+    q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd).  Key j sits at absolute
+    position j and query row i at ``q_start + i`` (0 in the Pallas kernel;
+    a prompt's chunk starts later); ``causal`` masks ``kpos > qpos`` and
+    ``window > 0`` masks ``qpos - kpos >= window``.  Scores, their ``hd**-0.5``
     scale and the softmax are in f32; the unnormalised probabilities p =
     exp(s - max s) are rounded to v's dtype before the PV product, their
     f32 sum l is not, and the output is ``acc / max(l, 1e-30)`` in q's
@@ -95,7 +99,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[-1]
     s = torch.einsum("bqkgh,bckh->bkgqc", q.float(), k.float()) \
         * (hd ** -0.5)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = q_start + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:

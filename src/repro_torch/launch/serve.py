@@ -17,13 +17,20 @@ Three modes, as in the reference:
       --batch 4 --prompt-len 32 --gen 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --requests r.jsonl \\
       --slots 16 --pages 641 --page-size 16 --paged-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --requests r.jsonl \\
+      --slots 16 --pages 641 --prefill-chunk 128 --prefix-cache
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --requests r.jsonl --slots 16 --decode-burst 4
 
-``--arch`` is qwen3-0.6b (attention over the paged KV cache) or
-falcon-mamba-7b (the Mamba state, O(1) per request and slot-indexed: the
-page pool stays untouched and ``--pages`` / ``--page-size`` / ``--kv-dtype``
-do not apply to it).
+``--arch`` is qwen3-0.6b, stablelm-3b (layernorm, hd 80) or granite-20b
+(MQA: one kv head for 48 query heads), attention over the paged KV
+cache, or falcon-mamba-7b (the Mamba state, O(1) per request and
+slot-indexed: the page pool stays untouched, ``--pages`` / ``--page-size``
+/ ``--kv-dtype`` do not apply to it, and ``--prefill-chunk`` /
+``--prefix-cache`` are refused).  ``--prefill-chunk N`` forwards prompts N
+tokens per scheduler step, interleaved with decode; ``--prefix-cache``
+shares committed prompt pages between requests, with copy-on-write where
+a prompt diverges inside a page.
 
 Runs on the card (``--device cuda``, the default) unless asked for the
 CPU.  On the card the paged decode reads the pages through the CUDA
@@ -39,8 +46,7 @@ metadata rebuilds the algorithm that trained it (``--algo``,
 file without metadata), and its ``eval_params`` (the DC-S3GD worker
 average, paper Eq. 8, in anchor form) are served.  ``--layers`` cuts the
 depth as the training entry point's flag does, so a checkpoint of a cut
-model loads.  Not ported yet: ``--tuned-config`` / ``--autotune`` (A14)
-and ``--prefill-chunk`` / ``--prefix-cache`` (A11).
+model loads.  Not ported yet: ``--tuned-config`` / ``--autotune`` (A14).
 """
 from __future__ import annotations
 
@@ -107,6 +113,14 @@ def build_argparser():
                     help="decode steps per dispatch, tokens left on the "
                          "device in between (admissions/evictions land on "
                          "burst boundaries)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: forward prompts this many "
+                         "tokens per step, interleaved with decode (0 = "
+                         "whole-prompt prefill on join)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share committed prompt-prefix pages between "
+                         "requests (copy-on-write on divergence; implies "
+                         "chunked prefill, default chunk 4*page_size)")
     ap.add_argument("--train-ckpt", type=Path, default=None,
                     help="serve eval_params of a training checkpoint (its "
                          "metadata selects the algorithm)")
@@ -233,18 +247,22 @@ def record_arrival_schedule(args, reqs, arrivals, path: Path) -> None:
     print(f"[serve] arrival schedule recorded in {path}")
 
 
-def run_scheduler(model, params, reqs, args, arrivals=None) -> Scheduler:
-    """Serve ``reqs`` with a `Scheduler` built from ``args``; prints the
-    summary and returns the drained scheduler."""
-    sch = Scheduler(model, params, slots=args.slots, pages=args.pages,
-                    page_size=args.page_size,
-                    sampler=args.sampler, temperature=args.temperature,
-                    seed=args.seed, use_kernel=args.paged_kernel,
-                    decode_burst=args.decode_burst,
-                    kv_dtype=args.kv_dtype)
-    t0 = time.perf_counter()
-    done = sch.run(reqs, arrivals=arrivals)
-    wall = time.perf_counter() - t0
+def make_scheduler(model, params, args) -> Scheduler:
+    """The `Scheduler` ``args`` describe, on the params' device."""
+    return Scheduler(model, params, slots=args.slots, pages=args.pages,
+                     page_size=args.page_size,
+                     sampler=args.sampler, temperature=args.temperature,
+                     seed=args.seed, use_kernel=args.paged_kernel,
+                     decode_burst=args.decode_burst,
+                     prefill_chunk=args.prefill_chunk,
+                     prefix_cache=args.prefix_cache,
+                     kv_dtype=args.kv_dtype)
+
+
+def report(sch: Scheduler, wall: float, args) -> dict:
+    """Print a drained scheduler's summary (``wall`` seconds of serving)
+    and return `Scheduler.latency_summary`."""
+    done = sch.finished
     summary = sch.latency_summary()
     toks = summary["tokens"]
     print(f"[serve] continuous batching: {len(done)} requests, "
@@ -254,12 +272,23 @@ def run_scheduler(model, params, reqs, args, arrivals=None) -> Scheduler:
     for k in ("p50_token_latency_s", "p95_token_latency_s",
               "p50_ttft_s", "p95_ttft_s",
               "mean_pool_utilization", "mean_internal_fragmentation",
-              "preemptions"):
+              "preemptions", "prefill_chunks", "cow_copies",
+              "prefix_hits", "prefix_hit_tokens", "prefix_evictions"):
         if k in summary:
             print(f"[serve]   {k} = {summary[k]:.4g}")
     for req in sorted(done, key=lambda r: r.rid)[:4]:
         print(f"[serve]   req {req.rid}: prompt={len(req.prompt)} "
               f"-> {len(req.out)} tokens {req.out[:8]}...")
+    return summary
+
+
+def run_scheduler(model, params, reqs, args, arrivals=None) -> Scheduler:
+    """Serve ``reqs`` with a `Scheduler` built from ``args``; prints the
+    summary and returns the drained scheduler."""
+    sch = make_scheduler(model, params, args)
+    t0 = time.perf_counter()
+    sch.run(reqs, arrivals=arrivals)
+    report(sch, time.perf_counter() - t0, args)
     return sch
 
 

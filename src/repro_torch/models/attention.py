@@ -1,7 +1,8 @@
 """Grouped-query attention: dense, causal, no window (the port of
-``repro.models.attention``'s ``init_attention`` / ``attention_train`` and,
-for decoding, ``init_kv_cache`` / ``decode_positions`` / ``attend_one`` /
-``attention_decode``).
+``repro.models.attention``'s ``init_attention`` / ``attention_train``, for
+decoding ``init_kv_cache`` / ``decode_positions`` / ``attend_one`` /
+``attention_decode``, and for chunked prefill ``_blocked_attention`` /
+``attention_prefill_chunk``).
 
 The full-sequence attention core has two routes, chosen by the caller
 (``core``): ``"plain"`` (`causal_attention`, plain tensor code that takes
@@ -13,13 +14,19 @@ and ``"flash"``, the hand-written kernel
 forward only, for the prefill.
 
 Decoding writes the new token's k/v into the cache in place (the torch
-form of the reference's buffer donation).  The sliding-window ring,
+form of the reference's buffer donation).  A prompt's chunk
+(`attention_prefill_chunk`) writes its k/v into the paged cache and
+attends over the cache's linearized view through the layout's ops: the
+flash-attention kernel with a query offset on the card, `blocked_attention`
+(the reference's online softmax over fixed key blocks) on the CPU.  The sliding-window ring,
 cross-attention and M-RoPE are not ported (ROADMAP A6): the dense family
 has none of them.
 """
 from __future__ import annotations
 
 import torch
+
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_rope, dense_init, init_rmsnorm,
@@ -66,6 +73,59 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                      causal: bool, window: int, q_chunk: int,
+                      kv_chunk: int) -> torch.Tensor:
+    """The reference's ``_blocked_attention``: q (B, Sq, KV, G, hd); k, v
+    (B, Sk, KV, hd); q_pos (Sq,) and k_pos (Sk,) absolute positions.  An
+    online softmax over key blocks of ``kv_chunk``, query chunks of
+    ``q_chunk`` one after another; scores, their scale and the softmax in
+    f32, the probabilities rounded to v's dtype before the PV product.
+    Padded queries sit at position -1, padded keys at 2^30 (masked).  A
+    wholly masked key block after a live one is an exact no-op, so a row's
+    result does not depend on how many blocks follow its last live key.
+    Returns (B, Sq, KV, G, vd) in q's dtype."""
+    B, Sq, KV, G, hd = q.shape
+    Sk, vd = k.shape[1], v.shape[-1]
+    scale = hd ** -0.5
+    pq, pk = (-Sq) % q_chunk, (-Sk) % kv_chunk
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pq))
+        q_pos = F.pad(q_pos, (0, pq), value=-1)
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+        k_pos = F.pad(k_pos, (0, pk), value=2 ** 30)
+    outs = []
+    for i0 in range(0, Sq + pq, q_chunk):
+        qc, qp = q[:, i0:i0 + q_chunk].float(), q_pos[i0:i0 + q_chunk]
+        m = torch.full((B, KV, G, q_chunk), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, q_chunk), device=q.device)
+        acc = torch.zeros((B, KV, G, q_chunk, vd), device=q.device)
+        for j0 in range(0, Sk + pk, kv_chunk):
+            kc, vc = k[:, j0:j0 + kv_chunk], v[:, j0:j0 + kv_chunk]
+            kp = k_pos[j0:j0 + kv_chunk]
+            s = torch.einsum("bqkgh,bckh->bkgqc", qc, kc.float()) * scale
+            mask = (kp < 2 ** 30)[None, :].expand(q_chunk, kv_chunk)
+            if causal:
+                mask = mask & (qp[:, None] >= kp[None, :])
+            if window > 0:
+                mask = mask & ((qp[:, None] - kp[None, :]) < window)
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(vc.dtype).float(),
+                              vc.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))      # (B, qc, KV, G, vd)
+    return torch.cat(outs, dim=1)[:, :Sq].to(q.dtype)
 
 
 def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -184,5 +244,38 @@ def attention_decode(params: dict, cache: dict, x: torch.Tensor,
         valid = torch.arange(cache["k"].shape[1], device=x.device) <= pos
         out = attend_one(qg, cache["k"], cache["v"], valid)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
+    wo = params["wo"]
+    return matmul(out, wo.reshape(H * hd, wo.shape[-1])), cache
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill against the paged cache
+# ---------------------------------------------------------------------------
+
+
+def attention_prefill_chunk(params: dict, cache: dict, x: torch.Tensor,
+                            positions: torch.Tensor, *, rope_theta: float,
+                            qk_norm: bool = False, norm_eps: float = 1e-6,
+                            cache_ops=None):
+    """A chunk of a prompt against the paged KV cache: x (B, L, d) at
+    absolute ``positions`` (L,); the prompt's earlier positions are already
+    in the pages ``cache_ops`` (`repro_torch.models.cache._ChunkOps`)
+    addresses.  The chunk's k/v are written into the pages first, then its
+    queries attend over the linearized view, the causal mask hiding the
+    future.  Returns ((B, L, d), the cache, updated in place)."""
+    B, L, _ = x.shape
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if qk_norm:
+        q = rmsnorm(params["q_norm"], q, norm_eps)
+        k = rmsnorm(params["k_norm"], k, norm_eps)
+    if rope_theta > 0:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
+    qg = q.reshape(B, L, KV, H // KV, hd)
+    out, cache = cache_ops.kv_prefill_attend(cache, qg, k, v, positions)
+    out = out.reshape(B, L, H * hd).to(x.dtype)
     wo = params["wo"]
     return matmul(out, wo.reshape(H * hd, wo.shape[-1])), cache

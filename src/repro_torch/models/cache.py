@@ -30,13 +30,25 @@ reference's ``use_kernel`` does; False on the card is the gather path the
 kernel is checked against).  Pool writes are in place
 (the torch form of the reference's buffer donation).
 
+Chunked prefill (`PagedLayout.prefill_resume`, `_ChunkOps`): one chunk of
+a prompt at absolute positions ``pos0 + [0, L)`` writes its k/v into the
+pages its block table names and attends over the slot's linearized view.
+On the card the view is gathered once per layer, up to the page holding
+the chunk's last real position (dequantized to f32 for int8/fp8 pools,
+cast to the queries' dtype), and handed to the flash-attention kernel with
+``q_start = pos0``; on the CPU, and with ``Model(cfg, kernels=False)``, to
+`repro_torch.models.attention.blocked_attention` at ``kv_chunk =
+page_size``, the reference's route.  Both key blockings are aligned to
+absolute key 0, and wholly masked key blocks are exact no-ops, so a row's
+result does not depend on where its chunk starts: a prefix-cache hit that
+resumes mid-prompt gives the cold chunked prefill's bits.  `copy_page` is
+the device half of copy-on-write.
+
 Physical page 0 is the scratch page: inactive decode slots point their
 whole block table at it (and sit at position 0), so their writes land
 somewhere harmless and the step needs no per-slot mask.
 
-Not ported yet: the MLA, ring and RG-LRU kinds (ROADMAP A6), and
-chunked prefill with prefix pages — ``_ChunkOps``, ``prefill_resume``,
-``copy_page`` (ROADMAP A11).  ``chunkable`` is False until then.
+Not ported yet: the MLA, ring and RG-LRU kinds (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -46,8 +58,9 @@ import torch
 
 from repro_torch.core import quant as Q
 from repro_torch.core.types import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.models.attention import attend_one
+from repro_torch.models.attention import attend_one, blocked_attention
 
 Tree = Any
 
@@ -182,6 +195,77 @@ class _PagedOps:
         return lin, valid
 
 
+class _ChunkOps:
+    """The cache ops of one chunked-prefill dispatch: rows resuming their
+    prompts at absolute ``positions`` = ``q_start + [0, L)`` (shared by the
+    rows: chunk dispatches are per request, B = 1), writing L consecutive
+    positions into pages and attending over the first ``n_view`` pages of
+    each row's block table.  The write coordinates are computed once per
+    dispatch, for every layer; the writes are in place."""
+
+    def __init__(self, layout: "PagedLayout", positions: torch.Tensor,
+                 block_tables: torch.Tensor, n_view: int, q_start: int):
+        self.layout = layout
+        self.bt = block_tables.long()            # (B, max_pages)
+        self.view_bt = self.bt[:, :n_view]
+        ps = layout.page_size
+        mp = self.bt.shape[1]
+        # the padded tail of a prompt's last chunk can run past the block
+        # table: those writes go to the scratch page, not to the clamped
+        # last entry
+        safe = positions < mp * ps
+        page = torch.clamp(positions // ps, max=mp - 1)
+        self.phys = torch.where(safe[None], self.bt[:, page], SCRATCH_PAGE)
+        self.off = (positions % ps)[None].expand_as(self.phys)
+        self.q_start = q_start
+        self.kernel = layout.model.kernels \
+            and positions.device.type == "cuda"
+
+    def _scatter(self, pool: torch.Tensor, new: torch.Tensor) -> None:
+        """new: (B, L, ...) entries for ``positions``, written in place."""
+        pool[self.phys, self.off] = new.to(pool.dtype)
+
+    def _store(self, cache: dict, name: str, new: torch.Tensor) -> None:
+        """Write ``new`` (B, L, ...) into pool ``name``: values and per-
+        token scales when the pools are quantized, a cast otherwise."""
+        if self.layout.kv_quantized:
+            qv, sc = _quantize_tokens(new, self.layout.kv_dtype, 2)
+            self._scatter(cache[name], qv)
+            self._scatter(cache[f"{name}_scale"], sc)
+        else:
+            self._scatter(cache[name], new)
+
+    def _view(self, cache: dict, name: str) -> torch.Tensor:
+        """The linearized view (B, n_view * page_size, KV, hd), dequantized
+        to f32 when the pools are quantized."""
+        B, n = self.view_bt.shape
+        ps = self.layout.page_size
+        pool = cache[name]
+        lin = pool[self.view_bt].reshape(B, n * ps, *pool.shape[2:])
+        if self.layout.kv_quantized:
+            s = cache[f"{name}_scale"][self.view_bt].reshape(B, n * ps)
+            lin = lin.float() * s[:, :, None, None]
+        return lin
+
+    def kv_prefill_attend(self, cache: dict, qg, k_new, v_new, positions
+                          ) -> Tuple[torch.Tensor, dict]:
+        """Write the chunk's k/v (B, L, KV, hd), then attend qg (B, L, KV,
+        G, hd) over the view.  Returns ((B, L, KV, G, hd), the cache)."""
+        self._store(cache, "k", k_new)
+        self._store(cache, "v", v_new)
+        k_lin, v_lin = self._view(cache, "k"), self._view(cache, "v")
+        if self.kernel:
+            out = flash_attention(qg, k_lin.to(qg.dtype), v_lin.to(qg.dtype),
+                                  causal=True, q_start=self.q_start)
+        else:
+            out = blocked_attention(
+                qg, k_lin, v_lin, positions,
+                torch.arange(k_lin.shape[1], device=qg.device), causal=True,
+                window=0, q_chunk=qg.shape[1],
+                kv_chunk=self.layout.page_size)
+        return out, cache
+
+
 class PagedLayout:
     """Paged KV cache for continuous batching.
 
@@ -216,8 +300,10 @@ class PagedLayout:
         # False for a slot-state-only model (falcon-mamba): no page is
         # ever allocated and the pool stays untouched
         self.uses_pages = bool(paged_kinds(model.cfg, (model.kind,)))
-        # chunked prefill / prefix caching wait for _ChunkOps (ROADMAP A11)
-        self.chunkable = False
+        # chunked prefill and prefix caching need every kind position-
+        # addressable in pages: the paged kind (full attention) is, the
+        # slot-indexed Mamba state cannot resume mid-prompt
+        self.chunkable = self.uses_pages
 
     # -- allocation-free capacity facts ------------------------------------
 
@@ -333,6 +419,51 @@ class PagedLayout:
                 c[f"{name}_scale"][:, flat] = sc
             else:
                 c[name][:, flat] = seg.to(c[name].dtype)
+
+    # -- chunked prefill (mid-prompt resume) --------------------------------
+
+    def prefill_resume(self, params, cache: Tree, tokens: torch.Tensor,
+                       pos0: int, last, block_tables: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Tree]:
+        """Prefill one chunk of a prompt, resuming mid-prompt: ``tokens``
+        (B, L) at absolute positions ``pos0 + [0, L)`` (``pos0`` a host
+        int, the same for every row: chunk dispatches are per request,
+        B = 1), writing into the pages ``block_tables`` (B, max_pages)
+        names and attending over everything already there.  ``last`` (a
+        host int or (B,) ints) indexes each row's last real position in
+        the chunk (the tail may be padding); the logits are taken there.
+        Every dispatch of a scheduler has the same shapes, (1,
+        prefill_chunk) tokens and the full-width table.  Returns
+        ((B, vocab_padded) f32 logits, the cache updated in place)."""
+        if not self.chunkable:
+            raise NotImplementedError(
+                f"{self.model.cfg.name}: chunked prefill needs every cache "
+                "kind paged (attention/MLA, window 0) and per-token FFN "
+                "math — use whole-prompt prefill_into")
+        dev = tokens.device
+        L = tokens.shape[1]
+        pos0 = int(pos0)
+        last = torch.as_tensor(last, dtype=torch.long).reshape(-1)
+        mp = block_tables.shape[1]
+        # the view stops at the page of the chunk's last real position:
+        # nothing after it is live for any real row
+        n_view = min(mp, (pos0 + int(last.max())) // self.page_size + 1)
+        positions = pos0 + torch.arange(L, device=dev)
+        ops = _ChunkOps(self, positions, block_tables, n_view, pos0)
+        return self.model.prefill_chunk(
+            params, cache, {"tokens": tokens,
+                            "last": last.to(dev).expand(tokens.shape[0])},
+            positions=positions, cache_ops=ops)
+
+    def copy_page(self, cache: Tree, src: int, dst: int) -> Tree:
+        """Copy physical page ``src`` to ``dst`` in every paged pool (values
+        and scales, every layer), in place: the device half of
+        copy-on-write (the host swaps the block-table entry and drops the
+        shared reference)."""
+        if self.uses_pages:
+            for pool in cache[0]["b0"].values():
+                pool[:, dst] = pool[:, src]
+        return cache
 
     # -- decode -------------------------------------------------------------
 

@@ -1,5 +1,5 @@
 """Shared building blocks (the port of ``repro.models.layers``): init
-helpers, rmsnorm, rotary embeddings, the gated MLP and the causal 1-d
+helpers, rmsnorm and layernorm, rotary embeddings, the gated MLP and the causal 1-d
 convolution of the Mamba block.
 
 Parameters are nested dicts of tensors with the reference's names,
@@ -44,6 +44,11 @@ def init_rmsnorm(shape, dtype, device) -> dict:
     return {"scale": torch.ones(shape, dtype=dtype, device=device)}
 
 
+def init_layernorm(shape, dtype, device) -> dict:
+    return {"scale": torch.ones(shape, dtype=dtype, device=device),
+            "bias": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 # ---------------------------------------------------------------------------
 # mixed-precision matmul
 # ---------------------------------------------------------------------------
@@ -72,6 +77,18 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dtype)
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """Mean and variance over the last axis in f32, then scale and bias
+    (the reference's ``layernorm``)."""
+    dtype = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------

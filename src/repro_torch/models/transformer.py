@@ -1,6 +1,6 @@
 """The decoder-only models (the port of ``repro.models.transformer.Model``
 for the ``dense`` family, blocks of kind ``attention``, and the ``ssm``
-family, blocks of kind ``mamba``).
+family, blocks of kind ``mamba``; rmsnorm or layernorm, by ``cfg.norm``).
 
 The parameter tree is the reference's: the layers of the one stage are
 stacked under ``stage0`` with a leading layer axis, and the vocabulary
@@ -16,7 +16,9 @@ logits with the dense cache tree, ``[{"b0": {"k": (L, B, cache_len, KV,
 hd), "v": ...}}]`` for attention or ``[{"b0": {"conv": (L, B, K-1, E),
 "ssm": (L, B, E, N)}}]`` for mamba; ``decode_step`` advances one token
 and updates the cache tree (dense, or the one a
-`repro_torch.models.cache` layout addresses) in place.
+`repro_torch.models.cache` layout addresses) in place; ``prefill_chunk``
+runs one chunk of a prompt against the paged cache from an absolute
+position on, for chunked prefill and prefix-cache hits.
 
 Routes: the prefill's attention core is the hand-written flash-attention
 kernel (`repro_torch.kernels.flash_attention`) and the Mamba scan the
@@ -37,12 +39,26 @@ from repro_torch import tree as T
 from repro_torch.core.types import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (dense_init, embed_init, init_mlp,
-                                       init_rmsnorm, matmul, mlp, rmsnorm)
+from repro_torch.models.layers import (dense_init, embed_init,
+                                       init_layernorm, init_mlp,
+                                       init_rmsnorm, layernorm, matmul, mlp,
+                                       rmsnorm)
 
 Tree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _init_norm(cfg: ModelConfig, shape, dtype, device) -> dict:
+    init = init_layernorm if cfg.norm == "layernorm" else init_rmsnorm
+    return init(shape, dtype, device)
+
+
+def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The block norm ``cfg.norm`` names, as the reference's ``_norm``."""
+    if cfg.norm == "layernorm":
+        return layernorm(p, x, cfg.norm_eps)
+    return rmsnorm(p, x, cfg.norm_eps)
 
 
 class Model:
@@ -54,10 +70,11 @@ class Model:
             and cfg.mla is None and not cfg.sliding_window \
             and cfg.mlp_gated and cfg.activation == "silu"
         ssm = cfg.family == "ssm" and cfg.ssm is not None
-        if not (dense or ssm) or cfg.norm != "rmsnorm":
+        if not (dense or ssm) or cfg.norm not in ("rmsnorm", "layernorm"):
             raise NotImplementedError(
                 f"{cfg.name}: only the dense (full-causal, SiLU-gated) and "
-                "ssm families with rmsnorm are ported (ROADMAP queue A6)")
+                "ssm families with rmsnorm or layernorm are ported (ROADMAP "
+                "queue A6)")
         self.cfg = cfg
         self.kind = "mamba" if ssm else "attention"
         self.loss_chunk = loss_chunk
@@ -74,22 +91,22 @@ class Model:
         d, L = cfg.d_model, (cfg.n_layers,)
         params: Dict[str, Any] = {
             "embed": {"tok": embed_init(gen, (self.vocab_padded, d), dt)},
-            "final_norm": init_rmsnorm((d,), dt, dev),
+            "final_norm": _init_norm(cfg, (d,), dt, dev),
             "unembed": dense_init(gen, (d, self.vocab_padded), dt),
         }
         if self.kind == "mamba":
             params["stage0"] = {"b0": {
-                "ln": init_rmsnorm(L + (d,), dt, dev),
+                "ln": _init_norm(cfg, L + (d,), dt, dev),
                 "mamba": ssm_mod.init_mamba(gen, L, d, cfg.ssm, dt),
             }}
             return params
         params["stage0"] = {"b0": {
-            "ln1": init_rmsnorm(L + (d,), dt, dev),
+            "ln1": _init_norm(cfg, L + (d,), dt, dev),
             "attn": attn.init_attention(gen, L, d, cfg.eff_n_heads,
                                         cfg.eff_n_kv_heads,
                                         cfg.resolved_head_dim, cfg.qk_norm,
                                         dt),
-            "ln2": init_rmsnorm(L + (d,), dt, dev),
+            "ln2": _init_norm(cfg, L + (d,), dt, dev),
             "mlp": init_mlp(gen, L, d, cfg.d_ff, dt),
         }}
         return params
@@ -108,7 +125,7 @@ class Model:
         cfg = self.cfg
         prefill = cache_out is not None
         if self.kind == "mamba":
-            h = rmsnorm(p["ln"], x, cfg.norm_eps)
+            h = _norm(cfg, p["ln"], x)
             if prefill:
                 h, entry = ssm_mod.mamba_prefill(p["mamba"], h, cfg.ssm,
                                                  use_kernel=self.kernels)
@@ -117,7 +134,7 @@ class Model:
                 h = ssm_mod.mamba_forward(p["mamba"], h, cfg.ssm,
                                           use_kernel=self.kernels)
             return x + h
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        h = _norm(cfg, p["ln1"], x)
         h = attn.attention_train(p["attn"], h, positions,
                                  rope_theta=cfg.rope_theta,
                                  qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
@@ -128,7 +145,7 @@ class Model:
             h, k, v = h
             cache_out.append({"k": k, "v": v})
         x = x + h
-        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        h = _norm(cfg, p["ln2"], x)
         return x + mlp(p["mlp"], h)
 
     def _backbone(self, params, x: torch.Tensor,
@@ -161,7 +178,7 @@ class Model:
                 "the selective-scan kernel has no backward yet (ROADMAP "
                 "A6, 'Left out of slice 4')")
         x = self._backbone(params, self._embed(params, batch))
-        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        x = _norm(self.cfg, params["final_norm"], x)
         return chunked_xent(x, params["unembed"], batch["labels"],
                             self.loss_chunk)
 
@@ -190,7 +207,7 @@ class Model:
         after the prompt, whose size does not depend on ``cache_len``)."""
         entries: list = []
         x = self._backbone(params, self._embed(params, batch), entries)
-        x = rmsnorm(params["final_norm"], x[:, -1], self.cfg.norm_eps)
+        x = _norm(self.cfg, params["final_norm"], x[:, -1])
         if self.kind == "mamba":
             cache = _stack(entries)
         else:
@@ -209,24 +226,63 @@ class Model:
             x = self._decode_block(T.map(lambda a: a[layer], stage),
                                    {k: v[layer] for k, v in cache.items()},
                                    x, batch["pos"], cache_ops)
-        x = rmsnorm(params["final_norm"], x[:, 0], self.cfg.norm_eps)
+        x = _norm(self.cfg, params["final_norm"], x[:, 0])
         return self._logits(params, x), caches
+
+    def prefill_chunk(self, params, caches, batch, *, positions,
+                      cache_ops):
+        """One chunk of a prompt against a paged cache
+        (`repro_torch.models.cache.PagedLayout.prefill_resume`):
+        ``tokens`` (B, L) at absolute ``positions`` (L,), the earlier
+        positions already in the pages ``cache_ops`` addresses.  Returns
+        ((B, vocab_padded) f32 logits at ``batch["last"]`` (B,), the
+        chunk's last real position (its tail may be padding), ``caches``
+        updated in place).  Attention blocks only: the layout's
+        ``chunkable`` gate refuses the rest before dispatch."""
+        if self.kind != "attention":
+            raise ValueError(f"chunked prefill over {self.kind!r} blocks: "
+                             "the layout's chunkable gate should have "
+                             "refused")
+        x = self._embed(params, batch)
+        stage, cache = params["stage0"]["b0"], caches[0]["b0"]
+        for layer in range(self.cfg.n_layers):
+            x = self._prefill_chunk_block(
+                T.map(lambda a: a[layer], stage),
+                {k: v[layer] for k, v in cache.items()}, x, positions,
+                cache_ops)
+        rows = torch.arange(x.shape[0], device=x.device)
+        x = _norm(self.cfg, params["final_norm"], x[rows, batch["last"]])
+        return self._logits(params, x), caches
+
+    def _prefill_chunk_block(self, p: dict, cache: dict, x: torch.Tensor,
+                             positions: torch.Tensor,
+                             cache_ops) -> torch.Tensor:
+        cfg = self.cfg
+        h = _norm(cfg, p["ln1"], x)
+        h, _ = attn.attention_prefill_chunk(p["attn"], cache, h, positions,
+                                            rope_theta=cfg.rope_theta,
+                                            qk_norm=cfg.qk_norm,
+                                            norm_eps=cfg.norm_eps,
+                                            cache_ops=cache_ops)
+        x = x + h
+        h = _norm(cfg, p["ln2"], x)
+        return x + mlp(p["mlp"], h)
 
     def _decode_block(self, p: dict, cache: dict, x: torch.Tensor,
                       pos: torch.Tensor, cache_ops) -> torch.Tensor:
         cfg = self.cfg
         if self.kind == "mamba":   # slot-indexed state: no cache_ops seam
-            h = rmsnorm(p["ln"], x, cfg.norm_eps)
+            h = _norm(cfg, p["ln"], x)
             h, _ = ssm_mod.mamba_decode(p["mamba"], cache, h, cfg.ssm)
             return x + h
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        h = _norm(cfg, p["ln1"], x)
         h, _ = attn.attention_decode(p["attn"], cache, h, pos,
                                      rope_theta=cfg.rope_theta,
                                      qk_norm=cfg.qk_norm,
                                      norm_eps=cfg.norm_eps,
                                      cache_ops=cache_ops)
         x = x + h
-        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        h = _norm(cfg, p["ln2"], x)
         return x + mlp(p["mlp"], h)
 
 

@@ -2,7 +2,7 @@
 of ``repro.serve``).
 
 * `repro_torch.serve.pool`      — the refcounted page allocator
-  (`PagePool`);
+  (`PagePool`) and the prefix-page index (`PrefixCache`);
 * `repro_torch.serve.scheduler` — the continuous-batching request
   scheduler (`Scheduler` / `Request`) over
   `repro_torch.models.cache.PagedLayout`;
@@ -11,8 +11,8 @@ of ``repro.serve``).
   delegates here.
 """
 from repro_torch.serve.oneshot import SAMPLERS, OneShotGenerator
-from repro_torch.serve.pool import PagePool
+from repro_torch.serve.pool import PagePool, PrefixCache
 from repro_torch.serve.scheduler import Request, Scheduler
 
-__all__ = ["SAMPLERS", "OneShotGenerator", "PagePool", "Request",
-           "Scheduler"]
+__all__ = ["SAMPLERS", "OneShotGenerator", "PagePool", "PrefixCache",
+           "Request", "Scheduler"]

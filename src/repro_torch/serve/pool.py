@@ -1,5 +1,5 @@
-"""The page allocator behind the paged KV cache (the port of
-``repro.serve.pool.PagePool``; pure Python, a copy of the reference's).
+"""The page allocator and the prefix-page index behind the paged KV cache
+(the port of ``repro.serve.pool``; pure Python, a copy of the reference's).
 
 Host-side and deliberately dumb: pages are interchangeable fixed-size
 units of the device pool (`repro_torch.models.cache.PagedLayout`), so
@@ -10,8 +10,16 @@ tokens per sequence).
 
 Pages are refcounted: ``alloc`` hands out pages at refcount 1, ``ref``
 adds sharers, ``free`` drops a reference and recycles the page when the
-last one goes.  The sharer the reference has, ``PrefixCache``, waits
-with chunked prefill (ROADMAP A11).
+last one goes.  A page is writable only while its refcount is 1: a writer
+into a shared page copies it first (the scheduler's copy-on-write).
+
+`PrefixCache` (also a copy of the reference's) is the hash-chained index
+of committed prefix pages: a page is committed once it is full (every one
+of its ``page_size`` positions written by prefill), keyed by the chain
+``(parent page, the page's token ids)``.  A prompt that walks the same
+chain maps its block table onto the same physical pages and skips that
+part of its prefill.  The cache holds one reference on every committed
+page; pages only the cache holds are evictable, LRU first.
 
 Page ids below ``reserved`` (default 1) are never handed out: physical
 page 0 is the scratch page inactive decode slots write into
@@ -19,7 +27,8 @@ page 0 is the scratch page inactive decode slots write into
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 class PagePool:
@@ -140,3 +149,173 @@ class PagePool:
             out["internal_fragmentation"] = (
                 1.0 - used_tokens / alloc_tokens if alloc_tokens else 0.0)
         return out
+
+
+# ---------------------------------------------------------------------------
+# prefix cache — hash-chained index of committed prefix pages
+# ---------------------------------------------------------------------------
+
+_ROOT = -1  # chain parent of a prompt's first page
+
+
+class PrefixCache:
+    """Index of committed (full, immutable) prefix pages.
+
+    A committed page is keyed by ``(parent page id, its page_size token
+    ids)`` — the chain key — so two prompts share a page only when every
+    token up to and including that page matches.  `match` walks the
+    chain for whole pages, then checks the parent's committed children
+    for a *partial* tail overlap (shared up to the first divergent
+    token; the sharer must copy-on-write before appending into it).
+
+    The cache holds ONE pool reference per committed page.  Pages whose
+    only holder is the cache (refcount 1) are evictable, LRU-first; a
+    page with committed children is never evicted before they are (the
+    chain key of a child embeds its parent's id).
+    """
+
+    def __init__(self, pool: PagePool, page_size: int):
+        self.pool = pool
+        self.ps = int(page_size)
+        self._chain: Dict[Tuple[int, Tuple[int, ...]], int] = {}
+        self._key_of: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+        self._kids: Dict[int, List[int]] = {}     # parent -> committed kids
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.hit_tokens = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._key_of)
+
+    def tokens_of(self, page: int) -> Tuple[int, ...]:
+        return self._key_of[page][1]
+
+    def pages(self) -> List[int]:
+        """Every committed page id (the cache holds one ref on each)."""
+        return list(self._key_of)
+
+    # -- lookup -------------------------------------------------------------
+
+    def match(self, tokens: Sequence[int]) -> Tuple[List[int], int]:
+        """Longest committed prefix of ``tokens``.  Returns (pages,
+        matched token count); the caller is handed ONE new reference per
+        returned page (it must `pool.free` them when done).  The last
+        returned page may be a *partial* match (matched stops inside
+        it) — the caller must copy-on-write before writing into it.
+        Callers cap ``tokens`` at prompt-1 so the final-token logits are
+        always recomputed."""
+        toks = [int(t) for t in tokens]
+        pages: List[int] = []
+        parent, i = _ROOT, 0
+        while i + self.ps <= len(toks):
+            pg = self._chain.get((parent, tuple(toks[i:i + self.ps])))
+            if pg is None:
+                break
+            pages.append(pg)
+            parent, i = pg, i + self.ps
+        # partial tail: the best child sharing >= 1 leading token
+        best, best_n = None, 0
+        if i < len(toks):
+            tail = toks[i:]
+            for pg in self._kids.get(parent, ()):
+                ptoks = self._key_of[pg][1]
+                n = 0
+                for a, b in zip(ptoks, tail):
+                    if a != b:
+                        break
+                    n += 1
+                if n > best_n:
+                    best, best_n = pg, n
+        if best is not None:
+            pages.append(best)
+            i += best_n
+        if pages:
+            self.pool.ref(pages)
+            for pg in pages:
+                self._lru.move_to_end(pg)
+            self.hits += 1
+            self.hit_tokens += i
+        else:
+            self.misses += 1
+        return pages, i
+
+    # -- commit -------------------------------------------------------------
+
+    def commit(self, tokens: Sequence[int], pages: Sequence[int]) -> int:
+        """Index the full pages of a just-prefilled prompt: page ``j``
+        holds tokens ``[j*ps, (j+1)*ps)`` of ``tokens``.  Only whole
+        pages commit (``len(tokens) // ps`` of them — a partial last
+        page is still mutable).  Already-indexed chain keys are kept
+        (first writer wins; an identical prefix prefilled concurrently
+        into different pages stays private to its request and is freed
+        normally).  The cache takes one pool reference per newly indexed
+        page.  Returns the number of pages committed."""
+        toks = [int(t) for t in tokens]
+        parent, committed = _ROOT, 0
+        for j in range(len(toks) // self.ps):
+            pg = int(pages[j])
+            key = (parent, tuple(toks[j * self.ps:(j + 1) * self.ps]))
+            cur = self._chain.get(key)
+            if cur is not None:
+                parent = cur
+                continue
+            if pg in self._key_of:
+                # page already committed under another chain (can't
+                # happen while immutable — defensive)
+                parent = pg
+                continue
+            self._chain[key] = pg
+            self._key_of[pg] = key
+            self._kids.setdefault(parent, []).append(pg)
+            self.pool.ref([pg])
+            self._lru[pg] = None
+            self._lru.move_to_end(pg)
+            parent = pg
+            committed += 1
+        return committed
+
+    # -- eviction -----------------------------------------------------------
+
+    def evict(self, n: int) -> int:
+        """Drop up to ``n`` committed pages nobody references but the
+        cache (refcount 1), LRU-first, childless-first (a parent only
+        becomes evictable once its committed children are gone).
+        Returns how many pages were returned to the pool."""
+        dropped = 0
+        progress = True
+        while dropped < n and progress:
+            progress = False
+            for pg in list(self._lru):
+                if self._kids.get(pg):
+                    continue
+                if self.pool.refcount(pg) != 1:
+                    continue
+                self._drop(pg)
+                dropped += 1
+                progress = True
+                if dropped >= n:
+                    break
+        return dropped
+
+    def _drop(self, pg: int) -> None:
+        parent, ptoks = self._key_of.pop(pg)
+        del self._chain[(parent, ptoks)]
+        self._kids.pop(pg, None)
+        if parent in self._kids:
+            self._kids[parent].remove(pg)
+        self._lru.pop(pg, None)
+        self.pool.free([pg])
+        self.evictions += 1
+
+    # -- accounting ---------------------------------------------------------
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "committed_pages": len(self._key_of),
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_tokens": self.hit_tokens,
+            "evictions": self.evictions,
+        }

@@ -1,5 +1,5 @@
 """Continuous-batching request scheduler over the paged KV cache (the port
-of ``repro.serve.scheduler`` with whole-prompt prefill).
+of ``repro.serve.scheduler``).
 
 * the decode batch is ``n_slots`` persistent slots stepped together;
   positions and block tables are data, never shapes;
@@ -20,7 +20,20 @@ of ``repro.serve.scheduler`` with whole-prompt prefill).
   burst's tokens at its end.  Admissions and evictions land on burst
   boundaries; the burst never runs past the earliest ``max_new`` finish,
   and a lane that hits EOS idles at most ``burst - 1`` steps.  Each
-  slot's tokens do not depend on the burst length.
+  slot's tokens do not depend on the burst length;
+* ``prefill_chunk > 0`` switches admission to chunked prefill: a waiting
+  request takes a free slot at once and its prompt is forwarded
+  ``prefill_chunk`` tokens at a time, one chunk per `step` interleaved
+  with the running decode bursts, so a long prompt never stalls the
+  batch.  Every chunk dispatch has the same shapes, ``(1,
+  prefill_chunk)`` tokens and the full-width block table
+  (`repro_torch.models.cache.PagedLayout.prefill_resume`);
+* ``prefix_cache=True`` (implies chunked prefill, chunk ``4 *
+  page_size`` unless given) consults the `PrefixCache` at admission: a
+  prompt whose leading tokens match committed pages maps its block table
+  onto the same physical pages and resumes prefill after them, copying a
+  shared page before the first write into it (copy-on-write).  A hit's
+  greedy tokens are bitwise the cold chunked prefill's.
 
 Under greedy sampling each slot's tokens are bitwise the dense layout's
 at the same batch width and linearized cache length.
@@ -30,9 +43,7 @@ slot-indexed) is served by the same loop: the joining group's state is
 written into its slot rows, no page is ever allocated, ``_grow`` and the
 ``max_len`` check of `submit` are skipped, and the pool stays untouched.
 
-Not ported yet: chunked prefill and the prefix cache (``prefill_chunk``,
-``prefix_cache``; ROADMAP A11), and requests that carry encoder or
-vision inputs.
+Not ported yet: requests that carry encoder or vision inputs.
 """
 from __future__ import annotations
 
@@ -47,7 +58,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.models.cache import SCRATCH_PAGE, PagedLayout
 from repro_torch.serve.oneshot import SAMPLERS, resolve_sampler
-from repro_torch.serve.pool import PagePool
+from repro_torch.serve.pool import PagePool, PrefixCache
 
 
 @dataclasses.dataclass
@@ -85,10 +96,6 @@ class Scheduler:
                  use_kernel: Optional[bool] = None, decode_burst: int = 1,
                  prefill_chunk: int = 0, prefix_cache: bool = False,
                  kv_dtype: Optional[str] = None):
-        if prefill_chunk > 0 or prefix_cache:
-            raise NotImplementedError(
-                "chunked prefill and the prefix cache are not ported "
-                "(ROADMAP A11): use whole-prompt prefill")
         if model.cfg.encoder is not None or model.cfg.vlm is not None:
             raise NotImplementedError(
                 "continuous batching serves text-only requests; "
@@ -112,8 +119,21 @@ class Scheduler:
         self.layout = PagedLayout(model, n_slots=slots, num_pages=pages,
                                   page_size=page_size, max_pages=max_pages,
                                   use_kernel=use_kernel, kv_dtype=kv_dtype)
+        # the prefix cache rides on chunked prefill: every prompt, cold or
+        # hit, runs the same chunk dispatch, so a hit is bitwise the cold run
+        if prefix_cache and prefill_chunk <= 0:
+            prefill_chunk = 4 * page_size
+        self.prefill_chunk = max(int(prefill_chunk), 0)
+        if self.prefill_chunk and not self.layout.chunkable:
+            raise NotImplementedError(
+                f"{model.cfg.name}: chunked prefill / prefix caching need "
+                "every cache kind paged (full attention / MLA) and "
+                "per-token FFN math — ring, SSM and RG-LRU states are "
+                "slot-indexed and can't resume mid-prompt")
         self.pool = PagePool(pages, page_size, reserved=1,
                              bytes_per_page=self.layout.page_bytes())
+        self.prefix = PrefixCache(self.pool, page_size) \
+            if prefix_cache else None
         self.cache = self.layout.init_cache(device=self.device)
         self.slots: List[Optional[Request]] = [None] * slots
         self.waiting: Deque[Request] = deque()
@@ -123,11 +143,14 @@ class Scheduler:
         self.next_tok = np.zeros((slots,), np.int64)
         self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
         self._join_order: List[int] = []      # active slots, oldest first
+        self._prefilling: List[int] = []      # slots mid-prefill, FIFO
+        self._prefill_pos = [0] * slots       # next prompt index to prefill
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.finished: List[Request] = []
         self.stats: Dict[str, Any] = {
             "decode_steps": 0, "prefills": 0, "preemptions": 0,
-            "tokens": 0, "step_walls": [], "occupancy": [],
+            "tokens": 0, "chunks": 0, "cow_copies": 0,
+            "step_walls": [], "occupancy": [],
         }
 
     # -- submission ---------------------------------------------------------
@@ -174,13 +197,18 @@ class Scheduler:
 
     def _release(self, slot: int) -> None:
         if self._slot_pages[slot]:
+            # one reference per page: pages shared with the prefix cache or
+            # other slots stay live for their other holders
             self.pool.free(self._slot_pages[slot])
         self._slot_pages[slot] = []
         self.slots[slot] = None
         self.block_tables[slot, :] = SCRATCH_PAGE
         self.pos[slot] = 0
         self.next_tok[slot] = 0
+        self._prefill_pos[slot] = 0
         self._join_order.remove(slot)
+        if slot in self._prefilling:
+            self._prefilling.remove(slot)
 
     def _preempt_youngest(self) -> bool:
         """Free the most recently joined request (recompute-resume later).
@@ -200,6 +228,9 @@ class Scheduler:
         prompt length joins as a group: one batched prefill dispatch (and
         bitwise the dense fixed-batch prefill when a whole batch joins
         together)."""
+        if self.prefill_chunk:
+            self._admit_chunked()
+            return
         while self.waiting and None in self.slots:
             p_len = len(self.waiting[0].resume_tokens)
             n_pg = self.layout.pages_for(p_len)
@@ -245,6 +276,122 @@ class Scheduler:
             if starved:
                 break
 
+    def _admit_chunked(self) -> None:
+        """Chunked admission: every waiting request takes a free slot at
+        once (no equal-length groups: chunk dispatches are per request and
+        of one shape), consults the prefix cache, and joins the
+        ``_prefilling`` queue, advanced one chunk per step.  The match is
+        capped at prompt - 1 tokens, so the last token's logits are always
+        computed."""
+        while self.waiting and None in self.slots:
+            req = self.waiting.popleft()
+            toks = req.resume_tokens
+            pages: List[int] = []
+            matched = 0
+            if self.prefix is not None:
+                pages, matched = self.prefix.match(toks[:len(toks) - 1])
+            slot = self.slots.index(None)
+            self.slots[slot] = req
+            self._slot_pages[slot] = pages   # one pool ref each, from match
+            self.block_tables[slot, :] = SCRATCH_PAGE
+            if pages:
+                self.block_tables[slot, :len(pages)] = pages
+            self.pos[slot] = 0               # out of decode until prefilled
+            self.next_tok[slot] = 0
+            self._prefill_pos[slot] = matched
+            self._join_order.append(slot)
+            self._prefilling.append(slot)
+            if req.t_join is None:
+                req.t_join = time.perf_counter()
+
+    def _alloc_page_for(self, slot: int) -> Optional[int]:
+        """One page for ``slot``: evict cold prefix-cache pages first,
+        preempt younger requests second.  None means the only victim left
+        is ``slot`` itself (the caller preempts it)."""
+        while True:
+            got = self.pool.alloc(1)
+            if got is not None:
+                return got[0]
+            if self.prefix is not None and self.prefix.evict(1):
+                continue
+            if not self._join_order or self._join_order[-1] == slot:
+                return None
+            self._preempt_youngest()
+
+    def _advance_prefill(self) -> bool:
+        """One prefill chunk for the oldest mid-prefill request: allocate
+        (or copy on write) the pages its write range covers, dispatch the
+        chunk, and on the last chunk sample the first token, commit the
+        prompt's full pages to the prefix cache and hand the slot to
+        decode.  Returns False when no request is mid-prefill."""
+        if not self._prefilling:
+            return False
+        slot = self._prefilling[0]
+        req = self.slots[slot]
+        toks = req.resume_tokens
+        P = len(toks)
+        ps = self.layout.page_size
+        C = self.prefill_chunk
+        start = self._prefill_pos[slot]
+        end = min(start + C, P)
+        first_pg, last_pg = start // ps, (end - 1) // ps
+        while len(self._slot_pages[slot]) <= last_pg:
+            pg = self._alloc_page_for(slot)
+            if pg is None or self.slots[slot] is not req:
+                # pool dry, or this request was preempted to free memory:
+                # it waits and retries on a later step
+                if self.slots[slot] is req:
+                    self._preempt_youngest()
+                if pg is not None:
+                    self.pool.free([pg])
+                return True
+            idx = len(self._slot_pages[slot])
+            self._slot_pages[slot].append(pg)
+            self.block_tables[slot, idx] = pg
+        # copy-on-write: never write into a page another holder (the prefix
+        # cache, a sharer) can still read — only a partial match's resume
+        # page can be shared, but the whole write range is checked
+        for idx in range(first_pg, last_pg + 1):
+            pg = self._slot_pages[slot][idx]
+            if self.pool.refcount(pg) <= 1:
+                continue
+            fresh = self._alloc_page_for(slot)
+            if fresh is None or self.slots[slot] is not req:
+                if self.slots[slot] is req:
+                    self._preempt_youngest()
+                if fresh is not None:
+                    self.pool.free([fresh])
+                return True
+            self.cache = self.layout.copy_page(self.cache, pg, fresh)
+            self._slot_pages[slot][idx] = fresh
+            self.block_tables[slot, idx] = fresh
+            self.pool.free([pg])             # our reference to the shared page
+            self.stats["cow_copies"] += 1
+        chunk = toks[start:end] + [0] * (C - (end - start))
+        logits, self.cache = self.layout.prefill_resume(
+            self.params, self.cache, self._tensor([chunk]), start,
+            end - 1 - start, self._tensor(self.block_tables[slot:slot + 1]))
+        self.stats["chunks"] += 1
+        self._prefill_pos[slot] = end
+        if end < P:
+            return True
+        # the prompt is in: the first token from the last chunk's logits
+        tok = int(SAMPLERS[self.sampler](logits, self._gen,
+                                         self.temperature)[0])
+        now = time.perf_counter()
+        self.stats["prefills"] += 1
+        self._prefilling.pop(0)
+        if self.prefix is not None:
+            self.prefix.commit(toks, self._slot_pages[slot])
+        self.pos[slot] = P
+        self.next_tok[slot] = tok
+        req.out.append(tok)
+        req.token_walls.append(now)
+        self.stats["tokens"] += 1
+        if self._is_finished(req, tok):
+            self._finish(slot)
+        return True
+
     def _is_finished(self, req: Request, tok: int) -> bool:
         return len(req.out) >= req.max_new or \
             (self.eos_id is not None and tok == self.eos_id)
@@ -256,7 +403,7 @@ class Scheduler:
         if not self.layout.uses_pages:
             return
         for slot in list(self._join_order):
-            if self.slots[slot] is None:
+            if self.slots[slot] is None or slot in self._prefilling:
                 continue
             last_write = int(self.pos[slot]) + burst - 1
             need = min(last_write, self.layout.max_len - 1) \
@@ -264,6 +411,8 @@ class Scheduler:
             while need >= len(self._slot_pages[slot]):
                 got = self.pool.alloc(1)
                 if got is None:
+                    if self.prefix is not None and self.prefix.evict(1):
+                        continue
                     victim = self._join_order[-1]
                     self._preempt_youngest()
                     if victim == slot:
@@ -276,22 +425,38 @@ class Scheduler:
     # -- the step -----------------------------------------------------------
 
     def _used_tokens(self) -> int:
-        """Live cache rows: each active slot's positions so far, capped by
-        the pages it holds (uncapped when no kind is paged)."""
-        ps = self.layout.page_size
-        return sum(min(int(self.pos[s]) + 1, len(self._slot_pages[s]) * ps)
-                   if self.layout.uses_pages else int(self.pos[s]) + 1
-                   for s in range(len(self.slots))
-                   if self.slots[s] is not None)
-
-    def step(self) -> bool:
-        """Admit, grow, decode one burst (``decode_burst`` tokens) for
-        every active slot.  Returns False when there is nothing to do."""
-        self._admit()
+        """Live cache rows, each physical page counted once: a page shared
+        by several holders counts its deepest holder's coverage, and pages
+        only the prefix cache holds are full (uncapped positions when no
+        kind is paged)."""
         active = [s for s in range(len(self.slots))
                   if self.slots[s] is not None]
+        if not self.layout.uses_pages:
+            return sum(int(self.pos[s]) + 1 for s in active)
+        cover: Dict[int, int] = {}
+        ps = self.layout.page_size
+        for s in active:
+            n = self._prefill_pos[s] if s in self._prefilling \
+                else int(self.pos[s]) + 1
+            for i, pg in enumerate(self._slot_pages[s]):
+                c = min(ps, n - i * ps)
+                if c > 0:
+                    cover[pg] = max(cover.get(pg, 0), c)
+        if self.prefix is not None:
+            for pg in self.prefix.pages():
+                cover[pg] = ps  # committed pages are full by definition
+        return sum(cover.values())
+
+    def step(self) -> bool:
+        """Admit, advance one prefill chunk (chunked mode), grow, decode one
+        burst (``decode_burst`` tokens) for every decodable slot.  Returns
+        False when there is nothing to do."""
+        self._admit()
+        chunked = self._advance_prefill()
+        active = [s for s in range(len(self.slots))
+                  if self.slots[s] is not None and s not in self._prefilling]
         if not active:
-            return False
+            return chunked
         # adaptive burst: never run past the earliest ``max_new`` finish
         # (the freed slot re-admits at once instead of idling out the
         # burst); EOS finishes cannot be predicted and idle at most
@@ -301,13 +466,19 @@ class Scheduler:
         burst = max(1, min(self.decode_burst, rem))
         self._grow(burst)
         active = [s for s in range(len(self.slots))
-                  if self.slots[s] is not None]
+                  if self.slots[s] is not None and s not in self._prefilling]
         if not active:
             return True  # everything got preempted while growing
+        bt = self.block_tables
+        if self._prefilling:
+            # mid-prefill slots sit at position 0 but their tables name
+            # real (maybe shared) pages: the dispatch's copy points them at
+            # the scratch page, so the decode write cannot touch them
+            bt = bt.copy()
+            bt[self._prefilling, :] = SCRATCH_PAGE
         t0 = time.perf_counter()
         toks = self.decode(self._tensor(self.next_tok),
-                                 self._tensor(self.pos),
-                                 self._tensor(self.block_tables), burst)
+                           self._tensor(self.pos), self._tensor(bt), burst)
         toks = toks.cpu().numpy()        # (burst, n_slots): one D2H copy
         now = time.perf_counter()
         self.stats["decode_steps"] += burst
@@ -375,6 +546,8 @@ class Scheduler:
             "decode_steps": self.stats["decode_steps"],
             "prefills": self.stats["prefills"],
             "preemptions": self.stats["preemptions"],
+            "prefill_chunks": self.stats["chunks"],
+            "cow_copies": self.stats["cow_copies"],
         }
         if self.layout.uses_pages:
             # cache memory ever allocated, in token slots; what one token
@@ -386,6 +559,9 @@ class Scheduler:
             out["kv_bytes_per_token"] = lay.kv_bytes_per_token()
             out["users_per_pool"] = (pool.num_pages - pool.reserved) \
                 // lay.pages_for(lay.max_len)
+        if self.prefix is not None:
+            for k, v in self.prefix.stats().items():
+                out[f"prefix_{k}"] = v
         if gaps:
             out["p50_token_latency_s"] = float(np.percentile(gaps, 50))
             out["p95_token_latency_s"] = float(np.percentile(gaps, 95))

@@ -277,11 +277,21 @@ def test_scheduler_eos_evicts_on_the_first_occurrence(models):
 
 
 def test_unported_serving_options_raise(models):
+    """Chunked prefill and the prefix cache are ported for attention
+    (prefix caching implies chunks of 4 pages, as in the reference); the
+    arch the reference cannot chunk either (falcon-mamba's slot-indexed
+    state) is refused with the reference's message."""
     _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match="A11"):
-        Scheduler(tm, tp, slots=1, pages=8, page_size=8, prefill_chunk=16)
-    with pytest.raises(NotImplementedError, match="A11"):
-        Scheduler(tm, tp, slots=1, pages=8, page_size=8, prefix_cache=True)
+    sch = Scheduler(tm, tp, slots=1, pages=8, page_size=8, prefill_chunk=16)
+    assert (sch.prefill_chunk, sch.prefix) == (16, None)
+    sch = Scheduler(tm, tp, slots=1, pages=8, page_size=8, prefix_cache=True)
+    assert sch.prefill_chunk == 32 and sch.prefix is not None
+    fm = Model(t_reduced(t_get_config("falcon-mamba-7b")))
+    fp = fm.init(torch.Generator().manual_seed(0))
+    for kw in (dict(prefill_chunk=16), dict(prefix_cache=True)):
+        with pytest.raises(NotImplementedError, match="can't resume "
+                           "mid-prompt"):
+            Scheduler(fm, fp, slots=1, pages=8, page_size=8, **kw)
 
 
 # ---------------------------------------------------------------------------

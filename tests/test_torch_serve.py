@@ -282,7 +282,8 @@ def test_paged_pools_have_the_reference_tree(models):
         t = got[0]["b0"][name]
         assert tuple(t.shape) == a.shape, name
         assert str(t.dtype).replace("torch.", "") == str(a.dtype), name
-    assert not PagedLayout(tm, **kw).chunkable
+    assert PagedLayout(tm, **kw).chunkable == \
+        JPagedLayout(jm, **kw).chunkable is True
 
 
 def test_unported_attention_kinds_raise(models):
