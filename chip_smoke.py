@@ -141,6 +141,29 @@ Phases (any failure exits non-zero before the result line):
    chunk), routes checked, and trains two dc_s3gd steps at depth 4, W =
    2, fused tail, with A1/A2 held against their plain versions at its
    bucket sizes; granite-20b cut to 12 of 52 layers serves 8 requests.
+   B4 at stablelm-3b's and granite-20b's shapes is also timed beside
+   gather of the live pages + scaled_dot_product_attention (bf16 pools);
+13. the recurrent families (last).  flash_attention against its plain
+   version at recurrentgemma-9b's local attention (one kv head, G 16, hd
+   256, window 2,048) at S 512 / 2,048 / 4,096, f32 (2e-5) and bf16
+   (3e-2), bitwise run to run, timed (12 launches per sample, one per
+   attention_local block) beside its bound, the plain version and
+   scaled_dot_product_attention with the boolean window mask.
+   recurrentgemma-9b at its published widths and full depth (38 layers,
+   10,444,771,328 params, f32 weights from seed 0, bf16 compute) through
+   ``repro_torch.launch.serve`` over 16 requests (prompts 512 / 2,040 /
+   2,560 / 4,096, gen 32..64 from seed 0; ``--slots 8 --decode-burst 4``,
+   greedy, whole-prompt): every request at its length, B5 12 times per
+   prefill and nothing else, the pool untouched, the slot state (rings
+   of 2,048, RG-LRU) at its shapes; 0 host syncs in a steady burst, two
+   bursts profiled; slot decode == dense decode bitwise over 16 steps
+   past the ring's wrap; the prefill's kernel route against its plain
+   route (2^-10).  falcon-mamba-7b trained at its published widths, depth
+   64 -> 1, W = 2, dc_s3gd, 4 buckets, fused tail, 5 steps through the
+   chunked scan (finite losses, A1/A2 once per bucket and step, step time,
+   peak), A1/A2 against their plain versions at its bucket sizes, the
+   chunked scan against ssm_scan_plain at E 8,192, N 16 (1e-4); reduced
+   recurrentgemma trained 2 steps as a route check.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports nothing
@@ -930,6 +953,32 @@ def _paged_bytes(q, k, scales) -> int:
             + 4 * pages + 4 * B + 2 * 4 * q.numel())
 
 
+def _gather_sdpa_ms(q, kL, vL, narrow, ln, layers: int, ref):
+    """The library yardstick of paged_attention: no single PyTorch call
+    reads pages through a block table, so gather each row's live pages
+    (``narrow``, the live-width table), then one
+    scaled_dot_product_attention call (q cast to the pool's dtype), timed
+    as the kernel is, one launch on each of ``layers`` per-layer pools
+    (``kL``, ``vL``) per sample.  Returns (ms per call pair, max abs diff
+    from ``ref``)."""
+    import torch.nn.functional as F
+    B, KV, G, hd = q.shape
+    btl = narrow.long()
+    S = btl.shape[1] * PAGE
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < ln[:, None].long())[:, None, None, :]
+
+    def gather_sdpa(layer=0):
+        kl = kL[layer][btl].reshape(B, S, KV, hd).transpose(1, 2)
+        vl = vL[layer][btl].reshape(B, S, KV, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q.reshape(B, KV * G, 1, hd).to(kl.dtype), kl, vl,
+            attn_mask=mask, enable_gqa=True)
+    err = float((gather_sdpa().float().reshape(ref.shape) - ref)
+                .abs().max())
+    return median_ms(_rotating(gather_sdpa, layers), batch=layers), err
+
+
 def phase_paged_kernel(smi: str) -> dict:
     """paged_attention against its plain version at the serving shape for
     bf16, f32, int8 and fp8 pools (atol 1e-6 float pools, 2e-5 quantized:
@@ -941,7 +990,6 @@ def phase_paged_kernel(smi: str) -> dict:
     through a 640-wide and a live-width block table take the same time
     (the kernel stops at each row's last live page).  Returns the numbers
     per pool dtype."""
-    import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attention, splits_for
     from repro_torch.kernels.ref import paged_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1000,23 +1048,9 @@ def phase_paged_kernel(smi: str) -> dict:
                      "plain_ms": plain_ms, "bound_ms": bound,
                      "bytes": nbytes, "err": err}
         if pool == "bfloat16":
-            # no single PyTorch call reads pages through a block table:
-            # gather the live pages, then one SDPA call (bf16 q)
-            def gather_sdpa(layer=0):
-                btl = narrow.long()
-                S = PA_LIVE * PAGE
-                kl = kL[layer][btl].reshape(B, S, KV, hd).transpose(1, 2)
-                vl = vL[layer][btl].reshape(B, S, KV, hd).transpose(1, 2)
-                mask = (torch.arange(S, device=q.device)[None, :]
-                        < ln[:, None].long())[:, None, None, :]
-                return F.scaled_dot_product_attention(
-                    q.reshape(B, KV * G, 1, hd).to(kl.dtype), kl, vl,
-                    attn_mask=mask, enable_gqa=True)
-            ref = paged_attention_plain(q, k, v, narrow, ln)
-            sdpa_err = float((gather_sdpa().float().reshape(ref.shape)
-                              - ref).abs().max())
-            rec[pool]["gather_sdpa_ms"] = median_ms(_rotating(gather_sdpa),
-                                                    batch=PA_LAYERS)
+            rec[pool]["gather_sdpa_ms"], sdpa_err = _gather_sdpa_ms(
+                q, kL, vL, narrow, ln, layers=PA_LAYERS,
+                ref=paged_attention_plain(q, k, v, narrow, ln))
             print(f"[paged] gather of the {PA_LIVE} live pages + "
                   f"scaled_dot_product_attention (bf16): "
                   f"{rec[pool]['gather_sdpa_ms']:.4f} ms (two calls, not "
@@ -1205,10 +1239,10 @@ def phase_kernel_vs_gather(smi: str, model, params, reqs,
 def phase_serve_profile(smi: str, model, params, reqs, argv=SERVE_ARGS,
                         tag: str = "serve-profile",
                         out_name: str = "profile_serve.txt") -> dict:
-    """A steady decode burst of 16 slots: host synchronisations inside one
-    burst under PyTorch's sync debug mode (its inputs copied to the device
-    before the window), then two bursts under torch.profiler, device time
-    by kernel group."""
+    """A steady decode burst of ``--slots`` slots (16 for qwen3 and
+    falcon-mamba): host synchronisations inside one burst under PyTorch's
+    sync debug mode (its inputs copied to the device before the window),
+    then two bursts under torch.profiler, device time by kernel group."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     from repro_torch.serve import Request, Scheduler
@@ -1234,7 +1268,7 @@ def phase_serve_profile(smi: str, model, params, reqs, argv=SERVE_ARGS,
     torch.cuda.synchronize()
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     print(f"[{tag}] host synchronisations inside one decode burst "
-          f"({burst} steps, 16 slots): {syncs}")
+          f"({burst} steps, {args.slots} slots): {syncs}")
     check(syncs == 0, f"{syncs} host synchronisations inside a decode burst")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1701,6 +1735,16 @@ def phase_paged_shapes(smi: str) -> dict:
             nbytes = _paged_bytes(q, k, scales)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
             smem = smem_bytes(G, hd, k.element_size())
+            lib = {}
+            if pool == "bfloat16":
+                lib["gather_sdpa_ms"], lib["gather_sdpa_err"] = \
+                    _gather_sdpa_ms(q, kL, vL, bt[:, :PA_LIVE].contiguous(),
+                                    ln, layers=layers, ref=want32)
+                print(f"[paged-shapes] {name}: gather of the {PA_LIVE} live "
+                      f"pages + scaled_dot_product_attention "
+                      f"{lib['gather_sdpa_ms']:.4f} ms (two calls: "
+                      f"library_ms stays null; max abs diff "
+                      f"{lib['gather_sdpa_err']:.3g}) [{smi}]")
             print(f"[paged-shapes] {name}: {ms:.4f} ms/launch; plain "
                   f"{plain_ms:.4f} ms; byte bound {bound:.4f} ms ({nbytes} "
                   f"B); {smem} B of shared memory per CTA; max abs err "
@@ -1709,7 +1753,7 @@ def phase_paged_shapes(smi: str) -> dict:
                   f"[{smi}]")
             rec[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                          "bytes": nbytes, "err": err, "err_f32_plain": err32,
-                         "f32_plain_rounding": plain32, "smem": smem}
+                         "f32_plain_rounding": plain32, "smem": smem, **lib}
             del q, k, v, bt, ln, scales, kL, vL, sL, got, again, want, want32
             torch.cuda.empty_cache()
     return rec
@@ -2630,6 +2674,425 @@ def phase_qwen3_state(smi: str, requests: Path) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the recurrent families: recurrentgemma-9b served at full depth (B5 on its
+# local attention, RG-LRU and the slot ring), falcon-mamba and
+# recurrentgemma trained through the chunked scan
+# ---------------------------------------------------------------------------
+
+# recurrentgemma-9b's local attention: one kv head, G 16, hd 256, a
+# 2,048-token window, in its 12 attention_local blocks
+RG_SHAPE = (1, 16, 256)
+RG_WINDOW = 2048
+RG_LOCAL = 12
+RG_LAYERS = 38
+RG_PARAMS = 10_444_771_328    # the reference's init (jax.eval_shape)
+RG_PROMPTS = (512, 2040, 2560, 4096)
+RG_REQUESTS = 16
+RG_ARGS = ["--arch", "recurrentgemma-9b", "--slots", "8", "--decode-burst",
+           "4", "--seed", "0"]
+# falcon-mamba-7b trained at its published widths, depth 64 -> 1: one
+# worker-stacked f32 copy is 5.10 GB (depth 2: 5.95 GB), and the fused,
+# bucketed tail holds ~14 such copies at its peak (depth 2 ran out of an
+# H100 80GB at 73.6 GiB allocated)
+FM_TRAIN_LAYERS = 1
+FM_TRAIN_PARAMS = 637_992_960  # 105,312,256 + 2 x 65,024 x 4,096 + 4,096
+FM_TRAIN_STEPS = 5
+FM_TRAIN = ["--arch", "falcon-mamba-7b", "--layers", str(FM_TRAIN_LAYERS),
+            "--algo", "dc_s3gd", "--workers", str(W), "--batch-per-worker",
+            "2", "--seq", "256", "--buckets", str(N_BUCKETS),
+            "--use-kernels", "--steps", str(FM_TRAIN_STEPS), "--seed", "0",
+            "--log-every", "1"]
+RG_TRAIN = ["--arch", "recurrentgemma-9b", "--reduced", "--algo", "dc_s3gd",
+            "--workers", str(W), "--batch-per-worker", "2", "--seq", "128",
+            "--buckets", str(N_BUCKETS), "--use-kernels", "--steps", "2",
+            "--seed", "0", "--log-every", "1"]
+
+
+def _write_rg_requests() -> Path:
+    """16 requests, prompt_len cycling 512 / 2,040 / 2,560 / 4,096 (the
+    2,040-token prompts wrap the 2,048-slot ring in decode, the longer
+    ones in the prefill), gen drawn 32..64 from seed 0, as JSONL."""
+    import numpy as np
+    gens = np.random.default_rng(0).integers(32, 65, RG_REQUESTS)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = out / "rg_requests.jsonl"
+    path.write_text("".join(
+        json.dumps({"id": i, "prompt_len": RG_PROMPTS[i % 4],
+                    "gen": int(g)}) + "\n" for i, g in enumerate(gens)))
+    return path
+
+
+def phase_flash_hybrid(smi: str) -> dict:
+    """flash_attention against its plain version at recurrentgemma-9b's
+    local attention (B 1, one kv head, G 16, hd 256, window 2,048) at S
+    512 (the window masks nothing), 2,048 and 4,096 (the window halves the
+    causal pairs), f32 (atol 2e-5) and bf16 (3e-2), bitwise run to run,
+    each timed (12 launches per sample, one per attention_local block of a
+    prefill, queued behind the device-side sleep) beside its bound (the
+    live pairs' 4 hd flops over the ceiling of its products, or its bytes),
+    the plain version and scaled_dot_product_attention with the same
+    boolean window mask (which computes all S^2 pairs)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    KV, G, hd = RG_SHAPE
+    H = KV * G
+    rec = {}
+    for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for S in (512, 2048, 4096):
+            name = f"S={S} {n}"
+            q = torch.randn((1, S, KV, G, hd), generator=gen,
+                            device="cuda").to(dt)
+            k = torch.randn((1, S, KV, hd), generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn((1, S, KV, hd), generator=gen,
+                            device="cuda").to(dt)
+            kw = dict(causal=True, window=RG_WINDOW)
+            got = flash_attention(q, k, v, **kw)
+            again = flash_attention(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            atol = 2e-5 if dt == torch.float32 else 3e-2
+            check(got.dtype == dt and err <= atol, f"flash_attention "
+                  f"recurrentgemma {name}: max abs err {err} > {atol}")
+            check(torch.equal(got, again), f"flash_attention recurrentgemma "
+                  f"{name}: two launches differ")
+            del got, again
+            ms = median_ms(lambda: flash_attention(q, k, v, **kw),
+                           batch=RG_LOCAL)
+            plain_ms = median_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                                 batch=RG_LOCAL)
+            qs, ks, vs = (q.reshape(1, S, H, hd).transpose(1, 2),
+                          k.transpose(1, 2), v.transpose(1, 2))
+            i = torch.arange(S, device="cuda")[:, None]
+            j = torch.arange(S, device="cuda")[None, :]
+            mask = (j <= i) & ((i - j) < RG_WINDOW)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qs, ks, vs,
+                                                      attn_mask=mask,
+                                                      enable_gqa=True)
+            sdpa_err = float((sdpa().transpose(1, 2).reshape(want.shape)
+                              .float() - want.float()).abs().max())
+            library_ms = median_ms(sdpa, batch=RG_LOCAL)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) \
+                * q.element_size()
+            flops = 4 * hd * H * _live_pairs(S, S, True, RG_WINDOW)
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            op_ms = flops / FLASH_FLOPS[dt] * 1e3
+            bound = max(byte_ms, op_ms)
+            by = "operations" if op_ms >= byte_ms else "bytes"
+            print(f"[flash-hybrid] {name} window {RG_WINDOW}: KV={KV} G={G} "
+                  f"hd={hd}: {ms:.4f} ms/launch; plain {plain_ms:.4f} ms; "
+                  f"sdpa (boolean window mask) {library_ms:.4f} ms (max abs "
+                  f"diff {sdpa_err:.3g}); bound {bound:.4f} ms by {by} "
+                  f"({nbytes} B, {flops} flops at "
+                  f"{FLASH_FLOPS[dt] / 1e12:.0f} TFLOP/s); max abs err "
+                  f"{err:.3g}, bitwise run to run [{smi}]")
+            rec[name] = {"ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound,
+                         "bound_by": by, "bytes": nbytes, "flops": flops,
+                         "err": err, "sdpa_err": sdpa_err}
+            del q, k, v, want, qs, ks, vs, mask
+            torch.cuda.empty_cache()
+    return rec
+
+
+def phase_hybrid_slot_vs_dense(smi: str, model, params, prompts,
+                               gen: int = 16) -> dict:
+    """Greedy decode of 2 prompts of 2,040 tokens for ``gen`` steps (the
+    ring wraps at position 2,048) through the slot layout against the
+    dense layout at the same batch width (dense cache_len 2,057; both
+    rings 2,048 wide): every step's logits bitwise, teacher-forced by the
+    dense argmax, and finite.  The slot layout stores its rings and conv
+    states at the compute dtype (bf16), as the reference's does, where the
+    dense prefill's cache keeps the f32 of the f32 weights' products; the
+    dense cache is held at the slot layout's storage dtypes, so that the
+    two differ in layout (ring slots, per-row masks) only."""
+    from repro_torch import tree as T
+    from repro_torch.models.cache import DenseLayout, PagedLayout
+    B, P = len(prompts), len(prompts[0])
+    toks = torch.tensor(prompts, device="cuda")
+    lay = PagedLayout(model, n_slots=B, num_pages=2, page_size=PAGE,
+                      max_pages=1)
+    slot_cache = lay.init_cache(device="cuda")
+    dense = DenseLayout(model)
+    logits, cache = dense.prefill(params, {"tokens": toks},
+                                  cache_len=P + gen + 1)
+    cache = T.map(lambda a, b: a.to(b.dtype), cache, slot_cache)
+    ring = cache[0]["b2"]["k"].shape[2]
+    trace = [logits]
+    pos = torch.tensor(P, device="cuda")
+    for _ in range(gen):
+        logits, cache = dense.decode_step(params, cache, {
+            "tokens": trace[-1].argmax(-1)[:, None], "pos": pos})
+        trace.append(logits)
+        pos = pos + 1
+    del cache
+    check(slot_cache[0]["b2"]["k"].shape[2] == ring == RG_WINDOW,
+          f"[hybrid-slot] rings {slot_cache[0]['b2']['k'].shape} and "
+          f"{ring}")
+    slots = torch.arange(B, device="cuda")
+    logits, slot_cache = lay.prefill_into(
+        params, slot_cache, {"tokens": toks},
+        torch.zeros((B, 0), dtype=torch.long, device="cuda"), slots)
+    same = [torch.equal(logits, trace[0])]
+    bt = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((B,), P, device="cuda")
+    for t in range(gen):
+        logits, slot_cache = lay.decode_step(
+            params, slot_cache, trace[t].argmax(-1)[:, None], pos, bt)
+        same.append(torch.equal(logits, trace[t + 1]))
+        pos = pos + 1
+    V = model.cfg.vocab_size
+    check(all(bool(torch.isfinite(t[:, :V]).all()) for t in trace),
+          "[hybrid-slot] non-finite logits")
+    print(f"[hybrid-slot] {B} prompts of {P} tokens, {gen} greedy steps "
+          f"past the ring's wrap at {RG_WINDOW}: slot ring == dense ring "
+          f"bitwise at {sum(same)} of {len(same)} steps (prefill + decode) "
+          f"[{smi}]")
+    check(all(same), f"[hybrid-slot] slot decode differs from dense at "
+          f"steps {[i for i, x in enumerate(same) if not x]}")
+    del slot_cache, trace
+    torch.cuda.empty_cache()
+    return {"steps": len(same), "bitwise": all(same), "prompt": P}
+
+
+def phase_serve_hybrid(smi: str) -> dict:
+    """Serve 16 requests (prompts 512 / 2,040 / 2,560 / 4,096, gen 32..64
+    from seed 0) with recurrentgemma-9b at its published widths and full
+    depth (38 layers, 10,444,771,328 params, f32 weights from seed 0, bf16
+    compute) through ``repro_torch.launch.serve``, ``--slots 8
+    --decode-burst 4``, greedy, whole-prompt.  Every kernel count is set to
+    0 just before the run and read just after: flash_attention 12 times
+    per prefill (B5 over the window), nothing else; the page pool
+    untouched; the slot state (rings, RG-LRU) at its shapes.  Then the
+    host synchronisations of a steady burst and two bursts profiled, slot
+    decode against dense decode bitwise past the ring's wrap, and the
+    prefill's kernel route against its plain route."""
+    from repro_torch import tree as T
+    from repro_torch.launch import serve
+    path = _write_rg_requests()
+    args = serve.build_argparser().parse_args(
+        RG_ARGS + ["--requests", str(path)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, params, _ = serve.build(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    n_params = sum(x.numel() for x in T.leaves(params))
+    check(cfg.n_layers == RG_LAYERS and cfg.d_model == 4096
+          and cfg.rglru.attention_window == RG_WINDOW
+          and n_params == RG_PARAMS,
+          f"recurrentgemma-9b at full depth and width: {cfg}, {n_params}")
+    check([(st.kinds, st.repeats) for st in model.stages]
+          == [(("recurrent", "recurrent", "attention_local"), 12),
+              (("recurrent", "recurrent"), 1)], "stage plan")
+    reqs = serve.load_requests(args.requests, cfg.vocab_size, args.gen,
+                               seed=args.seed)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    sch = serve.run_scheduler(model, params, reqs, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    done = {r.rid: r for r in sch.finished}
+    check(sorted(done) == sorted(r.rid for r in reqs),
+          f"[serve-hybrid] {len(done)} of {len(reqs)} requests finished")
+    for r in reqs:
+        check(len(done[r.rid].out) == r.max_new,
+              f"[serve-hybrid] request {r.rid}: {len(done[r.rid].out)} "
+              f"tokens, expected {r.max_new}")
+    prefills, steps = sch.stats["prefills"], sch.stats["decode_steps"]
+    check(launches["flash_attention"] == RG_LOCAL * prefills,
+          f"[serve-hybrid] flash_attention launched "
+          f"{launches['flash_attention']} times, expected {RG_LOCAL} x "
+          f"{prefills} prefills")
+    check(all(n == 0 for k, n in launches.items()
+              if k != "flash_attention"),
+          f"[serve-hybrid] other kernels launched: {launches}")
+    check(not sch.layout.uses_pages and sch.pool.used_pages == 0
+          and sch.pool.total_allocs == 0, "[serve-hybrid] the page pool "
+          "was touched")
+    c0, c1 = sch.cache
+    shapes = {f"stage{si}/{b}/{n}": (tuple(t.shape), str(t.dtype)[6:])
+              for si, unit in enumerate(sch.cache) for b, c in unit.items()
+              for n, t in c.items()}
+    check(tuple(c0["b2"]["k"].shape) == (12, 8, RG_WINDOW, 1, 256)
+          and c0["b2"]["k"].dtype == torch.bfloat16
+          and c0["b0"]["h"].dtype == torch.float32
+          and tuple(c1["b1"]["h"].shape) == (1, 8, 4096),
+          f"[serve-hybrid] slot state {shapes}")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for unit in sch.cache for c in unit.values()
+                      for t in c.values())
+    check(all(bool(torch.isfinite(t.float()).all())
+              for unit in sch.cache for c in unit.values()
+              for t in c.values()), "[serve-hybrid] non-finite state")
+    s = sch.latency_summary()
+    decode_s = sum(sch.stats["step_walls"])
+    decode_tokens = s["tokens"] - len(reqs)
+    rec = {
+        "requests": len(reqs), "tokens": s["tokens"], "wall_s": wall,
+        "init_s": init_s, "params": n_params,
+        "tokens_per_s": s["tokens"] / wall,
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "decode_steps": steps, "step_ms": decode_s / steps * 1e3,
+        "bursts": len(sch.stats["step_walls"]), "prefills": prefills,
+        "launches": launches, "peak_bytes": peak, "before_bytes": before,
+        "slot_state_bytes": state_bytes, "slot_state": shapes,
+        **{k: s[k] for k in ("p50_token_latency_s", "p95_token_latency_s",
+                             "p50_ttft_s", "p95_ttft_s")},
+    }
+    print(f"[serve-hybrid] recurrentgemma-9b x{RG_LAYERS} ({n_params} "
+          f"params, f32, init {init_s:.1f} s): {len(reqs)} requests, "
+          f"{s['tokens']} tokens in {wall:.3f} s "
+          f"({rec['tokens_per_s']:.1f} tok/s); decode {decode_tokens} "
+          f"tokens in {steps} steps, {decode_s:.3f} s "
+          f"({rec['decode_tokens_per_s']:.1f} tok/s, {rec['step_ms']:.3f} "
+          f"ms/step); {prefills} prefills; flash_attention launches "
+          f"{launches['flash_attention']} = {RG_LOCAL} x {prefills}; pool "
+          f"untouched [{smi}]")
+    print(f"[serve-hybrid] inter-token p50 "
+          f"{s['p50_token_latency_s'] * 1e3:.3f} ms p95 "
+          f"{s['p95_token_latency_s'] * 1e3:.3f} ms; TTFT p50 "
+          f"{s['p50_ttft_s'] * 1e3:.1f} ms p95 {s['p95_ttft_s'] * 1e3:.1f} "
+          f"ms; slot state {state_bytes} B for 8 slots (rings of "
+          f"{RG_WINDOW} whatever the prompt); peak memory "
+          f"{peak / 2**30:.3f} GiB ({peak} B), of which "
+          f"{before / 2**20:.1f} MiB were allocated before the run [{smi}]")
+    del sch, c0, c1
+    torch.cuda.empty_cache()
+    short = [r for r in reqs if len(r.prompt) == RG_PROMPTS[0]]
+    rec["profile"] = phase_serve_profile(smi, model, params, short, RG_ARGS,
+                                         "serve-hybrid-profile",
+                                         "profile_serve_hybrid.txt")
+    rec["slot_vs_dense"] = phase_hybrid_slot_vs_dense(
+        smi, model, params, [r.prompt for r in reqs
+                             if len(r.prompt) == RG_PROMPTS[1]][:2])
+    rec["routes"] = phase_prefill_routes(
+        smi, model, params, [reqs[0].prompt, reqs[3].prompt],
+        "prefill-routes recurrentgemma", 10)
+    del model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_recurrent(smi: str) -> dict:
+    """falcon-mamba-7b at its published widths, depth 64 -> 1 (637,992,960
+    params), dc_s3gd, W = 2, 2 x 256 tokens per worker, mean_allreduce, 4
+    buckets, fused tail, 5 steps through the differentiable chunked scan:
+    finite losses, A1/A2 once per bucket and step and nothing else, step
+    time and peak memory; A1/A2 against their plain versions at its
+    bucket sizes; the chunked scan's y and h_last against ssm_scan_plain
+    at E 8,192, N 16 (atol 1e-4, as B6's checks).  Then reduced
+    recurrentgemma (its two stages in the buckets), 2 steps: finite
+    losses and the kernel counts, nothing measured."""
+    from repro_torch import tree as T
+    from repro_torch.kernels.ref import ssm_scan_plain
+    from repro_torch.launch import train
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.parallel.buckets import plan_buckets
+    rec = {}
+    args = train.build_argparser().parse_args(FM_TRAIN)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    result = train.run(args)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = result["state"]
+    plan = plan_buckets(state.params, N_BUCKETS, strip_leading_axis=True)
+    nb = len(plan.bucket_sizes)
+    n_params = sum(x[0].numel() for x in T.leaves(state.params))
+    hist = result["history"]
+    losses = [h["loss"] for h in hist]
+    check(n_params == FM_TRAIN_PARAMS, f"[train-fm] {n_params} params")
+    check(len(losses) == FM_TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"[train-fm] losses {losses}")
+    check(all(h["lambda"] > 0 and math.isfinite(h["distance_norm"])
+              for h in hist[2:]), f"[train-fm] lambda / |D| {hist}")
+    check(launches["dc_norms"] == FM_TRAIN_STEPS * nb
+          and launches["dc_fused_update"] == FM_TRAIN_STEPS * nb
+          and sum(launches.values()) == 2 * FM_TRAIN_STEPS * nb,
+          f"[train-fm] launches {launches}, {nb} buckets")
+    step_ms = _step_ms(hist)
+    tokens = W * 2 * 256
+    print(f"[train-fm] falcon-mamba-7b x{FM_TRAIN_LAYERS} ({n_params} "
+          f"params), W={W}, dc_s3gd, fused tail, {nb} buckets "
+          f"{plan.bucket_sizes}: losses {losses}; launches {launches}; step "
+          f"{step_ms:.3f} ms (median of steps 2-4, {tokens / step_ms * 1e3:.1f}"
+          f" tokens/s); peak memory {peak / 2**30:.3f} GiB ({peak} B), of "
+          f"which {before / 2**20:.1f} MiB were allocated before [{smi}]")
+    rec["falcon_mamba"] = {"losses": losses, "launches": launches,
+                           "step_ms": step_ms, "peak_bytes": peak,
+                           "params": n_params,
+                           "bucket_sizes": plan.bucket_sizes,
+                           "bucket_decay": plan.bucket_decay}
+    del result, state
+    torch.cuda.empty_cache()
+    rec["falcon_mamba_kernels"] = phase_kernels(
+        plan.bucket_sizes, smi, W=W, select=False,
+        tag="kernels-falcon-mamba")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    scan = {}
+    for S in (256, 512):
+        a_log, dt, dtx, b, c = _ssm_case(gen, 1, S, SSM_E)
+        y, h = ssm_mod._scan_chunked(a_log, dt, dtx, b, c, 256)
+        py, ph = ssm_scan_plain(a_log, dt, dtx, b, c)
+        torch.cuda.synchronize()
+        ey = float((y - py).abs().max())
+        eh = float((h - ph).abs().max())
+        ms = median_ms(lambda: ssm_mod._scan_chunked(a_log, dt, dtx, b, c,
+                                                     256))
+        print(f"[train-fm] chunked scan (chunk 256) vs ssm_scan_plain, B=1 "
+              f"S={S} E={SSM_E} N={SSM_N}: max |dy| {ey:.3g}, max "
+              f"|dh_last| {eh:.3g} (atol 1e-4); {ms:.3f} ms forward [{smi}]")
+        check(ey <= 1e-4 and eh <= 1e-4, f"[train-fm] chunked scan S={S}: "
+              f"{ey} {eh}")
+        scan[f"S={S}"] = {"err_y": ey, "err_h": eh, "ms": ms}
+        del a_log, dt, dtx, b, c, y, h, py, ph
+    rec["chunked_scan"] = scan
+    torch.cuda.empty_cache()
+    args = train.build_argparser().parse_args(RG_TRAIN)
+    _zero_counts()
+    result = train.run(args)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    plan = plan_buckets(result["state"].params, N_BUCKETS,
+                        strip_leading_axis=True)
+    nb = len(plan.bucket_sizes)
+    losses = [h["loss"] for h in result["history"]]
+    check(len(losses) == 2 and all(map(math.isfinite, losses)),
+          f"[train-rg] losses {losses}")
+    check(sorted(result["state"].params) == ["embed", "final_norm",
+                                             "stage0", "stage1", "unembed"],
+          "[train-rg] the multi-stage tree")
+    check(launches["dc_norms"] == 2 * nb
+          and launches["dc_fused_update"] == 2 * nb
+          and sum(launches.values()) == 4 * nb,
+          f"[train-rg] launches {launches}, {nb} buckets")
+    print(f"[train-rg] reduced recurrentgemma (stage0 + stage1), W={W}, "
+          f"dc_s3gd, fused tail, {nb} buckets: losses {losses}; launches "
+          f"{launches} (a route check: nothing measured) [{smi}]")
+    rec["recurrentgemma_reduced"] = {"losses": losses, "launches": launches}
+    del result
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2748,6 +3211,13 @@ def main() -> int:
     dense["phase_s"] = time.perf_counter() - t0
     print(f"[dense] the stablelm-3b and granite-20b phases took "
           f"{dense['phase_s']:.1f} s [{smi}]")
+    t0 = time.perf_counter()
+    hybrid = {"flash": phase_flash_hybrid(smi)}
+    hybrid["serve"] = phase_serve_hybrid(smi)
+    hybrid["train"] = phase_train_recurrent(smi)
+    hybrid["phase_s"] = time.perf_counter() - t0
+    print(f"[hybrid] the recurrentgemma-9b and recurrent-training phases "
+          f"took {hybrid['phase_s']:.1f} s [{smi}]")
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -2827,6 +3297,31 @@ def main() -> int:
           f"{statistics.mean(r['plain_ms'] for r in bf):.4f}, sdpa "
           f"{statistics.mean(r['library_ms'] for r in bf):.4f}, bound "
           f"{statistics.mean(r['bound_ms'] for r in bf):.4f} ms [{smi}]")
+    for S in (512, 2048, 4096):
+        f, b = (hybrid["flash"][f"S={S} {n}"] for n in ("f32", "bf16"))
+        print(f"[times] flash_attention at recurrentgemma's local attention "
+              f"(KV 1, G 16, hd 256, window {RG_WINDOW}) S={S}: f32 "
+              f"{f['ms']:.4f} ms/launch (bound {f['bound_ms']:.4f}, sdpa "
+              f"{f['library_ms']:.4f}), bf16 {b['ms']:.4f} (bound "
+              f"{b['bound_ms']:.4f}, sdpa {b['library_ms']:.4f}) [{smi}]")
+    hs = hybrid["serve"]
+    print(f"[times] serve recurrentgemma-9b x{RG_LAYERS}, 8 slots: "
+          f"{hs['decode_tokens_per_s']:.1f} decode tok/s, "
+          f"{hs['step_ms']:.3f} ms/decode step, TTFT p50/p95 "
+          f"{hs['p50_ttft_s'] * 1e3:.1f}/{hs['p95_ttft_s'] * 1e3:.1f} ms, "
+          f"peak {hs['peak_bytes'] / 2**30:.3f} GiB; flash_attention "
+          f"{hs['launches']['flash_attention']} launches = {RG_LOCAL} x "
+          f"{hs['prefills']} prefills [{smi}]")
+    ft = hybrid["train"]["falcon_mamba"]
+    print(f"[times] train falcon-mamba-7b x{FM_TRAIN_LAYERS}, W={W}: step "
+          f"{ft['step_ms']:.3f} ms, peak {ft['peak_bytes'] / 2**30:.3f} GiB"
+          f" [{smi}]")
+    for name in ("dc_norms", "dc_fused_update"):
+        k = hybrid["train"]["falcon_mamba_kernels"][name]
+        print(f"[times] {name} on falcon-mamba-7b x{FM_TRAIN_LAYERS}: "
+              f"{k['ms']:.4f} ms per step ({len(ft['bucket_sizes'])} "
+              f"launches, W={W}), plain {k['plain_ms']:.4f} ms, byte bound "
+              f"{k['bound_ms']:.4f} ms, max abs err {k['err']:.3g} [{smi}]")
     print(f"[times] serve falcon-mamba-7b x64, 16 slots: "
           f"{fm['decode_tokens_per_s']:.1f} decode tok/s, "
           f"{fm['step_ms']:.3f} ms/decode step, inter-token p50/p95 "
@@ -2866,13 +3361,21 @@ def main() -> int:
                  dense["stablelm_chunked"]["launches"],
              "serve granite-20b x12": dense["granite"]["launches"]}
     shapes = {"paged_attention": paged_shapes, "flash_attention":
-              {k: v for k, v in flash_shapes.items() if isinstance(v, dict)}}
+              {**{k: v for k, v in flash_shapes.items()
+                  if isinstance(v, dict)},
+               **{f"recurrentgemma {k}": v
+                  for k, v in hybrid["flash"].items()}}}
+    hybrid_paths = {"serve recurrentgemma-9b": hybrid["serve"]["launches"]}
     for entry in kernels:
         name = entry["name"]
         if name in shapes:
-            entry["launches_by_path"] = {p: n[name] for p, n in paths.items()}
+            entry["launches_by_path"] = {
+                p: n[name] for p, n in {
+                    **paths, **(hybrid_paths if name == "flash_attention"
+                                else {})}.items()}
             entry["shapes"] = {c: {f: r[f] for f in (
-                "ms", "plain_ms", "bound_ms", "library_ms", "err")
+                "ms", "plain_ms", "bound_ms", "library_ms", "err",
+                "gather_sdpa_ms")
                 if f in r} for c, r in shapes[name].items()}
             check(all(n > 0 for n in entry["launches_by_path"].values()),
                   f"{name}: a serve path launched it no time: "
@@ -2896,6 +3399,14 @@ def main() -> int:
                 "max_abs_err": k["err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": "bytes"}
+            # and on falcon-mamba-7b x2's training path (5 steps, W = 2)
+            k = hybrid["train"]["falcon_mamba_kernels"][entry["name"]]
+            entry["falcon_mamba"] = {
+                "launches": hybrid["train"]["falcon_mamba"]["launches"][
+                    entry["name"]],
+                "max_abs_err": k["err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": "bytes"}
     record = {"card": smi, "step_ms": step_s * 1e3, "peak_bytes": peak,
               "compressed_step_ms": c_step_s * 1e3,
               "compressed_peak_bytes": c_peak,
@@ -2908,7 +3419,7 @@ def main() -> int:
               "prefill_routes_qwen3": q_routes, "serve_ssm": fm,
               "cnn": cnn, "state": state, "flash_shapes": flash_shapes,
               "paged_shapes": paged_shapes, "serve_prefix": prefix,
-              "dense_family": dense,
+              "dense_family": dense, "hybrid": hybrid,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start
     print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "

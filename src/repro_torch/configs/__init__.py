@@ -3,8 +3,9 @@
 Each config module exposes ``CONFIG`` (the full-size published config with
 its source); ``reduced(cfg)`` gives the 2-layer smoke variant the CPU
 tests use.  Only the configs the port can run are listed (the dense
-qwen3-0.6b, stablelm-3b and granite-20b, and the ssm falcon-mamba-7b);
-the others are queued in ROADMAP.md.
+qwen3-0.6b, stablelm-3b and granite-20b, the ssm falcon-mamba-7b and the
+hybrid recurrentgemma-9b); the others are queued in ROADMAP.md (queue A,
+item 7).
 """
 from __future__ import annotations
 
@@ -12,12 +13,13 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs import (falcon_mamba_7b, granite_20b, qwen3_0_6b,
-                                 stablelm_3b)
+                                 recurrentgemma_9b, stablelm_3b)
 from repro_torch.core.types import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
     c.CONFIG.name: c.CONFIG
-    for c in (qwen3_0_6b, falcon_mamba_7b, stablelm_3b, granite_20b)
+    for c in (qwen3_0_6b, falcon_mamba_7b, stablelm_3b, granite_20b,
+              recurrentgemma_9b)
 }
 
 
@@ -29,10 +31,12 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant of the same family: 2 layers, d_model<=256,
-    small vocab, f32 compute — the reference's ``reduced`` for the dense
-    and ssm families (the ssm config is kept as it is)."""
-    return dataclasses.replace(
-        cfg,
+    small vocab, f32 compute — the reference's ``reduced`` for the dense,
+    ssm and hybrid families (the ssm config is kept as it is; the hybrid
+    one gets lru_width 256, a 64-token window and 4 layers: one full
+    (recurrent, recurrent, attention) unit and a one-block remainder
+    stage)."""
+    kw = dict(
         name=cfg.name + "-smoke",
         ssm=cfg.ssm,
         n_layers=2,
@@ -46,3 +50,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+    if cfg.rglru is not None:
+        kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=256,
+                                          attention_window=64)
+        kw["n_layers"] = 4  # keep a full (rec, rec, attn) unit + remainder
+    return dataclasses.replace(cfg, **kw)

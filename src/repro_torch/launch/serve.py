@@ -21,13 +21,17 @@ Three modes, as in the reference:
       --slots 16 --pages 641 --prefill-chunk 128 --prefix-cache
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --requests r.jsonl --slots 16 --decode-burst 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-9b --requests r.jsonl --slots 8
 
 ``--arch`` is qwen3-0.6b, stablelm-3b (layernorm, hd 80) or granite-20b
 (MQA: one kv head for 48 query heads), attention over the paged KV
-cache, or falcon-mamba-7b (the Mamba state, O(1) per request and
-slot-indexed: the page pool stays untouched, ``--pages`` / ``--page-size``
-/ ``--kv-dtype`` do not apply to it, and ``--prefill-chunk`` /
-``--prefix-cache`` are refused).  ``--prefill-chunk N`` forwards prompts N
+cache; falcon-mamba-7b (the Mamba state, O(1) per request) or
+recurrentgemma-9b (RG-LRU state and a 2,048-token local-attention ring
+per request, whatever the prompt's length): their state is slot-indexed,
+so the page pool stays untouched, ``--pages`` / ``--page-size`` /
+``--kv-dtype`` do not apply to them, and ``--prefill-chunk`` /
+``--prefix-cache`` are refused, as in the reference.  ``--prefill-chunk N`` forwards prompts N
 tokens per scheduler step, interleaved with decode; ``--prefix-cache``
 shares committed prompt pages between requests, with copy-on-write where
 a prompt diverges inside a page.
@@ -36,8 +40,9 @@ Runs on the card (``--device cuda``, the default) unless asked for the
 CPU.  On the card the paged decode reads the pages through the CUDA
 paged-attention kernel; on the CPU it gathers them, and ``--paged-kernel``
 routes it through the kernel's wrapper (its plain version there) as the
-reference's flag does.  Every prefill takes the flash-attention or the
-selective-scan kernel on the card and their plain versions on the CPU.
+reference's flag does.  Every prefill takes the flash-attention (windowed
+for recurrentgemma's local attention) or the selective-scan kernel on the
+card and their plain versions on the CPU.
 
 Weights are random, drawn from ``--seed``, unless ``--train-ckpt`` points
 at a `repro_torch.launch.train` checkpoint (or the reference's): its

@@ -7,7 +7,12 @@
 Runs on the card (``--device cuda``, the default) unless asked for the
 CPU.  Weights are random, drawn from ``--seed``; the data is the
 synthetic LM stream of `repro_torch.data.pipeline`.  ``--layers`` cuts the
-depth and keeps every width.
+depth and keeps every width.  Every registered ``--arch`` trains: the
+dense configs through the plain attention core, falcon-mamba-7b and
+recurrentgemma-9b through the differentiable chunked scan (e.g.
+``--arch falcon-mamba-7b --layers 1``: at W = 2 the fused, bucketed tail
+of its 638M parameters peaks at 66.6 GiB on an H100 80GB, as
+``chip_smoke.py`` measures it).
 
 ``--ckpt PATH`` saves the final state with the metadata of the algorithm
 that trained it; ``--resume PATH`` restores it and continues at its step,

@@ -1,8 +1,8 @@
-"""Grouped-query attention: dense, causal, no window (the port of
+"""Grouped-query attention, causal, full or sliding-window (the port of
 ``repro.models.attention``'s ``init_attention`` / ``attention_train``, for
 decoding ``init_kv_cache`` / ``decode_positions`` / ``attend_one`` /
-``attention_decode``, and for chunked prefill ``_blocked_attention`` /
-``attention_prefill_chunk``).
+``attention_decode`` with the ring buffer of a windowed kind, and for
+chunked prefill ``_blocked_attention`` / ``attention_prefill_chunk``).
 
 The full-sequence attention core has two routes, chosen by the caller
 (``core``): ``"plain"`` (`causal_attention`, plain tensor code that takes
@@ -11,16 +11,21 @@ XLA path streams KV blocks through an online softmax: the same function,
 up to rounding) for training, whose gradients autograd takes through it;
 and ``"flash"``, the hand-written kernel
 `repro_torch.kernels.flash_attention` (its plain version on the CPU),
-forward only, for the prefill.
+forward only, for the prefill.  Both take the sliding ``window`` (keys
+``window`` or more before the query are masked): a dense config's
+``sliding_window`` or a hybrid's ``attention_local`` window.
 
 Decoding writes the new token's k/v into the cache in place (the torch
-form of the reference's buffer donation).  A prompt's chunk
+form of the reference's buffer donation).  A windowed kind's cache is a
+ring: the token at position ``pos`` goes to slot ``pos % ring_width`` and
+every slot up to ``pos`` is live (all of them once the ring has wrapped),
+so the memory is O(window), not O(sequence).  A prompt's chunk
 (`attention_prefill_chunk`) writes its k/v into the paged cache and
 attends over the cache's linearized view through the layout's ops: the
-flash-attention kernel with a query offset on the card, `blocked_attention`
-(the reference's online softmax over fixed key blocks) on the CPU.  The sliding-window ring,
-cross-attention and M-RoPE are not ported (ROADMAP A6): the dense family
-has none of them.
+flash-attention kernel with a query offset on the card,
+`blocked_attention` (the reference's online softmax over fixed key
+blocks) on the CPU.  Cross-attention and M-RoPE are not ported (ROADMAP
+queue A, item 7: whisper and qwen2-vl).
 """
 from __future__ import annotations
 
@@ -61,14 +66,17 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """q: (B, S, KV, G, hd); k, v: (B, S, KV, hd).  Scores and softmax in
-    f32.  Returns (B, S, KV, G, hd) in q's dtype."""
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
+    """q: (B, S, KV, G, hd); k, v: (B, S, KV, hd).  Causal, and with
+    ``window > 0`` keys ``window`` or more before the query masked too.
+    Scores and softmax in f32.  Returns (B, S, KV, G, hd) in q's dtype."""
     S, hd = q.shape[1], q.shape[-1]
     s = torch.einsum("bqkgh,bckh->bkgqc", q.float(), k.float()) \
         * (hd ** -0.5)
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    if window > 0:
+        mask = mask.triu(1 - window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p.to(v.dtype).float(), v.float())
@@ -129,14 +137,15 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                    *, rope_theta: float, qk_norm: bool = False,
-                    norm_eps: float = 1e-6, return_kv: bool = False,
-                    core: str = "plain"):
-    """x: (B, S, d); positions: (S,).  Returns (B, S, d), and with
-    ``return_kv`` also the (normed, roped) k and v (B, S, KV, hd) that a
-    decode cache stores.  ``core``: ``"plain"`` (`causal_attention`,
-    differentiable) or ``"flash"`` (the flash-attention kernel's wrapper,
-    forward only)."""
+                    *, rope_theta: float, window: int = 0,
+                    qk_norm: bool = False, norm_eps: float = 1e-6,
+                    return_kv: bool = False, core: str = "plain"):
+    """x: (B, S, d); positions: (S,).  Causal self-attention, over the
+    last ``window`` positions when ``window > 0``.  Returns (B, S, d), and
+    with ``return_kv`` also the (normed, roped) k and v (B, S, KV, hd)
+    that a decode cache stores.  ``core``: ``"plain"``
+    (`causal_attention`, differentiable) or ``"flash"`` (the
+    flash-attention kernel's wrapper, forward only)."""
     if core not in ("plain", "flash"):
         raise ValueError(f"attention core {core!r}: 'plain' or 'flash'")
     B, S, _ = x.shape
@@ -151,8 +160,8 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
         k = apply_rope(k, positions, rope_theta)
     H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
     qg = q.reshape(B, S, KV, H // KV, hd)
-    out = flash_attention(qg, k, v, causal=True) if core == "flash" \
-        else causal_attention(qg, k, v)
+    out = flash_attention(qg, k, v, causal=True, window=window) \
+        if core == "flash" else causal_attention(qg, k, v, window)
     wo = params["wo"]
     y = matmul(out.reshape(B, S, H * hd), wo.reshape(H * hd, wo.shape[-1]))
     return (y, k, v) if return_kv else y
@@ -161,12 +170,6 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # one-token decode against a KV cache
 # ---------------------------------------------------------------------------
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported: the dense family decodes with full causal "
-        "self-attention only (ROADMAP A6)")
 
 
 def init_kv_cache(batch: int, cache_len: int, n_kv: int, head_dim: int,
@@ -211,15 +214,16 @@ def attention_decode(params: dict, cache: dict, x: torch.Tensor,
     """One-token decode.  x: (B, 1, d); pos: 0-d int tensor (the dense
     layout) or a per-row (B,) vector under a paged layout, on x's device.
 
-    Cache keys are stored post-RoPE.  ``cache_ops`` (a
-    `repro_torch.models.cache` layout's step ops) takes over the cache
-    update + attend, the seam the paged layout plugs into; ``None`` is the
-    dense path, which writes at ``pos`` in place.  Returns ((B, 1, d),
-    the cache)."""
-    if window > 0:
-        raise _unported("the sliding-window ring cache")
+    Cache keys are stored post-RoPE.  For ``window > 0`` the cache is a
+    ring (slot ``pos % cache_len``, every slot up to ``pos`` live).
+    ``cache_ops`` (a `repro_torch.models.cache` layout's step ops) takes
+    over the cache update + attend, the seam the paged layout plugs into;
+    ``None`` is the dense path, which writes at ``pos`` (or its ring slot)
+    in place.  Returns ((B, 1, d), the cache)."""
     if cross:
-        raise _unported("cross-attention")
+        raise NotImplementedError(
+            "cross-attention is not ported (ROADMAP queue A, item 7: "
+            "whisper)")
     B = x.shape[0]
     positions = decode_positions(pos)
     q = _project(x, params["wq"])
@@ -238,10 +242,13 @@ def attention_decode(params: dict, cache: dict, x: torch.Tensor,
                                          window=window)
     else:
         rows = torch.arange(B, device=x.device)
-        slot = pos.long().expand(B)
+        cache_len = cache["k"].shape[1]
+        slot = (pos.long() % cache_len if window > 0 else pos.long()) \
+            .expand(B)
         cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
-        valid = torch.arange(cache["k"].shape[1], device=x.device) <= pos
+        # a ring that has wrapped is live in every slot
+        valid = torch.arange(cache_len, device=x.device) <= pos
         out = attend_one(qg, cache["k"], cache["v"], valid)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
     wo = params["wo"]

@@ -1,26 +1,43 @@
 """Cache layouts: how decode state is stored, addressed and updated (the
-port of ``repro.models.cache`` for full causal attention and the Mamba
-state).
+port of ``repro.models.cache`` for full and sliding-window attention, the
+Mamba state and the RG-LRU state).
 
 * `DenseLayout` — one contiguous ``(B, cache_len, KV, hd)`` buffer per
-  layer (or the (B, ...) Mamba state): `Model.prefill` /
-  `Model.decode_step` as they are.
+  layer (a ring ``(B, window, KV, hd)`` for a windowed kind, or the
+  (B, ...) Mamba / RG-LRU state): `Model.prefill` / `Model.decode_step`
+  as they are.
 * `PagedLayout` — the layout behind continuous batching
-  (`repro_torch.serve.scheduler`), per block kind: attention's k and v
-  live in a shared pool ``(L, num_pages, page_size, KV, hd)``; logical
-  position ``p`` of decode slot ``s`` is at ``(block_table[s, p //
-  page_size], p % page_size)``.  With ``kv_dtype`` int8/fp8 each token
-  slot also carries one f32 scale in ``*_scale`` pools ``(L, num_pages,
-  page_size)``.  The Mamba state is O(1) per sequence and slot-indexed:
-  ``(L, n_slots, ...)``, row ``s`` for decode slot ``s``, never paged, at
-  the compute dtype for conv and f32 for ssm as the reference keeps it
-  (so under bf16 compute the slot's conv state is rounded where the dense
-  layout's is not).
+  (`repro_torch.serve.scheduler`), per block kind (the tree mirrors the
+  parameters': per stage, per block of its unit, stacked over the
+  unit's repeats R):
+
+  =================  ===================================================
+  kind               storage
+  =================  ===================================================
+  attention (full)   pool ``(R, num_pages, page_size, KV, hd)`` for k and
+                     v; logical position ``p`` of decode slot ``s`` is at
+                     ``(block_table[s, p // page_size], p % page_size)``;
+                     with ``kv_dtype`` int8/fp8 each token slot also
+                     carries one f32 scale in ``*_scale`` pools ``(R,
+                     num_pages, page_size)``
+  attention w > 0    slot-indexed ring ``(R, n_slots, window, KV, hd)``
+  (sliding, and      at the compute dtype: position ``p`` at slot ``p %
+  attention_local)   window``, already O(window), nothing to page
+  mamba / recurrent  slot-indexed O(1) state ``(R, n_slots, ...)``: conv
+                     at the compute dtype, ssm / h f32, as the reference
+                     keeps it (so under bf16 compute the slot's conv
+                     state is rounded where the dense layout's is not)
+  =================  ===================================================
+
+  Row ``s`` of a slot-indexed kind is decode slot ``s``.  A model with no
+  paged kind (falcon-mamba, recurrentgemma) never allocates a page.
 
 The decode math stays in `repro_torch.models.attention`: the layout owns
 the update and the view (`_PagedOps.kv_attend`).  The gather path feeds
-the paged linearized view to the same `attend_one` as the dense path, so
-at matched linearized cache lengths the two are bitwise equal.
+the paged linearized view, and the ring path the slot's ring, to the same
+`attend_one` as the dense path, so at matched linearized cache lengths
+(rings are ``window`` wide in both) and storage dtypes the two are
+bitwise equal.
 On a CUDA device the pages are read through the hand-written kernel
 `repro_torch.kernels.paged_attention` instead of materializing the
 ``(B, max_pages * page_size, KV, hd)`` gather; on the CPU the gather is
@@ -42,13 +59,16 @@ page_size``, the reference's route.  Both key blockings are aligned to
 absolute key 0, and wholly masked key blocks are exact no-ops, so a row's
 result does not depend on where its chunk starts: a prefix-cache hit that
 resumes mid-prompt gives the cold chunked prefill's bits.  `copy_page` is
-the device half of copy-on-write.
+the device half of copy-on-write.  Rings and slot states cannot resume
+mid-prompt, so a model with any of them is not ``chunkable``, as in the
+reference.
 
 Physical page 0 is the scratch page: inactive decode slots point their
 whole block table at it (and sit at position 0), so their writes land
 somewhere harmless and the step needs no per-slot mask.
 
-Not ported yet: the MLA, ring and RG-LRU kinds (ROADMAP A6).
+Not ported yet: the MLA and cross-attention kinds (ROADMAP queue A,
+item 7).
 """
 from __future__ import annotations
 
@@ -77,23 +97,30 @@ def _quantize_tokens(x: torch.Tensor, kv_dtype: str, lead: int
     return qv, sc.reshape(x.shape[:lead])
 
 
-_PORTED_KINDS = ("attention", "mamba")
-
-
 def resolved_window(cfg: ModelConfig, kind: str) -> int:
     """The sliding window a block kind attends with (0 = full causal, and
-    0 for ``mamba``, which does not attend).  Only the ``attention`` and
-    ``mamba`` kinds are ported (ROADMAP A6)."""
-    if kind not in _PORTED_KINDS:
-        raise NotImplementedError(f"{kind!r} blocks are not ported "
-                                  "(ROADMAP A6)")
-    return cfg.sliding_window if kind == "attention" else 0
+    0 for the ``mamba`` and ``recurrent`` kinds, which do not attend)."""
+    if kind == "attention_local":
+        return cfg.rglru.attention_window
+    if kind == "attention":
+        return cfg.sliding_window
+    if kind in ("mamba", "recurrent"):
+        return 0
+    raise NotImplementedError(f"{kind!r} blocks are not ported (ROADMAP "
+                              "queue A, item 7)")
+
+
+def stacked(c: dict, repeats: int) -> dict:
+    """A per-block cache repeated on a leading unit axis, as the stage
+    trees hold it."""
+    return {name: t.unsqueeze(0).repeat((repeats,) + (1,) * t.dim())
+            for name, t in c.items()}
 
 
 def paged_kinds(cfg: ModelConfig, kinds) -> List[str]:
     """The block kinds of one stage unit whose cache grows with sequence
     length (and therefore lives in the page pool): full-causal attention;
-    the Mamba state is slot-indexed."""
+    rings and the Mamba / RG-LRU states are slot-indexed."""
     return [k for k in kinds
             if resolved_window(cfg, k) == 0 and k == "attention"]
 
@@ -129,17 +156,22 @@ class DenseLayout:
 class _PagedOps:
     """The cache ops of one paged decode step: per-row positions and block
     tables, a page-pool scatter on write, and a block-table gather (or the
-    CUDA kernel) on read.  The write coordinates and the kernel's lengths
-    are computed once per step on the device, for every layer."""
+    CUDA kernel) on read; for a windowed kind, the slot's ring.  The write
+    coordinates and the kernel's lengths are computed once per step on the
+    device, for every layer."""
 
     def __init__(self, layout: "PagedLayout", pos: torch.Tensor,
                  block_tables: torch.Tensor):
         self.layout = layout
         self.pos = pos.long()                    # (B,)
+        self.rows = torch.arange(self.pos.shape[0], device=self.pos.device)
+        self._rings = {}                         # ring width -> (slot, valid)
+        self.kernel = False
+        if not layout.uses_pages:                # rings and slot states only
+            return
         self.bt = block_tables.long()            # (B, max_pages)
         ps = layout.page_size
-        rows = torch.arange(self.bt.shape[0], device=self.bt.device)
-        self.phys = self.bt[rows, self.pos // ps]
+        self.phys = self.bt[self.rows, self.pos // ps]
         self.off = self.pos % ps
         self.kernel = layout.use_kernel if layout.use_kernel is not None \
             else self.pos.device.type == "cuda"
@@ -147,15 +179,27 @@ class _PagedOps:
             self.bt32 = block_tables.to(torch.int32)
             self.lengths = (self.pos + 1).to(torch.int32)
 
+    def _ring(self, width: int):
+        """(slot (B,), valid (B, width)) of a ring ``width`` wide: each row
+        writes at ``pos % width`` and sees every slot up to ``pos`` (all of
+        them once its ring has wrapped), the reference's slot ring."""
+        if width not in self._rings:
+            self._rings[width] = (
+                self.pos % width,
+                torch.arange(width, device=self.pos.device)[None, :]
+                <= self.pos[:, None])
+        return self._rings[width]
+
     def kv_attend(self, cache: dict, qg, k_new, v_new, *, window: int
                   ) -> Tuple[torch.Tensor, dict]:
         """Write the step's k/v (B, 1, KV, hd) at each row's position and
-        attend over the row's pages.  Returns ((B, KV, G, hd) f32, the
-        cache)."""
+        attend over the row's pages, or over its ring for ``window > 0``.
+        Returns ((B, KV, G, hd) f32, the cache)."""
         if window > 0:
-            raise NotImplementedError(
-                "the slot-indexed sliding-window ring is not ported "
-                "(ROADMAP A6)")
+            slot, valid = self._ring(cache["k"].shape[1])
+            cache["k"][self.rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+            cache["v"][self.rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+            return attend_one(qg, cache["k"], cache["v"], valid), cache
         lay = self.layout
         at = (self.phys, self.off)
         scales = ()
@@ -297,13 +341,17 @@ class PagedLayout:
             else Q.canonical(kv_dtype)
         self.kv_quantized = self.kv_dtype is not None \
             and Q.is_quantized(self.kv_dtype)
-        # False for a slot-state-only model (falcon-mamba): no page is
-        # ever allocated and the pool stays untouched
-        self.uses_pages = bool(paged_kinds(model.cfg, (model.kind,)))
+        cfg = model.cfg
+        # False for a model of rings and slot states only (falcon-mamba,
+        # recurrentgemma): no page is ever allocated and the pool stays
+        # untouched
+        self.uses_pages = any(paged_kinds(cfg, st.kinds)
+                              for st in model.stages)
         # chunked prefill and prefix caching need every kind position-
-        # addressable in pages: the paged kind (full attention) is, the
-        # slot-indexed Mamba state cannot resume mid-prompt
-        self.chunkable = self.uses_pages
+        # addressable in pages: the paged kind (full attention) is; rings
+        # and slot-indexed states cannot resume mid-prompt
+        self.chunkable = all(paged_kinds(cfg, st.kinds) == list(st.kinds)
+                             for st in model.stages)
 
     # -- allocation-free capacity facts ------------------------------------
 
@@ -332,12 +380,12 @@ class PagedLayout:
         f32 scale per (pool, slot) when quantized (0 when no kind is
         paged)."""
         cfg = self.model.cfg
-        if not self.uses_pages:
-            return 0
         it = self._pool_dtype(self.model.compute_dtype).itemsize
         sb = Q.SCALE_BYTES if self.kv_quantized else 0
-        return cfg.n_layers * 2 * (cfg.eff_n_kv_heads
-                                   * cfg.resolved_head_dim * it + sb)
+        layers = sum(len(paged_kinds(cfg, st.kinds)) * st.repeats
+                     for st in self.model.stages)
+        return layers * 2 * (cfg.eff_n_kv_heads * cfg.resolved_head_dim
+                             * it + sb)
 
     def page_bytes(self) -> int:
         """Pool bytes one physical page pins across every paged layer."""
@@ -351,26 +399,32 @@ class PagedLayout:
     # -- cache init ---------------------------------------------------------
 
     def init_cache(self, dtype=None, *, device) -> Tree:
-        """Zeroed storage with the layers as the leading axis, in the
-        reference's tree: ``[{"b0": {"k": (L, num_pages, page_size, KV,
-        hd), "v": ..., ["k_scale", "v_scale": (L, num_pages,
-        page_size)]}}]`` for attention, ``[{"b0": {"conv": (L, n_slots,
-        K-1, E), "ssm": (L, n_slots, E, N)}}]`` for mamba."""
+        """Zeroed storage in the reference's tree, per stage and block of
+        its unit, stacked over the unit's repeats R: the pools ``{"k",
+        "v": (R, num_pages, page_size, KV, hd)[, "k_scale", "v_scale":
+        (R, num_pages, page_size)]}`` for full attention, the slot-indexed
+        ring ``(R, n_slots, window, KV, hd)`` of a windowed kind, or the
+        Mamba / RG-LRU state ``(R, n_slots, ...)``."""
         dtype = dtype or self.model.compute_dtype
-        if not self.uses_pages:     # the slot-indexed Mamba state
-            return self.model.init_cache(self.n_slots, 0, dtype,
-                                         device=device)
-        pdt = self._pool_dtype(dtype)
+        return [{f"b{j}": self._init_block(kind, stage.repeats, dtype,
+                                           device)
+                 for j, kind in enumerate(stage.kinds)}
+                for stage in self.model.stages]
+
+    def _init_block(self, kind: str, repeats: int, dtype, device) -> dict:
         cfg = self.model.cfg
-        shape = (cfg.n_layers, self.num_pages, self.page_size,
+        if not paged_kinds(cfg, (kind,)):     # slot-indexed, at ``dtype``
+            return stacked(self.model.init_block_cache(
+                kind, self.n_slots, 0, dtype, device), repeats)
+        shape = (repeats, self.num_pages, self.page_size,
                  cfg.eff_n_kv_heads, cfg.resolved_head_dim)
-        c = {n: torch.zeros(shape, dtype=pdt, device=device)
-             for n in ("k", "v")}
+        c = {n: torch.zeros(shape, dtype=self._pool_dtype(dtype),
+                            device=device) for n in ("k", "v")}
         if self.kv_quantized:
             for n in ("k_scale", "v_scale"):
                 c[n] = torch.zeros(shape[:3], dtype=torch.float32,
                                    device=device)
-        return [{"b0": c}]
+        return c
 
     # -- prefill-on-join ----------------------------------------------------
 
@@ -379,28 +433,33 @@ class PagedLayout:
                      slots: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Tree]:
         """Prefill a GROUP of joining requests (equal prompt lengths, one
-        batch row each) and write their caches in place: attention's k/v
-        into ``pages`` ((k, n_pg) physical page ids covering each prompt),
-        the Mamba state into slot rows ``slots`` ((k,) decode slots;
-        needed only by slot-indexed kinds).
+        batch row each) and write their caches in place: full attention's
+        k/v into ``pages`` ((k, n_pg) physical page ids covering each
+        prompt), rings and the Mamba / RG-LRU states into slot rows
+        ``slots`` ((k,) decode slots; needed only by slot-indexed kinds).
 
         Runs `Model.prefill` as it is — the dense cache entries it returns
-        are the logical layout, scattered here into the pool and slot
-        storage — so a paged prefill is bitwise the dense prefill at the
-        same batch width."""
+        are the logical layout (its rings ``window`` wide, as the slots'
+        are), scattered here into the pool and slot storage — so a paged
+        prefill is bitwise the dense prefill at the same batch width."""
         P = batch["tokens"].shape[1]
         n_pg = int(pages.shape[1])
         cache_len = max(n_pg * self.page_size, P, 1)
         logits, entries = self.model.prefill(params, batch,
                                              cache_len=cache_len)
-        self._write_block(cache[0]["b0"], entries[0]["b0"], pages, slots)
+        for si, stage in enumerate(self.model.stages):
+            for j, kind in enumerate(stage.kinds):
+                self._write_block(kind, cache[si][f"b{j}"],
+                                  entries[si][f"b{j}"], pages, slots)
         return logits, cache
 
-    def _write_block(self, c: dict, e: dict, pages: torch.Tensor,
+    def _write_block(self, kind: str, c: dict, e: dict,
+                     pages: torch.Tensor,
                      slots: Optional[torch.Tensor]) -> None:
-        if not self.uses_pages:     # to_slot: (L, k, ...) into the slots
+        if not paged_kinds(self.model.cfg, (kind,)):
+            # to_slot: (R, k, ...) into the joining slots' rows
             if slots is None:
-                raise ValueError("prefill_into: the mamba state is "
+                raise ValueError(f"prefill_into: the {kind} cache is "
                                  "slot-indexed, pass the joining slots")
             rows = slots.reshape(-1).long()
             for name, buf in c.items():
@@ -460,9 +519,11 @@ class PagedLayout:
         and scales, every layer), in place: the device half of
         copy-on-write (the host swaps the block-table entry and drops the
         shared reference)."""
-        if self.uses_pages:
-            for pool in cache[0]["b0"].values():
-                pool[:, dst] = pool[:, src]
+        for si, stage in enumerate(self.model.stages):
+            for j, kind in enumerate(stage.kinds):
+                if paged_kinds(self.model.cfg, (kind,)):
+                    for pool in cache[si][f"b{j}"].values():
+                        pool[:, dst] = pool[:, src]
         return cache
 
     # -- decode -------------------------------------------------------------
@@ -473,10 +534,8 @@ class PagedLayout:
         """One continuous-batching decode step: ``tokens`` (B, 1), ``pos``
         (B,) per-slot positions, ``block_tables`` (B, max_pages), all on
         the device.  Returns ((B, vocab_padded) logits, the cache updated
-        in place)."""
-        if not self.uses_pages:     # decode row s is slot s's state row
-            return self.model.decode_step(params, cache,
-                                          {"tokens": tokens, "pos": pos})
+        in place).  Decode row s is slot s's row of every slot-indexed
+        kind."""
         ops = _PagedOps(self, pos, block_tables)
         return self.model.decode_step(params, cache,
                                       {"tokens": tokens, "pos": ops.pos},

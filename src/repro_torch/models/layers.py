@@ -1,6 +1,7 @@
 """Shared building blocks (the port of ``repro.models.layers``): init
-helpers, rmsnorm and layernorm, rotary embeddings, the gated MLP and the causal 1-d
-convolution of the Mamba block.
+helpers, rmsnorm and layernorm, rotary embeddings, the gated MLP (SiLU or
+tanh-GeLU) and the causal 1-d convolution of the Mamba and RG-LRU
+blocks.
 
 Parameters are nested dicts of tensors with the reference's names,
 shapes and layouts (``(d, f)`` weights, used as ``x @ w``), so weights
@@ -130,14 +131,24 @@ def init_mlp(gen: torch.Generator, lead, d: int, f: int, dtype) -> dict:
     }
 
 
-def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SiLU-gated MLP: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
-    up = F.silu(matmul(x, params["w_gate"])) * matmul(x, params["w_up"])
+def act_fn(name: str):
+    """The reference's ``act_fn``.  ``jax.nn.gelu`` is the tanh
+    approximation by default, so "gelu" is ``approximate="tanh"`` here
+    (the exact erf form differs by up to ~5e-4 per element)."""
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+def mlp(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """Gated MLP: ``(act(x @ w_gate) * (x @ w_up)) @ w_down``."""
+    up = act_fn(activation)(matmul(x, params["w_gate"])) \
+        * matmul(x, params["w_up"])
     return matmul(up, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
-# causal 1-d convolution (the Mamba block's temporal conv)
+# causal 1-d convolution (the Mamba / RG-LRU blocks' temporal conv)
 # ---------------------------------------------------------------------------
 
 

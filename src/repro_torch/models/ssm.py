@@ -1,15 +1,24 @@
 """The Mamba-1 selective-SSM block of falcon-mamba (the port of
-``repro.models.ssm``: ``dt_rank_of``, ``init_mamba``, ``mamba_forward``,
-``init_mamba_state``, ``mamba_decode``; ``mamba_prefill`` is the
-reference's ``transformer._mamba_with_state``).
+``repro.models.ssm``: ``dt_rank_of``, ``init_mamba``, ``_ssm_scan_chunked``
+(`ssm_scan_chunked`), ``mamba_forward``, ``init_mamba_state``,
+``mamba_decode``; ``mamba_prefill`` is the reference's
+``transformer._mamba_with_state``).
 
-The full-sequence pass runs its scan through the hand-written kernel
-`repro_torch.kernels.ssm_scan.ssm_scan` (its plain version on the CPU).
-The reference scans with XLA in chunks (``_ssm_scan_chunked``), a memory
-device that keeps the (B, chunk, E, N) state small; the kernel never
-materialises the state, so the port has no chunk argument and the math is
-the same recurrence.  The decode step is the O(1)-state recurrence with
-the conv state and the ssm state carried, written in place.
+Two scan routes.  The prefill runs its scan through the hand-written
+kernel `repro_torch.kernels.ssm_scan.ssm_scan` (its plain version on the
+CPU), which never materialises the state and has no backward.  Training
+(``mamba_forward(..., chunk=n)``, as `Model.loss` calls it) takes the
+reference's chunked linear-recurrence scan, differentiable by autograd: a
+log-depth (Hillis–Steele) associative scan over each chunk with the
+reference's ``combine``, the state carried between chunks in a Python
+loop, each chunk checkpointed (non-reentrant ``torch.utils.checkpoint``,
+the reference's ``jax.checkpoint``) and contracted against C inside the
+chunk, so the (B, S, E, N) state never exists beyond one chunk.  The two
+scans reduce in other orders than ``jax.lax.associative_scan``: they agree
+to rounding, not to the bit.  The RG-LRU block
+(`repro_torch.models.rglru`) scans through `ssm_scan_chunked` with N = 1.
+The decode step is the O(1)-state recurrence with the conv state and the
+ssm state carried, written in place.
 
 Parameters keep the reference's names, shapes and dtypes (``a_log``,
 ``dt_bias`` and ``d_skip`` f32 whatever the param dtype), with a leading
@@ -17,10 +26,11 @@ stacked-layer shape ``lead`` as the stage tree holds them.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ref import ssm_scan_plain
 from repro_torch.kernels.ssm_scan import ssm_scan
@@ -73,7 +83,107 @@ def _dt_b_c(params: dict, xi: torch.Tensor, cfg, d: int):
     return dt, bm, cm
 
 
-def _forward(params: dict, x: torch.Tensor, cfg, use_kernel: bool):
+# ---------------------------------------------------------------------------
+# the chunked linear-recurrence scan (training; RG-LRU's prefill)
+# ---------------------------------------------------------------------------
+
+
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t over axis 1, by
+    Hillis–Steele doubling: log2(L) passes, each combining every element
+    with the one ``step`` before it by the reference's ``combine``,
+    ((a1, b1), (a2, b2)) -> (a1 a2, a2 b1 + b2).  Returns (a_acc, b_acc),
+    with h_t = a_acc_t h_0 + b_acc_t."""
+    step = 1
+    while step < a.shape[1]:
+        a_lo, b_lo = a[:, :-step], b[:, :-step]
+        a_hi, b_hi = a[:, step:], b[:, step:]
+        a = torch.cat([a[:, :step], a_lo * a_hi], dim=1)
+        b = torch.cat([b[:, :step], a_hi * b_lo + b_hi], dim=1)
+        step *= 2
+    return a, b
+
+
+def _chunk_hs(h, a, b):
+    a_acc, b_acc = _assoc_scan(a, b)
+    hs = a_acc * h[:, None] + b_acc
+    return hs[:, -1], hs
+
+
+def _chunk_y(h, a, b, c):
+    a_acc, b_acc = _assoc_scan(a, b)
+    hs = a_acc * h[:, None] + b_acc
+    return hs[:, -1], torch.einsum("bsen,bsn->bse", hs, c)
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, rematerialised in the backward pass when autograd
+    records it (the reference's ``jax.checkpoint`` of the chunk body)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def ssm_scan_chunked(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor,
+                     chunk: int, C: Optional[torch.Tensor] = None):
+    """The reference's ``_ssm_scan_chunked``: h_t = dA_t h_{t-1} + dBx_t
+    over axis 1 from ``h0`` (B, E, N).  dA, dBx: (B, S, E, N), S a multiple
+    of ``chunk``.  Without ``C`` returns (hs (B, S, E, N), h_last); with
+    ``C`` (B, S, N) the state is contracted against C inside each chunk
+    and only y (B, S, E) is returned beside h_last.  Differentiable."""
+    S = dA.shape[1]
+    if S % chunk:
+        raise ValueError(f"ssm_scan_chunked: S {S} is not a multiple of "
+                         f"the chunk {chunk}")
+    h, outs = h0, []
+    for s0 in range(0, S, chunk):
+        xs = (dA[:, s0:s0 + chunk], dBx[:, s0:s0 + chunk])
+        if C is None:
+            h, out = _checkpointed(_chunk_hs, h, *xs)
+        else:
+            h, out = _checkpointed(_chunk_y, h, *xs, C[:, s0:s0 + chunk])
+        outs.append(out)
+    return torch.cat(outs, dim=1), h
+
+
+def _mamba_chunk(h, dt, dtx, bm, cm, A):
+    """One chunk of the training scan: the discretised (B, chunk, E, N)
+    dA and dBx are built here and die with the chunk."""
+    dA = torch.exp(dt[..., None] * A)
+    dbx = dtx[..., None] * bm.float()[..., None, :]
+    return _chunk_y(h, dA, dbx, cm.float())
+
+
+def _scan_chunked(a_log, dt, dtx, bm, cm, chunk: int):
+    """The reference's training scan of ``mamba_forward``: (y (B, S, E)
+    f32, h_last (B, E, N) f32), identity-padded (dt = 0: dA = 1, dBx = 0)
+    to a multiple of ``min(chunk, S)``."""
+    B, S, E = dt.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        dt, dtx, bm, cm = (F.pad(t, (0, 0, 0, pad))
+                           for t in (dt, dtx, bm, cm))
+    A = -torch.exp(a_log)
+    h = torch.zeros((B, E, a_log.shape[-1]), dtype=torch.float32,
+                    device=dt.device)
+    ys = []
+    for s0 in range(0, S + pad, chunk):
+        h, y = _checkpointed(_mamba_chunk, h,
+                             *(t[:, s0:s0 + chunk] for t in (dt, dtx, bm,
+                                                            cm)), A)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+# ---------------------------------------------------------------------------
+# the block
+# ---------------------------------------------------------------------------
+
+
+def _forward(params: dict, x: torch.Tensor, cfg, use_kernel: bool,
+             chunk: Optional[int] = None):
     """(out (B, S, d), final ssm state (B, E, N) f32, pre-conv xi (B, S,
     E)) of the full-sequence pass."""
     d = x.shape[-1]
@@ -81,21 +191,27 @@ def _forward(params: dict, x: torch.Tensor, cfg, use_kernel: bool):
     xi = F.silu(causal_conv1d(xi_raw, params["conv_w"], params["conv_b"]))
     dt, bm, cm = _dt_b_c(params, xi, cfg, d)
     dtx = dt * xi.float()
-    scan = ssm_scan if use_kernel else ssm_scan_plain
-    y, h_last = scan(params["a_log"], dt, dtx, bm, cm)
+    if chunk is not None:
+        y, h_last = _scan_chunked(params["a_log"], dt, dtx, bm, cm, chunk)
+    else:
+        scan = ssm_scan if use_kernel else ssm_scan_plain
+        y, h_last = scan(params["a_log"], dt, dtx, bm, cm)
     y = y + params["d_skip"] * xi.float()
     y = y.to(x.dtype) * F.silu(z)
     return matmul(y, params["w_out"]), h_last, xi_raw
 
 
 def mamba_forward(params: dict, x: torch.Tensor, cfg, *,
-                  return_state: bool = False, use_kernel: bool = True):
+                  return_state: bool = False, use_kernel: bool = True,
+                  chunk: Optional[int] = None):
     """x: (B, S, d) -> (B, S, d) [, final ssm state (B, E, N) f32].
 
-    The scan goes through the kernel wrapper (the CUDA kernel on the card,
-    its plain version on the CPU); ``use_kernel=False`` runs the plain
-    version on any device, the route the kernel is checked against."""
-    out, h_last, _ = _forward(params, x, cfg, use_kernel)
+    With ``chunk`` (the reference's argument) the scan is the
+    differentiable chunked one, the training route.  Without it the scan
+    goes through the kernel wrapper (the CUDA kernel on the card, its plain
+    version on the CPU); ``use_kernel=False`` runs the plain version on any
+    device, the route the kernel is checked against."""
+    out, h_last, _ = _forward(params, x, cfg, use_kernel, chunk)
     return (out, h_last) if return_state else out
 
 

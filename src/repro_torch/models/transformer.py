@@ -1,36 +1,54 @@
 """The decoder-only models (the port of ``repro.models.transformer.Model``
-for the ``dense`` family, blocks of kind ``attention``, and the ``ssm``
-family, blocks of kind ``mamba``; rmsnorm or layernorm, by ``cfg.norm``).
+for the ``dense`` family, blocks of kind ``attention``, full causal or
+sliding-window; the ``ssm`` family, blocks of kind ``mamba``; and the
+``hybrid`` family, RecurrentGemma's ``recurrent`` (RG-LRU + MLP) and
+``attention_local`` blocks; rmsnorm or layernorm, by ``cfg.norm``).
 
-The parameter tree is the reference's: the layers of the one stage are
-stacked under ``stage0`` with a leading layer axis, and the vocabulary
-is padded to a multiple of 256 (``vocab_padded``; 152,064 for
-qwen3-0.6b, 65,024 for falcon-mamba-7b).  The reference scans over the
-stacked layers; here a Python loop indexes them.  Functional:
-``loss(params, batch)`` takes the tree, so per-worker gradients are
-``torch.autograd.grad`` of it (dense family only: the ssm family's scan
-kernel has no backward yet).
+A model is a sequence of *stages* (`stage_plan`), each a unit of one or
+more block kinds repeated: one stage of one kind for the dense and ssm
+families; for the hybrid, the unit ``(recurrent, recurrent,
+attention_local)`` repeated, and the remainder of the depth a trailing
+stage (recurrentgemma-9b: 12 units and a ``(recurrent, recurrent)``
+stage).  The parameter tree is the reference's: ``stage{i}/b{j}`` holds
+block j of stage i's unit, stacked over the unit's repeats on a leading
+axis, and the vocabulary is padded to a multiple of 256
+(``vocab_padded``).  The reference scans over the stacked units; here a
+Python loop indexes them.  Functional: ``loss(params, batch)`` takes the
+tree, so per-worker gradients are ``torch.autograd.grad`` of it, for
+every ported family: attention through the plain core, the Mamba and
+RG-LRU scans through the differentiable chunked scan
+(`repro_torch.models.ssm.ssm_scan_chunked`), as the reference trains.
 
 Serving: ``prefill`` runs the prompt and returns the last position's
-logits with the dense cache tree, ``[{"b0": {"k": (L, B, cache_len, KV,
-hd), "v": ...}}]`` for attention or ``[{"b0": {"conv": (L, B, K-1, E),
-"ssm": (L, B, E, N)}}]`` for mamba; ``decode_step`` advances one token
-and updates the cache tree (dense, or the one a
+logits with the dense cache tree, one entry per stage and block mirroring
+the parameter tree: ``{"k", "v": (R, B, cache_len, KV, hd)}`` for full
+attention, a ring ``(R, B, window, KV, hd)`` holding the last positions
+at slot ``pos % window`` for a windowed kind (``window`` wide whatever
+``cache_len``: the reference sizes it ``min(window, cache_len)``, which
+silently drops keys still inside the window once a sequence outgrows
+``cache_len``; ROADMAP queue C), ``{"conv":
+(R, B, K-1, E), "ssm": (R, B, E, N)}`` for mamba and ``{"conv": (R, B,
+K-1, w), "h": (R, B, w)}`` for recurrent; ``decode_step`` advances one
+token and updates the cache tree (dense, or the one a
 `repro_torch.models.cache` layout addresses) in place; ``prefill_chunk``
 runs one chunk of a prompt against the paged cache from an absolute
-position on, for chunked prefill and prefix-cache hits.
+position on, for chunked prefill and prefix-cache hits (full attention
+only).
 
 Routes: the prefill's attention core is the hand-written flash-attention
-kernel (`repro_torch.kernels.flash_attention`) and the Mamba scan the
-selective-scan kernel (`repro_torch.kernels.ssm_scan`): their wrappers
-launch the CUDA kernels on the card and run the plain versions on the
-CPU.  ``Model(cfg, kernels=False)`` takes the plain routes on any device,
-the reference the kernels are held against on the card.  ``loss`` always
-takes the plain attention (the kernel has no backward).
+kernel (`repro_torch.kernels.flash_attention`, windowed for the windowed
+kinds) and the Mamba scan the selective-scan kernel
+(`repro_torch.kernels.ssm_scan`): their wrappers launch the CUDA kernels
+on the card and run the plain versions on the CPU.  The RG-LRU scan has
+no kernel: it takes the chunked scan everywhere.  ``Model(cfg,
+kernels=False)`` takes the plain routes on any device, the reference the
+kernels are held against on the card.  ``loss`` and ``logits`` always
+take the plain routes (the kernels have no backward).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,7 +56,9 @@ import torch.nn.functional as F
 from repro_torch import tree as T
 from repro_torch.core.types import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.cache import resolved_window, stacked
 from repro_torch.models.layers import (dense_init, embed_init,
                                        init_layernorm, init_mlp,
                                        init_rmsnorm, layernorm, matmul, mlp,
@@ -47,6 +67,29 @@ from repro_torch.models.layers import (dense_init, embed_init,
 Tree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_ATTENTION = ("attention", "attention_local")
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    kinds: Tuple[str, ...]  # block kinds within one unit
+    repeats: int
+
+
+def stage_plan(cfg: ModelConfig) -> List[Stage]:
+    """The reference's ``stage_plan`` for the ported families."""
+    if cfg.family == "ssm":
+        return [Stage(("mamba",), cfg.n_layers)]
+    if cfg.family == "hybrid":
+        pattern = cfg.rglru.block_pattern
+        unit = tuple("recurrent" if p == "recurrent" else "attention_local"
+                     for p in pattern)
+        n_units, rem = divmod(cfg.n_layers, len(pattern))
+        stages = [Stage(unit, n_units)]
+        if rem:
+            stages.append(Stage(unit[:rem], 1))
+        return stages
+    return [Stage(("attention",), cfg.n_layers)]
 
 
 def _init_norm(cfg: ModelConfig, shape, dtype, device) -> dict:
@@ -65,19 +108,23 @@ class Model:
     """Functional model wrapper over a nested-dict parameter tree."""
 
     def __init__(self, cfg: ModelConfig, *, loss_chunk: int = 2048,
-                 kernels: bool = True):
+                 scan_chunk: int = 256, kernels: bool = True):
+        gated = cfg.mlp_gated and cfg.activation in ("silu", "gelu")
         dense = cfg.family == "dense" and cfg.moe is None \
-            and cfg.mla is None and not cfg.sliding_window \
-            and cfg.mlp_gated and cfg.activation == "silu"
+            and cfg.mla is None and gated
         ssm = cfg.family == "ssm" and cfg.ssm is not None
-        if not (dense or ssm) or cfg.norm not in ("rmsnorm", "layernorm"):
+        hybrid = cfg.family == "hybrid" and cfg.rglru is not None and gated
+        if not (dense or ssm or hybrid) \
+                or cfg.norm not in ("rmsnorm", "layernorm"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense (full-causal, SiLU-gated) and "
-                "ssm families with rmsnorm or layernorm are ported (ROADMAP "
-                "queue A6)")
+                f"{cfg.name}: only the dense (SiLU- or GeLU-gated, full or "
+                "sliding-window attention), ssm and hybrid (RG-LRU + local "
+                "attention) families with rmsnorm or layernorm are ported "
+                "(ROADMAP queue A, item 7)")
         self.cfg = cfg
-        self.kind = "mamba" if ssm else "attention"
+        self.stages = stage_plan(cfg)
         self.loss_chunk = loss_chunk
+        self.scan_chunk = scan_chunk
         self.kernels = bool(kernels)
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.param_dtype = _DTYPES[cfg.param_dtype]
@@ -88,35 +135,60 @@ class Model:
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random weights from ``gen``, on ``gen``'s device."""
         cfg, dt, dev = self.cfg, self.param_dtype, gen.device
-        d, L = cfg.d_model, (cfg.n_layers,)
+        d = cfg.d_model
         params: Dict[str, Any] = {
             "embed": {"tok": embed_init(gen, (self.vocab_padded, d), dt)},
             "final_norm": _init_norm(cfg, (d,), dt, dev),
             "unembed": dense_init(gen, (d, self.vocab_padded), dt),
         }
-        if self.kind == "mamba":
-            params["stage0"] = {"b0": {
-                "ln": _init_norm(cfg, L + (d,), dt, dev),
-                "mamba": ssm_mod.init_mamba(gen, L, d, cfg.ssm, dt),
-            }}
-            return params
-        params["stage0"] = {"b0": {
-            "ln1": _init_norm(cfg, L + (d,), dt, dev),
-            "attn": attn.init_attention(gen, L, d, cfg.eff_n_heads,
-                                        cfg.eff_n_kv_heads,
-                                        cfg.resolved_head_dim, cfg.qk_norm,
-                                        dt),
-            "ln2": _init_norm(cfg, L + (d,), dt, dev),
-            "mlp": init_mlp(gen, L, d, cfg.d_ff, dt),
-        }}
+        for si, stage in enumerate(self.stages):
+            params[f"stage{si}"] = {
+                f"b{j}": self._init_block(gen, kind, (stage.repeats,))
+                for j, kind in enumerate(stage.kinds)}
         return params
+
+    def _init_block(self, gen: torch.Generator, kind: str, lead) -> dict:
+        cfg, dt, dev = self.cfg, self.param_dtype, gen.device
+        d = cfg.d_model
+        if kind == "mamba":
+            return {"ln": _init_norm(cfg, lead + (d,), dt, dev),
+                    "mamba": ssm_mod.init_mamba(gen, lead, d, cfg.ssm, dt)}
+        p = {"ln1": _init_norm(cfg, lead + (d,), dt, dev)}
+        if kind == "recurrent":
+            p["rglru"] = rglru_mod.init_rglru_block(gen, lead, d, cfg.rglru,
+                                                    dt)
+        else:
+            p["attn"] = attn.init_attention(gen, lead, d, cfg.eff_n_heads,
+                                            cfg.eff_n_kv_heads,
+                                            cfg.resolved_head_dim,
+                                            cfg.qk_norm, dt)
+        p["ln2"] = _init_norm(cfg, lead + (d,), dt, dev)
+        p["mlp"] = init_mlp(gen, lead, d, cfg.d_ff, dt)
+        return p
+
+    def _blocks(self, params, caches=None):
+        """(stage, block name, kind, the block's params[, its cache]) of
+        every layer in execution order: unit by unit within a stage,
+        block by block within a unit.  The params and cache entries are
+        views of the stacked tree, so writes land in it."""
+        for si, stage in enumerate(self.stages):
+            for r in range(stage.repeats):
+                for j, kind in enumerate(stage.kinds):
+                    name = f"b{j}"
+                    p = T.map(lambda a: a[r], params[f"stage{si}"][name])
+                    if caches is None:
+                        yield si, name, kind, p
+                    else:
+                        c = {k: v[r] for k, v in caches[si][name].items()}
+                        yield si, name, kind, p, c
 
     # -------------------------------------------------- forward
 
     def _embed(self, params, batch) -> torch.Tensor:
         return params["embed"]["tok"][batch["tokens"]].to(self.compute_dtype)
 
-    def _block(self, p: dict, x: torch.Tensor, positions: torch.Tensor,
+    def _block(self, kind: str, p: dict, x: torch.Tensor,
+               positions: torch.Tensor,
                cache_out: Optional[list] = None) -> torch.Tensor:
         """One block; with ``cache_out`` (the prefill) the block's decode
         cache entry is appended to it and the kernel routes are taken."""
@@ -124,7 +196,7 @@ class Model:
         # the residual stream is f32 from the first block on
         cfg = self.cfg
         prefill = cache_out is not None
-        if self.kind == "mamba":
+        if kind == "mamba":
             h = _norm(cfg, p["ln"], x)
             if prefill:
                 h, entry = ssm_mod.mamba_prefill(p["mamba"], h, cfg.ssm,
@@ -132,29 +204,41 @@ class Model:
                 cache_out.append(entry)
             else:
                 h = ssm_mod.mamba_forward(p["mamba"], h, cfg.ssm,
-                                          use_kernel=self.kernels)
+                                          chunk=self.scan_chunk)
             return x + h
         h = _norm(cfg, p["ln1"], x)
-        h = attn.attention_train(p["attn"], h, positions,
-                                 rope_theta=cfg.rope_theta,
-                                 qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
-                                 return_kv=prefill,
-                                 core="flash" if prefill and self.kernels
-                                 else "plain")
-        if prefill:
-            h, k, v = h
-            cache_out.append({"k": k, "v": v})
+        if kind == "recurrent":
+            if prefill:
+                h, entry = rglru_mod.rglru_prefill(p["rglru"], h, cfg.rglru,
+                                                   chunk=self.scan_chunk)
+                cache_out.append(entry)
+            else:
+                h = rglru_mod.rglru_forward(p["rglru"], h, cfg.rglru,
+                                            chunk=self.scan_chunk)
+        else:
+            h = attn.attention_train(p["attn"], h, positions,
+                                     rope_theta=cfg.rope_theta,
+                                     window=resolved_window(cfg, kind),
+                                     qk_norm=cfg.qk_norm,
+                                     norm_eps=cfg.norm_eps,
+                                     return_kv=prefill,
+                                     core="flash" if prefill and self.kernels
+                                     else "plain")
+            if prefill:
+                h, k, v = h
+                cache_out.append({"k": k, "v": v})
         x = x + h
         h = _norm(cfg, p["ln2"], x)
-        return x + mlp(p["mlp"], h)
+        return x + mlp(p["mlp"], h, cfg.activation)
 
     def _backbone(self, params, x: torch.Tensor,
-                  cache_out: Optional[list] = None) -> torch.Tensor:
+                  entries: Optional[list] = None) -> torch.Tensor:
+        """All blocks over x; with ``entries`` (the prefill) each block's
+        cache entry is appended to ``entries[stage][block]``."""
         positions = torch.arange(x.shape[1], device=x.device)
-        stage = params["stage0"]["b0"]
-        for layer in range(self.cfg.n_layers):
-            x = self._block(T.map(lambda a: a[layer], stage), x, positions,
-                            cache_out)
+        for si, name, kind, p in self._blocks(params):
+            x = self._block(kind, p, x, positions,
+                            None if entries is None else entries[si][name])
         return x
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -172,60 +256,77 @@ class Model:
 
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy over labels >= 0."""
-        if self.kind == "mamba":
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the ssm family is not ported: "
-                "the selective-scan kernel has no backward yet (ROADMAP "
-                "A6, 'Left out of slice 4')")
         x = self._backbone(params, self._embed(params, batch))
         x = _norm(self.cfg, params["final_norm"], x)
         return chunked_xent(x, params["unembed"], batch["labels"],
                             self.loss_chunk)
 
+    def logits(self, params, batch) -> torch.Tensor:
+        """Full-sequence f32 logits (B, S, vocab_padded) through the plain
+        routes (small-scale use: tests, examples)."""
+        x = self._backbone(params, self._embed(params, batch))
+        return self._logits(params, _norm(self.cfg, params["final_norm"],
+                                          x))
+
     # -------------------------------------------------- prefill / decode
+
+    def init_block_cache(self, kind: str, batch: int, cache_len: int,
+                         dtype, device) -> Dict[str, torch.Tensor]:
+        """One block's zeroed dense cache: k and v (batch, cache_len, KV,
+        hd), a ring (batch, window, KV, hd) for a windowed kind, or the
+        Mamba / RG-LRU state (batch, ...)."""
+        cfg = self.cfg
+        if kind == "mamba":
+            return ssm_mod.init_mamba_state(batch, cfg.d_model, cfg.ssm,
+                                            dtype, device)
+        if kind == "recurrent":
+            return rglru_mod.init_rglru_state(batch, cfg.d_model, cfg.rglru,
+                                              dtype, device)
+        window = resolved_window(cfg, kind)
+        width = window if window > 0 else cache_len
+        return attn.init_kv_cache(batch, width, cfg.eff_n_kv_heads,
+                                  cfg.resolved_head_dim, dtype, device)
 
     def init_cache(self, batch: int, cache_len: int, dtype=None, *,
                    device) -> list:
-        """Zeroed dense caches per stage unit, the reference's tree: one
-        (L, batch, cache_len, KV, hd) k and v, or the mamba state (conv
-        (L, batch, K-1, E) in ``dtype``, ssm (L, batch, E, N) f32)."""
-        cfg = self.cfg
+        """Zeroed dense caches in the reference's tree: per stage, per
+        block of its unit, the block's cache stacked over the repeats."""
         dtype = dtype or self.compute_dtype
-        if self.kind == "mamba":
-            c = ssm_mod.init_mamba_state(batch, cfg.d_model, cfg.ssm, dtype,
-                                         device)
-        else:
-            c = attn.init_kv_cache(batch, cache_len, cfg.eff_n_kv_heads,
-                                   cfg.resolved_head_dim, dtype, device)
-        return [{"b0": {name: t.unsqueeze(0).repeat(
-            (cfg.n_layers,) + (1,) * t.dim()) for name, t in c.items()}}]
+        return [{f"b{j}": stacked(self.init_block_cache(
+            kind, batch, cache_len, dtype, device), stage.repeats)
+            for j, kind in enumerate(stage.kinds)} for stage in self.stages]
 
     def prefill(self, params, batch, cache_len: int):
         """Forward over the prompt (B, S); returns ((B, vocab_padded) f32
-        logits of the last position, the dense cache tree: attention's
-        with S of its ``cache_len`` positions filled, or the mamba state
-        after the prompt, whose size does not depend on ``cache_len``)."""
-        entries: list = []
+        logits of the last position, the dense cache tree: full
+        attention's with S of its ``cache_len`` positions filled, a
+        windowed kind's ring of the last ``window`` positions, or the Mamba / RG-LRU state after the prompt, whose
+        size does not depend on ``cache_len``)."""
+        entries = [{f"b{j}": [] for j in range(len(st.kinds))}
+                   for st in self.stages]
         x = self._backbone(params, self._embed(params, batch), entries)
         x = _norm(self.cfg, params["final_norm"], x[:, -1])
-        if self.kind == "mamba":
-            cache = _stack(entries)
-        else:
-            cache = _kv_cache_from_seq(entries, cache_len)
-        return self._logits(params, x), [{"b0": cache}]
+        caches = []
+        for stage, unit in zip(self.stages, entries):
+            built = {}
+            for j, kind in enumerate(stage.kinds):
+                e = unit[f"b{j}"]
+                built[f"b{j}"] = _kv_cache_from_seq(
+                    e, cache_len, resolved_window(self.cfg, kind)) \
+                    if kind in _ATTENTION else _stack(e)
+            caches.append(built)
+        return self._logits(params, x), caches
 
     def decode_step(self, params, caches, batch, cache_ops=None):
         """batch: ``tokens`` (B, 1) and ``pos`` (a 0-d int tensor, or a
         per-row (B,) vector under a paged layout), on the params' device.
         Returns ((B, vocab_padded) f32 logits, ``caches`` updated in
         place).  ``cache_ops`` (a `repro_torch.models.cache` layout's step
-        ops) reroutes the cache update + attend: the paged-KV seam."""
+        ops) reroutes the attention cache update + attend: the paged-KV
+        and slot-ring seam."""
         x = self._embed(params, batch)
-        stage, cache = params["stage0"]["b0"], caches[0]["b0"]
-        for layer in range(self.cfg.n_layers):
-            x = self._decode_block(T.map(lambda a: a[layer], stage),
-                                   {k: v[layer] for k, v in cache.items()},
-                                   x, batch["pos"], cache_ops)
+        for _, _, kind, p, c in self._blocks(params, caches):
+            x = self._decode_block(kind, p, c, x, batch["pos"], cache_ops)
         x = _norm(self.cfg, params["final_norm"], x[:, 0])
         return self._logits(params, x), caches
 
@@ -237,19 +338,16 @@ class Model:
         positions already in the pages ``cache_ops`` addresses.  Returns
         ((B, vocab_padded) f32 logits at ``batch["last"]`` (B,), the
         chunk's last real position (its tail may be padding), ``caches``
-        updated in place).  Attention blocks only: the layout's
+        updated in place).  Full-attention blocks only: the layout's
         ``chunkable`` gate refuses the rest before dispatch."""
-        if self.kind != "attention":
-            raise ValueError(f"chunked prefill over {self.kind!r} blocks: "
-                             "the layout's chunkable gate should have "
-                             "refused")
+        kinds = {k for st in self.stages for k in st.kinds}
+        if kinds != {"attention"}:
+            raise ValueError(f"chunked prefill over {sorted(kinds)} "
+                             "blocks: the layout's chunkable gate should "
+                             "have refused")
         x = self._embed(params, batch)
-        stage, cache = params["stage0"]["b0"], caches[0]["b0"]
-        for layer in range(self.cfg.n_layers):
-            x = self._prefill_chunk_block(
-                T.map(lambda a: a[layer], stage),
-                {k: v[layer] for k, v in cache.items()}, x, positions,
-                cache_ops)
+        for _, _, _, p, c in self._blocks(params, caches):
+            x = self._prefill_chunk_block(p, c, x, positions, cache_ops)
         rows = torch.arange(x.shape[0], device=x.device)
         x = _norm(self.cfg, params["final_norm"], x[rows, batch["last"]])
         return self._logits(params, x), caches
@@ -266,32 +364,52 @@ class Model:
                                             cache_ops=cache_ops)
         x = x + h
         h = _norm(cfg, p["ln2"], x)
-        return x + mlp(p["mlp"], h)
+        return x + mlp(p["mlp"], h, cfg.activation)
 
-    def _decode_block(self, p: dict, cache: dict, x: torch.Tensor,
-                      pos: torch.Tensor, cache_ops) -> torch.Tensor:
+    def _decode_block(self, kind: str, p: dict, cache: dict,
+                      x: torch.Tensor, pos: torch.Tensor,
+                      cache_ops) -> torch.Tensor:
         cfg = self.cfg
-        if self.kind == "mamba":   # slot-indexed state: no cache_ops seam
+        if kind == "mamba":   # slot-indexed state: no cache_ops seam
             h = _norm(cfg, p["ln"], x)
             h, _ = ssm_mod.mamba_decode(p["mamba"], cache, h, cfg.ssm)
             return x + h
         h = _norm(cfg, p["ln1"], x)
-        h, _ = attn.attention_decode(p["attn"], cache, h, pos,
-                                     rope_theta=cfg.rope_theta,
-                                     qk_norm=cfg.qk_norm,
-                                     norm_eps=cfg.norm_eps,
-                                     cache_ops=cache_ops)
+        if kind == "recurrent":
+            h, _ = rglru_mod.rglru_decode(p["rglru"], cache, h, cfg.rglru)
+        else:
+            h, _ = attn.attention_decode(p["attn"], cache, h, pos,
+                                         rope_theta=cfg.rope_theta,
+                                         window=resolved_window(cfg, kind),
+                                         qk_norm=cfg.qk_norm,
+                                         norm_eps=cfg.norm_eps,
+                                         cache_ops=cache_ops)
         x = x + h
         h = _norm(cfg, p["ln2"], x)
-        return x + mlp(p["mlp"], h)
+        return x + mlp(p["mlp"], h, cfg.activation)
 
 
-def _kv_cache_from_seq(entries, cache_len: int) -> Dict[str, torch.Tensor]:
-    """Each layer's {"k", "v"} of the prompt, (B, S, KV, hd), zero-padded
-    to ``cache_len`` positions and stacked: {"k", "v"}: (L, B, cache_len,
-    KV, hd).  The reference recomputes them from the normed block input;
-    here they are the attention's own k and v, the same values."""
+def _kv_cache_from_seq(entries, cache_len: int,
+                       window: int = 0) -> Dict[str, torch.Tensor]:
+    """Each layer's {"k", "v"} of the prompt, (B, S, KV, hd), laid out as
+    the decode cache expects and stacked: {"k", "v"}: (R, B, cache_len,
+    KV, hd), zero-padded; for ``window > 0`` the ring (R, B, window, KV,
+    hd) holding the last ``window`` positions at slot ``pos % window``
+    (the reference's ``_kv_cache_from_seq``, whose ring is ``min(window,
+    cache_len)`` wide: the same while the sequence fits ``cache_len``).  The reference
+    recomputes k and v from the normed block input; here they are the
+    attention's own, the same values."""
     S = entries[0]["k"].shape[1]
+    if window > 0:
+        w = window
+        slots = torch.arange(max(S - w, 0), S) % w
+        out = {}
+        for name in ("k", "v"):
+            seq = torch.stack([e[name] for e in entries])[:, :, -w:]
+            ring = seq.new_zeros(seq.shape[:2] + (w,) + seq.shape[3:])
+            ring[:, :, slots.to(seq.device)] = seq
+            out[name] = ring
+        return out
     pad = (0, 0, 0, 0, 0, cache_len - S)
     return {name: torch.stack([F.pad(e[name], pad) for e in entries])
             for name in ("k", "v")}

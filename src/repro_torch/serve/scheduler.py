@@ -38,10 +38,12 @@ of ``repro.serve.scheduler``).
 Under greedy sampling each slot's tokens are bitwise the dense layout's
 at the same batch width and linearized cache length.
 
-A model with no paged kind (falcon-mamba: its state is O(1) and
-slot-indexed) is served by the same loop: the joining group's state is
-written into its slot rows, no page is ever allocated, ``_grow`` and the
-``max_len`` check of `submit` are skipped, and the pool stays untouched.
+A model with no paged kind (falcon-mamba: its state is O(1);
+recurrentgemma: RG-LRU states and local-attention rings of its window;
+both slot-indexed) is served by the same loop: the joining group's state
+is written into its slot rows, no page is ever allocated, ``_grow`` and
+the ``max_len`` check of `submit` are skipped, and the pool stays
+untouched.
 
 Not ported yet: requests that carry encoder or vision inputs.
 """

@@ -287,16 +287,25 @@ def test_paged_pools_have_the_reference_tree(models):
 
 
 def test_unported_attention_kinds_raise(models):
+    """Cross-attention still raises, naming its queue item; the windowed
+    ring (a window of 2 over a 4-wide cache) is ported now and decodes."""
     _, _, tm, tp, _ = models
     p = T.map(lambda a: a[0], tp["stage0"]["b0"]["attn"])
     x = torch.zeros((1, 1, tm.cfg.d_model))
     cache = attention.init_kv_cache(1, 4, tm.cfg.eff_n_kv_heads,
                                     tm.cfg.resolved_head_dim, torch.float32,
                                     "cpu")
-    for kw in (dict(window=2), dict(cross=True)):
-        with pytest.raises(NotImplementedError, match="A6"):
-            attention.attention_decode(p, cache, x, torch.tensor(0),
-                                       rope_theta=1e4, **kw)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        attention.attention_decode(p, cache, x, torch.tensor(0),
+                                   rope_theta=1e4, cross=True)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        x.shape).astype(np.float32))
+    y, cache = attention.attention_decode(p, cache, x, torch.tensor(5),
+                                          rope_theta=1e4, window=2)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    # position 5 lands in ring slot 5 % 4
+    assert cache["v"][0, 1].abs().sum() > 0 \
+        and cache["v"][0, [0, 2, 3]].abs().sum() == 0
 
 
 def test_paged_kinds_match_reference():
@@ -312,7 +321,14 @@ def test_paged_kinds_match_reference():
         == jcache.resolved_window(jfcfg, "mamba") == 0
     assert cache_mod.paged_kinds(fcfg, ("mamba",)) \
         == jcache.paged_kinds(jfcfg, ("mamba",)) == []
-    # "recurrent" is the RG-LRU kind, still unported
-    for kind in ("cross", "mla", "attention_local", "recurrent"):
-        with pytest.raises(NotImplementedError, match="A6"):
+    # the RG-LRU state and the local-attention ring are slot-indexed
+    hcfg = t_get_config("recurrentgemma-9b")
+    jhcfg = get_config("recurrentgemma-9b")
+    kinds = ("recurrent", "recurrent", "attention_local")
+    assert [cache_mod.resolved_window(hcfg, k) for k in kinds] \
+        == [jcache.resolved_window(jhcfg, k) for k in kinds] == [0, 0, 2048]
+    assert cache_mod.paged_kinds(hcfg, kinds) \
+        == jcache.paged_kinds(jhcfg, kinds) == []
+    for kind in ("cross", "mla"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             cache_mod.paged_kinds(cfg, (kind,))
