@@ -143,7 +143,7 @@ Phases (any failure exits non-zero before the result line):
    bucket sizes; granite-20b cut to 12 of 52 layers serves 8 requests.
    B4 at stablelm-3b's and granite-20b's shapes is also timed beside
    gather of the live pages + scaled_dot_product_attention (bf16 pools);
-13. the recurrent families (last).  flash_attention against its plain
+13. the recurrent families.  flash_attention against its plain
    version at recurrentgemma-9b's local attention (one kv head, G 16, hd
    256, window 2,048) at S 512 / 2,048 / 4,096, f32 (2e-5) and bf16
    (3e-2), bitwise run to run, timed (12 launches per sample, one per
@@ -163,7 +163,37 @@ Phases (any failure exits non-zero before the result line):
    chunked scan (finite losses, A1/A2 once per bucket and step, step time,
    peak), A1/A2 against their plain versions at its bucket sizes, the
    chunked scan against ssm_scan_plain at E 8,192, N 16 (1e-4); reduced
-   recurrentgemma trained 2 steps as a route check.
+   recurrentgemma trained 2 steps as a route check;
+14. the MoE family and MLA (last).  paged_attention at olmoe-1b-7b's
+   attention (16 kv heads, G 1, hd 128) and phi3.5-moe's (8, G 4),
+   bf16 and f32 pools, held to its plain version in float64 (1e-6), and
+   flash_attention there at S 512 (f32 2e-5, bf16 3e-2), timed beside
+   bound, plain version and SDPA.  olmoe-1b-7b at its published widths
+   and full depth (16 layers, 6,919,624,704 params, f32 weights from seed
+   0, bf16 compute and KV) over phase 8's 48 requests: B4 16 per decode
+   step, B5 16 per prefill, the routed prefill and the dropless decode;
+   the dropless FFN against the all-experts oracle at its widths (2^-16
+   of the largest output); kernel route == plain route greedy on 4
+   requests over f32 pools; 0 host syncs a burst, two bursts profiled.
+   phi3.5-moe-42b-a6.6b cut to 8 of 32 layers (10,666,708,992 params)
+   serves 8 requests (B4 / B5 at G 4).  olmoe cut to 1 layer trains 5
+   routed dc_s3gd steps at W = 2 (80 slots per expert; finite losses and
+   aux loss, A1/A2 once per bucket and step, step time, peak), A1/A2
+   against their plain versions at its bucket sizes; minicpm3-4b cut to 2
+   layers trains 2 steps.  minicpm3-4b at full depth (62 layers,
+   4,262,025,728 params) on bf16 latent pages, 35,712 B a token beside
+   qwen3's 114,688: 16 requests whole-prompt, 8 over int8 pools, two
+   bursts profiled, then phase 12's 32 shared-prompt requests chunked
+   (128) with and without the prefix cache, block tables 45 pages wide
+   (greedy tokens bitwise, >= 31 hits, copy-on-write, fewer pages); B4
+   and B5 never launch on its path.  Last, ROADMAP C5: reduced falcon-mamba-7b and
+   recurrentgemma-9b prefill prompts of 1 and 2 tokens into the slot
+   layout and decode 4 steps within 1e-5 of the whole-sequence forward.
+
+The CPU twins of these checks are the ``tests/test_torch_*.py`` files
+(``PYTHONPATH=src python -m pytest -q tests/test_torch_moe.py
+tests/test_torch_mla.py``; the C5 cases: ``-k short_prompt`` in
+``tests/test_torch_hybrid.py`` and ``tests/test_torch_ssm_serve.py``).
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports nothing
@@ -1077,14 +1107,15 @@ def _write_requests() -> Path:
 
 def phase_serve(smi: str, path: Path, extra=(), n_requests=None,
                 tag: str = "serve", built=None, argv=SERVE_ARGS,
-                depth: int = 28):
+                depth: int = 28, attention_kernels: bool = True):
     """Serve the request file through ``repro_torch.launch.serve`` at
     ``depth`` layers (qwen3-0.6b's full 28 unless ``argv`` names another
     arch; published widths, f32 params, bf16 compute and KV unless
     ``extra`` says otherwise).  Every kernel count is set to 0 just before
     the run and read just after: paged_attention once per layer and
-    decode step, flash_attention once per layer and prefill (or chunk).
-    Returns (record, (model, params), requests)."""
+    decode step, flash_attention once per layer and prefill (or chunk);
+    without ``attention_kernels`` (MLA's latent pages) neither, and no
+    other kernel either.  Returns (record, (model, params), requests)."""
     from repro_torch.launch import serve
     args = serve.build_argparser().parse_args(
         list(argv) + ["--requests", str(path), *extra])
@@ -1114,6 +1145,8 @@ def phase_serve(smi: str, path: Path, extra=(), n_requests=None,
     steps = sch.stats["decode_steps"]
     # a chunked run launches flash_attention once per layer and chunk
     prefills = sch.stats["chunks"] or sch.stats["prefills"]
+    if not attention_kernels:
+        L = 0
     check(launches["paged_attention"] == L * steps,
           f"[{tag}] paged_attention launched {launches['paged_attention']} "
           f"times, expected {L} layers x {steps} decode steps")
@@ -1128,9 +1161,10 @@ def phase_serve(smi: str, path: Path, extra=(), n_requests=None,
     check(sch.stats["preemptions"] == 0, f"[{tag}] preempted: the pool "
           "holds every request at full length")
     quant = sch.layout.kv_quantized
-    pool = sch.cache[0]["b0"]["k"]
+    first = "k" if "k" in sch.cache[0]["b0"] else "ckv"   # mla: latents
+    pool = sch.cache[0]["b0"][first]
     check(pool.dtype == (torch.int8 if quant else torch.bfloat16)
-          and ("k_scale" in sch.cache[0]["b0"]) == quant,
+          and (f"{first}_scale" in sch.cache[0]["b0"]) == quant,
           f"[{tag}] pool dtype {pool.dtype}")
     s = sch.latency_summary()
     decode_s = sum(sch.stats["step_walls"])
@@ -1585,6 +1619,65 @@ CHUNK = 128
 CHUNK_Q0, CHUNK_SK = 512, 41 * PAGE
 
 
+def _flash_case(smi: str, gen, name: str, KV: int, G: int, hd: int,
+                layers: int, sq: int, sk: int, q0: int, dt, tag: str) -> dict:
+    """One flash_attention case of ``sq`` causal rows at ``q_start`` q0
+    over ``sk`` keys: against its plain version (atol 2e-5 f32 / 3e-2
+    bf16), bitwise run to run, timed (``layers`` launches per sample)
+    beside its bound, the plain version and scaled_dot_product_attention
+    with the same mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    H = KV * G
+    q = torch.randn((1, sq, KV, G, hd), generator=gen,
+                    device="cuda").to(dt)
+    k = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
+    kw = dict(causal=True, q_start=q0)
+    got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    atol = 2e-5 if dt == torch.float32 else 3e-2
+    check(got.dtype == dt and err <= atol, f"flash_attention {name}: "
+          f"max abs err {err} > {atol}")
+    check(torch.equal(got, again), f"flash_attention {name}: two "
+          "launches differ")
+    ms = median_ms(lambda: flash_attention(q, k, v, **kw), batch=layers)
+    plain_ms = median_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                         batch=layers)
+    qs, ks, vs = (q.reshape(1, sq, H, hd).transpose(1, 2),
+                  k.transpose(1, 2), v.transpose(1, 2))
+    i = q0 + torch.arange(sq, device="cuda")[:, None]
+    mask = torch.arange(sk, device="cuda")[None, :] <= i
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=None if q0 == 0 else mask,
+            is_causal=q0 == 0, enable_gqa=True)
+    sdpa_err = float((sdpa().transpose(1, 2).reshape(want.shape).float()
+                      - want.float()).abs().max())
+    library_ms = median_ms(sdpa, batch=layers)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * hd * H * _live_pairs(sq, sk, True, 0, q0)
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / FLASH_FLOPS[dt] * 1e3
+    bound = max(byte_ms, op_ms)
+    by = "operations" if op_ms >= byte_ms else "bytes"
+    print(f"[{tag}] {name}: KV={KV} G={G} hd={hd}: {ms:.4f} "
+          f"ms/launch; plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} "
+          f"ms (max abs diff {sdpa_err:.3g}); bound {bound:.4f} ms by "
+          f"{by} ({nbytes} B, {flops} flops); max abs err {err:.3g}, "
+          f"bitwise run to run [{smi}]")
+    del q, k, v, got, again, want, qs, ks, vs, mask
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "flops": flops, "err": err, "sdpa_err": sdpa_err}
+
+
 def phase_flash_shapes(smi: str) -> dict:
     """flash_attention against its plain version where this slice's paths
     reach it: a qwen3 chunk at q_start 512 over the 656 keys of its view,
@@ -1598,9 +1691,7 @@ def phase_flash_shapes(smi: str) -> dict:
     split it at an unaligned row (100) with q_start 400 and 500 and the
     second's longer key view, at qwen3's shape in f32 and bf16 and at
     granite's G 48 in bf16."""
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import flash_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(5)
     shapes = {n: (kv, g, hd, layers) for n, kv, g, hd, layers in DENSE_SHAPES}
     cases = []
@@ -1609,56 +1700,9 @@ def phase_flash_shapes(smi: str) -> dict:
                    "qwen3", CHUNK, CHUNK_SK, CHUNK_Q0, dt),
                   (f"stablelm hd 80 S=512 {n}", "stablelm", 512, 512, 0, dt),
                   (f"granite G 48 S=512 {n}", "granite", 512, 512, 0, dt)]
-    rec = {}
-    for name, model, sq, sk, q0, dt in cases:
-        KV, G, hd, layers = shapes[model]
-        H = KV * G
-        q = torch.randn((1, sq, KV, G, hd), generator=gen,
-                        device="cuda").to(dt)
-        k = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
-        v = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
-        kw = dict(causal=True, q_start=q0)
-        got = flash_attention(q, k, v, **kw)
-        again = flash_attention(q, k, v, **kw)
-        want = flash_attention_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        atol = 2e-5 if dt == torch.float32 else 3e-2
-        check(got.dtype == dt and err <= atol, f"flash_attention {name}: "
-              f"max abs err {err} > {atol}")
-        check(torch.equal(got, again), f"flash_attention {name}: two "
-              "launches differ")
-        ms = median_ms(lambda: flash_attention(q, k, v, **kw), batch=layers)
-        plain_ms = median_ms(lambda: flash_attention_plain(q, k, v, **kw),
-                             batch=layers)
-        qs, ks, vs = (q.reshape(1, sq, H, hd).transpose(1, 2),
-                      k.transpose(1, 2), v.transpose(1, 2))
-        i = q0 + torch.arange(sq, device="cuda")[:, None]
-        mask = torch.arange(sk, device="cuda")[None, :] <= i
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=None if q0 == 0 else mask,
-                is_causal=q0 == 0, enable_gqa=True)
-        sdpa_err = float((sdpa().transpose(1, 2).reshape(want.shape).float()
-                          - want.float()).abs().max())
-        library_ms = median_ms(sdpa, batch=layers)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        flops = 4 * hd * H * _live_pairs(sq, sk, True, 0, q0)
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = flops / FLASH_FLOPS[dt] * 1e3
-        bound = max(byte_ms, op_ms)
-        by = "operations" if op_ms >= byte_ms else "bytes"
-        print(f"[flash-shapes] {name}: KV={KV} G={G} hd={hd}: {ms:.4f} "
-              f"ms/launch; plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} "
-              f"ms (max abs diff {sdpa_err:.3g}); bound {bound:.4f} ms by "
-              f"{by} ({nbytes} B, {flops} flops); max abs err {err:.3g}, "
-              f"bitwise run to run [{smi}]")
-        rec[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-                     "flops": flops, "err": err, "sdpa_err": sdpa_err}
-        del q, k, v, got, again, want, qs, ks, vs, mask
-        torch.cuda.empty_cache()
+    rec = {name: _flash_case(smi, gen, name, *shapes[model], sq, sk, q0, dt,
+                             "flash-shapes")
+           for name, model, sq, sk, q0, dt in cases}
     for model, dt in (("qwen3", torch.float32), ("qwen3", torch.bfloat16),
                       ("granite", torch.bfloat16)):
         KV, G, hd, _ = shapes[model]
@@ -1686,7 +1730,8 @@ def phase_flash_shapes(smi: str) -> dict:
     return rec
 
 
-def phase_paged_shapes(smi: str) -> dict:
+def phase_paged_shapes(smi: str, shapes=DENSE_SHAPES[1:], pools=PA_POOLS,
+                       tag: str = "paged-shapes") -> dict:
     """paged_attention against its plain version at stablelm-3b's shape (16
     rows, 32 kv heads, G 1, hd 80: 160-byte bf16 rows) and granite-20b's
     (16 rows, one kv head, G 48, hd 128), the serve phase's ragged lengths
@@ -1703,8 +1748,8 @@ def phase_paged_shapes(smi: str) -> dict:
     from repro_torch.kernels.ref import paged_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(6)
     rec = {}
-    for model, KV, G, hd, layers in DENSE_SHAPES[1:]:
-        for pool in PA_POOLS:
+    for model, KV, G, hd, layers in shapes:
+        for pool in pools:
             name = f"{model} KV={KV} G={G} hd={hd} {pool}"
             q, k, v, bt, ln, scales = _paged_case(gen, pool, PA_WIDTH,
                                                   (16, KV, G, hd))
@@ -1740,12 +1785,12 @@ def phase_paged_shapes(smi: str) -> dict:
                 lib["gather_sdpa_ms"], lib["gather_sdpa_err"] = \
                     _gather_sdpa_ms(q, kL, vL, bt[:, :PA_LIVE].contiguous(),
                                     ln, layers=layers, ref=want32)
-                print(f"[paged-shapes] {name}: gather of the {PA_LIVE} live "
+                print(f"[{tag}] {name}: gather of the {PA_LIVE} live "
                       f"pages + scaled_dot_product_attention "
                       f"{lib['gather_sdpa_ms']:.4f} ms (two calls: "
                       f"library_ms stays null; max abs diff "
                       f"{lib['gather_sdpa_err']:.3g}) [{smi}]")
-            print(f"[paged-shapes] {name}: {ms:.4f} ms/launch; plain "
+            print(f"[{tag}] {name}: {ms:.4f} ms/launch; plain "
                   f"{plain_ms:.4f} ms; byte bound {bound:.4f} ms ({nbytes} "
                   f"B); {smem} B of shared memory per CTA; max abs err "
                   f"{err:.3g} (the plain version in f32: {err32:.3g}, its "
@@ -1786,18 +1831,24 @@ def _write_prefix_requests(vocab: int) -> Path:
 
 
 def _serve_warm_then_rest(smi: str, model, params, path: Path, argv,
-                          tag: str) -> dict:
+                          tag: str, attention_kernels: bool = True,
+                          fit_table: bool = False) -> dict:
     """Serve the request file through ``repro_torch.launch.serve``'s
     scheduler: request 0 alone first (a deployment warming its system
-    prompt), then the other 31 together.  Every kernel count is set to 0
-    just before and read just after; each request's last-chunk logits are
-    kept (chunked runs)."""
+    prompt), then the others together.  With ``fit_table`` the block
+    tables are as wide as the longest request needs, not the whole pool.
+    Every kernel count is set to 0
+    just before and read just after (B4 and B5 never launch without
+    ``attention_kernels``); each request's last-chunk logits are kept
+    (chunked runs)."""
     from repro_torch.launch import serve
     args = serve.build_argparser().parse_args(
         list(argv) + ["--requests", str(path)])
     reqs = serve.load_requests(args.requests, model.cfg.vocab_size,
                                args.gen, seed=args.seed)
-    sch = serve.make_scheduler(model, params, args)
+    max_len = max(len(r.prompt) + r.max_new + 1 for r in reqs) \
+        if fit_table else None
+    sch = serve.make_scheduler(model, params, args, max_len=max_len)
     V = model.cfg.vocab_size
     last_logits, offsets = {}, []
     resume = sch.layout.prefill_resume
@@ -1827,8 +1878,11 @@ def _serve_warm_then_rest(smi: str, model, params, path: Path, argv,
         check(len(done[r.rid].out) == r.max_new, f"[{tag}] request "
               f"{r.rid}: {len(done[r.rid].out)} tokens, expected "
               f"{r.max_new}")
-    L = model.cfg.n_layers
+    L = model.cfg.n_layers if attention_kernels else 0
     steps, chunks = sch.stats["decode_steps"], sch.stats["chunks"]
+    check(sum(launches.values()) == launches["paged_attention"]
+          + launches["flash_attention"], f"[{tag}] other kernels: "
+          f"{launches}")
     check(launches["paged_attention"] == L * steps, f"[{tag}] "
           f"paged_attention launched {launches['paged_attention']} times, "
           f"expected {L} x {steps} decode steps")
@@ -1843,6 +1897,7 @@ def _serve_warm_then_rest(smi: str, model, params, path: Path, argv,
     else:
         check(sch.pool.used_pages == 0, f"[{tag}] pages left allocated")
     rec = {"wall_s": wall, "launches": launches,
+           "pages_allocated": sch.pool.total_allocs,
            "tokens": {r.rid: list(done[r.rid].out) for r in reqs},
            "offset_chunks": sum(o > 0 for o in offsets),
            "last_logits": last_logits, "peak_bytes":
@@ -3093,6 +3148,413 @@ def phase_train_recurrent(smi: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the MoE family and MLA (slice 11), and C5 on the card
+# ---------------------------------------------------------------------------
+
+OLMOE_LAYERS = 16
+OLMOE_PARAMS = 6_919_624_704         # the reference's init, 16 layers
+OLMOE_ARGS = ["--arch", "olmoe-1b-7b", *DENSE_ARGS]
+PHI_LAYERS = 8                       # 32 -> 8: 167.5 GB of f32 weights
+PHI_PARAMS = 10_666_708_992
+PHI_ARGS = ["--arch", "phi3.5-moe-42b-a6.6b", "--layers", str(PHI_LAYERS),
+            *DENSE_ARGS]
+PHI_REQUESTS = 8
+# B4 and B5 where the MoE serve paths reach them: (name, kv heads, query
+# heads per kv head, hd, layers)
+MOE_SHAPES = (("olmoe", 16, 1, 128, OLMOE_LAYERS),
+              ("phi3.5-moe", 8, 4, 128, PHI_LAYERS))
+ROUTE_REQUESTS = 4
+OLMOE_TRAIN_STEPS = 5
+OLMOE_TRAIN_PARAMS = 626_137_344     # depth 1
+OLMOE_TRAIN = ["--arch", "olmoe-1b-7b", "--layers", "1", "--algo",
+               "dc_s3gd", "--workers", str(W), "--batch-per-worker", "2",
+               "--seq", "256", "--buckets", str(N_BUCKETS), "--seed", "0",
+               "--log-every", "1", "--steps", str(OLMOE_TRAIN_STEPS),
+               "--use-kernels"]
+MINICPM_LAYERS = 62
+MINICPM_PARAMS = 4_262_025_728
+MINICPM_ARGS = ["--arch", "minicpm3-4b", *DENSE_ARGS]
+MINICPM_TOKEN_BYTES = 62 * (256 + 32) * 2    # bf16 ckv + k_rope, 35,712
+QWEN3_TOKEN_BYTES = 28 * 2 * 8 * 128 * 2     # bf16 k + v, 114,688
+MINICPM_TRAIN = ["--arch", "minicpm3-4b", "--layers", "2", "--algo",
+                 "dc_s3gd", "--workers", str(W), "--batch-per-worker", "2",
+                 "--seq", "256", "--buckets", str(N_BUCKETS), "--seed", "0",
+                 "--log-every", "1", "--steps", "2", "--use-kernels"]
+
+
+def _params_count(params) -> int:
+    from repro_torch import tree as T
+    return sum(x.numel() for x in T.leaves(params))
+
+
+def phase_moe_kernel_shapes(smi: str) -> dict:
+    """B4 and B5 at the MoE serve paths' attention shapes: olmoe-1b-7b's
+    16 kv heads at G 1 and phi3.5-moe's 8 kv heads at G 4 (hd 128).  B4:
+    16 rows, the serve phase's ragged lengths 1..577 and 640-wide tables,
+    bf16 and f32 pools, held to its plain version in float64 (1e-6),
+    bitwise run to run, timed over one launch on each of the model's
+    per-layer pools beside its byte bound and the plain version (and, for
+    bf16, gather + SDPA).  B5: one 512-token prompt, f32 and bf16 (2e-5 /
+    3e-2), timed beside its bound, the plain version and SDPA."""
+    rec = {"paged": phase_paged_shapes(smi, MOE_SHAPES,
+                                       ("bfloat16", "float32"),
+                                       "paged-moe-shapes")}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rec["flash"] = {}
+    for model, KV, G, hd, layers in MOE_SHAPES:
+        for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            name = f"{model} KV={KV} G={G} S=512 {n}"
+            rec["flash"][name] = _flash_case(smi, gen, name, KV, G, hd,
+                                             layers, 512, 512, 0, dt,
+                                             "flash-moe-shapes")
+    return rec
+
+
+def phase_moe_dropless(smi: str, model, params) -> dict:
+    """The decode's dropless routed FFN (``moe_ffn(capacity_factor=-1)``)
+    against the all-experts oracle ``moe_ffn_dense`` at the model's widths
+    on its first block's weights, for 16 decode rows (f32 activations, as
+    the residual stream is after the first block): the same function
+    summed in another order, held to 2^-16 of the oracle's largest
+    output."""
+    from repro_torch.models import moe
+    cfg = model.cfg
+    p = {k: v[0] for k, v in params["stage0"]["b0"]["moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((16, 1, cfg.d_model), generator=gen, device="cuda")
+    got, aux_a = moe.moe_ffn(p, x, cfg.moe, cfg.activation,
+                             capacity_factor=-1.0)
+    want, aux_b = moe.moe_ffn_dense(p, x, cfg.moe, cfg.activation)
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    bound = 2.0 ** -16 * top
+    print(f"[moe-dropless] {cfg.name}: moe_ffn(capacity_factor=-1) vs "
+          f"moe_ffn_dense, 16 rows, E={cfg.moe.n_experts} top-"
+          f"{cfg.moe.top_k}, d={cfg.d_model}, f={cfg.moe.d_ff_expert}: max "
+          f"|d| {err:.3g} (bound {bound:.3g} = 2^-16 x {top:.4g}); aux "
+          f"{float(aux_a):.6g} / {float(aux_b):.6g} [{smi}]")
+    check(err <= bound and float(aux_a) == float(aux_b),
+          f"[moe-dropless] {err} > {bound} or aux differs")
+    return {"max_abs_err": err, "max_out": top, "bound": bound}
+
+
+def phase_moe_routes(smi: str, model, params, reqs) -> dict:
+    """The kernel route (B5 prefill, B4 decode) against the plain route
+    (``Model(cfg, kernels=False)``, gather decode) on the first
+    ``ROUTE_REQUESTS`` requests, whole-prompt, greedy, through the
+    scheduler with f32 pools (where the two routes differ in summation
+    order only): the same tokens."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import Request, Scheduler
+    out = []
+    for m, use_kernel in ((model, True),
+                          (Model(model.cfg, kernels=False), False)):
+        sch = Scheduler(m, params, slots=16, pages=641, page_size=PAGE,
+                        use_kernel=use_kernel, decode_burst=4,
+                        kv_dtype="float32")
+        _zero_counts()
+        done = sch.run([Request(rid=r.rid, prompt=r.prompt,
+                                max_new=r.max_new)
+                        for r in reqs[:ROUTE_REQUESTS]])
+        launches = _read_counts()
+        check((launches["paged_attention"] > 0) == use_kernel
+              and (launches["flash_attention"] > 0) == use_kernel,
+              f"[moe-routes] launches {launches} (kernel route "
+              f"{use_kernel})")
+        out.append({r.rid: list(r.out) for r in done})
+        del sch
+    same = sum(out[0][r] == out[1][r] for r in out[0])
+    n_tok = sum(len(t) for t in out[0].values())
+    print(f"[moe-routes] {model.cfg.name}: kernel route vs plain route, "
+          f"{len(out[0])} requests ({n_tok} tokens), f32 pools: greedy "
+          f"tokens equal for {same} of {len(out[0])} [{smi}]")
+    check(same == len(out[0]), "[moe-routes] greedy tokens differ")
+    torch.cuda.empty_cache()
+    return {"requests": len(out[0]), "tokens": n_tok, "equal": same}
+
+
+def phase_serve_moe(smi: str, path: Path) -> dict:
+    """olmoe-1b-7b at its published widths and full depth (16 layers,
+    6,919,624,704 params, f32 weights from seed 0, bf16 compute and KV)
+    over phase 8's 48 requests through ``repro_torch.launch.serve`` with
+    ``--slots 16 --pages 641 --page-size 16 --decode-burst 4
+    --paged-kernel``, whole-prompt: every request at its length, B4 16
+    times per decode step, B5 16 times per prefill; the routed prefill
+    (capacity factor 1.25) and the dropless decode.  Then the dropless FFN
+    against the oracle, the kernel route against the plain route, the
+    host synchronisations of a burst (0) and two bursts profiled.
+    phi3.5-moe-42b-a6.6b cut to 8 of 32 layers (10,666,708,992 params)
+    serves 8 requests: B4 and B5 at GQA 32/8 (G 4)."""
+    from repro_torch.launch import serve
+    rec = {}
+    args = serve.build_argparser().parse_args(OLMOE_ARGS + ["--requests",
+                                                            str(path)])
+    t0 = time.perf_counter()
+    model, params, _ = serve.build(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = _params_count(params)
+    cfg = model.cfg
+    check(n == OLMOE_PARAMS and cfg.moe.n_experts == 64
+          and cfg.moe.top_k == 8 and not model.moe_dense,
+          f"olmoe-1b-7b: {n} params, {cfg.moe}")
+    expert_bytes = sum(params["stage0"]["b0"]["moe"][k].numel() * 4
+                       for k in ("w_up", "w_gate", "w_down"))
+    print(f"[serve-olmoe] olmoe-1b-7b x{OLMOE_LAYERS}: {n} params "
+          f"({n * 4 / 1e9:.2f} GB f32; the experts {expert_bytes / 1e9:.2f}"
+          f" GB, all read by each dropless decode step), init {init_s:.1f} s"
+          f" [{smi}]")
+    rec["olmoe"], _, reqs = phase_serve(
+        smi, path, (), None, "serve-olmoe", (model, params, None),
+        OLMOE_ARGS, OLMOE_LAYERS)
+    rec["olmoe"]["params"] = n
+    rec["olmoe"]["expert_bytes"] = expert_bytes
+    rec["olmoe"]["init_s"] = init_s
+    rec["olmoe_dropless"] = phase_moe_dropless(smi, model, params)
+    rec["olmoe_routes"] = phase_moe_routes(smi, model, params, reqs)
+    rec["olmoe_profile"] = phase_serve_profile(
+        smi, model, params, reqs, OLMOE_ARGS, "serve-olmoe-profile",
+        "profile_serve_olmoe.txt")
+    del model, params
+    torch.cuda.empty_cache()
+    args = serve.build_argparser().parse_args(PHI_ARGS + ["--requests",
+                                                          str(path)])
+    model, params, _ = serve.build(args)
+    n = _params_count(params)
+    check(n == PHI_PARAMS and model.cfg.eff_n_kv_heads == 8
+          and model.cfg.n_heads == 32, f"phi3.5-moe x{PHI_LAYERS}: {n}")
+    rec["phi"], _, _ = phase_serve(
+        smi, path, (), PHI_REQUESTS, "serve-phi3.5-moe",
+        (model, params, None), PHI_ARGS, PHI_LAYERS)
+    rec["phi"]["params"] = n
+    del model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_moe(smi: str) -> dict:
+    """olmoe-1b-7b at its published widths, depth 16 -> 1 (626,137,344
+    params), dc_s3gd, W = 2, 2 x 256 tokens per worker, 4 buckets, fused
+    tail, 5 steps, the routed FFN (capacity factor 1.25: 80 slots per
+    expert): finite losses, A1/A2 once per bucket and step and nothing
+    else, step time, peak memory and the aux loss of worker 0's final
+    weights on one batch (finite, > 0); then A1/A2 against their plain
+    versions at its bucket sizes, whose first holds the (E, d, f) expert
+    leaves.  minicpm3-4b cut to 2 layers trains 2 steps as a route
+    check."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model
+    from repro_torch.parallel.buckets import plan_buckets
+    rec = {}
+    args = train.build_argparser().parse_args(OLMOE_TRAIN)
+    # the launcher routes at the published widths (moe_dense only under
+    # --reduced); this twin of its model reads the aux loss afterwards
+    model = Model(dataclasses.replace(get_config("olmoe-1b-7b"),
+                                      n_layers=1))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    result = train.run(args)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = result["state"]
+    plan = plan_buckets(state.params, N_BUCKETS, strip_leading_axis=True)
+    nb = len(plan.bucket_sizes)
+    n = sum(x[0].numel() for x in T.leaves(state.params))
+    hist = result["history"]
+    losses = [h["loss"] for h in hist]
+    check(n == OLMOE_TRAIN_PARAMS and not args.reduced,
+          f"[train-olmoe] {n} params")
+    check(moe.capacity(2 * 256, model.cfg.moe, 1.25) == 80,
+          "[train-olmoe] capacity")
+    check(len(losses) == OLMOE_TRAIN_STEPS
+          and all(map(math.isfinite, losses)), f"[train-olmoe] {losses}")
+    check(launches["dc_norms"] == OLMOE_TRAIN_STEPS * nb
+          and launches["dc_fused_update"] == OLMOE_TRAIN_STEPS * nb
+          and sum(launches.values()) == 2 * OLMOE_TRAIN_STEPS * nb,
+          f"[train-olmoe] launches {launches}, {nb} buckets")
+    data = SyntheticLMDataset(model.cfg.vocab_size, 256, seed=0)
+    batch = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in data.batch(0, 0, 2).items()}
+    aux = []
+    with torch.no_grad():
+        p0 = T.map(lambda a: a[0], state.params)
+        model._backbone(p0, model._embed(p0, batch), aux=aux)
+    aux_total = float(sum(aux))
+    check(len(aux) == 1 and math.isfinite(aux_total) and aux_total > 0,
+          f"[train-olmoe] aux {aux}")
+    step_ms = _step_ms(hist)
+    print(f"[train-olmoe] olmoe-1b-7b x1 ({n} params), W={W}, dc_s3gd, "
+          f"routed (80 slots per expert), fused tail, {nb} buckets "
+          f"{plan.bucket_sizes}: losses {losses}; aux loss {aux_total:.6g};"
+          f" launches {launches}; step {step_ms:.3f} ms (median of steps "
+          f"2-4); peak memory {peak / 2**30:.3f} GiB ({peak} B), of which "
+          f"{before / 2**20:.1f} MiB were allocated before [{smi}]")
+    rec["olmoe"] = {"losses": losses, "aux": aux_total,
+                    "launches": launches, "step_ms": step_ms,
+                    "peak_bytes": peak, "params": n,
+                    "bucket_sizes": plan.bucket_sizes,
+                    "bucket_decay": plan.bucket_decay}
+    del result, state, model, p0
+    torch.cuda.empty_cache()
+    rec["olmoe_kernels"] = phase_kernels(plan.bucket_sizes, smi, W=W,
+                                         select=False, tag="kernels-olmoe")
+    torch.cuda.empty_cache()
+    args = train.build_argparser().parse_args(MINICPM_TRAIN)
+    _zero_counts()
+    result = train.run(args)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    plan = plan_buckets(result["state"].params, N_BUCKETS,
+                        strip_leading_axis=True)
+    nb = len(plan.bucket_sizes)
+    losses = [h["loss"] for h in result["history"]]
+    check(len(losses) == 2 and all(map(math.isfinite, losses)),
+          f"[train-minicpm3] losses {losses}")
+    check(launches["dc_norms"] == 2 * nb
+          and launches["dc_fused_update"] == 2 * nb
+          and sum(launches.values()) == 4 * nb,
+          f"[train-minicpm3] launches {launches}, {nb} buckets")
+    print(f"[train-minicpm3] minicpm3-4b x2 (MLA), W={W}, dc_s3gd, fused "
+          f"tail, {nb} buckets: losses {losses}; launches {launches} (a "
+          f"route check: nothing measured) [{smi}]")
+    rec["minicpm3"] = {"losses": losses, "launches": launches}
+    del result
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_mla(smi: str, path: Path) -> dict:
+    """minicpm3-4b at its published widths and full depth (62 layers,
+    4,262,025,728 params, f32 weights from seed 0, bf16 compute) on the
+    paged latent pools (ckv 256 + k_rope 32 a token and layer): 16 of
+    phase 8's requests whole-prompt, then 8 over int8 pools, through
+    ``repro_torch.launch.serve`` (every request at its length; B4 and B5
+    never launch: MLA's latent pages are read by gather and its prefill
+    takes the plain core, as in the reference); the latent token bytes
+    beside qwen3-0.6b's; two decode bursts profiled (0 host syncs).  Then
+    phase 12's 32 requests behind the 392-token system prompt with
+    ``--prefill-chunk 128 --prefix-cache`` against the cold chunked run:
+    greedy tokens bitwise, >= 31 hits, >= 1 copy-on-write, fewer pages
+    (block tables as wide as the longest request, 713 tokens or 45 pages,
+    as every decode step gathers and scores the whole table)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.cache import PagedLayout
+    from repro_torch.models.transformer import Model
+    rec = {}
+    args = serve.build_argparser().parse_args(MINICPM_ARGS + ["--requests",
+                                                              str(path)])
+    model, params, _ = serve.build(args)
+    n = _params_count(params)
+    check(n == MINICPM_PARAMS and [st.kinds for st in model.stages]
+          == [("mla",)], f"minicpm3-4b: {n} params, {model.stages}")
+    rec["whole"], _, reqs = phase_serve(
+        smi, path, (), 16, "serve-minicpm3", (model, params, None),
+        MINICPM_ARGS, MINICPM_LAYERS, attention_kernels=False)
+    rec["int8"], _, _ = phase_serve(
+        smi, path, ("--kv-dtype", "int8"), 8, "serve-minicpm3-int8",
+        (model, params, None), MINICPM_ARGS, MINICPM_LAYERS,
+        attention_kernels=False)
+    kw = dict(n_slots=16, num_pages=641, page_size=PAGE, max_pages=640)
+    mla_bytes = PagedLayout(model, **kw).kv_bytes_per_token()
+    qwen_bytes = PagedLayout(Model(get_config("qwen3-0.6b")),
+                             **kw).kv_bytes_per_token()
+    print(f"[serve-minicpm3] latent pool bytes a token (bf16, 62 layers x "
+          f"(256 + 32) x 2): {mla_bytes} B, against qwen3-0.6b's k + v "
+          f"{qwen_bytes} B ({qwen_bytes / mla_bytes:.2f}x); int8: "
+          f"{rec['int8']['kv_bytes_per_token']} B [{smi}]")
+    check(mla_bytes == MINICPM_TOKEN_BYTES and qwen_bytes ==
+          QWEN3_TOKEN_BYTES, f"token bytes {mla_bytes} {qwen_bytes}")
+    rec["token_bytes"] = {"minicpm3": mla_bytes, "qwen3": qwen_bytes}
+    rec["profile"] = phase_serve_profile(
+        smi, model, params, reqs, MINICPM_ARGS, "serve-minicpm3-profile",
+        "profile_serve_minicpm3.txt")
+    ppath = _write_prefix_requests(model.cfg.vocab_size)
+    chunked = MINICPM_ARGS + ["--prefill-chunk", str(CHUNK)]
+    rec["hot"] = _serve_warm_then_rest(smi, model, params, ppath,
+                                       chunked + ["--prefix-cache"],
+                                       "prefix-minicpm3-hot",
+                                       attention_kernels=False,
+                                       fit_table=True)
+    rec["cold"] = _serve_warm_then_rest(smi, model, params, ppath, chunked,
+                                        "prefix-minicpm3-cold",
+                                        attention_kernels=False,
+                                        fit_table=True)
+    hot, cold = rec["hot"], rec["cold"]
+    check(hot["tokens"] == cold["tokens"], "[prefix-minicpm3] prefix-hit "
+          "greedy tokens differ from the cold chunked run's")
+    check(hot["prefix_hits"] >= PREFIX_REQUESTS - 1
+          and hot["cow_copies"] >= 1
+          and hot["pages_allocated"] < cold["pages_allocated"],
+          f"[prefix-minicpm3] hits {hot['prefix_hits']}, CoW "
+          f"{hot['cow_copies']}, pages {hot['pages_allocated']} vs cold "
+          f"{cold['pages_allocated']}")
+    print(f"[prefix-minicpm3] prefix hit == cold chunked, greedy tokens "
+          f"bitwise, all {PREFIX_REQUESTS} requests; pages allocated hot "
+          f"{hot['pages_allocated']} vs cold {cold['pages_allocated']} "
+          f"({hot['cache_tokens_allocated']} vs "
+          f"{cold['cache_tokens_allocated']} token slots); TTFT p50 hot "
+          f"{hot['p50_ttft_s'] * 1e3:.1f} ms vs cold "
+          f"{cold['p50_ttft_s'] * 1e3:.1f} ms [{smi}]")
+    for r in ("hot", "cold"):
+        rec[r].pop("last_logits")
+        rec[r].pop("tokens")
+    del model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_c5(smi: str) -> dict:
+    """ROADMAP queue C5 on the card: reduced falcon-mamba-7b and
+    recurrentgemma-9b (f32, random weights from seed 0), prompts of 1 and
+    2 tokens (shorter than conv_kernel - 1 = 3) prefilled into the slot
+    layout, then 4 decode steps teacher-forced: the prefill's and every
+    step's logits within 1e-5 of the whole-sequence forward's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.cache import PagedLayout
+    from repro_torch.models.transformer import Model
+    rec = {}
+    for arch in ("falcon-mamba-7b", "recurrentgemma-9b"):
+        model = Model(reduced(get_config(arch)))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for P in (1, 2):
+            B, S = 2, P + 4
+            toks = torch.randint(0, model.cfg.vocab_size, (B, S),
+                                 generator=gen, device="cuda")
+            want = model.logits(params, {"tokens": toks})
+            lay = PagedLayout(model, n_slots=B, num_pages=2, page_size=PAGE,
+                              max_pages=1)
+            cache = lay.init_cache(device="cuda")
+            logits, cache = lay.prefill_into(
+                params, cache, {"tokens": toks[:, :P]},
+                torch.zeros((B, 0), dtype=torch.long, device="cuda"),
+                torch.arange(B, device="cuda"))
+            err = float((logits - want[:, P - 1]).abs().max())
+            bt = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+            for t in range(P, S):
+                logits, cache = lay.decode_step(
+                    params, cache, toks[:, t:t + 1],
+                    torch.full((B,), t, device="cuda"), bt)
+                err = max(err, float((logits - want[:, t]).abs().max()))
+            print(f"[c5] {arch} reduced, P={P}: slot-layout prefill + 4 "
+                  f"decode steps vs the whole-sequence forward: max "
+                  f"|dlogit| {err:.3g} (1e-5) [{smi}]")
+            check(err <= 1e-5, f"[c5] {arch} P={P}: {err}")
+            rec[f"{arch} P={P}"] = err
+        del model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3218,6 +3680,15 @@ def main() -> int:
     hybrid["phase_s"] = time.perf_counter() - t0
     print(f"[hybrid] the recurrentgemma-9b and recurrent-training phases "
           f"took {hybrid['phase_s']:.1f} s [{smi}]")
+    t0 = time.perf_counter()
+    moe = {"kernels": phase_moe_kernel_shapes(smi)}
+    moe["serve"] = phase_serve_moe(smi, requests)
+    moe["train"] = phase_train_moe(smi)
+    moe["mla"] = phase_serve_mla(smi, requests)
+    moe["c5"] = phase_c5(smi)
+    moe["phase_s"] = time.perf_counter() - t0
+    print(f"[moe] the MoE, MLA and C5 phases took {moe['phase_s']:.1f} s "
+          f"[{smi}]")
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -3322,6 +3793,33 @@ def main() -> int:
               f"{k['ms']:.4f} ms per step ({len(ft['bucket_sizes'])} "
               f"launches, W={W}), plain {k['plain_ms']:.4f} ms, byte bound "
               f"{k['bound_ms']:.4f} ms, max abs err {k['err']:.3g} [{smi}]")
+    for key, what in (("olmoe", f"olmoe-1b-7b x{OLMOE_LAYERS}"),
+                      ("phi", f"phi3.5-moe x{PHI_LAYERS}")):
+        r = moe["serve"][key]
+        print(f"[times] serve {what}, 16 slots, bf16 KV, paged kernel: "
+              f"{r['decode_tokens_per_s']:.1f} decode tok/s, "
+              f"{r['step_ms']:.3f} ms/decode step, TTFT p50/p95 "
+              f"{r['p50_ttft_s'] * 1e3:.1f}/{r['p95_ttft_s'] * 1e3:.1f} ms, "
+              f"peak {r['peak_bytes'] / 2**30:.3f} GiB; B4 "
+              f"{r['launches']['paged_attention']}, B5 "
+              f"{r['launches']['flash_attention']} launches [{smi}]")
+    r = moe["mla"]["whole"]
+    print(f"[times] serve minicpm3-4b x{MINICPM_LAYERS} (MLA), 16 slots, "
+          f"bf16 latent pages: {r['decode_tokens_per_s']:.1f} decode tok/s,"
+          f" {r['step_ms']:.3f} ms/decode step, TTFT p50/p95 "
+          f"{r['p50_ttft_s'] * 1e3:.1f}/{r['p95_ttft_s'] * 1e3:.1f} ms, "
+          f"peak {r['peak_bytes'] / 2**30:.3f} GiB; "
+          f"{moe['mla']['token_bytes']['minicpm3']} B a token [{smi}]")
+    ot = moe["train"]["olmoe"]
+    print(f"[times] train olmoe-1b-7b x1, W={W}, routed: step "
+          f"{ot['step_ms']:.3f} ms, peak {ot['peak_bytes'] / 2**30:.3f} GiB"
+          f" [{smi}]")
+    for name in ("dc_norms", "dc_fused_update"):
+        k = moe["train"]["olmoe_kernels"][name]
+        print(f"[times] {name} on olmoe-1b-7b x1: {k['ms']:.4f} ms per step "
+              f"({len(ot['bucket_sizes'])} launches, W={W}), plain "
+              f"{k['plain_ms']:.4f} ms, byte bound {k['bound_ms']:.4f} ms, "
+              f"max abs err {k['err']:.3g} [{smi}]")
     print(f"[times] serve falcon-mamba-7b x64, 16 slots: "
           f"{fm['decode_tokens_per_s']:.1f} decode tok/s, "
           f"{fm['step_ms']:.3f} ms/decode step, inter-token p50/p95 "
@@ -3359,12 +3857,22 @@ def main() -> int:
              "serve stablelm-3b": dense["stablelm"]["launches"],
              "serve stablelm-3b chunked":
                  dense["stablelm_chunked"]["launches"],
-             "serve granite-20b x12": dense["granite"]["launches"]}
-    shapes = {"paged_attention": paged_shapes, "flash_attention":
+             "serve granite-20b x12": dense["granite"]["launches"],
+             "serve olmoe-1b-7b x16": moe["serve"]["olmoe"]["launches"],
+             "serve phi3.5-moe x8": moe["serve"]["phi"]["launches"]}
+    shapes = {"paged_attention": {**paged_shapes,
+                                  **moe["kernels"]["paged"]},
+              "flash_attention":
               {**{k: v for k, v in flash_shapes.items()
                   if isinstance(v, dict)},
                **{f"recurrentgemma {k}": v
-                  for k, v in hybrid["flash"].items()}}}
+                  for k, v in hybrid["flash"].items()},
+               **moe["kernels"]["flash"]}}
+    # minicpm3's paths (latent pages by gather, the plain prefill core)
+    mla_paths = {"serve minicpm3-4b x62": moe["mla"]["whole"]["launches"],
+                 "serve minicpm3-4b int8": moe["mla"]["int8"]["launches"],
+                 "prefix minicpm3 hot": moe["mla"]["hot"]["launches"],
+                 "prefix minicpm3 cold": moe["mla"]["cold"]["launches"]}
     hybrid_paths = {"serve recurrentgemma-9b": hybrid["serve"]["launches"]}
     for entry in kernels:
         name = entry["name"]
@@ -3380,6 +3888,10 @@ def main() -> int:
             check(all(n > 0 for n in entry["launches_by_path"].values()),
                   f"{name}: a serve path launched it no time: "
                   f"{entry['launches_by_path']}")
+            entry["launches_on_mla_paths"] = {p: n[name]
+                                              for p, n in mla_paths.items()}
+            check(not any(entry["launches_on_mla_paths"].values()),
+                  f"{name} launched on an MLA path")
     for entry in kernels:
         # A1 and A2 on the CNN main path: its launches (dc_s3gd, 6 steps)
         # and the per-step sums over its 6 bucket sizes at W = 8
@@ -3407,6 +3919,14 @@ def main() -> int:
                 "max_abs_err": k["err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": "bytes"}
+            # and on olmoe-1b-7b x1's routed training path (5 steps, W = 2)
+            k = moe["train"]["olmoe_kernels"][entry["name"]]
+            entry["olmoe"] = {
+                "launches": moe["train"]["olmoe"]["launches"][
+                    entry["name"]],
+                "max_abs_err": k["err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": "bytes"}
     record = {"card": smi, "step_ms": step_s * 1e3, "peak_bytes": peak,
               "compressed_step_ms": c_step_s * 1e3,
               "compressed_peak_bytes": c_peak,
@@ -3419,7 +3939,7 @@ def main() -> int:
               "prefill_routes_qwen3": q_routes, "serve_ssm": fm,
               "cnn": cnn, "state": state, "flash_shapes": flash_shapes,
               "paged_shapes": paged_shapes, "serve_prefix": prefix,
-              "dense_family": dense, "hybrid": hybrid,
+              "dense_family": dense, "hybrid": hybrid, "moe_mla": moe,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start
     print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "

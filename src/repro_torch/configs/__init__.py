@@ -3,23 +3,25 @@
 Each config module exposes ``CONFIG`` (the full-size published config with
 its source); ``reduced(cfg)`` gives the 2-layer smoke variant the CPU
 tests use.  Only the configs the port can run are listed (the dense
-qwen3-0.6b, stablelm-3b and granite-20b, the ssm falcon-mamba-7b and the
-hybrid recurrentgemma-9b); the others are queued in ROADMAP.md (queue A,
-item 7).
+qwen3-0.6b, stablelm-3b, granite-20b and minicpm3-4b (MLA), the moe
+olmoe-1b-7b and phi3.5-moe-42b-a6.6b, the ssm falcon-mamba-7b and the
+hybrid recurrentgemma-9b); the others are queued in ROADMAP.md (queue A:
+qwen2-vl, whisper).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import (falcon_mamba_7b, granite_20b, qwen3_0_6b,
+from repro_torch.configs import (falcon_mamba_7b, granite_20b, minicpm3_4b,
+                                 olmoe_1b_7b, phi35_moe_42b, qwen3_0_6b,
                                  recurrentgemma_9b, stablelm_3b)
 from repro_torch.core.types import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
     c.CONFIG.name: c.CONFIG
     for c in (qwen3_0_6b, falcon_mamba_7b, stablelm_3b, granite_20b,
-              recurrentgemma_9b)
+              recurrentgemma_9b, olmoe_1b_7b, phi35_moe_42b, minicpm3_4b)
 }
 
 
@@ -32,10 +34,11 @@ def get_config(name: str) -> ModelConfig:
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant of the same family: 2 layers, d_model<=256,
     small vocab, f32 compute — the reference's ``reduced`` for the dense,
-    ssm and hybrid families (the ssm config is kept as it is; the hybrid
-    one gets lru_width 256, a 64-token window and 4 layers: one full
-    (recurrent, recurrent, attention) unit and a one-block remainder
-    stage)."""
+    moe, ssm and hybrid families (the ssm config is kept as it is; the
+    hybrid one gets lru_width 256, a 64-token window and 4 layers: one
+    full (recurrent, recurrent, attention) unit and a one-block remainder
+    stage; MoE 4 experts, top-k at most 2, expert width 128; MLA the
+    latent ranks 64 / 32, heads 32 + 16 wide, v 32 and ``head_dim`` 0)."""
     kw = dict(
         name=cfg.name + "-smoke",
         ssm=cfg.ssm,
@@ -54,4 +57,13 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=256,
                                           attention_window=64)
         kw["n_layers"] = 4  # keep a full (rec, rec, attn) unit + remainder
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, n_experts=4,
+                                        top_k=min(cfg.moe.top_k, 2),
+                                        d_ff_expert=128)
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(cfg.mla, q_lora_rank=64,
+                                        kv_lora_rank=32, qk_nope_head_dim=32,
+                                        qk_rope_head_dim=16, v_head_dim=32)
+        kw["head_dim"] = 0
     return dataclasses.replace(cfg, **kw)

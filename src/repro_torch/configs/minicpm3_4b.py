@@ -1,0 +1,17 @@
+"""MiniCPM3-4B — dense decoder with Multi-head Latent Attention.
+[hf:openbmb/MiniCPM3-4B]"""
+from repro_torch.core.types import MLAConfig, ModelConfig
+
+CONFIG = ModelConfig(
+    name="minicpm3-4b",
+    family="dense",
+    n_layers=62,
+    d_model=2560,
+    n_heads=40,
+    n_kv_heads=40,
+    d_ff=6400,
+    vocab_size=73448,
+    mla=MLAConfig(q_lora_rank=768, kv_lora_rank=256, qk_nope_head_dim=64,
+                  qk_rope_head_dim=32, v_head_dim=64),
+    source="hf:openbmb/MiniCPM3-4B (MLA dims from model card)",
+)

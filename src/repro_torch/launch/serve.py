@@ -170,7 +170,7 @@ def build(args):
         cfg = reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    model = Model(cfg)
+    model = Model(cfg)            # routed MoE, as the reference serves
     if args.train_ckpt is not None:
         params, resolved = params_from_train_ckpt(
             model, args.train_ckpt, algo=args.algo, n_workers=args.workers,
@@ -252,10 +252,11 @@ def record_arrival_schedule(args, reqs, arrivals, path: Path) -> None:
     print(f"[serve] arrival schedule recorded in {path}")
 
 
-def make_scheduler(model, params, args) -> Scheduler:
-    """The `Scheduler` ``args`` describe, on the params' device."""
+def make_scheduler(model, params, args, max_len=None) -> Scheduler:
+    """The `Scheduler` ``args`` describe, on the params' device; its block
+    tables ``max_len`` tokens wide (default: the whole pool)."""
     return Scheduler(model, params, slots=args.slots, pages=args.pages,
-                     page_size=args.page_size,
+                     page_size=args.page_size, max_len=max_len,
                      sampler=args.sampler, temperature=args.temperature,
                      seed=args.seed, use_kernel=args.paged_kernel,
                      decode_burst=args.decode_burst,

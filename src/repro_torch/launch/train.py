@@ -189,7 +189,9 @@ def build(args, *, device=None):
         cfg = reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    model = Model(cfg, loss_chunk=256)
+    # the reduced MoE trains through the all-experts oracle, as the
+    # reference's launcher does; the published widths route
+    model = Model(cfg, loss_chunk=256, moe_dense=args.reduced)
     dc_cfg = DCS3GDConfig(
         learning_rate=args.lr, momentum=args.momentum, lambda0=args.lambda0,
         warmup_steps=max(int(args.warmup_frac * args.steps), 1),

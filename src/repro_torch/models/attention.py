@@ -24,8 +24,11 @@ so the memory is O(window), not O(sequence).  A prompt's chunk
 attends over the cache's linearized view through the layout's ops: the
 flash-attention kernel with a query offset on the card,
 `blocked_attention` (the reference's online softmax over fixed key
-blocks) on the CPU.  Cross-attention and M-RoPE are not ported (ROADMAP
-queue A, item 7: whisper and qwen2-vl).
+blocks) on the CPU.  Multi-head latent attention (MiniCPM3) has the
+same three paths over a latent cache: `mla_train` (the plain core at a
+q·k width other than v's), the absorbed one-token `mla_decode` and
+`mla_prefill_chunk`.  Cross-attention and M-RoPE are not ported (ROADMAP
+queue A: whisper and qwen2-vl).
 """
 from __future__ import annotations
 
@@ -35,9 +38,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_rope, dense_init, init_rmsnorm,
-                                       matmul, rmsnorm)
+                                       matmul, promoted, rmsnorm)
 
 NEG_INF = -1e30
+MLA_KEY_BLOCK = 256  # keys per block of an MLA chunk's attention
 
 
 def init_attention(gen: torch.Generator, lead, d: int, n_heads: int,
@@ -286,3 +290,199 @@ def attention_prefill_chunk(params: dict, cache: dict, x: torch.Tensor,
     out = out.reshape(B, L, H * hd).to(x.dtype)
     wo = params["wo"]
     return matmul(out, wo.reshape(H * hd, wo.shape[-1])), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, lead, d: int, n_heads: int, mla_cfg,
+             dtype) -> dict:
+    """The reference's ``init_mla`` with a leading stacked-layer shape
+    ``lead``: the query and kv down-projections to their latent ranks,
+    the latents' norms, the shared rope key projection ``w_kr``, the
+    per-head up-projections and ``wo``."""
+    m, lead = mla_cfg, tuple(lead)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": dense_init(gen, lead + (d, m.q_lora_rank), dtype,
+                           in_axis_size=d),
+        "q_norm": init_rmsnorm(lead + (m.q_lora_rank,), dtype, gen.device),
+        "w_uq": dense_init(gen, lead + (m.q_lora_rank, n_heads, qk), dtype,
+                           in_axis_size=m.q_lora_rank),
+        "w_dkv": dense_init(gen, lead + (d, m.kv_lora_rank), dtype,
+                            in_axis_size=d),
+        "kv_norm": init_rmsnorm(lead + (m.kv_lora_rank,), dtype,
+                                gen.device),
+        "w_kr": dense_init(gen, lead + (d, m.qk_rope_head_dim), dtype,
+                           in_axis_size=d),
+        "w_uk": dense_init(gen, lead + (m.kv_lora_rank, n_heads,
+                                        m.qk_nope_head_dim), dtype,
+                           in_axis_size=m.kv_lora_rank),
+        "w_uv": dense_init(gen, lead + (m.kv_lora_rank, n_heads,
+                                        m.v_head_dim), dtype,
+                           in_axis_size=m.kv_lora_rank),
+        "wo": dense_init(gen, lead + (n_heads, m.v_head_dim, d), dtype,
+                         in_axis_size=n_heads * m.v_head_dim),
+    }
+
+
+def _mla_query(params: dict, x: torch.Tensor, positions: torch.Tensor,
+               m, rope_theta: float, norm_eps: float):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope) roped)."""
+    q_lat = rmsnorm(params["q_norm"], matmul(x, params["w_dq"]), norm_eps)
+    q = _project(q_lat, params["w_uq"])
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, rope_theta)
+
+
+def mla_latents(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                rope_theta: float, norm_eps: float = 1e-6):
+    """What the latent cache stores per token: (ckv (B, S, kv_lora_rank),
+    the normed latent; k_rope (B, S, qk_rope_head_dim), the roped key
+    shared by every head)."""
+    ckv = rmsnorm(params["kv_norm"], matmul(x, params["w_dkv"]), norm_eps)
+    k_rope = apply_rope(matmul(x, params["w_kr"])[..., None, :], positions,
+                        rope_theta)[..., 0, :]
+    return ckv, k_rope
+
+
+def _mla_expand(params: dict, q_nope, q_rope, ckv, k_rope):
+    """The multi-query form: keys and values expanded from the latents
+    through ``w_uk`` / ``w_uv``, the rope key broadcast over the heads.
+    Returns (q (B, Sq, H, 1, qk), k (B, Sk, H, qk), v (B, Sk, H, vd))."""
+    k_nope = _project(ckv, params["w_uk"])
+    v = _project(ckv, params["w_uv"])
+    H = q_nope.shape[2]
+    kr = k_rope[:, :, None, :].expand(-1, -1, H, -1).to(k_nope.dtype)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return q[:, :, :, None, :], torch.cat([k_nope, kr], dim=-1), v
+
+
+def _mla_out(params: dict, out: torch.Tensor, dtype=None):
+    """(B, S, H, vd) attention output -> (B, S, d) through ``wo``, cast
+    to ``dtype`` first where the reference casts (the chunk path)."""
+    B, S, H, vd = out.shape
+    wo = params["wo"]
+    out = out.reshape(B, S, H * vd)
+    return matmul(out if dtype is None else out.to(dtype),
+                  wo.reshape(H * vd, wo.shape[-1]))
+
+
+def mla_train(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
+              mla_cfg, rope_theta: float, norm_eps: float = 1e-6,
+              return_latents: bool = False):
+    """x: (B, S, d) -> (B, S, d), causal, through the plain core
+    (`causal_attention`: the q·k head is nope + rope wide, v is
+    ``v_head_dim`` wide, so no kernel of the port takes it; the reference
+    too runs MLA through its plain blocked attention).  With
+    ``return_latents`` also the (ckv, k_rope) the decode cache stores."""
+    m = mla_cfg
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_query(params, x, positions, m, rope_theta,
+                                norm_eps)
+    ckv, k_rope = mla_latents(params, x, positions, rope_theta=rope_theta,
+                              norm_eps=norm_eps)
+    qg, k, v = _mla_expand(params, q_nope, q_rope, ckv, k_rope)
+    out = causal_attention(qg, k, v)[:, :, :, 0]
+    y = _mla_out(params, out)
+    return (y, ckv, k_rope) if return_latents else y
+
+
+def init_mla_cache(batch: int, cache_len: int, mla_cfg, dtype,
+                   device) -> dict:
+    """Zeroed dense latent caches: ckv (batch, cache_len, kv_lora_rank)
+    and k_rope (batch, cache_len, qk_rope_head_dim)."""
+    return {
+        "ckv": torch.zeros((batch, cache_len, mla_cfg.kv_lora_rank),
+                           dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, cache_len, mla_cfg.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+    }
+
+
+def mla_attend_one(params: dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                   ckv: torch.Tensor, k_rope: torch.Tensor,
+                   valid: torch.Tensor, *, mla_cfg, out_dtype
+                   ) -> torch.Tensor:
+    """The absorbed-weight MLA core for one token: ``w_uk`` folded into
+    the query, scores and values taken in the latent space.  q_nope (B, H,
+    nope), q_rope (B, H, rope); ckv (B, C, rank), k_rope (B, C, rope);
+    valid (C,) shared or (B, C) per row.  The scores and the latent values
+    are accumulated in f32 (the reference's ``preferred_element_type``),
+    the probabilities rounded to the cache dtype first, the latent values
+    cast to ``out_dtype`` before ``w_uv``.  Shared by the dense and paged
+    layouts, so the two are bitwise equal on matched inputs.  Returns (B,
+    H, v_head_dim)."""
+    m = mla_cfg
+    q_abs = torch.einsum("bhk,rhk->bhr", *promoted(q_nope, params["w_uk"]))
+    ckv32 = ckv.float()                   # widened once, read twice
+    s = torch.einsum("bhr,bsr->bhs", q_abs.float(), ckv32)
+    s = s + torch.einsum("bhk,bsk->bhs", q_rope.float(), k_rope.float())
+    s = s * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    mask = valid[None] if valid.dim() == 1 else valid
+    s = torch.where(mask[:, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    lat = torch.einsum("bhs,bsr->bhr", p.to(ckv.dtype).float(),
+                       ckv32).to(out_dtype)
+    return torch.einsum("bhr,rhk->bhk", *promoted(lat, params["w_uv"]))
+
+
+def mla_decode(params: dict, cache: dict, x: torch.Tensor,
+               pos: torch.Tensor, *, mla_cfg, rope_theta: float,
+               norm_eps: float = 1e-6, cache_ops=None):
+    """One-token absorbed MLA decode.  x: (B, 1, d); pos 0-d (the dense
+    layout) or per row (B,) under a paged layout, whose ``cache_ops``
+    takes over the latent write and view.  The dense path writes at
+    ``pos`` in place.  Returns ((B, 1, d), the cache)."""
+    m = mla_cfg
+    B = x.shape[0]
+    positions = decode_positions(pos)
+    q_nope, q_rope = _mla_query(params, x, positions, m, rope_theta,
+                                norm_eps)
+    ckv_t, k_rope_t = mla_latents(params, x, positions,
+                                  rope_theta=rope_theta, norm_eps=norm_eps)
+    ckv_t, k_rope_t = ckv_t[:, 0], k_rope_t[:, 0]
+    if cache_ops is not None:
+        ckv, k_rope, valid, cache = cache_ops.mla_update(cache, ckv_t,
+                                                         k_rope_t)
+    else:
+        rows = torch.arange(B, device=x.device)
+        slot = pos.long().expand(B)
+        cache["ckv"][rows, slot] = ckv_t.to(cache["ckv"].dtype)
+        cache["k_rope"][rows, slot] = k_rope_t.to(cache["k_rope"].dtype)
+        ckv, k_rope = cache["ckv"], cache["k_rope"]
+        valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+    out = mla_attend_one(params, q_nope[:, 0], q_rope[:, 0], ckv, k_rope,
+                         valid, mla_cfg=m, out_dtype=x.dtype)
+    return _mla_out(params, out[:, None]), cache
+
+
+def mla_prefill_chunk(params: dict, cache: dict, x: torch.Tensor,
+                      positions: torch.Tensor, *, mla_cfg,
+                      rope_theta: float, norm_eps: float = 1e-6,
+                      cache_ops=None):
+    """The MLA twin of `attention_prefill_chunk`: the chunk's latents go
+    into the latent pages first, then its queries attend over the
+    linearized latent view expanded through ``w_uk`` / ``w_uv`` (the
+    multi-query form; the absorbed form is the one-token decode's), by
+    `blocked_attention` over key blocks of ``MLA_KEY_BLOCK`` on every
+    device (the reference blocks by a page: a sixteenth of the launches
+    at a page of 16).  The blocking is fixed and aligned to key 0, and a
+    wholly masked block is an exact no-op, so a row's bits do not depend
+    on where its chunk starts: a prefix hit is the cold run's.  Returns
+    ((B, L, d), the cache, updated in place)."""
+    m = mla_cfg
+    L = x.shape[1]
+    q_nope, q_rope = _mla_query(params, x, positions, m, rope_theta,
+                                norm_eps)
+    ckv, k_rope = mla_latents(params, x, positions, rope_theta=rope_theta,
+                              norm_eps=norm_eps)
+    ckv_lin, kr_lin, cache = cache_ops.mla_prefill(cache, ckv, k_rope)
+    qg, k, v = _mla_expand(params, q_nope, q_rope, ckv_lin, kr_lin)
+    out = blocked_attention(qg, k, v, positions,
+                            torch.arange(k.shape[1], device=x.device),
+                            causal=True, window=0, q_chunk=L,
+                            kv_chunk=MLA_KEY_BLOCK)
+    return _mla_out(params, out[:, :, :, 0], x.dtype), cache

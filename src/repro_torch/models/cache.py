@@ -1,6 +1,6 @@
 """Cache layouts: how decode state is stored, addressed and updated (the
-port of ``repro.models.cache`` for full and sliding-window attention, the
-Mamba state and the RG-LRU state).
+port of ``repro.models.cache`` for full and sliding-window attention,
+MLA's latent cache, the Mamba state and the RG-LRU state).
 
 * `DenseLayout` — one contiguous ``(B, cache_len, KV, hd)`` buffer per
   layer (a ring ``(B, window, KV, hd)`` for a windowed kind, or the
@@ -20,6 +20,11 @@ Mamba state and the RG-LRU state).
                      with ``kv_dtype`` int8/fp8 each token slot also
                      carries one f32 scale in ``*_scale`` pools ``(R,
                      num_pages, page_size)``
+  mla                latent pools ``(R, num_pages, page_size,
+                     kv_lora_rank)`` for ckv and ``(R, num_pages,
+                     page_size, qk_rope_head_dim)`` for k_rope, through
+                     the same block table (the latent cache is per
+                     token); int8/fp8 add ``ckv_scale`` / ``k_rope_scale``
   attention w > 0    slot-indexed ring ``(R, n_slots, window, KV, hd)``
   (sliding, and      at the compute dtype: position ``p`` at slot ``p %
   attention_local)   window``, already O(window), nothing to page
@@ -33,11 +38,13 @@ Mamba state and the RG-LRU state).
   paged kind (falcon-mamba, recurrentgemma) never allocates a page.
 
 The decode math stays in `repro_torch.models.attention`: the layout owns
-the update and the view (`_PagedOps.kv_attend`).  The gather path feeds
-the paged linearized view, and the ring path the slot's ring, to the same
-`attend_one` as the dense path, so at matched linearized cache lengths
-(rings are ``window`` wide in both) and storage dtypes the two are
-bitwise equal.
+the update and the view (`_PagedOps.kv_attend`, `_PagedOps.mla_update`).
+The gather path feeds the paged linearized view, and the ring path the
+slot's ring, to the same `attend_one` (`mla_attend_one`) as the dense
+path, so at matched linearized cache lengths (rings are ``window`` wide
+in both) and storage dtypes the two are bitwise equal.  The latent pages
+are always read by the gather: the reference sends only full attention to
+its kernel.
 On a CUDA device the pages are read through the hand-written kernel
 `repro_torch.kernels.paged_attention` instead of materializing the
 ``(B, max_pages * page_size, KV, hd)`` gather; on the CPU the gather is
@@ -61,14 +68,14 @@ result does not depend on where its chunk starts: a prefix-cache hit that
 resumes mid-prompt gives the cold chunked prefill's bits.  `copy_page` is
 the device half of copy-on-write.  Rings and slot states cannot resume
 mid-prompt, so a model with any of them is not ``chunkable``, as in the
-reference.
+reference; nor is a routed MoE model (its capacity drops depend on which
+tokens share a batch), only one built with ``moe_dense``.
 
 Physical page 0 is the scratch page: inactive decode slots point their
 whole block table at it (and sit at position 0), so their writes land
 somewhere harmless and the step needs no per-slot mask.
 
-Not ported yet: the MLA and cross-attention kinds (ROADMAP queue A,
-item 7).
+Not ported yet: the cross-attention kind (ROADMAP queue A: whisper).
 """
 from __future__ import annotations
 
@@ -104,7 +111,7 @@ def resolved_window(cfg: ModelConfig, kind: str) -> int:
         return cfg.rglru.attention_window
     if kind == "attention":
         return cfg.sliding_window
-    if kind in ("mamba", "recurrent"):
+    if kind in ("mamba", "recurrent", "mla"):
         return 0
     raise NotImplementedError(f"{kind!r} blocks are not ported (ROADMAP "
                               "queue A, item 7)")
@@ -119,10 +126,16 @@ def stacked(c: dict, repeats: int) -> dict:
 
 def paged_kinds(cfg: ModelConfig, kinds) -> List[str]:
     """The block kinds of one stage unit whose cache grows with sequence
-    length (and therefore lives in the page pool): full-causal attention;
-    rings and the Mamba / RG-LRU states are slot-indexed."""
-    return [k for k in kinds
-            if resolved_window(cfg, k) == 0 and k == "attention"]
+    length (and therefore lives in the page pool): full-causal attention
+    and mla; rings and the Mamba / RG-LRU states are slot-indexed."""
+    return [k for k in kinds if k == "mla"
+            or (resolved_window(cfg, k) == 0 and k == "attention")]
+
+
+def _scaled(lin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """A linearized view (B, C, ...) dequantized to f32 by its per-token
+    scales (B, C)."""
+    return lin.float() * scale.reshape(scale.shape + (1,) * (lin.dim() - 2))
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +235,29 @@ class _PagedOps:
         v_lin, _ = self._linearize(cache["v"], *scales[1:])
         return attend_one(qg, k_lin, v_lin, valid), cache
 
+    def mla_update(self, cache: dict, ckv_t, k_rope_t):
+        """Write the step's latents (B, rank) and (B, rope) at each row's
+        position (quantized per token with their scales for int8/fp8
+        pools), then gather each row's latent pages.  Returns (ckv (B, C,
+        rank), k_rope (B, C, rope), valid (B, C), the cache); the views
+        are f32 when the pools are quantized."""
+        at = (self.phys, self.off)
+        names = (("ckv", ckv_t), ("k_rope", k_rope_t))
+        for name, new in names:
+            if self.layout.kv_quantized:
+                qv, sc = _quantize_tokens(new, self.layout.kv_dtype, 1)
+                cache[name][at] = qv
+                cache[f"{name}_scale"][at] = sc
+            else:
+                cache[name][at] = new.to(cache[name].dtype)
+        views = [self._linearize(cache[name], cache.get(f"{name}_scale"))
+                 for name, _ in names]
+        return views[0][0], views[1][0], views[0][1], cache
+
     def _linearize(self, pool: torch.Tensor,
                    scale: Optional[torch.Tensor] = None):
         """Gather each slot's pages into logical order: (B, max_pages *
-        page_size, KV, hd), the paged view of the dense cache.  With
+        page_size, ...), the paged view of the dense cache.  With
         ``scale`` (the pool's per-token f32 scales) the view is
         dequantized to f32, so the attention math never sees the storage
         dtype."""
@@ -233,7 +265,7 @@ class _PagedOps:
         ps = self.layout.page_size
         lin = pool[self.bt].reshape(B, mp * ps, *pool.shape[2:])
         if scale is not None:
-            lin = lin.float() * scale[self.bt].reshape(B, mp * ps, 1, 1)
+            lin = _scaled(lin, scale[self.bt].reshape(B, mp * ps))
         valid = torch.arange(mp * ps, device=lin.device)[None, :] \
             <= self.pos[:, None]
         return lin, valid
@@ -280,15 +312,15 @@ class _ChunkOps:
             self._scatter(cache[name], new)
 
     def _view(self, cache: dict, name: str) -> torch.Tensor:
-        """The linearized view (B, n_view * page_size, KV, hd), dequantized
+        """The linearized view (B, n_view * page_size, ...), dequantized
         to f32 when the pools are quantized."""
         B, n = self.view_bt.shape
         ps = self.layout.page_size
         pool = cache[name]
         lin = pool[self.view_bt].reshape(B, n * ps, *pool.shape[2:])
         if self.layout.kv_quantized:
-            s = cache[f"{name}_scale"][self.view_bt].reshape(B, n * ps)
-            lin = lin.float() * s[:, :, None, None]
+            lin = _scaled(lin, cache[f"{name}_scale"][self.view_bt]
+                          .reshape(B, n * ps))
         return lin
 
     def kv_prefill_attend(self, cache: dict, qg, k_new, v_new, positions
@@ -308,6 +340,13 @@ class _ChunkOps:
                 window=0, q_chunk=qg.shape[1],
                 kv_chunk=self.layout.page_size)
         return out, cache
+
+    def mla_prefill(self, cache: dict, ckv, k_rope):
+        """Write the chunk's latents (B, L, ...) and return the views
+        (ckv, k_rope) the chunk's queries attend over, and the cache."""
+        self._store(cache, "ckv", ckv)
+        self._store(cache, "k_rope", k_rope)
+        return self._view(cache, "ckv"), self._view(cache, "k_rope"), cache
 
 
 class PagedLayout:
@@ -348,10 +387,13 @@ class PagedLayout:
         self.uses_pages = any(paged_kinds(cfg, st.kinds)
                               for st in model.stages)
         # chunked prefill and prefix caching need every kind position-
-        # addressable in pages: the paged kind (full attention) is; rings
-        # and slot-indexed states cannot resume mid-prompt
+        # addressable in pages: the paged kinds (full attention, mla) are;
+        # rings and slot-indexed states cannot resume mid-prompt.  And
+        # per-token FFN math: routed MoE drops tokens by batch occupancy,
+        # so a chunk boundary would change the math
         self.chunkable = all(paged_kinds(cfg, st.kinds) == list(st.kinds)
-                             for st in model.stages)
+                             for st in model.stages) \
+            and (cfg.moe is None or model.moe_dense)
 
     # -- allocation-free capacity facts ------------------------------------
 
@@ -376,16 +418,20 @@ class PagedLayout:
 
     def kv_bytes_per_token(self) -> int:
         """Pool bytes one committed token slot occupies across every paged
-        layer's k and v pools: the payload at the storage dtype plus one
-        f32 scale per (pool, slot) when quantized (0 when no kind is
-        paged)."""
+        layer's pools (k and v, or mla's ckv and k_rope): the payload at
+        the storage dtype plus one f32 scale per (pool, slot) when
+        quantized (0 when no kind is paged)."""
         cfg = self.model.cfg
         it = self._pool_dtype(self.model.compute_dtype).itemsize
         sb = Q.SCALE_BYTES if self.kv_quantized else 0
-        layers = sum(len(paged_kinds(cfg, st.kinds)) * st.repeats
-                     for st in self.model.stages)
-        return layers * 2 * (cfg.eff_n_kv_heads * cfg.resolved_head_dim
-                             * it + sb)
+        total = 0
+        for st in self.model.stages:
+            for kind in paged_kinds(cfg, st.kinds):
+                feats = (cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim) \
+                    if kind == "mla" else \
+                    (cfg.eff_n_kv_heads * cfg.resolved_head_dim,) * 2
+                total += st.repeats * sum(f * it + sb for f in feats)
+        return total
 
     def page_bytes(self) -> int:
         """Pool bytes one physical page pins across every paged layer."""
@@ -402,7 +448,9 @@ class PagedLayout:
         """Zeroed storage in the reference's tree, per stage and block of
         its unit, stacked over the unit's repeats R: the pools ``{"k",
         "v": (R, num_pages, page_size, KV, hd)[, "k_scale", "v_scale":
-        (R, num_pages, page_size)]}`` for full attention, the slot-indexed
+        (R, num_pages, page_size)]}`` for full attention, ``{"ckv",
+        "k_rope"[, "ckv_scale", "k_rope_scale"]}`` likewise for mla, the
+        slot-indexed
         ring ``(R, n_slots, window, KV, hd)`` of a windowed kind, or the
         Mamba / RG-LRU state ``(R, n_slots, ...)``."""
         dtype = dtype or self.model.compute_dtype
@@ -416,14 +464,17 @@ class PagedLayout:
         if not paged_kinds(cfg, (kind,)):     # slot-indexed, at ``dtype``
             return stacked(self.model.init_block_cache(
                 kind, self.n_slots, 0, dtype, device), repeats)
-        shape = (repeats, self.num_pages, self.page_size,
-                 cfg.eff_n_kv_heads, cfg.resolved_head_dim)
-        c = {n: torch.zeros(shape, dtype=self._pool_dtype(dtype),
-                            device=device) for n in ("k", "v")}
+        lead = (repeats, self.num_pages, self.page_size)
+        feats = {"ckv": (cfg.mla.kv_lora_rank,),
+                 "k_rope": (cfg.mla.qk_rope_head_dim,)} if kind == "mla" \
+            else {n: (cfg.eff_n_kv_heads, cfg.resolved_head_dim)
+                  for n in ("k", "v")}
+        c = {n: torch.zeros(lead + f, dtype=self._pool_dtype(dtype),
+                            device=device) for n, f in feats.items()}
         if self.kv_quantized:
-            for n in ("k_scale", "v_scale"):
-                c[n] = torch.zeros(shape[:3], dtype=torch.float32,
-                                   device=device)
+            for n in feats:
+                c[f"{n}_scale"] = torch.zeros(lead, dtype=torch.float32,
+                                              device=device)
         return c
 
     # -- prefill-on-join ----------------------------------------------------
@@ -468,8 +519,8 @@ class PagedLayout:
         ps = self.page_size
         k_grp, n_pg = pages.shape
         flat = pages.reshape(-1).long()
-        for name in ("k", "v"):
-            seq = e[name]                       # (R, k, cache_len, KV, hd)
+        for name in e:
+            seq = e[name]                       # (R, k, cache_len, ...)
             seg = seq[:, :, :n_pg * ps].reshape(
                 seq.shape[0], k_grp * n_pg, ps, *seq.shape[3:])
             if self.kv_quantized:

@@ -55,16 +55,24 @@ def init_layernorm(shape, dtype, device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with jnp's type promotion.
+def promoted(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The operands of a product cast to their promoted dtype.
 
     The reference multiplies bf16 activations (``compute_dtype``) by f32
     weights and jnp promotes the product to f32; torch refuses a
-    mixed-dtype matmul, so both sides are cast to the promoted type here.
-    With f32 weights this makes every activation after the first product
-    f32, as in the reference."""
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt)
+    mixed-dtype matmul or einsum, so every operand is cast to the
+    promoted type here.  With f32 weights this makes every activation
+    after the first product f32, as in the reference."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return tuple(x.to(dt) for x in xs)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (batched over leading dims) with jnp's type promotion."""
+    x, w = promoted(x, w)
+    return x @ w
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +175,16 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def conv_state(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The decode conv state after a prompt: x's last ``k - 1`` rows (x:
+    (B, S, C), the raw pre-conv inputs), left-padded with zeros when the
+    prompt is shorter.  Zeros before position 0 are what `causal_conv1d`
+    assumes.  (The reference keeps ``x[:, -(k-1):]``, which holds only S
+    rows for S < k - 1: ROADMAP queue C5.)"""
+    tail = x[:, max(x.shape[1] - (k - 1), 0):]
+    return F.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
+
+
 def causal_conv1d_update(conv_state: torch.Tensor, x_t: torch.Tensor,
                          w: torch.Tensor,
                          bias: Optional[torch.Tensor] = None
@@ -175,10 +193,9 @@ def causal_conv1d_update(conv_state: torch.Tensor, x_t: torch.Tensor,
     (B, C).  Returns (y_t, new_conv_state), both in the promoted dtype
     (jnp's concatenate promotes; torch's einsum needs it spelled out)."""
     k = w.shape[-1]
-    dt = torch.promote_types(torch.promote_types(conv_state.dtype,
-                                                 x_t.dtype), w.dtype)
-    window = torch.cat([conv_state.to(dt), x_t.to(dt)[:, None, :]], dim=1)
-    y = torch.einsum("bkc,ck->bc", window, w.to(dt))
+    state, x_t, w = promoted(conv_state, x_t, w)
+    window = torch.cat([state, x_t[:, None, :]], dim=1)
+    y = torch.einsum("bkc,ck->bc", window, w)
     if bias is not None:
         y = y + bias
     return y, (window[:, 1:] if k > 1 else conv_state)

@@ -27,8 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (act_fn, causal_conv1d,
-                                       causal_conv1d_update, dense_init,
-                                       matmul)
+                                       causal_conv1d_update, conv_state,
+                                       dense_init, matmul)
 from repro_torch.models.ssm import ssm_scan_chunked
 
 _C = 8.0  # Griffin's fixed exponent scale
@@ -100,11 +100,12 @@ def rglru_prefill(params: dict, x: torch.Tensor, cfg, *,
                   chunk: int = 256) -> Tuple[torch.Tensor, dict]:
     """`rglru_forward` that also returns the decode state after the prompt
     (the reference's ``_rglru_with_state``): ``{"conv"``: the raw, pre-conv
-    xi of the last K-1 positions in x's dtype, ``"h"``: the final state
+    xi of the last K-1 positions in x's dtype (zero rows before a
+    prompt shorter than that), ``"h"``: the final state
     (B, w) f32}.  The reference runs the scan twice (once for y, once for
     h_last); here both come from the one pass."""
     out, h_last, xi_raw = _forward(params, x, chunk)
-    conv = xi_raw[:, -(cfg.conv_kernel - 1):, :].to(x.dtype)
+    conv = conv_state(xi_raw, cfg.conv_kernel).to(x.dtype)
     return out, {"conv": conv, "h": h_last}
 
 

@@ -35,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.ref import ssm_scan_plain
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_update,
-                                       dense_init, matmul)
+                                       conv_state, dense_init, matmul)
 
 
 def dt_rank_of(d_model: int, cfg) -> int:
@@ -219,11 +219,12 @@ def mamba_prefill(params: dict, x: torch.Tensor, cfg, *,
                   use_kernel: bool = True) -> Tuple[torch.Tensor, dict]:
     """`mamba_forward` that also returns the decode state after the prompt
     (the reference's ``_mamba_with_state``): ``{"conv"``: the raw, pre-conv
-    xi of the last K-1 positions in x's dtype, ``"ssm"``: the final
+    xi of the last K-1 positions in x's dtype (zero rows before a
+    prompt shorter than that), ``"ssm"``: the final
     state}.  The reference recomputes xi for the conv state; here it is
     the forward pass's own, the same values."""
     out, h_last, xi_raw = _forward(params, x, cfg, use_kernel)
-    conv = xi_raw[:, -(cfg.conv_kernel - 1):, :].to(x.dtype)
+    conv = conv_state(xi_raw, cfg.conv_kernel).to(x.dtype)
     return out, {"conv": conv, "ssm": h_last}
 
 

@@ -1,8 +1,11 @@
 """The decoder-only models (the port of ``repro.models.transformer.Model``
 for the ``dense`` family, blocks of kind ``attention``, full causal or
-sliding-window; the ``ssm`` family, blocks of kind ``mamba``; and the
-``hybrid`` family, RecurrentGemma's ``recurrent`` (RG-LRU + MLP) and
-``attention_local`` blocks; rmsnorm or layernorm, by ``cfg.norm``).
+sliding-window, or ``mla`` (MiniCPM3's multi-head latent attention);
+the ``moe`` family, ``attention`` blocks whose FFN is the
+mixture-of-experts `repro_torch.models.moe`; the ``ssm`` family, blocks
+of kind ``mamba``; and the ``hybrid`` family, RecurrentGemma's
+``recurrent`` (RG-LRU + MLP) and ``attention_local`` blocks; rmsnorm or
+layernorm, by ``cfg.norm``).
 
 A model is a sequence of *stages* (`stage_plan`), each a unit of one or
 more block kinds repeated: one stage of one kind for the dense and ssm
@@ -18,6 +21,13 @@ tree, so per-worker gradients are ``torch.autograd.grad`` of it, for
 every ported family: attention through the plain core, the Mamba and
 RG-LRU scans through the differentiable chunked scan
 (`repro_torch.models.ssm.ssm_scan_chunked`), as the reference trains.
+The MoE blocks' load-balance aux losses are summed into the loss.  The
+routed `moe_ffn` (capacity factor 1.25) runs in training and the
+prefill, dropless (capacity T) at decode; ``Model(cfg, moe_dense=True)``
+takes the all-experts oracle `moe_ffn_dense` everywhere instead, and
+chunked prefill takes it always (the layout's ``chunkable`` gate admits
+only that model: routed MoE drops tokens by batch occupancy, so a chunk
+boundary would change the math).
 
 Serving: ``prefill`` runs the prompt and returns the last position's
 logits with the dense cache tree, one entry per stage and block mirroring
@@ -26,14 +36,15 @@ attention, a ring ``(R, B, window, KV, hd)`` holding the last positions
 at slot ``pos % window`` for a windowed kind (``window`` wide whatever
 ``cache_len``: the reference sizes it ``min(window, cache_len)``, which
 silently drops keys still inside the window once a sequence outgrows
-``cache_len``; ROADMAP queue C), ``{"conv":
+``cache_len``; ROADMAP queue C), ``{"ckv": (R, B, cache_len, rank),
+"k_rope": (R, B, cache_len, rope)}`` for mla, ``{"conv":
 (R, B, K-1, E), "ssm": (R, B, E, N)}`` for mamba and ``{"conv": (R, B,
 K-1, w), "h": (R, B, w)}`` for recurrent; ``decode_step`` advances one
 token and updates the cache tree (dense, or the one a
 `repro_torch.models.cache` layout addresses) in place; ``prefill_chunk``
 runs one chunk of a prompt against the paged cache from an absolute
 position on, for chunked prefill and prefix-cache hits (full attention
-only).
+and mla only).
 
 Routes: the prefill's attention core is the hand-written flash-attention
 kernel (`repro_torch.kernels.flash_attention`, windowed for the windowed
@@ -56,6 +67,7 @@ import torch.nn.functional as F
 from repro_torch import tree as T
 from repro_torch.core.types import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.cache import resolved_window, stacked
@@ -89,7 +101,8 @@ def stage_plan(cfg: ModelConfig) -> List[Stage]:
         if rem:
             stages.append(Stage(unit[:rem], 1))
         return stages
-    return [Stage(("attention",), cfg.n_layers)]
+    return [Stage(("mla" if cfg.mla is not None else "attention",),
+                  cfg.n_layers)]
 
 
 def _init_norm(cfg: ModelConfig, shape, dtype, device) -> dict:
@@ -108,20 +121,21 @@ class Model:
     """Functional model wrapper over a nested-dict parameter tree."""
 
     def __init__(self, cfg: ModelConfig, *, loss_chunk: int = 2048,
-                 scan_chunk: int = 256, kernels: bool = True):
+                 scan_chunk: int = 256, kernels: bool = True,
+                 moe_dense: bool = False):
         gated = cfg.mlp_gated and cfg.activation in ("silu", "gelu")
-        dense = cfg.family == "dense" and cfg.moe is None \
-            and cfg.mla is None and gated
+        decoder = cfg.family in ("dense", "moe") and gated
         ssm = cfg.family == "ssm" and cfg.ssm is not None
         hybrid = cfg.family == "hybrid" and cfg.rglru is not None and gated
-        if not (dense or ssm or hybrid) \
+        if not (decoder or ssm or hybrid) \
                 or cfg.norm not in ("rmsnorm", "layernorm"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense (SiLU- or GeLU-gated, full or "
-                "sliding-window attention), ssm and hybrid (RG-LRU + local "
-                "attention) families with rmsnorm or layernorm are ported "
-                "(ROADMAP queue A, item 7)")
+                f"{cfg.name}: only the dense and moe (SiLU- or GeLU-gated; "
+                "full, sliding-window or latent attention), ssm and hybrid "
+                "(RG-LRU + local attention) families with rmsnorm or "
+                "layernorm are ported (ROADMAP queue A: qwen2-vl, whisper)")
         self.cfg = cfg
+        self.moe_dense = bool(moe_dense)
         self.stages = stage_plan(cfg)
         self.loss_chunk = loss_chunk
         self.scan_chunk = scan_chunk
@@ -157,13 +171,20 @@ class Model:
         if kind == "recurrent":
             p["rglru"] = rglru_mod.init_rglru_block(gen, lead, d, cfg.rglru,
                                                     dt)
+        elif kind == "mla":
+            p["attn"] = attn.init_mla(gen, lead, d, cfg.eff_n_heads, cfg.mla,
+                                      dt)
         else:
             p["attn"] = attn.init_attention(gen, lead, d, cfg.eff_n_heads,
                                             cfg.eff_n_kv_heads,
                                             cfg.resolved_head_dim,
                                             cfg.qk_norm, dt)
         p["ln2"] = _init_norm(cfg, lead + (d,), dt, dev)
-        p["mlp"] = init_mlp(gen, lead, d, cfg.d_ff, dt)
+        if cfg.moe is not None and kind == "attention":
+            p["moe"] = moe_mod.init_moe(gen, lead, d, cfg.moe, cfg.mlp_gated,
+                                        dt)
+        else:
+            p["mlp"] = init_mlp(gen, lead, d, cfg.d_ff, dt)
         return p
 
     def _blocks(self, params, caches=None):
@@ -187,11 +208,30 @@ class Model:
     def _embed(self, params, batch) -> torch.Tensor:
         return params["embed"]["tok"][batch["tokens"]].to(self.compute_dtype)
 
+    def _ffn(self, p: dict, h: torch.Tensor, aux: Optional[list] = None,
+             capacity_factor: float = 1.25) -> torch.Tensor:
+        """The block's FFN: the gated MLP, or the MoE (`moe_ffn` at
+        ``capacity_factor``, or the oracle under ``moe_dense``), its aux
+        loss appended to ``aux``."""
+        if "moe" not in p:
+            return mlp(p["mlp"], h, self.cfg.activation)
+        if self.moe_dense:
+            h, a = moe_mod.moe_ffn_dense(p["moe"], h, self.cfg.moe,
+                                         self.cfg.activation)
+        else:
+            h, a = moe_mod.moe_ffn(p["moe"], h, self.cfg.moe,
+                                   self.cfg.activation,
+                                   capacity_factor=capacity_factor)
+        if aux is not None:
+            aux.append(a)
+        return h
+
     def _block(self, kind: str, p: dict, x: torch.Tensor,
-               positions: torch.Tensor,
-               cache_out: Optional[list] = None) -> torch.Tensor:
+               positions: torch.Tensor, cache_out: Optional[list] = None,
+               aux: Optional[list] = None) -> torch.Tensor:
         """One block; with ``cache_out`` (the prefill) the block's decode
-        cache entry is appended to it and the kernel routes are taken."""
+        cache entry is appended to it and the kernel routes are taken; an
+        MoE block's aux loss is appended to ``aux``."""
         # bf16 + f32 promotes to f32 in torch as in jnp: with f32 weights
         # the residual stream is f32 from the first block on
         cfg = self.cfg
@@ -215,6 +255,13 @@ class Model:
             else:
                 h = rglru_mod.rglru_forward(p["rglru"], h, cfg.rglru,
                                             chunk=self.scan_chunk)
+        elif kind == "mla":
+            h = attn.mla_train(p["attn"], h, positions, mla_cfg=cfg.mla,
+                               rope_theta=cfg.rope_theta,
+                               norm_eps=cfg.norm_eps, return_latents=prefill)
+            if prefill:
+                h, ckv, k_rope = h
+                cache_out.append({"ckv": ckv, "k_rope": k_rope})
         else:
             h = attn.attention_train(p["attn"], h, positions,
                                      rope_theta=cfg.rope_theta,
@@ -229,16 +276,19 @@ class Model:
                 cache_out.append({"k": k, "v": v})
         x = x + h
         h = _norm(cfg, p["ln2"], x)
-        return x + mlp(p["mlp"], h, cfg.activation)
+        return x + self._ffn(p, h, aux)
 
     def _backbone(self, params, x: torch.Tensor,
-                  entries: Optional[list] = None) -> torch.Tensor:
+                  entries: Optional[list] = None, aux: Optional[list] = None
+                  ) -> torch.Tensor:
         """All blocks over x; with ``entries`` (the prefill) each block's
-        cache entry is appended to ``entries[stage][block]``."""
+        cache entry is appended to ``entries[stage][block]``, and each MoE
+        block's aux loss to ``aux``."""
         positions = torch.arange(x.shape[1], device=x.device)
         for si, name, kind, p in self._blocks(params):
             x = self._block(kind, p, x, positions,
-                            None if entries is None else entries[si][name])
+                            None if entries is None else entries[si][name],
+                            aux)
         return x
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -255,11 +305,19 @@ class Model:
         return logits.masked_fill(pad, -1e30)
 
     def loss(self, params, batch) -> torch.Tensor:
-        """Mean next-token cross-entropy over labels >= 0."""
-        x = self._backbone(params, self._embed(params, batch))
+        """Mean next-token cross-entropy over labels >= 0, plus the MoE
+        blocks' aux losses summed in f32 in block order."""
+        aux: list = []
+        x = self._backbone(params, self._embed(params, batch), aux=aux)
         x = _norm(self.cfg, params["final_norm"], x)
-        return chunked_xent(x, params["unembed"], batch["labels"],
-                            self.loss_chunk)
+        ce = chunked_xent(x, params["unembed"], batch["labels"],
+                          self.loss_chunk)
+        if not aux:
+            return ce
+        total = torch.zeros((), dtype=torch.float32, device=ce.device)
+        for a in aux:
+            total = total + a
+        return ce + total.to(ce.dtype)
 
     def logits(self, params, batch) -> torch.Tensor:
         """Full-sequence f32 logits (B, S, vocab_padded) through the plain
@@ -273,8 +331,9 @@ class Model:
     def init_block_cache(self, kind: str, batch: int, cache_len: int,
                          dtype, device) -> Dict[str, torch.Tensor]:
         """One block's zeroed dense cache: k and v (batch, cache_len, KV,
-        hd), a ring (batch, window, KV, hd) for a windowed kind, or the
-        Mamba / RG-LRU state (batch, ...)."""
+        hd), a ring (batch, window, KV, hd) for a windowed kind, the latent
+        caches (batch, cache_len, ...) for mla, or the Mamba / RG-LRU
+        state (batch, ...)."""
         cfg = self.cfg
         if kind == "mamba":
             return ssm_mod.init_mamba_state(batch, cfg.d_model, cfg.ssm,
@@ -282,6 +341,9 @@ class Model:
         if kind == "recurrent":
             return rglru_mod.init_rglru_state(batch, cfg.d_model, cfg.rglru,
                                               dtype, device)
+        if kind == "mla":
+            return attn.init_mla_cache(batch, cache_len, cfg.mla, dtype,
+                                       device)
         window = resolved_window(cfg, kind)
         width = window if window > 0 else cache_len
         return attn.init_kv_cache(batch, width, cfg.eff_n_kv_heads,
@@ -311,9 +373,13 @@ class Model:
             built = {}
             for j, kind in enumerate(stage.kinds):
                 e = unit[f"b{j}"]
-                built[f"b{j}"] = _kv_cache_from_seq(
-                    e, cache_len, resolved_window(self.cfg, kind)) \
-                    if kind in _ATTENTION else _stack(e)
+                if kind in _ATTENTION:
+                    built[f"b{j}"] = _kv_cache_from_seq(
+                        e, cache_len, resolved_window(self.cfg, kind))
+                elif kind == "mla":
+                    built[f"b{j}"] = _mla_cache_from_seq(e, cache_len)
+                else:
+                    built[f"b{j}"] = _stack(e)
             caches.append(built)
         return self._logits(params, x), caches
 
@@ -338,33 +404,44 @@ class Model:
         positions already in the pages ``cache_ops`` addresses.  Returns
         ((B, vocab_padded) f32 logits at ``batch["last"]`` (B,), the
         chunk's last real position (its tail may be padding), ``caches``
-        updated in place).  Full-attention blocks only: the layout's
-        ``chunkable`` gate refuses the rest before dispatch."""
+        updated in place).  Full-attention and mla blocks only, the MoE
+        FFN through the oracle: the layout's ``chunkable`` gate refuses
+        the rest before dispatch."""
         kinds = {k for st in self.stages for k in st.kinds}
-        if kinds != {"attention"}:
+        if not kinds <= {"attention", "mla"} \
+                or (self.cfg.moe is not None and not self.moe_dense):
             raise ValueError(f"chunked prefill over {sorted(kinds)} "
-                             "blocks: the layout's chunkable gate should "
-                             "have refused")
+                             "blocks (routed MoE included): the layout's "
+                             "chunkable gate should have refused")
         x = self._embed(params, batch)
-        for _, _, _, p, c in self._blocks(params, caches):
-            x = self._prefill_chunk_block(p, c, x, positions, cache_ops)
+        for _, _, kind, p, c in self._blocks(params, caches):
+            x = self._prefill_chunk_block(kind, p, c, x, positions,
+                                          cache_ops)
         rows = torch.arange(x.shape[0], device=x.device)
         x = _norm(self.cfg, params["final_norm"], x[rows, batch["last"]])
         return self._logits(params, x), caches
 
-    def _prefill_chunk_block(self, p: dict, cache: dict, x: torch.Tensor,
-                             positions: torch.Tensor,
+    def _prefill_chunk_block(self, kind: str, p: dict, cache: dict,
+                             x: torch.Tensor, positions: torch.Tensor,
                              cache_ops) -> torch.Tensor:
         cfg = self.cfg
         h = _norm(cfg, p["ln1"], x)
-        h, _ = attn.attention_prefill_chunk(p["attn"], cache, h, positions,
-                                            rope_theta=cfg.rope_theta,
-                                            qk_norm=cfg.qk_norm,
-                                            norm_eps=cfg.norm_eps,
-                                            cache_ops=cache_ops)
+        if kind == "mla":
+            h, _ = attn.mla_prefill_chunk(p["attn"], cache, h, positions,
+                                          mla_cfg=cfg.mla,
+                                          rope_theta=cfg.rope_theta,
+                                          norm_eps=cfg.norm_eps,
+                                          cache_ops=cache_ops)
+        else:
+            h, _ = attn.attention_prefill_chunk(p["attn"], cache, h,
+                                                positions,
+                                                rope_theta=cfg.rope_theta,
+                                                qk_norm=cfg.qk_norm,
+                                                norm_eps=cfg.norm_eps,
+                                                cache_ops=cache_ops)
         x = x + h
         h = _norm(cfg, p["ln2"], x)
-        return x + mlp(p["mlp"], h, cfg.activation)
+        return x + self._ffn(p, h)
 
     def _decode_block(self, kind: str, p: dict, cache: dict,
                       x: torch.Tensor, pos: torch.Tensor,
@@ -377,6 +454,10 @@ class Model:
         h = _norm(cfg, p["ln1"], x)
         if kind == "recurrent":
             h, _ = rglru_mod.rglru_decode(p["rglru"], cache, h, cfg.rglru)
+        elif kind == "mla":
+            h, _ = attn.mla_decode(p["attn"], cache, h, pos, mla_cfg=cfg.mla,
+                                   rope_theta=cfg.rope_theta,
+                                   norm_eps=cfg.norm_eps, cache_ops=cache_ops)
         else:
             h, _ = attn.attention_decode(p["attn"], cache, h, pos,
                                          rope_theta=cfg.rope_theta,
@@ -386,7 +467,8 @@ class Model:
                                          cache_ops=cache_ops)
         x = x + h
         h = _norm(cfg, p["ln2"], x)
-        return x + mlp(p["mlp"], h, cfg.activation)
+        # dropless at decode: a dropped token would corrupt generation
+        return x + self._ffn(p, h, capacity_factor=-1.0)
 
 
 def _kv_cache_from_seq(entries, cache_len: int,
@@ -413,6 +495,18 @@ def _kv_cache_from_seq(entries, cache_len: int,
     pad = (0, 0, 0, 0, 0, cache_len - S)
     return {name: torch.stack([F.pad(e[name], pad) for e in entries])
             for name in ("k", "v")}
+
+
+def _mla_cache_from_seq(entries, cache_len: int) -> Dict[str, torch.Tensor]:
+    """Each layer's latents of the prompt, {"ckv", "k_rope"}: (B, S, ...),
+    zero-padded to ``cache_len`` and stacked (R, B, cache_len, ...), the
+    reference's ``_mla_cache_from_seq`` (which recomputes them from the
+    normed block input; here they are the attention's own, the same
+    values)."""
+    S = entries[0]["ckv"].shape[1]
+    return {name: torch.stack([F.pad(e[name], (0, 0, 0, cache_len - S))
+                               for e in entries])
+            for name in ("ckv", "k_rope")}
 
 
 def _stack(entries) -> Dict[str, torch.Tensor]:

@@ -30,6 +30,7 @@ import torch
 from repro.configs import get_config, reduced
 from repro.launch.engine import Engine as JEngine
 from repro.models import rglru as j_rglru
+from repro.models.cache import PagedLayout as JPagedLayout
 from repro.models.transformer import Model as JModel
 from repro.serve import Request as JRequest
 from repro.serve import Scheduler as JScheduler
@@ -44,6 +45,7 @@ from repro_torch.models import rglru
 from repro_torch.models.cache import DenseLayout, PagedLayout
 from repro_torch.models.transformer import Model, stage_plan
 from repro_torch.serve import Request, Scheduler
+from torch_decode import short_prompt_decode
 
 ARCH = "recurrentgemma-9b"
 RTOL, ATOL = 1e-4, 1e-5
@@ -464,6 +466,54 @@ def test_ring_decode_past_cache_len_stays_windowed():
     np.testing.assert_allclose(lg.numpy(), full[:, -1].numpy(), atol=1e-4,
                                rtol=0)
     assert float(np.abs(np.asarray(jlg) - full[:, -1].numpy()).max()) > 1
+
+
+@pytest.mark.parametrize("layout", ["dense", "slot"])
+@pytest.mark.parametrize("P", [1, 2])
+def test_short_prompt_decodes_like_the_whole_sequence(P, layout):
+    """ROADMAP queue C5: a prompt shorter than ``conv_kernel - 1`` = 3
+    tokens leaves a conv state of K - 1 rows, zeros before position 0
+    (as `causal_conv1d` assumes), so the prefill and 4 teacher-forced
+    decode steps stay within 1e-5 of the whole-sequence forward on both
+    layouts, and within RTOL / ATOL of the reference's."""
+    jm, tm = _models()
+    toks = torch.from_numpy(_tokens((2, P + 4), 11)).long()
+    got = short_prompt_decode(tm, _tp(), toks, P, layout)
+    want = tm.logits(_tp(), {"tokens": toks})[:, P - 1:]
+    assert float((got - want).abs().max()) < 1e-5
+    ref = jm.logits(_jp(), {"tokens": jnp.asarray(toks.numpy())})
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:, P - 1:],
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "falcon-mamba-7b"])
+def test_reference_short_prompt_decode_is_off(arch):
+    """The reference's own behavior at C5 (ROADMAP queue C), recorded as
+    `test_ring_decode_past_cache_len_stays_windowed` records the ring's:
+    it keeps ``xi[:, -(K-1):]``, S rows for a prompt of S < K - 1 = 3
+    tokens.  At P = 1 its slot layout broadcasts the one row into all
+    three conv rows and decodes more than 1 off the whole-sequence
+    forward; at P = 2 the slot write raises."""
+    jm = JModel(reduced(get_config(arch)), remat=False, q_chunk=16,
+                kv_chunk=16, scan_chunk=16)
+    jp = _jp() if arch == ARCH else jm.init(jax.random.PRNGKey(0))
+    B = 2
+    toks = jnp.asarray(_tokens((B, 5), 11) % jm.cfg.vocab_size)
+    want = np.asarray(jm.logits(jp, {"tokens": toks}))
+    lay = JPagedLayout(jm, n_slots=B, num_pages=2, page_size=8, max_pages=1)
+    pages, slots = jnp.zeros((B, 0), jnp.int32), jnp.arange(B)
+    bt = jnp.zeros((B, 1), jnp.int32)
+    logits, cache = lay.prefill_into(jp, lay.init_cache(),
+                                     {"tokens": toks[:, :1]}, pages, slots)
+    err = 0.0
+    for t in range(1, 5):
+        logits, cache = lay.decode_step(jp, cache, toks[:, t:t + 1],
+                                        jnp.full((B,), t, jnp.int32), bt)
+        err = max(err, float(np.abs(np.asarray(logits) - want[:, t]).max()))
+    assert err > 1
+    with pytest.raises((TypeError, ValueError)):
+        lay.prefill_into(jp, lay.init_cache(), {"tokens": toks[:, :2]},
+                         pages, slots)
 
 
 # ---------------------------------------------------------------------------

@@ -104,3 +104,25 @@ def test_recurrent_family_modules_are_covered_and_import_alone(module):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == f"repro_torch.{module}"
+
+
+@pytest.mark.parametrize("module", ["models.moe", "configs.olmoe_1b_7b",
+                                    "configs.phi35_moe_42b",
+                                    "configs.minicpm3_4b"])
+def test_moe_and_mla_modules_are_covered_and_import_alone(module):
+    """The MoE FFN and the three configs of the MoE and MLA slice are
+    among the files checked above and import in a process where jax and
+    repro cannot be imported."""
+    path = ROOT / "src" / "repro_torch" / (module.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            f"import repro_torch.{module} as m\n"
+            "print(m.__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"repro_torch.{module}"

@@ -329,6 +329,10 @@ def test_paged_kinds_match_reference():
         == [jcache.resolved_window(jhcfg, k) for k in kinds] == [0, 0, 2048]
     assert cache_mod.paged_kinds(hcfg, kinds) \
         == jcache.paged_kinds(jhcfg, kinds) == []
-    for kind in ("cross", "mla"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            cache_mod.paged_kinds(cfg, (kind,))
+    # MLA's latent cache is paged (ported since the MoE and MLA slice);
+    # cross-attention still raises, naming its queue item
+    mcfg, jmcfg = t_get_config("minicpm3-4b"), get_config("minicpm3-4b")
+    assert cache_mod.paged_kinds(mcfg, ("mla",)) \
+        == jcache.paged_kinds(jmcfg, ("mla",)) == ["mla"]
+    with pytest.raises(NotImplementedError, match="item 7"):
+        cache_mod.paged_kinds(cfg, ("cross",))

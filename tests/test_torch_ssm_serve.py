@@ -30,6 +30,7 @@ from repro_torch.launch.engine import Engine
 from repro_torch.models.cache import DenseLayout, PagedLayout
 from repro_torch.models.transformer import Model
 from repro_torch.serve import Request, Scheduler
+from torch_decode import short_prompt_decode
 
 ATOL = 1e-4
 B, P, GEN, PS = 2, 8, 16, 8
@@ -190,6 +191,25 @@ def test_scheduler_ssm_arch_runs_without_pages(models):
     for r in done:
         assert r.out == dense[r.rid].tolist(), r.rid
     assert sch.stats["prefills"] == 1
+
+
+@pytest.mark.parametrize("layout", ["dense", "slot"])
+@pytest.mark.parametrize("P", [1, 2])
+def test_short_prompt_decodes_like_the_whole_sequence(models, P, layout):
+    """ROADMAP queue C5: a prompt shorter than ``conv_kernel - 1`` = 3
+    tokens leaves a conv state of K - 1 rows, zeros before position 0,
+    so the prefill and 4 teacher-forced decode steps stay within 1e-5 of
+    the whole-sequence forward on both layouts (the reference's own
+    behavior is recorded in ``tests/test_torch_hybrid.py``); the decode
+    logits are the reference's whole-sequence forward's within ATOL."""
+    jm, jp, tm, tp, prompts = models
+    toks = torch.as_tensor(prompts[:, :P + 4]).long()
+    got = short_prompt_decode(tm, tp, toks, P, layout)
+    want = tm.logits(tp, {"tokens": toks})[:, P - 1:]
+    assert float((got - want).abs().max()) < 1e-5
+    ref = jm.logits(jp, {"tokens": jnp.asarray(prompts[:, :P + 4])})
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:, P - 1:],
+                               atol=ATOL)
 
 
 def test_loss_raises_for_the_ssm_family(models):
