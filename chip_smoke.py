@@ -74,7 +74,8 @@ Phases (any failure exits non-zero before the result line):
    tensor-core HMMA / HGMMA instructions, counted with cuobjdump), then
    the kernel against its plain version at the qwen3-0.6b prefill's
    shapes (B 1, 8 kv heads, G 2, hd 128, causal, S 128/256/384/512, f32
-   (atol 2e-5) and bf16 (3e-2)), a windowed and a ragged Sq != Sk case,
+   (atol 2e-5) and bf16 (3e-2 x min(1, max|out|))), a windowed and a
+   ragged Sq != Sk case,
    bitwise run to run, each timed (CUDA events, median of 10 after 2
    warm-ups, 28 launches queued behind a device-side sleep per sample)
    beside its bound (f32 at the 3xTF32 ceiling, its CUDA-core bound
@@ -122,7 +123,8 @@ Phases (any failure exits non-zero before the result line):
    after phase 9's kernels, the prefix phase after phase 8's profile, the
    dense family last).  flash_attention against its plain version at a
    qwen3 chunk (128 rows at q_start 512 over 656 keys), stablelm-3b's hd
-   80 and granite-20b's G 48 (f32 2e-5, bf16 3e-2), timed beside bound,
+   80 and granite-20b's G 48 (f32 2e-5, bf16 3e-2 x min(1, max|out|)),
+   timed beside bound,
    plain version and SDPA, and one call's rows bitwise equal to the same
    rows split over two calls at other q_starts; paged_attention at hd 80
    (G 1, 32 kv heads) and G 48 (one kv head), four pool dtypes, held to
@@ -146,8 +148,8 @@ Phases (any failure exits non-zero before the result line):
 13. the recurrent families.  flash_attention against its plain
    version at recurrentgemma-9b's local attention (one kv head, G 16, hd
    256, window 2,048) at S 512 / 2,048 / 4,096, f32 (2e-5) and bf16
-   (3e-2), bitwise run to run, timed (12 launches per sample, one per
-   attention_local block) beside its bound, the plain version and
+   (3e-2 x min(1, max|out|)), bitwise run to run, timed (12 launches
+   per sample, one per attention_local block) beside its bound, the plain version and
    scaled_dot_product_attention with the boolean window mask.
    recurrentgemma-9b at its published widths and full depth (38 layers,
    10,444,771,328 params, f32 weights from seed 0, bf16 compute) through
@@ -164,10 +166,11 @@ Phases (any failure exits non-zero before the result line):
    peak), A1/A2 against their plain versions at its bucket sizes, the
    chunked scan against ssm_scan_plain at E 8,192, N 16 (1e-4); reduced
    recurrentgemma trained 2 steps as a route check;
-14. the MoE family and MLA (last).  paged_attention at olmoe-1b-7b's
+14. the MoE family and MLA.  paged_attention at olmoe-1b-7b's
    attention (16 kv heads, G 1, hd 128) and phi3.5-moe's (8, G 4),
    bf16 and f32 pools, held to its plain version in float64 (1e-6), and
-   flash_attention there at S 512 (f32 2e-5, bf16 3e-2), timed beside
+   flash_attention there at S 512 (f32 2e-5, bf16 3e-2 x min(1,
+   max|out|)), timed beside
    bound, plain version and SDPA.  olmoe-1b-7b at its published widths
    and full depth (16 layers, 6,919,624,704 params, f32 weights from seed
    0, bf16 compute and KV) over phase 8's 48 requests: B4 16 per decode
@@ -186,14 +189,42 @@ Phases (any failure exits non-zero before the result line):
    bursts profiled, then phase 12's 32 shared-prompt requests chunked
    (128) with and without the prefix cache, block tables 45 pages wide
    (greedy tokens bitwise, >= 31 hits, copy-on-write, fewer pages); B4
-   and B5 never launch on its path.  Last, ROADMAP C5: reduced falcon-mamba-7b and
+   and B5 never launch on its path (the prefix requests at 8 of its 62
+   layers).  Then ROADMAP C5: reduced
+   falcon-mamba-7b and
    recurrentgemma-9b prefill prompts of 1 and 2 tokens into the slot
-   layout and decode 4 steps within 1e-5 of the whole-sequence forward.
+   layout and decode 4 steps within 1e-5 of the whole-sequence forward;
+15. the vlm and encdec families (last).  flash_attention at the new
+   paths' shapes and batches: qwen2-vl-7b's causal prefill (4 kv heads,
+   G 7, hd 128, 4 x 1,152 positions), whisper-large-v3's bidirectional
+   encoder (20 kv heads, G 1, hd 64, 8 x 1,500 frames), its decoder's
+   causal self-attention (8 x 64) and its cross-attention (8 x 64
+   queries over 1,500 frames), f32 (2e-5) and bf16 (3e-2 x min(1,
+   max|out|): an encoder's outputs are ~0.03), timed beside
+   bound, plain version and SDPA; paged_attention at KV 4 G 7 hd 128 and
+   KV 20 G 1 hd 64, bf16 and f32 pools, held to its plain version in
+   float64 (1e-6).  qwen2-vl-7b at its published widths and full depth
+   (28 layers, 7,628,332,544 params, f32 weights from seed 0, bf16
+   compute) served one-shot through ``repro_torch.launch.serve`` (4
+   prompts of 1,024 stub patches + 128 tokens, 32 generated, greedy: B5
+   28 times), then the same batch through `PagedLayout` over f32 pools
+   (B4 28 times a decode step): kernel route == plain route on every
+   greedy token, 0 host syncs a step, two steps profiled.
+   whisper-large-v3 (32 + 32 layers, 1,601,459,200 params) the same way
+   (8 prompts of 64 tokens over 1,500 stub frames, 64 generated: B5 96
+   times a prefill, 32 each bidirectional, causal and cross; B4 32 times
+   a decode step), then the shares of the encoder pass in the prefill and
+   of the 32 cross-attention reads in a decode step.  whisper cut to 8 +
+   8 layers trains 3 dc_s3gd steps at W = 2 over batches with frames
+   (A1/A2 once per bucket and step; step time, peak), A1/A2 against
+   their plain versions at its bucket sizes (A2 bitwise); the reduced
+   qwen2-vl trains 2 steps with patches and M-RoPE positions.
 
 The CPU twins of these checks are the ``tests/test_torch_*.py`` files
 (``PYTHONPATH=src python -m pytest -q tests/test_torch_moe.py
 tests/test_torch_mla.py``; the C5 cases: ``-k short_prompt`` in
-``tests/test_torch_hybrid.py`` and ``tests/test_torch_ssm_serve.py``).
+``tests/test_torch_hybrid.py`` and ``tests/test_torch_ssm_serve.py``;
+slice 12: ``tests/test_torch_vlm.py tests/test_torch_encdec.py``).
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports nothing
@@ -1270,14 +1301,70 @@ def phase_kernel_vs_gather(smi: str, model, params, reqs,
     return rec
 
 
+def _profile_decode(smi: str, step, n_steps: int, what: str, tag: str,
+                    out_name: str) -> dict:
+    """One warm call of ``step()`` (``n_steps`` decode steps, ``what``
+    names it), the host synchronisations inside one more under PyTorch's
+    sync debug mode (checked to be 0), then two under torch.profiler:
+    device busy share, launches per decode step, device time by kernel
+    group; the profiler's table goes to ``chiprun_out/out_name``."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"[{tag}] host synchronisations inside one {what}: {syncs}")
+    check(syncs == 0, f"[{tag}] {syncs} host synchronisations inside one "
+          f"{what}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"paged_attention kernel (both passes)": ("paged_partial",
+                                                       "paged_merge"),
+              "matmul (cuBLAS)": ("gemm", "gemv", "xmma", "cutlass",
+                                  "Kernel2"),
+              "index / scatter / gather": ("index", "scatter", "gather"),
+              "copies/cat": ("Memcpy", "copy", "Copy", "Cat")}
+    kernels, busy_ms, by_group, dev_us = _device_groups(
+        prof, groups, "other (elementwise, norms, softmax, argmax)")
+    launches = sum(e.count for e in kernels)
+    if busy_ms == 0:
+        print(f"[{tag}] no device time in the trace: not measured [{smi}]")
+        return {"host_syncs": syncs}
+    print(f"[{tag}] 2 x {what} ({2 * n_steps} decode steps): wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%, {launches} kernel "
+          f"launches ({launches / (2 * n_steps):.0f} per step) [{smi}]")
+    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"[{tag}]   {g}: {ms:.3f} ms ({100 * ms / busy_ms:.1f}%"
+              f" of device time)")
+    for e in kernels[:12]:
+        print(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / out_name).write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=60))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": by_group,
+            "kernel_launches": launches, "host_syncs": syncs}
+
+
 def phase_serve_profile(smi: str, model, params, reqs, argv=SERVE_ARGS,
                         tag: str = "serve-profile",
                         out_name: str = "profile_serve.txt") -> dict:
     """A steady decode burst of ``--slots`` slots (16 for qwen3 and
-    falcon-mamba): host synchronisations inside one burst under PyTorch's
-    sync debug mode (its inputs copied to the device before the window),
-    then two bursts under torch.profiler, device time by kernel group."""
-    from torch.profiler import ProfilerActivity, profile
+    falcon-mamba) through `_profile_decode`, its inputs copied to the
+    device before the window."""
     from repro_torch.launch import serve
     from repro_torch.serve import Request, Scheduler
     args = serve.build_argparser().parse_args(argv)
@@ -1292,56 +1379,12 @@ def phase_serve_profile(smi: str, model, params, reqs, argv=SERVE_ARGS,
     sch._grow(burst)
     inputs = (sch._tensor(sch.next_tok), sch._tensor(sch.pos),
               sch._tensor(sch.block_tables))
-    sch.decode(*inputs, burst)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        sch.decode(*inputs, burst)
-    torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    print(f"[{tag}] host synchronisations inside one decode burst "
-          f"({burst} steps, {args.slots} slots): {syncs}")
-    check(syncs == 0, f"{syncs} host synchronisations inside a decode burst")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            sch.decode(*inputs, burst)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    del sch
+    rec = _profile_decode(
+        smi, lambda: sch.decode(*inputs, burst), burst,
+        f"decode burst ({burst} steps, {args.slots} slots)", tag, out_name)
+    del sch, inputs
     torch.cuda.empty_cache()
-    groups = {"paged_attention kernel (both passes)": ("paged_partial",
-                                                       "paged_merge"),
-              "matmul (cuBLAS)": ("gemm", "gemv", "xmma", "cutlass",
-                                  "Kernel2"),
-              "index / scatter / gather": ("index", "scatter", "gather"),
-              "copies/cat": ("Memcpy", "copy", "Copy", "Cat")}
-    kernels, busy_ms, by_group, dev_us = _device_groups(
-        prof, groups, "other (elementwise, norms, softmax, argmax)")
-    launches = sum(e.count for e in kernels)
-    if busy_ms == 0:
-        print(f"[{tag}] no device time in the trace: not measured [{smi}]")
-        return {"host_syncs_per_burst": syncs}
-    print(f"[{tag}] 2 bursts ({2 * burst} decode steps): wall "
-          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%, {launches} kernel "
-          f"launches ({launches / (2 * burst):.0f} per step) [{smi}]")
-    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"[{tag}]   {g}: {ms:.3f} ms ({100 * ms / busy_ms:.1f}%"
-              f" of device time)")
-    for e in kernels[:12]:
-        print(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
-              f"{e.key[:90]}")
-    (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / out_name).write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total",
-                                  row_limit=60))
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": by_group,
-            "kernel_launches": launches, "host_syncs_per_burst": syncs}
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1359,6 +1402,16 @@ PEAK_FLOPS = {torch.float32: 67e12,     # H100 SXM data sheet: f32, CUDA cores
 FLASH_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 # falcon-mamba-7b's scan: E = expand x d_model, N = state_dim
 SSM_E, SSM_N = 8192, 16
+
+
+def flash_atol(dt, want: torch.Tensor) -> float:
+    """flash_attention's limit against its plain version: 2e-5 in f32;
+    in bf16 3e-2 of the largest output, at most 3e-2.  A softmax spread
+    over many keys averages v down (an encoder over 1,500 frames gives
+    outputs of ~0.03), where a bare 3e-2 would pass a wrong kernel."""
+    if dt == torch.float32:
+        return 2e-5
+    return 3e-2 * min(1.0, float(want.float().abs().max()))
 
 
 def _live_pairs(sq: int, sk: int, causal: bool, window: int,
@@ -1403,8 +1456,8 @@ def phase_flash_kernel(smi: str) -> dict:
     """flash_attention against its plain version at the qwen3-0.6b
     prefill's shapes (B 1, causal, S 128/256/384/512, in f32, the path's
     dtype: the f32 weights promote the bf16 activations, and in bf16), a
-    windowed case and a ragged non-causal Sq != Sk case (atol 2e-5 f32,
-    3e-2 bf16: the reference's tolerances; bitwise equal across two
+    windowed case and a ragged non-causal Sq != Sk case (`flash_atol`:
+    2e-5 f32, bf16 3e-2 x min(1, max|out|); bitwise equal across two
     launches), each timed beside its bound, the plain version and
     scaled_dot_product_attention (enable_gqa) in the same dtype on the same
     inputs.  The bound is the larger of bytes over 3.35 TB/s and the live
@@ -1444,7 +1497,7 @@ def phase_flash_kernel(smi: str) -> dict:
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        atol = 2e-5 if dt == torch.float32 else 3e-2
+        atol = flash_atol(dt, want)
         check(got.dtype == dt and err <= atol, f"flash_attention {name}: "
               f"max abs err {err} > {atol}")
         check(torch.equal(got, again), f"flash_attention {name}: two "
@@ -1620,70 +1673,76 @@ CHUNK_Q0, CHUNK_SK = 512, 41 * PAGE
 
 
 def _flash_case(smi: str, gen, name: str, KV: int, G: int, hd: int,
-                layers: int, sq: int, sk: int, q0: int, dt, tag: str) -> dict:
-    """One flash_attention case of ``sq`` causal rows at ``q_start`` q0
-    over ``sk`` keys: against its plain version (atol 2e-5 f32 / 3e-2
-    bf16), bitwise run to run, timed (``layers`` launches per sample)
-    beside its bound, the plain version and scaled_dot_product_attention
-    with the same mask."""
+                layers: int, sq: int, sk: int, q0: int, dt, tag: str, *,
+                batch: int = 1, causal: bool = True,
+                plain_reps: int = 10) -> dict:
+    """One flash_attention case of ``batch`` x ``sq`` rows at ``q_start``
+    q0 over ``sk`` keys, causal or not: against its plain version
+    (`flash_atol`), bitwise run to run, timed (``layers`` launches
+    per sample) beside its bound, the plain version (median of
+    ``plain_reps`` samples) and scaled_dot_product_attention with the
+    same mask."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_plain
     H = KV * G
-    q = torch.randn((1, sq, KV, G, hd), generator=gen,
+    q = torch.randn((batch, sq, KV, G, hd), generator=gen,
                     device="cuda").to(dt)
-    k = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
-    v = torch.randn((1, sk, KV, hd), generator=gen, device="cuda").to(dt)
-    kw = dict(causal=True, q_start=q0)
+    k = torch.randn((batch, sk, KV, hd), generator=gen,
+                    device="cuda").to(dt)
+    v = torch.randn((batch, sk, KV, hd), generator=gen,
+                    device="cuda").to(dt)
+    kw = dict(causal=causal, q_start=q0)
     got = flash_attention(q, k, v, **kw)
     again = flash_attention(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    atol = 2e-5 if dt == torch.float32 else 3e-2
+    atol = flash_atol(dt, want)
     check(got.dtype == dt and err <= atol, f"flash_attention {name}: "
           f"max abs err {err} > {atol}")
     check(torch.equal(got, again), f"flash_attention {name}: two "
           "launches differ")
     ms = median_ms(lambda: flash_attention(q, k, v, **kw), batch=layers)
     plain_ms = median_ms(lambda: flash_attention_plain(q, k, v, **kw),
-                         batch=layers)
-    qs, ks, vs = (q.reshape(1, sq, H, hd).transpose(1, 2),
+                         reps=plain_reps, batch=layers)
+    qs, ks, vs = (q.reshape(batch, sq, H, hd).transpose(1, 2),
                   k.transpose(1, 2), v.transpose(1, 2))
     i = q0 + torch.arange(sq, device="cuda")[:, None]
     mask = torch.arange(sk, device="cuda")[None, :] <= i
 
     def sdpa():
         return F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=None if q0 == 0 else mask,
-            is_causal=q0 == 0, enable_gqa=True)
+            qs, ks, vs, attn_mask=mask if causal and q0 else None,
+            is_causal=causal and q0 == 0, enable_gqa=True)
     sdpa_err = float((sdpa().transpose(1, 2).reshape(want.shape).float()
                       - want.float()).abs().max())
     library_ms = median_ms(sdpa, batch=layers)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 4 * hd * H * _live_pairs(sq, sk, True, 0, q0)
+    flops = 4 * hd * H * batch * _live_pairs(sq, sk, causal, 0, q0)
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = flops / FLASH_FLOPS[dt] * 1e3
     bound = max(byte_ms, op_ms)
     by = "operations" if op_ms >= byte_ms else "bytes"
-    print(f"[{tag}] {name}: KV={KV} G={G} hd={hd}: {ms:.4f} "
+    print(f"[{tag}] {name}: B={batch} KV={KV} G={G} hd={hd} "
+          f"{'causal' if causal else 'bidirectional'}: {ms:.4f} "
           f"ms/launch; plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} "
           f"ms (max abs diff {sdpa_err:.3g}); bound {bound:.4f} ms by "
-          f"{by} ({nbytes} B, {flops} flops); max abs err {err:.3g}, "
-          f"bitwise run to run [{smi}]")
+          f"{by} ({nbytes} B, {flops} flops); max abs err {err:.3g} "
+          f"(limit {atol:.3g}), bitwise run to run [{smi}]")
     del q, k, v, got, again, want, qs, ks, vs, mask
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-            "flops": flops, "err": err, "sdpa_err": sdpa_err}
+            "flops": flops, "err": err, "atol": atol, "sdpa_err": sdpa_err}
 
 
 def phase_flash_shapes(smi: str) -> dict:
     """flash_attention against its plain version where this slice's paths
     reach it: a qwen3 chunk at q_start 512 over the 656 keys of its view,
     stablelm-3b's whole 512-token prompt at hd 80 (32 kv heads, G 1) and
-    granite-20b's at G 48 (one kv head), each in f32 and bf16 (atol 2e-5
-    / 3e-2, the reference's), bitwise run to run, timed (one launch per
+    granite-20b's at G 48 (one kv head), each in f32 and bf16
+    (`flash_atol`), bitwise run to run, timed (one launch per
     layer of its model per sample, queued behind the device-side sleep)
     beside its bound, the plain version and scaled_dot_product_attention
     with the same mask.  Then the property the prefix cache rests on: the
@@ -2783,7 +2842,7 @@ def phase_flash_hybrid(smi: str) -> dict:
     """flash_attention against its plain version at recurrentgemma-9b's
     local attention (B 1, one kv head, G 16, hd 256, window 2,048) at S
     512 (the window masks nothing), 2,048 and 4,096 (the window halves the
-    causal pairs), f32 (atol 2e-5) and bf16 (3e-2), bitwise run to run,
+    causal pairs), f32 and bf16 (`flash_atol`), bitwise run to run,
     each timed (12 launches per sample, one per attention_local block of a
     prefill, queued behind the device-side sleep) beside its bound (the
     live pairs' 4 hd flops over the ceiling of its products, or its bytes),
@@ -2811,7 +2870,7 @@ def phase_flash_hybrid(smi: str) -> dict:
             want = flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            atol = 2e-5 if dt == torch.float32 else 3e-2
+            atol = flash_atol(dt, want)
             check(got.dtype == dt and err <= atol, f"flash_attention "
                   f"recurrentgemma {name}: max abs err {err} > {atol}")
             check(torch.equal(got, again), f"flash_attention recurrentgemma "
@@ -3176,6 +3235,10 @@ MINICPM_LAYERS = 62
 MINICPM_PARAMS = 4_262_025_728
 MINICPM_ARGS = ["--arch", "minicpm3-4b", *DENSE_ARGS]
 MINICPM_TOKEN_BYTES = 62 * (256 + 32) * 2    # bf16 ckv + k_rope, 35,712
+# the prefix check's depth: at 62 layers its hot and cold runs took
+# 157-200 s of host-bound decode steps (6,225 launches a step); the
+# bitwise pin does not depend on the depth
+MINICPM_PREFIX_LAYERS = 8
 QWEN3_TOKEN_BYTES = 28 * 2 * 8 * 128 * 2     # bf16 k + v, 114,688
 MINICPM_TRAIN = ["--arch", "minicpm3-4b", "--layers", "2", "--algo",
                  "dc_s3gd", "--workers", str(W), "--batch-per-worker", "2",
@@ -3195,8 +3258,8 @@ def phase_moe_kernel_shapes(smi: str) -> dict:
     bf16 and f32 pools, held to its plain version in float64 (1e-6),
     bitwise run to run, timed over one launch on each of the model's
     per-layer pools beside its byte bound and the plain version (and, for
-    bf16, gather + SDPA).  B5: one 512-token prompt, f32 and bf16 (2e-5 /
-    3e-2), timed beside its bound, the plain version and SDPA."""
+    bf16, gather + SDPA).  B5: one 512-token prompt, f32 and bf16
+    (`flash_atol`), timed beside its bound, the plain version and SDPA."""
     rec = {"paged": phase_paged_shapes(smi, MOE_SHAPES,
                                        ("bfloat16", "float32"),
                                        "paged-moe-shapes")}
@@ -3439,12 +3502,13 @@ def phase_serve_mla(smi: str, path: Path) -> dict:
     ``repro_torch.launch.serve`` (every request at its length; B4 and B5
     never launch: MLA's latent pages are read by gather and its prefill
     takes the plain core, as in the reference); the latent token bytes
-    beside qwen3-0.6b's; two decode bursts profiled (0 host syncs).  Then
-    phase 12's 32 requests behind the 392-token system prompt with
-    ``--prefill-chunk 128 --prefix-cache`` against the cold chunked run:
-    greedy tokens bitwise, >= 31 hits, >= 1 copy-on-write, fewer pages
-    (block tables as wide as the longest request, 713 tokens or 45 pages,
-    as every decode step gathers and scores the whole table)."""
+    beside qwen3-0.6b's; two decode bursts profiled (0 host syncs).  Then,
+    at its published widths cut to 8 of its 62 layers, phase 12's 32
+    requests behind the 392-token system prompt with ``--prefill-chunk
+    128 --prefix-cache`` against the cold chunked run: greedy tokens
+    bitwise, >= 31 hits, >= 1 copy-on-write, fewer pages (block tables as
+    wide as the longest request, 713 tokens or 45 pages, as every decode
+    step gathers and scores the whole table)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.cache import PagedLayout
@@ -3477,8 +3541,12 @@ def phase_serve_mla(smi: str, path: Path) -> dict:
     rec["profile"] = phase_serve_profile(
         smi, model, params, reqs, MINICPM_ARGS, "serve-minicpm3-profile",
         "profile_serve_minicpm3.txt")
+    del model, params
+    torch.cuda.empty_cache()
+    cut = MINICPM_ARGS + ["--layers", str(MINICPM_PREFIX_LAYERS)]
+    model, params, _ = serve.build(serve.build_argparser().parse_args(cut))
     ppath = _write_prefix_requests(model.cfg.vocab_size)
-    chunked = MINICPM_ARGS + ["--prefill-chunk", str(CHUNK)]
+    chunked = cut + ["--prefill-chunk", str(CHUNK)]
     rec["hot"] = _serve_warm_then_rest(smi, model, params, ppath,
                                        chunked + ["--prefix-cache"],
                                        "prefix-minicpm3-hot",
@@ -3497,7 +3565,8 @@ def phase_serve_mla(smi: str, path: Path) -> dict:
           f"[prefix-minicpm3] hits {hot['prefix_hits']}, CoW "
           f"{hot['cow_copies']}, pages {hot['pages_allocated']} vs cold "
           f"{cold['pages_allocated']}")
-    print(f"[prefix-minicpm3] prefix hit == cold chunked, greedy tokens "
+    print(f"[prefix-minicpm3] minicpm3-4b x{MINICPM_PREFIX_LAYERS}: prefix "
+          f"hit == cold chunked, greedy tokens "
           f"bitwise, all {PREFIX_REQUESTS} requests; pages allocated hot "
           f"{hot['pages_allocated']} vs cold {cold['pages_allocated']} "
           f"({hot['cache_tokens_allocated']} vs "
@@ -3552,6 +3621,415 @@ def phase_c5(smi: str) -> dict:
             rec[f"{arch} P={P}"] = err
         del model, params
     torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the vlm and encdec families (qwen2-vl-7b, whisper-large-v3)
+# ---------------------------------------------------------------------------
+
+VLM_LAYERS = 28
+VLM_PARAMS = 7_628_332_544           # the reference's init, 28 layers
+VLM_BATCH, VLM_PROMPT, VLM_GEN = 4, 128, 32
+VLM_PATCHES = 1024
+VLM_ARGS = ["--arch", "qwen2-vl-7b", "--batch", str(VLM_BATCH),
+            "--prompt-len", str(VLM_PROMPT), "--gen", str(VLM_GEN)]
+WHISPER_LAYERS = 32                  # the decoder's; the encoder's too
+WHISPER_PARAMS = 1_601_459_200
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 8, 64, 64
+WHISPER_FRAMES = 1500
+WHISPER_ARGS = ["--arch", "whisper-large-v3", "--batch", str(WHISPER_BATCH),
+                "--prompt-len", str(WHISPER_PROMPT), "--gen",
+                str(WHISPER_GEN)]
+# B5 where the new prefills reach it: (name, batch, kv heads, G, hd,
+# launches per prefill, Sq, Sk, causal)
+MM_FLASH = (("qwen2-vl prefill", VLM_BATCH, 4, 7, 128, VLM_LAYERS,
+             VLM_PATCHES + VLM_PROMPT, VLM_PATCHES + VLM_PROMPT, True),
+            ("whisper encoder", WHISPER_BATCH, 20, 1, 64, WHISPER_LAYERS,
+             WHISPER_FRAMES, WHISPER_FRAMES, False),
+            ("whisper decoder self", WHISPER_BATCH, 20, 1, 64,
+             WHISPER_LAYERS, WHISPER_PROMPT, WHISPER_PROMPT, True),
+            ("whisper cross", WHISPER_BATCH, 20, 1, 64, WHISPER_LAYERS,
+             WHISPER_PROMPT, WHISPER_FRAMES, False))
+# B4 where the new paged decodes reach it: (name, kv heads, G, hd, layers)
+MM_PAGED = (("qwen2-vl", 4, 7, 128, VLM_LAYERS),
+            ("whisper", 20, 1, 64, WHISPER_LAYERS))
+WHISPER_TRAIN_LAYERS = 8             # encoder and decoder, 32 -> 8 each
+WHISPER_TRAIN_STEPS = 3
+VLM_TRAIN_STEPS = 2
+MM_SEQ = 256                         # training tokens per sequence
+
+
+def phase_multimodal_kernel_shapes(smi: str) -> dict:
+    """B5 and B4 where qwen2-vl-7b's and whisper-large-v3's paths reach
+    them.  B5 at the paths' batches: qwen2-vl's causal prefill (4 kv
+    heads, G 7, hd 128, 4 x 1,152 positions), whisper's bidirectional
+    encoder (20 kv heads, G 1, hd 64, 8 x 1,500 frames), its decoder's
+    causal self-attention (8 x 64) and its cross-attention (8 x 64 queries
+    over 1,500 frames, the last key tile ragged), f32 and bf16
+    (`flash_atol`), bitwise run to run, timed (one launch per layer per sample)
+    beside its bound, the plain version and SDPA in the same dtype.  B4 at
+    KV 4 G 7 hd 128 and KV 20 G 1 hd 64 (16 rows, ragged lengths 1..577,
+    640-wide tables), bf16 and f32 pools, held to its plain version in
+    float64 (1e-6), timed beside its byte bound, the plain version and
+    gather + SDPA."""
+    rec = {"paged": phase_paged_shapes(smi, MM_PAGED,
+                                       ("bfloat16", "float32"),
+                                       "paged-mm-shapes")}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rec["flash"] = {}
+    for name, Bt, KV, G, hd, layers, sq, sk, causal in MM_FLASH:
+        for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            key = f"{name} Sq={sq} Sk={sk} {n}"
+            rec["flash"][key] = _flash_case(
+                smi, gen, key, KV, G, hd, layers, sq, sk, 0, dt,
+                "flash-mm-shapes", batch=Bt, causal=causal, plain_reps=3)
+    return rec
+
+
+def _mm_oneshot(smi: str, argv, tag: str, prefill_launches: int) -> dict:
+    """``repro_torch.launch.serve`` one-shot (model built from seed 0,
+    stub inputs drawn from it, one prefill, greedy decode over the dense
+    cache): counts zeroed before and read after; B5 ``prefill_launches``
+    times and B4 never (the dense decode gathers nothing)."""
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    ids = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    args = serve.build_argparser().parse_args(argv)
+    check(tuple(ids.shape) == (args.batch, args.gen)
+          and int(ids.min()) >= 0, f"[{tag}] ids {tuple(ids.shape)}")
+    check(launches["flash_attention"] == prefill_launches
+          and launches["paged_attention"] == 0
+          and sum(launches.values()) == prefill_launches,
+          f"[{tag}] launches {launches}")
+    print(f"[{tag}] one-shot through repro_torch.launch.serve: {args.batch}"
+          f" x {args.prompt_len} tokens, {args.gen} generated, greedy: "
+          f"{wall:.2f} s with the model's init; launches {launches}; peak "
+          f"{peak / 2**30:.3f} GiB [{smi}]")
+    return {"wall_s": wall, "launches": launches, "peak_bytes": peak,
+            "first": ids[0].tolist()}
+
+
+def _mm_paged(model, params, batch: dict, offset: int, gen: int,
+              kernel: bool, teacher=None, extra_steps: int = 0):
+    """``batch`` through `PagedLayout` over f32 pools: ``prefill_into``
+    block tables covering the prompt (``offset`` patch positions before
+    its tokens), then ``gen - 1`` greedy decode steps over the full-width
+    tables (fed ``teacher``'s tokens when given).  ``kernel`` picks the
+    kernel route (B5 prefill, B4 decode) or the plain one.  Returns
+    (tokens (B, gen), per-step logits, launches, TTFT s, decode s, the
+    layout, the cache, the next step's (tokens, pos, tables))."""
+    from repro_torch.models.cache import PagedLayout
+    B, P = batch["tokens"].shape
+    mp = -(-(P + offset + gen + extra_steps) // PAGE)
+    lay = PagedLayout(model, n_slots=B, num_pages=B * mp + 1,
+                      page_size=PAGE, max_pages=mp, use_kernel=kernel,
+                      kv_dtype="float32")
+    cache = lay.init_cache(device="cuda")
+    pages = torch.arange(1, B * mp + 1, device="cuda").reshape(B, mp)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = lay.prefill_into(
+        params, cache, batch, pages[:, :lay.pages_for(P + offset)],
+        torch.arange(B, device="cuda"))
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    out, trace = [tok], [logits]
+    pos = torch.full((B,), P + offset, device="cuda")
+    t0 = time.perf_counter()
+    for t in range(gen - 1):
+        fed = tok if teacher is None else teacher[:, t]
+        logits, cache = lay.decode_step(params, cache, fed[:, None], pos,
+                                        pages)
+        tok = logits.argmax(-1)
+        out.append(tok)
+        trace.append(logits)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = _read_counts()
+    nxt = (tok[:, None], pos, pages)
+    return (torch.stack(out, 1), trace, launches, ttft, decode_s, lay,
+            cache, nxt)
+
+
+def _mm_routes(smi: str, model, params, batch: dict, offset: int, gen: int,
+               layers: int, prefill_launches: int, tag: str,
+               profile_name: str) -> dict:
+    """The kernel route (B5 ``prefill_launches`` times in the prefill, B4
+    ``layers`` times a decode step) and the plain route
+    (``Model(cfg, kernels=False)``, the gather decode, no launch) over
+    f32 pools: the plain route fed the kernel route's tokens gives the
+    same greedy token at every step.  Then two steady steps of the kernel
+    route profiled."""
+    from repro_torch.models.transformer import Model
+    B = batch["tokens"].shape[0]
+    toks, trace, launches, ttft, decode_s, lay, cache, nxt = _mm_paged(
+        model, params, batch, offset, gen, True, extra_steps=8)
+    steps = gen - 1
+    check(launches["flash_attention"] == prefill_launches
+          and launches["paged_attention"] == layers * steps
+          and sum(launches.values()) == prefill_launches + layers * steps,
+          f"[{tag}] kernel route launches {launches}")
+    plain = Model(model.cfg, kernels=False)
+    p_toks, p_trace, p_launches, p_ttft, p_decode_s = _mm_paged(
+        plain, params, batch, offset, gen, False, teacher=toks)[:5]
+    check(sum(p_launches.values()) == 0,
+          f"[{tag}] plain route launches {p_launches}")
+    same = int((p_toks == toks).sum())
+    dlogit = max(float((a - b).abs().max()) for a, b in zip(trace, p_trace))
+    print(f"[{tag}] {model.cfg.name} paged (f32 pools, {B} rows, "
+          f"{lay.max_pages}-page tables): kernel route TTFT {ttft:.3f} s, "
+          f"{steps} decode steps {decode_s * 1e3 / steps:.3f} ms each "
+          f"(launches {launches}); plain route TTFT {p_ttft:.3f} s, "
+          f"{p_decode_s * 1e3 / steps:.3f} ms a step; greedy tokens equal "
+          f"{same} of {toks.numel()} (the plain route teacher-forced), max "
+          f"|dlogit| {dlogit:.3g} [{smi}]")
+    check(same == toks.numel(), f"[{tag}] kernel and plain routes' greedy "
+          "tokens differ")
+    tok, pos, pages = nxt
+
+    def step():
+        lay.decode_step(params, cache, tok, pos, pages)
+    prof = _profile_decode(smi, step, 1, "decode step", f"{tag}-profile",
+                           profile_name)
+    return {"ttft_s": ttft, "step_ms": decode_s * 1e3 / steps,
+            "plain_ttft_s": p_ttft, "plain_step_ms": p_decode_s * 1e3 / steps,
+            "launches": launches, "tokens": toks.numel(), "equal": same,
+            "max_dlogit": dlogit, "profile": prof, "layout": lay,
+            "cache": cache, "next": nxt}
+
+
+def phase_serve_vlm(smi: str) -> dict:
+    """qwen2-vl-7b at its published widths and full depth (28 layers,
+    7,628,332,544 params, f32 weights from seed 0, bf16 compute): 4
+    prompts of 1,024 stub patch positions + 128 tokens, 32 generated,
+    greedy, one-shot through ``repro_torch.launch.serve`` (B5 28 times,
+    causal at KV 4, G 7, hd 128), then the same batch through
+    `PagedLayout` over f32 pools (B4 28 times a decode step, M-RoPE
+    positions (3, B, 1)), kernel route == plain route, two steps
+    profiled."""
+    from repro_torch.launch import serve
+    rec = {"oneshot": _mm_oneshot(smi, VLM_ARGS, "serve-vlm", VLM_LAYERS)}
+    args = serve.build_argparser().parse_args(VLM_ARGS)
+    t0 = time.perf_counter()
+    model, params, _ = serve.build(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = _params_count(params)
+    cfg = model.cfg
+    check(n == VLM_PARAMS and cfg.vlm.n_patches == VLM_PATCHES
+          and cfg.vlm.mrope_sections == (16, 24, 24)
+          and cfg.n_heads // cfg.n_kv_heads == 7,
+          f"qwen2-vl-7b: {n} params, {cfg.vlm}")
+    print(f"[serve-vlm] qwen2-vl-7b x{VLM_LAYERS}: {n} params "
+          f"({n * 4 / 1e9:.2f} GB f32), init {init_s:.1f} s [{smi}]")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    prompts = torch.randint(0, cfg.vocab_size, (VLM_BATCH, VLM_PROMPT),
+                            generator=gen, device="cuda")
+    batch = {"tokens": prompts, **serve.stub_inputs(cfg, VLM_BATCH,
+                                                    VLM_PROMPT, gen)}
+    torch.cuda.reset_peak_memory_stats()
+    routes = _mm_routes(smi, model, params, batch, VLM_PATCHES, VLM_GEN,
+                        VLM_LAYERS, VLM_LAYERS, "serve-vlm",
+                        "profile_serve_vlm.txt")
+    routes["peak_bytes"] = torch.cuda.max_memory_allocated()
+    for k in ("layout", "cache", "next"):
+        routes.pop(k)
+    rec.update(routes=routes, params=n, init_s=init_s)
+    print(f"[serve-vlm] peak {routes['peak_bytes'] / 2**30:.3f} GiB over "
+          f"the paged runs [{smi}]")
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_whisper(smi: str) -> dict:
+    """whisper-large-v3 at its published widths and full depth (32
+    encoder + 32 decoder layers, 1,601,459,200 params, f32 weights from
+    seed 0, bf16 compute): 8 prompts of 64 tokens over 1,500 stub frames
+    each, 64 generated, greedy, one-shot through
+    ``repro_torch.launch.serve`` (B5 96 times: 32 bidirectional over the
+    frames, 32 causal decoder-self, 32 cross at 64 x 1,500), then through
+    `PagedLayout` over f32 pools (the self part paged, B4 32 times a
+    decode step; xk / xv slot-indexed), kernel route == plain route, two
+    steps profiled.  Then the shares: the encoder pass of the prefill,
+    and the 32 cross-attention reads (plain ``attend_one`` over (8, 1,500,
+    20, 64), no kernel in the reference) of a decode step."""
+    from repro_torch import tree as T
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    rec = {"oneshot": _mm_oneshot(smi, WHISPER_ARGS, "serve-whisper",
+                                  3 * WHISPER_LAYERS)}
+    args = serve.build_argparser().parse_args(WHISPER_ARGS)
+    model, params, _ = serve.build(args)
+    n = _params_count(params)
+    cfg = model.cfg
+    check(n == WHISPER_PARAMS and cfg.encoder.n_frames == WHISPER_FRAMES
+          and cfg.encoder.n_layers == WHISPER_LAYERS
+          and not cfg.mlp_gated, f"whisper-large-v3: {n} params")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (WHISPER_BATCH, WHISPER_PROMPT), generator=gen,
+                            device="cuda")
+    batch = {"tokens": prompts, **serve.stub_inputs(
+        cfg, WHISPER_BATCH, WHISPER_PROMPT, gen)}
+    torch.cuda.reset_peak_memory_stats()
+    routes = _mm_routes(smi, model, params, batch, 0, WHISPER_GEN,
+                        WHISPER_LAYERS, 3 * WHISPER_LAYERS, "serve-whisper",
+                        "profile_serve_whisper.txt")
+    routes["peak_bytes"] = torch.cuda.max_memory_allocated()
+    lay, cache, (tok, pos, pages) = (routes.pop(k) for k in
+                                     ("layout", "cache", "next"))
+    blk = cache[0]["b0"]
+    check(tuple(blk["xk"].shape) == (WHISPER_LAYERS, WHISPER_BATCH,
+                                     WHISPER_FRAMES, 20, 64)
+          and blk["xk"].dtype == torch.bfloat16,
+          f"[serve-whisper] xk {tuple(blk['xk'].shape)} {blk['xk'].dtype}")
+    xs = [T.map(lambda a: a[r], params["stage0"]["b0"]["xattn"])
+          for r in range(WHISPER_LAYERS)]
+    x = torch.randn((WHISPER_BATCH, 1, cfg.d_model), generator=gen,
+                    device="cuda")
+
+    def cross_reads():
+        for r in range(WHISPER_LAYERS):
+            attn.attention_decode(xs[r], {"k": blk["xk"][r],
+                                          "v": blk["xv"][r]}, x, pos,
+                                  rope_theta=0.0, cross=True)
+    cross_ms = median_ms(cross_reads, reps=5)
+    step_ms = median_ms(lambda: lay.decode_step(params, cache, tok, pos,
+                                                pages), reps=5)
+    prefill_ms = median_ms(lambda: model.prefill(params, batch,
+                                                 WHISPER_PROMPT + 1), reps=3)
+    encoder_ms = median_ms(lambda: model._encoder_out(
+        params, batch["frames"], "flash"), reps=3)
+    print(f"[serve-whisper] a paged decode step {step_ms:.3f} ms, of which "
+          f"the 32 cross-attention reads (q, attend_one over "
+          f"{WHISPER_FRAMES} bf16 frames, wo) alone take {cross_ms:.3f} ms "
+          f"({100 * cross_ms / step_ms:.1f}%); the prefill {prefill_ms:.3f}"
+          f" ms, of which the encoder pass alone takes {encoder_ms:.3f} ms "
+          f"({100 * encoder_ms / prefill_ms:.1f}%) (CUDA events, medians) "
+          f"[{smi}]")
+    routes.update(cross_ms=cross_ms, decode_step_event_ms=step_ms,
+                  prefill_ms=prefill_ms, encoder_ms=encoder_ms)
+    rec.update(routes=routes, params=n)
+    print(f"[serve-whisper] peak {routes['peak_bytes'] / 2**30:.3f} GiB "
+          f"over the paged runs [{smi}]")
+    del model, params, batch, lay, cache, blk, xs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mm_train(smi: str, cfg, steps: int, per_worker: int, tag: str) -> dict:
+    """dc_s3gd at W = 2, 4 buckets, the fused tail (A1/A2), ``steps``
+    steps through `Engine.fit` (the launcher's loop) with batches whose
+    sequences carry their stub inputs (a VLM's patches and tiled M-RoPE
+    positions, an encoder-decoder's frames): the algorithm's ``step``
+    with ``Model.loss``, as the reference's model tests reach it (its
+    launchers' token stream has neither).  Finite losses, A1/A2 once per
+    bucket and step and nothing else, step time, peak memory."""
+    from repro_torch import tree as T
+    from repro_torch.core import registry
+    from repro_torch.core.types import DCS3GDConfig
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.transformer import Model
+    from repro_torch.parallel.buckets import plan_buckets
+    model = Model(cfg, loss_chunk=256)
+    dc = DCS3GDConfig(learning_rate=0.05, momentum=0.9, lambda0=0.2,
+                      warmup_steps=1, total_steps=steps)
+    alg = registry.make("dc_s3gd", dc, n_workers=W, use_kernels=True,
+                        buckets=N_BUCKETS)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = alg.init(model.init(torch.Generator(device="cuda")
+                                .manual_seed(0)))
+    d, V = cfg.d_model, cfg.vocab_size
+
+    def batch_fn(it, n_workers=None):
+        g = torch.Generator(device="cuda").manual_seed(1000 + it)
+        lead = (W, per_worker)
+        b = {"tokens": torch.randint(0, V, lead + (MM_SEQ,), generator=g,
+                                     device="cuda"),
+             "labels": torch.randint(0, V, lead + (MM_SEQ,), generator=g,
+                                     device="cuda")}
+        if cfg.vlm is not None:
+            n = cfg.vlm.n_patches
+            b["patches"] = torch.randn(lead + (n, d), generator=g,
+                                       device="cuda")
+            b["mrope_positions"] = torch.arange(
+                n + MM_SEQ, device="cuda").expand(W, 3, n + MM_SEQ)
+        if cfg.encoder is not None:
+            b["frames"] = torch.randn(lead + (cfg.encoder.n_frames, d),
+                                      generator=g, device="cuda")
+        return b
+    _zero_counts()
+    state, hist, _ = Engine(model, alg).fit(state, batch_fn, steps=steps,
+                                            log_every=1)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plan = plan_buckets(state.params, N_BUCKETS, strip_leading_axis=True)
+    nb = len(plan.bucket_sizes)
+    n = sum(x[0].numel() for x in T.leaves(state.params))
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          f"[{tag}] losses {losses}")
+    check(launches["dc_norms"] == steps * nb
+          and launches["dc_fused_update"] == steps * nb
+          and sum(launches.values()) == 2 * steps * nb,
+          f"[{tag}] launches {launches}, {nb} buckets")
+    step_ms = _step_ms(hist) if steps > 2 else None
+    timing = "" if step_ms is None else \
+        f"; step {step_ms:.3f} ms (median of steps 2..)"
+    print(f"[{tag}] {cfg.name} x{cfg.n_layers}"
+          f"{'' if cfg.encoder is None else f' + encoder x{cfg.encoder.n_layers}'}"
+          f" ({n} params), W={W}, dc_s3gd, fused tail, {nb} buckets "
+          f"{plan.bucket_sizes}: losses {losses}; launches {launches}"
+          f"{timing}; peak memory {peak / 2**30:.3f} GiB ({peak} B), of "
+          f"which {before / 2**20:.1f} MiB were allocated before [{smi}]")
+    rec = {"losses": losses, "launches": launches, "step_ms": step_ms,
+           "peak_bytes": peak, "params": n, "layers": cfg.n_layers,
+           "bucket_sizes": plan.bucket_sizes}
+    del state, alg, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_multimodal(smi: str) -> dict:
+    """whisper-large-v3 at its published widths, depth cut to 8 encoder +
+    8 decoder layers, 3 dc_s3gd steps at W = 2 over 2 x 256 tokens and
+    their 1,500 stub frames a worker, then A1/A2 against their plain
+    versions at its bucket sizes (A2 bitwise); qwen2-vl-7b at the
+    reduced widths (its embedding and unembedding alone hold 1.09 B
+    params: not even one layer fits at W = 2), 2 steps with patches and
+    M-RoPE positions."""
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config("whisper-large-v3")
+    cfg = dataclasses.replace(
+        cfg, n_layers=WHISPER_TRAIN_LAYERS,
+        encoder=dataclasses.replace(cfg.encoder,
+                                    n_layers=WHISPER_TRAIN_LAYERS))
+    rec = {"whisper": _mm_train(smi, cfg, WHISPER_TRAIN_STEPS, 2,
+                                "train-whisper")}
+    k = phase_kernels(rec["whisper"]["bucket_sizes"], smi, W=W,
+                      select=False, tag="kernels-whisper")
+    check(k["dc_fused_update"]["err"] == 0.0,
+          f"[kernels-whisper] A2 off its plain version by "
+          f"{k['dc_fused_update']['err']}")
+    rec["whisper_kernels"] = k
+    torch.cuda.empty_cache()
+    rec["qwen2_vl"] = _mm_train(smi, reduced(get_config("qwen2-vl-7b")),
+                                VLM_TRAIN_STEPS, 2, "train-vlm")
     return rec
 
 
@@ -3689,6 +4167,15 @@ def main() -> int:
     moe["phase_s"] = time.perf_counter() - t0
     print(f"[moe] the MoE, MLA and C5 phases took {moe['phase_s']:.1f} s "
           f"[{smi}]")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mm = {"kernels": phase_multimodal_kernel_shapes(smi)}
+    mm["vlm"] = phase_serve_vlm(smi)
+    mm["whisper"] = phase_serve_whisper(smi)
+    mm["train"] = phase_train_multimodal(smi)
+    mm["phase_s"] = time.perf_counter() - t0
+    print(f"[mm] the qwen2-vl-7b and whisper-large-v3 phases took "
+          f"{mm['phase_s']:.1f} s [{smi}]")
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -3820,6 +4307,20 @@ def main() -> int:
               f"({len(ot['bucket_sizes'])} launches, W={W}), plain "
               f"{k['plain_ms']:.4f} ms, byte bound {k['bound_ms']:.4f} ms, "
               f"max abs err {k['err']:.3g} [{smi}]")
+    for key, what in (("vlm", f"qwen2-vl-7b x{VLM_LAYERS}"),
+                      ("whisper", f"whisper-large-v3 x{WHISPER_LAYERS} + "
+                                  f"encoder x{WHISPER_LAYERS}")):
+        r = mm[key]["routes"]
+        print(f"[times] serve {what} one-shot {mm[key]['oneshot']['wall_s']:.2f}"
+              f" s with its init; paged, f32 pools: TTFT {r['ttft_s']:.3f} s, "
+              f"{r['step_ms']:.3f} ms/decode step, peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB; B4 "
+              f"{r['launches']['paged_attention']}, B5 "
+              f"{r['launches']['flash_attention']} launches [{smi}]")
+    wt = mm["train"]["whisper"]
+    print(f"[times] train whisper-large-v3 x{WHISPER_TRAIN_LAYERS} + encoder "
+          f"x{WHISPER_TRAIN_LAYERS}, W={W}: step {wt['step_ms']:.3f} ms, peak "
+          f"{wt['peak_bytes'] / 2**30:.3f} GiB [{smi}]")
     print(f"[times] serve falcon-mamba-7b x64, 16 slots: "
           f"{fm['decode_tokens_per_s']:.1f} decode tok/s, "
           f"{fm['step_ms']:.3f} ms/decode step, inter-token p50/p95 "
@@ -3861,26 +4362,38 @@ def main() -> int:
              "serve olmoe-1b-7b x16": moe["serve"]["olmoe"]["launches"],
              "serve phi3.5-moe x8": moe["serve"]["phi"]["launches"]}
     shapes = {"paged_attention": {**paged_shapes,
-                                  **moe["kernels"]["paged"]},
+                                  **moe["kernels"]["paged"],
+                                  **mm["kernels"]["paged"]},
               "flash_attention":
               {**{k: v for k, v in flash_shapes.items()
                   if isinstance(v, dict)},
                **{f"recurrentgemma {k}": v
                   for k, v in hybrid["flash"].items()},
-               **moe["kernels"]["flash"]}}
+               **moe["kernels"]["flash"], **mm["kernels"]["flash"]}}
     # minicpm3's paths (latent pages by gather, the plain prefill core)
     mla_paths = {"serve minicpm3-4b x62": moe["mla"]["whole"]["launches"],
                  "serve minicpm3-4b int8": moe["mla"]["int8"]["launches"],
                  "prefix minicpm3 hot": moe["mla"]["hot"]["launches"],
                  "prefix minicpm3 cold": moe["mla"]["cold"]["launches"]}
     hybrid_paths = {"serve recurrentgemma-9b": hybrid["serve"]["launches"]}
+    # the new families: B5 on their one-shot and paged paths, B4 on the
+    # paged ones (the one-shot decode reads the dense cache)
+    mm_paths = {
+        "flash_attention": {
+            "oneshot qwen2-vl-7b": mm["vlm"]["oneshot"]["launches"],
+            "paged qwen2-vl-7b": mm["vlm"]["routes"]["launches"],
+            "oneshot whisper-large-v3": mm["whisper"]["oneshot"]["launches"],
+            "paged whisper-large-v3": mm["whisper"]["routes"]["launches"]},
+        "paged_attention": {
+            "paged qwen2-vl-7b": mm["vlm"]["routes"]["launches"],
+            "paged whisper-large-v3": mm["whisper"]["routes"]["launches"]}}
     for entry in kernels:
         name = entry["name"]
         if name in shapes:
             entry["launches_by_path"] = {
                 p: n[name] for p, n in {
                     **paths, **(hybrid_paths if name == "flash_attention"
-                                else {})}.items()}
+                                else {}), **mm_paths[name]}.items()}
             entry["shapes"] = {c: {f: r[f] for f in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "err",
                 "gather_sdpa_ms")
@@ -3927,6 +4440,15 @@ def main() -> int:
                 "max_abs_err": k["err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": "bytes"}
+            # and on whisper-large-v3 x8 + x8's training path (3 steps,
+            # W = 2)
+            k = mm["train"]["whisper_kernels"][entry["name"]]
+            entry["whisper"] = {
+                "launches": mm["train"]["whisper"]["launches"][
+                    entry["name"]],
+                "max_abs_err": k["err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": "bytes"}
     record = {"card": smi, "step_ms": step_s * 1e3, "peak_bytes": peak,
               "compressed_step_ms": c_step_s * 1e3,
               "compressed_peak_bytes": c_peak,
@@ -3940,6 +4462,7 @@ def main() -> int:
               "cnn": cnn, "state": state, "flash_shapes": flash_shapes,
               "paged_shapes": paged_shapes, "serve_prefix": prefix,
               "dense_family": dense, "hybrid": hybrid, "moe_mla": moe,
+              "vlm_encdec": mm,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start
     print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "

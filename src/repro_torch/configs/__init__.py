@@ -2,11 +2,10 @@
 
 Each config module exposes ``CONFIG`` (the full-size published config with
 its source); ``reduced(cfg)`` gives the 2-layer smoke variant the CPU
-tests use.  Only the configs the port can run are listed (the dense
+tests use.  Every config of the reference is listed: the dense
 qwen3-0.6b, stablelm-3b, granite-20b and minicpm3-4b (MLA), the moe
-olmoe-1b-7b and phi3.5-moe-42b-a6.6b, the ssm falcon-mamba-7b and the
-hybrid recurrentgemma-9b); the others are queued in ROADMAP.md (queue A:
-qwen2-vl, whisper).
+olmoe-1b-7b and phi3.5-moe-42b-a6.6b, the ssm falcon-mamba-7b, the hybrid
+recurrentgemma-9b, the vlm qwen2-vl-7b and the encdec whisper-large-v3.
 """
 from __future__ import annotations
 
@@ -14,14 +13,16 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs import (falcon_mamba_7b, granite_20b, minicpm3_4b,
-                                 olmoe_1b_7b, phi35_moe_42b, qwen3_0_6b,
-                                 recurrentgemma_9b, stablelm_3b)
+                                 olmoe_1b_7b, phi35_moe_42b, qwen2_vl_7b,
+                                 qwen3_0_6b, recurrentgemma_9b, stablelm_3b,
+                                 whisper_large_v3)
 from repro_torch.core.types import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
     c.CONFIG.name: c.CONFIG
     for c in (qwen3_0_6b, falcon_mamba_7b, stablelm_3b, granite_20b,
-              recurrentgemma_9b, olmoe_1b_7b, phi35_moe_42b, minicpm3_4b)
+              recurrentgemma_9b, olmoe_1b_7b, phi35_moe_42b, minicpm3_4b,
+              qwen2_vl_7b, whisper_large_v3)
 }
 
 
@@ -33,12 +34,14 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant of the same family: 2 layers, d_model<=256,
-    small vocab, f32 compute — the reference's ``reduced`` for the dense,
-    moe, ssm and hybrid families (the ssm config is kept as it is; the
+    small vocab, f32 compute — the reference's ``reduced`` for every
+    family (the ssm config is kept as it is; the
     hybrid one gets lru_width 256, a 64-token window and 4 layers: one
     full (recurrent, recurrent, attention) unit and a one-block remainder
     stage; MoE 4 experts, top-k at most 2, expert width 128; MLA the
-    latent ranks 64 / 32, heads 32 + 16 wide, v 32 and ``head_dim`` 0)."""
+    latent ranks 64 / 32, heads 32 + 16 wide, v 32 and ``head_dim`` 0;
+    the encoder 2 layers over 32 frames; the VLM 8 patches, M-RoPE
+    sections (8, 12, 12) over the 64-wide heads)."""
     kw = dict(
         name=cfg.name + "-smoke",
         ssm=cfg.ssm,
@@ -66,4 +69,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
                                         kv_lora_rank=32, qk_nope_head_dim=32,
                                         qk_rope_head_dim=16, v_head_dim=32)
         kw["head_dim"] = 0
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(cfg.encoder, n_layers=2,
+                                            n_frames=32)
+    if cfg.vlm is not None:
+        kw["vlm"] = dataclasses.replace(cfg.vlm, n_patches=8,
+                                        mrope_sections=(8, 12, 12))
     return dataclasses.replace(cfg, **kw)

@@ -73,7 +73,8 @@ class DCASGD:
         leaves, treedef = T.flatten(worker_params)
         w_i = [x[wid].detach().requires_grad_() for x in leaves]
         loss = loss_fn(T.unflatten(treedef, w_i), batch_i)
-        g = T.unflatten(treedef, list(torch.autograd.grad(loss, w_i)))
+        g = T.unflatten(treedef, list(torch.autograd.grad(
+            loss, w_i, materialize_grads=True)))
         w_i = T.unflatten(treedef, [x.detach() for x in w_i])
 
         # DC-ASGD Eq. 6: correct toward the PS copy

@@ -457,13 +457,17 @@ def _vgrads(loss_fn, params: Tree, batch: Tree, microbatches: int = 1):
     grads = [torch.empty(x.shape, dtype=acc_dtype or x.dtype,
                          device=x.device) for x in leaves]
     losses = []
+    # materialize_grads: a leaf the loss does not read (a VLM's
+    # vision_proj on a batch without patches) gets zeros, as jax.grad
+    # gives it
     for i in range(W):
         p_i = [x[i].detach().requires_grad_() for x in leaves]
         tree_i = T.unflatten(treedef, p_i)
         b_i = T.map(lambda x: x[i], batch)
         if microbatches <= 1:
             loss = loss_fn(tree_i, b_i)
-            for G, g in zip(grads, torch.autograd.grad(loss, p_i)):
+            g_i = torch.autograd.grad(loss, p_i, materialize_grads=True)
+            for G, g in zip(grads, g_i):
                 G[i].copy_(g)
             losses.append(loss.detach().float())
             continue
@@ -474,7 +478,8 @@ def _vgrads(loss_fn, params: Tree, batch: Tree, microbatches: int = 1):
         for k in range(microbatches):
             mb = T.map(lambda x: x.chunk(microbatches)[k], b_i)
             loss = loss_fn(tree_i, mb)
-            for G, g in zip(grads, torch.autograd.grad(loss, p_i)):
+            g_i = torch.autograd.grad(loss, p_i, materialize_grads=True)
+            for G, g in zip(grads, g_i):
                 if k == 0:
                     G[i].copy_(g.float())
                 else:

@@ -206,19 +206,22 @@ class Engine:
     def generate(self, params, prompts: torch.Tensor, *, gen: int,
                  sampler: Optional[str] = None, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None,
-                 cache_len: Optional[int] = None) -> torch.Tensor:
+                 cache_len: Optional[int] = None,
+                 extra_batch: Optional[dict] = None) -> torch.Tensor:
         """prompts: (B, P) int -> (B, gen) generated ids on the prompts'
         device.  The one-shot case of the serve subsystem
         (`repro_torch.serve.oneshot.OneShotGenerator`): one prefill, then
         the decode loop over the dense layout.  ``sampler`` is a `SAMPLERS`
         name; by default greedy at ``temperature <= 0`` and categorical
-        above, drawing from ``generator``.  For request streams (continuous
-        batching, paged KV) use `repro_torch.serve.scheduler.Scheduler`."""
+        above, drawing from ``generator``.  ``extra_batch``: a VLM's
+        ``patches`` and ``mrope_positions``, an encoder-decoder's
+        ``frames``.  For request streams (continuous batching, paged KV)
+        use `repro_torch.serve.scheduler.Scheduler`."""
         if self._oneshot is None:
             self._oneshot = OneShotGenerator(self.model)
         return self._oneshot(params, prompts, gen=gen, sampler=sampler,
                              temperature=temperature, generator=generator,
-                             cache_len=cache_len)
+                             cache_len=cache_len, extra_batch=extra_batch)
 
 
 # ---------------------------------------------------------------------------

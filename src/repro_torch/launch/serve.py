@@ -23,6 +23,10 @@ Three modes, as in the reference:
       --requests r.jsonl --slots 16 --decode-burst 4
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-9b --requests r.jsonl --slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \\
+      --batch 4 --prompt-len 128 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-large-v3 --batch 8 --prompt-len 64 --gen 64
 
 ``--arch`` is qwen3-0.6b, stablelm-3b (layernorm, hd 80) or granite-20b
 (MQA: one kv head for 48 query heads), attention over the paged KV
@@ -31,7 +35,14 @@ recurrentgemma-9b (RG-LRU state and a 2,048-token local-attention ring
 per request, whatever the prompt's length): their state is slot-indexed,
 so the page pool stays untouched, ``--pages`` / ``--page-size`` /
 ``--kv-dtype`` do not apply to them, and ``--prefill-chunk`` /
-``--prefix-cache`` are refused, as in the reference.  ``--prefill-chunk N`` forwards prompts N
+``--prefix-cache`` are refused, as in the reference.  qwen2-vl-7b (a VLM:
+M-RoPE, its prompt 1,024 patch positions before the text) and
+whisper-large-v3 (an encoder over 1,500 frames, then a decoder with
+cross-attention) serve one-shot only, as in the reference: their
+prompts carry stub inputs the request file cannot, so the patches (B,
+n_patches, d), the tiled M-RoPE positions and the frames (B, n_frames,
+d) are drawn from ``--seed``, and the scheduler refuses both.
+``--prefill-chunk N`` forwards prompts N
 tokens per scheduler step, interleaved with decode; ``--prefix-cache``
 shares committed prompt pages between requests, with copy-on-write where
 a prompt diverges inside a page.
@@ -186,12 +197,36 @@ def build(args):
 
 
 def generate(model, params, prompts: torch.Tensor, *, gen: int,
-             temperature: float = 0.0, generator=None, sampler=None):
+             temperature: float = 0.0, generator=None, sampler=None,
+             extra_batch=None):
     """prompts: (B, P) int.  Returns (B, gen) generated ids: a thin wrapper
     over `Engine.generate`."""
     return Engine(model).generate(params, prompts, gen=gen,
                                   temperature=temperature,
-                                  generator=generator, sampler=sampler)
+                                  generator=generator, sampler=sampler,
+                                  extra_batch=extra_batch)
+
+
+def stub_inputs(cfg, batch: int, prompt_len: int,
+                generator: torch.Generator) -> dict:
+    """What a one-shot prompt carries besides its tokens, as the
+    reference's launcher draws it: a VLM's ``patches`` (batch, n_patches,
+    d) and ``mrope_positions``, ``arange(n_patches + prompt_len)`` in all
+    three components; an encoder-decoder's ``frames`` (batch, n_frames,
+    d); standard normal draws from ``generator``, on its device."""
+    dev, extra = generator.device, {}
+    if cfg.vlm is not None:
+        extra["patches"] = torch.randn(
+            (batch, cfg.vlm.n_patches, cfg.d_model), generator=generator,
+            device=dev)
+        total = prompt_len + cfg.vlm.n_patches
+        extra["mrope_positions"] = torch.arange(total, device=dev) \
+            .expand(3, total)
+    if cfg.encoder is not None:
+        extra["frames"] = torch.randn(
+            (batch, cfg.encoder.n_frames, cfg.d_model), generator=generator,
+            device=dev)
+    return extra
 
 
 def load_requests(path: Path, vocab: int, default_gen: int,
@@ -323,10 +358,11 @@ def main(argv=None):
     prompts = torch.randint(0, cfg.vocab_size,
                             (args.batch, args.prompt_len), generator=gen,
                             device=device)
+    extra = stub_inputs(cfg, args.batch, args.prompt_len, gen)
     t0 = time.perf_counter()
     ids = generate(model, params, prompts, gen=args.gen,
                    temperature=args.temperature, generator=gen,
-                   sampler=args.sampler).cpu()
+                   sampler=args.sampler, extra_batch=extra).cpu()
     dt = time.perf_counter() - t0
     print(f"[serve] {cfg.name}: batch={args.batch} prompt={args.prompt_len} "
           f"gen={args.gen} -> {tuple(ids.shape)} in {dt:.1f}s "

@@ -12,7 +12,10 @@ dense configs through the plain attention core, falcon-mamba-7b and
 recurrentgemma-9b through the differentiable chunked scan (e.g.
 ``--arch falcon-mamba-7b --layers 1``: at W = 2 the fused, bucketed tail
 of its 638M parameters peaks at 66.6 GiB on an H100 80GB, as
-``chip_smoke.py`` measures it).
+``chip_smoke.py`` measures it).  qwen2-vl-7b trains on the token stream
+alone (no patches: plain RoPE), as the reference's launcher does; the
+stream has no frames, so whisper-large-v3 is refused (the reference's
+launcher fails on the missing input).
 
 ``--ckpt PATH`` saves the final state with the metadata of the algorithm
 that trained it; ``--resume PATH`` restores it and continues at its step,
@@ -189,6 +192,14 @@ def build(args, *, device=None):
         cfg = reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if cfg.encoder is not None:
+        # the reference's launcher fails in Model.loss on the missing
+        # batch["frames"]; refused here before anything is allocated
+        raise ValueError(
+            f"{cfg.name}: the synthetic LM stream has no 'frames' (the "
+            "encoder's input, (B, n_frames, d)), so this launcher cannot "
+            "train an encoder-decoder; step the algorithm with a loss_fn "
+            "whose batches carry frames")
     # the reduced MoE trains through the all-experts oracle, as the
     # reference's launcher does; the published widths route
     model = Model(cfg, loss_chunk=256, moe_dense=args.reduced)

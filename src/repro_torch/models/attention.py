@@ -1,5 +1,6 @@
-"""Grouped-query attention, causal, full or sliding-window (the port of
-``repro.models.attention``'s ``init_attention`` / ``attention_train``, for
+"""Grouped-query attention, causal, full or sliding-window, or
+bidirectional (the port of ``repro.models.attention``'s
+``init_attention`` / ``init_cross_attention`` / ``attention_train``, for
 decoding ``init_kv_cache`` / ``decode_positions`` / ``attend_one`` /
 ``attention_decode`` with the ring buffer of a windowed kind, and for
 chunked prefill ``_blocked_attention`` / ``attention_prefill_chunk``).
@@ -27,8 +28,12 @@ flash-attention kernel with a query offset on the card,
 blocks) on the CPU.  Multi-head latent attention (MiniCPM3) has the
 same three paths over a latent cache: `mla_train` (the plain core at a
 q·k width other than v's), the absorbed one-token `mla_decode` and
-`mla_prefill_chunk`.  Cross-attention and M-RoPE are not ported (ROADMAP
-queue A: whisper and qwen2-vl).
+`mla_prefill_chunk`.  Qwen2-VL's M-RoPE replaces RoPE on q and k where
+the caller passes ``mrope_positions``.  Whisper's cross-attention is
+`attention_train` with ``kv_override`` (the encoder's k and v, projected
+by the caller: no RoPE, no k norm, every frame visible, ``causal=False``)
+and `attention_decode` with ``cross=True`` over the static per-request
+encoder cache.
 """
 from __future__ import annotations
 
@@ -37,8 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (apply_rope, dense_init, init_rmsnorm,
-                                       matmul, promoted, rmsnorm)
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
+                                       init_rmsnorm, matmul, promoted,
+                                       rmsnorm)
 
 NEG_INF = -1e30
 MLA_KEY_BLOCK = 256  # keys per block of an MLA chunk's attention
@@ -64,24 +70,35 @@ def init_attention(gen: torch.Generator, lead, d: int, n_heads: int,
     return p
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum('bsd,dhk->bshk') with jnp promotion."""
+def init_cross_attention(gen: torch.Generator, lead, d: int, n_heads: int,
+                         head_dim: int, dtype) -> dict:
+    """Cross-attention weights: multi-head (KV = H), no qk norm."""
+    return init_attention(gen, lead, d, n_heads, n_heads, head_dim, False,
+                          dtype)
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,dhk->bshk') with jnp promotion: x (..., d) through a
+    per-head weight (d, H, k) to (..., H, k)."""
     d, h, k = w.shape
     return matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     window: int = 0) -> torch.Tensor:
-    """q: (B, S, KV, G, hd); k, v: (B, S, KV, hd).  Causal, and with
-    ``window > 0`` keys ``window`` or more before the query masked too.
-    Scores and softmax in f32.  Returns (B, S, KV, G, hd) in q's dtype."""
+                     window: int = 0, causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd).  Causal (Sq = Sk),
+    and with ``window > 0`` keys ``window`` or more before the query
+    masked too; with ``causal=False`` every key is visible (the
+    encoder's and the cross-attention's core, Sq and Sk free).  Scores
+    and softmax in f32.  Returns (B, Sq, KV, G, hd) in q's dtype."""
     S, hd = q.shape[1], q.shape[-1]
     s = torch.einsum("bqkgh,bckh->bkgqc", q.float(), k.float()) \
         * (hd ** -0.5)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    if window > 0:
-        mask = mask.triu(1 - window)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        if window > 0:
+            mask = mask.triu(1 - window)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
@@ -141,31 +158,46 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                    *, rope_theta: float, window: int = 0,
-                    qk_norm: bool = False, norm_eps: float = 1e-6,
+                    *, rope_theta: float, causal: bool = True,
+                    window: int = 0, qk_norm: bool = False,
+                    norm_eps: float = 1e-6, mrope_positions=None,
+                    mrope_sections=None, kv_override=None,
                     return_kv: bool = False, core: str = "plain"):
-    """x: (B, S, d); positions: (S,).  Causal self-attention, over the
-    last ``window`` positions when ``window > 0``.  Returns (B, S, d), and
-    with ``return_kv`` also the (normed, roped) k and v (B, S, KV, hd)
-    that a decode cache stores.  ``core``: ``"plain"``
-    (`causal_attention`, differentiable) or ``"flash"`` (the
-    flash-attention kernel's wrapper, forward only)."""
+    """x: (B, S, d); positions: (S,).  Self-attention, causal unless
+    ``causal=False``, over the last ``window`` positions when ``window >
+    0``; ``mrope_positions`` (3, S) rotates q and k by M-RoPE in place of
+    RoPE.  ``kv_override`` = (k, v) (B, Sk, KV, hd), already projected,
+    makes it cross-attention: keys at ``arange(Sk)``, no RoPE and no k
+    norm on them.  Returns (B, S, d), and with ``return_kv`` also the
+    (normed, roped) k and v (B, S, KV, hd) that a decode cache stores.
+    ``core``: ``"plain"`` (`causal_attention`, differentiable) or
+    ``"flash"`` (the flash-attention kernel's wrapper, forward only)."""
     if core not in ("plain", "flash"):
         raise ValueError(f"attention core {core!r}: 'plain' or 'flash'")
     B, S, _ = x.shape
-    q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    q = project(x, params["wq"])
+    if kv_override is None:
+        k = project(x, params["wk"])
+        v = project(x, params["wv"])
+    else:
+        k, v = kv_override
     if qk_norm:
         q = rmsnorm(params["q_norm"], q, norm_eps)
-        k = rmsnorm(params["k_norm"], k, norm_eps)
-    if rope_theta > 0:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        if kv_override is None:
+            k = rmsnorm(params["k_norm"], k, norm_eps)
+    if rope_theta > 0 and kv_override is None:
+        if mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, rope_theta, mrope_sections)
+            k = apply_mrope(k, mrope_positions, rope_theta, mrope_sections)
+        else:
+            q = apply_rope(q, positions, rope_theta)
+            k = apply_rope(k, positions, rope_theta)
     H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
     qg = q.reshape(B, S, KV, H // KV, hd)
-    out = flash_attention(qg, k, v, causal=True, window=window) \
-        if core == "flash" else causal_attention(qg, k, v, window)
+    if core == "flash":
+        out = flash_attention(qg, k, v, causal=causal, window=window)
+    else:
+        out = causal_attention(qg, k, v, window, causal)
     wo = params["wo"]
     y = matmul(out.reshape(B, S, H * hd), wo.reshape(H * hd, wo.shape[-1]))
     return (y, k, v) if return_kv else y
@@ -213,32 +245,49 @@ def attend_one(qg: torch.Tensor, k_cache: torch.Tensor,
 def attention_decode(params: dict, cache: dict, x: torch.Tensor,
                      pos: torch.Tensor, *, rope_theta: float,
                      window: int = 0, qk_norm: bool = False,
-                     norm_eps: float = 1e-6, cross: bool = False,
+                     norm_eps: float = 1e-6, mrope_positions=None,
+                     mrope_sections=None, cross: bool = False,
                      cache_ops=None):
     """One-token decode.  x: (B, 1, d); pos: 0-d int tensor (the dense
-    layout) or a per-row (B,) vector under a paged layout, on x's device.
+    layout) or a per-row (B,) vector under a paged layout, on x's device;
+    ``mrope_positions`` ((3, 1) dense, (3, B, 1) paged) rotates q and the
+    new k by M-RoPE in place of RoPE.
 
     Cache keys are stored post-RoPE.  For ``window > 0`` the cache is a
     ring (slot ``pos % cache_len``, every slot up to ``pos`` live).
     ``cache_ops`` (a `repro_torch.models.cache` layout's step ops) takes
     over the cache update + attend, the seam the paged layout plugs into;
     ``None`` is the dense path, which writes at ``pos`` (or its ring slot)
-    in place.  Returns ((B, 1, d), the cache)."""
-    if cross:
-        raise NotImplementedError(
-            "cross-attention is not ported (ROADMAP queue A, item 7: "
-            "whisper)")
+    in place.  ``cross=True`` is whisper's cross-attention: the cache's k
+    and v (B, n_frames, KV, hd) are the encoder's, static and all live; no
+    RoPE on q, nothing written.  Returns ((B, 1, d), the cache)."""
     B = x.shape[0]
-    positions = decode_positions(pos)
-    q = _project(x, params["wq"])
-    k_new = _project(x, params["wk"])
-    v_new = _project(x, params["wv"])
+    q = project(x, params["wq"])
     if qk_norm:
         q = rmsnorm(params["q_norm"], q, norm_eps)
+    if cross:
+        k_cache, v_cache = cache["k"], cache["v"]
+        H, KV, hd = q.shape[2], k_cache.shape[2], q.shape[3]
+        valid = torch.ones(k_cache.shape[1], dtype=torch.bool,
+                           device=x.device)
+        out = attend_one(q.reshape(B, KV, H // KV, hd), k_cache, v_cache,
+                         valid)
+        out = out.reshape(B, 1, H * hd).to(x.dtype)
+        wo = params["wo"]
+        return matmul(out, wo.reshape(H * hd, wo.shape[-1])), cache
+    positions = decode_positions(pos)
+    k_new = project(x, params["wk"])
+    v_new = project(x, params["wv"])
+    if qk_norm:
         k_new = rmsnorm(params["k_norm"], k_new, norm_eps)
     if rope_theta > 0:
-        q = apply_rope(q, positions, rope_theta)
-        k_new = apply_rope(k_new, positions, rope_theta)
+        if mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, rope_theta, mrope_sections)
+            k_new = apply_mrope(k_new, mrope_positions, rope_theta,
+                                mrope_sections)
+        else:
+            q = apply_rope(q, positions, rope_theta)
+            k_new = apply_rope(k_new, positions, rope_theta)
     H, KV, hd = q.shape[2], k_new.shape[2], q.shape[3]
     qg = q.reshape(B, KV, H // KV, hd)
     if cache_ops is not None:
@@ -275,9 +324,9 @@ def attention_prefill_chunk(params: dict, cache: dict, x: torch.Tensor,
     queries attend over the linearized view, the causal mask hiding the
     future.  Returns ((B, L, d), the cache, updated in place)."""
     B, L, _ = x.shape
-    q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    q = project(x, params["wq"])
+    k = project(x, params["wk"])
+    v = project(x, params["wv"])
     if qk_norm:
         q = rmsnorm(params["q_norm"], q, norm_eps)
         k = rmsnorm(params["k_norm"], k, norm_eps)
@@ -332,7 +381,7 @@ def _mla_query(params: dict, x: torch.Tensor, positions: torch.Tensor,
                m, rope_theta: float, norm_eps: float):
     """(q_nope (B, S, H, nope), q_rope (B, S, H, rope) roped)."""
     q_lat = rmsnorm(params["q_norm"], matmul(x, params["w_dq"]), norm_eps)
-    q = _project(q_lat, params["w_uq"])
+    q = project(q_lat, params["w_uq"])
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, apply_rope(q_rope, positions, rope_theta)
 
@@ -352,8 +401,8 @@ def _mla_expand(params: dict, q_nope, q_rope, ckv, k_rope):
     """The multi-query form: keys and values expanded from the latents
     through ``w_uk`` / ``w_uv``, the rope key broadcast over the heads.
     Returns (q (B, Sq, H, 1, qk), k (B, Sk, H, qk), v (B, Sk, H, vd))."""
-    k_nope = _project(ckv, params["w_uk"])
-    v = _project(ckv, params["w_uv"])
+    k_nope = project(ckv, params["w_uk"])
+    v = project(ckv, params["w_uv"])
     H = q_nope.shape[2]
     kr = k_rope[:, :, None, :].expand(-1, -1, H, -1).to(k_nope.dtype)
     q = torch.cat([q_nope, q_rope], dim=-1)

@@ -1,6 +1,7 @@
 """Cache layouts: how decode state is stored, addressed and updated (the
 port of ``repro.models.cache`` for full and sliding-window attention,
-MLA's latent cache, the Mamba state and the RG-LRU state).
+MLA's latent cache, the Mamba state, the RG-LRU state and whisper's
+cross blocks).
 
 * `DenseLayout` — one contiguous ``(B, cache_len, KV, hd)`` buffer per
   layer (a ring ``(B, window, KV, hd)`` for a windowed kind, or the
@@ -32,6 +33,11 @@ MLA's latent cache, the Mamba state and the RG-LRU state).
                      at the compute dtype, ssm / h f32, as the reference
                      keeps it (so under bf16 compute the slot's conv
                      state is rounded where the dense layout's is not)
+  cross (whisper)    the self part paged as full attention; the
+                     encoder's ``xk`` / ``xv`` slot-indexed ``(R,
+                     n_slots, n_frames, H, hd)`` at the compute dtype,
+                     written once by `PagedLayout.prefill_into`, static
+                     after, never quantized, never copied by `copy_page`
   =================  ===================================================
 
   Row ``s`` of a slot-indexed kind is decode slot ``s``.  A model with no
@@ -69,13 +75,12 @@ resumes mid-prompt gives the cold chunked prefill's bits.  `copy_page` is
 the device half of copy-on-write.  Rings and slot states cannot resume
 mid-prompt, so a model with any of them is not ``chunkable``, as in the
 reference; nor is a routed MoE model (its capacity drops depend on which
-tokens share a batch), only one built with ``moe_dense``.
+tokens share a batch), only one built with ``moe_dense``; nor are the
+vlm and encdec models, whose prompts carry patches or frames.
 
 Physical page 0 is the scratch page: inactive decode slots point their
 whole block table at it (and sit at position 0), so their writes land
 somewhere harmless and the step needs no per-slot mask.
-
-Not ported yet: the cross-attention kind (ROADMAP queue A: whisper).
 """
 from __future__ import annotations
 
@@ -104,17 +109,20 @@ def _quantize_tokens(x: torch.Tensor, kv_dtype: str, lead: int
     return qv, sc.reshape(x.shape[:lead])
 
 
+_STATIC = ("xk", "xv")  # a cross block's slot-indexed encoder k / v
+
+
 def resolved_window(cfg: ModelConfig, kind: str) -> int:
     """The sliding window a block kind attends with (0 = full causal, and
-    0 for the ``mamba`` and ``recurrent`` kinds, which do not attend)."""
+    0 for the ``mamba`` and ``recurrent`` kinds, which do not attend; a
+    ``cross`` block's self-attention takes the config's)."""
     if kind == "attention_local":
         return cfg.rglru.attention_window
-    if kind == "attention":
+    if kind in ("attention", "cross"):
         return cfg.sliding_window
     if kind in ("mamba", "recurrent", "mla"):
         return 0
-    raise NotImplementedError(f"{kind!r} blocks are not ported (ROADMAP "
-                              "queue A, item 7)")
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def stacked(c: dict, repeats: int) -> dict:
@@ -126,10 +134,11 @@ def stacked(c: dict, repeats: int) -> dict:
 
 def paged_kinds(cfg: ModelConfig, kinds) -> List[str]:
     """The block kinds of one stage unit whose cache grows with sequence
-    length (and therefore lives in the page pool): full-causal attention
-    and mla; rings and the Mamba / RG-LRU states are slot-indexed."""
+    length (and therefore lives in the page pool): full-causal attention,
+    a cross block's self part, and mla; rings and the Mamba / RG-LRU
+    states are slot-indexed."""
     return [k for k in kinds if k == "mla"
-            or (resolved_window(cfg, k) == 0 and k == "attention")]
+            or (k in ("attention", "cross") and resolved_window(cfg, k) == 0)]
 
 
 def _scaled(lin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -391,9 +400,12 @@ class PagedLayout:
         # rings and slot-indexed states cannot resume mid-prompt.  And
         # per-token FFN math: routed MoE drops tokens by batch occupancy,
         # so a chunk boundary would change the math
+        # (a VLM's or an encoder-decoder's prompt carries patches or
+        # frames that a chunk of tokens does not)
         self.chunkable = all(paged_kinds(cfg, st.kinds) == list(st.kinds)
                              for st in model.stages) \
-            and (cfg.moe is None or model.moe_dense)
+            and (cfg.moe is None or model.moe_dense) \
+            and cfg.vlm is None and cfg.encoder is None
 
     # -- allocation-free capacity facts ------------------------------------
 
@@ -475,6 +487,11 @@ class PagedLayout:
             for n in feats:
                 c[f"{n}_scale"] = torch.zeros(lead, dtype=torch.float32,
                                               device=device)
+        if kind == "cross":      # the encoder's k / v, one row per slot
+            shape = (repeats, self.n_slots, cfg.encoder.n_frames,
+                     cfg.eff_n_heads, cfg.resolved_head_dim)
+            for n in _STATIC:
+                c[n] = torch.zeros(shape, dtype=dtype, device=device)
         return c
 
     # -- prefill-on-join ----------------------------------------------------
@@ -486,15 +503,24 @@ class PagedLayout:
         """Prefill a GROUP of joining requests (equal prompt lengths, one
         batch row each) and write their caches in place: full attention's
         k/v into ``pages`` ((k, n_pg) physical page ids covering each
-        prompt), rings and the Mamba / RG-LRU states into slot rows
-        ``slots`` ((k,) decode slots; needed only by slot-indexed kinds).
+        prompt), rings, the Mamba / RG-LRU states and the encoder's xk /
+        xv into slot rows ``slots`` ((k,) decode slots; needed only by
+        slot-indexed kinds).  A VLM's prompt is its patches, then its
+        tokens: the pages must cover both.
 
         Runs `Model.prefill` as it is — the dense cache entries it returns
         are the logical layout (its rings ``window`` wide, as the slots'
         are), scattered here into the pool and slot storage — so a paged
         prefill is bitwise the dense prefill at the same batch width."""
         P = batch["tokens"].shape[1]
+        if self.model.cfg.vlm is not None and "patches" in batch:
+            P += batch["patches"].shape[1]
         n_pg = int(pages.shape[1])
+        if self.uses_pages and n_pg * self.page_size < P:
+            # (the reference sizes its cache from the tokens alone)
+            raise ValueError(f"prefill_into: {n_pg} pages of "
+                             f"{self.page_size} hold fewer than the "
+                             f"prompt's {P} positions")
         cache_len = max(n_pg * self.page_size, P, 1)
         logits, entries = self.model.prefill(params, batch,
                                              cache_len=cache_len)
@@ -507,19 +533,22 @@ class PagedLayout:
     def _write_block(self, kind: str, c: dict, e: dict,
                      pages: torch.Tensor,
                      slots: Optional[torch.Tensor]) -> None:
-        if not paged_kinds(self.model.cfg, (kind,)):
+        paged = bool(paged_kinds(self.model.cfg, (kind,)))
+        slot_names = [n for n in c if not paged or n in _STATIC]
+        if slot_names:
             # to_slot: (R, k, ...) into the joining slots' rows
             if slots is None:
                 raise ValueError(f"prefill_into: the {kind} cache is "
                                  "slot-indexed, pass the joining slots")
             rows = slots.reshape(-1).long()
-            for name, buf in c.items():
-                buf[:, rows] = e[name].to(buf.dtype)
+            for name in slot_names:
+                c[name][:, rows] = e[name].to(c[name].dtype)
+        if not paged:
             return
         ps = self.page_size
         k_grp, n_pg = pages.shape
         flat = pages.reshape(-1).long()
-        for name in e:
+        for name in (n for n in e if n not in _STATIC):
             seq = e[name]                       # (R, k, cache_len, ...)
             seg = seq[:, :, :n_pg * ps].reshape(
                 seq.shape[0], k_grp * n_pg, ps, *seq.shape[3:])
@@ -573,8 +602,9 @@ class PagedLayout:
         for si, stage in enumerate(self.model.stages):
             for j, kind in enumerate(stage.kinds):
                 if paged_kinds(self.model.cfg, (kind,)):
-                    for pool in cache[si][f"b{j}"].values():
-                        pool[:, dst] = pool[:, src]
+                    for name, pool in cache[si][f"b{j}"].items():
+                        if name not in _STATIC:
+                            pool[:, dst] = pool[:, src]
         return cache
 
     # -- decode -------------------------------------------------------------
@@ -586,8 +616,11 @@ class PagedLayout:
         (B,) per-slot positions, ``block_tables`` (B, max_pages), all on
         the device.  Returns ((B, vocab_padded) logits, the cache updated
         in place).  Decode row s is slot s's row of every slot-indexed
-        kind."""
+        kind.  A VLM's M-RoPE positions are (3, B, 1), each row's ``pos``
+        in all three components."""
         ops = _PagedOps(self, pos, block_tables)
-        return self.model.decode_step(params, cache,
-                                      {"tokens": tokens, "pos": ops.pos},
-                                      cache_ops=ops)
+        batch = {"tokens": tokens, "pos": ops.pos}
+        if self.model.cfg.vlm is not None:
+            batch["mrope_positions"] = ops.pos[None, :, None].expand(
+                3, -1, 1)
+        return self.model.decode_step(params, cache, batch, cache_ops=ops)

@@ -1,7 +1,8 @@
 """Shared building blocks (the port of ``repro.models.layers``): init
-helpers, rmsnorm and layernorm, rotary embeddings, the gated MLP (SiLU or
-tanh-GeLU) and the causal 1-d convolution of the Mamba and RG-LRU
-blocks.
+helpers, rmsnorm and layernorm, rotary embeddings (plain RoPE and
+Qwen2-VL's multimodal M-RoPE), whisper's sinusoidal absolute positions,
+the MLP, gated or not (SiLU or tanh-GeLU), and the causal 1-d
+convolution of the Mamba and RG-LRU blocks.
 
 Parameters are nested dicts of tensors with the reference's names,
 shapes and layouts (``(d, f)`` weights, used as ``x @ w``), so weights
@@ -124,19 +125,68 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x: (..., S, H, head_dim); positions:
+    (3, ..., S), the temporal / height / width position of each token:
+    (3, S) for a whole sequence, (3, 1) at a dense decode step, (3, B, 1)
+    at a paged one.  ``sections`` split the head_dim // 2 frequencies
+    into t / h / w groups, each rotated by its own component; the
+    rotation is in f32 and cast back, as in `apply_rope`."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim // 2 = {half}")
+    inv = rope_freqs(x.shape[-1], theta, x.device)              # (half,)
+    comp = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                 device=x.device)
+                      for i, s in enumerate(sections)])          # (half,)
+    pos = positions.float()[comp].movedim(0, -1)                # (..., S, half)
+    angles = pos[..., None, :] * inv                            # (..., S, 1, half)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
-# MLP (gated)
+# absolute positions (whisper)
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, lead, d: int, f: int, dtype) -> dict:
-    """Gated MLP weights with a leading stacked-layer shape ``lead``."""
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embedding at ``positions`` (any shape):
+    (..., d) f32, sines then cosines over d // 2 frequencies.  The
+    denominator is the reference's ``max(d // 2 - 1, 1)``."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    inv = torch.exp(-math.log(10000.0) * dim / max(d // 2 - 1, 1))
+    ang = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """(n_pos, d) f32: `sinusoidal` at positions 0 .. n_pos - 1 (the
+    reference's ``sinusoidal_positions``)."""
+    return sinusoidal(torch.arange(n_pos, device=device), d)
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated or plain)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, lead, d: int, f: int, gated: bool,
+             dtype) -> dict:
+    """MLP weights with a leading stacked-layer shape ``lead``; ``w_gate``
+    only when ``gated``."""
     lead = tuple(lead)
-    return {
+    p = {
         "w_up": dense_init(gen, lead + (d, f), dtype, in_axis_size=d),
         "w_down": dense_init(gen, lead + (f, d), dtype, in_axis_size=f),
-        "w_gate": dense_init(gen, lead + (d, f), dtype, in_axis_size=d),
     }
+    if gated:
+        p["w_gate"] = dense_init(gen, lead + (d, f), dtype, in_axis_size=d)
+    return p
 
 
 def act_fn(name: str):
@@ -149,9 +199,12 @@ def act_fn(name: str):
 
 
 def mlp(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """Gated MLP: ``(act(x @ w_gate) * (x @ w_up)) @ w_down``."""
-    up = act_fn(activation)(matmul(x, params["w_gate"])) \
-        * matmul(x, params["w_up"])
+    """``(act(x @ w_gate) * (x @ w_up)) @ w_down`` when the weights hold
+    ``w_gate``, else ``act(x @ w_up) @ w_down``."""
+    act = act_fn(activation)
+    up = matmul(x, params["w_up"])
+    up = act(matmul(x, params["w_gate"])) * up if "w_gate" in params \
+        else act(up)
     return matmul(up, params["w_down"])
 
 

@@ -1,11 +1,21 @@
-"""The decoder-only models (the port of ``repro.models.transformer.Model``
-for the ``dense`` family, blocks of kind ``attention``, full causal or
-sliding-window, or ``mla`` (MiniCPM3's multi-head latent attention);
-the ``moe`` family, ``attention`` blocks whose FFN is the
-mixture-of-experts `repro_torch.models.moe`; the ``ssm`` family, blocks
-of kind ``mamba``; and the ``hybrid`` family, RecurrentGemma's
-``recurrent`` (RG-LRU + MLP) and ``attention_local`` blocks; rmsnorm or
-layernorm, by ``cfg.norm``).
+"""Every model family of the reference (the port of
+``repro.models.transformer.Model``): the ``dense`` family, blocks of kind
+``attention``, full causal or sliding-window, or ``mla`` (MiniCPM3's
+multi-head latent attention); the ``moe`` family, ``attention`` blocks
+whose FFN is the mixture-of-experts `repro_torch.models.moe`; the ``ssm``
+family, blocks of kind ``mamba``; the ``hybrid`` family,
+RecurrentGemma's ``recurrent`` (RG-LRU + MLP) and ``attention_local``
+blocks; the ``vlm`` family (Qwen2-VL), ``attention`` blocks under
+M-RoPE behind a stub vision tower: ``batch["patches"]`` (B, n_patches,
+d), precomputed patch embeddings, go through ``vision_proj`` and are
+prepended to the token embeddings, ``batch["mrope_positions"]`` (3, S)
+gives each position its t / h / w components, and the patches carry no
+next-token loss; and the ``encdec`` family (whisper), a bidirectional
+encoder over stub frame embeddings ``batch["frames"]`` (B, n_frames, d)
+and decoder blocks of kind ``cross`` (causal self-attention, then
+cross-attention over the encoder's output, then a plain GeLU MLP), with
+sinusoidal absolute positions where ``rope_theta`` is 0.  rmsnorm or
+layernorm, by ``cfg.norm``.
 
 A model is a sequence of *stages* (`stage_plan`), each a unit of one or
 more block kinds repeated: one stage of one kind for the dense and ssm
@@ -39,7 +49,10 @@ silently drops keys still inside the window once a sequence outgrows
 ``cache_len``; ROADMAP queue C), ``{"ckv": (R, B, cache_len, rank),
 "k_rope": (R, B, cache_len, rope)}`` for mla, ``{"conv":
 (R, B, K-1, E), "ssm": (R, B, E, N)}`` for mamba and ``{"conv": (R, B,
-K-1, w), "h": (R, B, w)}`` for recurrent; ``decode_step`` advances one
+K-1, w), "h": (R, B, w)}`` for recurrent; a ``cross`` block's self k and
+v as full attention's beside the encoder's ``{"xk", "xv": (R, B,
+n_frames, H, hd)}``, written once by the prefill and static after;
+``decode_step`` advances one
 token and updates the cache tree (dense, or the one a
 `repro_torch.models.cache` layout addresses) in place; ``prefill_chunk``
 runs one chunk of a prompt against the paged cache from an absolute
@@ -48,7 +61,8 @@ and mla only).
 
 Routes: the prefill's attention core is the hand-written flash-attention
 kernel (`repro_torch.kernels.flash_attention`, windowed for the windowed
-kinds) and the Mamba scan the selective-scan kernel
+kinds, bidirectional for the encoder and the cross-attention) and the
+Mamba scan the selective-scan kernel
 (`repro_torch.kernels.ssm_scan`): their wrappers launch the CUDA kernels
 on the card and run the plain versions on the CPU.  The RG-LRU scan has
 no kernel: it takes the chunked scan everywhere.  ``Model(cfg,
@@ -74,12 +88,15 @@ from repro_torch.models.cache import resolved_window, stacked
 from repro_torch.models.layers import (dense_init, embed_init,
                                        init_layernorm, init_mlp,
                                        init_rmsnorm, layernorm, matmul, mlp,
-                                       rmsnorm)
+                                       rmsnorm, sinusoidal,
+                                       sinusoidal_positions)
 
 Tree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_ATTENTION = ("attention", "attention_local")
+_ATTENTION = ("attention", "attention_local", "cross")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+_SELF = ("k", "v", "k_scale", "v_scale")  # a cross block's self-cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +106,7 @@ class Stage:
 
 
 def stage_plan(cfg: ModelConfig) -> List[Stage]:
-    """The reference's ``stage_plan`` for the ported families."""
+    """The reference's ``stage_plan``."""
     if cfg.family == "ssm":
         return [Stage(("mamba",), cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -101,6 +118,8 @@ def stage_plan(cfg: ModelConfig) -> List[Stage]:
         if rem:
             stages.append(Stage(unit[:rem], 1))
         return stages
+    if cfg.family == "encdec":
+        return [Stage(("cross",), cfg.n_layers)]
     return [Stage(("mla" if cfg.mla is not None else "attention",),
                   cfg.n_layers)]
 
@@ -123,17 +142,14 @@ class Model:
     def __init__(self, cfg: ModelConfig, *, loss_chunk: int = 2048,
                  scan_chunk: int = 256, kernels: bool = True,
                  moe_dense: bool = False):
-        gated = cfg.mlp_gated and cfg.activation in ("silu", "gelu")
-        decoder = cfg.family in ("dense", "moe") and gated
-        ssm = cfg.family == "ssm" and cfg.ssm is not None
-        hybrid = cfg.family == "hybrid" and cfg.rglru is not None and gated
-        if not (decoder or ssm or hybrid) \
-                or cfg.norm not in ("rmsnorm", "layernorm"):
-            raise NotImplementedError(
-                f"{cfg.name}: only the dense and moe (SiLU- or GeLU-gated; "
-                "full, sliding-window or latent attention), ssm and hybrid "
-                "(RG-LRU + local attention) families with rmsnorm or "
-                "layernorm are ported (ROADMAP queue A: qwen2-vl, whisper)")
+        if cfg.family not in _FAMILIES \
+                or cfg.norm not in ("rmsnorm", "layernorm") \
+                or cfg.activation not in ("silu", "gelu", "relu"):
+            raise ValueError(
+                f"{cfg.name}: family {cfg.family!r}, norm {cfg.norm!r}, "
+                f"activation {cfg.activation!r}; the reference has the "
+                f"families {_FAMILIES}, rmsnorm or layernorm, silu, gelu or "
+                "relu")
         self.cfg = cfg
         self.moe_dense = bool(moe_dense)
         self.stages = stage_plan(cfg)
@@ -155,14 +171,26 @@ class Model:
             "final_norm": _init_norm(cfg, (d,), dt, dev),
             "unembed": dense_init(gen, (d, self.vocab_padded), dt),
         }
+        if cfg.vlm is not None:
+            params["vision_proj"] = dense_init(gen, (d, d), dt)
         for si, stage in enumerate(self.stages):
             params[f"stage{si}"] = {
                 f"b{j}": self._init_block(gen, kind, (stage.repeats,))
                 for j, kind in enumerate(stage.kinds)}
+        if cfg.encoder is not None:
+            # the encoder's blocks: bidirectional attention, no MoE, no
+            # qk norm, stacked over its depth
+            enc = dataclasses.replace(cfg, moe=None, qk_norm=False)
+            params["encoder"] = {
+                "blocks": self._init_block(gen, "attention",
+                                           (cfg.encoder.n_layers,), enc),
+                "final_norm": _init_norm(cfg, (d,), dt, dev)}
         return params
 
-    def _init_block(self, gen: torch.Generator, kind: str, lead) -> dict:
-        cfg, dt, dev = self.cfg, self.param_dtype, gen.device
+    def _init_block(self, gen: torch.Generator, kind: str, lead,
+                    cfg: Optional[ModelConfig] = None) -> dict:
+        cfg = cfg or self.cfg
+        dt, dev = self.param_dtype, gen.device
         d = cfg.d_model
         if kind == "mamba":
             return {"ln": _init_norm(cfg, lead + (d,), dt, dev),
@@ -179,12 +207,16 @@ class Model:
                                             cfg.eff_n_kv_heads,
                                             cfg.resolved_head_dim,
                                             cfg.qk_norm, dt)
+        if kind == "cross":
+            p["ln_x"] = _init_norm(cfg, lead + (d,), dt, dev)
+            p["xattn"] = attn.init_cross_attention(
+                gen, lead, d, cfg.eff_n_heads, cfg.resolved_head_dim, dt)
         p["ln2"] = _init_norm(cfg, lead + (d,), dt, dev)
         if cfg.moe is not None and kind == "attention":
             p["moe"] = moe_mod.init_moe(gen, lead, d, cfg.moe, cfg.mlp_gated,
                                         dt)
         else:
-            p["mlp"] = init_mlp(gen, lead, d, cfg.d_ff, dt)
+            p["mlp"] = init_mlp(gen, lead, d, cfg.d_ff, cfg.mlp_gated, dt)
         return p
 
     def _blocks(self, params, caches=None):
@@ -205,8 +237,54 @@ class Model:
 
     # -------------------------------------------------- forward
 
-    def _embed(self, params, batch) -> torch.Tensor:
-        return params["embed"]["tok"][batch["tokens"]].to(self.compute_dtype)
+    def _embed(self, params, batch, positions=None) -> torch.Tensor:
+        """Token embeddings in the compute dtype, a VLM's projected patch
+        embeddings (``batch["patches"]``, both operands in the compute
+        dtype) prepended, and where ``rope_theta`` is 0 the sinusoidal
+        positions added: at ``positions`` (broadcastable to (B, S)), by
+        default 0 .. S - 1."""
+        cfg, cd = self.cfg, self.compute_dtype
+        x = params["embed"]["tok"][batch["tokens"]].to(cd)
+        if cfg.vlm is not None and "patches" in batch:
+            pe = batch["patches"].to(cd) @ params["vision_proj"].to(cd)
+            x = torch.cat([pe, x], dim=1)
+        if cfg.rope_theta == 0.0:
+            pe = sinusoidal_positions(x.shape[1], cfg.d_model, x.device) \
+                if positions is None else sinusoidal(positions, cfg.d_model)
+            x = x + pe.to(x.dtype)
+        return x
+
+    def _encoder_out(self, params, frames: torch.Tensor,
+                     core: str) -> torch.Tensor:
+        """Whisper's encoder over the stub frame embeddings (B, n_frames,
+        d): sinusoidal positions, bidirectional attention blocks through
+        ``core`` ("plain" or "flash"), the final norm."""
+        cfg, cd = self.cfg, self.compute_dtype
+        x = frames.to(cd) + sinusoidal_positions(
+            frames.shape[1], cfg.d_model, frames.device).to(cd)
+        positions = torch.arange(x.shape[1], device=x.device)
+        enc = params["encoder"]
+        for r in range(T.leaves(enc["blocks"])[0].shape[0]):
+            p = T.map(lambda a: a[r], enc["blocks"])
+            h = attn.attention_train(p["attn"], _norm(cfg, p["ln1"], x),
+                                     positions, rope_theta=0.0,
+                                     causal=False, core=core)
+            x = x + h
+            x = x + mlp(p["mlp"], _norm(cfg, p["ln2"], x), cfg.activation)
+        return _norm(cfg, enc["final_norm"], x)
+
+    def _context(self, params, batch, core: str) -> dict:
+        """What the blocks read besides x: a VLM's ``mrope`` positions (3,
+        S), and an encoder-decoder's encoder output ``enc``."""
+        cfg, ctx = self.cfg, {}
+        if cfg.vlm is not None and "mrope_positions" in batch:
+            ctx["mrope"] = batch["mrope_positions"]
+        if cfg.encoder is not None:
+            if "frames" not in batch:
+                raise KeyError(f"{cfg.name}: the batch has no 'frames', "
+                               "the encoder's input (B, n_frames, d)")
+            ctx["enc"] = self._encoder_out(params, batch["frames"], core)
+        return ctx
 
     def _ffn(self, p: dict, h: torch.Tensor, aux: Optional[list] = None,
              capacity_factor: float = 1.25) -> torch.Tensor:
@@ -228,14 +306,17 @@ class Model:
 
     def _block(self, kind: str, p: dict, x: torch.Tensor,
                positions: torch.Tensor, cache_out: Optional[list] = None,
-               aux: Optional[list] = None) -> torch.Tensor:
+               aux: Optional[list] = None,
+               ctx: Optional[dict] = None) -> torch.Tensor:
         """One block; with ``cache_out`` (the prefill) the block's decode
         cache entry is appended to it and the kernel routes are taken; an
-        MoE block's aux loss is appended to ``aux``."""
+        MoE block's aux loss is appended to ``aux``; ``ctx`` is
+        `_context`'s."""
         # bf16 + f32 promotes to f32 in torch as in jnp: with f32 weights
         # the residual stream is f32 from the first block on
-        cfg = self.cfg
+        cfg, ctx = self.cfg, ctx or {}
         prefill = cache_out is not None
+        core = "flash" if prefill and self.kernels else "plain"
         if kind == "mamba":
             h = _norm(cfg, p["ln"], x)
             if prefill:
@@ -263,32 +344,43 @@ class Model:
                 h, ckv, k_rope = h
                 cache_out.append({"ckv": ckv, "k_rope": k_rope})
         else:
-            h = attn.attention_train(p["attn"], h, positions,
-                                     rope_theta=cfg.rope_theta,
-                                     window=resolved_window(cfg, kind),
-                                     qk_norm=cfg.qk_norm,
-                                     norm_eps=cfg.norm_eps,
-                                     return_kv=prefill,
-                                     core="flash" if prefill and self.kernels
-                                     else "plain")
+            h = attn.attention_train(
+                p["attn"], h, positions, rope_theta=cfg.rope_theta,
+                window=resolved_window(cfg, kind), qk_norm=cfg.qk_norm,
+                norm_eps=cfg.norm_eps, mrope_positions=ctx.get("mrope"),
+                mrope_sections=cfg.vlm.mrope_sections if cfg.vlm else None,
+                return_kv=prefill, core=core)
             if prefill:
                 h, k, v = h
-                cache_out.append({"k": k, "v": v})
+                entry = {"k": k, "v": v}
         x = x + h
+        if kind == "cross":
+            enc = ctx["enc"]
+            xk = attn.project(enc, p["xattn"]["wk"])
+            xv = attn.project(enc, p["xattn"]["wv"])
+            h = attn.attention_train(p["xattn"], _norm(cfg, p["ln_x"], x),
+                                     positions, rope_theta=0.0,
+                                     causal=False, kv_override=(xk, xv),
+                                     core=core)
+            x = x + h
+            if prefill:
+                entry.update(xk=xk, xv=xv)
+        if prefill and kind in _ATTENTION:
+            cache_out.append(entry)
         h = _norm(cfg, p["ln2"], x)
         return x + self._ffn(p, h, aux)
 
     def _backbone(self, params, x: torch.Tensor,
-                  entries: Optional[list] = None, aux: Optional[list] = None
-                  ) -> torch.Tensor:
+                  entries: Optional[list] = None, aux: Optional[list] = None,
+                  ctx: Optional[dict] = None) -> torch.Tensor:
         """All blocks over x; with ``entries`` (the prefill) each block's
         cache entry is appended to ``entries[stage][block]``, and each MoE
-        block's aux loss to ``aux``."""
+        block's aux loss to ``aux``; ``ctx`` is `_context`'s."""
         positions = torch.arange(x.shape[1], device=x.device)
         for si, name, kind, p in self._blocks(params):
             x = self._block(kind, p, x, positions,
                             None if entries is None else entries[si][name],
-                            aux)
+                            aux, ctx)
         return x
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -305,13 +397,19 @@ class Model:
         return logits.masked_fill(pad, -1e30)
 
     def loss(self, params, batch) -> torch.Tensor:
-        """Mean next-token cross-entropy over labels >= 0, plus the MoE
-        blocks' aux losses summed in f32 in block order."""
+        """Mean next-token cross-entropy over labels >= 0 (a VLM's patch
+        positions masked), plus the MoE blocks' aux losses summed in f32
+        in block order."""
         aux: list = []
-        x = self._backbone(params, self._embed(params, batch), aux=aux)
+        x = self._backbone(params, self._embed(params, batch), aux=aux,
+                           ctx=self._context(params, batch, "plain"))
         x = _norm(self.cfg, params["final_norm"], x)
-        ce = chunked_xent(x, params["unembed"], batch["labels"],
-                          self.loss_chunk)
+        labels = batch["labels"]
+        if self.cfg.vlm is not None and "patches" in batch:
+            # the patch positions carry no next-token loss
+            pads = labels.new_full(batch["patches"].shape[:2], -1)
+            labels = torch.cat([pads, labels], dim=1)
+        ce = chunked_xent(x, params["unembed"], labels, self.loss_chunk)
         if not aux:
             return ce
         total = torch.zeros((), dtype=torch.float32, device=ce.device)
@@ -321,8 +419,10 @@ class Model:
 
     def logits(self, params, batch) -> torch.Tensor:
         """Full-sequence f32 logits (B, S, vocab_padded) through the plain
-        routes (small-scale use: tests, examples)."""
-        x = self._backbone(params, self._embed(params, batch))
+        routes (small-scale use: tests, examples); a VLM's S counts its
+        patches."""
+        x = self._backbone(params, self._embed(params, batch),
+                           ctx=self._context(params, batch, "plain"))
         return self._logits(params, _norm(self.cfg, params["final_norm"],
                                           x))
 
@@ -333,7 +433,8 @@ class Model:
         """One block's zeroed dense cache: k and v (batch, cache_len, KV,
         hd), a ring (batch, window, KV, hd) for a windowed kind, the latent
         caches (batch, cache_len, ...) for mla, or the Mamba / RG-LRU
-        state (batch, ...)."""
+        state (batch, ...); a cross block adds the encoder's xk and xv
+        (batch, n_frames, H, hd)."""
         cfg = self.cfg
         if kind == "mamba":
             return ssm_mod.init_mamba_state(batch, cfg.d_model, cfg.ssm,
@@ -346,8 +447,14 @@ class Model:
                                        device)
         window = resolved_window(cfg, kind)
         width = window if window > 0 else cache_len
-        return attn.init_kv_cache(batch, width, cfg.eff_n_kv_heads,
-                                  cfg.resolved_head_dim, dtype, device)
+        c = attn.init_kv_cache(batch, width, cfg.eff_n_kv_heads,
+                               cfg.resolved_head_dim, dtype, device)
+        if kind == "cross":
+            enc = attn.init_kv_cache(batch, cfg.encoder.n_frames,
+                                     cfg.eff_n_heads, cfg.resolved_head_dim,
+                                     dtype, device)
+            c.update(xk=enc["k"], xv=enc["v"])
+        return c
 
     def init_cache(self, batch: int, cache_len: int, dtype=None, *,
                    device) -> list:
@@ -359,14 +466,20 @@ class Model:
             for j, kind in enumerate(stage.kinds)} for stage in self.stages]
 
     def prefill(self, params, batch, cache_len: int):
-        """Forward over the prompt (B, S); returns ((B, vocab_padded) f32
-        logits of the last position, the dense cache tree: full
-        attention's with S of its ``cache_len`` positions filled, a
-        windowed kind's ring of the last ``window`` positions, or the Mamba / RG-LRU state after the prompt, whose
-        size does not depend on ``cache_len``)."""
+        """Forward over the prompt (B, S) (a VLM's S counts its patches,
+        which come first); returns ((B, vocab_padded) f32 logits of the
+        last position, the dense cache tree: full attention's with S of
+        its ``cache_len`` positions filled, a windowed kind's ring of the
+        last ``window`` positions, or the Mamba / RG-LRU state after the
+        prompt, whose size does not depend on ``cache_len``; a cross
+        block's also holds the encoder's xk / xv).  The encoder and every
+        attention core take the flash-attention kernel on the kernel
+        route."""
         entries = [{f"b{j}": [] for j in range(len(st.kinds))}
                    for st in self.stages]
-        x = self._backbone(params, self._embed(params, batch), entries)
+        core = "flash" if self.kernels else "plain"
+        x = self._backbone(params, self._embed(params, batch), entries,
+                           ctx=self._context(params, batch, core))
         x = _norm(self.cfg, params["final_norm"], x[:, -1])
         caches = []
         for stage, unit in zip(self.stages, entries):
@@ -376,6 +489,10 @@ class Model:
                 if kind in _ATTENTION:
                     built[f"b{j}"] = _kv_cache_from_seq(
                         e, cache_len, resolved_window(self.cfg, kind))
+                    if kind == "cross":
+                        built[f"b{j}"].update(
+                            {n: torch.stack([x[n] for x in e])
+                             for n in ("xk", "xv")})
                 elif kind == "mla":
                     built[f"b{j}"] = _mla_cache_from_seq(e, cache_len)
                 else:
@@ -385,14 +502,17 @@ class Model:
 
     def decode_step(self, params, caches, batch, cache_ops=None):
         """batch: ``tokens`` (B, 1) and ``pos`` (a 0-d int tensor, or a
-        per-row (B,) vector under a paged layout), on the params' device.
-        Returns ((B, vocab_padded) f32 logits, ``caches`` updated in
-        place).  ``cache_ops`` (a `repro_torch.models.cache` layout's step
-        ops) reroutes the attention cache update + attend: the paged-KV
-        and slot-ring seam."""
-        x = self._embed(params, batch)
+        per-row (B,) vector under a paged layout), on the params' device,
+        and a VLM's ``mrope_positions`` ((3, 1) or (3, B, 1)).  Returns
+        ((B, vocab_padded) f32 logits, ``caches`` updated in place).
+        ``cache_ops`` (a `repro_torch.models.cache` layout's step ops)
+        reroutes the attention cache update + attend: the paged-KV and
+        slot-ring seam."""
+        pos = batch["pos"]
+        x = self._embed(params, batch, pos.reshape(-1, 1))
+        mrope = batch.get("mrope_positions") if self.cfg.vlm else None
         for _, _, kind, p, c in self._blocks(params, caches):
-            x = self._decode_block(kind, p, c, x, batch["pos"], cache_ops)
+            x = self._decode_block(kind, p, c, x, pos, cache_ops, mrope)
         x = _norm(self.cfg, params["final_norm"], x[:, 0])
         return self._logits(params, x), caches
 
@@ -413,7 +533,7 @@ class Model:
             raise ValueError(f"chunked prefill over {sorted(kinds)} "
                              "blocks (routed MoE included): the layout's "
                              "chunkable gate should have refused")
-        x = self._embed(params, batch)
+        x = self._embed(params, batch, positions)
         for _, _, kind, p, c in self._blocks(params, caches):
             x = self._prefill_chunk_block(kind, p, c, x, positions,
                                           cache_ops)
@@ -444,8 +564,8 @@ class Model:
         return x + self._ffn(p, h)
 
     def _decode_block(self, kind: str, p: dict, cache: dict,
-                      x: torch.Tensor, pos: torch.Tensor,
-                      cache_ops) -> torch.Tensor:
+                      x: torch.Tensor, pos: torch.Tensor, cache_ops,
+                      mrope: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         if kind == "mamba":   # slot-indexed state: no cache_ops seam
             h = _norm(cfg, p["ln"], x)
@@ -459,13 +579,20 @@ class Model:
                                    rope_theta=cfg.rope_theta,
                                    norm_eps=cfg.norm_eps, cache_ops=cache_ops)
         else:
-            h, _ = attn.attention_decode(p["attn"], cache, h, pos,
-                                         rope_theta=cfg.rope_theta,
-                                         window=resolved_window(cfg, kind),
-                                         qk_norm=cfg.qk_norm,
-                                         norm_eps=cfg.norm_eps,
-                                         cache_ops=cache_ops)
+            # a cross block's self part: its k / v (and their scales)
+            self_c = {n: cache[n] for n in _SELF if n in cache}
+            h, _ = attn.attention_decode(
+                p["attn"], self_c, h, pos, rope_theta=cfg.rope_theta,
+                window=resolved_window(cfg, kind), qk_norm=cfg.qk_norm,
+                norm_eps=cfg.norm_eps, mrope_positions=mrope,
+                mrope_sections=cfg.vlm.mrope_sections if cfg.vlm else None,
+                cache_ops=cache_ops)
         x = x + h
+        if kind == "cross":
+            h, _ = attn.attention_decode(
+                p["xattn"], {"k": cache["xk"], "v": cache["xv"]},
+                _norm(cfg, p["ln_x"], x), pos, rope_theta=0.0, cross=True)
+            x = x + h
         h = _norm(cfg, p["ln2"], x)
         # dropless at decode: a dropped token would corrupt generation
         return x + self._ffn(p, h, capacity_factor=-1.0)
@@ -482,6 +609,9 @@ def _kv_cache_from_seq(entries, cache_len: int,
     recomputes k and v from the normed block input; here they are the
     attention's own, the same values."""
     S = entries[0]["k"].shape[1]
+    if window <= 0 and S > cache_len:
+        raise ValueError(f"a prompt of {S} positions does not fit a "
+                         f"cache of {cache_len}")
     if window > 0:
         w = window
         slots = torch.arange(max(S - w, 0), S) % w

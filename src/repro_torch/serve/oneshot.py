@@ -53,31 +53,46 @@ class OneShotGenerator:
     def __call__(self, params, prompts: torch.Tensor, *, gen: int,
                  sampler: Optional[str] = None, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None,
-                 cache_len: Optional[int] = None) -> torch.Tensor:
+                 cache_len: Optional[int] = None,
+                 extra_batch: Optional[dict] = None) -> torch.Tensor:
         """prompts: (B, P) int on the params' device -> (B, gen) generated
         ids, the prefill's sample first.
 
-        ``cache_len`` (>= P + gen + 1) overrides the cache allocation; the
-        result does not depend on it (positions past the current one are
-        masked), and parity tests use it to match a paged layout's
-        linearized length."""
+        ``extra_batch`` holds what the prompt carries besides its tokens,
+        read by the prefill: a VLM's ``patches`` (B, n_patches, d), which
+        come before the tokens and shift every decode position by
+        n_patches, and ``mrope_positions`` (3, n_patches + P); an
+        encoder-decoder's ``frames`` (B, n_frames, d), whose encoder
+        output the cache keeps.  A VLM's decode steps take M-RoPE
+        positions (3, 1) filled with the step's position.
+
+        ``cache_len`` (>= n_patches + P + gen + 1) overrides the cache
+        allocation; the result does not depend on it (positions past the
+        current one are masked), and parity tests use it to match a paged
+        layout's linearized length."""
         model = self.model
+        vlm = model.cfg.vlm is not None
         sample = SAMPLERS[resolve_sampler(sampler, temperature)]
         B, P = prompts.shape
-        need = P + gen + 1
+        batch = {"tokens": prompts.long(), **(extra_batch or {})}
+        offset = batch["patches"].shape[1] if vlm and "patches" in batch \
+            else 0
+        need = P + offset + gen + 1
         cache_len = need if cache_len is None else int(cache_len)
         if cache_len < need:
             raise ValueError(f"cache_len {cache_len} < prompt + gen + 1 = "
                              f"{need}")
-        logits, cache = model.prefill(params, {"tokens": prompts.long()},
-                                      cache_len=cache_len)
+        logits, cache = model.prefill(params, batch, cache_len=cache_len)
         tok = sample(logits, generator, temperature)
-        pos = torch.full((), P, dtype=torch.long, device=prompts.device)
+        pos = torch.full((), P + offset, dtype=torch.long,
+                         device=prompts.device)
         out = [tok]
         # the reference's scan also runs a last step whose sample it drops
         for _ in range(gen - 1):
-            logits, cache = model.decode_step(
-                params, cache, {"tokens": tok[:, None], "pos": pos})
+            step = {"tokens": tok[:, None], "pos": pos}
+            if vlm:
+                step["mrope_positions"] = pos.expand(3, 1)
+            logits, cache = model.decode_step(params, cache, step)
             tok = sample(logits, generator, temperature)
             out.append(tok)
             pos = pos + 1

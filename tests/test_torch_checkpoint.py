@@ -53,6 +53,7 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.launch import serve, train
 from repro_torch.launch.engine import Engine, algorithm_for_checkpoint
 from repro_torch.models import cnn as C
+from torch_threads import one_torch_thread  # noqa: F401
 
 W, BPW = 4, 16
 NET = dict(stages=(1, 1), width=8, n_classes=8)
@@ -61,16 +62,6 @@ HP = dict(learning_rate=0.4, momentum=0.9, lambda0=0.2, weight_decay=1e-4,
 FORMS = {"bucketed": dict(buckets=4), "fused_bucketed":
          dict(buckets=4, use_kernels=True)}
 METRICS = ("loss", "lambda", "distance_norm", "delta_norm")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one CPU thread while this module runs (the suite runs
-    several worker processes at once)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _raw_meta(path):

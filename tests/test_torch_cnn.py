@@ -53,6 +53,7 @@ from repro_torch.examples import cnn_paper_repro as twin
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import cnn as C
 from repro_torch.parallel.buckets import plan_buckets
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 W, STEPS, BPW = 8, 5, 16
@@ -62,17 +63,6 @@ HP = dict(learning_rate=0.4, momentum=0.9, lambda0=0.2, weight_decay=1e-4,
 FORMS = {"per_leaf": (0, False), "bucketed": (4, False),
          "fused_per_leaf": (0, True), "fused_bucketed": (4, True)}
 METRICS = ("loss", "lambda", "distance_norm", "delta_norm")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one CPU thread while this module runs: its convolutions
-    are small, and the suite runs several worker processes at once, where
-    every process's own thread pool only oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

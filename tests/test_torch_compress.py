@@ -40,6 +40,7 @@ from repro_torch.interop import (params_from_numpy, reducer_state_from_numpy,
                                  reducer_state_to_numpy)
 from repro_torch.kernels import compress as KC
 from repro_torch.parallel import buckets as TB
+from torch_threads import one_torch_thread  # noqa: F401
 
 W = 2
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,

@@ -57,6 +57,7 @@ from repro_torch.data.pipeline import worker_batches as t_worker_batches
 from repro_torch.interop import params_from_numpy, params_to_numpy
 from repro_torch.models.transformer import Model as TModel
 from repro_torch.optim.schedules import theoretical_lr as t_theoretical_lr
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS, BPW, SEQ = 3, 2, 16
 HP = dict(learning_rate=0.05, momentum=0.9, lambda0=0.2, weight_decay=1e-3,

@@ -43,6 +43,7 @@ from repro_torch.models.layers import init_layernorm, layernorm
 from repro_torch.models.transformer import Model as TModel
 from repro_torch.optim.local import _decay_mask as t_decay_mask
 from repro_torch.serve import Request, Scheduler
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = pytest.mark.parametrize("arch", ["stablelm-3b", "granite-20b"])
 RTOL, ATOL = 1e-4, 1e-5

@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import flash_attention_plain
 from repro_torch.models import attention as attn
 from repro_torch.models.transformer import Model
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [  # (B, Sq, Sk, KV, G, hd, causal, window): the reference's four
     (2, 128, 128, 2, 2, 64, True, 0),

@@ -46,21 +46,12 @@ from repro_torch.models.cache import DenseLayout, PagedLayout
 from repro_torch.models.transformer import Model, stage_plan
 from repro_torch.serve import Request, Scheduler
 from torch_decode import short_prompt_decode
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "recurrentgemma-9b"
 RTOL, ATOL = 1e-4, 1e-5
 WINDOW = 64
 V = 512
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one CPU thread while this module runs (the suite runs
-    several worker processes at once)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -126,3 +126,29 @@ def test_moe_and_mla_modules_are_covered_and_import_alone(module):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == f"repro_torch.{module}"
+
+
+@pytest.mark.parametrize("module", ["configs.qwen2_vl_7b",
+                                    "configs.whisper_large_v3",
+                                    "models.layers", "models.attention",
+                                    "models.cache", "serve.oneshot",
+                                    "launch.serve", "launch.train"])
+def test_vlm_and_encdec_modules_are_covered_and_import_alone(module):
+    """The two configs of the vlm and encdec slice and the modules it
+    changed (M-RoPE, sinusoidal positions, the plain MLP, cross-attention,
+    the cross cache, one-shot serving with patches and frames, the
+    launchers) are among the files checked above and import in a process
+    where jax and repro cannot be imported."""
+    path = ROOT / "src" / "repro_torch" / (module.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            f"import repro_torch.{module} as m\n"
+            "print(m.__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"repro_torch.{module}"

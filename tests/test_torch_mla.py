@@ -42,6 +42,7 @@ from repro_torch.models import cache as cache_mod
 from repro_torch.models.cache import DenseLayout, PagedLayout
 from repro_torch.models.transformer import Model, stage_plan
 from repro_torch.serve import Request, Scheduler
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "minicpm3-4b"
 RTOL, ATOL = 1e-4, 1e-5
@@ -49,16 +50,6 @@ V = 512
 B, P, GEN, PS = 2, 8, 16, 8
 MP = -(-(P + GEN + 1) // PS)
 CACHE_LEN = MP * PS
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one CPU thread while this module runs (the suite runs
-    several worker processes at once)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -60,22 +60,13 @@ from repro_torch.models import moe
 from repro_torch.models.cache import DenseLayout, PagedLayout
 from repro_torch.models.transformer import Model, stage_plan
 from repro_torch.serve import Request, Scheduler
+from torch_threads import one_torch_thread  # noqa: F401
 
 OLMOE, PHI = "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"
 ARCHS = pytest.mark.parametrize("arch", [OLMOE, PHI])
 RTOL, ATOL = 1e-4, 1e-5
 MARGIN = 1e-5        # top-k margin asserted: f32 rounding is ~1e-7
 V = 512
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one CPU thread while this module runs (the suite runs
-    several worker processes at once)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

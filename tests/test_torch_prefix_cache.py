@@ -36,6 +36,7 @@ from repro_torch.models.attention import blocked_attention
 from repro_torch.models.cache import SCRATCH_PAGE, PagedLayout, _ChunkOps
 from repro_torch.models.transformer import Model
 from repro_torch.serve import PagePool, PrefixCache, Request, Scheduler
+from torch_threads import one_torch_thread  # noqa: F401
 
 PS = 8  # page size used throughout
 CACHES = pytest.mark.parametrize("pool_cls,cache_cls",

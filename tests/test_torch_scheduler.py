@@ -29,6 +29,7 @@ from repro_torch.launch import serve
 from repro_torch.launch.engine import Engine
 from repro_torch.models.transformer import Model
 from repro_torch.serve import SAMPLERS, PagePool, Request, Scheduler
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 POOLS = pytest.mark.parametrize("pool_cls", [JPagePool, PagePool],

@@ -28,6 +28,7 @@ from repro_torch.models import attention
 from repro_torch.models import cache as cache_mod
 from repro_torch.models.cache import DenseLayout, PagedLayout
 from repro_torch.models.transformer import Model
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 B, P, GEN, PS = 2, 8, 16, 8
@@ -287,17 +288,18 @@ def test_paged_pools_have_the_reference_tree(models):
 
 
 def test_unported_attention_kinds_raise(models):
-    """Cross-attention still raises, naming its queue item; the windowed
-    ring (a window of 2 over a 4-wide cache) is ported now and decodes."""
+    """Every attention kind is ported now: cross-attention (whisper) reads
+    a static cache and writes nothing; the windowed ring (a window of 2
+    over a 4-wide cache) decodes."""
     _, _, tm, tp, _ = models
     p = T.map(lambda a: a[0], tp["stage0"]["b0"]["attn"])
     x = torch.zeros((1, 1, tm.cfg.d_model))
     cache = attention.init_kv_cache(1, 4, tm.cfg.eff_n_kv_heads,
                                     tm.cfg.resolved_head_dim, torch.float32,
                                     "cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        attention.attention_decode(p, cache, x, torch.tensor(0),
-                                   rope_theta=1e4, cross=True)
+    y, cache = attention.attention_decode(p, cache, x, torch.tensor(0),
+                                          rope_theta=1e4, cross=True)
+    assert y.shape == x.shape and not cache["k"].any()
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         x.shape).astype(np.float32))
     y, cache = attention.attention_decode(p, cache, x, torch.tensor(5),
@@ -329,10 +331,10 @@ def test_paged_kinds_match_reference():
         == [jcache.resolved_window(jhcfg, k) for k in kinds] == [0, 0, 2048]
     assert cache_mod.paged_kinds(hcfg, kinds) \
         == jcache.paged_kinds(jhcfg, kinds) == []
-    # MLA's latent cache is paged (ported since the MoE and MLA slice);
-    # cross-attention still raises, naming its queue item
+    # MLA's latent cache is paged (ported since the MoE and MLA slice),
+    # and so is a cross block's self part (since the vlm and encdec slice)
     mcfg, jmcfg = t_get_config("minicpm3-4b"), get_config("minicpm3-4b")
     assert cache_mod.paged_kinds(mcfg, ("mla",)) \
         == jcache.paged_kinds(jmcfg, ("mla",)) == ["mla"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cache_mod.paged_kinds(cfg, ("cross",))
+    assert cache_mod.paged_kinds(cfg, ("cross",)) \
+        == jcache.paged_kinds(jcfg, ("cross",)) == ["cross"]

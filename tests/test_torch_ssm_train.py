@@ -47,6 +47,7 @@ from repro_torch.models import ssm as t_ssm
 from repro_torch.models.transformer import Model as TModel
 from repro_torch.optim.local import _decay_mask as t_decay_mask
 from repro_torch.parallel.buckets import plan_buckets
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = pytest.mark.parametrize("arch", ["falcon-mamba-7b",
                                          "recurrentgemma-9b"])
@@ -55,16 +56,6 @@ W, STEPS, BPW, SEQ = 2, 3, 2, 24
 HP = dict(learning_rate=0.05, momentum=0.9, lambda0=0.2, weight_decay=1e-3,
           total_steps=1)
 METRICS = ("loss", "lambda", "distance_norm", "delta_norm")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one CPU thread while this module runs (the suite runs
-    several worker processes at once)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

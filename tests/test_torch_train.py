@@ -11,6 +11,7 @@ import torch
 from repro.data import SyntheticLMDataset as JData
 from repro_torch.data.pipeline import SyntheticLMDataset, worker_batches
 from repro_torch.launch import train
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _args(*extra):

@@ -58,6 +58,7 @@ from repro_torch.interop import (params_from_numpy, reducer_state_to_numpy,
 from repro_torch.launch.engine import Engine as TEngine
 from repro_torch.models import cnn as C
 from repro_torch.optim import local as t_local
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 W, STEPS, BPW = 4, 5, 16
@@ -68,17 +69,6 @@ METRICS = ("loss", "lambda", "distance_norm", "delta_norm", "ssp_admit",
            "staleness_dist")
 KINDS = ("ALGORITHM", "LOCAL_OPTIMIZER", "REDUCER", "COMPENSATOR",
          "STALENESS_POLICY")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one CPU thread while this module runs: its convolutions
-    are small, and the suite runs several worker processes at once, where
-    every process's own thread pool only oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -435,7 +425,6 @@ def _skew_hook(alg, state, t):
     if t == 2:
         return alg.observe_progress(state, [2, 2, 7, 2])
     return state
-
 
 
 @pytest.mark.parametrize("form", [(0, False), (2, True)])
