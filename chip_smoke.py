@@ -220,11 +220,30 @@ Phases (any failure exits non-zero before the result line):
    their plain versions at its bucket sizes (A2 bitwise); the reduced
    qwen2-vl trains 2 steps with patches and M-RoPE positions.
 
+16. the analysis layer (last).  The roofline of one training step of the
+   cell (qwen3-0.6b x4, W = 2, 4 x 256 tokens a worker, 4 buckets, fused
+   tail) from ``Engine.trace_train_step`` on the H100's constants: FLOPs
+   and bytes by group, the three terms and the bottleneck beside the
+   measured median step and ``train_step_mfu``.  The lint passes
+   (`repro_torch.analysis.lint`) at mean_allreduce and topk, inline and
+   overlapped, and the int8 point on the same model: 0 findings, 0 host
+   syncs under set_sync_debug_mode("error").  A1 / A2 on the cell's
+   buckets padded to 2·BLOCK (A1 rtol 1e-5, A2 bitwise) and
+   paged_attention at pages of 8, 16 and 32 over the same tokens (bf16
+   and int8 pools, float64 plain version at 1e-6 / 2e-5, bitwise across
+   the page sizes), timed beside bound and plain version.  The autotuner:
+   8 train candidates and 12 serve candidates measured beside their
+   predictions, tuned <= default ms/step, tuned >= default tokens/s,
+   greedy tokens identical across the serve candidates; the blob in
+   ``chiprun_out/autotune.json``.
+
 The CPU twins of these checks are the ``tests/test_torch_*.py`` files
 (``PYTHONPATH=src python -m pytest -q tests/test_torch_moe.py
 tests/test_torch_mla.py``; the C5 cases: ``-k short_prompt`` in
 ``tests/test_torch_hybrid.py`` and ``tests/test_torch_ssm_serve.py``;
-slice 12: ``tests/test_torch_vlm.py tests/test_torch_encdec.py``).
+slice 12: ``tests/test_torch_vlm.py tests/test_torch_encdec.py``; slice
+13: ``tests/test_torch_analysis.py tests/test_torch_autotune.py
+tests/test_torch_lint.py``).
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports nothing
@@ -247,7 +266,6 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 L2_BYTES = 50 * 2**20         # H100 SXM L2
 W = 2
 N_BUCKETS = 4
@@ -331,6 +349,17 @@ def phase_build(smi: str) -> None:
             print(f"[build]   {line}")
 
 
+def _bound(cost: dict):
+    """(bound_ms, bound_by, bytes, flops) of one launch, from the kernel's
+    own cost function (the one its wrapper records in an op trace) priced
+    by `repro_torch.analysis.roofline.kernel_bound`: the larger of the
+    bytes over HBM and the FLOPs at the peak of their type."""
+    from repro_torch.analysis.roofline import kernel_bound
+    ms, by = kernel_bound(cost)
+    return (ms, by, cost["bytes_read"] + cost["bytes_written"],
+            cost.get("dot_flops", 0) + cost.get("flops", 0))
+
+
 def phase_kernels(sizes, smi: str, W: int = W, select: bool = True,
                   tag: str = "kernels") -> dict:
     """Kernels vs plain versions at the bucket sizes and W workers; returns
@@ -372,14 +401,14 @@ def phase_kernels(sizes, smi: str, W: int = W, select: bool = True,
         k_ms = cold_ms(K.dc_norms, ops)
         p_ms = cold_ms(K.dc_norms_plain, ops)
         del ops
-        bound = 8 * W * n / HBM_BYTES_PER_S * 1e3
+        bound, by = _bound(K.dc_norms_cost(g, d))[:2]
         acc["dc_norms"]["ms"] += k_ms
         acc["dc_norms"]["plain_ms"] += p_ms
         acc["dc_norms"]["bound_ms"] += bound
         acc["dc_norms"].setdefault("per_launch", []).append(
             {"n": n, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound})
         print(f"[{tag}] dc_norms n={n} W={W}: {k_ms:.4f} ms/launch "
-              f"(plain {p_ms:.4f} ms, byte bound {bound:.4f} ms, max rel "
+              f"(plain {p_ms:.4f} ms, bound {bound:.4f} ms by {by}, max rel "
               f"err {rel:.3g}) [{smi}]")
         for wt, atol, bpe in ((torch.float32, 1e-5, 28),
                               (torch.bfloat16, 2e-2, 24)):
@@ -400,10 +429,11 @@ def phase_kernels(sizes, smi: str, W: int = W, select: bool = True,
             p_ms = cold_ms(lambda *o: K.dc_fused_update_plain(
                 *o, lam=lam, **args), ops)
             del ops
-            bound = bpe * W * n / HBM_BYTES_PER_S * 1e3
+            bound, by = _bound(K.dc_fused_update_cost(g, d, m, ww,
+                                                      lam=lam))[:2]
             print(f"[{tag}] dc_fused_update n={n} W={W} w={wt}: "
-                  f"{k_ms:.4f} ms/launch (plain {p_ms:.4f} ms, byte bound "
-                  f"{bound:.4f} ms, max abs err {err:.3g}) [{smi}]")
+                  f"{k_ms:.4f} ms/launch (plain {p_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms by {by}, max abs err {err:.3g}) [{smi}]")
             if wt == torch.float32:   # the main path's w dtype
                 u = acc["dc_fused_update"]
                 u["ms"] += k_ms
@@ -438,7 +468,8 @@ def phase_select(sizes, gen, smi: str) -> dict:
         thresh_ms += t_ms
         print(f"[threshold] magnitude_threshold n={n} W={W} k={k}: "
               f"{t_ms:.4f} ms (torch; not a TPU kernel) [{smi}]")
-        bound = (8 * W + 4) * n / HBM_BYTES_PER_S * 1e3
+        bound = _bound(KC.select_ef_mean_cost(
+            a, t, comm_dtype=torch.float32, union=False))[0]
         ops = _rotation((a, t), (8 * W + 4) * n)
         for dt in (torch.float32, torch.bfloat16):
             for union in (False, True):
@@ -458,7 +489,7 @@ def phase_select(sizes, gen, smi: str) -> dict:
                     x, th, comm_dtype=dt, union=union), ops)
                 print(f"[kernels] select_ef_mean n={n} W={W} wire={dt} "
                       f"union={union}: {k_ms:.4f} ms/launch (plain "
-                      f"{p_ms:.4f} ms, byte bound {bound:.4f} ms, max abs "
+                      f"{p_ms:.4f} ms, bound {bound:.4f} ms, max abs "
                       f"err {err:.3g}) [{smi}]")
                 if dt == torch.float32 and not union:   # the main path's
                     acc["ms"] += k_ms
@@ -1003,17 +1034,6 @@ def _rotating(fn, n: int = PA_LAYERS):
     return lambda: fn(next(layers))
 
 
-def _paged_bytes(q, k, scales) -> int:
-    """Bytes the function must move: each live k and v row (and its scale)
-    once, the live block-table entries and the lengths, q in, f32 out."""
-    B, KV, G, hd = q.shape
-    tokens = sum(PA_LENGTHS)
-    pages = sum(-(-n // PAGE) for n in PA_LENGTHS)
-    return (2 * tokens * KV * hd * k.element_size()
-            + (2 * tokens * 4 if scales else 0)
-            + 4 * pages + 4 * B + 2 * 4 * q.numel())
-
-
 def _gather_sdpa_ms(q, kL, vL, narrow, ln, layers: int, ref):
     """The library yardstick of paged_attention: no single PyTorch call
     reads pages through a block table, so gather each row's live pages
@@ -1051,7 +1071,9 @@ def phase_paged_kernel(smi: str) -> dict:
     through a 640-wide and a live-width block table take the same time
     (the kernel stops at each row's last live page).  Returns the numbers
     per pool dtype."""
-    from repro_torch.kernels.paged_attention import paged_attention, splits_for
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_cost,
+                                                     splits_for)
     from repro_torch.kernels.ref import paged_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(2)
     B, KV, G, hd = PA_SHAPE
@@ -1093,21 +1115,21 @@ def phase_paged_kernel(smi: str) -> dict:
                               batch=PA_LAYERS)
         plain_ms = median_ms(_rotating(lambda i: paged_attention_plain(
             q, kL[i], vL[i], bt, ln, *(s[i] for s in sL))), batch=PA_LAYERS)
-        nbytes = _paged_bytes(q, k, scales)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        flops = 4 * G * hd * KV * sum(PA_LENGTHS)
+        bound, by, nbytes, flops = _bound(paged_attention_cost(
+            q, k, v, bt, ln, **kw))
         print(f"[paged] {pool} pools, B={B} KV={KV} G={G} hd={hd} page "
               f"{PAGE}, lengths 1..{max(PA_LENGTHS)} ({sum(PA_LENGTHS)} "
               f"live tokens): {wide_ms:.4f} ms/launch at width {PA_WIDTH}, "
               f"{narrow_ms:.4f} ms at width {PA_LIVE}; plain {plain_ms:.4f} "
-              f"ms; byte bound {bound:.4f} ms ({nbytes} B; {flops} flops); "
+              f"ms; bound {bound:.4f} ms by {by} ({nbytes} B; {flops} "
+              f"flops); "
               f"max abs err {err:.3g} [{smi}]")
         check(abs(wide_ms - narrow_ms) <= 0.1 * narrow_ms,
               f"paged_attention {pool}: {wide_ms} ms at width {PA_WIDTH} "
               f"vs {narrow_ms} ms at width {PA_LIVE}: not within 10 %")
         rec[pool] = {"ms": wide_ms, "narrow_ms": narrow_ms,
                      "plain_ms": plain_ms, "bound_ms": bound,
-                     "bytes": nbytes, "err": err}
+                     "bound_by": by, "bytes": nbytes, "err": err}
         if pool == "bfloat16":
             rec[pool]["gather_sdpa_ms"], sdpa_err = _gather_sdpa_ms(
                 q, kL, vL, narrow, ln, layers=PA_LAYERS,
@@ -1395,11 +1417,6 @@ def phase_serve_profile(smi: str, model, params, reqs, argv=SERVE_ARGS,
 FLASH_SHAPE = (8, 2, 128)
 # a timed sample is 28 back-to-back launches, as one qwen3 prefill makes
 PREFILL_LAYERS = 28
-PEAK_FLOPS = {torch.float32: 67e12,     # H100 SXM data sheet: f32, CUDA cores
-              torch.bfloat16: 989e12}   # and bf16 dense on the tensor cores
-# the ceilings of flash_attention's products: f32 as 3xTF32 (three TF32
-# products per f32 one at 495 TFLOP/s), bf16 on the tensor cores
-FLASH_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 # falcon-mamba-7b's scan: E = expand x d_model, N = state_dim
 SSM_E, SSM_N = 8192, 16
 
@@ -1412,20 +1429,6 @@ def flash_atol(dt, want: torch.Tensor) -> float:
     if dt == torch.float32:
         return 2e-5
     return 3e-2 * min(1.0, float(want.float().abs().max()))
-
-
-def _live_pairs(sq: int, sk: int, causal: bool, window: int,
-                q_start: int = 0) -> int:
-    """(query, key) pairs the mask leaves live: the work these inputs
-    need (the kernel skips tiles that are wholly masked)."""
-    i = q_start + torch.arange(sq)[:, None]
-    j = torch.arange(sk)[None, :]
-    live = torch.ones((sq, sk), dtype=torch.bool)
-    if causal:
-        live &= j <= i
-    if window > 0:
-        live &= (i - j) < window
-    return int(live.sum())
 
 
 def flash_mma_counts() -> dict:
@@ -1467,7 +1470,9 @@ def phase_flash_kernel(smi: str) -> dict:
     hold tensor-core instructions.  Returns the numbers per case and the
     SASS counts."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.analysis import roofline as R
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost)
     from repro_torch.kernels.ref import flash_attention_plain
     mma = flash_mma_counts()
     check(len(mma) == 10, f"flash_attention: {len(mma)} kernels in the "
@@ -1522,25 +1527,22 @@ def phase_flash_kernel(smi: str) -> dict:
         sdpa_err = float((sdpa().transpose(1, 2).reshape(want.shape).float()
                           - want.float()).abs().max())
         library_ms = median_ms(sdpa, batch=PREFILL_LAYERS)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        flops = 4 * hd * H * _live_pairs(sq, sk, causal, window)
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = flops / FLASH_FLOPS[dt] * 1e3
-        bound = max(byte_ms, op_ms)
-        by = "operations" if op_ms >= byte_ms else "bytes"
+        cost = flash_attention_cost(q, k, v, **kw)
+        bound, by, nbytes, flops = _bound(cost)
+        peak = R.PEAKS[cost["math"]]
         core = "" if dt != torch.float32 else \
-            f"; CUDA-core f32 bound {flops / PEAK_FLOPS[dt] * 1e3:.4f} ms"
+            f"; CUDA-core f32 bound {flops / R.PEAK_FLOPS_F32 * 1e3:.4f} ms"
         print(f"[flash] {name}: B=1 KV={KV} G={G} hd={hd}: {ms:.4f} "
               f"ms/launch; plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} "
               f"ms (max abs diff {sdpa_err:.3g}); bound {bound:.4f} ms by "
               f"{by} ({nbytes} B, {flops} flops at "
-              f"{FLASH_FLOPS[dt] / 1e12:.0f} TFLOP/s){core}; max abs err "
+              f"{peak / 1e12:.0f} TFLOP/s){core}; max abs err "
               f"{err:.3g}, bitwise run to run [{smi}]")
         rec[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                      "flops": flops, "err": err, "sdpa_err": sdpa_err}
         if dt == torch.float32:
-            rec[name]["cuda_core_bound_ms"] = flops / PEAK_FLOPS[dt] * 1e3
+            rec[name]["cuda_core_bound_ms"] = flops / R.PEAK_FLOPS_F32 * 1e3
         del q, k, v, got, again, want, qs, ks, vs, mask
         torch.cuda.empty_cache()
     return rec
@@ -1570,7 +1572,7 @@ def phase_ssm_kernel(smi: str) -> dict:
     (t, e, n)) and the plain version.  Returns the numbers per case."""
     from repro_torch.kernels.ref import ssm_scan_plain
     from repro_torch.kernels.ssm_scan import (chunk_length, ctas_per_chunk,
-                                              ssm_scan)
+                                              ssm_scan, ssm_scan_cost)
     gen = torch.Generator(device="cuda").manual_seed(4)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(f"S={S}", 1, S, SSM_E) for S in PROMPT_LENS] + [
@@ -1602,13 +1604,7 @@ def phase_ssm_kernel(smi: str) -> dict:
               f" pass-2 CTAs per launch [{smi}]")
         ms = median_ms(lambda: ssm_scan(*args), batch=8)
         plain_ms = median_ms(lambda: ssm_scan_plain(*args))
-        nbytes = 4 * (3 * B * S * E + 2 * B * S * SSM_N + E * SSM_N
-                      + B * E * SSM_N)
-        flops = 7 * B * S * E * SSM_N
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
-        bound = max(byte_ms, op_ms)
-        by = "operations" if op_ms >= byte_ms else "bytes"
+        bound, by, nbytes, flops = _bound(ssm_scan_cost(*args))
         print(f"[ssm] {name} N={SSM_N}: {ms:.4f} ms/launch; plain "
               f"{plain_ms:.4f} ms; bound {bound:.4f} ms by {by} ({nbytes} "
               f"B, {flops} flops); max abs err {err:.3g}; {h_note} "
@@ -1683,7 +1679,8 @@ def _flash_case(smi: str, gen, name: str, KV: int, G: int, hd: int,
     ``plain_reps`` samples) and scaled_dot_product_attention with the
     same mask."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost)
     from repro_torch.kernels.ref import flash_attention_plain
     H = KV * G
     q = torch.randn((batch, sq, KV, G, hd), generator=gen,
@@ -1718,12 +1715,8 @@ def _flash_case(smi: str, gen, name: str, KV: int, G: int, hd: int,
     sdpa_err = float((sdpa().transpose(1, 2).reshape(want.shape).float()
                       - want.float()).abs().max())
     library_ms = median_ms(sdpa, batch=layers)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 4 * hd * H * batch * _live_pairs(sq, sk, causal, 0, q0)
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = flops / FLASH_FLOPS[dt] * 1e3
-    bound = max(byte_ms, op_ms)
-    by = "operations" if op_ms >= byte_ms else "bytes"
+    bound, by, nbytes, flops = _bound(flash_attention_cost(
+        q, k, v, causal=causal, q_start=q0))
     print(f"[{tag}] {name}: B={batch} KV={KV} G={G} hd={hd} "
           f"{'causal' if causal else 'bidirectional'}: {ms:.4f} "
           f"ms/launch; plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} "
@@ -1803,7 +1796,9 @@ def phase_paged_shapes(smi: str, shapes=DENSE_SHAPES[1:], pools=PA_POOLS,
     phase_paged_kernel times qwen3's (one launch on each of the model's
     per-layer pools per sample) beside its byte bound and the plain
     version."""
-    from repro_torch.kernels.paged_attention import paged_attention, smem_bytes
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_cost,
+                                                     smem_bytes)
     from repro_torch.kernels.ref import paged_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(6)
     rec = {}
@@ -1836,8 +1831,8 @@ def phase_paged_shapes(smi: str, shapes=DENSE_SHAPES[1:], pools=PA_POOLS,
             plain_ms = median_ms(_rotating(lambda i: paged_attention_plain(
                 q, kL[i], vL[i], bt, ln, *(t[i] for t in sL)), layers),
                 batch=layers)
-            nbytes = _paged_bytes(q, k, scales)
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            bound, by, nbytes, _ = _bound(paged_attention_cost(
+                q, k, v, bt, ln, **kw))
             smem = smem_bytes(G, hd, k.element_size())
             lib = {}
             if pool == "bfloat16":
@@ -1850,13 +1845,15 @@ def phase_paged_shapes(smi: str, shapes=DENSE_SHAPES[1:], pools=PA_POOLS,
                       f"library_ms stays null; max abs diff "
                       f"{lib['gather_sdpa_err']:.3g}) [{smi}]")
             print(f"[{tag}] {name}: {ms:.4f} ms/launch; plain "
-                  f"{plain_ms:.4f} ms; byte bound {bound:.4f} ms ({nbytes} "
-                  f"B); {smem} B of shared memory per CTA; max abs err "
+                  f"{plain_ms:.4f} ms; bound {bound:.4f} ms by {by} "
+                  f"({nbytes} B); {smem} B of shared memory per CTA; max "
+                  f"abs err "
                   f"{err:.3g} (the plain version in f32: {err32:.3g}, its "
                   f"own rounding {plain32:.3g}), bitwise run to run "
                   f"[{smi}]")
             rec[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                         "bytes": nbytes, "err": err, "err_f32_plain": err32,
+                         "bound_by": by, "bytes": nbytes, "err": err,
+                         "err_f32_plain": err32,
                          "f32_plain_rounding": plain32, "smem": smem, **lib}
             del q, k, v, bt, ln, scales, kL, vL, sL, got, again, want, want32
             torch.cuda.empty_cache()
@@ -2849,7 +2846,9 @@ def phase_flash_hybrid(smi: str) -> dict:
     the plain version and scaled_dot_product_attention with the same
     boolean window mask (which computes all S^2 pairs)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.analysis import roofline as R
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost)
     from repro_torch.kernels.ref import flash_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(7)
     KV, G, hd = RG_SHAPE
@@ -2893,19 +2892,14 @@ def phase_flash_hybrid(smi: str) -> dict:
             sdpa_err = float((sdpa().transpose(1, 2).reshape(want.shape)
                               .float() - want.float()).abs().max())
             library_ms = median_ms(sdpa, batch=RG_LOCAL)
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) \
-                * q.element_size()
-            flops = 4 * hd * H * _live_pairs(S, S, True, RG_WINDOW)
-            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            op_ms = flops / FLASH_FLOPS[dt] * 1e3
-            bound = max(byte_ms, op_ms)
-            by = "operations" if op_ms >= byte_ms else "bytes"
+            cost = flash_attention_cost(q, k, v, **kw)
+            bound, by, nbytes, flops = _bound(cost)
             print(f"[flash-hybrid] {name} window {RG_WINDOW}: KV={KV} G={G} "
                   f"hd={hd}: {ms:.4f} ms/launch; plain {plain_ms:.4f} ms; "
                   f"sdpa (boolean window mask) {library_ms:.4f} ms (max abs "
                   f"diff {sdpa_err:.3g}); bound {bound:.4f} ms by {by} "
                   f"({nbytes} B, {flops} flops at "
-                  f"{FLASH_FLOPS[dt] / 1e12:.0f} TFLOP/s); max abs err "
+                  f"{R.PEAKS[cost['math']] / 1e12:.0f} TFLOP/s); max abs err "
                   f"{err:.3g}, bitwise run to run [{smi}]")
             rec[name] = {"ms": ms, "plain_ms": plain_ms,
                          "library_ms": library_ms, "bound_ms": bound,
@@ -4033,6 +4027,366 @@ def phase_train_multimodal(smi: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the analysis layer on the card (roofline, autotuner, kernel
+# settings it reaches, the lint subset)
+# ---------------------------------------------------------------------------
+
+TRAIN_CELL = MAIN_ARGS + ["--use-kernels", "--steps", "8"]
+ROOF_STEPS = 6
+# the lint subset on the card: mean_allreduce and topk inline and overlapped
+# (bf16 wire) and the int8 point, at qwen3-0.6b x4, fused kernels
+LINT_POINTS = (("mean_allreduce", False, "bfloat16"),
+               ("mean_allreduce", True, "bfloat16"),
+               ("topk", False, "bfloat16"), ("topk", True, "bfloat16"),
+               ("topk", False, "int8"))
+NEW_PAGES = (8, 16, 32)
+
+
+def phase_roofline(smi: str) -> dict:
+    """The H100 roofline of one training step of the cell (qwen3-0.6b x4,
+    W = 2, 4 x 256 tokens a worker, 4 buckets, fused tail) from
+    ``Engine.trace_train_step``: FLOPs and bytes by group, the three
+    terms, the bottleneck, beside the measured median step (CUDA events
+    around each of 5 steady steps) and ``train_step_mfu``, the model's
+    6·N·D over the step time and the bf16 peak, with the share against
+    the f32 CUDA-core peak beside it."""
+    from repro_torch.analysis import roofline as R
+    from repro_torch.core.types import InputShape
+    from repro_torch.launch import train
+    from repro_torch.launch.engine import Engine
+    args = train.build_argparser().parse_args(TRAIN_CELL)
+    model, alg, state, batch_fn = train.build(args)
+    engine = Engine(model, alg)
+    state, _ = alg.step(state, batch_fn(0), loss_fn=model.loss)
+    tr, state, _ = engine.trace_train_step(state, batch_fn(1))
+    times = []
+    for it in range(2, 2 + ROOF_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        state, m = alg.step(state, batch_fn(it), loss_fn=model.loss)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    step_ms = statistics.median(times[1:])
+    shape = InputShape("train_cell", 256, W * 4, "train")
+    roof = R.analyze(tr, model.cfg, shape, 1)
+    mfu = roof.model_flops / (step_ms * 1e-3 * R.PEAK_FLOPS_BF16)
+    mfu32 = roof.model_flops / (step_ms * 1e-3 * R.PEAK_FLOPS_F32)
+    by_math = {}
+    for o in tr.ops:
+        if o.dot_flops:
+            by_math[o.math] = by_math.get(o.math, 0) + o.dot_flops
+    groups = tr.by_group()
+    for g, v in sorted(groups.items()):
+        print(f"[roofline] {g}: {v['ops']} ops, {v['flops']} FLOPs, "
+              f"{v['bytes']} B [{smi}]")
+    print(f"[roofline] qwen3-0.6b x4 train step, W={W}, 4x256 tokens a "
+          f"worker: {len(tr.ops)} ops, {roof.flops:.6g} FLOPs (dot "
+          f"{tr.dot_flops:.6g}: {by_math}), {roof.hbm_bytes:.6g} B; compute "
+          f"{roof.compute_s * 1e3:.4f} ms, memory {roof.memory_s * 1e3:.4f} "
+          f"ms, collective {roof.collective_s * 1e3:.4f} ms beside the step "
+          f"({roof.coll_bytes:.6g} B over NVLink); bottleneck "
+          f"{roof.bottleneck}; measured step {step_ms:.3f} ms (median of "
+          f"{ROOF_STEPS - 1}); model {roof.model_flops:.6g} FLOPs, "
+          f"train_step_mfu {mfu:.4f} (of 989 TFLOP/s bf16), {mfu32:.4f} of "
+          f"the 67 TFLOP/s f32 peak [{smi}]")
+    check(roof.flops > 0 and roof.hbm_bytes > 0 and math.isfinite(step_ms),
+          "roofline terms")
+    check(all(math.isfinite(float(v)) for v in m.values()
+              if isinstance(v, (int, float))), "roofline steps' metrics")
+    rec = {"step_ms": step_ms, "train_step_mfu": mfu, "mfu_f32_peak": mfu32,
+           "roofline": roof.to_dict(), "groups": groups,
+           "dot_flops_by_math": by_math, "ops": len(tr.ops)}
+    del tr, state, m, alg, model, engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _repaged(ps: int, pool: str):
+    """The serving shape's rows (PA_SHAPE, lengths 1..577) with the same
+    token contents laid into pages of ``ps`` tokens through a shuffled
+    block table: (q, k_pool, v_pool, table, lengths, scales)."""
+    from repro_torch.models.cache import _quantize_tokens
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B, KV, G, hd = PA_SHAPE
+    total = sum(PA_LENGTHS)
+    q = torch.randn((B, KV, G, hd), generator=gen, device=dev)
+    ks = torch.randn((total, KV, hd), generator=gen, device=dev)
+    vs = torch.randn((total, KV, hd), generator=gen, device=dev)
+    live = [-(-n // ps) for n in PA_LENGTHS]
+    n_pages = sum(live) + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(ps)).to(dev) + 1
+    k = torch.zeros((n_pages, ps, KV, hd), device=dev)
+    v = torch.zeros_like(k)
+    bt = torch.zeros((B, max(live)), dtype=torch.int32, device=dev)
+    tok = page = 0
+    for b, n in enumerate(PA_LENGTHS):
+        pages = perm[page:page + live[b]]
+        for dst, src in ((k, ks), (v, vs)):
+            rows = torch.zeros((live[b] * ps, KV, hd), device=dev)
+            rows[:n] = src[tok:tok + n]
+            dst[pages] = rows.view(live[b], ps, KV, hd)
+        bt[b, :live[b]] = pages.int()
+        tok, page = tok + n, page + live[b]
+    ln = torch.tensor(PA_LENGTHS, dtype=torch.int32, device=dev)
+    if pool == "int8":
+        k, k_s = _quantize_tokens(k, pool, 2)
+        v, v_s = _quantize_tokens(v, pool, 2)
+        return q, k, v, bt, ln, (k_s, v_s)
+    return q, k.to(torch.bfloat16), v.to(torch.bfloat16), bt, ln, ()
+
+
+def phase_new_settings(smi: str) -> dict:
+    """The kernel settings the autotuner reaches that no earlier run used.
+    A1 / A2 at the cell's buckets padded to 2·BLOCK (the plan of
+    ``plan_block=2·BLOCK``; zero padding in every operand, as a packed
+    bucket has it): A1 within rtol 1e-5 of its plain version, A2 bitwise,
+    each timed (cold, per launch) beside its byte bound and the plain
+    version.  paged_attention at pages of 8 and 32 (and 16) over the same
+    rows' tokens, bf16 and int8 pools, held to its plain version in
+    float64 (1e-6 / 2e-5), bitwise across the three page sizes (the
+    split-K ranges are whole 32-token tiles), timed as phase 8 times it
+    (one launch on each of 28 per-layer pools per sample) beside its byte
+    bound and the plain version."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dc_update as K
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_cost)
+    from repro_torch.kernels.ref import paged_attention_plain
+    from repro_torch.models.transformer import Model
+    from repro_torch.parallel.buckets import BLOCK, plan_buckets
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=4)
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    plan = plan_buckets(params, N_BUCKETS, block=2 * BLOCK)
+    fill = [0] * plan.n_buckets
+    for slot in plan.slots:
+        fill[slot.bucket] += slot.size
+    del params
+    print(f"[settings] qwen3-0.6b x4 buckets at plan_block {2 * BLOCK}: "
+          f"{plan.bucket_sizes} (filled {fill}) [{smi}]")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    args = dict(mu=0.9, eta=0.05, wd=2.3e-4)
+    rec = {"bucket_sizes": plan.bucket_sizes, "two_block": {}, "paged": {}}
+    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+           for k in ("dc_norms", "dc_fused_update")}
+    for n, used in zip(plan.bucket_sizes, fill):
+        g, d, m, w = (torch.randn((W, n), generator=gen, device=dev)
+                      for _ in range(4))
+        for t in (g, d, m, w):
+            t[:, used:] = 0
+        lam = torch.linspace(0.3, 0.7, W, device=dev)
+        got, ref = K.dc_norms(g, d), K.dc_norms_plain(g, d)
+        out = K.dc_fused_update(g, d, m, w, lam=lam, **args)
+        want = K.dc_fused_update_plain(g, d, m, w, lam=lam, **args)
+        torch.cuda.synchronize()
+        rel = max(float(((x - r).abs() / r.abs()).max())
+                  for x, r in zip(got, (ref[:, 0], ref[:, 1])))
+        check(rel <= 1e-5, f"dc_norms at 2·BLOCK padding n={n}: rel {rel}")
+        check(all(torch.equal(x, y) for x, y in zip(out, want)),
+              f"dc_fused_update at 2·BLOCK padding n={n}: not bitwise")
+        check(not out[0][:, used:].any() and not out[1][:, used:].any(),
+              f"dc_fused_update wrote into the padding, n={n}")
+        err = max(float((x - r).abs().max())
+                  for x, r in zip(got, (ref[:, 0], ref[:, 1])))
+        del got, ref, out, want
+        for name, fn, plain, bpe, cost in (
+                ("dc_norms", K.dc_norms, K.dc_norms_plain, 8,
+                 K.dc_norms_cost(g, d)),
+                ("dc_fused_update",
+                 lambda *o: K.dc_fused_update(*o, lam=lam, **args),
+                 lambda *o: K.dc_fused_update_plain(*o, lam=lam, **args),
+                 28, K.dc_fused_update_cost(g, d, m, w, lam=lam))):
+            ops = _rotation((g, d) if bpe == 8 else (g, d, m, w),
+                            bpe * W * n)
+            k_ms, p_ms = cold_ms(fn, ops), cold_ms(plain, ops)
+            del ops
+            bound = _bound(cost)[0]
+            a = acc[name]
+            a["ms"] += k_ms
+            a["plain_ms"] += p_ms
+            a["bound_ms"] += bound
+            a["err"] = max(a["err"], err if bpe == 8 else 0.0)
+            print(f"[settings] {name} n={n} W={W} (2·BLOCK padding): "
+                  f"{k_ms:.4f} ms/launch, plain {p_ms:.4f}, bound "
+                  f"{bound:.4f} ms [{smi}]")
+        del g, d, m, w
+        torch.cuda.empty_cache()
+    rec["two_block"] = acc
+    for pool in ("bfloat16", "int8"):
+        outs = {}
+        for ps in NEW_PAGES:
+            q, k, v, bt, ln, scales = _repaged(ps, pool)
+            kw = dict(zip(("k_scale", "v_scale"), scales))
+            outs[ps] = paged_attention(q, k, v, bt, ln, **kw)
+            want = paged_attention_plain(q.double(), k, v, bt, ln, *scales)
+            torch.cuda.synchronize()
+            err = float((outs[ps].double() - want).abs().max())
+            atol = 2e-5 if scales else 1e-6
+            check(err <= atol, f"paged_attention page {ps} {pool}: max abs "
+                  f"err {err} > {atol}")
+            kL, vL = _layers(k), _layers(v)
+            sL = tuple(_layers(t) for t in scales)
+
+            def launch(i):
+                return paged_attention(q, kL[i], vL[i], bt, ln, **{
+                    n: t[i] for n, t in zip(("k_scale", "v_scale"), sL)})
+            ms = median_ms(_rotating(launch), batch=PA_LAYERS)
+            plain_ms = median_ms(_rotating(lambda i: paged_attention_plain(
+                q, kL[i], vL[i], bt, ln, *(t[i] for t in sL))),
+                batch=PA_LAYERS)
+            bound, _, nbytes, _ = _bound(paged_attention_cost(
+                q, k, v, bt, ln, **kw))
+            print(f"[settings] paged_attention page {ps} {pool} pools (the "
+                  f"serving shape, lengths 1..577): {ms:.4f} ms/launch, "
+                  f"plain {plain_ms:.4f}, bound {bound:.4f} ms; max abs "
+                  f"err {err:.3g} vs float64 [{smi}]")
+            rec["paged"][f"page {ps} {pool}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "err": err, "bytes": nbytes}
+            del q, k, v, bt, ln, scales, kL, vL, sL, want
+            torch.cuda.empty_cache()
+        check(all(torch.equal(outs[ps], outs[16]) for ps in NEW_PAGES),
+              f"paged_attention {pool}: pages of 8 / 16 / 32 differ")
+        print(f"[settings] paged_attention {pool}: pages of 8, 16 and 32 "
+              f"give bitwise the same output [{smi}]")
+    return rec
+
+
+def phase_autotune(smi: str) -> dict:
+    """The autotuner on the card: the train candidates (buckets {1, 2, 4,
+    8} x plan_block {None, 2·BLOCK}, qwen3-0.6b x4, W = 2, fused kernels)
+    and the serve candidates (page_size {8, 16, 32} x decode_burst {1, 4,
+    8, 16}, qwen3-0.6b x28, 16 slots, 16 requests from seed 0 at the serve
+    cell's lengths, two rounds over the candidates in turn), each
+    candidate's prediction beside its measurement;
+    the tuned config is the best candidate only where it beats the
+    default by more than the measured spread (checked against the rule
+    restated here), tuned <= default ms/step, tuned >= default tokens/s,
+    greedy tokens identical across every serve candidate (the probe
+    raises otherwise);
+    A1 / A2 launched in the train probe, B4 / B5 in the serve probe.  The
+    blob goes to chiprun_out/autotune.json."""
+    from repro_torch.analysis import autotune as A
+    out = {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    train = A.probe_train(A.train_space(False))
+    out["train_launches"] = _read_counts()
+    out["train_s"] = time.perf_counter() - t0
+    _zero_counts()
+    t0 = time.perf_counter()
+    serve = A.probe_serve(A.serve_space(False))
+    out["serve_launches"] = _read_counts()
+    out["serve_s"] = time.perf_counter() - t0
+    tl, sl = out["train_launches"], out["serve_launches"]
+    check(tl["dc_norms"] > 0 and tl["dc_fused_update"] > 0,
+          f"autotune train probe launched A1/A2 {tl}")
+    check(sl["paged_attention"] > 0 and sl["flash_attention"] > 0,
+          f"autotune serve probe launched B4/B5 {sl}")
+    for r in train:
+        print(f"[autotune] train {r['config']}: {r['ms_per_step']:.3f} "
+              f"ms/step measured (median of {len(r['step_ms'])} steps by "
+              f"CUDA events, {min(r['step_ms']):.3f}-"
+              f"{max(r['step_ms']):.3f}), {r['predicted_ms']:.3f} predicted "
+              f"(wire "
+              f"term {r['predicted_comm_s'] * 1e3:.4f} ms) [{smi}]")
+    for r in serve:
+        print(f"[autotune] serve {r['config']}: {r['tokens_per_s']:.1f} "
+              f"tokens/s measured (runs {[round(x, 1) for x in r['run_tps']]}"
+              f"), {r['predicted_tokens_per_s']:.1f} "
+              f"predicted, {r['tokens']} tokens, {r['decode_steps']} decode "
+              f"steps [{smi}]")
+    blob = {"version": 1, "smoke": False, "device": "cuda", "card": smi,
+            "hardware": {"peak_flops_bf16": A.PEAK_FLOPS_BF16,
+                         "hbm_bw": A.HBM_BW, "nvlink_bw": A.NVLINK_BW},
+            "train": A.train_entry(train), "serve": A.serve_entry(serve)}
+    # the adoption rule, restated: the best candidate is tuned only when
+    # it beats the default by more than the larger range of the two
+    # candidates' samples (steps / runs); else the default is
+    for side, key, samples, sign in (("train", "ms_per_step", "step_ms", -1),
+                                     ("serve", "tokens_per_s", "run_tps",
+                                      1)):
+        b = blob[side]
+        recs = b["candidates"]
+        d = next(r for r in recs if r["config"] == b["default"])
+        best = max(recs, key=lambda r: sign * r[key])
+        width = max(max(r[samples]) - min(r[samples]) for r in (best, d))
+        clears = best is not d and sign * (best[key] - d[key]) > width
+        want = best if clears else d
+        print(f"[autotune] {side}: best {best['config']} {best[key]:.3f} "
+              f"vs default {d[key]:.3f}, spread {width:.3f}: "
+              f"{'adopted' if clears else 'within the spread, default kept'}"
+              f" [{smi}]")
+        check(b["adopted"] == clears and b["tuned"] == want["config"]
+              and b["margin_" + ("ms" if sign < 0 else "tps")] == width,
+              f"autotune {side}: tuned {b['tuned']} (adopted "
+              f"{b['adopted']}) but the rule gives {want['config']} "
+              f"(adopted {clears}, spread {width})")
+    check(blob["train"]["tuned_ms"] <= blob["train"]["default_ms"],
+          "autotune: tuned ms/step above the default's")
+    check(blob["serve"]["tuned_tps"] >= blob["serve"]["default_tps"],
+          "autotune: tuned tokens/s below the default's")
+    t, v = blob["train"], blob["serve"]
+    path = ROOT / "chiprun_out" / "autotune.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(blob, indent=2))
+    print(f"[autotune] train: default {t['default']} "
+          f"{t['default_ms']:.3f} ms/step -> tuned {t['tuned']} "
+          f"{t['tuned_ms']:.3f}; serve: default {v['default']} "
+          f"{v['default_tps']:.1f} tokens/s -> tuned {v['tuned']} "
+          f"{v['tuned_tps']:.1f}; greedy tokens identical across "
+          f"{len(serve)} serve candidates; probes {out['train_s']:.1f} s + "
+          f"{out['serve_s']:.1f} s; blob -> {path.relative_to(ROOT)} "
+          f"[{smi}]")
+    out["blob"] = blob
+    return out
+
+
+def phase_lint_card(smi: str) -> dict:
+    """The lint passes on the card (`repro_torch.analysis.lint`): dc_s3gd
+    on qwen3-0.6b x4 (W = 2, 4 x 256 tokens a worker, fused kernels) at
+    mean_allreduce and topk, inline and overlapped (bf16 wire), and the
+    int8 point: 0 findings, each traced step under
+    set_sync_debug_mode("error") (0 host syncs), the donation pass's
+    memory check and weak references, the retrace pass's caches steady;
+    A1 / A2 launched at every point, B3 at the bf16 topk points."""
+    from repro_torch.analysis import lint as L
+    rec = {}
+    for reducer, overlap, wire in LINT_POINTS:
+        point = L.GridPoint("dc_s3gd", reducer, N_BUCKETS, overlap,
+                            wire=wire)
+        _zero_counts()
+        t0 = time.perf_counter()
+        prog = L.Program(point, model="transformer", device="cuda",
+                         use_kernels=True)
+        found = L.run_point(prog)
+        launches = _read_counts()
+        secs = time.perf_counter() - t0
+        print(f"[lint] {point.name} on qwen3-0.6b x4: {len(found)} "
+              f"findings, launches {launches}, {secs:.1f} s [{smi}]")
+        for f in found:
+            print(f"[lint]   {f.pass_name} {f.op} {f.location}: {f.message}")
+        check(not found, f"lint {point.name}: {len(found)} findings")
+        check(prog.sync_error is None, f"lint {point.name}: host sync")
+        check(launches["dc_norms"] > 0 and launches["dc_fused_update"] > 0,
+              f"lint {point.name}: A1/A2 never launched")
+        if reducer == "topk" and wire == "bfloat16":
+            check(launches["select_ef_mean"] > 0,
+                  f"lint {point.name}: B3 never launched")
+        rec[point.name] = {"findings": len(found), "launches": launches,
+                           "s": secs}
+        del prog
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4176,6 +4530,15 @@ def main() -> int:
     mm["phase_s"] = time.perf_counter() - t0
     print(f"[mm] the qwen2-vl-7b and whisper-large-v3 phases took "
           f"{mm['phase_s']:.1f} s [{smi}]")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s13 = {"roofline": phase_roofline(smi)}
+    s13["lint"] = phase_lint_card(smi)
+    s13["settings"] = phase_new_settings(smi)
+    s13["autotune"] = phase_autotune(smi)
+    s13["phase_s"] = time.perf_counter() - t0
+    print(f"[analysis] the roofline, lint, kernel-settings and autotune "
+          f"phases took {s13['phase_s']:.1f} s [{smi}]")
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -4405,6 +4768,24 @@ def main() -> int:
                                               for p, n in mla_paths.items()}
             check(not any(entry["launches_on_mla_paths"].values()),
                   f"{name} launched on an MLA path")
+    # slice 13: where the analysis phases launched each kernel, A1 / A2 at
+    # 2·BLOCK padding and B4 at pages of 8 and 32, each beside its bound
+    for entry in kernels:
+        name = entry["name"]
+        entry["analysis"] = {
+            "launches_autotune_train": s13["autotune"]["train_launches"][name],
+            "launches_autotune_serve": s13["autotune"]["serve_launches"][name],
+            "launches_lint": {p: r["launches"][name]
+                              for p, r in s13["lint"].items()}}
+        if name in s13["settings"]["two_block"]:
+            k = s13["settings"]["two_block"][name]
+            entry["analysis"]["two_block"] = {
+                "max_abs_err": k["err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": "bytes", "bucket_sizes":
+                    s13["settings"]["bucket_sizes"]}
+        if name == "paged_attention":
+            entry["analysis"]["pages"] = s13["settings"]["paged"]
     for entry in kernels:
         # A1 and A2 on the CNN main path: its launches (dc_s3gd, 6 steps)
         # and the per-step sums over its 6 bucket sizes at W = 8
@@ -4462,7 +4843,7 @@ def main() -> int:
               "cnn": cnn, "state": state, "flash_shapes": flash_shapes,
               "paged_shapes": paged_shapes, "serve_prefix": prefix,
               "dense_family": dense, "hybrid": hybrid, "moe_mla": moe,
-              "vlm_encdec": mm,
+              "vlm_encdec": mm, "analysis": s13,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start
     print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "

@@ -35,11 +35,12 @@ def rebuild_algorithm(alg, n_new: int):
     the old instance composed (the ``make_*`` factories pass objects
     through), so reducer hyper-parameters, state kept on the pieces (such
     as ``topk_exact``'s worker count, updated by its own ``resize``) and
-    the local optimizer survive; only the worker count and the bucket-plan
-    cache change."""
+    the local optimizer survive, as do the bucket count, overlap and the
+    plan's padding block; only the worker count and the bucket-plan cache
+    change."""
     kw: dict = {"n_workers": int(n_new)}
     for attr in ("local_optimizer", "reducer", "compensator", "staleness",
-                 "use_kernels", "buckets", "overlap"):
+                 "use_kernels", "buckets", "overlap", "plan_block"):
         if hasattr(alg, attr):
             kw[attr] = getattr(alg, attr)
     from repro_torch.core import registry

@@ -228,6 +228,28 @@ class _ErrorFeedbackMean:
                   ) -> torch.Tensor:
         raise NotImplementedError
 
+    # -- the wire's accounting (repro_torch.analysis.lint) ------------------
+
+    def wire_model(self, sizes: Sequence[int], n_workers: int) -> dict:
+        """The cast census against the hand accounting (see
+        `repro_torch.core.reduce.MeanAllReduce.wire_model`).
+
+        The simulated wire is dense-shaped: `wire_mean` casts the whole
+        (W, n) sparsified bucket and the (1, n) mean, though only about k
+        coordinates are non-zero, so ``cast_bytes`` counts the dense
+        casts, while ``accounted_bytes`` is the sparse payload (values and
+        indices) that ``wire_bytes`` reports.  A quantized wire casts the
+        (W, n) payload only."""
+        it = Q.wire_itemsize(self.comm_dtype)
+        mult = n_workers if Q.is_quantized(self.comm_dtype) \
+            else n_workers + 1
+        return {"cast_bytes": mult * sum(sizes) * it,
+                "accounted_bytes": self._accounted_bytes(sizes, n_workers)}
+
+    def _accounted_bytes(self, sizes: Sequence[int],
+                         n_workers: int) -> int:
+        raise NotImplementedError
+
 
 @registry.register(registry.REDUCER, "topk")
 class TopKReduce(_ErrorFeedbackMean):
@@ -258,6 +280,15 @@ class TopKReduce(_ErrorFeedbackMean):
         return {"comm_dtype": self.comm_dtype, "density": self.density}
 
     def wire_bytes(self, sizes: Sequence[int]) -> int:
+        it = Q.wire_itemsize(self.comm_dtype)
+        sb = Q.SCALE_BYTES if Q.is_quantized(self.comm_dtype) else 0
+        return sum(_k_of(n, self.density) * (it + _INDEX_BYTES) + sb
+                   for n in sizes)
+
+    def _accounted_bytes(self, sizes: Sequence[int],
+                         n_workers: int) -> int:
+        # k values in comm_dtype + k int32 coordinates per bucket (+ one
+        # f32 scale per bucket row on a quantized wire)
         it = Q.wire_itemsize(self.comm_dtype)
         sb = Q.SCALE_BYTES if Q.is_quantized(self.comm_dtype) else 0
         return sum(_k_of(n, self.density) * (it + _INDEX_BYTES) + sb
@@ -312,6 +343,18 @@ class TopKExactReduce(TopKReduce):
             total += k * _INDEX_BYTES + min(w * k, n) * it + sb
         return total
 
+    def _accounted_bytes(self, sizes: Sequence[int],
+                         n_workers: int) -> int:
+        # k coordinates for the support all-gather + up to min(W·k, n)
+        # union values per bucket, at the live worker count
+        it = Q.wire_itemsize(self.comm_dtype)
+        sb = Q.SCALE_BYTES if Q.is_quantized(self.comm_dtype) else 0
+        total = 0
+        for n in sizes:
+            k = _k_of(n, self.density)
+            total += k * _INDEX_BYTES + min(n_workers * k, n) * it + sb
+        return total
+
     def _compress(self, b: int, a: torch.Tensor, rstate: Tree
                   ) -> torch.Tensor:
         k = _k_of(a.shape[-1], self.density)
@@ -343,6 +386,13 @@ class RandKReduce(_ErrorFeedbackMean):
                 "seed": self.seed}
 
     def wire_bytes(self, sizes: Sequence[int]) -> int:
+        it = Q.wire_itemsize(self.comm_dtype)
+        sb = Q.SCALE_BYTES if Q.is_quantized(self.comm_dtype) else 0
+        return sum(_k_of(n, self.density) * it + sb for n in sizes)
+
+    def _accounted_bytes(self, sizes: Sequence[int],
+                         n_workers: int) -> int:
+        # a shared-seed support: k values per bucket, no index payload
         it = Q.wire_itemsize(self.comm_dtype)
         sb = Q.SCALE_BYTES if Q.is_quantized(self.comm_dtype) else 0
         return sum(_k_of(n, self.density) * it + sb for n in sizes)
@@ -419,6 +469,26 @@ class PowerSGDReduce(_ErrorFeedbackMean):
             rows, cols, r = self._dims(n)
             total += (rows + cols) * r * it + sb
         return total
+
+    def _accounted_bytes(self, sizes: Sequence[int],
+                         n_workers: int) -> int:
+        return self.wire_bytes(sizes)
+
+    def wire_model(self, sizes: Sequence[int], n_workers: int) -> dict:
+        """See `_ErrorFeedbackMean.wire_model`.  Here the wire is the two
+        skinny factors: both rounds go through `wire_mean`, so a bucket
+        casts the (W, rows, r) and (W, cols, r) payloads and the two
+        (1, ., r) means, (W + 1)·(rows + cols)·r elements; a quantized
+        wire only the two (W, ., r) payloads."""
+        it = Q.wire_itemsize(self.comm_dtype)
+        mult = n_workers if Q.is_quantized(self.comm_dtype) \
+            else n_workers + 1
+        factor = 0
+        for n in sizes:
+            rows, cols, r = self._dims(int(n))
+            factor += (rows + cols) * r
+        return {"cast_bytes": mult * factor * it,
+                "accounted_bytes": self._accounted_bytes(sizes, n_workers)}
 
     def init(self, n_workers: int, plan, *, device=None, q0=None) -> Tree:
         """``q0``: per-bucket (cols, r) draws that replace the generator's
@@ -497,6 +567,20 @@ class DenseWindowReduce:
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
+
+    def wire_model(self, sizes: Sequence[int], n_workers: int) -> dict:
+        """Not delegated: inside the window the wire is dense (the whole
+        (W, bucket) buffers go through `wire_mean`), so both accountings
+        count the dense payload.  ``wire_bytes`` stays the inner
+        reducer's: a bench column reports the steady compressed wire."""
+        sizes = [int(s) for s in sizes]
+        it = Q.wire_itemsize(self.inner.comm_dtype)
+        n = sum(sizes)
+        if Q.is_quantized(self.inner.comm_dtype):
+            return {"cast_bytes": n_workers * n * it,
+                    "accounted_bytes": n * it + Q.SCALE_BYTES * len(sizes)}
+        return {"cast_bytes": (n_workers + 1) * n * it,
+                "accounted_bytes": n * it}
 
     def __call__(self, wire, rstate: Tree) -> Tuple[List[torch.Tensor], Tree]:
         buckets = _as_buckets(wire)

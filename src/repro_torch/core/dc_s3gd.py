@@ -52,6 +52,7 @@ from repro_torch.core.api import LossFn, Metrics, TrainState
 from repro_torch.core.correction import worker_sq_sum
 from repro_torch.core.reduce import _row_sum
 from repro_torch.core.types import DCS3GDConfig
+from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
 from repro_torch.optim.schedules import linear_warmup_linear_decay
 
@@ -93,12 +94,15 @@ class DCS3GD:
     one-step window)."""
 
     name = "dc_s3gd"
+    # params carry a leading worker axis (W, ...)
+    worker_stacked = True
 
     def __init__(self, cfg: DCS3GDConfig, *, n_workers: int = 1,
                  local_optimizer=None, reducer=None, compensator=None,
                  staleness=None, use_kernels: bool = False,
                  buckets: Optional[int] = None,
-                 overlap: Optional[bool] = None):
+                 overlap: Optional[bool] = None,
+                 plan_block: Optional[int] = None):
         self.cfg = cfg
         self.n_workers = n_workers
         self.local_optimizer = (
@@ -116,6 +120,9 @@ class DCS3GD:
         if use_kernels and hasattr(self.reducer, "use_kernels"):
             self.reducer.use_kernels = True
         self.buckets = int(cfg.buckets if buckets is None else buckets)
+        # the bucket padding granularity (a multiple of the kernels' BLOCK;
+        # None = BLOCK): the autotuner's train-side knob
+        self.plan_block = None if plan_block is None else int(plan_block)
         # the double-buffered bucket pipeline (repro_torch.parallel.
         # pipeline): issue each reduce at the end of the step, consume it
         # at the top of the next — bitwise the inline schedule
@@ -131,7 +138,9 @@ class DCS3GD:
         shapes of a (W, ...) state tree."""
         from repro_torch.parallel import buckets as B
         return B.cached_plan(self._plan_cache, worker_params, self.buckets,
-                             strip_leading_axis=True)
+                             block=self.plan_block, strip_leading_axis=True,
+                             wire_dtype=getattr(self.reducer, "comm_dtype",
+                                                None))
 
     def init(self, params: Tree) -> TrainState:
         sdt = _STATE_DTYPES[self.cfg.state_dtype]
@@ -200,13 +209,21 @@ class DCS3GD:
             # previous step (`_comm`); this step consumes what landed
             from repro_torch.parallel import pipeline as PL
             reduced = PL.landed(state.comm)
-        elif self._reducer_stateless:
-            reduced = self.reducer(r_in)
         else:
-            reduced, rstate = self.reducer(r_in, state.comm["reducer"])
+            # the `wire` scope marks the simulated wire's ops in an op
+            # trace (repro_torch.analysis.lint), as the reference's
+            # named scope marks its HLO
+            with scope("wire"):
+                if self._reducer_stateless:
+                    reduced = self.reducer(r_in)
+                else:
+                    reduced, rstate = self.reducer(r_in,
+                                                   state.comm["reducer"])
 
         # --- g_i = ∇l(w_i): per-worker gradients
-        grads, loss = _vgrads(loss_fn, state.params, batch, cfg.microbatches)
+        with scope("model"):
+            grads, loss = _vgrads(loss_fn, state.params, batch,
+                                  cfg.microbatches)
 
         # --- D_i = (1/N)·Δ̄w − Δw_i  (Eq. 9); for a weight-mixing reducer
         # D_i = R(w)_i − w_i, the same distance to the reduction target

@@ -88,6 +88,26 @@ class MeanAllReduce:
             return sum(sizes) * it + Q.SCALE_BYTES * len(sizes)
         return sum(sizes) * it
 
+    def wire_model(self, sizes, n_workers: int) -> dict:
+        """The wire's two accountings, which `repro_torch.analysis.lint`'s
+        wire-accounting pass holds against each other and the op trace.
+
+        ``cast_bytes``: the bytes of the down-casts **to** ``comm_dtype``
+        one call performs (what the trace sees in the ``wire`` scope): the
+        (W, n) payload cast plus the (1, n) mean's cast back to the wire
+        dtype (`wire_mean`).  A quantized wire casts the (W, n) payload
+        only: the mean runs on the dequantized f32 values.
+        ``accounted_bytes``: the per-worker payload, written apart from
+        ``wire_bytes`` so that an edit of one without the other shows."""
+        sizes = list(sizes)
+        it = Q.wire_itemsize(self.comm_dtype)
+        n = sum(sizes)
+        if Q.is_quantized(self.comm_dtype):
+            return {"cast_bytes": n_workers * n * it,
+                    "accounted_bytes": n * it + Q.SCALE_BYTES * len(sizes)}
+        return {"cast_bytes": (n_workers + 1) * n * it,
+                "accounted_bytes": n * it}
+
     def __call__(self, tree: Tree) -> Tree:
         if Q.is_quantized(self.comm_dtype):
             return T.map(lambda d: quantized_mean(d, self.comm_dtype), tree)
@@ -159,6 +179,15 @@ class GossipReduce:
         """2k ring hops (the full-ring upper bound: W is not known here)."""
         return 2 * self.neighbors * _hop_bytes(sizes, self.comm_dtype)
 
+    def wire_model(self, sizes, n_workers: int) -> dict:
+        """See `MeanAllReduce.wire_model`.  The (W, n) payload is cast once
+        (the rolls move the cast wire; the sum stays f32); the accounting
+        charges it once per ring hop."""
+        n = sum(sizes)
+        return {"cast_bytes": n_workers * n * Q.wire_itemsize(self.comm_dtype),
+                "accounted_bytes":
+                    2 * self.neighbors * _hop_bytes(sizes, self.comm_dtype)}
+
     def __call__(self, tree: Tree) -> Tree:
         return T.map(lambda d: _ring_mix(d, self.neighbors, self.comm_dtype),
                      tree)
@@ -193,6 +222,17 @@ class HierarchicalReduce:
     def wire_bytes(self, sizes) -> int:
         """One intra-group hop plus 2k inter-group hops."""
         return (1 + 2 * self.neighbors) * _hop_bytes(sizes, self.comm_dtype)
+
+    def wire_model(self, sizes, n_workers: int) -> dict:
+        """See `MeanAllReduce.wire_model`.  Only the G group means cross
+        the slow wire in ``comm_dtype``, so one call casts a (G, 1, n)
+        buffer; the accounting charges one intra-group and 2k inter-group
+        hops."""
+        n = sum(sizes)
+        return {"cast_bytes": self.groups * n
+                * Q.wire_itemsize(self.comm_dtype),
+                "accounted_bytes": (1 + 2 * self.neighbors)
+                * _hop_bytes(sizes, self.comm_dtype)}
 
     def __call__(self, tree: Tree) -> Tree:
         G = self.groups

@@ -22,6 +22,7 @@ from repro_torch.core.api import LossFn, Metrics, TrainState
 from repro_torch.core.dc_s3gd import _vgrads, schedules
 from repro_torch.core.reduce import collapse_worker_axis
 from repro_torch.core.types import DCS3GDConfig
+from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
 
 Tree = Any
@@ -37,11 +38,14 @@ class SSGD:
     topk_exact reducer's compression body through its kernel."""
 
     name = "ssgd"
+    # one shared copy of the params (no worker axis)
+    worker_stacked = False
 
     def __init__(self, cfg: DCS3GDConfig, *, n_workers: int = 1,
                  local_optimizer=None, reducer=None,
                  buckets: Optional[int] = None, use_kernels: bool = False,
-                 overlap: bool = False, **_ignored):
+                 overlap: bool = False, plan_block: Optional[int] = None,
+                 **_ignored):
         if overlap:
             raise ValueError(
                 "overlap=True is not available for ssgd: the gradient "
@@ -61,11 +65,16 @@ class SSGD:
         # flat-buffer bucketing of the gradient all-reduce: >0 packs grads
         # into contiguous buckets, one cast+reduce per bucket
         self.buckets = int(cfg.buckets if buckets is None else buckets)
+        # bucket padding granularity (the autotuner's knob; None = BLOCK)
+        self.plan_block = None if plan_block is None else int(plan_block)
         self._plan_cache: dict = {}
 
     def _plan(self, params: Tree):
         from repro_torch.parallel import buckets as B
-        return B.cached_plan(self._plan_cache, params, self.buckets)
+        return B.cached_plan(self._plan_cache, params, self.buckets,
+                             block=self.plan_block,
+                             wire_dtype=getattr(self.reducer, "comm_dtype",
+                                                None))
 
     @property
     def _reducer_stateless(self) -> bool:
@@ -90,7 +99,8 @@ class SSGD:
         # per-worker gradients of the one shared copy of the weights
         shared = T.map(lambda p: p.unsqueeze(0).expand((W,) + p.shape),
                        state.params)
-        grads, loss = _vgrads(loss_fn, shared, batch)
+        with scope("model"):
+            grads, loss = _vgrads(loss_fn, shared, batch)
         g32 = T.map(lambda g: g.float(), grads)
         del grads
         # blocking all-reduce over workers, on the critical path;
@@ -100,18 +110,22 @@ class SSGD:
         if self.buckets:
             plan = self._plan(state.params)
             wire = plan.pack(g32)
-            if self._reducer_stateless:
-                red = self.reducer(wire)
-            else:
-                red, comm["reducer"] = self.reducer(wire,
-                                                    state.comm["reducer"])
+            # the `wire` scope marks the simulated wire in an op trace
+            with scope("wire"):
+                if self._reducer_stateless:
+                    red = self.reducer(wire)
+                else:
+                    red, comm["reducer"] = self.reducer(
+                        wire, state.comm["reducer"])
             reduced = plan.unpack(collapse_worker_axis(red))
         else:
             if not self._reducer_stateless:
                 raise ValueError(
                     f"reducer {self.reducer.name!r} needs the bucketed "
                     f"wire: construct with buckets > 0")
-            reduced = collapse_worker_axis(self.reducer(g32))
+            with scope("wire"):
+                red = self.reducer(g32)
+            reduced = collapse_worker_axis(red)
         delta, opt = self.local_optimizer(reduced, state.opt, state.params,
                                           {"lr": lr, "weight_decay": wd})
         new_params = T.map(

@@ -1,7 +1,9 @@
 """Core configuration types (a copy of ``repro.core.types``).
 
-Plain frozen dataclasses: every architecture is a :class:`ModelConfig`,
-the optimizer/DC-S3GD hyper-parameters a :class:`DCS3GDConfig`.  Field
+Plain frozen dataclasses: every architecture is a :class:`ModelConfig`
+(with its analytic parameter counts, which the roofline's 6·N·D reads),
+the benchmark input shapes :class:`InputShape`, the optimizer/DC-S3GD
+hyper-parameters a :class:`DCS3GDConfig`.  Field
 names and defaults are the reference's, so a config means the same run
 in both packages.
 """
@@ -122,6 +124,101 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + blocks + head)."""
+        d, f, V = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        emb = V * d
+        head = 0 if self.tie_embeddings else V * d
+        per_layer = 0
+        if self.family == "ssm":
+            assert self.ssm is not None
+            e = self.ssm.expand * d
+            dt_rank = self.ssm.dt_rank or -(-d // 16)
+            per_layer = (
+                d * 2 * e            # in_proj (x, z)
+                + e * self.ssm.conv_kernel
+                + e * (dt_rank + 2 * self.ssm.state_dim)  # x -> dt,B,C
+                + dt_rank * e        # dt proj
+                + e * self.ssm.state_dim  # A_log
+                + e                  # D
+                + e * d              # out_proj
+                + d                  # norm
+            )
+        else:
+            # attention (or recurrent) mixer + mlp
+            if self.mla is not None:
+                m = self.mla
+                qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+                attn = (
+                    d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_dim
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * self.n_heads
+                    * (m.qk_nope_head_dim + m.v_head_dim)
+                    + self.n_heads * m.v_head_dim * d
+                )
+            else:
+                attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+                    + self.n_heads * hd * d
+            mlp_mult = 3 if self.mlp_gated else 2
+            if self.moe is not None:
+                mlp = d * self.moe.n_experts \
+                    + self.moe.n_experts * mlp_mult * d * self.moe.d_ff_expert
+            else:
+                mlp = mlp_mult * d * f
+            # recurrent blocks count as attention of the same size: crude,
+            # but enough for the roofline's 6·N·D
+            per_layer = attn + mlp + 2 * d
+        total = emb + head + self.n_layers * per_layer
+        if self.encoder is not None:
+            enc_layer = 4 * d * d + mlp_mult_for(self) * d * f + 2 * d
+            total += self.encoder.n_layers * enc_layer
+            # decoder cross-attention adds another attn block per layer
+            total += self.n_layers * 4 * d * d
+        return total
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: only top_k experts count)."""
+        if self.moe is None:
+            return self.n_params()
+        m = self.moe
+        mlp_mult = 3 if self.mlp_gated else 2
+        full_moe = m.n_experts * mlp_mult * self.d_model * m.d_ff_expert
+        active_moe = m.top_k * mlp_mult * self.d_model * m.d_ff_expert
+        return self.n_params() - self.n_layers * (full_moe - active_moe)
+
+
+def mlp_mult_for(cfg: ModelConfig) -> int:
+    return 3 if cfg.mlp_gated else 2
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.global_batch * self.seq_len
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s
+                for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ other buckets to XLA) and the plain-cast wires f32, bf16 and f16.  On a
 CPU tensor the wrapper runs the plain version
 (`repro_torch.kernels.ref.select_ef_mean_plain`); on a CUDA tensor it
 launches the kernel or raises.  ``select_ef_mean.launches`` counts the
-launches.
+launches; inside an op trace the call is one node whose wire casts are
+the plain version's.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.instrument import nbytes, traced_kernel
 from repro_torch.kernels.dc_update import _aligned, _check, _grid, _raise_on
 from repro_torch.kernels.ref import select_ef_mean_plain
 
@@ -37,6 +39,17 @@ from repro_torch.kernels.ref import select_ef_mean_plain
 _WIRE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+def select_ef_mean_cost(a, thresh, *, comm_dtype, union) -> dict:
+    # select, cast, sum and residual per element; the (W, n) payload and
+    # the (1, n) mean cross the wire dtype, as `wire_mean`'s casts do
+    W, n = a.shape
+    casts = () if comm_dtype == torch.float32 else (
+        ("float32", str(comm_dtype).replace("torch.", ""), (W + 1) * n),)
+    return {"flops": 4 * W * n, "bytes_read": nbytes(a, thresh),
+            "bytes_written": 4 * (W + 1) * n, "casts": casts}
+
+
+@traced_kernel("select_ef_mean", select_ef_mean_cost)
 def select_ef_mean(a: torch.Tensor, thresh: torch.Tensor, *,
                    comm_dtype: torch.dtype, union: bool
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

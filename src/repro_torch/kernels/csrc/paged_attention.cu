@@ -191,10 +191,13 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid % 32;
   const bool scaled = k_scale != nullptr;
 
-  // this CTA's live tokens: [t_lo, t_hi)
+  // this CTA's live tokens: [t_lo, t_hi), a whole number of tiles; tiles
+  // are gathered token by token through the block table, so neither the
+  // ranges nor the tiles depend on the page size, and neither do the bits
+  // of the output
   const int n = max(0, min(lengths[b], max_pages * page_size));
   int per = (n + splits - 1) / splits;
-  per = (per + page_size - 1) / page_size * page_size;
+  per = (per + kTile - 1) / kTile * kTile;
   const int t_lo = min(n, split * per);
   const int t_hi = min(n, t_lo + per);
   const int64_t part = ((int64_t)b * kv_heads + h) * splits + split;

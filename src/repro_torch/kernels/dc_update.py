@@ -21,7 +21,9 @@ reductions of Eq. 17.  Two hand-written Hopper kernels
 Both take the worker-stacked (W, n) layout.  On a CPU tensor a wrapper
 runs its plain PyTorch version (the port of ``repro/kernels/ref.py``'s
 ``dc_norms_ref`` / ``dc_fused_update_ref``); on a CUDA tensor it launches
-the kernel or raises.  Each wrapper counts its launches in ``.launches``.
+the kernel or raises.  Each wrapper counts its launches in ``.launches``,
+and inside an op trace (`repro_torch.analysis.optrace`) records one node
+with the bytes and FLOPs above.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ import functools
 from typing import Tuple
 
 import torch
+
+from repro_torch.instrument import nbytes, traced_kernel
 
 _MAX_BLOCKS = 1024   # per worker row; the grid strides over the rest
 
@@ -110,6 +114,20 @@ def _sm_count(device: torch.device) -> int:
                 else torch.cuda.current_device())
 
 
+def dc_norms_cost(g, d) -> dict:
+    # g², ·D, square and two sums per element; (W, 2) f32 out
+    return {"flops": 5 * g.numel(), "bytes_read": nbytes(g, d),
+            "bytes_written": 8 * g.shape[0]}
+
+
+def dc_fused_update_cost(g, d, m, w, *, lam, **_) -> dict:
+    # the eleven multiplies and adds of the tail; w' in w's dtype, m' and
+    # Δw f32
+    return {"flops": 11 * g.numel(), "bytes_read": nbytes(g, d, m, w, lam),
+            "bytes_written": nbytes(w) + 8 * g.numel()}
+
+
+@traced_kernel("dc_norms", dc_norms_cost)
 def dc_norms(g: torch.Tensor, d: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(W, n) f32 g, D -> (gsq, csq), each (W,) f32."""
@@ -144,6 +162,7 @@ def dc_norms(g: torch.Tensor, d: torch.Tensor
 dc_norms.launches = 0
 
 
+@traced_kernel("dc_fused_update", dc_fused_update_cost)
 def dc_fused_update(g, d, m, w, *, lam: torch.Tensor, mu: float, eta: float,
                     wd: float):
     """(W, n) f32 g, D, m and w (f32 or bf16), λ (W,) f32 on g's device.

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.instrument import live_pairs, nbytes, traced_kernel
 from repro_torch.kernels.dc_update import _check, _contiguous16, _raise_on
 from repro_torch.kernels.ref import flash_attention_plain
 
@@ -44,6 +45,18 @@ _ENTRY = {torch.float32: "flash_attention_f32",
 _HEAD_DIMS = (32, 64, 80, 128, 256)
 
 
+def flash_attention_cost(q, k, v, *, causal=True, window=0,
+                         q_start=0) -> dict:
+    # both products over the live (query, key) pairs on the tensor cores:
+    # bf16 as bf16, f32 as three TF32 products
+    B, Sq, KV, G, hd = q.shape
+    pairs = live_pairs(Sq, k.shape[1], causal, window, int(q_start))
+    return {"dot_flops": 4 * hd * pairs * B * KV * G,
+            "math": "bfloat16" if q.dtype == torch.bfloat16 else "tf32x3",
+            "bytes_read": nbytes(q, k, v), "bytes_written": nbytes(q)}
+
+
+@traced_kernel("flash_attention", flash_attention_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_start: int = 0) -> torch.Tensor:

@@ -14,13 +14,15 @@ would leave a 16-row MMA 7/8 empty: the kernel is about keeping enough
 loads in flight, not about wgmma.  The CUDA kernel
 (``csrc/paged_attention.cu``) is split-K over each row's live tokens
 (flash-decoding), two launches per call: pass 1 runs a grid (kv heads,
-rows, splits), CTA s folding its share of the row's live tokens (a page
-multiple of ceil(n / splits), n read on the device) into a partial
-(m, l, acc) through a ring of cp.async-filled 32-token tiles; pass 2
+rows, splits), CTA s folding its share of the row's live tokens (a
+32-token-tile multiple of ceil(n / splits), n read on the device) into a
+partial (m, l, acc) through a ring of cp.async-filled 32-token tiles,
+gathered token by token through the block table; pass 2
 merges the splits of each (kv head, row) in a fixed order.  The split
 count comes from the batch, the kv heads and the SM count alone
-(`splits_for`), never from the block table's width, so a wide table
-costs nothing and gives bitwise the output of a narrow one.  Block
+(`splits_for`), never from the block table's width or the page size,
+so a wide table costs nothing and gives bitwise the output of a narrow
+one, and pages of 8, 16 or 32 tokens give the same bits.  Block
 tables and lengths are read from device memory, so a decode step never
 waits on the host; the workspace is sized from shapes alone.
 
@@ -35,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.instrument import host_ints, nbytes, traced_kernel
 from repro_torch.kernels.dc_update import _check, _raise_on, _sm_count
 from repro_torch.kernels.ref import paged_attention_plain
 
@@ -70,6 +73,26 @@ def splits_for(batch: int, kv_heads: int, sms: int) -> int:
     return max(1, min(_MAX_SPLITS, _CTAS_PER_SM * sms // (batch * kv_heads)))
 
 
+def paged_attention_cost(q, k_pool, v_pool, block_tables, lengths, *,
+                         k_scale=None, v_scale=None) -> dict:
+    """The work one launch must do: each live k and v row (and its
+    scales) read once, the live rows' block-table entries, the lengths
+    and q read, the f32 output written; 4 flops per (live key, query
+    head, dim) on the CUDA cores.  Reads the lengths (`host_ints`)."""
+    B, KV, G, hd = q.shape
+    lens = host_ints(lengths)
+    tokens = sum(lens)
+    page = k_pool.shape[1]
+    pages = sum(-(-n // page) for n in lens)
+    scales = 0 if k_scale is None else 2 * 4 * tokens
+    return {"flops": 4 * G * hd * KV * tokens,
+            "bytes_read": 2 * tokens * KV * hd * k_pool.element_size()
+            + scales + pages * block_tables.element_size()
+            + nbytes(q, lengths),
+            "bytes_written": 4 * q.numel()}
+
+
+@traced_kernel("paged_attention", paged_attention_cost)
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor, *,

@@ -32,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.instrument import nbytes, traced_kernel
 from repro_torch.kernels.dc_update import (_check, _contiguous16,
                                            _raise_on, _sm_count)
 from repro_torch.kernels.ref import ssm_scan_plain
@@ -69,6 +70,16 @@ def chunk_length(batch: int, seq: int, channels: int, state: int,
     return length
 
 
+def ssm_scan_cost(a_log, dt, dtx, b, c) -> dict:
+    # 7 flops per (step, channel, state); y and h_last written in f32
+    B, S, E = dt.shape
+    N = a_log.shape[1]
+    return {"flops": 7 * B * S * E * N,
+            "bytes_read": nbytes(a_log, dt, dtx, b, c),
+            "bytes_written": 4 * (B * S * E + B * E * N)}
+
+
+@traced_kernel("ssm_scan", ssm_scan_cost)
 def ssm_scan(a_log: torch.Tensor, dt: torch.Tensor, dtx: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -3,7 +3,10 @@ rebuilds their algorithm, and one-shot generation (the port of
 ``repro.launch.engine.Engine`` without the mesh branches).
 
 PyTorch runs eagerly, so there is nothing to jit: ``fit`` calls the
-algorithm's ``step`` directly.  The loop stays on the device's queue:
+algorithm's ``step`` directly, and where the reference lowers a step for
+its analyzer (``lower_train_step``) the port runs one under an op trace
+(`trace_train_step`).  `retrace_stats` reports the caches a steady loop
+must not grow.  The loop stays on the device's queue:
 metrics are fetched to the host only on ``log_every`` boundaries (and
 the last step), with one device-to-host copy for the whole dict.  Only
 ``measure_skew`` synchronises every step, because it times them.
@@ -11,10 +14,11 @@ the last step), with one device-to-host copy for the whole dict.  Only
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import tree as T
 from repro_torch.checkpoint import (checkpoint_meta, restore_pytree,
                                     save_pytree)
 from repro_torch.core import registry
@@ -26,7 +30,7 @@ Tree = Any
 # checkpoint metadata keys describing the algorithm that produced a state
 CKPT_ALGO_KEYS = ("algo", "reducer", "reducer_opts", "local_optimizer",
                   "n_workers", "staleness", "ssp_threshold", "buckets",
-                  "overlap")
+                  "plan_block", "overlap")
 
 # the metrics a step line shows, where the algorithm reports them
 _SHOWN = ("loss", "lr", "distance_norm", "lambda")
@@ -58,6 +62,64 @@ class Engine:
         self.model = model
         self.alg = alg
         self._oneshot: Optional[OneShotGenerator] = None
+        # algorithm rebuilds by the last `fit` loop (elastic transitions)
+        self._fit_rejits = 0
+
+    # -- the analysis seam (repro_torch.analysis) ----------------------------
+
+    def _wire_sizes(self, state) -> List[int]:
+        """Per-worker element counts the reducer moves each step: the
+        padded `BucketPlan` sizes when bucketed, else the leaves' sizes
+        (per worker for a worker-stacked state)."""
+        alg = self.alg
+        if getattr(alg, "buckets", 0):
+            return [int(n) for n in alg._plan(state.params).bucket_sizes]
+        lead = alg.n_workers if getattr(alg, "worker_stacked", False) else 1
+        return [x.numel() // lead for x in T.leaves(state.params)]
+
+    def trace_train_step(self, state, batch, *, watch=None):
+        """Run one step of the algorithm under an op trace
+        (`repro_torch.analysis.optrace`): the counterpart of the
+        reference's ``lower_train_step``, whose HLO the port does not
+        have.  Returns ``(trace, new_state, metrics)``; the step really
+        runs, so the caller drops ``state`` as after any step.
+
+        ``trace.meta`` carries what the analyzers cross-check: the
+        ``wire`` (its element ``sizes``, ``n_workers``, ``comm_dtype`` and
+        the reducer's ``bytes``), the ``device``, whether f32 matmuls may
+        use TF32 and the model's ``compute_dtype``.  ``watch`` (label ->
+        tensor) marks tensors whose readers the trace lists."""
+        from repro_torch.analysis import optrace
+        red = getattr(self.alg, "reducer", None)
+        meta = {"device": T.leaves(state.params)[0].device.type,
+                "tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+                "compute_dtype": getattr(getattr(self.model, "cfg", None),
+                                         "compute_dtype", None)}
+        if red is not None:
+            sizes = self._wire_sizes(state)
+            meta["wire"] = {"sizes": sizes,
+                            "n_workers": getattr(self.alg, "n_workers", 1),
+                            "comm_dtype": red.comm_dtype,
+                            "bytes": int(red.wire_bytes(sizes))}
+        with optrace.trace(watch=watch) as tr:
+            new_state, metrics = self.alg.step(state, batch,
+                                               loss_fn=self.model.loss)
+        tr.meta.update(meta)
+        return tr, new_state, metrics
+
+    def retrace_stats(self) -> dict:
+        """The caches a steady step loop must not grow (the counterpart of
+        the reference's jit cache-miss counters): the algorithm's bucket
+        plans (``plan_cache_size``), the loaded kernel libraries
+        (``kernel_builds``), the last `fit` loop's algorithm rebuilds
+        (``fit_rejits``, > 0 only across elastic transitions).
+        `repro_torch.analysis.lint`'s retrace pass fails a loop whose
+        counters move after its first step."""
+        from repro_torch.kernels.build import _LOADED
+        return {"plan_cache_size":
+                    len(getattr(self.alg, "_plan_cache", None) or {}),
+                "kernel_builds": len(_LOADED),
+                "fit_rejits": self._fit_rejits}
 
     def fit(self, state, batch_fn: Callable[..., Tree], *, steps: int,
             start: int = 0, log_every: int = 10, measure_skew: bool = False,
@@ -93,6 +155,7 @@ class Engine:
         ``batch_fn(it, n_workers)``, so the batch follows the live worker
         count; a scripted slowdown multiplies the measured durations."""
         elastic = membership is not None
+        self._fit_rejits = 0
         if elastic:
             self.alg = membership.alg
         cur_w = getattr(self.alg, "n_workers", 1)
@@ -117,6 +180,7 @@ class Engine:
                                                       step=it)
                     if changed:
                         self.alg = membership.alg
+                        self._fit_rejits += 1
                         cur_w = membership.n_workers
                         stateful = stateful_policy()
                         n_workers = cur_w if measuring else 0
@@ -173,8 +237,9 @@ class Engine:
         a state: its name and worker count, the reducer with its
         hyper-parameters (a gossip ring or a topk density rebuilt with
         the defaults would resume another topology), the local optimizer,
-        the staleness policy and its threshold, and the bucket count and
-        overlap flag, which decide the structure of ``comm``."""
+        the staleness policy and its threshold, and the bucket count,
+        padding block and overlap flag, which decide the structure of
+        ``comm``."""
         alg = self.alg
         return {
             "algo": alg.name,
@@ -189,6 +254,7 @@ class Engine:
             "ssp_threshold": getattr(
                 getattr(alg, "staleness", None), "threshold", None),
             "buckets": getattr(alg, "buckets", None),
+            "plan_block": getattr(alg, "plan_block", None),
             "overlap": getattr(alg, "overlap", None),
         }
 
@@ -236,12 +302,14 @@ def algorithm_for_checkpoint(path, *, algo: str = "dc_s3gd",
                              reducer_opts: Optional[dict] = None,
                              staleness: str = "fixed",
                              ssp_threshold: int = 4, buckets: int = 0,
+                             plan_block: Optional[int] = None,
                              overlap: bool = False,
                              dc_cfg: Optional[DCS3GDConfig] = None
                              ) -> Tuple[Any, dict]:
     """The `DistributedOptimizer` that trained a checkpoint, and the
     resolved ``{algo, n_workers, local_optimizer, reducer, reducer_opts,
-    staleness, ssp_threshold, buckets, overlap}``.
+    staleness, ssp_threshold, buckets, overlap}``, and ``plan_block``
+    where one was set (the reference's resolution has no such key).
 
     Metadata recorded by `Engine.save` wins; the keyword arguments are
     fallbacks for checkpoints written without it.  ``reducer_opts`` (the
@@ -253,6 +321,8 @@ def algorithm_for_checkpoint(path, *, algo: str = "dc_s3gd",
                 "reducer_opts": reducer_opts,
                 "staleness": staleness, "ssp_threshold": ssp_threshold,
                 "buckets": buckets, "overlap": overlap}
+    if plan_block is not None:
+        resolved["plan_block"] = plan_block
     for k in CKPT_ALGO_KEYS:
         if meta.get(k) is not None:
             resolved[k] = meta[k]
@@ -266,5 +336,6 @@ def algorithm_for_checkpoint(path, *, algo: str = "dc_s3gd",
                         local_optimizer=resolved["local_optimizer"],
                         reducer=red, staleness=resolved["staleness"],
                         buckets=int(resolved["buckets"] or 0),
+                        plan_block=resolved.get("plan_block"),
                         overlap=bool(resolved["overlap"] or False))
     return alg, resolved

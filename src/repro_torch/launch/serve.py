@@ -62,7 +62,11 @@ metadata rebuilds the algorithm that trained it (``--algo``,
 file without metadata), and its ``eval_params`` (the DC-S3GD worker
 average, paper Eq. 8, in anchor form) are served.  ``--layers`` cuts the
 depth as the training entry point's flag does, so a checkpoint of a cut
-model loads.  Not ported yet: ``--tuned-config`` / ``--autotune`` (A14).
+model loads.  ``--tuned-config BLOB`` (`repro_torch.analysis.autotune`)
+takes ``page_size`` and ``decode_burst`` from the blob's ``serve.tuned``
+for the scheduler modes; ``--autotune`` probes them first (the smoke
+grid, on the run's device).  The pool keeps ``--pages`` pages, so a
+larger tuned page size is a larger pool in tokens, as in the reference.
 """
 from __future__ import annotations
 
@@ -137,6 +141,13 @@ def build_argparser():
                     help="share committed prompt-prefix pages between "
                          "requests (copy-on-write on divergence; implies "
                          "chunked prefill, default chunk 4*page_size)")
+    ap.add_argument("--tuned-config", type=Path, default=None,
+                    help="autotuner config blob (repro_torch.analysis."
+                         "autotune): its serve.tuned {page_size, "
+                         "decode_burst} override the flag defaults")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run the serve-side autotuner probe first and "
+                         "adopt its tuned config")
     ap.add_argument("--train-ckpt", type=Path, default=None,
                     help="serve eval_params of a training checkpoint (its "
                          "metadata selects the algorithm)")
@@ -333,9 +344,28 @@ def run_scheduler(model, params, reqs, args, arrivals=None) -> Scheduler:
     return sch
 
 
+def apply_tuned(args, device) -> None:
+    """``--autotune`` probes, ``--tuned-config`` reads a blob; either way
+    its ``serve.tuned`` sets ``args.page_size`` and ``args.decode_burst``."""
+    tuned = None
+    if args.autotune:
+        from repro_torch.analysis.autotune import autotune
+        tuned = autotune(smoke=True, skip_train=True, kv_dtype=args.kv_dtype,
+                         device=device)["serve"]["tuned"]
+    elif args.tuned_config is not None:
+        from repro_torch.analysis.autotune import load_tuned
+        tuned = load_tuned(args.tuned_config).get("serve", {}).get("tuned")
+    if tuned:
+        args.page_size = int(tuned["page_size"])
+        args.decode_burst = int(tuned["decode_burst"])
+        print(f"[serve] autotuned: page_size={args.page_size} "
+              f"decode_burst={args.decode_burst}")
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     model, params, device = build(args)
+    apply_tuned(args, device)
     cfg = model.cfg
     if args.requests is not None:
         reqs = load_requests(args.requests, cfg.vocab_size, args.gen,

@@ -20,14 +20,18 @@ launcher fails on the missing input).
 ``--ckpt PATH`` saves the final state with the metadata of the algorithm
 that trained it; ``--resume PATH`` restores it and continues at its step,
 the checkpoint's {algo, reducer and its options, local_optimizer,
-n_workers, staleness, buckets, overlap} winning over the flags (a file
+n_workers, staleness, buckets, plan_block, overlap} winning over the
+flags and over a tuned config (a file
 written without metadata falls back to them).  An explicit ``--workers``
 that differs from the checkpoint's count is an **elastic resume**: the
 state is restored at the checkpoint's W and resharded through
 `repro_torch.cluster`'s collapse-to-consensus resize.
 ``--fault-schedule`` / ``--eject-skew`` make the run itself elastic
 (scripted churn, straggler ejection); the result then carries the
-transition log.
+transition log.  ``--tuned-config BLOB`` (`repro_torch.analysis.autotune`)
+takes the bucket count and the plan's padding block from the blob's
+``train.tuned``; ``--autotune`` probes them first (the smoke grid, on the
+run's device).  Neither applies on ``--resume``.
 """
 from __future__ import annotations
 
@@ -144,6 +148,13 @@ def build_argparser():
                          "parallel.pipeline): issue each step's reduce at "
                          "its end, consume it at the next step's top; "
                          "needs --buckets > 0")
+    ap.add_argument("--tuned-config", type=Path, default=None,
+                    help="autotuner config blob (repro_torch.analysis."
+                         "autotune): its train.tuned {buckets, plan_block} "
+                         "override the flag defaults")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run the train-side autotuner probe first and "
+                         "adopt its tuned config (a few extra minutes)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cuda or cpu)")
     return ap
@@ -176,8 +187,39 @@ def _adopt_resume_meta(args) -> None:
                                          args.ssp_threshold))
     args.workers = int(adopted.get("n_workers", args.workers))
     args.buckets = int(adopted.get("buckets", args.buckets) or 0)
+    # recorded only when set: a checkpoint without it was padded to BLOCK
+    args.plan_block = adopted.get("plan_block")
     args.overlap = bool(adopted.get("overlap", args.overlap) or False)
     print(f"[train] resume metadata: {adopted}")
+
+
+def apply_tuned(args, device) -> None:
+    """``--autotune`` probes, ``--tuned-config`` reads a blob; either way
+    its ``train.tuned`` sets ``args.buckets`` and ``args.plan_block``.
+    On ``--resume`` the checkpoint's layout wins: its ``comm`` and
+    ``delta_prev`` buckets were padded by it, so neither is consulted."""
+    tuned = None
+    wanted = getattr(args, "autotune", False) or \
+        getattr(args, "tuned_config", None) is not None
+    if wanted and getattr(args, "resume", None) is not None \
+            and checkpoint_exists(args.resume):
+        print("[train] resuming: the checkpoint's bucket layout "
+              f"(buckets={args.buckets} plan_block="
+              f"{getattr(args, 'plan_block', None)}) wins over the tuned "
+              "config")
+        return
+    if getattr(args, "autotune", False):
+        from repro_torch.analysis.autotune import autotune
+        tuned = autotune(smoke=True, skip_serve=True,
+                         device=device)["train"]["tuned"]
+    elif getattr(args, "tuned_config", None) is not None:
+        from repro_torch.analysis.autotune import load_tuned
+        tuned = load_tuned(args.tuned_config).get("train", {}).get("tuned")
+    if tuned:
+        args.buckets = int(tuned["buckets"])
+        args.plan_block = tuned.get("plan_block")
+        print(f"[train] autotuned: buckets={args.buckets} "
+              f"plan_block={args.plan_block}")
 
 
 def build(args, *, device=None):
@@ -187,6 +229,7 @@ def build(args, *, device=None):
     device = resolve_device(args.device if device is None else device)
     if args.workers is None:
         args.workers = 4
+    apply_tuned(args, device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -221,7 +264,8 @@ def build(args, *, device=None):
     alg = registry.make(args.algo, dc_cfg, n_workers=args.workers,
                         reducer=reducer, staleness=args.staleness,
                         use_kernels=args.use_kernels, buckets=args.buckets,
-                        overlap=args.overlap)
+                        overlap=args.overlap,
+                        plan_block=getattr(args, "plan_block", None))
     state = alg.init(params)
     del params
     data = SyntheticLMDataset(cfg.vocab_size, args.seq, seed=args.seed)

@@ -111,13 +111,20 @@ class BucketPlan:
 
 
 def cached_plan(cache: dict, tree: Tree, n_buckets: int, *,
-                strip_leading_axis: bool = False) -> BucketPlan:
-    """Memoized `plan_buckets` (default block) keyed on the tree's
-    (shape, dtype) layout."""
+                block: Optional[int] = None,
+                strip_leading_axis: bool = False,
+                wire_dtype: Optional[str] = None) -> BucketPlan:
+    """Memoized `plan_buckets`, keyed on the tree's (shape, dtype) layout,
+    the bucket count, ``block`` and ``wire_dtype`` (the reducer's
+    ``comm_dtype``), as the reference keys it: plans of two alignments
+    differ in their padded sizes and must never alias, and neither may a
+    quantized and a dense wire's, should an alignment ever depend on the
+    wire."""
     key = (tuple((tuple(x.shape), x.dtype) for x in T.leaves(tree)),
-           n_buckets, strip_leading_axis)
+           n_buckets, block, strip_leading_axis,
+           None if wire_dtype is None else str(wire_dtype))
     if key not in cache:
-        cache[key] = plan_buckets(tree, n_buckets,
+        cache[key] = plan_buckets(tree, n_buckets, block=block,
                                   strip_leading_axis=strip_leading_axis)
     return cache[key]
 

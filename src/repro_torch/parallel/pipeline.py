@@ -42,6 +42,8 @@ from __future__ import annotations
 
 from typing import Any, List, Optional, Tuple
 
+from repro_torch.instrument import scope
+
 Tree = Any
 
 
@@ -77,10 +79,12 @@ def issue(reducer, wire: List, rstate: Optional[Tree] = None
     """Put the next payload on the wire: reduce the bucket list now and
     carry the result as the in-flight state.  Returns ``(pipeline_state,
     new_reducer_state)``, the latter None for a stateless reducer."""
-    if rstate is None:
-        reduced = reducer(wire)
-    else:
-        reduced, rstate = reducer(wire, rstate)
+    # the same `wire` scope the inline schedule puts around its reduce
+    with scope("wire"):
+        if rstate is None:
+            reduced = reducer(wire)
+        else:
+            reduced, rstate = reducer(wire, rstate)
     return {"reduced": list(reduced)}, rstate
 
 
@@ -102,5 +106,6 @@ def resize(reducer, pstate: dict, wire: List) -> dict:
     worker count and whose mass the resized residual already accounts
     for."""
     if getattr(reducer, "stateless", True):
-        return {"reduced": list(reducer(wire))}
+        with scope("wire"):
+            return {"reduced": list(reducer(wire))}
     return dict(pstate)

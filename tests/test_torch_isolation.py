@@ -152,3 +152,57 @@ def test_vlm_and_encdec_modules_are_covered_and_import_alone(module):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == f"repro_torch.{module}"
+
+
+ANALYSIS = ("optrace", "roofline", "report", "autotune", "astlint", "lint")
+
+
+@pytest.mark.parametrize("module", ANALYSIS)
+def test_analysis_modules_are_covered_and_import_alone(module):
+    """The analysis layer (op traces, the H100 roofline, the findings
+    schema, the autotuner and both lint layers) is among the files checked
+    above and imports, CLI included, in a process where jax and repro
+    cannot be imported: it keeps its own copy of the reference's
+    ``report`` rather than importing it."""
+    path = ROOT / "src" / "repro_torch" / "analysis" / f"{module}.py"
+    assert path in PORT_FILES
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            f"import repro_torch.analysis.{module} as m\n"
+            "assert 'jax' not in {k.split('.')[0] for k, v in "
+            "sys.modules.items() if v is not None}\n"
+            "print(m.__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"repro_torch.analysis.{module}"
+
+
+def test_kernels_and_algorithms_sit_below_the_analysis_layer():
+    """The kernel wrappers, the algorithms and the pipeline carry their
+    trace hooks from `repro_torch.instrument`, which imports only torch:
+    importing them loads nothing of `repro_torch.analysis`."""
+    path = ROOT / "src" / "repro_torch" / "instrument.py"
+    assert path in PORT_FILES
+    assert {m.split(".")[0] for m in _imported_modules(path)} <= {
+        "__future__", "functools", "typing", "torch"}
+    code = ("import sys, importlib\n"
+            "for m in ('kernels.dc_update', 'kernels.compress', "
+            "'kernels.paged_attention', 'kernels.flash_attention', "
+            "'kernels.ssm_scan', 'core.dc_s3gd', 'core.ssgd', "
+            "'parallel.pipeline', 'models.transformer', 'serve'):\n"
+            "    importlib.import_module('repro_torch.' + m)\n"
+            "bad = [k for k in sys.modules "
+            "if k.startswith('repro_torch.analysis')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

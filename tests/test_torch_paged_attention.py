@@ -148,7 +148,7 @@ def _split_merge(q, k_pool, v_pool, bt, lengths, splits, k_scale=None,
                  v_scale=None, tile=32):
     """The kernel's algorithm in plain torch: split s of row b folds the
     live tokens [s * per, min((s + 1) * per, n)), per = ceil(n / splits)
-    rounded up to the page size, ``tile`` tokens at a time into an online
+    rounded up to the tile, ``tile`` tokens at a time into an online
     softmax (m, l, acc); an empty split keeps (-1e30, 0, 0); then
     out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30)."""
     B, KV, G, hd = q.shape
@@ -158,7 +158,7 @@ def _split_merge(q, k_pool, v_pool, bt, lengths, splits, k_scale=None,
     out = torch.empty((B, KV, G, hd))
     for b in range(B):
         n = int(lengths[b])
-        per = math.ceil(math.ceil(n / splits) / ps) * ps
+        per = math.ceil(math.ceil(n / splits) / tile) * tile
         ms, ls, accs = [], [], []
         for s in range(splits):
             lo = min(n, s * per)
