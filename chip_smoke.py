@@ -237,6 +237,19 @@ Phases (any failure exits non-zero before the result line):
    greedy tokens identical across the serve candidates; the blob in
    ``chiprun_out/autotune.json``.
 
+17. the worker axis over real process groups: (a) the main cell on an
+   NCCL mesh of one rank (``init_device_mesh("cuda", (1, 1))``, a
+   ``file://`` store), ``Engine(model, alg, mesh)``, 3 steps inline and
+   3 overlapped, each bitwise the ``mesh=None`` run (params, opt,
+   delta_prev, losses; deterministic algorithms), A1 / A2 12 times a run,
+   0 host syncs in a steady step, the step beside ``mesh=None``'s; (b)
+   two gloo ranks on the one card (spawned; NCCL refuses two ranks on
+   one device): ResNet-18's layout at W = 8, 3 steps, the gathered params
+   and losses within 1e-5 of the one-process run, A1 / A2 18 times a
+   rank; (c) ``repro_torch.launch.dryrun`` for qwen3-0.6b x decode_32k x
+   pod in a subprocess (nothing placed on the card): ``status: ok``, its
+   per-device argument bytes (record in ``chiprun_out/dryrun_torch``).
+
 The CPU twins of these checks are the ``tests/test_torch_*.py`` files
 (``PYTHONPATH=src python -m pytest -q tests/test_torch_moe.py
 tests/test_torch_mla.py``; the C5 cases: ``-k short_prompt`` in
@@ -256,6 +269,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -4387,6 +4401,283 @@ def phase_lint_card(smi: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the worker axis over real process groups (an NCCL mesh of one
+# rank on the main cell, two gloo ranks on the one card for the CNN) and
+# the dry-run on fake tensors
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3
+MESH_TIMED = 3               # further steps on the host clock, not compared
+MESH_TOL = 1e-5              # two ranks vs one process, of each leaf's scale
+MESH_RANKS = 2
+DRYRUN_COMBO = ("qwen3-0.6b", "decode_32k", "pod")
+
+
+def _mesh_main_run(smi: str, mesh, overlap: bool) -> dict:
+    """The main cell (``MAIN_ARGS``, fused tail) for ``MESH_STEPS`` steps
+    through ``Engine(model, alg, mesh=mesh)`` under deterministic
+    algorithms, counts zeroed just before and read just after; then
+    ``MESH_TIMED`` steps on the host clock and one steady step under
+    sync-debug mode."""
+    from repro_torch import tree as T
+    from repro_torch.launch import train
+    from repro_torch.launch.engine import Engine
+    args = train.build_argparser().parse_args(
+        MAIN_ARGS + ["--steps", str(MESH_STEPS + MESH_TIMED + 1),
+                     "--use-kernels"] + (["--overlap"] if overlap else []))
+    model, alg, state, batch_fn = train.build(args)
+    engine = Engine(model, alg, mesh=mesh)
+    if mesh is not None:
+        # the rank's rows of the same weights (train.build's seed)
+        del state
+        state = engine.init_state(model.init(
+            torch.Generator(device="cuda").manual_seed(args.seed)))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _zero_counts()
+        state, hist, _ = engine.fit(state, batch_fn, steps=MESH_STEPS,
+                                    log_every=1)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    kept = {"params": T.map(torch.clone, state.params),
+            "opt": T.map(torch.clone, state.opt),
+            "delta_prev": T.map(torch.clone, state.comm["delta_prev"]),
+            "losses": [h["loss"] for h in hist]}
+    walls = []
+    for it in range(MESH_STEPS, MESH_STEPS + MESH_TIMED):
+        batch = batch_fn(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = alg.step(state, engine.local_batch(batch),
+                            loss_fn=model.loss)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    batch = engine.local_batch(batch_fn(MESH_STEPS + MESH_TIMED))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state, m = alg.step(state, batch, loss_fn=model.loss)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(m["loss"])), "[mesh] loss not finite")
+    del state
+    return {"kept": kept, "launches": launches,
+            "step_ms": statistics.median(walls) * 1e3,
+            "host_syncs": syncs, "peak_bytes": peak,
+            "allocated_before": before}
+
+
+def phase_mesh_nccl(smi: str) -> dict:
+    """(a) The main cell on an NCCL mesh of one rank: a ``file://`` store
+    in a scratch directory, ``init_device_mesh("cuda", (1, 1), ("data",
+    "model"))``, ``Engine(model, alg, mesh)``; 3 steps inline and 3 under
+    overlap, each bitwise the ``mesh=None`` run in params, opt and
+    delta_prev (and its losses), A1 and A2 12 times each a run, 0 host
+    syncs in a steady step, the median step beside ``mesh=None``'s."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    rec = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        M.init_process_group(device_type="cuda",
+                             init_method=f"file://{tmp}/store", rank=0,
+                             world_size=1)
+        try:
+            mesh = M.make_debug_mesh(1, 1, device_type="cuda")
+            check(dist.get_backend() == "nccl", "[mesh] backend")
+            for overlap in (False, True):
+                tag = "overlap" if overlap else "inline"
+                ref = _mesh_main_run(smi, None, overlap)
+                got = _mesh_main_run(smi, mesh, overlap)
+                for what in ("params", "opt", "delta_prev", "losses"):
+                    same = got["kept"][what] == ref["kept"][what] \
+                        if what == "losses" else \
+                        _bitwise(got["kept"][what], ref["kept"][what])
+                    check(same, f"[mesh] NCCL 1 rank {tag}: {what} differs "
+                          f"from mesh=None")
+                for r, which in ((ref, "mesh=None"), (got, "mesh")):
+                    for name, n in r["launches"].items():
+                        want = MESH_STEPS * N_BUCKETS \
+                            if name in ("dc_norms", "dc_fused_update") else 0
+                        check(n == want, f"[mesh] {tag} {which}: {name} "
+                              f"launched {n} times, expected {want}")
+                check(got["host_syncs"] == 0,
+                      f"[mesh] {tag}: {got['host_syncs']} host syncs in a "
+                      f"steady step")
+                for r in (ref, got):
+                    del r["kept"]
+                rec[tag] = {"mesh": got, "none": ref}
+                print(f"[mesh] NCCL mesh (1, 1) {tag}: bitwise mesh=None "
+                      f"in params, opt, delta_prev and losses over "
+                      f"{MESH_STEPS} steps; A1 / A2 "
+                      f"{got['launches']['dc_norms']} / "
+                      f"{got['launches']['dc_fused_update']}; step "
+                      f"{got['step_ms']:.3f} ms vs mesh=None "
+                      f"{ref['step_ms']:.3f} ms (median of {MESH_TIMED}); "
+                      f"host syncs {got['host_syncs']}; peak "
+                      f"{got['peak_bytes'] / 2**30:.3f} GiB vs "
+                      f"{ref['peak_bytes'] / 2**30:.3f} (allocated before "
+                      f"{got['allocated_before'] / 2**30:.3f} vs "
+                      f"{ref['allocated_before'] / 2**30:.3f}: the "
+                      f"mesh=None run's kept state) [{smi}]")
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return rec
+
+
+def _mesh_cnn(mesh_ranks: int, rank: int, store: str, out: str) -> None:
+    """One rank of phase (b) (a spawned process): ResNet-18's layout, W =
+    8, ``MESH_STEPS`` DC-S3GD steps through the example twin's build, 4
+    buckets, fused tail, on a gloo mesh of ``mesh_ranks`` ranks on the
+    one card; writes its metrics, its launch counts and (rank 0) the
+    gathered params."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import tree as T
+    from repro_torch.examples import cnn_paper_repro as twin
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.cnn import init_resnet
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # NCCL refuses two ranks of one communicator on one device: gloo,
+    # which all-reduces and broadcasts CUDA tensors through host copies
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=mesh_ranks)
+    try:
+        mesh = M.make_debug_mesh(mesh_ranks, 1, device_type="cuda")
+        with _cudnn_deterministic():
+            model, alg, state, batch_fn, _ = _cnn_twin(steps=MESH_STEPS)
+            del state
+            engine = Engine(model, alg, mesh=mesh)
+            state = engine.init_state(init_resnet(
+                torch.Generator(device="cuda").manual_seed(0), **RESNET18))
+            _zero_counts()
+            state, hist, wall = engine.fit(state, batch_fn, steps=MESH_STEPS,
+                                           log_every=1)
+            torch.cuda.synchronize()
+            launches = _read_counts()
+        full = engine.gather_state(state)
+        res = {"hist": hist, "launches": launches, "wall_s": wall,
+               "rows": T.leaves(state.params)[0].shape[0]}
+        if M.worker_index(mesh) == 0:
+            res["params"] = T.map(lambda x: x.cpu(), full.params)
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_gloo(smi: str) -> dict:
+    """(b) Two ranks on the one card over gloo: the paper's CNN at
+    ResNet-18's layout, W = 8 (4 workers a rank), 3 DC-S3GD steps with the
+    fused tail.  The gathered params within ``MESH_TOL`` of each leaf's
+    largest magnitude of the one-process W = 8 run, the losses within
+    ``MESH_TOL`` relative; A1 and A2 18 times a rank (6 buckets x 3
+    steps).  The ranks copy through the host: the wall is no speed
+    figure."""
+    import multiprocessing as mp
+    import tempfile
+    from repro_torch import tree as T
+    from repro_torch.launch.engine import Engine
+    with _cudnn_deterministic():
+        model, alg, state, batch_fn, _ = _cnn_twin(steps=MESH_STEPS)
+        state, ref_hist, _ = Engine(model, alg).fit(
+            state, batch_fn, steps=MESH_STEPS, log_every=1)
+        ref = T.map(lambda x: x.cpu(), state.params)
+    del state, model, alg
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [f"{tmp}/rank{r}.pt" for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_mesh_cnn,
+                             args=(MESH_RANKS, r, f"{tmp}/store", outs[r]))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        check(all(p.exitcode == 0 for p in procs),
+              f"[mesh] gloo ranks exited {[p.exitcode for p in procs]}")
+        res = [torch.load(o, weights_only=False) for o in outs]
+    worst = 0.0
+    for a, b in zip(T.leaves(res[0]["params"]), T.leaves(ref)):
+        scale = float(b.abs().max())
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    check(worst <= MESH_TOL, f"[mesh] gloo params {worst:.3g} of scale from "
+          f"the one-process run")
+    losses = [[h["loss"] for h in r["hist"]] for r in res]
+    ref_losses = [h["loss"] for h in ref_hist]
+    check(all(l == losses[0] for l in losses),
+          "[mesh] gloo ranks report different losses")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[0],
+                                                       ref_losses))
+    check(loss_err <= MESH_TOL, f"[mesh] gloo losses {losses[0]} vs "
+          f"{ref_losses}")
+    for r in res:
+        check(r["rows"] == CNN_W // MESH_RANKS, f"[mesh] rows {r['rows']}")
+        for name, n in r["launches"].items():
+            want = MESH_STEPS * len(CNN_BUCKETS) \
+                if name in ("dc_norms", "dc_fused_update") else 0
+            check(n == want, f"[mesh] gloo rank: {name} launched {n} "
+                  f"times, expected {want}")
+    print(f"[mesh] gloo, 2 ranks on one card, ResNet-18 layout W={CNN_W} "
+          f"({CNN_W // MESH_RANKS} a rank), {MESH_STEPS} steps: params "
+          f"within {worst:.3g} of each leaf's scale, losses within "
+          f"{loss_err:.3g} of the one-process run; A1 / A2 "
+          f"{[r['launches']['dc_norms'] for r in res]} / "
+          f"{[r['launches']['dc_fused_update'] for r in res]} a rank; "
+          f"{wall:.1f} s wall with the ranks' start [{smi}]")
+    return {"params_err": worst, "loss_err": loss_err, "losses": losses[0],
+            "launches": [r["launches"] for r in res], "wall_s": wall,
+            "fit_s": [r["wall_s"] for r in res]}
+
+
+def phase_dryrun(smi: str) -> dict:
+    """(c) One dry-run combo as a subprocess in the card's environment
+    (it places nothing on the device): ``status: ok`` and its per-device
+    argument bytes."""
+    arch, shape, mesh = DRYRUN_COMBO
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", str(out)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"[dryrun] exit {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    rec = json.loads((out / f"{arch}__{shape}__{mesh}__dc_s3gd.json")
+                     .read_text())
+    check(rec["status"] == "ok" and rec["n_chips"] == 256,
+          f"[dryrun] record {rec.get('status')}")
+    m = rec["memory"]
+    print(f"[dryrun] {arch} x {shape} x {mesh}: ok, "
+          f"{m['argument_bytes']} B of arguments a device "
+          f"({m['argument_bytes'] / 2**30:.3f} GiB), {m['output_bytes']} B "
+          f"out; roofline {rec['roofline']['bottleneck']}-bound; "
+          f"{wall:.1f} s wall (the subprocess) [{smi}]")
+    return {"record": rec, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4539,6 +4830,14 @@ def main() -> int:
     s13["phase_s"] = time.perf_counter() - t0
     print(f"[analysis] the roofline, lint, kernel-settings and autotune "
           f"phases took {s13['phase_s']:.1f} s [{smi}]")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s14 = {"nccl": phase_mesh_nccl(smi)}
+    s14["gloo"] = phase_mesh_gloo(smi)
+    s14["dryrun"] = phase_dryrun(smi)
+    s14["phase_s"] = time.perf_counter() - t0
+    print(f"[mesh] the NCCL mesh, two gloo ranks and dry-run phases took "
+          f"{s14['phase_s']:.1f} s [{smi}]")
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -4684,6 +4983,14 @@ def main() -> int:
     print(f"[times] train whisper-large-v3 x{WHISPER_TRAIN_LAYERS} + encoder "
           f"x{WHISPER_TRAIN_LAYERS}, W={W}: step {wt['step_ms']:.3f} ms, peak "
           f"{wt['peak_bytes'] / 2**30:.3f} GiB [{smi}]")
+    for tag in ("inline", "overlap"):
+        r = s14["nccl"][tag]
+        print(f"[times] main cell on an NCCL mesh (1, 1), {tag}: step "
+              f"{r['mesh']['step_ms']:.3f} ms vs mesh=None "
+              f"{r['none']['step_ms']:.3f} ms (median of {MESH_TIMED}), "
+              f"peak {r['mesh']['peak_bytes'] / 2**30:.3f} GiB vs "
+              f"{r['none']['peak_bytes'] / 2**30:.3f} GiB, host syncs "
+              f"{r['mesh']['host_syncs']} [{smi}]")
     print(f"[times] serve falcon-mamba-7b x64, 16 slots: "
           f"{fm['decode_tokens_per_s']:.1f} decode tok/s, "
           f"{fm['step_ms']:.3f} ms/decode step, inter-token p50/p95 "
@@ -4786,6 +5093,17 @@ def main() -> int:
                     s13["settings"]["bucket_sizes"]}
         if name == "paged_attention":
             entry["analysis"]["pages"] = s13["settings"]["paged"]
+    # slice 14: A1 / A2 on the worker axis over process groups (counts
+    # zeroed before each run and read after): the main cell on the NCCL
+    # mesh of one rank, inline and overlapped, and each gloo rank's CNN
+    for entry in kernels:
+        name = entry["name"]
+        entry["mesh"] = {
+            "launches_nccl_inline": s14["nccl"]["inline"]["mesh"][
+                "launches"][name],
+            "launches_nccl_overlap": s14["nccl"]["overlap"]["mesh"][
+                "launches"][name],
+            "launches_gloo_ranks": [r[name] for r in s14["gloo"]["launches"]]}
     for entry in kernels:
         # A1 and A2 on the CNN main path: its launches (dc_s3gd, 6 steps)
         # and the per-step sums over its 6 bucket sizes at W = 8
@@ -4843,7 +5161,7 @@ def main() -> int:
               "cnn": cnn, "state": state, "flash_shapes": flash_shapes,
               "paged_shapes": paged_shapes, "serve_prefix": prefix,
               "dense_family": dense, "hybrid": hybrid, "moe_mla": moe,
-              "vlm_encdec": mm, "analysis": s13,
+              "vlm_encdec": mm, "analysis": s13, "multi_device": s14,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start
     print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "

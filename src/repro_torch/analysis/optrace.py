@@ -47,10 +47,12 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch import instrument
 from repro_torch.instrument import tensors as _tensors
 
-# ops that allocate or alias without moving bytes
+# ops that allocate, alias or query metadata without moving bytes
+# (``prim.device``: a fake tensor's device query, dispatched only under
+# FakeTensorMode, where it would otherwise charge a read of its input)
 _FREE = {"empty", "empty_like", "empty_strided", "detach", "alias",
          "_unsafe_view", "lift_fresh", "set_", "resize_", "_reshape_alias",
-         "new_empty", "new_empty_strided", "_local_scalar_dense"}
+         "new_empty", "new_empty_strided", "_local_scalar_dense", "device"}
 # ops whose output shape depends on the data: on the card they wait for
 # the device (host-sync pass)
 SYNC_OPS = ("_local_scalar_dense", "nonzero", "masked_select", "_unique",

@@ -1,18 +1,23 @@
-"""The findings half of the reference's report module
-(``repro.analysis.report``, lines 1-135): the one record type both lint
-layers emit and its ``repro.lint/v1`` JSON schema.
+"""The reference's report module (``repro.analysis.report``): the one
+record type both lint layers emit and its ``repro.lint/v1`` JSON schema,
+and the dry-run tables over the records `repro_torch.launch.dryrun`
+writes (``experiments/dryrun_torch``).
 
 `repro_torch.analysis.lint` (passes over a traced train step) and
 `repro_torch.analysis.astlint` (rules over the source tree) emit
 `Finding` records; `findings_report` / `parse_report` serialize them, and
 a committed baseline (``src/repro_torch/analysis/lint_baseline.json``,
 empty) is matched by `Finding.key`: only findings outside it fail the
-CLI.  The same findings give the same JSON as the reference's.  The
-dry-run tables wait for the port's dry-run launcher.
+CLI.  The same findings give the same JSON as the reference's.
+
+    PYTHONPATH=src python -m repro_torch.analysis.report [DIR]
 """
 from __future__ import annotations
 
+import glob
 import json
+import sys
+from collections import defaultdict
 from dataclasses import asdict, dataclass
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
@@ -123,3 +128,79 @@ def render_findings(findings: Sequence[Finding]) -> str:
         lines.append(f"[{d['severity']:7s}] {d['pass_name']:22s} "
                      f"{where}: {d['message']}")
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# dry-run tables
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = "experiments/dryrun_torch"
+
+
+def load(mesh: str, directory: str = DRYRUN_DIR) -> dict:
+    """{(arch, shape): record} of one mesh's dry-run records."""
+    out = {}
+    for f in sorted(glob.glob(f"{directory}/*__{mesh}__*.json")):
+        r = json.loads(Path(f).read_text())
+        out[(r["arch"], r["shape"])] = r
+    return out
+
+
+def fmt_mem(b) -> str:
+    """GiB with one decimal; ``-`` for a null (eager PyTorch has no
+    compiler memory analysis for temp / peak)."""
+    return "-" if b is None else f"{b/2**30:.1f}"
+
+
+def roofline_table(mesh: str, directory: str = DRYRUN_DIR) -> str:
+    rows = load(mesh, directory)
+    lines = [
+        f"### Mesh `{mesh}` "
+        f"({'512 GPUs (2,16,16)' if mesh == 'multipod' else '256 GPUs (16,16)'})",
+        "",
+        "| arch | shape | compute (ms) | memory (ms) | collective (ms, "
+        "NVLink / network) | bottleneck | useful-FLOPs | args GiB/dev | "
+        "temp GiB/dev | trace s |",
+        "|---|---|---:|---:|---:|---|---:|---:|---:|---:|",
+    ]
+    for (arch, shape), r in sorted(rows.items()):
+        if r["status"] != "ok":
+            lines.append(f"| {arch} | {shape} | - | - | - | *{r['status']}:"
+                         f" {r['reason'][:60]}* | - | - | - | - |")
+            continue
+        ro, m = r["roofline"], r["memory"]
+        lines.append(
+            f"| {arch} | {shape} | {ro['compute_s']*1e3:.1f} | "
+            f"{ro['memory_s']*1e3:.1f} | {ro['collective_s']*1e3:.1f} / "
+            f"{ro.get('collective_net_s', 0.0)*1e3:.1f} | "
+            f"**{ro['bottleneck']}** | {ro['useful_flops_ratio']:.2f} | "
+            f"{fmt_mem(m['argument_bytes'])} | {fmt_mem(m['temp_bytes'])} | "
+            f"{r['compile_s']:.0f} |")
+    return "\n".join(lines)
+
+
+def dryrun_summary(mesh: str, directory: str = DRYRUN_DIR) -> str:
+    rows = load(mesh, directory)
+    n = defaultdict(int)
+    by_bound = defaultdict(int)
+    for r in rows.values():
+        n[r["status"]] += 1
+        if r["status"] == "ok":
+            by_bound[r["roofline"]["bottleneck"]] += 1
+    return (f"mesh `{mesh}`: {n['ok']} built + traced OK, {n['skipped']} "
+            f"noted skips, {n['fail']} failed; bottleneck split: "
+            f"{dict(by_bound)}")
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    directory = argv[0] if argv else DRYRUN_DIR
+    for mesh in ("pod", "multipod"):
+        print(dryrun_summary(mesh, directory))
+        print()
+        print(roofline_table(mesh, directory))
+        print()
+
+
+if __name__ == "__main__":
+    main()

@@ -15,9 +15,13 @@ The W workers of a step share one card here, so their mean is HBM
 traffic, already in the memory term.  The collective term is what the
 same wire would cost a W-card layout over NVLink, and is reported beside
 the step (``step_s`` = the larger of compute and memory), not added to
-it.
+it.  ``collective_net_s`` prices the same bytes at the node network's
+rate: on the production meshes the worker axis spans nodes of 8 GPUs,
+so its wire crosses the network, not NVLink (the dry-run reads it).
 
-Constants: NVIDIA H100 SXM data sheet, dense (no sparsity).
+Constants: NVIDIA H100 SXM data sheet, dense (no sparsity); the node
+network: NVIDIA DGX H100 data sheet, 8 ConnectX-7 400 Gb/s NDR
+InfiniBand ports a node of 8 GPUs, 50 GB/s a GPU.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ PEAK_FLOPS_TF32 = 495e12      # FLOP/s, tensor cores (TF32)
 PEAK_FLOPS_F32 = 67e12        # FLOP/s, CUDA cores (f32, no tensor cores)
 HBM_BW = 3.35e12              # B/s
 NVLINK_BW = 450e9             # B/s each way
+NET_BW = 50e9                 # B/s a GPU: one 400 Gb/s NDR port (DGX H100)
+GPUS_PER_NODE = 8
 
 # Op.math -> peak FLOP/s; "tf32x3" is flash_attention's f32 path, three
 # TF32 products per f32 one
@@ -73,6 +79,7 @@ class Roofline:
     useful_flops_ratio: float  # model_flops / traced FLOPs
     coll_breakdown: Dict[str, float]
     step_s: float              # max(compute_s, memory_s)
+    collective_net_s: float = 0.0   # the wire over the node network
 
     def to_dict(self):
         return asdict(self)
@@ -89,14 +96,16 @@ def model_flops_per_step(cfg: ModelConfig, shape: InputShape,
 
 
 def analyze(trace, cfg: ModelConfig, shape: InputShape, n_chips: int,
-            wire_dtype: Optional[str] = None) -> Roofline:
+            wire_dtype: Optional[str] = None, split: int = 1) -> Roofline:
     """The roofline of one traced call.  ``trace.meta["wire"]`` (set by
     `repro_torch.launch.engine.Engine.trace_train_step`) gives the wire:
     its element ``sizes`` and the reducer's ``wire_bytes``; ``wire_dtype``
     prices those elements at another wire dtype's width instead (one f32
-    scale per row on a quantized wire)."""
-    compute_s = sum(op_seconds(o.flops, o.math) for o in trace.ops)
-    hbm = float(trace.bytes)
+    scale per row on a quantized wire).  ``split`` spreads the traced
+    FLOPs, bytes and wire evenly over that many devices (the dry-run's
+    one-process trace of a whole mesh's step)."""
+    compute_s = sum(op_seconds(o.flops, o.math) for o in trace.ops) / split
+    hbm = float(trace.bytes) / split
     memory_s = hbm / HBM_BW
     wire = trace.meta.get("wire", {})
     if wire_dtype is not None and wire:
@@ -106,8 +115,9 @@ def analyze(trace, cfg: ModelConfig, shape: InputShape, n_chips: int,
             else 0)
     else:
         coll = wire.get("bytes", 0)
+    coll = coll / split
     coll_s = coll / NVLINK_BW
-    flops = float(trace.flops)
+    flops = float(trace.flops) / split
     mf = model_flops_per_step(cfg, shape, n_chips)
     return Roofline(
         flops=flops, hbm_bytes=hbm, coll_bytes=float(coll),
@@ -115,6 +125,7 @@ def analyze(trace, cfg: ModelConfig, shape: InputShape, n_chips: int,
         bottleneck="compute" if compute_s >= memory_s else "memory",
         model_flops=mf, useful_flops_ratio=mf / flops if flops else 0.0,
         coll_breakdown={"wire": float(coll),
-                        "dot_flops": float(trace.dot_flops),
-                        "elementwise_flops": float(trace.elem_flops)},
-        step_s=max(compute_s, memory_s))
+                        "dot_flops": float(trace.dot_flops) / split,
+                        "elementwise_flops": float(trace.elem_flops)
+                        / split},
+        step_s=max(compute_s, memory_s), collective_net_s=coll / NET_BW)

@@ -8,8 +8,14 @@ of ``repro.core.api``).
     weights = alg.eval_params(state)
 
 State is the frozen `TrainState`; every params/opt/comm leaf carries a
-leading worker axis W.  The sharding hooks (``state_specs`` /
-``batch_specs``) and ``MeshAxes`` wait for the multi-device slice.
+leading worker axis W.
+
+Every algorithm declares its own sharding through the ``state_specs`` /
+``batch_specs`` hooks: given a `MeshAxes` naming the worker and
+tensor-parallel mesh axes, it returns spec trees for its `TrainState` and
+its batch (`repro_torch.parallel.sharding`: one plain tuple per leaf,
+the reference's ``tuple(PartitionSpec)``).  The Engine's mesh seam, the
+dry-run and the tests derive every layout from these two calls.
 """
 from __future__ import annotations
 
@@ -19,10 +25,36 @@ from typing import (Any, Callable, Dict, Mapping, NamedTuple, Protocol,
 import torch
 
 Tree = Any
+# one entry per tensor dim: None, a mesh axis name, or a tuple of names
+Spec = Tuple
 Metrics = Dict[str, Any]
 LossFn = Callable[[Tree, Tree], torch.Tensor]
 # per-step scalar schedules handed to local optimizers ({"lr", "weight_decay"})
 Schedules = Mapping[str, float]
+
+
+class MeshAxes(NamedTuple):
+    """Mesh-axis naming contract handed to the sharding hooks.
+
+    worker      the mesh axes whose product forms the DC worker dim
+                (('pod', 'data') on the multipod mesh, ('data',) on one
+                pod); every non-'model' axis by convention;
+    model       name of the tensor-parallel axis;
+    model_size  size of the model axis: the partition rules use it to
+                decide head / dim divisibility.
+    """
+
+    worker: Tuple[str, ...]
+    model: str = "model"
+    model_size: int = 1
+
+    @property
+    def worker_spec(self):
+        """Worker axes as one spec entry: a bare name for one axis, the
+        tuple for several, None for none."""
+        if not self.worker:
+            return None
+        return self.worker if len(self.worker) > 1 else self.worker[0]
 
 
 class TrainState(NamedTuple):
@@ -92,9 +124,19 @@ class StalenessPolicy(Protocol):
     def init(self, n_workers: int) -> Tree:
         ...
 
+    def state_specs(self, axes: MeshAxes) -> Tree:
+        """Specs matching :meth:`init`'s structure."""
+        ...
+
 
 @runtime_checkable
 class DistributedOptimizer(Protocol):
+    """A complete distributed training algorithm.  Besides init / step /
+    eval_params it owns its sharding: ``state_specs`` / ``batch_specs``
+    map its `TrainState` and its (W, b, ...) batch to spec trees for a
+    `MeshAxes`; worker-sharded algorithms put the worker axes on the
+    leading state dim, replicated ones return canonical specs."""
+
     name: str
 
     def init(self, params: Tree) -> TrainState:
@@ -106,4 +148,14 @@ class DistributedOptimizer(Protocol):
 
     def eval_params(self, state: TrainState) -> Tree:
         """Canonical (unstacked) weights for evaluation."""
+        ...
+
+    def state_specs(self, model_cfg: Any, state: TrainState,
+                    axes: MeshAxes) -> TrainState:
+        """Spec tree mirroring ``state`` (``()`` on scalars)."""
+        ...
+
+    def batch_specs(self, model_cfg: Any, batch: Tree,
+                    axes: MeshAxes) -> Tree:
+        """Spec tree mirroring the (W, b, ...) batch."""
         ...

@@ -156,6 +156,12 @@ class _ErrorFeedbackMean:
                                          device=device)
                              for n in plan.bucket_sizes]}
 
+    def state_specs(self, axes, plan) -> Tree:
+        """Specs matching `init`: worker axes lead the residuals."""
+        _require_buckets(self.name, plan)
+        return {"residual": [(axes.worker_spec, None)
+                             for _ in plan.bucket_sizes]}
+
     # -- the reduction ------------------------------------------------------
 
     def __call__(self, wire, rstate: Tree) -> Tuple[List[torch.Tensor], Tree]:
@@ -402,6 +408,11 @@ class RandKReduce(_ErrorFeedbackMean):
         state["step"] = 0
         return state
 
+    def state_specs(self, axes, plan) -> Tree:
+        specs = super().state_specs(axes, plan)
+        specs["step"] = ()
+        return specs
+
     def _advance(self, rstate: Tree) -> Tree:
         rstate["step"] = rstate["step"] + 1
         return rstate
@@ -506,6 +517,12 @@ class PowerSGDReduce(_ErrorFeedbackMean):
             qs.append(torch.linalg.qr(q).Q)
         state["q"] = qs
         return state
+
+    def state_specs(self, axes, plan) -> Tree:
+        specs = super().state_specs(axes, plan)
+        # the skinny factors are identical on every worker: replicated
+        specs["q"] = [(None, None) for _ in plan.bucket_sizes]
+        return specs
 
     def __call__(self, wire, rstate: Tree) -> Tuple[List[torch.Tensor], Tree]:
         buckets = _as_buckets(wire)

@@ -104,6 +104,22 @@ class DCASGD:
         return TrainState(new_ps, opt, {"worker_params": new_workers},
                           state.step + 1), metrics
 
+    # -- sharding hooks -----------------------------------------------------
+
+    def state_specs(self, model_cfg, state: TrainState, axes) -> TrainState:
+        """Centralized simulator: everything replicated over workers; the
+        PS copy is canonical and the (W, ...) stale worker copies keep a
+        plain (unsharded) leading dim."""
+        from repro_torch.parallel import sharding as shd
+        return shd.train_state_specs(model_cfg, state,
+                                     model_size=axes.model_size,
+                                     worker_axes=None)
+
+    def batch_specs(self, model_cfg, batch: Tree, axes) -> Tree:
+        from repro_torch.parallel import sharding as shd
+        return shd.batch_specs(model_cfg, batch,
+                               worker_axes=axes.worker_spec)
+
     def eval_params(self, state: TrainState) -> Tree:
         return state.params
 

@@ -3,10 +3,14 @@
 Decentralized stale-synchronous SGD with delay compensation:
 
 * every worker keeps its own weights ``w_i`` — a leading worker axis W on
-  every parameter/optimizer leaf, all W workers in one process;
+  every parameter/optimizer leaf: all W workers in one process, or W / R
+  of them on each of the R ranks of a mesh (`bind_workers`, which
+  `repro_torch.launch.engine.Engine` calls);
 * the all-reduce of the *previous* update ``Δw^{t-1}`` is the pluggable
   `Reducer` applied to the carried ``delta_prev``; it does not depend on
-  this step's gradients;
+  this step's gradients, so the step issues it first and waits for it
+  only when D is formed, after the gradients (Algorithm 1's
+  MPI_Iallreduce / wait; on a mesh an asynchronous ``all_reduce``);
 * the staleness error is compensated by the pluggable `Compensator`
   (Eq. 10 + 17), and weights move to the average while applying the
   corrected local update (Eq. 12).
@@ -32,8 +36,11 @@ XLA cannot fuse across them; eager PyTorch materialises every tensor, so
 the port needs no counterpart.  ``overlap=True`` runs the double-buffered
 bucket pipeline (`repro_torch.parallel.pipeline`): each step's reduce is
 issued at its end and consumed at the top of the next, bitwise the
-inline schedule.  ``resize_state`` reshards the carried state to another
-worker count (elastic membership, `repro_torch.cluster`).
+inline schedule; on a mesh the issue is an asynchronous all-reduce whose
+handle the algorithm holds (never the state: checkpoints save ``comm``)
+until the next step's wait (`drain`).  ``resize_state`` reshards the
+carried state to another worker count (elastic membership,
+`repro_torch.cluster`).
 
 The first iteration of Algorithm 1 (the plain step before the loop) is
 ``delta_prev = 0``: then D = 0, λ = 0 and the step is plain momentum SGD.
@@ -50,7 +57,7 @@ from repro_torch import tree as T
 from repro_torch.core import registry
 from repro_torch.core.api import LossFn, Metrics, TrainState
 from repro_torch.core.correction import worker_sq_sum
-from repro_torch.core.reduce import _row_sum
+from repro_torch.core.reduce import LOCAL, _row_sum
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
@@ -132,6 +139,27 @@ class DCS3GD:
             PL.validate(buckets=self.buckets, reducer=self.reducer,
                         staleness=self.staleness)
         self._plan_cache: dict = {}
+        self.workers = LOCAL
+        # the overlap pipeline's in-flight reduce on a mesh (a
+        # `PendingMean` and the landed buffers it fills)
+        self._inflight = None
+
+    def bind_workers(self, workers) -> None:
+        """Run the worker axis over ``workers`` (`repro_torch.core.reduce.
+        Workers`): `init` then builds this rank's W / R rows, and every
+        reduction over the axis (the reducer's, the SSP pull, the
+        metrics, `eval_params`) goes through it."""
+        self.workers = workers
+        if hasattr(self.reducer, "workers"):
+            self.reducer.workers = workers
+
+    def drain(self) -> None:
+        """Wait for the in-flight overlap reduce, filling the landed
+        buffers of the state it was issued into (before a checkpoint)."""
+        if self._inflight is not None:
+            from repro_torch.parallel import pipeline as PL
+            PL.wait(self._inflight)
+            self._inflight = None
 
     def _plan(self, worker_params: Tree):
         """The cached `BucketPlan` for this model, from the per-worker
@@ -144,7 +172,8 @@ class DCS3GD:
 
     def init(self, params: Tree) -> TrainState:
         sdt = _STATE_DTYPES[self.cfg.state_dtype]
-        wp = replicate_for_workers(params, self.n_workers)
+        rows = self.workers.rows(self.n_workers)
+        wp = replicate_for_workers(params, rows)
         opt = _cast_slots(self.local_optimizer.init(wp), sdt)
         device = T.leaves(wp)[0].device
         # weight-mixing reducers never read the carried deltas
@@ -152,7 +181,7 @@ class DCS3GD:
             comm = {}
         elif self.buckets:
             comm = {"delta_prev": self._plan(wp).zeros(
-                sdt, lead=(self.n_workers,), device=device)}
+                sdt, lead=(rows,), device=device)}
         else:
             comm = {"delta_prev": T.map(
                 lambda p: torch.zeros_like(p, dtype=sdt), wp)}
@@ -171,15 +200,31 @@ class DCS3GD:
             from repro_torch.parallel import pipeline as PL
             wire0 = self._plan(wp).pack(wp) if self._reduces_weights \
                 else comm["delta_prev"]
-            comm["pipeline"], rs = PL.issue(self.reducer, wire0,
-                                            comm.get("reducer"))
+            comm["pipeline"], rs = self._issue(wire0, comm.get("reducer"))
             if rs is not None:
                 comm["reducer"] = rs
         return TrainState(params=wp, opt=opt, comm=comm, step=0)
 
+    def _issue(self, wire, rstate):
+        """The overlap pipeline's issue: synchronous in one process, an
+        asynchronous all-reduce on a mesh (the handle stays here)."""
+        from repro_torch.parallel import pipeline as PL
+        if self._async_wire:
+            pstate, self._inflight = PL.issue_async(self.reducer, wire)
+            return pstate, None
+        return PL.issue(self.reducer, wire, rstate)
+
     @property
     def _reducer_stateless(self) -> bool:
         return bool(getattr(self.reducer, "stateless", True))
+
+    @property
+    def _async_wire(self) -> bool:
+        """The wire is an asynchronous collective: a process group's
+        worker axis under a reducer with the ``start`` / ``finish``
+        split (``mean_allreduce``)."""
+        return self.workers.distributed and self._reducer_stateless \
+            and hasattr(self.reducer, "start")
 
     @property
     def _reduces_weights(self) -> bool:
@@ -203,18 +248,16 @@ class DCS3GD:
                 else state.params
         else:
             r_in = state.comm["delta_prev"]
-        rstate = None
-        if self.overlap:
-            # pipelined: the reduce of r_in was issued at the end of the
-            # previous step (`_comm`); this step consumes what landed
-            from repro_torch.parallel import pipeline as PL
-            reduced = PL.landed(state.comm)
-        else:
-            # the `wire` scope marks the simulated wire's ops in an op
-            # trace (repro_torch.analysis.lint), as the reference's
-            # named scope marks its HLO
+        rstate = pending = reduced = None
+        if not self.overlap:
+            # the `wire` scope marks the wire's ops in an op trace
+            # (repro_torch.analysis.lint), as the reference's named scope
+            # marks its HLO
             with scope("wire"):
-                if self._reducer_stateless:
+                if self._async_wire:
+                    # on a mesh: issued here, waited on after the grads
+                    pending = self.reducer.start(r_in)
+                elif self._reducer_stateless:
                     reduced = self.reducer(r_in)
                 else:
                     reduced, rstate = self.reducer(r_in,
@@ -224,6 +267,16 @@ class DCS3GD:
         with scope("model"):
             grads, loss = _vgrads(loss_fn, state.params, batch,
                                   cfg.microbatches)
+
+        # --- the wait: the reduce issued above (inline, on a mesh), or at
+        # the end of the previous step (`_comm`, overlap), lands here
+        if self.overlap:
+            from repro_torch.parallel import pipeline as PL
+            self.drain()
+            reduced = PL.landed(state.comm)
+        elif pending is not None:
+            with scope("wire"):
+                reduced = self.reducer.finish(pending)
 
         # --- D_i = (1/N)·Δ̄w − Δw_i  (Eq. 9); for a weight-mixing reducer
         # D_i = R(w)_i − w_i, the same distance to the reduction target
@@ -236,7 +289,8 @@ class DCS3GD:
         if not self.staleness.stateless:
             admit, pstate = self.staleness.admit(state.comm["staleness"])
             if not admit:
-                pull = T.map(lambda w: _row_sum(w.float()) / w.shape[0]
+                wk = self.workers
+                pull = T.map(lambda w: wk.sum_rows(w.float()) / wk.count(w)
                              - w.float(), state.params)
                 D = plan.pack(pull) if plan is not None else pull
                 if rstate is not None and hasattr(self.reducer, "revoke"):
@@ -272,20 +326,29 @@ class DCS3GD:
 
         sdt = _STATE_DTYPES[cfg.state_dtype]
         if isinstance(lam, torch.Tensor):
-            lam_metric = lam.mean()
-        else:   # per-tensor λ: the mean of the leaves' means
-            lam_metric = torch.stack([v.mean() for v in T.leaves(lam)]).mean()
-        metrics = {
-            "loss": loss.mean(), "lr": lr, "wd": wd, "lambda": lam_metric,
-            "distance_norm": _mean_worker_norm(D),
-            "delta_norm": _mean_worker_norm(delta),
-            **pol_metrics,
-        }
+            lam_rows = lam
+        else:   # per-tensor λ: each worker's mean over the leaves
+            lam_rows = torch.stack([v.reshape(v.shape[0], -1)[:, 0]
+                                    for v in T.leaves(lam)]).mean(0)
+        metrics = self._metrics(loss, lam_rows, D, delta, lr, wd,
+                                pol_metrics)
         return TrainState(new_params, _cast_slots(opt, sdt),
                           self._comm(delta, sdt, rstate, pstate, plan=plan,
                                      prev_comm=state.comm,
                                      params=new_params),
                           state.step + 1), metrics
+
+    def _metrics(self, loss, lam_rows, D, delta, lr, wd, pol_metrics
+                 ) -> Metrics:
+        """The step's metrics, global means over all W workers (one small
+        all-reduce on a mesh, identical on every rank)."""
+        m = self.workers.means({
+            "loss": loss, "lambda": lam_rows,
+            "distance_norm": _worker_norms(D),
+            "delta_norm": _worker_norms(delta)})
+        return {"loss": m["loss"], "lr": lr, "wd": wd,
+                "lambda": m["lambda"], "distance_norm": m["distance_norm"],
+                "delta_norm": m["delta_norm"], **pol_metrics}
 
     def _comm(self, delta, sdt, rstate, pstate, *, plan=None,
               packed: bool = False, prev_comm=None, params=None) -> dict:
@@ -309,12 +372,11 @@ class DCS3GD:
         if pstate is not None:
             comm["staleness"] = pstate
         if self.overlap:
-            from repro_torch.parallel import pipeline as PL
             wire = plan.pack(params) if self._reduces_weights \
                 else comm["delta_prev"]
             rs_in = None if self._reducer_stateless \
                 else prev_comm["reducer"]
-            comm["pipeline"], rs_out = PL.issue(self.reducer, wire, rs_in)
+            comm["pipeline"], rs_out = self._issue(wire, rs_in)
             if rs_out is not None:
                 comm["reducer"] = rs_out
         return comm
@@ -331,10 +393,42 @@ class DCS3GD:
                                                    worker_steps)
         return state._replace(comm=comm)
 
+    # -- sharding hooks -----------------------------------------------------
+
+    def state_specs(self, model_cfg, state: TrainState, axes) -> TrainState:
+        """Every state leaf carries the leading worker axes (one weight
+        replica per (pod, data) shard); policy and reducer state shard
+        per their own declarations, bucket lists per the plan's."""
+        from repro_torch.parallel import sharding as shd
+        overrides = {}
+        if "staleness" in state.comm:
+            overrides["staleness"] = self.staleness.state_specs(axes)
+        if "reducer" in state.comm:
+            overrides["reducer"] = self.reducer.state_specs(
+                axes, self._plan(state.params) if self.buckets else None)
+        if self.buckets and "delta_prev" in state.comm:
+            # (W, bucket) buffers: worker axes on the leading dim, the
+            # contiguous flat dim never split mid-leaf
+            overrides["delta_prev"] = self._plan(state.params).specs(
+                axes.worker_spec)
+        if "pipeline" in state.comm:
+            from repro_torch.parallel import pipeline as PL
+            overrides["pipeline"] = PL.specs(
+                self.reducer, self._plan(state.params), axes.worker_spec)
+        return shd.train_state_specs(
+            model_cfg, state, model_size=axes.model_size,
+            worker_axes=axes.worker_spec, comm_overrides=overrides)
+
+    def batch_specs(self, model_cfg, batch: Tree, axes) -> Tree:
+        from repro_torch.parallel import sharding as shd
+        return shd.batch_specs(model_cfg, batch,
+                               worker_axes=axes.worker_spec)
+
     def eval_params(self, state: TrainState) -> Tree:
-        """w̄ for evaluation (paper Eq. 8), anchor-form consensus mean."""
+        """w̄ for evaluation (paper Eq. 8), anchor-form consensus mean
+        (over every rank's rows on a mesh)."""
         from repro_torch.core.reduce import consensus_mean
-        return consensus_mean(state.params)
+        return consensus_mean(state.params, self.workers)
 
     def resize_state(self, state: TrainState, n_new: int) -> TrainState:
         """Reshard the carried state to ``n_new`` workers (elastic resize).
@@ -360,6 +454,11 @@ class DCS3GD:
         expanded view would write every worker at once.  ``self`` still
         targets the old count: rebuild it for ``n_new`` with
         `repro_torch.cluster.membership.rebuild_algorithm`."""
+        if self.workers.size > 1:
+            raise ValueError(
+                "resize_state across ranks is not ported: elastic resize "
+                "runs in one process (ROADMAP queue A item 6, 'dynamic_ssp, "
+                "dc_asgd and elastic resize across ranks')")
         n_new = int(n_new)
 
         def restack(x):
@@ -411,12 +510,8 @@ class DCS3GD:
             w_nb, m_nb, delta_b = kops.dc_fused_update_buckets(
                 g_b, D, plan.pack(state.opt["m"]), plan.pack(state.params),
                 lam=lam, mu=mu, eta=lr, wd=wd, decay=plan.bucket_decay)
-            metrics = {
-                "loss": loss.mean(), "lr": lr, "wd": wd, "lambda": lam.mean(),
-                "distance_norm": _mean_worker_norm(D),
-                "delta_norm": _mean_worker_norm(delta_b),
-                **pol_metrics,
-            }
+            metrics = self._metrics(loss, lam, D, delta_b, lr, wd,
+                                    pol_metrics)
             opt = {"m": T.map(lambda x: x.to(sdt), plan.unpack(m_nb))}
             new_params = plan.unpack(w_nb)
             return TrainState(new_params, opt,
@@ -431,12 +526,7 @@ class DCS3GD:
         new_params, m_new, delta = kops.dc_fused_update_tree(
             grads, D, state.opt["m"], state.params, lam=lam, mu=mu, eta=lr,
             wd=wd)
-        metrics = {
-            "loss": loss.mean(), "lr": lr, "wd": wd, "lambda": lam.mean(),
-            "distance_norm": _mean_worker_norm(D),
-            "delta_norm": _mean_worker_norm(delta),
-            **pol_metrics,
-        }
+        metrics = self._metrics(loss, lam, D, delta, lr, wd, pol_metrics)
         return TrainState(new_params, {"m": T.map(lambda x: x.to(sdt), m_new)},
                           self._comm(delta, sdt, rstate, pstate),
                           state.step + 1), metrics
@@ -509,6 +599,6 @@ def _vgrads(loss_fn, params: Tree, batch: Tree, microbatches: int = 1):
     return T.unflatten(treedef, grads), torch.stack(losses)
 
 
-def _mean_worker_norm(tree: Tree) -> torch.Tensor:
-    """Mean over workers of the per-worker Euclidean norm of a tree."""
-    return torch.sqrt(sum(worker_sq_sum(x) for x in T.leaves(tree))).mean()
+def _worker_norms(tree: Tree) -> torch.Tensor:
+    """(W,): each worker's Euclidean norm of a tree."""
+    return torch.sqrt(sum(worker_sq_sum(x) for x in T.leaves(tree)))

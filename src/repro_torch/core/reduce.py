@@ -3,9 +3,15 @@
 Input trees carry a leading worker axis W on every leaf.
 
 * ``mean_allreduce`` is the paper's MPI_Iallreduce mean: (1, ...) leaves,
-  cast to ``comm_dtype`` on the simulated wire, f32 out.  The W workers
-  live in one process, so the "all-reduce" is a mean over the leading
-  axis.
+  cast to ``comm_dtype`` on the wire, f32 out.  Every reduction over the
+  worker axis goes through the `Workers` object the algorithm binds
+  (``reducer.workers``): in one process (`LOCAL`) the W workers are the
+  leading axis and the "all-reduce" is a sum over it; on a mesh
+  (`ProcessWorkers`) each rank holds W / R rows, sums them, and one
+  ``all_reduce(SUM)`` over the worker process group adds the ranks'
+  sums.  The divisor is always the global W.  ``start`` / ``finish``
+  split the mean around the collective, so that a step can issue it and
+  compute under it (Algorithm 1's MPI_Iallreduce / wait).
 * ``gossip`` is ring-neighbourhood averaging (each worker with its
   ``neighbors`` left and right ring neighbours) and ``hierarchical`` an
   exact mean inside each of ``groups`` groups followed by ring gossip
@@ -15,7 +21,9 @@ Input trees carry a leading worker axis W on every leaf.
 
 A quantized wire (int8/fp8, `repro_torch.core.quant`) carries each row as
 values plus one f32 scale (the rolls move both), and the sums run on the
-dequantized f32 payload.
+dequantized f32 payload.  On a mesh each rank dequantizes its own rows
+and the all-reduce carries f32 sums: the reference's compiled program
+does the same (GSPMD's all-reduce carries the dequantized values).
 
 The mean adds the worker rows one after another in worker order: the
 result of every element then depends only on that element's W values,
@@ -43,6 +51,94 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+class Workers:
+    """The worker axis as one process holds it (`LOCAL`): every one of
+    the W rows is here, and no collective runs.  `ProcessWorkers` is the
+    same seam over the ranks of a process group; an algorithm and its
+    reducer hold one of the two and route every reduction over the
+    worker axis through it."""
+
+    size = 1            # ranks sharing the worker axis
+    rank = 0            # this rank's index among them (pod-major)
+    distributed = False
+
+    def rows(self, n_workers: int) -> int:
+        """This rank's share of ``n_workers`` rows."""
+        return int(n_workers) // self.size
+
+    def count(self, x: torch.Tensor) -> int:
+        """The global worker count W of a (W / R, ...) tensor."""
+        return x.shape[0] * self.size
+
+    def start_sum(self, x: torch.Tensor):
+        """Begin the sum over the leading axis (keepdims): ``(acc,
+        handle)``; ``acc`` holds the sum once `wait` has taken the
+        handle."""
+        return _row_sum(x), None
+
+    def wait(self, handle) -> None:
+        del handle
+
+    def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        acc, h = self.start_sum(x)
+        self.wait(h)
+        return acc
+
+    def means(self, rows: dict) -> dict:
+        """Global means of per-row (W / R,) vectors, by name."""
+        return {k: v.mean() for k, v in rows.items()}
+
+    def anchor(self, x: torch.Tensor) -> torch.Tensor:
+        """Worker 0's row, (1, ...), on every rank."""
+        return x[:1]
+
+
+LOCAL = Workers()
+
+
+class ProcessWorkers(Workers):
+    """The worker axis over the ranks of ``group`` (a process group of
+    ``size`` ranks; this one is ``rank``, its coordinate on the worker
+    mesh axes, pod-major): each rank holds W / R consecutive rows.
+
+    A sum over the axis is the local row sum followed by one
+    ``all_reduce(SUM)``, issued asynchronously (`start_sum`) so that the
+    caller computes under it; `means` reduces a step's metric sums in one
+    small all-reduce, so every rank reports the same global numbers and
+    nothing waits on the host.  At one rank every result is bitwise the
+    one-process one: the same row order, the same division by W."""
+
+    distributed = True
+
+    def __init__(self, group, *, rank: int, size: int):
+        self.group = group
+        self.rank = int(rank)
+        self.size = int(size)
+
+    def start_sum(self, x: torch.Tensor):
+        import torch.distributed as dist
+        acc = _row_sum(x)
+        return acc, dist.all_reduce(acc, group=self.group, async_op=True)
+
+    def wait(self, handle) -> None:
+        if handle is not None:
+            handle.wait()
+
+    def means(self, rows: dict) -> dict:
+        import torch.distributed as dist
+        keys = list(rows)
+        n = self.count(rows[keys[0]])
+        sums = torch.stack([rows[k].float().sum() for k in keys])
+        dist.all_reduce(sums, group=self.group)
+        return dict(zip(keys, (sums / n).unbind()))
+
+    def anchor(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        a = x[:1].clone()
+        dist.broadcast(a, group_src=0, group=self.group)
+        return a
+
+
 def wire_mean(d: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """The mean over the leading (worker) axis on a ``dt`` float wire,
     keepdims, f32 out.  jnp.mean of a bf16/f16 array sums in f32 and
@@ -67,6 +163,8 @@ class MeanAllReduce:
 
     name = "mean_allreduce"
     reduces_weights = False
+    # the worker-axis seam; the algorithm binds a process group's
+    workers: Workers = LOCAL
 
     def __init__(self, cfg=None, *, comm_dtype: str | None = None):
         self.comm_dtype = comm_dtype if comm_dtype is not None else \
@@ -109,10 +207,65 @@ class MeanAllReduce:
                 "accounted_bytes": n * it}
 
     def __call__(self, tree: Tree) -> Tree:
+        return self.finish(self.start(tree))
+
+    def start(self, tree: Tree) -> "PendingMean":
+        """Put ``tree`` on the wire: cast (or quantize and dequantize)
+        each row, begin the sums over the worker axis.  `finish` waits
+        and divides; in one process the pair runs `wire_mean` /
+        `quantized_mean`'s ops in their order."""
+        leaves, treedef = T.flatten(tree)
         if Q.is_quantized(self.comm_dtype):
-            return T.map(lambda d: quantized_mean(d, self.comm_dtype), tree)
-        dt = Q.float_wire(self.comm_dtype)
-        return T.map(lambda d: wire_mean(d, dt), tree)
+            def payload(d):
+                return Q.dequantize(*Q.quantize(d, self.comm_dtype))
+            dt = None
+        else:
+            dt = Q.float_wire(self.comm_dtype)
+
+            def payload(d):
+                return d.to(dt).float()
+        parts = [self.workers.start_sum(payload(d)) for d in leaves]
+        return PendingMean(self.workers, treedef, parts,
+                           [self.workers.count(d) for d in leaves], dt)
+
+    def finish(self, pending: "PendingMean", out=None) -> Tree:
+        return pending.wait(out)
+
+
+class PendingMean:
+    """A mean on the wire: the per-leaf sums and their collective
+    handles.  ``wait(out)`` returns the reduced tree; with ``out`` (a list
+    of f32 buffers of the leaves' (1, ...) shapes) it writes the means
+    there, which is how the overlap pipeline's landed buffers are filled
+    (`repro_torch.parallel.pipeline.issue_async`)."""
+
+    def __init__(self, workers: Workers, treedef, parts, counts, dt):
+        self.workers = workers
+        self.treedef = treedef
+        self.parts = parts
+        self.counts = counts
+        self.dt = dt
+        self.done = None
+
+    def buffers(self) -> list:
+        """Empty f32 buffers of the result leaves' shapes."""
+        return [torch.empty_like(acc, dtype=torch.float32)
+                for acc, _ in self.parts]
+
+    def wait(self, out=None) -> Tree:
+        if self.done is None:
+            res = []
+            for (acc, h), n in zip(self.parts, self.counts):
+                self.workers.wait(h)
+                m = acc / n
+                res.append(m if self.dt is None else m.to(self.dt).float())
+            self.parts = None
+            self.done = T.unflatten(self.treedef, res)
+        if out is None:
+            return self.done
+        for o, r in zip(out, T.leaves(self.done)):
+            o.copy_(r)
+        return T.unflatten(self.treedef, list(out))
 
 
 def _ring_offsets(n: int, k: int):
@@ -260,12 +413,14 @@ def collapse_worker_axis(tree: Tree) -> Tree:
     return T.map(lambda x: _row_sum(x.float())[0] / x.shape[0], tree)
 
 
-def consensus_mean(tree: Tree) -> Tree:
+def consensus_mean(tree: Tree, workers: Workers = LOCAL) -> Tree:
     """Anchor-form mean over the leading worker axis,
     ``w̄ = w_0 + mean_i(w_i − w_0)``, f32 out: bitwise ``w_0`` when every
     row is identical, for any W (the plain mean of W identical rows is not
-    exact unless W is a power of two)."""
+    exact unless W is a power of two).  On a mesh ``w_0`` is worker 0's
+    row, broadcast from the rank that holds it."""
     def red(p):
         x = p.float()
-        return x[0] + _row_sum(x - x[:1])[0] / x.shape[0]
+        a = workers.anchor(x)
+        return a[0] + workers.sum_rows(x - a)[0] / workers.count(x)
     return T.map(red, tree)

@@ -8,7 +8,9 @@ time is t_C + t_ARed (paper Eq. 13), the thing DC-S3GD removes.
 `SSGD` composes the same `LocalOptimizer` / `Reducer` pieces as DC-S3GD
 over the generic `TrainState`, with no worker axis on params and opt.
 ``comm`` is empty, or holds a compressed reducer's state under
-``comm["reducer"]`` (per-worker residuals, worker axis first).
+``comm["reducer"]`` (per-worker residuals, worker axis first).  On a
+mesh (`bind_workers`) every rank holds the shared params and W / R rows
+of the batch; the gradient mean runs over the worker process group.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch import tree as T
 from repro_torch.core import registry
 from repro_torch.core.api import LossFn, Metrics, TrainState
 from repro_torch.core.dc_s3gd import _vgrads, schedules
-from repro_torch.core.reduce import collapse_worker_axis
+from repro_torch.core.reduce import LOCAL, collapse_worker_axis
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
@@ -68,6 +70,14 @@ class SSGD:
         # bucket padding granularity (the autotuner's knob; None = BLOCK)
         self.plan_block = None if plan_block is None else int(plan_block)
         self._plan_cache: dict = {}
+        self.workers = LOCAL
+
+    def bind_workers(self, workers) -> None:
+        """Run the worker axis (the batch's rows) over ``workers``: the
+        gradient mean and the loss metric reduce over every rank."""
+        self.workers = workers
+        if hasattr(self.reducer, "workers"):
+            self.reducer.workers = workers
 
     def _plan(self, params: Tree):
         from repro_torch.parallel import buckets as B
@@ -132,10 +142,32 @@ class SSGD:
             lambda w, dw: (w.float() + dw.float()).to(w.dtype),
             state.params, delta)
         return (TrainState(new_params, opt, comm, state.step + 1),
-                {"loss": loss.mean(), "lr": lr, "wd": wd})
+                {"loss": self.workers.means({"loss": loss})["loss"],
+                 "lr": lr, "wd": wd})
 
     def eval_params(self, state: TrainState) -> Tree:
         return state.params
+
+    # -- sharding hooks -----------------------------------------------------
+
+    def state_specs(self, model_cfg, state: TrainState, axes) -> TrainState:
+        """Replicated over workers: canonical param layout, no worker axis
+        on any state leaf, except a stateful reducer's per-worker
+        residuals, which lead with the worker axes."""
+        from repro_torch.parallel import sharding as shd
+        overrides = {}
+        if "reducer" in state.comm:
+            overrides["reducer"] = self.reducer.state_specs(
+                axes, self._plan(state.params) if self.buckets else None)
+        return shd.train_state_specs(model_cfg, state,
+                                     model_size=axes.model_size,
+                                     worker_axes=None,
+                                     comm_overrides=overrides)
+
+    def batch_specs(self, model_cfg, batch: Tree, axes) -> Tree:
+        from repro_torch.parallel import sharding as shd
+        return shd.batch_specs(model_cfg, batch,
+                               worker_axes=axes.worker_spec)
 
     def resize_state(self, state: TrainState, n_new: int) -> TrainState:
         """Elastic resize: params and opt are shared (already the

@@ -41,6 +41,9 @@ class FixedWindow:
     def init(self, n_workers: int) -> Tree:
         return {}
 
+    def state_specs(self, axes) -> Tree:
+        return {}
+
     def admit(self, pstate: Tree) -> Tuple[bool, Tree]:
         return True, {}
 
@@ -61,6 +64,10 @@ class DynamicSSP:
 
     def init(self, n_workers: int) -> Tree:
         return {"worker_steps": np.zeros((n_workers,), np.int32)}
+
+    def state_specs(self, axes) -> Tree:
+        # (W,) counters shard over the worker axes (W == their product)
+        return {"worker_steps": (axes.worker_spec,)}
 
     def admit(self, pstate: Tree) -> Tuple[bool, Tree]:
         steps = pstate["worker_steps"]

@@ -1,0 +1,292 @@
+"""Multi-pod dry-run: every (arch x input shape) built, sharded and traced
+on the production meshes with nothing placed on any device (the port of
+``repro.launch.dryrun``).
+
+The reference lowers and compiles each step for 256 / 512 placeholder
+XLA devices.  Eager PyTorch has no compiler to ask, so the port answers
+the same questions another way:
+
+* **the mesh** is a real ``DeviceMesh`` over a ``fake`` process group of
+  256 / 512 ranks (PyTorch's testing backend: collectives are no-ops),
+  started in this process only, so `launch.mesh.make_production_mesh`
+  builds the production layouts;
+* **inputs** are fake tensors (`launch.specs`); **specs** come from the
+  `Engine`: the algorithm's own ``state_specs`` / ``batch_specs`` for
+  training, the partition rules minus the worker axis for serving;
+* **the type check** (the reference's compile): every sharded dim must
+  divide by its axes (`parallel.sharding.local_shape`); a failure writes
+  a FAIL record and exits 1;
+* **memory**: ``argument_bytes`` / ``output_bytes`` are the per-device
+  bytes of the local shards of the step's inputs / outputs (replicated
+  leaves whole); ``temp_bytes`` / ``peak_bytes`` are null: eager PyTorch
+  has no compiler memory analysis (the record's ``memory.note`` says so);
+* **roofline**: `analysis.optrace` of the step run under the fake mode on
+  the plain route (no kernel), split evenly over the mesh's devices;
+  the collective term counts only the worker-axis wire (the reducer's
+  payload of all W workers), at NVLink's and at the node network's rate
+  (``roofline.note``).  ``lower_s`` is the seconds spent building the
+  abstract inputs and their specs, ``compile_s`` the traced step's.
+
+This is the one entry point that places nothing on any device.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
+      --shape train_4k --mesh pod
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+      --out experiments/dryrun_torch
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from repro_torch.analysis import optrace
+from repro_torch.analysis import roofline as rl
+from repro_torch.configs import ARCHS, get_config, reduced
+from repro_torch.core import registry
+from repro_torch.core.types import DCS3GDConfig, INPUT_SHAPES
+from repro_torch.launch import specs as S
+from repro_torch.launch.engine import Engine
+from repro_torch.launch.mesh import (axis_sizes, make_production_mesh,
+                                     n_workers)
+from repro_torch.models.transformer import Model
+from repro_torch.parallel import sharding as shd
+
+DEFAULT_OUT = Path("experiments/dryrun_torch")
+
+MEMORY_NOTE = ("argument_bytes / output_bytes: per-device bytes of the "
+               "local shards under the Engine's specs (replicated leaves "
+               "whole; the step counter as the int32 the reference "
+               "carries); temp_bytes / peak_bytes: null, eager PyTorch has "
+               "no compiler memory analysis")
+ROOFLINE_NOTE = ("optrace of the step under FakeTensorMode on the plain "
+                 "route (no kernel), FLOPs and bytes split evenly over "
+                 "n_chips; among collectives only the worker-axis wire "
+                 "(the reducer's payload of all W workers, per chip) is "
+                 "counted: collective_s at NVLink's rate, collective_net_s "
+                 "at the node network's (DGX H100, 50 GB/s a GPU), which "
+                 "the worker axis crosses on both production meshes")
+
+
+def start_fake_world(world_size: int) -> None:
+    """This process's default process group: the ``fake`` backend at
+    ``world_size`` ranks (restarted when a run needs another size)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_world_size() == world_size \
+                and dist.get_backend() == "fake":
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def _replicated(tree):
+    """Whole-leaf specs: a step's logits and metric scalars."""
+    return shd.map_with_path(
+        lambda p, x: tuple([None] * x.dim())
+        if isinstance(x, torch.Tensor) else (), tree)
+
+
+def build_train(cfg, shape, mesh, dc_cfg, algo: str):
+    """(step, inputs, their specs); ``step()`` runs the traced step and
+    returns (trace, outputs, their specs).  So do `build_prefill` and
+    `build_decode`."""
+    model = Model(cfg, kernels=False)
+    W = n_workers(mesh)
+    alg = registry.make(algo, dc_cfg, n_workers=W,
+                        reducer=os.environ.get("DRYRUN_REDUCER",
+                                               "mean_allreduce"),
+                        staleness=os.environ.get("DRYRUN_STALENESS",
+                                                 "fixed"))
+    engine = Engine(model, alg, mesh=mesh, specs_only=True)
+    state = S.abstract_train_state(model, W, dc_cfg, alg)
+    batch = S.train_batch_specs(cfg, shape, W)
+    st_sp, b_sp = engine.train_shardings(state, batch)
+
+    def step():
+        tr, new_state, metrics = engine.trace_train_step(state, batch)
+        wire = tr.meta.get("wire")
+        if wire:   # the payload of all W workers, which `split` spreads
+            wire["bytes"] *= W
+        tensors = {k: v for k, v in metrics.items()
+                   if isinstance(v, torch.Tensor)}
+        outs = (new_state, tensors)
+        return tr, outs, (st_sp, _replicated(tensors))
+
+    return step, (state, batch), (st_sp, b_sp)
+
+
+def build_prefill(cfg, shape, mesh):
+    model = Model(cfg, kernels=False)
+    engine = Engine(model, mesh=mesh, specs_only=True)
+    params = S.abstract_params(model)
+    batch = S.prefill_batch_specs(cfg, shape)
+    p_sp, b_sp, _ = engine.serve_shardings(params, batch=batch,
+                                           global_batch=shape.global_batch)
+
+    def step():
+        with optrace.trace() as tr:
+            logits, cache = model.prefill(params, batch,
+                                          cache_len=shape.seq_len)
+        _, _, c_sp = engine.serve_shardings(
+            params, cache=cache, global_batch=shape.global_batch)
+        return tr, (logits, cache), (_replicated(logits), c_sp)
+
+    return step, (params, batch), (p_sp, b_sp)
+
+
+def build_decode(cfg, shape, mesh):
+    model = Model(cfg, kernels=False)
+    engine = Engine(model, mesh=mesh, specs_only=True)
+    params = S.abstract_params(model)
+    cache = S.abstract_cache(model, shape)
+    batch = S.decode_batch_specs(cfg, shape)
+    p_sp, b_sp, c_sp = engine.serve_shardings(
+        params, batch=batch, cache=cache, global_batch=shape.global_batch)
+
+    def step():
+        with optrace.trace() as tr:
+            logits, new_cache = model.decode_step(params, cache, batch)
+        return tr, (logits, new_cache), (_replicated(logits), c_sp)
+
+    return step, (params, cache, batch), (p_sp, c_sp, b_sp)
+
+
+def _record_path(out_dir: Path, arch, shape_name, mesh_kind, algo) -> Path:
+    return out_dir / f"{arch}__{shape_name}__{mesh_kind}__{algo}.json"
+
+
+def _write(out_dir, rec, algo) -> None:
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        _record_path(out_dir, rec["arch"], rec["shape"], rec["mesh"],
+                     algo).write_text(json.dumps(rec, indent=2,
+                                                 default=float))
+
+
+def run_one(arch: str, shape_name: str, mesh_kind: str, *,
+            algo: str = "dc_s3gd", out_dir: Path | None = None,
+            verbose: bool = True, cut: bool = False) -> dict:
+    """One combo's record.  ``cut``: the arch's `reduced` smoke config
+    (the tests' size) in place of its published one."""
+    shape = INPUT_SHAPES[shape_name]
+    cfg0 = get_config(arch)
+    if cut:
+        cfg0 = reduced(cfg0)
+    ok, why = S.supports_shape(cfg0, shape)
+    if not ok:
+        rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+               "status": "skipped", "reason": why}
+        if verbose:
+            print(f"[dryrun] SKIP {arch} x {shape_name}: {why}")
+        _write(out_dir, rec, algo)
+        return rec
+
+    cfg = S.variant_for_shape(S.dryrun_model_config(cfg0), shape)
+    multi = mesh_kind == "multipod"
+    start_fake_world(512 if multi else 256)
+    mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+    sizes = axis_sizes(mesh)
+    n_chips = mesh.size()
+    dc_cfg = DCS3GDConfig(total_steps=10_000, warmup_steps=1_500,
+                          microbatches=int(
+                              os.environ.get("DRYRUN_MICROBATCHES", "1")),
+                          comm_dtype=os.environ.get("DRYRUN_COMM_DTYPE",
+                                                    "float32"),
+                          state_dtype=os.environ.get("DRYRUN_STATE_DTYPE",
+                                                     "float32"))
+
+    t0 = time.time()
+    if shape.kind == "train":
+        step, args, in_sp = build_train(cfg, shape, mesh, dc_cfg, algo)
+    elif shape.kind == "prefill":
+        step, args, in_sp = build_prefill(cfg, shape, mesh)
+    else:
+        step, args, in_sp = build_decode(cfg, shape, mesh)
+    # the type check: every sharded dim divides by its axes
+    arg_bytes = shd.shard_bytes(tuple(args), tuple(in_sp), sizes)
+    t_lower = time.time() - t0
+    with S.fake_mode():
+        tr, outs, out_sp = step()
+    out_bytes = shd.shard_bytes(tuple(outs), tuple(out_sp), sizes)
+    t_compile = time.time() - t0 - t_lower
+    roof = rl.analyze(tr, cfg, shape, n_chips, split=n_chips)
+
+    rec = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_kind, "algo": algo,
+        "status": "ok",
+        "variant": cfg.name,
+        "n_chips": n_chips,
+        "lower_s": round(t_lower, 1), "compile_s": round(t_compile, 1),
+        "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
+                   "temp_bytes": None, "peak_bytes": None,
+                   "note": MEMORY_NOTE},
+        "roofline": {**roof.to_dict(), "note": ROOFLINE_NOTE},
+    }
+    if verbose:
+        m = rec["memory"]
+        print(f"[dryrun] {arch} x {shape_name} x {mesh_kind} ({algo}) OK "
+              f"trace={t_compile:.0f}s")
+        print(f"  mem/device: args={_gb(m['argument_bytes'])} "
+              f"out={_gb(m['output_bytes'])} (temp / peak: not available)")
+        print(f"  roofline: compute={roof.compute_s*1e3:.2f}ms "
+              f"memory={roof.memory_s*1e3:.2f}ms "
+              f"collective={roof.collective_s*1e3:.2f}ms NVLink / "
+              f"{roof.collective_net_s*1e3:.2f}ms network "
+              f"-> {roof.bottleneck}-bound; useful-flops "
+              f"{roof.useful_flops_ratio:.2f}")
+    _write(out_dir, rec, algo)
+    return rec
+
+
+def _gb(x):
+    return "n/a" if x is None else f"{x/2**30:.2f}GiB"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(ARCHS), default=None)
+    ap.add_argument("--shape", choices=sorted(INPUT_SHAPES), default=None)
+    ap.add_argument("--mesh", choices=("pod", "multipod"), default="pod")
+    ap.add_argument("--algo", choices=registry.names(), default="dc_s3gd")
+    ap.add_argument("--all", action="store_true",
+                    help="run every (arch x shape) on the given mesh")
+    ap.add_argument("--reduced", action="store_true",
+                    help="each arch's 2-layer smoke config")
+    ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
+    args = ap.parse_args(argv)
+
+    if args.all:
+        combos = [(a, s) for a in sorted(ARCHS) for s in INPUT_SHAPES]
+    else:
+        assert args.arch and args.shape, "--arch/--shape or --all"
+        combos = [(args.arch, args.shape)]
+
+    failures = []
+    for a, s in combos:
+        try:
+            run_one(a, s, args.mesh, algo=args.algo, out_dir=args.out,
+                    cut=args.reduced)
+        except Exception as e:  # noqa: BLE001 — record and continue
+            failures.append((a, s, repr(e)))
+            print(f"[dryrun] FAIL {a} x {s} x {args.mesh}: {e}")
+            traceback.print_exc()
+            _write(args.out, {"arch": a, "shape": s, "mesh": args.mesh,
+                              "algo": args.algo, "status": "fail",
+                              "reason": repr(e)}, args.algo)
+    if failures:
+        print(f"[dryrun] {len(failures)} FAILURES: {failures}")
+        sys.exit(1)
+    print(f"[dryrun] all {len(combos)} combos OK on mesh={args.mesh}")
+
+
+if __name__ == "__main__":
+    main()

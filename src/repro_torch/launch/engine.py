@@ -1,6 +1,20 @@
-"""The Engine: the training loop, checkpoints with the metadata that
-rebuilds their algorithm, and one-shot generation (the port of
-``repro.launch.engine.Engine`` without the mesh branches).
+"""The Engine: the mesh and its spec trees, the training loop,
+checkpoints with the metadata that rebuilds their algorithm, and one-shot
+generation (the port of ``repro.launch.engine.Engine``).
+
+With ``mesh=None`` the W workers live in one process.  With a
+``DeviceMesh`` (`repro_torch.launch.mesh`) the spec trees come from the
+algorithm's own ``state_specs`` / ``batch_specs`` hooks
+(`train_shardings`) and from the partition rules for serving
+(`serve_shardings`); an executing Engine binds the algorithm to the
+mesh's worker process group, and each rank holds the W / R worker rows
+of its coordinate on the worker axes, pod-major (`shard`, `local_batch`,
+`gather_state`).  What the port cannot yet run across ranks is refused
+here, at construction, never run silently in one process: a 'model'
+axis above 1 (tensor-parallel execution; ``specs_only=True`` keeps such
+a mesh's specs for the dry-run), and, on more than one rank, the
+weight-mixing and compressed reducers, a stateful staleness policy, an
+algorithm without the worker seam (dc_asgd) and elastic resize.
 
 PyTorch runs eagerly, so there is nothing to jit: ``fit`` calls the
 algorithm's ``step`` directly, and where the reference lowers a step for
@@ -23,6 +37,7 @@ from repro_torch.checkpoint import (checkpoint_meta, restore_pytree,
                                     save_pytree)
 from repro_torch.core import registry
 from repro_torch.core.types import DCS3GDConfig
+from repro_torch.parallel import sharding as shd
 from repro_torch.serve.oneshot import OneShotGenerator
 
 Tree = Any
@@ -54,16 +69,177 @@ def _synchronize(metrics: Dict[str, Any]) -> None:
             return
 
 
+# the ROADMAP item every refusal of a multi-rank layout names
+_MULTI_DEVICE_ITEM = ("ROADMAP queue A item 6: what the multi-device slice "
+                      "leaves")
+
+
 class Engine:
     """Runs one (model, algorithm) pair's step loop, or generates from a
-    model (the algorithm is then not needed)."""
+    model (the algorithm is then not needed); ``mesh`` lays the worker
+    axis over the ranks of a `DeviceMesh`."""
 
-    def __init__(self, model, alg=None):
+    def __init__(self, model, alg=None, *, mesh=None,
+                 specs_only: bool = False):
         self.model = model
         self.alg = alg
+        self.mesh = mesh
+        self.workers = None
         self._oneshot: Optional[OneShotGenerator] = None
         # algorithm rebuilds by the last `fit` loop (elastic transitions)
         self._fit_rejits = 0
+        # fail fast on a worker count the mesh cannot carry
+        if alg is not None:
+            shd.validate_worker_count(getattr(alg, "n_workers", None), mesh)
+        if mesh is not None and not specs_only:
+            self._bind(mesh)
+
+    # -- the mesh seam -------------------------------------------------------
+
+    def _bind(self, mesh) -> None:
+        """Refuse what cannot run across this mesh's ranks, then bind the
+        algorithm to its worker process group."""
+        from repro_torch.launch import mesh as M
+        model_size = M.axis_sizes(mesh).get("model", 1)
+        if model_size > 1:
+            raise ValueError(
+                f"a mesh with a 'model' axis of {model_size} is refused for "
+                f"execution: tensor-parallel execution over 'model' is not "
+                f"ported ({_MULTI_DEVICE_ITEM}); its specs serve the "
+                f"dry-run through Engine(..., specs_only=True)")
+        self.workers = M.make_workers(mesh)
+        alg = self.alg
+        if alg is None or self.workers.size == 1:
+            if alg is not None and hasattr(alg, "bind_workers"):
+                alg.bind_workers(self.workers)
+            return
+        red = getattr(alg, "reducer", None)
+        why = None
+        if not hasattr(alg, "bind_workers"):
+            why = f"{alg.name} has no worker seam (dc_asgd across ranks)"
+        elif getattr(red, "reduces_weights", False):
+            why = (f"the weight-mixing reducer {red.name!r} (gossip's ring "
+                   f"as send / recv pairs, hierarchical over pod groups)")
+        elif not getattr(red, "stateless", True):
+            why = f"the compressed reducer {red.name!r}"
+        elif not getattr(getattr(alg, "staleness", None), "stateless",
+                         True):
+            why = f"the staleness policy {alg.staleness.name!r}"
+        if why is not None:
+            raise ValueError(
+                f"{why} is refused on a worker group of "
+                f"{self.workers.size} ranks: not ported across ranks "
+                f"({_MULTI_DEVICE_ITEM}); it runs with mesh=None")
+        alg.bind_workers(self.workers)
+
+    def mesh_axes(self):
+        if self.mesh is None:
+            return None
+        from repro_torch.launch.mesh import make_axes
+        return make_axes(self.mesh)
+
+    def train_shardings(self, state, batch):
+        """(state specs, batch specs) from the algorithm's own
+        ``state_specs`` / ``batch_specs`` hooks; (None, None) without a
+        mesh.  ``state`` / ``batch`` may be fake tensors."""
+        axes = self.mesh_axes()
+        if axes is None:
+            return None, None
+        cfg = getattr(self.model, "cfg", None)
+        return (self.alg.state_specs(cfg, state, axes),
+                self.alg.batch_specs(cfg, batch, axes))
+
+    def _data_axes(self, global_batch: int):
+        """Serving batch axis: the worker mesh axes when they divide the
+        batch (long_500k has global_batch 1: it stays replicated)."""
+        from repro_torch.launch.mesh import n_workers
+        axes = self.mesh_axes()
+        return axes.worker_spec if global_batch % n_workers(self.mesh) == 0 \
+            else None
+
+    def serve_shardings(self, params, *, global_batch: int, batch=None,
+                        cache=None):
+        """(param, batch, cache) specs for serving: the training partition
+        rules minus the worker axis; (None, None, None) without a mesh."""
+        axes = self.mesh_axes()
+        if axes is None:
+            return None, None, None
+        cfg = self.model.cfg
+        da = self._data_axes(global_batch)
+        p = shd.param_specs(cfg, params, model_size=axes.model_size,
+                            worker_axes=None)
+        b = None if batch is None else shd.batch_specs(cfg, batch,
+                                                       data_axes=da)
+        c = None if cache is None else shd.cache_specs(
+            cfg, cache, model_size=axes.model_size, data_axes=da)
+        return p, b, c
+
+    def _coord(self):
+        from repro_torch.launch import mesh as M
+        return M.axis_sizes(self.mesh), M.coordinate(self.mesh)
+
+    def shard(self, tree, specs):
+        """This rank's shard of every leaf of a global ``tree`` under its
+        spec tree (host ints and numpy leaves pass through)."""
+        sizes, coord = self._coord()
+        flat = dict(shd.flat_specs(specs, tree))
+
+        def take(path, x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            sl = shd.local_slices(tuple(x.shape), flat[path], sizes, coord)
+            return x[sl].clone()
+        return shd.map_with_path(take, tree)
+
+    def local_batch(self, batch):
+        """A global (W, b, ...) batch's rows of this rank (the batch
+        itself without a bound mesh)."""
+        if self.workers is None:
+            return batch
+        return self.shard(batch, self.alg.batch_specs(
+            getattr(self.model, "cfg", None), batch, self.mesh_axes()))
+
+    def init_state(self, params):
+        """The algorithm's state from ``params``; on a mesh every rank
+        first takes worker rank 0's params (a broadcast), so all start
+        from bitwise the same weights."""
+        if self.workers is not None and self.workers.size > 1:
+            import torch.distributed as dist
+            for x in T.leaves(params):
+                dist.broadcast(x, group_src=0, group=self.workers.group)
+        return self.alg.init(params)
+
+    def gather_state(self, state):
+        """The global state of a sharded one: every worker-sharded leaf
+        all-gathered over the worker group along its sharded dim (the
+        state itself without a bound mesh).  Over gloo the leaves travel
+        through host copies (gloo gathers CPU tensors only) and come back
+        on the CPU."""
+        if self.workers is None or self.workers.size == 1:
+            return state
+        import torch.distributed as dist
+        if hasattr(self.alg, "drain"):
+            self.alg.drain()
+        specs, _ = self.train_shardings(state, {})
+        flat = dict(shd.flat_specs(specs, state))
+        group = self.workers.group
+        host = dist.get_backend(group) == "gloo"
+        worker = set(self.mesh_axes().worker)
+
+        def gather(path, x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            spec = flat[path]
+            dims = [d for d, e in enumerate(spec)
+                    if worker & set(e if isinstance(e, tuple) else (e,))]
+            if not dims:
+                return x.cpu() if host else x
+            d = dims[0]
+            src = x.cpu() if host else x
+            parts = [torch.empty_like(src) for _ in range(self.workers.size)]
+            dist.all_gather(parts, src.contiguous(), group=group)
+            return torch.cat(parts, dim=d)
+        return shd.map_with_path(gather, state)
 
     # -- the analysis seam (repro_torch.analysis) ----------------------------
 
@@ -74,8 +250,9 @@ class Engine:
         alg = self.alg
         if getattr(alg, "buckets", 0):
             return [int(n) for n in alg._plan(state.params).bucket_sizes]
-        lead = alg.n_workers if getattr(alg, "worker_stacked", False) else 1
-        return [x.numel() // lead for x in T.leaves(state.params)]
+        stacked = getattr(alg, "worker_stacked", False)
+        return [x.numel() // (x.shape[0] if stacked else 1)
+                for x in T.leaves(state.params)]
 
     def trace_train_step(self, state, batch, *, watch=None):
         """Run one step of the algorithm under an op trace
@@ -155,6 +332,10 @@ class Engine:
         ``batch_fn(it, n_workers)``, so the batch follows the live worker
         count; a scripted slowdown multiplies the measured durations."""
         elastic = membership is not None
+        if elastic and self.workers is not None and self.workers.size > 1:
+            raise ValueError(
+                "elastic resize across ranks is not ported "
+                f"({_MULTI_DEVICE_ITEM}); run it with mesh=None")
         self._fit_rejits = 0
         if elastic:
             self.alg = membership.alg
@@ -190,6 +371,7 @@ class Engine:
                             * n_workers
                         warm_until = it + warmup
             batch = batch_fn(it, cur_w) if elastic else batch_fn(it)
+            batch = self.local_batch(batch)
             ts = time.perf_counter()
             state, metrics = self.alg.step(state, batch,
                                            loss_fn=self.model.loss)
@@ -260,14 +442,33 @@ class Engine:
 
     def save(self, path, state, *, step: Optional[int] = None):
         """Save ``state`` with the metadata `algorithm_for_checkpoint`
-        reads; returns the path written."""
-        return save_pytree(path, state, step=step,
-                           extra_meta=self.ckpt_meta())
+        reads; returns the path written.  An in-flight overlap reduce is
+        waited on first; on a mesh the global state is gathered and worker
+        rank 0 writes it."""
+        if hasattr(self.alg, "drain"):
+            self.alg.drain()
+        if self.workers is None or self.workers.size == 1:
+            return save_pytree(path, state, step=step,
+                               extra_meta=self.ckpt_meta())
+        import torch.distributed as dist
+        full = self.gather_state(state)
+        out = path
+        if self.workers.rank == 0:
+            out = save_pytree(path, full, step=step,
+                              extra_meta=self.ckpt_meta())
+        dist.barrier(group=self.workers.group)
+        return out
 
     def restore(self, path, state):
         """``path``'s state in the structure (and on the devices) of the
-        template ``state``."""
-        return restore_pytree(path, state)
+        template ``state``; on a mesh, this rank's shard of it."""
+        if self.workers is None or self.workers.size == 1:
+            return restore_pytree(path, state)
+        full = restore_pytree(path, self.gather_state(state))
+        specs, _ = self.train_shardings(full, {})
+        return T.map(lambda x, t: x.to(t.device)
+                     if isinstance(x, torch.Tensor) else x,
+                     self.shard(full, specs), state)
 
     def generate(self, params, prompts: torch.Tensor, *, gen: int,
                  sampler: Optional[str] = None, temperature: float = 0.0,

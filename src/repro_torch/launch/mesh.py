@@ -1,0 +1,154 @@
+"""Device meshes over ``torch.distributed`` (the port of
+``repro.launch.mesh``).
+
+Everything here is a function, never a module-level constant: importing
+this module touches no process group.  A mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the
+default process group, which the caller starts (`init_process_group`)
+with the backend its device type needs, chosen in one place
+(`BACKENDS`): NCCL for ``cuda``, gloo for ``cpu``.  The dry-run starts
+the ``fake`` backend instead (`repro_torch.launch.dryrun`), so that the
+production meshes exist without their 256 / 512 devices.
+
+The DC-S3GD worker axis is every non-'model' mesh axis; a rank's worker
+coordinate is its index on those axes, pod-major (`worker_index`), and
+`make_workers` gives the algorithms' worker seam
+(`repro_torch.core.reduce.ProcessWorkers`) over their process group.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def init_process_group(*, device_type: str, init_method: str, rank: int,
+                       world_size: int) -> None:
+    """Start this rank's default process group over the backend that
+    ``device_type`` needs (``init_method``: a ``file://`` or ``tcp://``
+    rendezvous)."""
+    import torch.distributed as dist
+    dist.init_process_group(BACKENDS[device_type], init_method=init_method,
+                            rank=rank, world_size=world_size)
+
+
+def _device_mesh(device_type: str, shape: Tuple[int, ...],
+                 axes: Tuple[str, ...]):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a {shape} mesh needs a started process group of "
+            f"{math.prod(shape)} ranks (launch.mesh.init_process_group)")
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"mesh {dict(zip(axes, shape))} spans "
+                         f"{math.prod(shape)} ranks; the process group has "
+                         f"{world}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's production layouts: ('data', 'model') = (16, 16) =
+    256 devices; two pods add a leading 'pod' axis (DC-S3GD workers = pod
+    x data = 32)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(device_type, shape, axes)
+
+
+def make_debug_mesh(data: int = 1, model: int = 1,
+                    device_type: str = "cuda"):
+    """A small ('data', 'model') mesh over the started process group."""
+    return _device_mesh(device_type, (data, model), ("data", "model"))
+
+
+def axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def worker_axes(mesh) -> tuple:
+    """The DC-S3GD worker axis = every non-'model' mesh axis."""
+    return tuple(a for a in mesh.mesh_dim_names if a != "model")
+
+
+def n_workers(mesh) -> int:
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in worker_axes(mesh))
+
+
+def make_axes(mesh):
+    """The `MeshAxes` contract handed to the per-algorithm sharding hooks."""
+    from repro_torch.core.api import MeshAxes
+    return MeshAxes(worker=worker_axes(mesh), model="model",
+                    model_size=axis_sizes(mesh).get("model", 1))
+
+
+def coordinate(mesh) -> dict:
+    """{axis: this rank's index on it}."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def worker_index(mesh) -> int:
+    """This rank's coordinate on the worker axes, pod-major."""
+    sizes, coord = axis_sizes(mesh), coordinate(mesh)
+    idx = 0
+    for a in worker_axes(mesh):
+        idx = idx * sizes[a] + coord[a]
+    return idx
+
+
+def worker_group(mesh):
+    """The process group of the ranks that share this rank's 'model'
+    coordinate: the worker axes, flattened pod-major."""
+    axes = worker_axes(mesh)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def make_workers(mesh):
+    """The algorithms' worker seam over ``mesh``'s worker axes."""
+    from repro_torch.core.reduce import ProcessWorkers
+    return ProcessWorkers(worker_group(mesh), rank=worker_index(mesh),
+                          size=n_workers(mesh))
+
+
+def shape_for_spec(spec, *, model: int = 1, n_devices: int
+                   ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The mesh shape and axis names that carry a cluster membership
+    (`repro_torch.cluster`) on ``n_devices``: a spec spanning several
+    pods gets the leading 'pod' axis; the worker product lays over the
+    data axis sized to what the devices can carry, the largest divisor
+    of the per-pod worker count that the per-pod device share supports.
+    Fewer devices than workers is the one-host case: each device then
+    carries W / data worker rows."""
+    avail = max(n_devices // max(model, 1), 1)
+    W = spec.n_workers
+    pods = len(spec.pods())
+    multi = pods > 1 and W % pods == 0 and avail % pods == 0
+    per_pod_workers = W // pods if multi else W
+    per_pod_devs = avail // pods if multi else avail
+    data = math.gcd(per_pod_workers, per_pod_devs)
+    shape = (pods, data, model) if multi else (data, model)
+    axes = ("pod", "data", "model") if multi else ("data", "model")
+    return shape, axes
+
+
+def mesh_for_spec(spec, *, model: int = 1, device_type: str = "cuda"):
+    """Rebuild the mesh for a cluster membership over the started process
+    group (the reference's shape arithmetic, `shape_for_spec`).  A mesh
+    is built only when it spans every rank of the world: otherwise this
+    raises (a rank outside the mesh would have no rows)."""
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape, axes = shape_for_spec(spec, model=model, n_devices=world)
+    if math.prod(shape) != world:
+        raise ValueError(
+            f"membership of {spec.n_workers} workers lays out as "
+            f"{dict(zip(axes, shape))} = {math.prod(shape)} ranks, not the "
+            f"world's {world}: resizing across ranks is not ported "
+            f"(ROADMAP queue A item 6)")
+    return _device_mesh(device_type, shape, axes)

@@ -109,6 +109,14 @@ class BucketPlan:
         return [torch.zeros(lead + (n,), dtype=dtype, device=device)
                 for n in self.bucket_sizes]
 
+    def specs(self, worker_spec=None) -> list:
+        """Specs for worker-stacked buckets: the worker axes on the
+        leading dim, the flat dim replicated (contiguous buffers never
+        split mid-leaf)."""
+        if worker_spec is None:
+            return [(None,) for _ in self.bucket_sizes]
+        return [(worker_spec, None) for _ in self.bucket_sizes]
+
 
 def cached_plan(cache: dict, tree: Tree, n_buckets: int, *,
                 block: Optional[int] = None,

@@ -16,9 +16,12 @@ The sequence of reducer calls and their inputs is the inline schedule's
 of step t), so in eager PyTorch the pipelined trajectory is bitwise the
 inline one.  The reference fences both ends with
 ``lax.optimization_barrier`` so XLA cannot fuse across them; eager
-execution materialises every tensor and needs no fence.  The issue runs
-on the step's own stream: a second CUDA stream is not part of this
-module (the JAX package has none).
+execution materialises every tensor and needs no fence.  In one process
+the issue runs on the step's own stream.  On a mesh (`issue_async`) it
+is an asynchronous all-reduce (NCCL runs it on its own stream): the
+algorithm holds the handle, never ``TrainState``, since checkpoints save
+``comm``; `landed` waits on it and fills the landed buffers with the
+values the inline schedule computes, bitwise.
 
 State contract (``comm["pipeline"]``):
 
@@ -88,10 +91,37 @@ def issue(reducer, wire: List, rstate: Optional[Tree] = None
     return {"reduced": list(reduced)}, rstate
 
 
+def issue_async(reducer, wire: List) -> Tuple[dict, tuple]:
+    """`issue` over a process group: begin the reducer's all-reduce and
+    return ``(pipeline_state, inflight)``; the state's landed buffers are
+    filled when `landed` waits on ``inflight``.  Stateless reducers with
+    a ``start`` / ``finish`` split only (``mean_allreduce``)."""
+    with scope("wire"):
+        pending = reducer.start(wire)
+    out = pending.buffers()
+    return {"reduced": out}, (pending, out)
+
+
+def wait(inflight: tuple) -> None:
+    """Wait on an `issue_async` reduce, filling its landed buffers."""
+    pending, out = inflight
+    with scope("wire"):
+        pending.wait(out)
+
+
 def landed(comm: dict) -> List:
     """The reduction this step consumes, issued at the end of the previous
-    one (or by ``init()``)."""
+    one (or by ``init()``); on a mesh after `wait`."""
     return comm["pipeline"]["reduced"]
+
+
+def specs(reducer, plan, worker_spec) -> dict:
+    """Specs for ``comm["pipeline"]``: mean-style landed buffers are
+    (1, n) and replicated; ``reduces_weights`` buffers are (W, n) and
+    lead with the worker axes, like the packed weights they mix."""
+    lead = worker_spec if getattr(reducer, "reduces_weights", False) \
+        else None
+    return {"reduced": [(lead, None) for _ in plan.bucket_sizes]}
 
 
 def resize(reducer, pstate: dict, wire: List) -> dict:

@@ -1,0 +1,258 @@
+"""The port's dry-run (`repro_torch.launch.dryrun`) and its tables
+(`repro_torch.analysis.report`).  Each dry-run runs in a subprocess of
+its own: it starts the ``fake`` process group (256 / 512 ranks), and a
+process holds one default group.  The configs are the reduced ones; the
+full-size specs and bytes are `tests/test_torch_sharding.py`'s."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+from jax.sharding import PartitionSpec as P
+
+from repro.configs import get_config as j_get_config
+from repro.configs import reduced as j_reduced
+from repro.core import registry as j_registry
+from repro.core.api import MeshAxes as JMeshAxes
+from repro.core.types import DCS3GDConfig as JDCS3GDConfig
+from repro.core.types import INPUT_SHAPES as J_SHAPES
+from repro.launch import specs as JS
+from repro.models.transformer import Model as JModel
+
+from repro_torch.analysis import report
+from repro_torch.analysis.roofline import Roofline
+from repro_torch.configs import get_config, reduced
+from repro_torch.core import registry
+from repro_torch.core.api import MeshAxes
+from repro_torch.core.types import DCS3GDConfig, INPUT_SHAPES
+from repro_torch.launch import specs as S
+from repro_torch.models.transformer import Model
+from repro_torch.parallel import sharding as shd
+
+from torch_threads import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+COMBOS = [("train_4k", "pod"), ("prefill_32k", "pod"), ("decode_32k", "pod"),
+          ("decode_32k", "multipod")]
+MESHES = {"pod": {"data": 16, "model": 16},
+          "multipod": {"pod": 2, "data": 16, "model": 16}}
+DC = dict(total_steps=10_000, warmup_steps=1_500)
+
+
+def _python(code: str, cwd: Path):
+    return subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=cwd, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "OMP_NUM_THREADS": "1"})
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    """The four combos of the reduced qwen3-0.6b, one process."""
+    out = tmp_path_factory.mktemp("dryrun")
+    calls = "".join(
+        f"dryrun.run_one('qwen3-0.6b', {s!r}, {m!r}, out_dir=OUT, cut=True)\n"
+        for s, m in COMBOS)
+    r = _python("import torch; torch.set_num_threads(1)\n"
+                "from pathlib import Path\n"
+                "from repro_torch.launch import dryrun\n"
+                f"OUT = Path({str(out)!r})\n" + calls, out)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return out, {(s, m): json.loads(
+        (out / f"qwen3-0.6b__{s}__{m}__dc_s3gd.json").read_text())
+        for s, m in COMBOS}
+
+
+def _reference_record_keys():
+    """The keys of the record `repro.launch.dryrun.run_one` writes, read
+    off its source (lowering there forces 512 XLA devices)."""
+    src = (ROOT / "src" / "repro" / "launch" / "dryrun.py").read_text()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict):
+            keys = [k.value for k in node.value.keys
+                    if isinstance(k, ast.Constant)]
+            if "lower_s" in keys:
+                mem = next(v for k, v in zip(node.value.keys,
+                                             node.value.values)
+                           if getattr(k, "value", None) == "memory")
+                return set(keys), {k.value for k in mem.keys}
+    raise AssertionError("no record in the reference's dry-run")
+
+
+@pytest.mark.parametrize("shape,mesh", COMBOS,
+                         ids=[f"{s}-{m}" for s, m in COMBOS])
+def test_record_schema_is_the_reference_one(records, shape, mesh):
+    _, recs = records
+    rec = recs[(shape, mesh)]
+    top, mem = _reference_record_keys()
+    assert set(rec) == top
+    assert mem <= set(rec["memory"])
+    assert rec["status"] == "ok" and rec["variant"] == "qwen3-0.6b-smoke"
+    assert rec["n_chips"] == (512 if mesh == "multipod" else 256)
+    assert rec["memory"]["temp_bytes"] is None \
+        and rec["memory"]["peak_bytes"] is None
+    assert "compiler memory analysis" in rec["memory"]["note"]
+    from repro.analysis.roofline import Roofline as JRoofline
+    fields = set(JRoofline.__dataclass_fields__)
+    assert fields <= set(rec["roofline"]) and \
+        set(Roofline.__dataclass_fields__) <= set(rec["roofline"])
+    assert "worker-axis wire" in rec["roofline"]["note"]
+    ro = rec["roofline"]
+    assert ro["flops"] > 0 and ro["hbm_bytes"] > 0
+    if shape == "train_4k":
+        # only the worker-axis wire is counted: the per-chip share of all
+        # W workers' payloads, slower over the network than over NVLink
+        assert ro["coll_bytes"] > 0
+        assert ro["collective_net_s"] == pytest.approx(
+            ro["collective_s"] * 450 / 50)
+    else:
+        assert ro["coll_bytes"] == 0
+
+
+def _port_inputs(shape_name):
+    shape = INPUT_SHAPES[shape_name]
+    cfg = S.variant_for_shape(S.dryrun_model_config(
+        reduced(get_config("qwen3-0.6b"))), shape)
+    return cfg, shape, Model(cfg, kernels=False)
+
+
+@pytest.mark.parametrize("shape,mesh", COMBOS,
+                         ids=[f"{s}-{m}" for s, m in COMBOS])
+def test_argument_bytes_equal_the_spec_count(records, shape, mesh):
+    """The record's per-device argument bytes are the local shards' bytes
+    under the hooks' specs, counted here without a process group."""
+    _, recs = records
+    cfg, sh, model = _port_inputs(shape)
+    sizes = MESHES[mesh]
+    axes = MeshAxes(worker=tuple(a for a in sizes if a != "model"),
+                    model="model", model_size=16)
+    if sh.kind == "train":
+        W = 16 if mesh == "pod" else 32
+        alg = registry.make("dc_s3gd", DCS3GDConfig(**DC), n_workers=W)
+        state = S.abstract_train_state(model, W, DCS3GDConfig(**DC), alg)
+        batch = S.train_batch_specs(cfg, sh, W)
+        want = shd.shard_bytes(state, alg.state_specs(cfg, state, axes),
+                               sizes) + shd.shard_bytes(
+            batch, alg.batch_specs(cfg, batch, axes), sizes)
+    else:
+        params = S.abstract_params(model)
+        da = axes.worker_spec if sh.global_batch % 16 == 0 else None
+        want = shd.shard_bytes(params, shd.param_specs(
+            cfg, params, model_size=16), sizes)
+        if sh.kind == "decode":
+            cache = S.abstract_cache(model, sh)
+            batch = S.decode_batch_specs(cfg, sh)
+            want += shd.shard_bytes(cache, shd.cache_specs(
+                cfg, cache, model_size=16, data_axes=da), sizes)
+        else:
+            batch = S.prefill_batch_specs(cfg, sh)
+        want += shd.shard_bytes(batch, shd.batch_specs(
+            cfg, batch, data_axes=da), sizes)
+    assert recs[(shape, mesh)]["memory"]["argument_bytes"] == want
+
+
+def test_train_argument_bytes_equal_the_reference_count(records):
+    """The train record's argument bytes equal the reference's own
+    spec-derived count of its reduced train state and batch (pod)."""
+    _, recs = records
+    jcfg = JS.dryrun_model_config(j_reduced(j_get_config("qwen3-0.6b")))
+    jalg = j_registry.make("dc_s3gd", JDCS3GDConfig(**DC), n_workers=16)
+    st = JS.abstract_train_state(JModel(jcfg, remat=True), 16,
+                                 JDCS3GDConfig(**DC), jalg)
+    batch = JS.train_batch_specs(jcfg, J_SHAPES["train_4k"], 16)
+    axes = JMeshAxes(worker=("data",), model="model", model_size=16)
+    total = 0
+    for tree, specs in ((st, jalg.state_specs(jcfg, st, axes)),
+                        (batch, jalg.batch_specs(jcfg, batch, axes))):
+        for leaf, s in zip(jax.tree.leaves(tree), jax.tree.leaves(
+                specs, is_leaf=lambda x: isinstance(x, P))):
+            n = leaf.size
+            for ax in tuple(s):
+                names = () if ax is None else (
+                    ax if isinstance(ax, tuple) else (ax,))
+                for a in names:
+                    n //= MESHES["pod"][a]
+            total += n * leaf.dtype.itemsize
+    assert recs[("train_4k", "pod")]["memory"]["argument_bytes"] == total
+
+
+def test_roofline_table_renders(records):
+    out, recs = records
+    table = report.roofline_table("pod", str(out))
+    rows = [r for r in table.splitlines() if r.startswith("| qwen3-0.6b")]
+    assert len(rows) == 3
+    assert all(r.count("|") == 11 and "| - |" in r for r in rows)
+    assert "256 GPUs (16,16)" in table
+    assert report.dryrun_summary("multipod", str(out)).startswith(
+        "mesh `multipod`: 1 built + traced OK")
+    assert report.fmt_mem(None) == "-" and report.fmt_mem(2 ** 31) == "2.0"
+    rec = json.loads(json.dumps(recs[("decode_32k", "pod")]))
+    rec.update(status="skipped", reason="not meaningful")
+    (out / "x__long_500k__pod__dc_s3gd.json").write_text(json.dumps(rec))
+    assert "*skipped: not meaningful*" in report.roofline_table(
+        "pod", str(out))
+
+
+def test_non_dividing_shape_writes_a_fail_record_and_exits_1(tmp_path):
+    """A config whose FFN width (520) does not divide over the 16-wide
+    model axis fails the type check: FAIL record, exit 1."""
+    r = _python(
+        "import dataclasses, torch; torch.set_num_threads(1)\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.launch import dryrun\n"
+        "cfg = configs.reduced(configs.get_config('qwen3-0.6b'))\n"
+        "configs.ARCHS['odd'] = dataclasses.replace(cfg, name='odd', "
+        "d_ff=520)\n"
+        "dryrun.main(['--arch', 'odd', '--shape', 'decode_32k', '--out', "
+        f"{str(tmp_path)!r}])\n", tmp_path)
+    assert r.returncode == 1, (r.stdout[-2000:], r.stderr[-2000:])
+    assert "[dryrun] FAIL odd x decode_32k x pod" in r.stdout
+    rec = json.loads((tmp_path / "odd__decode_32k__pod__dc_s3gd.json")
+                     .read_text())
+    assert rec["status"] == "fail" and "does not divide" in rec["reason"]
+    assert "*fail:" in report.roofline_table("pod", str(tmp_path))
+
+
+@pytest.mark.parametrize("kind", ["decode", "train"])
+def test_fake_trace_counts_what_a_real_trace_counts(kind):
+    """The dry-run's roofline reads an op trace of fake tensors: its
+    FLOPs and bytes equal a trace of the same step on real CPU tensors
+    (a fake tensor's device query, ``prim.device``, moves nothing)."""
+    import dataclasses
+    import torch
+    from repro_torch.analysis import optrace
+    from repro_torch.launch.engine import Engine
+    cfg = S.dryrun_model_config(reduced(get_config("qwen3-0.6b")))
+    model = Model(cfg, kernels=False)
+    shape = dataclasses.replace(INPUT_SHAPES[f"{kind}_32k" if kind ==
+                                             "decode" else "train_4k"],
+                                seq_len=64, global_batch=4)
+    alg = registry.make("dc_s3gd", DCS3GDConfig(), n_workers=2)
+
+    def run(params, cache, batch, state):
+        if kind == "decode":
+            with optrace.trace() as tr:
+                model.decode_step(params, cache, batch)
+            return tr
+        return Engine(model, alg).trace_train_step(state, batch)[0]
+
+    fake_batch = S.decode_batch_specs(cfg, shape) if kind == "decode" \
+        else S.train_batch_specs(cfg, shape, 2)
+    with S.fake_mode():
+        fake = run(S.abstract_params(model), S.abstract_cache(model, shape),
+                   fake_batch,
+                   S.abstract_train_state(model, 2, DCS3GDConfig(), alg))
+    params = model.init(torch.Generator().manual_seed(0))
+    cache = model.init_cache(shape.global_batch, shape.seq_len,
+                             device=torch.device("cpu"))
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+             for k, v in fake_batch.items()}
+    real = run(params, cache, batch, alg.init(params))
+    assert fake.bytes == real.bytes and fake.flops == real.flops
+    assert not [o for o in fake.ops if o.name.startswith("prim.device")
+                and o.bytes_read + o.bytes_written]

@@ -206,3 +206,30 @@ def test_kernels_and_algorithms_sit_below_the_analysis_layer():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", ["parallel.sharding", "launch.mesh",
+                                    "launch.specs", "launch.dryrun",
+                                    "launch.engine", "core.reduce",
+                                    "core.api", "analysis.report"])
+def test_multi_device_modules_are_covered_and_import_alone(module):
+    """The multi-device slice (partition rules, the mesh, the abstract
+    builders, the dry-run, the Engine's mesh seam, the worker seam, the
+    dry-run tables) is among the files checked above and imports in a
+    process where jax and repro cannot be imported, without starting a
+    process group."""
+    path = ROOT / "src" / "repro_torch" / (module.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            f"import repro_torch.{module} as m\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "print(m.__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"repro_torch.{module}"

@@ -1,0 +1,292 @@
+"""The worker axis over real process groups: `repro_torch.launch.mesh`,
+the Engine's mesh seam and the algorithms' worker seam
+(`repro_torch.core.reduce.ProcessWorkers`), on gloo ranks spawned on the
+CPU (`tests/torch_mesh_worker.py`; one torch thread each, a ``file://``
+store under ``tmp_path``).  JAX runs only in this, the parent, process.
+
+* A 1 x 1 mesh is bitwise ``mesh=None`` (the twin of the reference's
+  ``test_small_mesh_end_to_end_jit``): the same row order, the same
+  division by W.
+* 2 and 4 ranks at W = 4 / 8 for ``dc_s3gd``, ``stale`` and ``ssgd`` on
+  the reduced qwen3 and the reduced ResNet: every leaf of the gathered
+  params, opt, comm and consensus weights within ``TOL_MESH`` of its own
+  largest one-process magnitude, the metrics within ``RTOL_MESH``, and
+  identical on every rank.  Across ranks the worker mean adds per-rank
+  partial sums, an f32 rounding away from the one-process row order;
+  the worst cases measured here are 4.1e-7 (params, about 3 ulps),
+  1.1e-6 (opt), 8.8e-7 (comm) and 1.7e-7 (metrics).
+* One 2-rank run against the JAX trajectory at `tests/test_torch_dc_s3gd.
+  py`'s ``TOL`` and ``RTOL_METRICS``.
+* Overlap == inline bitwise at 2 ranks.
+* Each refusal raises at `Engine` construction and names the ROADMAP
+  item.
+"""
+import functools
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get_config as j_get_config
+from repro.configs import reduced as j_reduced
+from repro.core import registry as j_registry
+from repro.core.types import DCS3GDConfig as JConfig
+from repro.data import SyntheticLMDataset as JData
+from repro.data import worker_batches as j_worker_batches
+from repro.models.transformer import Model as JModel
+
+import torch_mesh_worker as MW
+from torch_threads import one_torch_thread  # noqa: F401
+
+TOL_MESH = 1e-5
+RTOL_MESH = 1e-5
+TOL, RTOL_METRICS = 1e-4, 1e-5        # tests/test_torch_dc_s3gd.py's
+METRICS = ("loss", "lambda", "distance_norm", "delta_norm")
+
+FUSED = {"buckets": 2, "use_kernels": True}
+# (model, algorithm spec, W) of each run a group of ranks makes
+R1 = [("lm", FUSED, 2), ("lm", {**FUSED, "overlap": True}, 2),
+      ("lm", {"algo": "ssgd"}, 2)]
+R2 = [("lm", FUSED, 4), ("lm", {**FUSED, "overlap": True}, 4),
+      ("lm", {"algo": "stale", **FUSED}, 4),
+      ("lm", {"algo": "ssgd", "buckets": 2}, 4), ("lm", {}, 4),
+      ("cnn", FUSED, 8), ("cnn", {"algo": "stale", **FUSED}, 8),
+      ("cnn", {"algo": "ssgd"}, 8)]
+R4 = [("lm", FUSED, 8), ("lm", {"algo": "stale"}, 8),
+      ("lm", {"algo": "ssgd"}, 8), ("lm", FUSED, 4), ("cnn", FUSED, 8)]
+
+
+@functools.lru_cache(maxsize=None)
+def _weights():
+    cfg = j_reduced(j_get_config("qwen3-0.6b"))
+    return jax.tree.map(np.asarray,
+                        JModel(cfg, remat=False).init(jax.random.PRNGKey(0)))
+
+
+# world size and runs of each group; the 4 ranks lay out as pods (2, 2, 1)
+GROUPS = {"r1": (1, dict(runs=R1)), "r2": (2, dict(runs=R2, keep=(0, 1))),
+          "r4": (4, dict(runs=R4, layout="pods"))}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Each group's spawned results, computed once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            world, kw = GROUPS[name]
+            tmp = tmp_path_factory.mktemp(name)
+            kw = dict(kw, weights=_weights(), ckpt_dir=str(tmp))
+            cache[name] = MW.spawn(world, "runs", kw, tmp)
+        return cache[name]
+    return get
+
+
+def _leaves(tree):
+    return jax.tree.leaves(tree)
+
+
+def _assert_bitwise(a, b, what):
+    la, lb = _leaves(a), _leaves(b)
+    assert len(la) == len(lb), what
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape, what
+        assert np.array_equal(x, y), what
+
+
+def _assert_close(a, b, tol, what, base=None):
+    la, lb = _leaves(a), _leaves(b)
+    base = [0.0] * len(la) if base is None else _leaves(base)
+    assert len(la) == len(lb), what
+    for x, y, z in zip(la, lb, base):
+        x, y = np.asarray(x, np.float64) - z, np.asarray(y, np.float64) - z
+        np.testing.assert_allclose(x, y, rtol=0,
+                                   atol=tol * float(np.abs(y).max()),
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("i", range(len(R1)))
+def test_one_rank_mesh_is_bitwise_one_process(ranks, i):
+    (res,) = ranks("r1")
+    got = res["runs"][i]
+    for part in MW.PARTS:
+        assert got["diff"][part] == (0.0, True), part
+    assert got["hist"] == got["hist_one"]
+
+
+CASES = [(g, i) for g in ("r2", "r4")
+         for i in range(len(GROUPS[g][1]["runs"]))]
+
+
+@pytest.mark.parametrize("group,i", CASES,
+                         ids=[f"{g}-{GROUPS[g][1]['runs'][i][0]}-{i}" for g, i in CASES])
+def test_ranks_match_one_process(ranks, group, i):
+    res = ranks(group)
+    # the gathered state is the same on every rank, and so are the
+    # metrics: one all-reduce of the step's sums
+    for r in res[1:]:
+        assert r["runs"][i]["digest"] == res[0]["runs"][i]["digest"]
+        assert r["runs"][i]["hist"] == res[0]["runs"][i]["hist"]
+    got = res[0]["runs"][i]
+    for part in MW.PARTS:
+        assert got["diff"][part][0] <= TOL_MESH, (part, got["diff"][part])
+    assert len(got["hist"]) == len(got["hist_one"]) == MW.STEPS
+    for hg, hw in zip(got["hist"], got["hist_one"]):
+        assert hg.keys() == hw.keys()
+        for k in hg:
+            np.testing.assert_allclose(hg[k], hw[k], rtol=RTOL_MESH,
+                                       atol=1e-12, err_msg=k)
+
+
+def test_worker_rows_are_pod_major(ranks):
+    res = ranks("r4")
+    assert [r["worker_index"] for r in res] == [0, 1, 2, 3]
+    assert res[0]["mesh"] == {"pod": 2, "data": 2, "model": 1}
+
+
+def _jax_run(W, buckets, kernels):
+    cfg = j_reduced(j_get_config("qwen3-0.6b"))
+    model = JModel(cfg, remat=False)
+    alg = j_registry.make("dc_s3gd", JConfig(**MW.HP), n_workers=W,
+                          buckets=buckets, use_kernels=kernels)
+    step = jax.jit(functools.partial(alg.step, loss_fn=model.loss))
+    state = alg.init(jax.tree.map(jnp.asarray, _weights()))
+    data = JData(cfg.vocab_size, MW.SEQ, seed=0)
+    hist = []
+    for t in range(MW.STEPS):
+        state, m = step(state, j_worker_batches(data, t, W, MW.BPW))
+        hist.append({k: float(m[k]) for k in METRICS})
+    return jax.tree.map(np.asarray, state), hist
+
+
+def test_two_ranks_match_jax(ranks):
+    """The 2-rank fused bucketed run (W = 4) against the reference's
+    trajectory at the parity tests' tolerances."""
+    got = ranks("r2")[0]["runs"][0]["state"]
+    j_state, j_hist = _jax_run(4, 2, True)
+    _assert_close(got["params"], j_state.params, TOL, "params",
+                  base=_weights())
+    _assert_close(got["opt"]["m"], j_state.opt["m"], TOL, "opt.m")
+    _assert_close(got["comm"]["delta_prev"], j_state.comm["delta_prev"], TOL,
+                  "delta_prev")
+    for hg, hj in zip(got["hist"], j_hist):
+        for k in METRICS:
+            np.testing.assert_allclose(hg[k], hj[k], rtol=RTOL_METRICS,
+                                       err_msg=k)
+
+
+def test_overlap_equals_inline_bitwise_on_two_ranks(ranks):
+    """The pipelined issue is an asynchronous all-reduce the next step
+    waits on: bitwise the inline schedule's wait before D."""
+    res = ranks("r2")
+    inline, overlap = (res[0]["runs"][i]["state"] for i in (0, 1))
+    for part in ("params", "opt", "eval"):
+        _assert_bitwise(overlap[part], inline[part], part)
+    _assert_bitwise(overlap["comm"]["delta_prev"],
+                    inline["comm"]["delta_prev"], "delta_prev")
+    for r in res:
+        assert r["runs"][1]["hist"] == r["runs"][0]["hist"]
+
+
+@pytest.mark.parametrize("i", [0, 1], ids=["inline", "overlap"])
+def test_checkpoint_round_trip_on_two_ranks(ranks, i):
+    """`Engine.save` on a mesh waits for an in-flight overlap reduce,
+    gathers and lets worker rank 0 write; `Engine.restore` gives each rank
+    its shards back bit for bit."""
+    res = ranks("r2")
+    assert [r["runs"][i]["restored"] for r in res] == [True, True]
+
+
+# ---------------------------------------------------------------------------
+# refusals, at Engine construction (a stand-in mesh: no process group)
+# ---------------------------------------------------------------------------
+
+
+class _Mesh:
+    def __init__(self, **shape):
+        self.mesh_dim_names = tuple(shape)
+        self.shape = tuple(shape.values())
+
+
+REFUSED = {
+    "model_axis": ({}, dict(data=2, model=2), "tensor-parallel"),
+    "gossip": ({"reducer": "gossip", "buckets": 2}, dict(data=2, model=1),
+               "gossip"),
+    "hierarchical": ({"reducer": "hierarchical"}, dict(data=2, model=1),
+                     "hierarchical"),
+    "topk": ({"reducer": "topk", "buckets": 2}, dict(data=2, model=1),
+             "compressed reducer 'topk'"),
+    "dynamic_ssp": ({"staleness": "dynamic_ssp"}, dict(data=2, model=1),
+                    "dynamic_ssp"),
+    "dc_asgd": ({"algo": "dc_asgd"}, dict(data=2, model=1), "dc_asgd"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refusals_raise_at_construction(monkeypatch, name):
+    from repro_torch.core.reduce import ProcessWorkers
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.engine import Engine
+    spec, shape, words = REFUSED[name]
+    monkeypatch.setattr(M, "make_workers", lambda mesh: ProcessWorkers(
+        None, rank=0, size=M.n_workers(mesh)))
+    alg = MW._make(spec, 4)
+    with pytest.raises(ValueError, match="ROADMAP queue A item 6") as e:
+        Engine(types.SimpleNamespace(loss=None), alg, mesh=_Mesh(**shape))
+    assert words in str(e.value)
+    # the same algorithm on one rank, or with mesh=None, is accepted
+    Engine(types.SimpleNamespace(loss=None), MW._make(spec, 4))
+
+
+def test_elastic_fit_and_resize_refused_across_ranks(monkeypatch):
+    from repro_torch.core.reduce import ProcessWorkers
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.engine import Engine
+    monkeypatch.setattr(M, "make_workers", lambda mesh: ProcessWorkers(
+        None, rank=0, size=M.n_workers(mesh)))
+    alg = MW._make({}, 4)
+    eng = Engine(types.SimpleNamespace(loss=None), alg,
+                 mesh=_Mesh(data=2, model=1))
+    with pytest.raises(ValueError, match="ROADMAP queue A item 6"):
+        eng.fit(None, None, steps=1, membership=object())
+    with pytest.raises(ValueError, match="ROADMAP queue A item 6"):
+        alg.resize_state(None, 2)
+    # a model axis above 1 keeps its specs for the dry-run
+    Engine(types.SimpleNamespace(loss=None, cfg=None), MW._make({}, 4),
+           mesh=_Mesh(data=2, model=2), specs_only=True)
+
+
+def test_mesh_module_touches_no_process_group():
+    import torch.distributed as dist
+    import repro_torch.launch.mesh as M
+    assert not dist.is_initialized()
+    assert M.BACKENDS == {"cuda": "nccl", "cpu": "gloo"}
+    with pytest.raises(RuntimeError, match="process group"):
+        M.make_debug_mesh(1, 1, device_type="cpu")
+
+
+@pytest.mark.parametrize("W,pods,devices,want", [
+    (8, 1, 4, ((4, 1), ("data", "model"))),
+    (8, 2, 4, ((2, 2, 1), ("pod", "data", "model"))),
+    (6, 2, 4, ((2, 1, 1), ("pod", "data", "model"))),
+    (6, 1, 4, ((2, 1), ("data", "model"))),
+    (32, 2, 512, ((2, 16, 1), ("pod", "data", "model"))),
+])
+def test_shape_for_spec_follows_the_reference_arithmetic(W, pods, devices,
+                                                         want):
+    from repro_torch.cluster import ClusterSpec
+    from repro_torch.launch.mesh import shape_for_spec
+    assert shape_for_spec(ClusterSpec.uniform(W, pods=pods),
+                          n_devices=devices) == want
+
+
+def test_mesh_for_spec_refuses_a_mesh_that_misses_ranks():
+    """A membership whose mesh would not span every rank of the world is
+    refused (here 2 model ranks asked of a one-rank world)."""
+    from repro_torch.cluster import ClusterSpec
+    from repro_torch.launch.mesh import mesh_for_spec
+    with pytest.raises(ValueError, match="ROADMAP queue A item 6"):
+        mesh_for_spec(ClusterSpec.uniform(4), model=2, device_type="cpu")
