@@ -232,7 +232,8 @@ Phases (any failure exits non-zero before the result line):
    paged_attention at pages of 8, 16 and 32 over the same tokens (bf16
    and int8 pools, float64 plain version at 1e-6 / 2e-5, bitwise across
    the page sizes), timed beside bound and plain version.  The autotuner:
-   8 train candidates and 12 serve candidates measured beside their
+   8 train candidates and 12 serve candidates (qwen3-0.6b cut to 14 of
+   its 28 layers, for the script's time limit) measured beside their
    predictions, tuned <= default ms/step, tuned >= default tokens/s,
    greedy tokens identical across the serve candidates; the blob in
    ``chiprun_out/autotune.json``.
@@ -249,6 +250,21 @@ Phases (any failure exits non-zero before the result line):
    rank; (c) ``repro_torch.launch.dryrun`` for qwen3-0.6b x decode_32k x
    pod in a subprocess (nothing placed on the card): ``status: ok``, its
    per-device argument bytes (record in ``chiprun_out/dryrun_torch``).
+
+18. tensor parallelism over the mesh's 'model' axis (gloo ranks sharing
+   the card, spawned): (a) qwen3-0.6b at its published widths, depth 28
+   -> 4, W = 2, on a (1, 2) mesh, 3 steps through ``Engine(model, alg,
+   mesh)``; (c) olmoe-1b-7b at depth 1, W = 2, 32 of its 64 experts a
+   rank, on the same ranks; (b) qwen3 at depth 2, computing in f32, on a
+   (2, 2) mesh of four ranks.  Each rank first runs the cell with
+   ``mesh=None`` (one rank at a time) and keeps the slices it holds; its
+   shards of the weights then lie within 1e-5 of each leaf's scale from
+   them and the metrics within 1e-5; the updates (momentum, deltas)
+   within 1e-5 at f32 compute, within 1e-3 at the published bf16
+   compute, where the embedding's rows enter the first block in bf16
+   (`tok` and the first norm within 2e-2); the replicated leaves bitwise
+   equal across the model ranks after every step, A1 / A2 once per local
+   bucket and step on every rank; each rank's peak beside mesh=None's.
 
 The CPU twins of these checks are the ``tests/test_torch_*.py`` files
 (``PYTHONPATH=src python -m pytest -q tests/test_torch_moe.py
@@ -4273,12 +4289,18 @@ def phase_new_settings(smi: str) -> dict:
     return rec
 
 
+AUTOTUNE_SERVE_LAYERS = 14
+
+
 def phase_autotune(smi: str) -> dict:
     """The autotuner on the card: the train candidates (buckets {1, 2, 4,
     8} x plan_block {None, 2·BLOCK}, qwen3-0.6b x4, W = 2, fused kernels)
     and the serve candidates (page_size {8, 16, 32} x decode_burst {1, 4,
-    8, 16}, qwen3-0.6b x28, 16 slots, 16 requests from seed 0 at the serve
-    cell's lengths, two rounds over the candidates in turn), each
+    8, 16}, qwen3-0.6b at its published widths cut to
+    ``AUTOTUNE_SERVE_LAYERS`` of 28 layers (the probe's decode steps are
+    host-bound, 93 s of PR 23's phase at 28), 16 slots, 16 requests from
+    seed 0 at the serve cell's lengths, two rounds over the candidates in
+    turn), each
     candidate's prediction beside its measurement;
     the tuned config is the best candidate only where it beats the
     default by more than the measured spread (checked against the rule
@@ -4288,6 +4310,8 @@ def phase_autotune(smi: str) -> dict:
     A1 / A2 launched in the train probe, B4 / B5 in the serve probe.  The
     blob goes to chiprun_out/autotune.json."""
     from repro_torch.analysis import autotune as A
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
     out = {}
     _zero_counts()
     t0 = time.perf_counter()
@@ -4296,7 +4320,9 @@ def phase_autotune(smi: str) -> dict:
     out["train_s"] = time.perf_counter() - t0
     _zero_counts()
     t0 = time.perf_counter()
-    serve = A.probe_serve(A.serve_space(False))
+    serve = A.probe_serve(A.serve_space(False), model=Model(
+        dataclasses.replace(get_config("qwen3-0.6b"),
+                            n_layers=AUTOTUNE_SERVE_LAYERS)))
     out["serve_launches"] = _read_counts()
     out["serve_s"] = time.perf_counter() - t0
     tl, sl = out["train_launches"], out["serve_launches"]
@@ -4678,6 +4704,299 @@ def phase_dryrun(smi: str) -> dict:
     return {"record": rec, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: tensor parallelism over the mesh's 'model' axis
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 3
+TP_TOL = 1e-5       # of each leaf's scale, the CPU tests' f32 bound
+                    # (measured 3.1e-6 there); the metrics relative
+# The published configs compute in bf16: the embedding's rows enter the
+# first block in bf16, so the gradients reaching `tok` and that block's
+# norm are rounded to bf16, and where a rank's f32 partial sum lands on
+# the other side of a rounding boundary than the one-process product's,
+# an element moves one bf16 ulp (2^-8; 2 of 7,680 elements of the reduced
+# qwen3's tok gradient on the CPU).  From the next step on the embedding
+# rows differ by that much, and every gradient with them: under bf16
+# compute the step's updates (momentum, carried deltas) are held to
+# TP_TOL_BF16_UPDATE of each leaf's scale and those two leaves to
+# TP_TOL_BF16 (a few ulps, after Eq. 10's g^2 D term), the weights and
+# metrics to TP_TOL.  The f32-compute cell holds every leaf to TP_TOL.
+TP_BF16_LEAVES = ("embed/tok", "stage0/b0/ln1/scale")
+TP_TOL_BF16 = 2e-2
+TP_TOL_BF16_UPDATE = 1e-3
+# (cell, the launcher's arguments (their step count is TP_STEPS), the
+# compute dtype: the published configs' bf16, or f32 for the cell that
+# holds every leaf to TP_TOL)
+TP_PAIR = (("a", MAIN_ARGS, "bfloat16"), ("c", OLMOE_TRAIN, "bfloat16"))
+TP_FOUR = (("b", MAIN_ARGS + ["--layers", "2"], "float32"),)
+
+
+def _tp_cell(mesh, argv, compute: str) -> dict:
+    """One rank's share of a phase-18 cell: the one-process run of
+    ``argv`` (one rank at a time: two of qwen3 x4's ~36 GiB runs do not
+    fit the card together), keeping on the host the slices of
+    its params, momentum and carried deltas that this rank holds; then
+    ``Engine(model, alg, mesh)`` for ``TP_STEPS`` steps from the same
+    weights, counts zeroed just before and read just after, a digest of
+    the replicated leaves after every step; then each leaf's largest
+    difference from the kept slices and the slices' own scale.  The
+    model computes in ``compute``."""
+    import hashlib
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.cluster.membership import rebuild_algorithm
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.transformer import Model
+    from repro_torch.parallel import sharding as shd
+    args = train.build_argparser().parse_args(argv)
+    args.steps, args.use_kernels = TP_STEPS, True
+    sizes, coord = M.axis_sizes(mesh), M.coordinate(mesh)
+    me, world = dist.get_rank(), dist.get_world_size()
+
+    def mine(tree, cfg):
+        specs = dict(shd.flat_specs(shd.param_specs(
+            cfg, tree, model_size=sizes["model"], worker_axes="data"), tree))
+        return shd.map_with_path(lambda p, x: x[shd.local_slices(
+            tuple(x.shape), specs[p], sizes, coord)], tree)
+
+    def parts(alg, state):
+        plan = alg._plan(state.params)
+        return {"params": state.params, "m": state.opt["m"],
+                "delta": plan.unpack(state.comm["delta_prev"])}
+    rec, ref = {}, None
+    for turn in range(world):
+        if turn == me:
+            model, alg, state, batch_fn = train.build(args)
+            model = Model(dataclasses.replace(model.cfg,
+                                              compute_dtype=compute),
+                          loss_chunk=model.loss_chunk,
+                          moe_dense=model.moe_dense)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, hist, _ = Engine(model, alg).fit(state, batch_fn,
+                                                    steps=TP_STEPS,
+                                                    log_every=1)
+            torch.cuda.synchronize()
+            rec["peak_none"] = torch.cuda.max_memory_allocated()
+            rec["hist_none"] = [{k: h[k] for k in TP_METRICS}
+                                for h in hist]
+            ref = {k: T.map(lambda x: x.cpu(), mine(v, model.cfg))
+                   for k, v in parts(alg, state).items()}
+            del state
+            alg = rebuild_algorithm(alg, args.workers)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    params = model.init(torch.Generator(device="cuda")
+                        .manual_seed(args.seed))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        engine = Engine(model, alg, mesh=mesh)
+        state = engine.init_state(params)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flags = shd.sharded_over_model(model.cfg, state.params,
+                                       model_size=sizes["model"])
+        _zero_counts()
+        hist, digests, t0 = [], [], time.perf_counter()
+        for t in range(TP_STEPS):
+            state, h, _ = engine.fit(state, batch_fn, steps=t + 1, start=t,
+                                     log_every=1)
+            hist += h
+            plan = alg._plan(state.params)
+            whole = [x for f, x in zip(flags, T.leaves(state.params))
+                     if not f] + [x for f, x in zip(
+                         flags, T.leaves(state.opt["m"])) if not f] + [
+                b for f, b in zip(plan.sharded, state.comm["delta_prev"])
+                if not f]
+            digest = hashlib.sha256()
+            for x in whole:
+                digest.update(x.detach().cpu().numpy().tobytes())
+            digests.append(digest.hexdigest())
+        torch.cuda.synchronize()
+        rec["fit_s"] = time.perf_counter() - t0
+        rec["launches"] = _read_counts()
+        rec["peak"] = torch.cuda.max_memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rec["n_buckets"] = alg._plan(state.params).n_buckets
+    rec["hist"] = [{k: h[k] for k in TP_METRICS} for h in hist]
+    rec["digests"] = digests
+    rec["model_index"], rec["worker_index"] = M.model_index(mesh), \
+        M.worker_index(mesh)
+    rec["diff"] = {}
+    for part, tree in parts(alg, state).items():
+        rec["diff"][part] = []
+        for (p, x), r in zip(shd.leaves_with_path(tree),
+                             T.leaves(ref[part])):
+            r = r.to(x.device).float()
+            d, scale = (x.float() - r).abs(), float(r.abs().max())
+            rec["diff"][part].append(("/".join(map(str, p)),
+                                      float(d.max()), scale))
+            del d, r
+    rec["n_params_local"] = sum(x[0].numel() for x in T.leaves(state.params))
+    del state, engine, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+TP_METRICS = ("loss", "lambda", "distance_norm", "delta_norm")
+
+
+def _tp_rank(world: int, shape, rank: int, store: str, out: str,
+             cells) -> None:
+    """One spawned rank of phase 18: a gloo process group (NCCL refuses
+    two ranks on one device), a ('data', 'model') mesh of ``shape`` on the
+    card, then `_tp_cell` of each of ``cells``."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh as M
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = M.make_debug_mesh(*shape, device_type="cuda")
+        torch.save({tag: _tp_cell(mesh, argv, compute)
+                    for tag, argv, compute in cells}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_spawn(shape, cells) -> list:
+    import multiprocessing as mp
+    import tempfile
+    world = shape[0] * shape[1]
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [f"{tmp}/rank{r}.pt" for r in range(world)]
+        procs = [ctx.Process(target=_tp_rank,
+                             args=(world, shape, r, f"{tmp}/store", outs[r],
+                                   cells)) for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(all(p.exitcode == 0 for p in procs),
+              f"[tp] gloo ranks {shape} exited {[p.exitcode for p in procs]}")
+        return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
+                ) -> dict:
+    """Print one cell from every rank's record, appending to ``problems``
+    what fails its checks."""
+    recs = [r[tag] for r in res]
+    bf16_cell = dict((t, c) for t, _, c in TP_PAIR + TP_FOUR)[tag] \
+        == "bfloat16"
+    worst, worst_bf16, top = {}, 0.0, {}
+    for part in recs[0]["diff"]:
+        rows = []
+        for i, (path, *_) in enumerate(recs[0]["diff"][part]):
+            diff = max(r["diff"][part][i][1] for r in recs)
+            scale = max(r["diff"][part][i][2] for r in recs)
+            if not scale:
+                continue
+            rel = diff / scale
+            bf16 = bf16_cell and path.endswith(TP_BF16_LEAVES)
+            tol = TP_TOL_BF16 if bf16 else TP_TOL_BF16_UPDATE \
+                if bf16_cell and part != "params" else TP_TOL
+            if rel > tol:
+                problems.append(f"({tag}) {part} {path} {rel:.3g} of scale "
+                                f"from mesh=None")
+            if bf16:
+                worst_bf16 = max(worst_bf16, rel)
+            else:
+                rows.append((rel, path))
+        worst[part] = max(rows)[0] if rows else 0.0
+        top[part] = [f"{p} {r:.3g}" for r, p in sorted(rows)[-2:][::-1]]
+    hist_none = recs[0]["hist_none"]
+    m_err = max(abs(a[k] - b[k]) / abs(b[k]) for r in recs
+                for a, b in zip(r["hist"], hist_none) for k in TP_METRICS
+                if b[k])
+    if m_err > TP_TOL:
+        problems.append(f"({tag}) metrics {m_err:.3g} from mesh=None")
+    if not all(r["hist"] == recs[0]["hist"] for r in recs):
+        problems.append(f"({tag}) ranks report different metrics")
+    by_worker = {}
+    for r in recs:
+        by_worker.setdefault(r["worker_index"], []).append(r["digests"])
+    if not all(len(set(map(tuple, d))) == 1 for d in by_worker.values()):
+        problems.append(f"({tag}) replicated leaves differ across the "
+                        f"model ranks")
+    for r in recs:
+        for name, n in r["launches"].items():
+            want = TP_STEPS * r["n_buckets"] \
+                if name in ("dc_norms", "dc_fused_update") else 0
+            if n != want:
+                problems.append(f"({tag}) rank: {name} launched {n} times,"
+                                f" expected {want}")
+    peaks = [r["peak"] for r in recs]
+    peak_none = max(r["peak_none"] for r in recs)
+    emb = f"; {', '.join(TP_BF16_LEAVES)} {worst_bf16:.3g}" \
+        if bf16_cell else ""
+    print(f"[tp] ({tag}) mesh {shape} of gloo ranks on one card, "
+          f"{TP_STEPS} steps: params / momentum / deltas within "
+          f"{worst['params']:.3g} / {worst['m']:.3g} / {worst['delta']:.3g} "
+          f"of each leaf's scale from mesh=None at "
+          f"{'bf16' if bf16_cell else 'f32'} compute (largest: {top}"
+          f"{emb}), metrics within "
+          f"{m_err:.3g}; replicated leaves compared across the model ranks "
+          f"after every step; A1 / A2 "
+          f"{[r['launches']['dc_norms'] for r in recs]} / "
+          f"{[r['launches']['dc_fused_update'] for r in recs]} a rank "
+          f"({recs[0]['n_buckets']} local buckets); params a rank "
+          f"{[r['n_params_local'] for r in recs]}; peak a rank "
+          f"{[round(p / 2**30, 3) for p in peaks]} GiB vs mesh=None "
+          f"{peak_none / 2**30:.3f} GiB; fit "
+          f"{[round(r['fit_s'], 2) for r in recs]} s [{smi}]")
+    return {"worst": worst, "worst_bf16": worst_bf16, "top": top,
+            "compute": "bfloat16" if bf16_cell else "float32",
+            "metrics_err": m_err, "peaks": peaks,
+            "peak_none": peak_none, "launches": [r["launches"] for r in recs],
+            "n_buckets": recs[0]["n_buckets"],
+            "losses": [h["loss"] for h in recs[0]["hist"]],
+            "fit_s": [r["fit_s"] for r in recs],
+            "n_params_local": [r["n_params_local"] for r in recs]}
+
+
+def phase_tensor_parallel(smi: str) -> dict:
+    """Phase 18: (a) qwen3-0.6b at its published widths, depth 28 -> 4,
+    W = 2, on a (1, 2) mesh of two gloo ranks sharing the card, 3 steps;
+    (c) olmoe-1b-7b, depth 1, W = 2, 32 experts a rank, on the same two
+    ranks; (b) qwen3 at depth 2, computing in f32, on a (2, 2) mesh of
+    four ranks.  Each
+    against ``mesh=None`` from the same weights (params, momentum and
+    deltas within ``TP_TOL`` of each leaf's scale, the metrics within
+    ``TP_TOL`` relative; at bf16 compute the momentum and deltas within
+    ``TP_TOL_BF16_UPDATE`` and ``TP_BF16_LEAVES`` within ``TP_TOL_BF16``;
+    (b) at f32 compute), the replicated leaves bitwise equal across the
+    model ranks after every step, A1 / A2 once per local bucket and step
+    on every rank.  The ranks copy through the host: the walls are no
+    speed figure."""
+    torch.cuda.empty_cache()
+    rec, t0, problems = {}, time.perf_counter(), []
+    pair = _tp_spawn((1, 2), TP_PAIR)
+    for tag, _, _ in TP_PAIR:
+        rec[tag] = _tp_verdict(smi, tag, (1, 2), pair, problems)
+    four = _tp_spawn((2, 2), TP_FOUR)
+    rec["b"] = _tp_verdict(smi, "b", (2, 2), four, problems)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[tp] phase 18 took {rec['phase_s']:.1f} s with the ranks' "
+          f"starts [{smi}]")
+    check(not problems, "[tp] " + "; ".join(problems))
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4838,6 +5157,8 @@ def main() -> int:
     s14["phase_s"] = time.perf_counter() - t0
     print(f"[mesh] the NCCL mesh, two gloo ranks and dry-run phases took "
           f"{s14['phase_s']:.1f} s [{smi}]")
+    torch.cuda.empty_cache()
+    s15 = phase_tensor_parallel(smi)
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -5162,6 +5483,7 @@ def main() -> int:
               "paged_shapes": paged_shapes, "serve_prefix": prefix,
               "dense_family": dense, "hybrid": hybrid, "moe_mla": moe,
               "vlm_encdec": mm, "analysis": s13, "multi_device": s14,
+              "tensor_parallel": s15,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start
     print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "

@@ -17,7 +17,10 @@ records every aten op the call dispatches, with
   ``torch.backends.cuda.matmul.allow_tf32`` is set, else ``"float32"``,
   the CUDA cores), everything else at the f32 CUDA-core rate (PyTorch's
   bf16 elementwise kernels compute in f32);
-* the scope stack: the names of the `scope` blocks it ran inside.
+* the scope stack: the names of the `scope` blocks it ran inside;
+* for a collective (a ``c10d`` op: ``torch.distributed``'s calls reach
+  the dispatcher, under fake tensors too) no HBM bytes but its payload,
+  ``coll_bytes``: the bytes of the tensors it reduces or contributes.
 
 **Kernels.**  The hand-written kernels are launched through raw pointers
 and never reach the dispatcher, so each wrapper carries
@@ -30,7 +33,9 @@ recorded, so nothing is counted twice.
 
 **Scopes.**  ``with repro_torch.instrument.scope("wire"):`` marks the
 reducers' simulated wire, as the reference's ``jax.named_scope("wire")``
-does; the algorithms mark their forward and backward pass ``"model"``.
+does; the algorithms mark their forward and backward pass ``"model"``,
+and the tensor-parallel collectives run in ``"tp"``
+(`repro_torch.parallel.tensor`).
 
 `count_ops` replaces the reference's StableHLO op counts.
 """
@@ -84,6 +89,7 @@ class Op:
     scope: Tuple[str, ...]
     casts: Tuple[Cast, ...] = ()
     reads: Tuple[str, ...] = ()     # labels of watched tensors it read
+    coll_bytes: int = 0             # a collective's payload
 
     @property
     def kind(self) -> str:
@@ -140,16 +146,20 @@ class OpTrace:
         return [(c, o) for o in self.ops for c in o.casts
                 if scope is None or o.in_scope(scope)]
 
+    def coll_bytes(self, scope: str) -> int:
+        """The payload of the collectives inside ``scope``."""
+        return sum(o.coll_bytes for o in self.ops if o.in_scope(scope))
+
     def by_group(self) -> Dict[str, Dict[str, int]]:
         """FLOPs and bytes by group: ``wire`` (ops in the wire scope),
-        ``kernels`` (hand-written kernel nodes outside it), ``matmul``
+        ``tp`` (the tensor-parallel collectives), ``kernels`` (hand-written kernel nodes outside it), ``matmul``
         (aten ops with dot FLOPs), ``elementwise`` (the rest)."""
         out: Dict[str, Dict[str, int]] = defaultdict(
             lambda: {"ops": 0, "flops": 0, "bytes": 0})
         for o in self.ops:
-            g = "wire" if o.in_scope("wire") else "kernels" \
-                if o.kind == "kernel" else "matmul" if o.dot_flops \
-                else "elementwise"
+            g = "wire" if o.in_scope("wire") else "tp" if o.in_scope("tp") \
+                else "kernels" if o.kind == "kernel" else "matmul" \
+                if o.dot_flops else "elementwise"
             out[g]["ops"] += 1
             out[g]["flops"] += o.flops
             out[g]["bytes"] += o.bytes
@@ -171,6 +181,15 @@ class OpTrace:
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
         short = func._overloadpacket.__name__
+        if func.namespace == "c10d":
+            # all_gather's first argument is its output buffers
+            sent = _tensors(args[1] if short == "allgather_" else args[0])
+            self.ops.append(Op(
+                name=str(func), inputs=tuple(_sig(t) for t in ins),
+                outputs=(), dot_flops=0, elem_flops=0, bytes_read=0,
+                bytes_written=0, math="float32", scope=instrument.scopes(),
+                coll_bytes=sum(t.numel() * t.element_size() for t in sent)))
+            return
         dot = 0
         fn = flop_registry.get(func._overloadpacket)
         if fn is not None:

@@ -4,6 +4,7 @@
     compute term    = Σ_op FLOPs_op / peak(math_op)
     memory term     = traced bytes / HBM bandwidth
     collective term = wire bytes / NVLink bandwidth
+    tp term         = tensor-parallel collective bytes / NVLink bandwidth
 
 The trace is `repro_torch.analysis.optrace`'s: FLOPs and bytes of every
 aten op and hand-written kernel one call ran.  The compute term prices
@@ -18,6 +19,11 @@ the step (``step_s`` = the larger of compute and memory), not added to
 it.  ``collective_net_s`` prices the same bytes at the node network's
 rate: on the production meshes the worker axis spans nodes of 8 GPUs,
 so its wire crosses the network, not NVLink (the dry-run reads it).
+``collective_tp_s`` prices the payload of the collectives a
+tensor-parallel step issues over the 'model' axis (the trace's ``tp``
+scope: its activation all-reduces, the replicated weights' gradient
+all-reduces, the norms' sums) at NVLink's rate: the 'model' axis lies
+within a node.  It too is reported beside the step, not added to it.
 
 Constants: NVIDIA H100 SXM data sheet, dense (no sparsity); the node
 network: NVIDIA DGX H100 data sheet, 8 ConnectX-7 400 Gb/s NDR
@@ -80,6 +86,8 @@ class Roofline:
     coll_breakdown: Dict[str, float]
     step_s: float              # max(compute_s, memory_s)
     collective_net_s: float = 0.0   # the wire over the node network
+    tp_bytes: float = 0.0      # the tensor-parallel collectives' payload
+    collective_tp_s: float = 0.0    # those bytes over NVLink
 
     def to_dict(self):
         return asdict(self)
@@ -117,6 +125,7 @@ def analyze(trace, cfg: ModelConfig, shape: InputShape, n_chips: int,
         coll = wire.get("bytes", 0)
     coll = coll / split
     coll_s = coll / NVLINK_BW
+    tp = float(trace.coll_bytes("tp")) / split
     flops = float(trace.flops) / split
     mf = model_flops_per_step(cfg, shape, n_chips)
     return Roofline(
@@ -124,8 +133,9 @@ def analyze(trace, cfg: ModelConfig, shape: InputShape, n_chips: int,
         compute_s=compute_s, memory_s=memory_s, collective_s=coll_s,
         bottleneck="compute" if compute_s >= memory_s else "memory",
         model_flops=mf, useful_flops_ratio=mf / flops if flops else 0.0,
-        coll_breakdown={"wire": float(coll),
+        coll_breakdown={"wire": float(coll), "tp": tp,
                         "dot_flops": float(trace.dot_flops) / split,
                         "elementwise_flops": float(trace.elem_flops)
                         / split},
-        step_s=max(compute_s, memory_s), collective_net_s=coll / NET_BW)
+        step_s=max(compute_s, memory_s), collective_net_s=coll / NET_BW,
+        tp_bytes=tp, collective_tp_s=tp / NVLINK_BW)

@@ -109,7 +109,10 @@ class Compensator(Protocol):
     lambda0: float
 
     def __call__(self, grads: Tree, distance: Tree, *,
-                 axis0_is_worker: bool = False) -> Tuple[Tree, torch.Tensor]:
+                 axis0_is_worker: bool = False,
+                 sum_sq=None) -> Tuple[Tree, torch.Tensor]:
+        """``sum_sq`` adds up per-leaf (‖g‖², ‖c‖²) pairs for a global
+        λ (the step's norm helper, summing over a 'model' axis)."""
         ...
 
 

@@ -42,11 +42,14 @@ def _tree_sq_norm(tree: Tree, axis0_is_worker: bool) -> torch.Tensor:
 
 
 def dc_correct(grads: Tree, distance: Tree, lambda0: float, *,
-               mode: str = "global", axis0_is_worker: bool = False
-               ) -> Tuple[Tree, Any]:
+               mode: str = "global", axis0_is_worker: bool = False,
+               sum_sq=None) -> Tuple[Tree, Any]:
     """Returns (corrected grads g̃, λ used): a scalar or (W,) for
     'global', a tree of per-leaf λ for 'per_tensor' ((W, 1, ...) per leaf
-    under ``axis0_is_worker``)."""
+    under ``axis0_is_worker``).  ``sum_sq`` (global mode, worker-stacked)
+    adds up the per-leaf ``(‖g‖², ‖c‖²)`` pairs: under tensor parallelism
+    the step's helper that sums the sharded leaves' partials over the
+    mesh's 'model' axis (`repro_torch.parallel.tensor.sum_parts`)."""
     if mode not in ("global", "per_tensor"):
         raise ValueError(f"lambda_norm={mode!r}: 'global' or 'per_tensor'")
     first = T.leaves(grads)[0]
@@ -81,6 +84,11 @@ def dc_correct(grads: Tree, distance: Tree, lambda0: float, *,
             lams.append(lam)
         return T.unflatten(treedef, out), T.unflatten(treedef, lams)
 
-    lam = lam_of(_tree_sq_norm(grads, axis0_is_worker),
-                 _tree_sq_norm(c, axis0_is_worker))
+    if sum_sq is not None:
+        lam = lam_of(*sum_sq([(worker_sq_sum(g), worker_sq_sum(ci))
+                              for g, ci in zip(T.leaves(grads),
+                                               T.leaves(c))]))
+    else:
+        lam = lam_of(_tree_sq_norm(grads, axis0_is_worker),
+                     _tree_sq_norm(c, axis0_is_worker))
     return T.map(lambda g, ci: apply(g, ci, bcast(lam, g)), grads, c), lam

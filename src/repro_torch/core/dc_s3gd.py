@@ -40,7 +40,12 @@ inline schedule; on a mesh the issue is an asynchronous all-reduce whose
 handle the algorithm holds (never the state: checkpoints save ``comm``)
 until the next step's wait (`drain`).  ``resize_state`` reshards the
 carried state to another worker count (elastic membership,
-`repro_torch.cluster`).
+`repro_torch.cluster`).  Under tensor parallelism (`bind_model_axis`)
+each rank holds its shards of the leaves the partition rules shard over
+the mesh's 'model' axis: the buckets are planned over the local shards,
+sharded and whole leaves apart, and every norm the step takes (Eq. 17's,
+the metrics') sums the sharded partials over the axis
+(`repro_torch.parallel.tensor.sum_parts`).
 
 The first iteration of Algorithm 1 (the plain step before the loop) is
 ``delta_prev = 0``: then D = 0, λ = 0 and the step is plain momentum SGD.
@@ -62,6 +67,7 @@ from repro_torch.core.types import DCS3GDConfig
 from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
 from repro_torch.optim.schedules import linear_warmup_linear_decay
+from repro_torch.parallel.tensor import sum_parts
 
 Tree = object
 
@@ -143,6 +149,9 @@ class DCS3GD:
         # the overlap pipeline's in-flight reduce on a mesh (a
         # `PendingMean` and the landed buffers it fills)
         self._inflight = None
+        # the 'model' axis and the model's config (`bind_model_axis`)
+        self.model_axis = None
+        self._model_cfg = None
 
     def bind_workers(self, workers) -> None:
         """Run the worker axis over ``workers`` (`repro_torch.core.reduce.
@@ -153,6 +162,27 @@ class DCS3GD:
         if hasattr(self.reducer, "workers"):
             self.reducer.workers = workers
 
+    def bind_model_axis(self, axis, model_cfg) -> None:
+        """Hold this rank's shards over ``axis`` (a `repro_torch.parallel.
+        tensor.ModelAxis`) of the leaves the partition rules for
+        ``model_cfg`` shard over 'model'."""
+        self.model_axis = axis
+        self._model_cfg = model_cfg
+
+    def _sharded(self, tree: Tree):
+        """Per leaf of a (W, ...) param-shaped tree, whether this rank
+        holds a shard of it over 'model' (None without the axis)."""
+        if self.model_axis is None:
+            return None
+        from repro_torch.parallel import sharding as shd
+        return shd.sharded_over_model(self._model_cfg, tree,
+                                      model_size=self.model_axis.size)
+
+    def _sum_sq(self, parts, sharded):
+        """Every norm of the step: per-part (W,) squares summed, over the
+        'model' axis for the sharded parts."""
+        return sum_parts(parts, sharded, self.model_axis)
+
     def drain(self) -> None:
         """Wait for the in-flight overlap reduce, filling the landed
         buffers of the state it was issued into (before a checkpoint)."""
@@ -161,14 +191,18 @@ class DCS3GD:
             PL.wait(self._inflight)
             self._inflight = None
 
-    def _plan(self, worker_params: Tree):
+    def _plan(self, worker_params: Tree, whole: bool = False):
         """The cached `BucketPlan` for this model, from the per-worker
-        shapes of a (W, ...) state tree."""
+        shapes of a (W, ...) state tree: over this rank's shards under a
+        model axis, or, with ``whole``, the one-process plan of a whole
+        tree (what a checkpoint holds)."""
         from repro_torch.parallel import buckets as B
         return B.cached_plan(self._plan_cache, worker_params, self.buckets,
                              block=self.plan_block, strip_leading_axis=True,
                              wire_dtype=getattr(self.reducer, "comm_dtype",
-                                                None))
+                                                None),
+                             sharded=None if whole
+                             else self._sharded(worker_params))
 
     def init(self, params: Tree) -> TrainState:
         sdt = _STATE_DTYPES[self.cfg.state_dtype]
@@ -311,7 +345,10 @@ class DCS3GD:
             D = plan.unpack(D)
 
         # --- g̃_i = g_i + λ_i g_i⊙g_i⊙D_i  (Eq. 10 + 17)
-        g_t, lam = self.compensator(grads, D, axis0_is_worker=True)
+        flags = self._sharded(state.params)
+        g_t, lam = self.compensator(
+            grads, D, axis0_is_worker=True,
+            sum_sq=lambda parts: self._sum_sq(parts, flags))
 
         # --- Δw_i = U(g̃_i, η, μ)  (Eq. 11); the decay mask judges the
         # per-worker rank
@@ -331,21 +368,26 @@ class DCS3GD:
             lam_rows = torch.stack([v.reshape(v.shape[0], -1)[:, 0]
                                     for v in T.leaves(lam)]).mean(0)
         metrics = self._metrics(loss, lam_rows, D, delta, lr, wd,
-                                pol_metrics)
+                                pol_metrics, flags)
         return TrainState(new_params, _cast_slots(opt, sdt),
                           self._comm(delta, sdt, rstate, pstate, plan=plan,
                                      prev_comm=state.comm,
                                      params=new_params),
                           state.step + 1), metrics
 
-    def _metrics(self, loss, lam_rows, D, delta, lr, wd, pol_metrics
-                 ) -> Metrics:
+    def _metrics(self, loss, lam_rows, D, delta, lr, wd, pol_metrics,
+                 sharded=None) -> Metrics:
         """The step's metrics, global means over all W workers (one small
-        all-reduce on a mesh, identical on every rank)."""
+        all-reduce on a mesh, identical on every rank).  ``sharded``: per
+        leaf (bucket) of ``D`` / ``delta``, whether it is a shard over
+        'model'."""
+        dn, deltan = self._sum_sq(
+            [(worker_sq_sum(d), worker_sq_sum(x))
+             for d, x in zip(T.leaves(D), T.leaves(delta))], sharded)
         m = self.workers.means({
             "loss": loss, "lambda": lam_rows,
-            "distance_norm": _worker_norms(D),
-            "delta_norm": _worker_norms(delta)})
+            "distance_norm": torch.sqrt(dn),
+            "delta_norm": torch.sqrt(deltan)})
         return {"loss": m["loss"], "lr": lr, "wd": wd,
                 "lambda": m["lambda"], "distance_norm": m["distance_norm"],
                 "delta_norm": m["delta_norm"], **pol_metrics}
@@ -408,9 +450,11 @@ class DCS3GD:
                 axes, self._plan(state.params) if self.buckets else None)
         if self.buckets and "delta_prev" in state.comm:
             # (W, bucket) buffers: worker axes on the leading dim, the
-            # contiguous flat dim never split mid-leaf
-            overrides["delta_prev"] = self._plan(state.params).specs(
-                axes.worker_spec)
+            # contiguous flat dim never split mid-leaf (one spec per
+            # bucket of the state's own list: a rank's plan over its
+            # shards, or the whole plan of a gathered state)
+            overrides["delta_prev"] = [(axes.worker_spec, None)
+                                       for _ in state.comm["delta_prev"]]
         if "pipeline" in state.comm:
             from repro_torch.parallel import pipeline as PL
             overrides["pipeline"] = PL.specs(
@@ -505,13 +549,14 @@ class DCS3GD:
             # one launch per bucket (all W workers each); D is already
             # bucketed and the produced delta stays bucketed for the wire
             g_b = plan.pack(grads)
-            gsq, csq = kops.dc_norms_buckets(g_b, D)
+            gsq, csq = kops.dc_norms_buckets(g_b, D, sharded=plan.sharded,
+                                             axis=self.model_axis)
             lam = kops.dc_lambda(gsq, csq, lambda0)
             w_nb, m_nb, delta_b = kops.dc_fused_update_buckets(
                 g_b, D, plan.pack(state.opt["m"]), plan.pack(state.params),
                 lam=lam, mu=mu, eta=lr, wd=wd, decay=plan.bucket_decay)
             metrics = self._metrics(loss, lam, D, delta_b, lr, wd,
-                                    pol_metrics)
+                                    pol_metrics, plan.sharded)
             opt = {"m": T.map(lambda x: x.to(sdt), plan.unpack(m_nb))}
             new_params = plan.unpack(w_nb)
             return TrainState(new_params, opt,
@@ -521,12 +566,15 @@ class DCS3GD:
                                          params=new_params),
                               state.step + 1), metrics
 
-        gsq, csq = kops.dc_norms_tree(grads, D)
+        flags = self._sharded(state.params)
+        gsq, csq = kops.dc_norms_tree(grads, D, sharded=flags,
+                                      axis=self.model_axis)
         lam = kops.dc_lambda(gsq, csq, lambda0)
         new_params, m_new, delta = kops.dc_fused_update_tree(
             grads, D, state.opt["m"], state.params, lam=lam, mu=mu, eta=lr,
             wd=wd)
-        metrics = self._metrics(loss, lam, D, delta, lr, wd, pol_metrics)
+        metrics = self._metrics(loss, lam, D, delta, lr, wd, pol_metrics,
+                                flags)
         return TrainState(new_params, {"m": T.map(lambda x: x.to(sdt), m_new)},
                           self._comm(delta, sdt, rstate, pstate),
                           state.step + 1), metrics
@@ -597,8 +645,3 @@ def _vgrads(loss_fn, params: Tree, batch: Tree, microbatches: int = 1):
             G[i] /= float(microbatches)
         losses.append(l_acc / float(microbatches))
     return T.unflatten(treedef, grads), torch.stack(losses)
-
-
-def _worker_norms(tree: Tree) -> torch.Tensor:
-    """(W,): each worker's Euclidean norm of a tree."""
-    return torch.sqrt(sum(worker_sq_sum(x) for x in T.leaves(tree)))

@@ -11,6 +11,9 @@ over the generic `TrainState`, with no worker axis on params and opt.
 ``comm["reducer"]`` (per-worker residuals, worker axis first).  On a
 mesh (`bind_workers`) every rank holds the shared params and W / R rows
 of the batch; the gradient mean runs over the worker process group.
+Under tensor parallelism (`bind_model_axis`) the params are the rank's
+shards over the mesh's 'model' axis: the step takes no norm, so the
+shards go through the same gradient mean as whole leaves.
 """
 from __future__ import annotations
 
@@ -78,6 +81,12 @@ class SSGD:
         self.workers = workers
         if hasattr(self.reducer, "workers"):
             self.reducer.workers = workers
+
+    def bind_model_axis(self, axis, model_cfg) -> None:
+        """Hold this rank's shards over ``axis``: the step takes no norm,
+        and the model's own collectives carry the axis, so nothing
+        changes here."""
+        del axis, model_cfg
 
     def _plan(self, params: Tree):
         from repro_torch.parallel import buckets as B

@@ -11,7 +11,11 @@ algorithm, in two shapes of the same tail:
   launch per `repro_torch.parallel.buckets.BucketPlan` bucket.
 
 Every launch covers all W workers.  Norms are added up in leaf (bucket)
-order, as the reference does.
+order, as the reference does.  Under tensor parallelism each rank runs
+A1 and A2 on its local leaves or buckets; the norms' partials over the
+leaves (buckets) it holds in shards are summed over the mesh's 'model'
+axis before λ (``sharded`` / ``axis``, through
+`repro_torch.parallel.tensor.sum_parts`).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.kernels import dc_update as K
+from repro_torch.parallel.tensor import sum_parts
 
 Tree = Any
 
@@ -30,14 +35,13 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.float().reshape(x.shape[0], -1)
 
 
-def dc_norms_tree(grads: Tree, distance: Tree
+def dc_norms_tree(grads: Tree, distance: Tree, *, sharded=None, axis=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eq. 17 norms over a worker-stacked tree: (‖g‖², ‖g²D‖²), each (W,)."""
-    gsq = csq = 0.0
-    for g, d in zip(T.leaves(grads), T.leaves(distance)):
-        a, b = K.dc_norms(_rows(g), _rows(d))
-        gsq, csq = gsq + a, csq + b
-    return gsq, csq
+    """Eq. 17 norms over a worker-stacked tree: (‖g‖², ‖g²D‖²), each (W,);
+    ``sharded`` (per leaf) and ``axis`` sum them over the 'model' axis."""
+    parts = [K.dc_norms(_rows(g), _rows(d))
+             for g, d in zip(T.leaves(grads), T.leaves(distance))]
+    return sum_parts(parts, sharded, axis)
 
 
 def dc_fused_update_tree(grads: Tree, distance: Tree, momentum: Tree,
@@ -62,15 +66,15 @@ def dc_fused_update_tree(grads: Tree, distance: Tree, momentum: Tree,
 
 
 def dc_norms_buckets(g_buckets: Sequence[torch.Tensor],
-                     d_buckets: Sequence[torch.Tensor]
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     d_buckets: Sequence[torch.Tensor], *, sharded=None,
+                     axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eq. 17 norms over (W, bucket) buffers: one launch per bucket.
-    Bucket padding is zeros and adds nothing to either sum."""
-    gsq = csq = 0.0
-    for g, d in zip(g_buckets, d_buckets):
-        a, b = K.dc_norms(g.float(), d.float())
-        gsq, csq = gsq + a, csq + b
-    return gsq, csq
+    Bucket padding is zeros and adds nothing to either sum.  ``sharded``
+    (the plan's `BucketPlan.sharded`) and ``axis`` sum the partials over
+    the 'model' axis."""
+    parts = [K.dc_norms(g.float(), d.float())
+             for g, d in zip(g_buckets, d_buckets)]
+    return sum_parts(parts, sharded, axis)
 
 
 def dc_fused_update_buckets(g_buckets, d_buckets, m_buckets, w_buckets, *,

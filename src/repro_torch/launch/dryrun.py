@@ -25,7 +25,15 @@ the same questions another way:
   the collective term counts only the worker-axis wire (the reducer's
   payload of all W workers), at NVLink's and at the node network's rate
   (``roofline.note``).  ``lower_s`` is the seconds spent building the
-  abstract inputs and their specs, ``compile_s`` the traced step's.
+  abstract inputs and their specs, ``compile_s`` the traced step's;
+* **tensor parallelism**: on a small ('data', 'model') mesh named
+  ``DxM`` (``--mesh 1x2``) with M > 1 a training step is instead one
+  rank's tensor-parallel step, run through a bound `Engine` on its local
+  shards of fake tensors: the collectives it issues over 'model' (the
+  ``tp`` scope) are recorded, and the roofline prices their payload at
+  NVLink's rate (``tp_bytes``, ``collective_tp_s``) beside the
+  worker-axis wire; nothing is split, the trace is one device's.  The
+  production meshes keep the whole-mesh trace.
 
 This is the one entry point that places nothing on any device.
 
@@ -39,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 import traceback
@@ -53,7 +62,8 @@ from repro_torch.core import registry
 from repro_torch.core.types import DCS3GDConfig, INPUT_SHAPES
 from repro_torch.launch import specs as S
 from repro_torch.launch.engine import Engine
-from repro_torch.launch.mesh import (axis_sizes, make_production_mesh,
+from repro_torch.launch.mesh import (axis_sizes, make_debug_mesh,
+                                     make_production_mesh, model_size,
                                      n_workers)
 from repro_torch.models.transformer import Model
 from repro_torch.parallel import sharding as shd
@@ -71,7 +81,11 @@ ROOFLINE_NOTE = ("optrace of the step under FakeTensorMode on the plain "
                  "(the reducer's payload of all W workers, per chip) is "
                  "counted: collective_s at NVLink's rate, collective_net_s "
                  "at the node network's (DGX H100, 50 GB/s a GPU), which "
-                 "the worker axis crosses on both production meshes")
+                 "the worker axis crosses on both production meshes; on a "
+                 "DxM debug mesh with M > 1 the train step is one rank's "
+                 "tensor-parallel step, unsplit, and tp_bytes / "
+                 "collective_tp_s price its collectives over 'model' at "
+                 "NVLink's rate")
 
 
 def start_fake_world(world_size: int) -> None:
@@ -95,10 +109,18 @@ def _replicated(tree):
         if isinstance(x, torch.Tensor) else (), tree)
 
 
-def build_train(cfg, shape, mesh, dc_cfg, algo: str):
+def debug_shape(mesh_kind: str):
+    """(data, model) of a ``DxM`` debug mesh name, else None."""
+    m = re.fullmatch(r"(\d+)x(\d+)", mesh_kind)
+    return None if m is None else (int(m.group(1)), int(m.group(2)))
+
+
+def build_train(cfg, shape, mesh, dc_cfg, algo: str, tp: bool = False):
     """(step, inputs, their specs); ``step()`` runs the traced step and
     returns (trace, outputs, their specs).  So do `build_prefill` and
-    `build_decode`."""
+    `build_decode`.  With ``tp`` (a debug mesh whose 'model' axis is above
+    1) the traced step is this rank's tensor-parallel one, on its shards,
+    and its outputs are one device's (their specs replicated)."""
     model = Model(cfg, kernels=False)
     W = n_workers(mesh)
     alg = registry.make(algo, dc_cfg, n_workers=W,
@@ -106,20 +128,30 @@ def build_train(cfg, shape, mesh, dc_cfg, algo: str):
                                                "mean_allreduce"),
                         staleness=os.environ.get("DRYRUN_STALENESS",
                                                  "fixed"))
-    engine = Engine(model, alg, mesh=mesh, specs_only=True)
+    engine = Engine(model, alg, mesh=mesh, specs_only=not tp)
     state = S.abstract_train_state(model, W, dc_cfg, alg)
     batch = S.train_batch_specs(cfg, shape, W)
     st_sp, b_sp = engine.train_shardings(state, batch)
+    # the rank's rows and shards (a bound engine) or every row (the
+    # whole mesh's step, split evenly afterwards)
+    run_state, run_batch, rows = state, batch, W
+    if tp:
+        with S.fake_mode():
+            run_state = engine.init_state(S.abstract_params(model))
+            run_batch = engine.local_batch(batch)
+        rows = W // engine.workers.size
 
     def step():
-        tr, new_state, metrics = engine.trace_train_step(state, batch)
+        tr, new_state, metrics = engine.trace_train_step(run_state,
+                                                         run_batch)
         wire = tr.meta.get("wire")
-        if wire:   # the payload of all W workers, which `split` spreads
-            wire["bytes"] *= W
+        if wire:   # the payload of the traced rows
+            wire["bytes"] *= rows
         tensors = {k: v for k, v in metrics.items()
                    if isinstance(v, torch.Tensor)}
         outs = (new_state, tensors)
-        return tr, outs, (st_sp, _replicated(tensors))
+        return tr, outs, (_replicated(new_state) if tp else st_sp,
+                          _replicated(tensors))
 
     return step, (state, batch), (st_sp, b_sp)
 
@@ -190,12 +222,21 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
         _write(out_dir, rec, algo)
         return rec
 
-    cfg = S.variant_for_shape(S.dryrun_model_config(cfg0), shape)
-    multi = mesh_kind == "multipod"
-    start_fake_world(512 if multi else 256)
-    mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+    debug = debug_shape(mesh_kind)
+    cfg = S.variant_for_shape(S.dryrun_model_config(
+        cfg0, **({"model_axis": debug[1]} if debug else {})), shape)
+    if debug:
+        start_fake_world(debug[0] * debug[1])
+        mesh = make_debug_mesh(*debug, device_type="cpu")
+    else:
+        multi = mesh_kind == "multipod"
+        start_fake_world(512 if multi else 256)
+        mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
     sizes = axis_sizes(mesh)
     n_chips = mesh.size()
+    # a tensor-parallel train step is traced on one rank: nothing to split
+    tp = bool(debug) and shape.kind == "train" and model_size(mesh) > 1
+    split = 1 if tp else n_chips
     dc_cfg = DCS3GDConfig(total_steps=10_000, warmup_steps=1_500,
                           microbatches=int(
                               os.environ.get("DRYRUN_MICROBATCHES", "1")),
@@ -206,7 +247,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
 
     t0 = time.time()
     if shape.kind == "train":
-        step, args, in_sp = build_train(cfg, shape, mesh, dc_cfg, algo)
+        step, args, in_sp = build_train(cfg, shape, mesh, dc_cfg, algo, tp)
     elif shape.kind == "prefill":
         step, args, in_sp = build_prefill(cfg, shape, mesh)
     else:
@@ -218,7 +259,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
         tr, outs, out_sp = step()
     out_bytes = shd.shard_bytes(tuple(outs), tuple(out_sp), sizes)
     t_compile = time.time() - t0 - t_lower
-    roof = rl.analyze(tr, cfg, shape, n_chips, split=n_chips)
+    roof = rl.analyze(tr, cfg, shape, n_chips, split=split)
 
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "algo": algo,
@@ -240,7 +281,8 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
         print(f"  roofline: compute={roof.compute_s*1e3:.2f}ms "
               f"memory={roof.memory_s*1e3:.2f}ms "
               f"collective={roof.collective_s*1e3:.2f}ms NVLink / "
-              f"{roof.collective_net_s*1e3:.2f}ms network "
+              f"{roof.collective_net_s*1e3:.2f}ms network, "
+              f"tp={roof.collective_tp_s*1e3:.2f}ms "
               f"-> {roof.bottleneck}-bound; useful-flops "
               f"{roof.useful_flops_ratio:.2f}")
     _write(out_dir, rec, algo)
@@ -255,7 +297,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), default=None)
     ap.add_argument("--shape", choices=sorted(INPUT_SHAPES), default=None)
-    ap.add_argument("--mesh", choices=("pod", "multipod"), default="pod")
+    ap.add_argument("--mesh", default="pod",
+                    help="pod, multipod, or DxM: a ('data', 'model') debug "
+                    "mesh (e.g. 1x2; a train step over 'model' > 1 is one "
+                    "rank's tensor-parallel step)")
     ap.add_argument("--algo", choices=registry.names(), default="dc_s3gd")
     ap.add_argument("--all", action="store_true",
                     help="run every (arch x shape) on the given mesh")
@@ -263,6 +308,8 @@ def main(argv=None):
                     help="each arch's 2-layer smoke config")
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
     args = ap.parse_args(argv)
+    if args.mesh not in ("pod", "multipod") and not debug_shape(args.mesh):
+        ap.error(f"--mesh {args.mesh!r}: pod, multipod or DxM")
 
     if args.all:
         combos = [(a, s) for a in sorted(ARCHS) for s in INPUT_SHAPES]

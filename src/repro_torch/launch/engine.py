@@ -9,12 +9,19 @@ algorithm's own ``state_specs`` / ``batch_specs`` hooks
 (`serve_shardings`); an executing Engine binds the algorithm to the
 mesh's worker process group, and each rank holds the W / R worker rows
 of its coordinate on the worker axes, pod-major (`shard`, `local_batch`,
-`gather_state`).  What the port cannot yet run across ranks is refused
-here, at construction, never run silently in one process: a 'model'
-axis above 1 (tensor-parallel execution; ``specs_only=True`` keeps such
-a mesh's specs for the dry-run), and, on more than one rank, the
-weight-mixing and compressed reducers, a stateful staleness policy, an
-algorithm without the worker seam (dc_asgd) and elastic resize.
+`gather_state`).  A 'model' axis above 1 runs tensor-parallel: each
+rank holds its shards of the leaves the partition rules shard over
+'model' (`parallel.sharding.model_shard`), the model computes
+Megatron-style over the axis (`models.transformer.Model.with_model_axis`)
+and the algorithm sums its norms over it (``bind_model_axis``);
+`gather_state`, `save` and `restore` cross both axes, so a checkpoint is
+the one-process state.  What the port cannot yet run across ranks is
+refused here, at construction, never run silently in one process: on
+more than one rank the weight-mixing and compressed reducers, a stateful
+staleness policy, an algorithm without the worker seam (dc_asgd) and
+elastic resize; over 'model' also the other families, serving, the
+overlap pipeline and the optimizers and λ modes that take per-leaf
+norms (``specs_only=True`` keeps any mesh's specs for the dry-run).
 
 PyTorch runs eagerly, so there is nothing to jit: ``fit`` calls the
 algorithm's ``step`` directly, and where the reference lowers a step for
@@ -38,6 +45,7 @@ from repro_torch.checkpoint import (checkpoint_meta, restore_pytree,
 from repro_torch.core import registry
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.tensor import TP_ITEM
 from repro_torch.serve.oneshot import OneShotGenerator
 
 Tree = Any
@@ -85,6 +93,8 @@ class Engine:
         self.alg = alg
         self.mesh = mesh
         self.workers = None
+        # the tensor-parallel context of a mesh whose 'model' axis is > 1
+        self.model_axis = None
         self._oneshot: Optional[OneShotGenerator] = None
         # algorithm rebuilds by the last `fit` loop (elastic transitions)
         self._fit_rejits = 0
@@ -100,14 +110,16 @@ class Engine:
         """Refuse what cannot run across this mesh's ranks, then bind the
         algorithm to its worker process group."""
         from repro_torch.launch import mesh as M
-        model_size = M.axis_sizes(mesh).get("model", 1)
+        model_size = M.model_size(mesh)
         if model_size > 1:
-            raise ValueError(
-                f"a mesh with a 'model' axis of {model_size} is refused for "
-                f"execution: tensor-parallel execution over 'model' is not "
-                f"ported ({_MULTI_DEVICE_ITEM}); its specs serve the "
-                f"dry-run through Engine(..., specs_only=True)")
+            self._refuse_over_model(model_size)
         self.workers = M.make_workers(mesh)
+        if model_size > 1:
+            self.model_axis = M.model_axis(mesh)
+            if hasattr(self.model, "with_model_axis"):
+                self.model = self.model.with_model_axis(self.model_axis)
+            self.alg.bind_model_axis(self.model_axis,
+                                     getattr(self.model, "cfg", None))
         alg = self.alg
         if alg is None or self.workers.size == 1:
             if alg is not None and hasattr(alg, "bind_workers"):
@@ -131,6 +143,50 @@ class Engine:
                 f"{self.workers.size} ranks: not ported across ranks "
                 f"({_MULTI_DEVICE_ITEM}); it runs with mesh=None")
         alg.bind_workers(self.workers)
+
+    def _refuse_over_model(self, model_size: int) -> None:
+        """Raise for what does not train over a 'model' axis of
+        ``model_size``: serving, an algorithm without the model-axis seam,
+        the wires and policies that carry state or mix weights, the
+        overlap pipeline, a local optimizer other than momentum (LARS
+        takes per-leaf norms), per-tensor λ, a block kind or leaf the
+        tensor-parallel model lacks, a sharded dim that does not divide
+        the axis."""
+        alg, model = self.alg, self.model
+        red = getattr(alg, "reducer", None)
+        why = None
+        if alg is None:
+            why = "serving"
+        elif not hasattr(alg, "bind_model_axis"):
+            why = f"{alg.name} (no model-axis seam)"
+        elif getattr(red, "reduces_weights", False) \
+                or not getattr(red, "stateless", True):
+            why = f"the reducer {red.name!r}"
+        elif not getattr(getattr(alg, "staleness", None), "stateless", True):
+            why = f"the staleness policy {alg.staleness.name!r}"
+        elif getattr(alg, "overlap", False):
+            why = "the overlap pipeline"
+        elif getattr(alg.local_optimizer, "name", None) != "momentum":
+            why = f"the local optimizer {alg.local_optimizer.name!r}"
+        elif getattr(getattr(alg, "compensator", None), "mode",
+                     "global") != "global":
+            why = "per-tensor λ"
+        if why is not None:
+            raise ValueError(f"tensor-parallel execution over a 'model' "
+                             f"axis of {model_size} of {why} is not "
+                             f"ported ({TP_ITEM})")
+        why = model.model_axis_refusal() \
+            if hasattr(model, "model_axis_refusal") else None
+        if why is not None:
+            raise ValueError(why)
+        cfg = getattr(model, "cfg", None)
+        if cfg is not None:
+            from repro_torch.launch import specs as S
+            try:
+                shd.validate_model_axis(cfg, S.abstract_params(model),
+                                        model_size=model_size)
+            except ValueError as e:
+                raise ValueError(f"{cfg.name}: {e} ({TP_ITEM})") from None
 
     def mesh_axes(self):
         if self.mesh is None:
@@ -200,9 +256,14 @@ class Engine:
             getattr(self.model, "cfg", None), batch, self.mesh_axes()))
 
     def init_state(self, params):
-        """The algorithm's state from ``params``; on a mesh every rank
-        first takes worker rank 0's params (a broadcast), so all start
+        """The algorithm's state from ``params`` (the whole tree); over a
+        'model' axis each rank keeps its shards of it, and on a mesh every
+        rank then takes worker rank 0's params (a broadcast), so all start
         from bitwise the same weights."""
+        if self.model_axis is not None:
+            params = shd.model_shard(getattr(self.model, "cfg", None), params,
+                                     model_size=self.model_axis.size,
+                                     rank=self.model_axis.rank)
         if self.workers is not None and self.workers.size > 1:
             import torch.distributed as dist
             for x in T.leaves(params):
@@ -215,11 +276,16 @@ class Engine:
         state itself without a bound mesh).  Over gloo the leaves travel
         through host copies (gloo gathers CPU tensors only) and come back
         on the CPU."""
-        if self.workers is None or self.workers.size == 1:
+        if self.workers is None or (self.workers.size == 1
+                                    and self.model_axis is None):
             return state
         import torch.distributed as dist
         if hasattr(self.alg, "drain"):
             self.alg.drain()
+        if self.model_axis is not None:
+            state = self._whole_over_model(state)
+            if self.workers.size == 1:
+                return state
         specs, _ = self.train_shardings(state, {})
         flat = dict(shd.flat_specs(specs, state))
         group = self.workers.group
@@ -240,6 +306,78 @@ class Engine:
             dist.all_gather(parts, src.contiguous(), group=group)
             return torch.cat(parts, dim=d)
         return shd.map_with_path(gather, state)
+
+    # -- the 'model' axis of a state ------------------------------------------
+
+    def _model_trees(self, state, fn):
+        """``state`` with ``fn(tree)`` applied to each of its param-shaped
+        trees: params, each optimizer slot, each comm entry (the callers
+        unpack a bucketed ``delta_prev`` into its tree first)."""
+        return state._replace(
+            params=fn(state.params),
+            opt={k: fn(v) for k, v in state.opt.items()},
+            comm={k: fn(v) for k, v in state.comm.items()})
+
+    def _model_dims(self, tree):
+        """{path: the dim the rules shard over 'model', or None}."""
+        specs = shd.param_specs(getattr(self.model, "cfg", None), tree,
+                                model_size=self.model_axis.size)
+        return {p: shd.model_dim(s) for p, s in shd.flat_specs(specs, tree)}
+
+    def _bucketed(self, state) -> bool:
+        return isinstance(state.comm.get("delta_prev"), list)
+
+    def _whole_over_model(self, state):
+        """This rank's rows of the whole state: every leaf sharded over
+        'model' all-gathered over the axis along its sharded dim, the
+        carried delta buckets repacked by the whole tree's plan (over gloo
+        through host copies, back on the CPU)."""
+        import torch.distributed as dist
+        axis = self.model_axis
+        host = dist.get_backend(axis.group) == "gloo"
+        bucketed = self._bucketed(state)
+        if bucketed:
+            state = state._replace(comm={**state.comm, "delta_prev":
+                                         self.alg._plan(state.params).unpack(
+                                             state.comm["delta_prev"])})
+
+        def whole(tree):
+            dims = self._model_dims(tree)
+
+            def gather(path, x):
+                src = x.cpu() if host else x
+                d = dims[path]
+                if d is None:
+                    return src
+                parts = [torch.empty_like(src) for _ in range(axis.size)]
+                dist.all_gather(parts, src.contiguous(), group=axis.group)
+                return torch.cat(parts, dim=d)
+            return shd.map_with_path(gather, tree)
+        out = self._model_trees(state, whole)
+        if bucketed:
+            plan = self.alg._plan(out.params, whole=True)
+            out = out._replace(comm={**out.comm, "delta_prev": plan.pack(
+                out.comm["delta_prev"])})
+        return out
+
+    def _shard_whole(self, full):
+        """This rank's shards, on both axes, of a whole state (the
+        inverse of `gather_state`)."""
+        alg = self.alg
+        bucketed = self._bucketed(full)
+        if bucketed:
+            full = full._replace(comm={**full.comm, "delta_prev": alg._plan(
+                full.params, whole=True).unpack(full.comm["delta_prev"])})
+        wa = self.mesh_axes().worker_spec \
+            if getattr(alg, "worker_stacked", False) else None
+        out = self._model_trees(full, lambda tree: self.shard(
+            tree, shd.param_specs(getattr(self.model, "cfg", None), tree,
+                                  model_size=self.model_axis.size,
+                                  worker_axes=wa)))
+        if bucketed:
+            out = out._replace(comm={**out.comm, "delta_prev": alg._plan(
+                out.params).pack(out.comm["delta_prev"])})
+        return out
 
     # -- the analysis seam (repro_torch.analysis) ----------------------------
 
@@ -447,28 +585,37 @@ class Engine:
         rank 0 writes it."""
         if hasattr(self.alg, "drain"):
             self.alg.drain()
-        if self.workers is None or self.workers.size == 1:
+        if self.workers is None or (self.workers.size == 1
+                                    and self.model_axis is None):
             return save_pytree(path, state, step=step,
                                extra_meta=self.ckpt_meta())
         import torch.distributed as dist
         full = self.gather_state(state)
         out = path
-        if self.workers.rank == 0:
+        first = self.model_axis is None or self.model_axis.rank == 0
+        if self.workers.rank == 0 and first:
             out = save_pytree(path, full, step=step,
                               extra_meta=self.ckpt_meta())
-        dist.barrier(group=self.workers.group)
+        if self.model_axis is None:
+            dist.barrier(group=self.workers.group)
+        else:
+            dist.barrier()
         return out
 
     def restore(self, path, state):
         """``path``'s state in the structure (and on the devices) of the
         template ``state``; on a mesh, this rank's shard of it."""
-        if self.workers is None or self.workers.size == 1:
+        if self.workers is None or (self.workers.size == 1
+                                    and self.model_axis is None):
             return restore_pytree(path, state)
         full = restore_pytree(path, self.gather_state(state))
-        specs, _ = self.train_shardings(full, {})
+        if self.model_axis is not None:
+            local = self._shard_whole(full)
+        else:
+            specs, _ = self.train_shardings(full, {})
+            local = self.shard(full, specs)
         return T.map(lambda x, t: x.to(t.device)
-                     if isinstance(x, torch.Tensor) else x,
-                     self.shard(full, specs), state)
+                     if isinstance(x, torch.Tensor) else x, local, state)
 
     def generate(self, params, prompts: torch.Tensor, *, gen: int,
                  sampler: Optional[str] = None, temperature: float = 0.0,

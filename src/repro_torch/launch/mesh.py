@@ -13,7 +13,11 @@ production meshes exist without their 256 / 512 devices.
 The DC-S3GD worker axis is every non-'model' mesh axis; a rank's worker
 coordinate is its index on those axes, pod-major (`worker_index`), and
 `make_workers` gives the algorithms' worker seam
-(`repro_torch.core.reduce.ProcessWorkers`) over their process group.
+(`repro_torch.core.reduce.ProcessWorkers`) over their process group.  The
+'model' axis is the other one: `model_group` holds the ranks that share
+this rank's worker coordinates, and `model_axis` gives the
+tensor-parallel context (`repro_torch.parallel.tensor.ModelAxis`) over
+it.
 """
 from __future__ import annotations
 
@@ -107,6 +111,29 @@ def worker_group(mesh):
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     return mesh[axes]._flatten().get_group()
+
+
+def model_size(mesh) -> int:
+    """The size of the 'model' axis (1 for a mesh without one)."""
+    return axis_sizes(mesh).get("model", 1)
+
+
+def model_index(mesh) -> int:
+    """This rank's coordinate on the 'model' axis (0 without one)."""
+    return coordinate(mesh).get("model", 0)
+
+
+def model_group(mesh):
+    """The process group of the ranks that share this rank's worker
+    coordinates (its 'data' / 'pod' indices): the 'model' axis."""
+    return mesh.get_group("model")
+
+
+def model_axis(mesh):
+    """The tensor-parallel context over ``mesh``'s 'model' axis."""
+    from repro_torch.parallel.tensor import ModelAxis
+    return ModelAxis(model_group(mesh), rank=model_index(mesh),
+                     size=model_size(mesh))
 
 
 def make_workers(mesh):

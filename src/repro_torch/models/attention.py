@@ -77,11 +77,12 @@ def init_cross_attention(gen: torch.Generator, lead, d: int, n_heads: int,
                           dtype)
 
 
-def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
     """einsum('bsd,dhk->bshk') with jnp promotion: x (..., d) through a
-    per-head weight (d, H, k) to (..., H, k)."""
+    per-head weight (d, H, k) to (..., H, k); ``tp``: ``w`` holds this
+    rank's heads (`layers.matmul`)."""
     d, h, k = w.shape
-    return matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return matmul(x, w.reshape(d, h * k), tp).reshape(*x.shape[:-1], h, k)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -162,7 +163,8 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
                     window: int = 0, qk_norm: bool = False,
                     norm_eps: float = 1e-6, mrope_positions=None,
                     mrope_sections=None, kv_override=None,
-                    return_kv: bool = False, core: str = "plain"):
+                    return_kv: bool = False, core: str = "plain",
+                    tp=None, kv_sharded: bool = True):
     """x: (B, S, d); positions: (S,).  Self-attention, causal unless
     ``causal=False``, over the last ``window`` positions when ``window >
     0``; ``mrope_positions`` (3, S) rotates q and k by M-RoPE in place of
@@ -171,20 +173,36 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
     norm on them.  Returns (B, S, d), and with ``return_kv`` also the
     (normed, roped) k and v (B, S, KV, hd) that a decode cache stores.
     ``core``: ``"plain"`` (`causal_attention`, differentiable) or
-    ``"flash"`` (the flash-attention kernel's wrapper, forward only)."""
+    ``"flash"`` (the flash-attention kernel's wrapper, forward only).
+
+    With ``tp`` (a `repro_torch.parallel.tensor.ModelAxis`; training
+    self-attention only) ``wq`` and ``wo`` hold this rank's heads: q on
+    the local heads, ``wo`` row-parallel, its partials summed over the
+    axis.  ``kv_sharded`` says whether ``wk`` / ``wv`` hold local KV heads
+    too; where they cannot (granite-20b: one KV head) they stay whole,
+    every rank computes the whole k and v, and each takes the KV heads its
+    query heads read.  The replicated q / k norm scales enter the sharded
+    heads through `ModelAxis.copy`, as do x (in each product,
+    `layers.matmul`) and a whole k / v, so each gradient is summed over
+    the axis exactly once."""
     if core not in ("plain", "flash"):
         raise ValueError(f"attention core {core!r}: 'plain' or 'flash'")
+    if tp is not None and (kv_override is not None or return_kv):
+        raise ValueError("attention over 'model' is ported for training "
+                         "self-attention only")
     B, S, _ = x.shape
-    q = project(x, params["wq"])
+    q = project(x, params["wq"], tp)
     if kv_override is None:
-        k = project(x, params["wk"])
-        v = project(x, params["wv"])
+        tk = tp if kv_sharded else None
+        k = project(x, params["wk"], tk)
+        v = project(x, params["wv"], tk)
     else:
         k, v = kv_override
     if qk_norm:
-        q = rmsnorm(params["q_norm"], q, norm_eps)
+        q = rmsnorm(_edge(params["q_norm"], tp), q, norm_eps)
         if kv_override is None:
-            k = rmsnorm(params["k_norm"], k, norm_eps)
+            k = rmsnorm(_edge(params["k_norm"], tp if kv_sharded else None),
+                        k, norm_eps)
     if rope_theta > 0 and kv_override is None:
         if mrope_positions is not None:
             q = apply_mrope(q, mrope_positions, rope_theta, mrope_sections)
@@ -192,6 +210,8 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
         else:
             q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
+    if tp is not None and not kv_sharded:
+        k, v = _local_kv(tp.copy(k), tp.copy(v), q.shape[2], tp)
     H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
     qg = q.reshape(B, S, KV, H // KV, hd)
     if core == "flash":
@@ -199,8 +219,34 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         out = causal_attention(qg, k, v, window, causal)
     wo = params["wo"]
-    y = matmul(out.reshape(B, S, H * hd), wo.reshape(H * hd, wo.shape[-1]))
+    o2, w2 = out.reshape(B, S, H * hd), wo.reshape(H * hd, wo.shape[-1])
+    y = matmul(o2, w2) if tp is None else \
+        tp.row_matmul(o2, w2, torch.promote_types(o2.dtype, w2.dtype))
     return (y, k, v) if return_kv else y
+
+
+def _edge(norm: dict, tp) -> dict:
+    """A replicated norm's parameters as sharded heads read them."""
+    return norm if tp is None else {n: tp.copy(w) for n, w in norm.items()}
+
+
+def _local_kv(k: torch.Tensor, v: torch.Tensor, h_local: int, tp):
+    """The KV heads of whole k / v (B, S, KV, hd) that this rank's
+    ``h_local`` query heads read (global heads ``rank·h_local`` on, each
+    reading KV head ``head // G``, G = H / KV): a block of KV heads when
+    ``h_local`` spans whole groups, the one KV head of the group when it
+    lies inside one."""
+    KV = k.shape[2]
+    G = h_local * tp.size // KV
+    first = tp.rank * h_local
+    if h_local % G == 0:
+        lo, n = first // G, h_local // G
+    elif G % h_local == 0:
+        lo, n = first // G, 1
+    else:
+        raise ValueError(f"{h_local} query heads a rank straddle groups of "
+                         f"{G} over {KV} KV heads")
+    return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
 
 
 # ---------------------------------------------------------------------------

@@ -70,9 +70,17 @@ def promoted(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tuple(x.to(dt) for x in xs)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` (batched over leading dims) with jnp's type promotion."""
+def matmul(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """``x @ w`` (batched over leading dims) with jnp's type promotion.
+    With ``tp`` (a `repro_torch.parallel.tensor.ModelAxis`) ``w`` holds
+    this rank's columns of a column-parallel product: the promoted ``x``
+    enters through `ModelAxis.copy`, so each product's input gradient is
+    summed over the axis at the promoted dtype and cast back once, as the
+    one-process product's is (a bf16 ``x`` would otherwise sum its
+    rounded per-rank shares)."""
     x, w = promoted(x, w)
+    if tp is not None:
+        x = tp.copy(x)
     return x @ w
 
 
@@ -198,13 +206,20 @@ def act_fn(name: str):
             "relu": F.relu}[name]
 
 
-def mlp(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, activation: str,
+        tp=None) -> torch.Tensor:
     """``(act(x @ w_gate) * (x @ w_up)) @ w_down`` when the weights hold
-    ``w_gate``, else ``act(x @ w_up) @ w_down``."""
+    ``w_gate``, else ``act(x @ w_up) @ w_down``.  With ``tp`` (a
+    `repro_torch.parallel.tensor.ModelAxis`) the weights are this rank's
+    shards: ``w_up`` / ``w_gate`` column-parallel (the hidden dim's
+    block), ``w_down`` row-parallel, its partials summed over the axis."""
     act = act_fn(activation)
-    up = matmul(x, params["w_up"])
-    up = act(matmul(x, params["w_gate"])) * up if "w_gate" in params \
+    up = matmul(x, params["w_up"], tp)
+    up = act(matmul(x, params["w_gate"], tp)) * up if "w_gate" in params \
         else act(up)
+    if tp is not None:
+        return tp.row_matmul(up, params["w_down"], torch.promote_types(
+            up.dtype, params["w_down"].dtype))
     return matmul(up, params["w_down"])
 
 

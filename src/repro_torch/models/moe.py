@@ -91,11 +91,18 @@ def queue_positions(idx: torch.Tensor, E: int) -> torch.Tensor:
 
 def dispatch(params: dict, xt: torch.Tensor, gates: torch.Tensor,
              idx: torch.Tensor, cfg, activation: str,
-             capacity_factor: float) -> torch.Tensor:
+             capacity_factor: float, tp=None) -> torch.Tensor:
     """The capacity-bounded expert FFN of routed tokens: xt (T, d), gates
     and idx (T, K) from `route` (or fed in).  A pair whose queue position
     reaches the capacity is dropped: it lands on the sentinel and its gate
-    is zeroed.  Returns (T, d)."""
+    is zeroed.  Returns (T, d).
+
+    With ``tp`` (a `repro_torch.parallel.tensor.ModelAxis`) the expert
+    weights are this rank's E / M experts.  The routing, the capacity and
+    the queue positions are the global ones (every rank routes every
+    token alike); the rank runs only its experts' products, combines its
+    pairs' shares, and the shares are summed over the axis.  The tokens
+    and the gates enter the local experts through `ModelAxis.copy`."""
     T, d = xt.shape
     E, K = cfg.n_experts, cfg.top_k
     cap = capacity(T, cfg, capacity_factor)
@@ -111,8 +118,16 @@ def dispatch(params: dict, xt: torch.Tensor, gates: torch.Tensor,
     # the kept slots are distinct; only the sentinel is written twice
     idx_buf = torch.full((E * cap + 1,), T, dtype=torch.long,
                          device=xt.device).scatter(0, slot, token_of_pair)
+    E_l, lo = E, 0
+    if tp is not None:
+        E_l = params["w_up"].shape[0]
+        lo = tp.shard_start(E_l) * cap
+        xt, gates_flat = tp.copy(xt), tp.copy(gates_flat)
+        # the pairs of other ranks' experts read the zero sentinel row
+        mine = (slot >= lo) & (slot < lo + E_l * cap)
+        slot = torch.where(mine, slot - lo, torch.full_like(slot, E_l * cap))
     xt_pad = torch.cat([xt, xt.new_zeros((1, d))])
-    dispatched = xt_pad[idx_buf[:E * cap]].reshape(E, cap, d)
+    dispatched = xt_pad[idx_buf[lo:lo + E_l * cap]].reshape(E_l, cap, d)
     act = act_fn(activation)
     up = matmul(dispatched, params["w_up"])
     if "w_gate" in params:
@@ -120,22 +135,26 @@ def dispatch(params: dict, xt: torch.Tensor, gates: torch.Tensor,
     else:
         up = act(up)
     expert_out = matmul(up, params["w_down"])
-    flat_out = torch.cat([expert_out.reshape(E * cap, d),
+    flat_out = torch.cat([expert_out.reshape(E_l * cap, d),
                           expert_out.new_zeros((1, d))])
     per_k = flat_out[slot.reshape(T, K)]                    # (T, K, d)
     w = gates_flat.reshape(T, K).to(xt.dtype).to(per_k.dtype)
-    return torch.einsum("tkd,tk->td", per_k, w)
+    out = torch.einsum("tkd,tk->td", per_k, w)
+    return out if tp is None else tp.reduce(out.float()).to(out.dtype)
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg, activation: str,
-            capacity_factor: float = 1.25
+            capacity_factor: float = 1.25, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (output (B, S, d), aux loss f32 scalar).
-    ``capacity_factor <= 0`` is dropless (the decode path)."""
+    ``capacity_factor <= 0`` is dropless (the decode path).  ``tp``: this
+    rank's experts over the 'model' axis (`dispatch`); the router and the
+    aux loss stay whole on every rank."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     probs, gates, idx = route(params, xt, cfg)
-    out = dispatch(params, xt, gates, idx, cfg, activation, capacity_factor)
+    out = dispatch(params, xt, gates, idx, cfg, activation, capacity_factor,
+                   tp)
     return out.reshape(B, S, d), aux_loss(probs, idx, cfg)
 
 

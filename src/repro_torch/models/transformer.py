@@ -39,6 +39,18 @@ chunked prefill takes it always (the layout's ``chunkable`` gate admits
 only that model: routed MoE drops tokens by batch occupancy, so a chunk
 boundary would change the math).
 
+Tensor parallelism: ``Model(cfg).with_model_axis(axis)`` trains on one
+rank's shards of the parameter tree, as the partition
+rules (`repro_torch.parallel.sharding`) lay them over the mesh's 'model'
+axis (``axis``, a `repro_torch.parallel.tensor.ModelAxis`): the
+vocabulary-parallel embedding (`_embed`) and loss (`chunked_xent`),
+attention on the local heads (`attention.attention_train`), the
+column- / row-parallel MLP (`layers.mlp`) and the local experts
+(`moe.dispatch`).  The norms and the router stay whole on every rank.
+The dense and moe families' ``attention`` blocks are ported; the other
+kinds, the vision projection, the MoE oracle and serving are refused
+(`with_model_axis`).
+
 Serving: ``prefill`` runs the prompt and returns the last position's
 logits with the dense cache tree, one entry per stage and block mirroring
 the parameter tree: ``{"k", "v": (R, B, cache_len, KV, hd)}`` for full
@@ -72,6 +84,7 @@ take the plain routes (the kernels have no backward).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -90,6 +103,7 @@ from repro_torch.models.layers import (dense_init, embed_init,
                                        init_rmsnorm, layernorm, matmul, mlp,
                                        rmsnorm, sinusoidal,
                                        sinusoidal_positions)
+from repro_torch.parallel.tensor import TP_ITEM
 
 Tree = Any
 
@@ -159,6 +173,50 @@ class Model:
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.param_dtype = _DTYPES[cfg.param_dtype]
         self.vocab_padded = -(-cfg.vocab_size // 256) * 256
+        # the tensor-parallel context (None: the whole tree in one rank)
+        # and whether the heads / KV heads shard over it
+        self.tp = None
+        self._heads_tp = self._kv_tp = False
+
+    def with_model_axis(self, tp) -> "Model":
+        """This model over ``tp``, the 'model' axis of a mesh: a copy that
+        trains on one rank's shards (``tp.size`` 1: the model itself).
+        Raises, naming ROADMAP queue A item 6.7, for what that path does
+        not run: block kinds other than ``attention``, the vision
+        projection and the all-experts MoE oracle."""
+        from repro_torch.parallel.sharding import _attn_shardable
+        if tp is None or tp.size == 1:
+            return self
+        why = self.model_axis_refusal()
+        if why is not None:
+            raise ValueError(why)
+        out = copy.copy(self)
+        out.tp = tp
+        out._heads_tp = _attn_shardable(self.cfg.eff_n_heads, tp.size)
+        out._kv_tp = _attn_shardable(self.cfg.eff_n_kv_heads, tp.size)
+        return out
+
+    def model_axis_refusal(self) -> Optional[str]:
+        """Why this model cannot train over a 'model' axis (None: it
+        can)."""
+        kinds = {k for st in self.stages for k in st.kinds}
+        unported = [what for what, no in (
+            ("mamba", "mamba" in kinds), ("recurrent", "recurrent" in kinds),
+            ("attention_local", "attention_local" in kinds),
+            ("MLA", "mla" in kinds), ("cross", "cross" in kinds),
+            ("vision_proj", self.cfg.vlm is not None),
+            ("the all-experts MoE oracle (moe_dense)", self.moe_dense))
+            if no]
+        if not unported:
+            return None
+        return (f"{self.cfg.name}: tensor-parallel execution over 'model' "
+                f"of its {', '.join(unported)} leaves is not ported "
+                f"({TP_ITEM})")
+
+    def _serving(self) -> None:
+        if self.tp is not None:
+            raise ValueError(f"tensor-parallel serving over 'model' is "
+                             f"not ported ({TP_ITEM})")
 
     # -------------------------------------------------- init
 
@@ -244,7 +302,7 @@ class Model:
         positions added: at ``positions`` (broadcastable to (B, S)), by
         default 0 .. S - 1."""
         cfg, cd = self.cfg, self.compute_dtype
-        x = params["embed"]["tok"][batch["tokens"]].to(cd)
+        x = _lookup(params["embed"]["tok"], batch["tokens"], self.tp).to(cd)
         if cfg.vlm is not None and "patches" in batch:
             pe = batch["patches"].to(cd) @ params["vision_proj"].to(cd)
             x = torch.cat([pe, x], dim=1)
@@ -292,14 +350,15 @@ class Model:
         ``capacity_factor``, or the oracle under ``moe_dense``), its aux
         loss appended to ``aux``."""
         if "moe" not in p:
-            return mlp(p["mlp"], h, self.cfg.activation)
+            return mlp(p["mlp"], h, self.cfg.activation, self.tp)
         if self.moe_dense:
             h, a = moe_mod.moe_ffn_dense(p["moe"], h, self.cfg.moe,
                                          self.cfg.activation)
         else:
             h, a = moe_mod.moe_ffn(p["moe"], h, self.cfg.moe,
                                    self.cfg.activation,
-                                   capacity_factor=capacity_factor)
+                                   capacity_factor=capacity_factor,
+                                   tp=self.tp)
         if aux is not None:
             aux.append(a)
         return h
@@ -349,7 +408,9 @@ class Model:
                 window=resolved_window(cfg, kind), qk_norm=cfg.qk_norm,
                 norm_eps=cfg.norm_eps, mrope_positions=ctx.get("mrope"),
                 mrope_sections=cfg.vlm.mrope_sections if cfg.vlm else None,
-                return_kv=prefill, core=core)
+                return_kv=prefill, core=core,
+                tp=self.tp if self._heads_tp else None,
+                kv_sharded=self._kv_tp)
             if prefill:
                 h, k, v = h
                 entry = {"k": k, "v": v}
@@ -409,7 +470,8 @@ class Model:
             # the patch positions carry no next-token loss
             pads = labels.new_full(batch["patches"].shape[:2], -1)
             labels = torch.cat([pads, labels], dim=1)
-        ce = chunked_xent(x, params["unembed"], labels, self.loss_chunk)
+        ce = chunked_xent(x, params["unembed"], labels, self.loss_chunk,
+                          self.tp)
         if not aux:
             return ce
         total = torch.zeros((), dtype=torch.float32, device=ce.device)
@@ -423,8 +485,12 @@ class Model:
         patches."""
         x = self._backbone(params, self._embed(params, batch),
                            ctx=self._context(params, batch, "plain"))
-        return self._logits(params, _norm(self.cfg, params["final_norm"],
-                                          x))
+        x = _norm(self.cfg, params["final_norm"], x)
+        if self.tp is None:
+            return self._logits(params, x)
+        # this rank's vocab columns, gathered in rank order
+        part = matmul(x, params["unembed"].to(x.dtype), self.tp).float()
+        return self._mask_pad_logits(self.tp.gather(part, -1))
 
     # -------------------------------------------------- prefill / decode
 
@@ -475,6 +541,7 @@ class Model:
         block's also holds the encoder's xk / xv).  The encoder and every
         attention core take the flash-attention kernel on the kernel
         route."""
+        self._serving()
         entries = [{f"b{j}": [] for j in range(len(st.kinds))}
                    for st in self.stages]
         core = "flash" if self.kernels else "plain"
@@ -508,6 +575,7 @@ class Model:
         ``cache_ops`` (a `repro_torch.models.cache` layout's step ops)
         reroutes the attention cache update + attend: the paged-KV and
         slot-ring seam."""
+        self._serving()
         pos = batch["pos"]
         x = self._embed(params, batch, pos.reshape(-1, 1))
         mrope = batch.get("mrope_positions") if self.cfg.vlm else None
@@ -527,6 +595,7 @@ class Model:
         updated in place).  Full-attention and mla blocks only, the MoE
         FFN through the oracle: the layout's ``chunkable`` gate refuses
         the rest before dispatch."""
+        self._serving()
         kinds = {k for st in self.stages for k in st.kinds}
         if not kinds <= {"attention", "mla"} \
                 or (self.cfg.moe is not None and not self.moe_dense):
@@ -647,23 +716,64 @@ def _stack(entries) -> Dict[str, torch.Tensor]:
             for name in entries[0]}
 
 
+def _lookup(tok: torch.Tensor, ids: torch.Tensor, tp) -> torch.Tensor:
+    """Embedding rows of ``ids``.  With ``tp`` the table is this rank's
+    block of the vocabulary: ids outside it read zeros, and the sum over
+    the axis (exactly one rank holds each id) is the whole lookup."""
+    if tp is None:
+        return tok[ids]
+    lo = tp.shard_start(tok.shape[0])
+    local = ids - lo
+    mine = (local >= 0) & (local < tok.shape[0])
+    rows = tok[torch.where(mine, local, torch.zeros_like(local))]
+    return tp.reduce(torch.where(mine[..., None], rows,
+                                 torch.zeros_like(rows)))
+
+
 def chunked_xent(x: torch.Tensor, unembed: torch.Tensor,
-                 labels: torch.Tensor, chunk: int) -> torch.Tensor:
+                 labels: torch.Tensor, chunk: int, tp=None) -> torch.Tensor:
     """x: (B, S, d) post-final-norm; unembed: (d, V_padded); labels (B, S),
     -1 = masked.  Logits come one sequence chunk at a time, in f32, and
     the logsumexp runs over all padded columns, as the reference's does.
     (The reference also rematerialises each chunk in the backward pass;
-    here a chunk's logits stay alive until the backward pass.)"""
+    here a chunk's logits stay alive until the backward pass.)
+
+    With ``tp`` ``unembed`` holds this rank's block of the padded
+    vocabulary's columns: the logsumexp takes the maximum over the axis
+    and the sum of the shards' exponentials, and the label's logit comes
+    from the rank that holds its column (`_vocab_parallel_terms`)."""
     S = x.shape[1]
     chunk = min(chunk, S)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, chunk):
         xc, lc = x[:, s0:s0 + chunk], labels[:, s0:s0 + chunk]
-        logits = matmul(xc, unembed.to(xc.dtype)).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lc.clamp_min(0).long()[..., None])[..., 0]
+        logits = matmul(xc, unembed.to(xc.dtype), tp).float()
+        if tp is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lc.clamp_min(0).long()[..., None])[
+                ..., 0]
+        else:
+            logz, gold = _vocab_parallel_terms(logits, lc, tp)
         mask = (lc >= 0).float()
         tot = tot + ((logz - gold) * mask).sum()
         cnt = cnt + mask.sum()
     return tot / cnt.clamp_min(1.0)
+
+
+def _vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor, tp):
+    """(logsumexp, the label's logit) over the whole padded vocabulary of
+    this rank's column block ``logits`` (B, c, V / M) f32: the maximum
+    over the axis (held fixed, as the softmax's gradient allows), then one
+    sum over the axis of each shard's exponential sum and of the label's
+    logit, which only its owner contributes."""
+    m = tp.max(logits.amax(dim=-1))
+    lo = tp.shard_start(logits.shape[-1])
+    lab = labels.clamp_min(0).long() - lo
+    mine = (lab >= 0) & (lab < logits.shape[-1])
+    own = logits.gather(-1, torch.where(mine, lab, torch.zeros_like(lab))[
+        ..., None])[..., 0]
+    own = torch.where(mine, own, torch.zeros_like(own))
+    se = torch.exp(logits - m[..., None]).sum(dim=-1)
+    both = tp.reduce(torch.stack([se, own]))
+    return m + torch.log(both[0]), both[1]

@@ -12,7 +12,12 @@ contiguous flat buckets:
   to a multiple of ``block`` (default ``BLOCK = 256·128``, the
   reference's alignment, so slot offsets and padding equal its own);
 * the zero padding is inert: it adds nothing to the Eq. 17 norms and the
-  fused update maps pad zeros to pad zeros.
+  fused update maps pad zeros to pad zeros;
+* under tensor parallelism (``sharded``: per leaf, whether the rank holds
+  a shard of it over the mesh's 'model' axis) the plan is built over the
+  rank's local shards and the sharded flag joins the group key, so that
+  a bucket's norms are known to be partial (summed over the axis) or
+  whole (``bucket_sharded``).
 
 ``pack``/``unpack`` accept leaves with extra *leading* axes (the worker
 axis W): a plan built from per-worker shapes packs a (W, ...) tree into
@@ -49,7 +54,9 @@ class BucketPlan:
     """Static packing layout: leaf slots + per-bucket size/dtype/decay.
 
     ``bucket_sizes`` are padded element counts (multiples of ``block``);
-    ``bucket_decay[b]`` is True when the bucket holds rank>1 leaves."""
+    ``bucket_decay[b]`` is True when the bucket holds rank>1 leaves;
+    ``bucket_sharded[b]`` when it holds shards over 'model' (empty for a
+    plan built without the flags: nothing is sharded)."""
 
     treedef: Any
     slots: Tuple[LeafSlot, ...]
@@ -57,6 +64,12 @@ class BucketPlan:
     bucket_dtypes: Tuple[torch.dtype, ...]
     bucket_decay: Tuple[bool, ...]
     block: int
+    bucket_sharded: Tuple[bool, ...] = ()
+
+    @property
+    def sharded(self) -> Tuple[bool, ...]:
+        """Per bucket, whether it holds shards over 'model'."""
+        return self.bucket_sharded or (False,) * self.n_buckets
 
     @property
     def n_buckets(self) -> int:
@@ -121,7 +134,8 @@ class BucketPlan:
 def cached_plan(cache: dict, tree: Tree, n_buckets: int, *,
                 block: Optional[int] = None,
                 strip_leading_axis: bool = False,
-                wire_dtype: Optional[str] = None) -> BucketPlan:
+                wire_dtype: Optional[str] = None,
+                sharded: Optional[Sequence[bool]] = None) -> BucketPlan:
     """Memoized `plan_buckets`, keyed on the tree's (shape, dtype) layout,
     the bucket count, ``block`` and ``wire_dtype`` (the reducer's
     ``comm_dtype``), as the reference keys it: plans of two alignments
@@ -130,22 +144,27 @@ def cached_plan(cache: dict, tree: Tree, n_buckets: int, *,
     wire."""
     key = (tuple((tuple(x.shape), x.dtype) for x in T.leaves(tree)),
            n_buckets, block, strip_leading_axis,
-           None if wire_dtype is None else str(wire_dtype))
+           None if wire_dtype is None else str(wire_dtype),
+           None if sharded is None else tuple(sharded))
     if key not in cache:
         cache[key] = plan_buckets(tree, n_buckets, block=block,
-                                  strip_leading_axis=strip_leading_axis)
+                                  strip_leading_axis=strip_leading_axis,
+                                  sharded=sharded)
     return cache[key]
 
 
 def plan_buckets(tree: Tree, n_buckets: int, *, block: Optional[int] = None,
-                 strip_leading_axis: bool = False) -> BucketPlan:
+                 strip_leading_axis: bool = False,
+                 sharded: Optional[Sequence[bool]] = None) -> BucketPlan:
     """Build the static packing layout for ``tree`` (only shapes and
     dtypes are read, so meta tensors work).
 
     ``n_buckets`` is a target: leaves group by (dtype, decay class) first
     — a group never shares a bucket — then split so no bucket exceeds
     ``ceil(total / n_buckets)`` elements (an oversized leaf gets its own
-    bucket).  ``strip_leading_axis`` plans from ``shape[1:]``."""
+    bucket).  ``strip_leading_axis`` plans from ``shape[1:]``.
+    ``sharded`` (per leaf) adds the 'model'-sharded flag to the group
+    key."""
     if n_buckets <= 0:
         raise ValueError("use the per-leaf path for buckets=0")
     block = BLOCK if block is None else block
@@ -159,12 +178,15 @@ def plan_buckets(tree: Tree, n_buckets: int, *, block: Optional[int] = None,
 
     # stable grouping: first-seen order of (dtype, decay) keys
     keys = [(x.dtype, len(s) > 1) for x, s in zip(leaves, shapes)]
+    if sharded is not None:
+        keys = [k + (bool(f),) for k, f in zip(keys, sharded)]
     order = list(dict.fromkeys(keys))
 
     slots: List[Optional[LeafSlot]] = [None] * len(leaves)
     sizes: List[int] = []
     dtypes: List[torch.dtype] = []
     decay: List[bool] = []
+    flags: List[bool] = []
     for key in order:
         cur, fill = -1, 0
         for i, k in enumerate(keys):
@@ -174,6 +196,7 @@ def plan_buckets(tree: Tree, n_buckets: int, *, block: Optional[int] = None,
                 sizes.append(0)
                 dtypes.append(key[0])
                 decay.append(key[1])
+                flags.append(bool(key[2]) if sharded is not None else False)
                 cur, fill = len(sizes) - 1, 0
             slots[i] = LeafSlot(bucket=cur, offset=fill, size=sizes_of[i],
                                 shape=shapes[i], dtype=key[0])
@@ -182,4 +205,6 @@ def plan_buckets(tree: Tree, n_buckets: int, *, block: Optional[int] = None,
     padded = [-(-n // block) * block for n in sizes]
     return BucketPlan(treedef=treedef, slots=tuple(slots),
                       bucket_sizes=tuple(padded), bucket_dtypes=tuple(dtypes),
-                      bucket_decay=tuple(decay), block=block)
+                      bucket_decay=tuple(decay), block=block,
+                      bucket_sharded=tuple(flags) if sharded is not None
+                      else ())

@@ -21,7 +21,10 @@ Spec trees mirror their tree's containers; since a spec is itself a
 tuple, read them back along the tree they describe (`flat_specs`), never
 by flattening the spec tree alone.  `placements` turns a spec into
 DTensor placements on a `DeviceMesh`, `local_shape` / `local_slices`
-give one rank's shard.
+give one rank's shard.  `model_dim` / `sharded_over_model` say which
+leaves the tensor-parallel path holds in shards, and `model_shard` cuts
+a whole tree to one model rank's shards, refusing a leaf whose sharded
+dim does not divide the axis by name.
 """
 from __future__ import annotations
 
@@ -376,6 +379,65 @@ def local_slices(shape: Sequence[int], spec: Spec,
             idx = idx * mesh_shape[a] + coord[a]
         out.append(slice(idx * n, (idx + 1) * n))
     return tuple(out)
+
+
+def model_dim(spec: Spec) -> Optional[int]:
+    """The dim a spec shards over 'model', or None (replicated there)."""
+    for d, entry in enumerate(spec):
+        if "model" in _axes_of(entry):
+            return d
+    return None
+
+
+def sharded_over_model(cfg: Optional[ModelConfig], tree: Tree, *,
+                       model_size: int) -> Tuple[bool, ...]:
+    """Per leaf of ``tree`` (flatten order), whether the partition rules
+    shard it over 'model'.  Only names and ranks are read, so a tree of
+    local shards, with or without a leading worker dim, answers as the
+    whole tree does; a model without a `ModelConfig` is replicated."""
+    if cfg is None:
+        return tuple(False for _ in leaves_with_path(tree))
+    specs = param_specs(cfg, tree, model_size=model_size)
+    return tuple(model_dim(s) is not None for _, s in flat_specs(specs,
+                                                                 tree))
+
+
+def validate_model_axis(cfg: Optional[ModelConfig], params: Tree, *,
+                        model_size: int) -> None:
+    """Raise, naming the leaf, where a dim the rules shard over 'model'
+    does not divide the axis (``params``: a whole tree, real or fake)."""
+    if cfg is None:
+        return
+    specs = param_specs(cfg, params, model_size=model_size)
+    for (path, x), (_, spec) in zip(leaves_with_path(params),
+                                    flat_specs(specs, params)):
+        d = model_dim(spec)
+        if d is not None and x.shape[d] % model_size:
+            raise ValueError(
+                f"leaf {'/'.join(map(str, path))} of shape "
+                f"{tuple(x.shape)}: dim {d} ({x.shape[d]}) does not divide "
+                f"over the 'model' axis of {model_size}")
+
+
+def model_shard(cfg: Optional[ModelConfig], params: Tree, *,
+                model_size: int, rank: int) -> Tree:
+    """The shards of a whole parameter tree (no worker dim) that the rank
+    at ``rank`` on the 'model' axis holds under the partition rules.
+    Raises, naming the leaf, where a sharded dim does not divide the
+    axis."""
+    if cfg is None:
+        return params
+    validate_model_axis(cfg, params, model_size=model_size)
+    specs = dict(flat_specs(param_specs(cfg, params, model_size=model_size),
+                            params))
+    sizes = {"model": model_size}
+
+    def take(path, x):
+        spec = tuple(e if "model" in _axes_of(e) else None
+                     for e in specs[path])
+        return x[local_slices(tuple(x.shape), spec, sizes,
+                              {"model": rank})].clone()
+    return map_with_path(take, params)
 
 
 def shard_bytes(tree: Tree, specs: Tree, mesh_shape: Dict[str, int]) -> int:

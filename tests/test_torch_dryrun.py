@@ -256,3 +256,43 @@ def test_fake_trace_counts_what_a_real_trace_counts(kind):
     assert fake.bytes == real.bytes and fake.flops == real.flops
     assert not [o for o in fake.ops if o.name.startswith("prim.device")
                 and o.bytes_read + o.bytes_written]
+
+
+def test_tensor_parallel_collectives_are_the_hand_count(tmp_path):
+    """On a (1, 2) fake mesh the dry-run traces one rank's
+    tensor-parallel step of the reduced qwen3 (bf16, 2 layers, W = 1) at
+    train_4k (b 256, S 4,096) and prices the collectives of its ``tp``
+    scope.  Their payload, counted by hand: forward, the embedding's sum
+    (b·S·d bf16) and each layer's two row-parallel sums (attention's
+    ``wo``, the MLP's ``w_down``: f32); backward, the input of each
+    column-parallel product (a layer's q, k, v, up and gate; the loss's
+    unembedding: bf16), the q / k norm scales (hd bf16 each); per loss
+    chunk of 2,048 positions, the max (b·c f32) and the
+    exponential sums with the label logits (2·b·c f32); the Eq. 17 and
+    metric norms (two (2, W) f32 sums)."""
+    out = tmp_path / "dr"
+    r = _python("import torch; torch.set_num_threads(1)\n"
+                "from pathlib import Path\n"
+                "from repro_torch.launch import dryrun\n"
+                f"dryrun.run_one('qwen3-0.6b', 'train_4k', '1x2', "
+                f"out_dir=Path({str(out)!r}), cut=True)\n", tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rec = json.loads((out / "qwen3-0.6b__train_4k__1x2__dc_s3gd.json")
+                     .read_text())
+    cfg = reduced(get_config("qwen3-0.6b"))
+    shape = INPUT_SHAPES["train_4k"]
+    b, s, d, L = shape.global_batch, shape.seq_len, cfg.d_model, \
+        cfg.n_layers
+    hd, chunk, W = cfg.resolved_head_dim, 2048, 1
+    act16, act32 = b * s * d * 2, b * s * d * 4
+    forward = act16 + L * 2 * act32
+    # each column-parallel product's input: q, k, v, up, gate
+    backward = L * 5 * act16 + act16 + L * 2 * hd * 2
+    loss = (s // chunk) * (b * chunk * 4 + 2 * b * chunk * 4)
+    norms = 2 * (2 * W * 4)
+    ro = rec["roofline"]
+    assert rec["status"] == "ok" and rec["n_chips"] == 2
+    assert ro["tp_bytes"] == forward + backward + loss + norms
+    assert ro["collective_tp_s"] == pytest.approx(ro["tp_bytes"] / 450e9)
+    assert ro["coll_breakdown"]["tp"] == ro["tp_bytes"]
+    assert "tensor-parallel" in ro["note"]

@@ -233,3 +233,28 @@ def test_multi_device_modules_are_covered_and_import_alone(module):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == f"repro_torch.{module}"
+
+
+@pytest.mark.parametrize("module", ["parallel.tensor", "parallel.sharding",
+                                    "parallel.buckets", "launch.engine",
+                                    "launch.dryrun"])
+def test_tensor_parallel_modules_are_covered_and_import_alone(module):
+    """The tensor-parallel slice's new module (the model axis's autograd
+    edges and norm helper) and the modules it changed are among the files
+    checked above and import in a process where jax and repro cannot be
+    imported, starting no process group."""
+    path = ROOT / "src" / "repro_torch" / (module.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            "import torch.distributed as dist\n"
+            f"import repro_torch.{module} as m\n"
+            "assert not dist.is_initialized()\n"
+            "print(m.__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"repro_torch.{module}"

@@ -212,7 +212,10 @@ class _Mesh:
 
 
 REFUSED = {
-    "model_axis": ({}, dict(data=2, model=2), "tensor-parallel"),
+    # a 'model' axis above 1 trains the dense and MoE families since the
+    # tensor-parallel slice; the overlap pipeline over it stays refused
+    "model_axis": ({"overlap": True, "buckets": 2}, dict(data=2, model=2),
+                   "tensor-parallel"),
     "gossip": ({"reducer": "gossip", "buckets": 2}, dict(data=2, model=1),
                "gossip"),
     "hierarchical": ({"reducer": "hierarchical"}, dict(data=2, model=1),

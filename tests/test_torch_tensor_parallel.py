@@ -1,0 +1,373 @@
+"""Tensor parallelism over the mesh's 'model' axis
+(`repro_torch.parallel.tensor`, `Engine(mesh=...)` with ``model > 1``):
+gloo ranks spawned on the CPU (`tests/torch_tp_worker.py`, through
+`tests/torch_mesh_worker.spawn`; one torch thread each, a ``file://``
+store under ``tmp_path``).  JAX runs only in this, the parent, process
+and in one subprocess of its own.
+
+* ``(1, 2)`` and ``(2, 2)`` meshes train the reduced qwen3 (qk norm,
+  GQA), granite (one KV head: k / v whole on every rank), stablelm
+  (layernorm) and olmoe (routed experts, two a rank) at W = 2 through
+  the fused bucketed tail: every leaf of the gathered params, opt and
+  carried deltas within ``TOL_TP`` of its own largest one-process
+  magnitude after 3 steps; worker 0's per-leaf gradients and logits
+  (gathered over the vocabulary) of the first batch within
+  ``TOL_GRAD``; the losses, λ and the ``distance_norm`` /
+  ``delta_norm`` metrics within ``RTOL_METRICS_TP``.  The worst cases
+  measured here: 3.1e-6 (state: qwen3's momentum), 2.7e-6 (gradients:
+  olmoe), 9.2e-7 (metrics).  The partial products, the logsumexp and
+  the norms add their shards in another order than one process does.
+* On (1, 2) also ``stale``, ``ssgd``, the unfused per-leaf ``dc_s3gd``,
+  and the reduced qwen3 at bf16 compute, the published configs' (the
+  embedding's rows enter the first block in bf16): its state within
+  ``TOL_TP_BF16`` (measured 9.9e-4 on `tok` and the first norm: 2 of
+  the 7,680 elements of its first `tok` gradient differ, by one bf16
+  ulp; every other leaf within 1e-5), its metrics within
+  ``RTOL_METRICS_BF16`` (3.1e-5).
+* The replicated leaves (norms, q / k norms, granite's k / v, the
+  router) and their optimizer slots and deltas are bitwise equal across
+  the model ranks after every step; each rank holds exactly the shards
+  `sharding.local_slices` cuts.  The paper's CNN (no `ModelConfig`) runs
+  replicated over 'model', bitwise the one-process run.
+* The (1, 2) states against the JAX package's ``mesh=None`` trajectory
+  at the parity tests' ``TOL`` / ``RTOL_METRICS``, and the qwen3 run
+  against the reference's own step on a (1, 2) mesh of two forced host
+  devices (GSPMD), in a subprocess.
+* Vocab-parallel `chunked_xent` equals the one-process loss, padded
+  columns included; a checkpoint saved under (1, 2) or (2, 2) restores
+  under ``mesh=None`` to the gathered state bitwise; every layout
+  outside the slice raises at `Engine` construction, naming the ROADMAP
+  item.
+"""
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get_config as j_get_config
+from repro.configs import reduced as j_reduced
+from repro.core import registry as j_registry
+from repro.core.types import DCS3GDConfig as JConfig
+from repro.data import SyntheticLMDataset as JData
+from repro.data import worker_batches as j_worker_batches
+from repro.models.transformer import Model as JModel
+
+import torch_mesh_worker as MW
+import torch_tp_worker as TW
+from torch_threads import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL_TP = 5e-6
+# under bf16 compute the embedding's rows enter the first block in bf16:
+# the gradients reaching `tok` and that block's norm are rounded to bf16,
+# and a per-rank f32 sum that lands on the other side of a rounding
+# boundary than the one-process product's flips one bf16 ulp (2^-8)
+TOL_TP_BF16 = 2e-3
+RTOL_METRICS_BF16 = 1e-4
+TOL_GRAD = 5e-6
+RTOL_METRICS_TP = 2e-6
+TOL, RTOL_METRICS = 1e-4, 1e-5        # tests/test_torch_dc_s3gd.py's
+METRICS = ("loss", "lambda", "distance_norm", "delta_norm")
+
+FUSED = {"buckets": 2, "use_kernels": True}
+NAMES = tuple(TW.ARCHS)
+# (config, algorithm spec, W) of each run a mesh makes
+RUNS = [(n, FUSED, 2) for n in NAMES] + [
+    ("qwen3_bf16", FUSED, 2),
+    ("qwen3", {"algo": "stale", **FUSED}, 2),
+    ("granite", {"algo": "ssgd", "buckets": 2}, 2),
+    ("olmoe", {}, 2)]
+MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
+# the (2, 2) mesh repeats the fused runs of the four configurations
+MESH_RUNS = {"1x2": RUNS, "2x2": RUNS[:len(NAMES)]}
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(name):
+    cfg = j_reduced(j_get_config(TW.ARCHS[name.partition("_")[0]]))
+    return jax.tree.map(np.asarray,
+                        JModel(cfg, remat=False).init(jax.random.PRNGKey(0)))
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Each mesh's spawned results, computed once; on (1, 2) the fused
+    runs come back whole and through a checkpoint."""
+    cache = {}
+
+    def get(mesh):
+        if mesh not in cache:
+            shape = MESHES[mesh]
+            tmp = tmp_path_factory.mktemp(mesh)
+            keep = tuple(range(len(NAMES))) if mesh == "1x2" else (0,)
+            kw = dict(shape=shape, runs=MESH_RUNS[mesh], keep=keep,
+                      weights={n: _weights(n) for n, _, _ in RUNS},
+                      ckpt_dir=str(tmp))
+            cache[mesh] = MW.spawn(shape[0] * shape[1], "tp", kw, tmp,
+                                   module="torch_tp_worker")
+        return cache[mesh]
+    return get
+
+
+CASES = [(m, i) for m in MESHES for i in range(len(MESH_RUNS[m]))]
+IDS = [f"{m}-{RUNS[i][0]}-{RUNS[i][1].get('algo', 'dc_s3gd')}"
+       f"{'-fused' if RUNS[i][1].get('use_kernels') else ''}"
+       for m, i in CASES]
+
+
+@pytest.mark.parametrize("mesh,i", CASES, ids=IDS)
+def test_tracks_one_process(ranks, mesh, i):
+    res = ranks(mesh)
+    got = res[0]["runs"][i]
+    tol = TOL_TP_BF16 if RUNS[i][0].endswith("_bf16") else TOL_TP
+    for part, (worst, _) in got["diff"].items():
+        assert worst <= tol, (part, worst)
+    tol = TOL_TP_BF16 if RUNS[i][0].endswith("_bf16") else TOL_GRAD
+    assert got["grad_diff"] <= tol, got["grad_diff"]
+    # worker 0's logits of the first batch, gathered over the vocabulary
+    assert got["logits_diff"] <= TOL_GRAD, got["logits_diff"]
+    rtol = RTOL_METRICS_BF16 if RUNS[i][0].endswith("_bf16") \
+        else RTOL_METRICS_TP
+    assert got["grad_loss"] == pytest.approx(got["grad_loss_one"],
+                                             rel=rtol)
+    assert len(got["hist"]) == len(got["hist_one"]) == MW.STEPS
+    for hg, hw in zip(got["hist"], got["hist_one"]):
+        assert hg.keys() == hw.keys()
+        for k in hg:
+            np.testing.assert_allclose(hg[k], hw[k], rtol=rtol,
+                                       atol=1e-12, err_msg=k)
+    # every rank gathers the same state and reports the same metrics
+    for r in res[1:]:
+        assert r["runs"][i]["digest"] == got["digest"]
+        assert r["runs"][i]["hist"] == got["hist"]
+
+
+@pytest.mark.parametrize("mesh,i", CASES, ids=IDS)
+def test_replicated_leaves_bitwise_across_model_ranks(ranks, mesh, i):
+    res = ranks(mesh)
+    by_worker = {}
+    for r in res:
+        by_worker.setdefault(r["worker_index"], []).append(
+            r["runs"][i]["digests"])
+    assert sorted(r["model_index"] for r in res) == \
+        sorted(list(range(2)) * (len(res) // 2))
+    for digests in by_worker.values():
+        assert len(digests) == 2 and len(digests[0]) == MW.STEPS
+        assert digests[0] == digests[1]
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_each_rank_holds_its_local_slices(ranks, mesh):
+    for r in ranks(mesh):
+        for run in r["runs"]:
+            assert run["local_shapes_ok"]
+            assert run["n_sharded"] > 0
+
+
+def _jax_run(name, W, buckets, kernels):
+    cfg = j_reduced(j_get_config(TW.ARCHS[name]))
+    model = JModel(cfg, remat=False)
+    alg = j_registry.make("dc_s3gd", JConfig(**MW.HP), n_workers=W,
+                          buckets=buckets, use_kernels=kernels)
+    step = jax.jit(functools.partial(alg.step, loss_fn=model.loss))
+    state = alg.init(jax.tree.map(jnp.asarray, _weights(name)))
+    data = JData(cfg.vocab_size, MW.SEQ, seed=0)
+    hist = []
+    for t in range(MW.STEPS):
+        state, m = step(state, j_worker_batches(data, t, W, MW.BPW))
+        hist.append({k: float(m[k]) for k in METRICS})
+    return jax.tree.map(np.asarray, state), hist
+
+
+def _assert_close(a, b, tol, what, base=None):
+    la, lb = jax.tree.leaves(a), jax.tree.leaves(b)
+    base = [0.0] * len(la) if base is None else jax.tree.leaves(base)
+    assert len(la) == len(lb), what
+    for x, y, z in zip(la, lb, base):
+        x, y = np.asarray(x, np.float64) - z, np.asarray(y, np.float64) - z
+        np.testing.assert_allclose(x, y, rtol=0,
+                                   atol=tol * float(np.abs(y).max()),
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_two_model_ranks_match_jax(ranks, name):
+    """The (1, 2) fused bucketed run against the reference's mesh=None
+    trajectory from the same weights, at the parity tests' tolerances.
+    The reference takes its unfused tail (the same arithmetic; its Pallas
+    kernels in interpret mode cost 4x the jit time here)."""
+    i = RUNS.index((name, FUSED, 2))
+    got = ranks("1x2")[0]["runs"][i]["state"]
+    j_state, j_hist = _jax_run(name, 2, 2, False)
+    _assert_close(got["params"], j_state.params, TOL, "params",
+                  base=_weights(name))
+    _assert_close(got["opt"]["m"], j_state.opt["m"], TOL, "opt.m")
+    _assert_close(got["comm"]["delta_prev"], j_state.comm["delta_prev"], TOL,
+                  "delta_prev")
+    for hg, hj in zip(ranks("1x2")[0]["runs"][i]["hist"], j_hist):
+        for k in METRICS:
+            np.testing.assert_allclose(hg[k], hj[k], rtol=RTOL_METRICS,
+                                       err_msg=k)
+
+
+_REFERENCE_MESH = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax, numpy as np
+from repro.configs import get_config, reduced
+from repro.core import registry
+from repro.core.types import DCS3GDConfig
+from repro.data import SyntheticLMDataset, worker_batches
+from repro.launch.engine import Engine
+from repro.models.transformer import Model
+cfg = reduced(get_config("qwen3-0.6b"))
+model = Model(cfg, remat=False)
+# the classic constructor: GSPMD's automatic axes (jax.make_mesh's default
+# axis types are explicit in this jax, which its vmap refuses here)
+mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(1, 2),
+                         ("data", "model"))
+alg = registry.make("dc_s3gd", DCS3GDConfig(**{hp}), n_workers=2,
+                    buckets=2)
+engine = Engine(model, alg, mesh=mesh)
+state = alg.init(model.init(jax.random.PRNGKey(0)))
+data = SyntheticLMDataset(cfg.vocab_size, {seq}, seed=0)
+batch = worker_batches(data, 0, 2, {bpw})
+step = engine.jit_train_step(state, batch, donate=False)
+losses = []
+for t in range({steps}):
+    state, m = step(state, worker_batches(data, t, 2, {bpw}))
+    losses.append(float(m["loss"]))
+assert len(jax.devices()) == 2
+leaves = jax.tree.leaves(state.params) + jax.tree.leaves(state.opt) + \\
+    jax.tree.leaves(state.comm)
+np.savez(sys.argv[1], losses=np.asarray(losses),
+         **{{f"l{{i}}": np.asarray(x) for i, x in enumerate(leaves)}})
+"""
+
+
+def test_matches_the_reference_step_on_a_two_device_mesh(ranks, tmp_path):
+    """The reference's own GSPMD step on a (1, 2) mesh of two forced host
+    CPU devices (its partition rules: heads, FFN and vocab over 'model';
+    its unfused tail) against the port's (1, 2) ranks, qwen3 fused
+    bucketed."""
+    out = tmp_path / "ref.npz"
+    code = _REFERENCE_MESH.format(hp=repr(MW.HP), seq=MW.SEQ, bpw=MW.BPW,
+                                  steps=MW.STEPS)
+    r = subprocess.run([sys.executable, "-c", code, str(out)],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=tmp_path,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                            "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    ref = np.load(out)
+    run = ranks("1x2")[0]["runs"][RUNS.index(("qwen3", FUSED, 2))]
+    got = run["state"]
+    mine = jax.tree.leaves(got["params"]) + jax.tree.leaves(got["opt"]) + \
+        jax.tree.leaves(got["comm"])
+    theirs = [ref[f"l{i}"] for i in range(len(mine))]
+    assert len(ref.files) == len(mine) + 1
+    n = len(jax.tree.leaves(got["params"]))
+    _assert_close(mine[:n], theirs[:n], TOL, "params",
+                  base=jax.tree.leaves(_weights("qwen3")))
+    _assert_close(mine[n:], theirs[n:], TOL, "opt, delta_prev")
+    np.testing.assert_allclose([h["loss"] for h in run["hist"]],
+                               ref["losses"], rtol=RTOL_METRICS)
+
+
+def test_vocab_parallel_xent_equals_one_process(tmp_path):
+    """Vocabulary 500 pads to 512: the padded columns' logits enter the
+    logsumexp on the rank that holds them, as the one-process loss
+    takes them; a chunk of 5 positions splits the 7."""
+    res = MW.spawn(2, "xent", dict(vocab=500, d=16, chunk=5), tmp_path,
+                   module="torch_tp_worker")
+    for r in res:
+        assert r["loss"] == pytest.approx(r["loss_one"], rel=1e-6)
+        assert r["gx"] <= 1e-6 and r["gw"] <= 1e-6, r
+    assert res[0]["loss"] == res[1]["loss"]
+
+
+CKPT = [("1x2", i) for i in range(len(NAMES))] + [("2x2", 0)]
+
+
+@pytest.mark.parametrize("mesh,i", CKPT,
+                         ids=[f"{m}-{RUNS[i][0]}" for m, i in CKPT])
+def test_checkpoint_under_model_ranks_restores_under_mesh_none(ranks, mesh,
+                                                               i):
+    """`Engine.save` on (1, 2) and (2, 2) gathers both axes and writes the
+    one-process state: ``mesh=None`` restores it bitwise the gathered
+    state, and the mesh restores each rank's shards bit for bit."""
+    res = ranks(mesh)
+    assert res[0]["runs"][i]["ckpt_bitwise"]
+    assert all(r["runs"][i]["restored"] for r in res)
+
+
+# ---------------------------------------------------------------------------
+# refusals, at Engine construction (a stand-in mesh: no process group)
+# ---------------------------------------------------------------------------
+
+
+class _Mesh:
+    def __init__(self, **shape):
+        self.mesh_dim_names = tuple(shape)
+        self.shape = tuple(shape.values())
+
+
+REFUSED = {
+    "mamba": ("falcon-mamba-7b", {}, "mamba"),
+    "recurrent": ("recurrentgemma-9b", {}, "recurrent"),
+    "mla": ("minicpm3-4b", {}, "MLA"),
+    "cross": ("whisper-large-v3", {}, "cross"),
+    "vision_proj": ("qwen2-vl-7b", {}, "vision_proj"),
+    "serving": ("qwen3-0.6b", None, "serving"),
+    "gossip": ("qwen3-0.6b", {"reducer": "gossip", "buckets": 2}, "gossip"),
+    "topk": ("qwen3-0.6b", {"reducer": "topk", "buckets": 2}, "topk"),
+    "dynamic_ssp": ("qwen3-0.6b", {"staleness": "dynamic_ssp"},
+                    "dynamic_ssp"),
+    "dc_asgd": ("qwen3-0.6b", {"algo": "dc_asgd"}, "dc_asgd"),
+    "overlap": ("qwen3-0.6b", {**FUSED, "overlap": True}, "overlap"),
+    "lars": ("qwen3-0.6b", {"local_optimizer": "lars"}, "lars"),
+    "indivisible": ("qwen3-0.6b", {}, "does not divide"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refusals_raise_at_construction(monkeypatch, name):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.reduce import ProcessWorkers
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.transformer import Model
+    arch, spec, words = REFUSED[name]
+    monkeypatch.setattr(M, "make_workers", lambda mesh: ProcessWorkers(
+        None, rank=0, size=M.n_workers(mesh)))
+    model = Model(reduced(get_config(arch)))
+    alg = None if spec is None else MW._make(spec, 4)
+    # the reduced vocabulary (512 rows of `tok`) does not divide over 1024
+    size = 1024 if name == "indivisible" else 2
+    with pytest.raises(ValueError, match="ROADMAP queue A item 6.7") as e:
+        Engine(model, alg, mesh=_Mesh(data=1, model=size))
+    assert words in str(e.value)
+    if alg is not None and name not in ("mamba", "recurrent", "mla",
+                                        "cross", "vision_proj"):
+        # the same algorithm and model with mesh=None are accepted
+        Engine(model, MW._make(spec, 4))
+
+
+def test_the_cnn_runs_replicated_over_model(tmp_path):
+    """The CNN (no `ModelConfig`) is replicated over 'model': both model
+    ranks run the same compute, bitwise alike, and at one worker rank the
+    state is bitwise the one-process run's (the norms' sharded sum is an
+    all-reduce of zeros)."""
+    res = MW.spawn(2, "cnn", dict(spec=FUSED, W=4), tmp_path,
+                   module="torch_tp_worker")
+    assert res[0]["digest"] == res[1]["digest"]
+    assert res[0]["hist"] == res[1]["hist"] == res[0]["hist_one"]
+    for part, diff in res[0]["diff"].items():
+        assert diff == (0.0, True), part

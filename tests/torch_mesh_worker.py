@@ -173,14 +173,17 @@ def case_runs(world, *, runs, layout="data", weights=None, keep=(),
 CASES = {"runs": case_runs}
 
 
-def _entry(rank, world, store, case, kwargs, out):
+def _entry(rank, world, store, case, kwargs, out, module=None):
     torch.set_num_threads(1)
+    import importlib
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_process_group
+    cases = CASES if module is None else \
+        importlib.import_module(module).CASES
     try:
         init_process_group(device_type="cpu", init_method=f"file://{store}",
                            rank=rank, world_size=world)
-        res = CASES[case](world, **kwargs)
+        res = cases[case](world, **kwargs)
     except Exception:  # noqa: BLE001 — reported to the parent
         res = {"error": traceback.format_exc()}
     finally:
@@ -190,17 +193,18 @@ def _entry(rank, world, store, case, kwargs, out):
 
 
 def spawn(world: int, case: str, kwargs: dict, tmp: Path,
-          timeout: float = 300.0) -> list:
+          timeout: float = 300.0, module: str = None) -> list:
     """Run ``CASES[case]`` on ``world`` spawned gloo ranks; their results
     in rank order.  A rank's exception fails the caller with its
-    traceback."""
+    traceback.  ``module`` names another module whose ``CASES`` to run
+    (it must import no jax either)."""
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     ctx = mp.get_context("spawn")
     store = tmp / "store"
     procs = [ctx.Process(target=_entry,
                          args=(r, world, str(store), case, kwargs,
-                               str(tmp / f"rank{r}.pt")))
+                               str(tmp / f"rank{r}.pt"), module))
              for r in range(world)]
     for p in procs:
         p.start()
