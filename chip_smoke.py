@@ -90,12 +90,12 @@ Phases (any failure exits non-zero before the result line):
    case, bitwise run to run, with its chunk length, chunk count and CTAs
    per launch, timed the same way (8 launches per sample) beside its byte
    bound and the plain version;
-10. serving falcon-mamba-7b at its published widths and full depth (64
-   layers, f32 params, bf16 compute, random weights from seed 0) through
+10. serving falcon-mamba-7b at its published widths and 16 of its 64
+   layers (since PR 26, for the time limit; f32 params, bf16 compute, random weights from seed 0) through
    ``repro_torch.launch.serve`` over the same 48 requests (token ids under
    its 65,024 vocab), ``--slots 16 --decode-burst 4``, greedy: every
    request completes at its length, the page pool is never touched,
-   ssm_scan launches 64 times per prefill, no host synchronisation inside
+   ssm_scan launches once per layer and prefill, no host synchronisation inside
    a steady decode burst; then its prefill logits, scan kernel route
    against plain route, on 2 prompts (bound stated in
    phase_prefill_routes).  qwen3's weights are freed before it;
@@ -129,18 +129,18 @@ Phases (any failure exits non-zero before the result line):
    rows split over two calls at other q_starts; paged_attention at hd 80
    (G 1, 32 kv heads) and G 48 (one kv head), four pool dtypes, held to
    its plain version in float64 (1e-6 / 2e-5) and timed.  qwen3-0.6b at
-   full depth over 32 requests behind one 392-token system prompt
+   4 of its 28 layers (since PR 26, for the time limit) over 32 requests behind one 392-token system prompt
    (request 0 first, then 31 together) through ``repro_torch.launch.
    serve``'s scheduler with ``--prefill-chunk 128 --prefix-cache``: greedy
    tokens bitwise the cold chunked run's, >= 31 hits, >= 1 copy-on-write,
-   fewer pages than cold, B5 at q_start > 0 (28 per chunk), B4 28 per
-   decode step, last-chunk logits within 2^-5 of the whole-prompt
+   fewer pages than cold, B5 at q_start > 0 (one per layer and chunk),
+   B4 one per layer and decode step, last-chunk logits within 2^-5 of the whole-prompt
    prefill's largest logit, TTFT / inter-token latency beside the
    whole-prompt run, a 120-page pool that preempts and finishes every
    request; the chunk route against its plain route (2^-7).
-   stablelm-3b at full depth (32 layers, 2,796,098,560 params) serves 16
-   requests whole-prompt and chunked (B4 / B5 32 per step / prefill or
-   chunk), routes checked, and trains two dc_s3gd steps at depth 4, W =
+   stablelm-3b at 8 of its 32 layers (since PR 26, for the time limit)
+   serves 16 requests whole-prompt and chunked (B4 / B5 one per layer and
+   step / prefill or chunk), routes checked, and trains two dc_s3gd steps at depth 4, W =
    2, fused tail, with A1/A2 held against their plain versions at its
    bucket sizes; granite-20b cut to 12 of 52 layers serves 8 requests.
    B4 at stablelm-3b's and granite-20b's shapes is also timed beside
@@ -151,12 +151,13 @@ Phases (any failure exits non-zero before the result line):
    (3e-2 x min(1, max|out|)), bitwise run to run, timed (12 launches
    per sample, one per attention_local block) beside its bound, the plain version and
    scaled_dot_product_attention with the boolean window mask.
-   recurrentgemma-9b at its published widths and full depth (38 layers,
-   10,444,771,328 params, f32 weights from seed 0, bf16 compute) through
+   recurrentgemma-9b at its published widths and 14 of its 38 layers
+   (since PR 26, for the time limit; f32 weights from seed 0, bf16
+   compute) through
    ``repro_torch.launch.serve`` over 16 requests (prompts 512 / 2,040 /
    2,560 / 4,096, gen 32..64 from seed 0; ``--slots 8 --decode-burst 4``,
-   greedy, whole-prompt): every request at its length, B5 12 times per
-   prefill and nothing else, the pool untouched, the slot state (rings
+   greedy, whole-prompt): every request at its length, B5 once per
+   local-attention layer (4) and prefill and nothing else, the pool untouched, the slot state (rings
    of 2,048, RG-LRU) at its shapes; 0 host syncs in a steady burst, two
    bursts profiled; slot decode == dense decode bitwise over 16 steps
    past the ring's wrap; the prefill's kernel route against its plain
@@ -172,9 +173,9 @@ Phases (any failure exits non-zero before the result line):
    flash_attention there at S 512 (f32 2e-5, bf16 3e-2 x min(1,
    max|out|)), timed beside
    bound, plain version and SDPA.  olmoe-1b-7b at its published widths
-   and full depth (16 layers, 6,919,624,704 params, f32 weights from seed
-   0, bf16 compute and KV) over phase 8's 48 requests: B4 16 per decode
-   step, B5 16 per prefill, the routed prefill and the dropless decode;
+   and 8 of its 16 layers (since PR 26, for the time limit; f32 weights
+   from seed 0, bf16 compute and KV) over phase 8's 48 requests: B4 one
+   per layer and decode step, B5 one per layer and prefill, the routed prefill and the dropless decode;
    the dropless FFN against the all-experts oracle at its widths (2^-16
    of the largest output); kernel route == plain route greedy on 4
    requests over f32 pools; 0 host syncs a burst, two bursts profiled.
@@ -183,13 +184,13 @@ Phases (any failure exits non-zero before the result line):
    routed dc_s3gd steps at W = 2 (80 slots per expert; finite losses and
    aux loss, A1/A2 once per bucket and step, step time, peak), A1/A2
    against their plain versions at its bucket sizes; minicpm3-4b cut to 2
-   layers trains 2 steps.  minicpm3-4b at full depth (62 layers,
-   4,262,025,728 params) on bf16 latent pages, 35,712 B a token beside
-   qwen3's 114,688: 16 requests whole-prompt, 8 over int8 pools, two
+   layers trains 2 steps.  minicpm3-4b at 16 of its 62 layers (since PR
+   26, for the time limit) on bf16 latent pages (at 62 layers 35,712 B a
+   token beside qwen3's 114,688): 16 requests whole-prompt, 8 over int8 pools, two
    bursts profiled, then phase 12's 32 shared-prompt requests chunked
    (128) with and without the prefix cache, block tables 45 pages wide
    (greedy tokens bitwise, >= 31 hits, copy-on-write, fewer pages); B4
-   and B5 never launch on its path (the prefix requests at 8 of its 62
+   and B5 never launch on its path (the prefix requests at 4 of its 62
    layers).  Then ROADMAP C5: reduced
    falcon-mamba-7b and
    recurrentgemma-9b prefill prompts of 1 and 2 tokens into the slot
@@ -203,12 +204,12 @@ Phases (any failure exits non-zero before the result line):
    max|out|): an encoder's outputs are ~0.03), timed beside
    bound, plain version and SDPA; paged_attention at KV 4 G 7 hd 128 and
    KV 20 G 1 hd 64, bf16 and f32 pools, held to its plain version in
-   float64 (1e-6).  qwen2-vl-7b at its published widths and full depth
-   (28 layers, 7,628,332,544 params, f32 weights from seed 0, bf16
-   compute) served one-shot through ``repro_torch.launch.serve`` (4
+   float64 (1e-6).  qwen2-vl-7b at its published widths and 8 of its 28
+   layers (since PR 26, for the time limit; f32 weights from seed 0,
+   bf16 compute) served one-shot through ``repro_torch.launch.serve`` (4
    prompts of 1,024 stub patches + 128 tokens, 32 generated, greedy: B5
-   28 times), then the same batch through `PagedLayout` over f32 pools
-   (B4 28 times a decode step): kernel route == plain route on every
+   once per layer), then the same batch through `PagedLayout` over f32
+   pools (B4 once per layer and decode step): kernel route == plain route on every
    greedy token, 0 host syncs a step, two steps profiled.
    whisper-large-v3 (32 + 32 layers, 1,601,459,200 params) the same way
    (8 prompts of 64 tokens over 1,500 stub frames, 64 generated: B5 96
@@ -250,6 +251,8 @@ Phases (any failure exits non-zero before the result line):
    rank; (c) ``repro_torch.launch.dryrun`` for qwen3-0.6b x decode_32k x
    pod in a subprocess (nothing placed on the card): ``status: ok``, its
    per-device argument bytes (record in ``chiprun_out/dryrun_torch``).
+   After (a), what device memory outlives a training run, named from the
+   allocator's history (`_leftover_probe`).
 
 18. tensor parallelism over the mesh's 'model' axis (gloo ranks sharing
    the card, spawned): (a) qwen3-0.6b at its published widths, depth 28
@@ -265,6 +268,24 @@ Phases (any failure exits non-zero before the result line):
    (`tok` and the first norm within 2e-2); the replicated leaves bitwise
    equal across the model ranks after every step, A1 / A2 once per local
    bucket and step on every rank; each rank's peak beside mesh=None's.
+
+19. the paper's worker axis across ranks for every reducer: (a) the main
+   cell on an NCCL mesh of one rank under gossip, hierarchical, topk 1 %,
+   topk_exact, randk, powersgd, dynamic_ssp (worker 0 scripted 3x
+   slower: step 2 revoked) and dc_asgd, 3 steps each, ``mesh=None`` and
+   the mesh in turn, bitwise in params, opt, comm and metrics, A1 / A2 12
+   times a DC-S3GD run, B3 12 times a topk / topk_exact run; (b) two gloo
+   ranks on the card, ResNet-18's layout at W = 8, 3 steps of gossip,
+   hierarchical (groups 1, 2, 4), topk_exact, powersgd, dynamic_ssp,
+   dc_asgd and an elastic 8 -> 6 -> 4 stale run, each within 1e-5 of the
+   one-process run (gossip, hierarchical, dc_asgd bitwise; the elastic
+   run at each part's scale, ``eval_params`` bitwise across each resize,
+   the transition log equal), the metrics the same on both ranks; (c)
+   topk_exact on the main cell over two gloo ranks, one row a rank, B3
+   with the cross-rank union mask 12 times a rank, each rank's rows
+   within 1e-5 of one process, each rank's peak.  B3's partial and mask
+   modes are held bitwise to the plain version in the kernel phases, at
+   the main cell's and the CNN's bucket sizes.
 
 The CPU twins of these checks are the ``tests/test_torch_*.py`` files
 (``PYTHONPATH=src python -m pytest -q tests/test_torch_moe.py
@@ -544,6 +565,50 @@ def phase_select(sizes, gen, smi: str) -> dict:
     return acc
 
 
+def phase_select_modes(sizes, n_workers: int, smi: str,
+                       tag: str = "kernels") -> dict:
+    """B3's cross-rank modes against the plain version, bitwise, at
+    ``sizes`` (one bucket a launch) and ``n_workers`` rows, f32 and bf16
+    wires: the partial row sum, the external union mask, both; and the
+    partial sum finished by `finish_mean` against the full mode's mean.
+    These comparison launches are no path's."""
+    from repro_torch.core.compress import _k_of, magnitude_threshold
+    from repro_torch.kernels import compress as KC
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    modes = ("partial", "mask", "mask+partial", "finish_mean")
+    for n in sizes:
+        a = torch.randn((n_workers, n), generator=gen, device=dev) \
+            * torch.rand((n_workers, n), generator=gen, device=dev) ** 4
+        t = magnitude_threshold(a.abs(), _k_of(n, 0.01))
+        mask = (a.abs() >= t.reshape(-1, 1)).any(0, keepdim=True) \
+            .to(torch.uint8)
+        for dt in (torch.float32, torch.bfloat16):
+            for kw in ({"union": False, "partial": True},
+                       {"union": True, "mask": mask},
+                       {"union": True, "mask": mask, "partial": True}):
+                got = KC.select_ef_mean(a, t, comm_dtype=dt, **kw)
+                want = KC.select_ef_mean_plain(a, t, comm_dtype=dt, **kw)
+                for x, y in zip(got, want):
+                    check(torch.equal(x, y), f"select_ef_mean {kw.keys()} "
+                          f"not bitwise the plain version: n={n} {dt}")
+                del got, want
+            for union in (False, True):
+                full, _ = KC.select_ef_mean(a, t, comm_dtype=dt, union=union)
+                part, _ = KC.select_ef_mean(a, t, comm_dtype=dt, union=union,
+                                            partial=True)
+                check(torch.equal(KC.finish_mean(part, n_workers, dt), full),
+                      f"select_ef_mean partial + finish_mean is not the "
+                      f"full mean: n={n} {dt} union={union}")
+                del full, part
+        del a, t, mask
+        torch.cuda.empty_cache()
+    print(f"[{tag}] select_ef_mean cross-rank modes {', '.join(modes)} "
+          f"bitwise the plain version at W={n_workers}, n in "
+          f"{tuple(sizes)}, f32 and bf16 wires [{smi}]")
+    return {"modes": list(modes), "sizes": list(sizes), "W": n_workers}
+
+
 def _counters():
     from repro_torch.kernels import compress as KC
     from repro_torch.kernels import dc_update as K
@@ -663,16 +728,20 @@ def phase_fused_vs_unfused(smi: str) -> float:
     return worst
 
 
-def _device_groups(prof, groups: dict, other: str):
-    """(kernels by device time, busy ms, ms by group) of a profile: each
-    kernel goes to the first group one of whose keys its name holds."""
+def _device_groups(avgs, groups: dict, other: str):
+    """(kernels by device time, busy ms, ms by group) of a profile's
+    ``key_averages()``: each kernel goes to the first group one of whose
+    keys its name holds.  The profiles record CUDA activity only (the
+    kernels, copies and runtime calls; since PR 26): the host's operator
+    events cost seconds to parse and added their own overhead to the
+    profiled window."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    kernels = sorted((e for e in prof.key_averages()
+    kernels = sorted((e for e in avgs
                       if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                      key=dev_us, reverse=True)
     by_group = {g: 0.0 for g in groups}
@@ -696,8 +765,7 @@ def phase_profile(smi: str, extra=(), tag: str = "profile") -> dict:
     for it in range(2):
         state, _ = alg.step(state, batch_fn(it), loss_fn=model.loss)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for it in range(2, 4):
             state, _ = alg.step(state, batch_fn(it), loss_fn=model.loss)
@@ -723,7 +791,8 @@ def phase_profile(smi: str, extra=(), tag: str = "profile") -> dict:
               "matmul (cuBLAS)": ("gemm", "xmma", "cutlass", "Kernel2"),
               # torch.cat's kernel is CatArrayBatchedCopy
               "copies/cat": ("Memcpy", "copy", "Copy")}
-    kernels, busy_ms, by_group, dev_us = _device_groups(prof, groups,
+    avgs = prof.key_averages()
+    kernels, busy_ms, by_group, dev_us = _device_groups(avgs, groups,
                                                         "other")
     if busy_ms == 0:
         print(f"[{tag}] no device time in the trace: not measured [{smi}]")
@@ -739,7 +808,7 @@ def phase_profile(smi: str, extra=(), tag: str = "profile") -> dict:
               f"{e.key[:90]}")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / f"{tag}.txt").write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total",
+        avgs.table(sort_by="self_cuda_time_total",
                                   row_limit=60))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": by_group,
             "host_syncs_per_step": syncs}
@@ -917,8 +986,7 @@ def phase_cnn_profile(smi: str) -> dict:
         state, _ = alg.step(state, batch_fn(it), loss_fn=model.loss)
     batches = [batch_fn(2), batch_fn(3), batch_fn(4)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches[:2]:
             state, _ = alg.step(state, b, loss_fn=model.loss)
@@ -945,7 +1013,8 @@ def phase_cnn_profile(smi: str) -> dict:
                                   "Kernel2"),
               "copies/cat": ("Memcpy", "copy", "Copy", "Cat")}
     other = "other (elementwise, reductions, pad, softmax)"
-    kernels, busy_ms, by_group, dev_us = _device_groups(prof, groups, other)
+    avgs = prof.key_averages()
+    kernels, busy_ms, by_group, dev_us = _device_groups(avgs, groups, other)
     if busy_ms == 0:
         print(f"[cnn-profile] no device time in the trace: not measured "
               f"[{smi}]")
@@ -963,7 +1032,7 @@ def phase_cnn_profile(smi: str) -> dict:
               f"{e.key[:100]}")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "profile_cnn.txt").write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total",
+        avgs.table(sort_by="self_cuda_time_total",
                                   row_limit=60))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": by_group,
             "kernel_launches": launches, "host_syncs_per_step": syncs}
@@ -1373,8 +1442,7 @@ def _profile_decode(smi: str, step, n_steps: int, what: str, tag: str,
     print(f"[{tag}] host synchronisations inside one {what}: {syncs}")
     check(syncs == 0, f"[{tag}] {syncs} host synchronisations inside one "
           f"{what}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             step()
@@ -1386,8 +1454,9 @@ def _profile_decode(smi: str, step, n_steps: int, what: str, tag: str,
                                   "Kernel2"),
               "index / scatter / gather": ("index", "scatter", "gather"),
               "copies/cat": ("Memcpy", "copy", "Copy", "Cat")}
+    avgs = prof.key_averages()
     kernels, busy_ms, by_group, dev_us = _device_groups(
-        prof, groups, "other (elementwise, norms, softmax, argmax)")
+        avgs, groups, "other (elementwise, norms, softmax, argmax)")
     launches = sum(e.count for e in kernels)
     if busy_ms == 0:
         print(f"[{tag}] no device time in the trace: not measured [{smi}]")
@@ -1405,7 +1474,7 @@ def _profile_decode(smi: str, step, n_steps: int, what: str, tag: str,
               f"{e.key[:90]}")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / out_name).write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total",
+        avgs.table(sort_by="self_cuda_time_total",
                                   row_limit=60))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": by_group,
             "kernel_launches": launches, "host_syncs": syncs}
@@ -1898,6 +1967,10 @@ SYSTEM_PROMPT = 392
 PREFIX_REQUESTS = 32
 PREFIX_ARGS = SERVE_ARGS + ["--paged-kernel", "--prefill-chunk", str(CHUNK)]
 SMALL_POOL = 120     # pages: 16 lanes of ~40 pages cannot all fit
+# the prefix traffic's depth: 28 -> 4 since PR 26 (for the script's 1,200 s
+# limit: at 28 layers its four host-bound runs took 68-104 s); the pins
+# (hit == cold bitwise, the hits, CoW, preemption) do not depend on it
+PREFIX_LAYERS = 4
 
 
 def _write_prefix_requests(vocab: int) -> Path:
@@ -2058,24 +2131,30 @@ def phase_chunk_routes(smi: str, model, params, prompts, tag: str) -> dict:
     return {"max_dlogit": worst, "max_logit": top, "bound": bound}
 
 
-def phase_serve_prefix(smi: str, model, params) -> dict:
-    """qwen3-0.6b at full depth over the prefix traffic, through
+def phase_serve_prefix(smi: str) -> dict:
+    """qwen3-0.6b at ``PREFIX_LAYERS`` of its 28 layers (published widths,
+    f32 weights from seed 0) over the prefix traffic, through
     ``repro_torch.launch.serve``'s scheduler with ``--prefill-chunk 128
     --prefix-cache --slots 16 --pages 641 --page-size 16 --decode-burst 4
     --paged-kernel``, greedy, seed 0: request 0 alone, then the other 31
     together.  Checks: every request finishes at its length; the greedy
     tokens are bitwise those of the same schedule without the prefix cache
     (cold chunked); >= 31 hits, >= 1 copy-on-write, fewer token slots
-    allocated than the cold run; B5 launches at q_start > 0 and 28 times
-    per chunk, B4 28 times per decode step; each request's last-chunk
+    allocated than the cold run; B5 launches at q_start > 0 and once per
+    layer and chunk, B4 once per layer and decode step; each request's
+    last-chunk
     logits within 2^-5 of the largest logit of its whole-prompt prefill's
     (the chunk route attends over the pages' bf16 keys and values, the
     whole prompt over its f32 ones: bf16's 2^-9 in every layer's k and v,
-    with room for its growth through 28 layers), the count of first
+    with room for its growth through 28 layers, more than this depth's),
+    the count of first
     tokens that agree printed; a 120-page pool (preemptions > 0) finishes
     every request with no refcount error.  The whole-prompt run of the
     same requests and schedule is printed beside them."""
     from repro_torch.launch import serve
+    model, params, _ = serve.build(serve.build_argparser().parse_args(
+        SERVE_ARGS + ["--layers", str(PREFIX_LAYERS)]))
+    check(model.cfg.n_layers == PREFIX_LAYERS, "[prefix] depth")
     path = _write_prefix_requests(model.cfg.vocab_size)
     rec = {"hot": _serve_warm_then_rest(
         smi, model, params, path, PREFIX_ARGS + ["--prefix-cache"],
@@ -2146,14 +2225,19 @@ def phase_serve_prefix(smi: str, model, params) -> dict:
     for r in ("hot", "cold", "whole", "small_pool"):
         rec[r].pop("last_logits")
         rec[r].pop("tokens")
+    del model, params
+    torch.cuda.empty_cache()
     return rec
 
 
 DENSE_ARGS = ["--slots", "16", "--pages", "641", "--page-size", str(PAGE),
               "--decode-burst", "4", "--seed", "0", "--paged-kernel"]
-STABLELM_ARGS = ["--arch", "stablelm-3b", *DENSE_ARGS]
-STABLELM_LAYERS = 32
-STABLELM_PARAMS = 2_796_098_560      # the reference's init, 32 layers
+# the served depth: 32 -> 8 since PR 26 (for the script's 1,200 s limit;
+# the serve steps are host-bound)
+STABLELM_LAYERS = 8
+STABLELM_ARGS = ["--arch", "stablelm-3b", "--layers", str(STABLELM_LAYERS),
+                 *DENSE_ARGS]
+STABLELM_PARAMS = 892_687_360        # 2,796,098,560 at 32 layers
 STABLELM_TRAIN = ["--arch", "stablelm-3b", "--layers", "4", "--algo",
                   "dc_s3gd", "--workers", str(W), "--batch-per-worker", "4",
                   "--seq", "256", "--buckets", str(N_BUCKETS), "--seed", "0",
@@ -2166,11 +2250,11 @@ GRANITE_PARAMS = 6_964_795_392       # 12 x 530,067,456 + 2 x 49,152 x 6,144
 
 
 def phase_dense_family(smi: str, path: Path) -> dict:
-    """stablelm-3b at full depth (32 layers, 2,796,098,560 params, f32
-    weights from seed 0, bf16 compute and KV): 16 of the serve phase's
-    requests whole-prompt and then in chunks of 128 through
-    ``repro_torch.launch.serve`` (every request at its length, B4 32 times
-    per decode step, B5 32 times per prefill or chunk), its prefill logits
+    """stablelm-3b at its published widths and ``STABLELM_LAYERS`` of its
+    32 layers (f32 weights from seed 0, bf16 compute and KV): 16 of the
+    serve phase's requests whole-prompt and then in chunks of 128 through
+    ``repro_torch.launch.serve`` (every request at its length, B4 once
+    per layer and decode step, B5 once per layer and prefill or chunk), its prefill logits
     kernel route against plain route (2^-10, as qwen3's) and its chunk
     route's; two dc_s3gd steps at depth 4, W = 2, fused tail, with finite
     losses and A1/A2 once per bucket and step (the layernorm biases ride
@@ -2261,20 +2345,23 @@ def _leaf_paths(tree, prefix: str = "") -> list:
 
 
 # ---------------------------------------------------------------------------
-# serving falcon-mamba-7b at full depth (kernel B6 in every prefill)
+# serving falcon-mamba-7b (kernel B6 in every prefill)
 # ---------------------------------------------------------------------------
 
-FM_ARGS = ["--arch", "falcon-mamba-7b", "--slots", "16", "--decode-burst",
-           "4", "--seed", "0"]
-FM_PARAMS = 7_272_665_088     # 64 x 105,312,256 + 2 x 65,024 x 4,096
+# depth 64 -> 16 since PR 26 (for the script's 1,200 s limit; the serve
+# steps are host-bound, so their time goes with the depth)
+FM_LAYERS = 16
+FM_ARGS = ["--arch", "falcon-mamba-7b", "--layers", str(FM_LAYERS),
+           "--slots", "16", "--decode-burst", "4", "--seed", "0"]
+FM_PARAMS = 2_217_676_800     # 16 x 105,312,256 + 2 x 65,024 x 4,096 + 4,096
 
 
 def phase_serve_ssm(smi: str, path: Path) -> dict:
     """Serve the request file with falcon-mamba-7b at its published widths
-    and full depth through ``repro_torch.launch.serve`` (f32 params from
-    seed 0, bf16 compute, 16 slots, bursts of 4, greedy).  Every kernel
-    count is set to 0 just before the run and read just after: ssm_scan 64
-    times per prefill, nothing else.  Then the host synchronisations of a
+    and ``FM_LAYERS`` of its 64 layers through ``repro_torch.launch.serve``
+    (f32 params from seed 0, bf16 compute, 16 slots, bursts of 4, greedy).
+    Every kernel count is set to 0 just before the run and read just
+    after: ssm_scan once per layer and prefill, nothing else.  Then the host synchronisations of a
     steady burst, two bursts profiled, and the prefill's scan kernel route
     against its plain route on 2 prompts."""
     from repro_torch import tree as T
@@ -2288,9 +2375,9 @@ def phase_serve_ssm(smi: str, path: Path) -> dict:
     init_s = time.perf_counter() - t0
     cfg = model.cfg
     n_params = sum(x.numel() for x in T.leaves(params))
-    check(cfg.n_layers == 64 and cfg.d_model == 4096
+    check(cfg.n_layers == FM_LAYERS and cfg.d_model == 4096
           and cfg.ssm.state_dim == SSM_N and n_params == FM_PARAMS,
-          f"falcon-mamba-7b at full depth and width: {cfg}, {n_params}")
+          f"falcon-mamba-7b at full width: {cfg}, {n_params}")
     reqs = serve.load_requests(args.requests, cfg.vocab_size, args.gen,
                                seed=args.seed)
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.prompt),
@@ -2314,9 +2401,9 @@ def phase_serve_ssm(smi: str, path: Path) -> dict:
               f"[serve-ssm] request {r.rid}: {len(done[r.rid].out)} "
               f"tokens, expected {r.max_new}")
     prefills, steps = sch.stats["prefills"], sch.stats["decode_steps"]
-    check(launches["ssm_scan"] == 64 * prefills,
+    check(launches["ssm_scan"] == FM_LAYERS * prefills,
           f"[serve-ssm] ssm_scan launched {launches['ssm_scan']} times, "
-          f"expected 64 layers x {prefills} prefills")
+          f"expected {FM_LAYERS} layers x {prefills} prefills")
     check(all(n == 0 for k, n in launches.items() if k != "ssm_scan"),
           f"[serve-ssm] other kernels launched: {launches}")
     check(not sch.layout.uses_pages and sch.pool.used_pages == 0
@@ -2325,7 +2412,7 @@ def phase_serve_ssm(smi: str, path: Path) -> dict:
     state = sch.cache[0]["b0"]
     check(state["conv"].dtype == torch.bfloat16
           and state["ssm"].dtype == torch.float32
-          and tuple(state["ssm"].shape) == (64, 16, SSM_E, SSM_N),
+          and tuple(state["ssm"].shape) == (FM_LAYERS, 16, SSM_E, SSM_N),
           f"[serve-ssm] slot state {state['conv'].dtype} "
           f"{state['ssm'].dtype} {tuple(state['ssm'].shape)}")
     state_bytes = sum(t.numel() * t.element_size() for t in state.values())
@@ -2344,13 +2431,14 @@ def phase_serve_ssm(smi: str, path: Path) -> dict:
         **{k: s[k] for k in ("p50_token_latency_s", "p95_token_latency_s",
                              "p50_ttft_s", "p95_ttft_s")},
     }
-    print(f"[serve-ssm] falcon-mamba-7b x64 ({n_params} params, f32, init "
-          f"{init_s:.1f} s): {len(reqs)} requests, {s['tokens']} tokens in "
+    print(f"[serve-ssm] falcon-mamba-7b x{FM_LAYERS} ({n_params} params, f32,"
+          f" init {init_s:.1f} s): {len(reqs)} requests, {s['tokens']} "
+          f"tokens in "
           f"{wall:.3f} s ({rec['tokens_per_s']:.1f} tok/s); decode "
           f"{decode_tokens} tokens in {steps} steps, {decode_s:.3f} s "
           f"({rec['decode_tokens_per_s']:.1f} tok/s, {rec['step_ms']:.3f} "
           f"ms/step); {prefills} prefills; ssm_scan launches "
-          f"{launches['ssm_scan']} = 64 x {prefills}; pool untouched "
+          f"{launches['ssm_scan']} = {FM_LAYERS} x {prefills}; pool untouched "
           f"[{smi}]")
     print(f"[serve-ssm] inter-token p50 {s['p50_token_latency_s'] * 1e3:.3f}"
           f" ms p95 {s['p95_token_latency_s'] * 1e3:.3f} ms; TTFT p50 "
@@ -2816,7 +2904,7 @@ def phase_qwen3_state(smi: str, requests: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the recurrent families: recurrentgemma-9b served at full depth (B5 on its
+# the recurrent families: recurrentgemma-9b served (B5 on its
 # local attention, RG-LRU and the slot ring), falcon-mamba and
 # recurrentgemma trained through the chunked scan
 # ---------------------------------------------------------------------------
@@ -2825,9 +2913,13 @@ def phase_qwen3_state(smi: str, requests: Path) -> dict:
 # 2,048-token window, in its 12 attention_local blocks
 RG_SHAPE = (1, 16, 256)
 RG_WINDOW = 2048
-RG_LOCAL = 12
-RG_LAYERS = 38
-RG_PARAMS = 10_444_771_328    # the reference's init (jax.eval_shape)
+RG_LOCAL = 12                 # local-attention layers of the 38
+# the served depth: 38 -> 14 since PR 26 (for the script's 1,200 s limit;
+# the serve steps are host-bound): 4 (recurrent, recurrent, local) units
+# and the closing (recurrent, recurrent), as the full model ends
+RG_LAYERS = 14
+RG_SERVE_LOCAL = 4
+RG_PARAMS = 5_192_912_896     # 10,444,771,328 at 38 layers
 RG_PROMPTS = (512, 2040, 2560, 4096)
 RG_REQUESTS = 16
 RG_ARGS = ["--arch", "recurrentgemma-9b", "--slots", "8", "--decode-burst",
@@ -3003,11 +3095,11 @@ def phase_hybrid_slot_vs_dense(smi: str, model, params, prompts,
 def phase_serve_hybrid(smi: str) -> dict:
     """Serve 16 requests (prompts 512 / 2,040 / 2,560 / 4,096, gen 32..64
     from seed 0) with recurrentgemma-9b at its published widths and full
-    depth (38 layers, 10,444,771,328 params, f32 weights from seed 0, bf16
-    compute) through ``repro_torch.launch.serve``, ``--slots 8
+    ``RG_LAYERS`` of its 38 layers (f32 weights from seed 0, bf16 compute)
+    through ``repro_torch.launch.serve``, ``--slots 8
     --decode-burst 4``, greedy, whole-prompt.  Every kernel count is set to
-    0 just before the run and read just after: flash_attention 12 times
-    per prefill (B5 over the window), nothing else; the page pool
+    0 just before the run and read just after: flash_attention once per
+    local-attention layer and prefill (B5 over the window), nothing else; the page pool
     untouched; the slot state (rings, RG-LRU) at its shapes.  Then the
     host synchronisations of a steady burst and two bursts profiled, slot
     decode against dense decode bitwise past the ring's wrap, and the
@@ -3016,7 +3108,7 @@ def phase_serve_hybrid(smi: str) -> dict:
     from repro_torch.launch import serve
     path = _write_rg_requests()
     args = serve.build_argparser().parse_args(
-        RG_ARGS + ["--requests", str(path)])
+        RG_ARGS + ["--layers", str(RG_LAYERS), "--requests", str(path)])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model, params, _ = serve.build(args)
@@ -3027,9 +3119,9 @@ def phase_serve_hybrid(smi: str) -> dict:
     check(cfg.n_layers == RG_LAYERS and cfg.d_model == 4096
           and cfg.rglru.attention_window == RG_WINDOW
           and n_params == RG_PARAMS,
-          f"recurrentgemma-9b at full depth and width: {cfg}, {n_params}")
+          f"recurrentgemma-9b at full width: {cfg}, {n_params}")
     check([(st.kinds, st.repeats) for st in model.stages]
-          == [(("recurrent", "recurrent", "attention_local"), 12),
+          == [(("recurrent", "recurrent", "attention_local"), RG_SERVE_LOCAL),
               (("recurrent", "recurrent"), 1)], "stage plan")
     reqs = serve.load_requests(args.requests, cfg.vocab_size, args.gen,
                                seed=args.seed)
@@ -3051,9 +3143,9 @@ def phase_serve_hybrid(smi: str) -> dict:
               f"[serve-hybrid] request {r.rid}: {len(done[r.rid].out)} "
               f"tokens, expected {r.max_new}")
     prefills, steps = sch.stats["prefills"], sch.stats["decode_steps"]
-    check(launches["flash_attention"] == RG_LOCAL * prefills,
+    check(launches["flash_attention"] == RG_SERVE_LOCAL * prefills,
           f"[serve-hybrid] flash_attention launched "
-          f"{launches['flash_attention']} times, expected {RG_LOCAL} x "
+          f"{launches['flash_attention']} times, expected {RG_SERVE_LOCAL} x "
           f"{prefills} prefills")
     check(all(n == 0 for k, n in launches.items()
               if k != "flash_attention"),
@@ -3065,7 +3157,7 @@ def phase_serve_hybrid(smi: str) -> dict:
     shapes = {f"stage{si}/{b}/{n}": (tuple(t.shape), str(t.dtype)[6:])
               for si, unit in enumerate(sch.cache) for b, c in unit.items()
               for n, t in c.items()}
-    check(tuple(c0["b2"]["k"].shape) == (12, 8, RG_WINDOW, 1, 256)
+    check(tuple(c0["b2"]["k"].shape) == (RG_SERVE_LOCAL, 8, RG_WINDOW, 1, 256)
           and c0["b2"]["k"].dtype == torch.bfloat16
           and c0["b0"]["h"].dtype == torch.float32
           and tuple(c1["b1"]["h"].shape) == (1, 8, 4096),
@@ -3098,7 +3190,8 @@ def phase_serve_hybrid(smi: str) -> dict:
           f"tokens in {steps} steps, {decode_s:.3f} s "
           f"({rec['decode_tokens_per_s']:.1f} tok/s, {rec['step_ms']:.3f} "
           f"ms/step); {prefills} prefills; flash_attention launches "
-          f"{launches['flash_attention']} = {RG_LOCAL} x {prefills}; pool "
+          f"{launches['flash_attention']} = {RG_SERVE_LOCAL} x {prefills}; "
+          f"pool "
           f"untouched [{smi}]")
     print(f"[serve-hybrid] inter-token p50 "
           f"{s['p50_token_latency_s'] * 1e3:.3f} ms p95 "
@@ -3236,8 +3329,12 @@ def phase_train_recurrent(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 OLMOE_LAYERS = 16
-OLMOE_PARAMS = 6_919_624_704         # the reference's init, 16 layers
-OLMOE_ARGS = ["--arch", "olmoe-1b-7b", *DENSE_ARGS]
+# the served depth: 16 -> 8 since PR 26 (for the script's 1,200 s limit;
+# the serve steps are host-bound)
+OLMOE_SERVE_LAYERS = 8
+OLMOE_PARAMS = 3_563_098_112         # 6,919,624,704 at 16 layers
+OLMOE_ARGS = ["--arch", "olmoe-1b-7b", "--layers", str(OLMOE_SERVE_LAYERS),
+              *DENSE_ARGS]
 PHI_LAYERS = 8                       # 32 -> 8: 167.5 GB of f32 weights
 PHI_PARAMS = 10_666_708_992
 PHI_ARGS = ["--arch", "phi3.5-moe-42b-a6.6b", "--layers", str(PHI_LAYERS),
@@ -3255,14 +3352,17 @@ OLMOE_TRAIN = ["--arch", "olmoe-1b-7b", "--layers", "1", "--algo",
                "--seq", "256", "--buckets", str(N_BUCKETS), "--seed", "0",
                "--log-every", "1", "--steps", str(OLMOE_TRAIN_STEPS),
                "--use-kernels"]
-MINICPM_LAYERS = 62
-MINICPM_PARAMS = 4_262_025_728
+# the served depth: 62 -> 16 since PR 26 (for the script's 1,200 s limit:
+# at 62 layers the whole, int8 and profiled runs took ~45 s of host-bound
+# steps); the latent token bytes are still read at all 62
+MINICPM_LAYERS = 16
+MINICPM_PARAMS = 1_378_978_304       # 4,262,025,728 at 62 layers
 MINICPM_ARGS = ["--arch", "minicpm3-4b", *DENSE_ARGS]
 MINICPM_TOKEN_BYTES = 62 * (256 + 32) * 2    # bf16 ckv + k_rope, 35,712
 # the prefix check's depth: at 62 layers its hot and cold runs took
 # 157-200 s of host-bound decode steps (6,225 launches a step); the
-# bitwise pin does not depend on the depth
-MINICPM_PREFIX_LAYERS = 8
+# bitwise pin does not depend on the depth (8 from PR 22, 4 since PR 26)
+MINICPM_PREFIX_LAYERS = 4
 QWEN3_TOKEN_BYTES = 28 * 2 * 8 * 128 * 2     # bf16 k + v, 114,688
 MINICPM_TRAIN = ["--arch", "minicpm3-4b", "--layers", "2", "--algo",
                  "dc_s3gd", "--workers", str(W), "--batch-per-worker", "2",
@@ -3362,12 +3462,12 @@ def phase_moe_routes(smi: str, model, params, reqs) -> dict:
 
 
 def phase_serve_moe(smi: str, path: Path) -> dict:
-    """olmoe-1b-7b at its published widths and full depth (16 layers,
-    6,919,624,704 params, f32 weights from seed 0, bf16 compute and KV)
-    over phase 8's 48 requests through ``repro_torch.launch.serve`` with
+    """olmoe-1b-7b at its published widths and ``OLMOE_SERVE_LAYERS`` of
+    its 16 layers (f32 weights from seed 0, bf16 compute and KV) over
+    phase 8's 48 requests through ``repro_torch.launch.serve`` with
     ``--slots 16 --pages 641 --page-size 16 --decode-burst 4
-    --paged-kernel``, whole-prompt: every request at its length, B4 16
-    times per decode step, B5 16 times per prefill; the routed prefill
+    --paged-kernel``, whole-prompt: every request at its length, B4 once
+    per layer and decode step, B5 once per layer and prefill; the routed prefill
     (capacity factor 1.25) and the dropless decode.  Then the dropless FFN
     against the oracle, the kernel route against the plain route, the
     host synchronisations of a burst (0) and two bursts profiled.
@@ -3388,13 +3488,13 @@ def phase_serve_moe(smi: str, path: Path) -> dict:
           f"olmoe-1b-7b: {n} params, {cfg.moe}")
     expert_bytes = sum(params["stage0"]["b0"]["moe"][k].numel() * 4
                        for k in ("w_up", "w_gate", "w_down"))
-    print(f"[serve-olmoe] olmoe-1b-7b x{OLMOE_LAYERS}: {n} params "
+    print(f"[serve-olmoe] olmoe-1b-7b x{OLMOE_SERVE_LAYERS}: {n} params "
           f"({n * 4 / 1e9:.2f} GB f32; the experts {expert_bytes / 1e9:.2f}"
           f" GB, all read by each dropless decode step), init {init_s:.1f} s"
           f" [{smi}]")
     rec["olmoe"], _, reqs = phase_serve(
         smi, path, (), None, "serve-olmoe", (model, params, None),
-        OLMOE_ARGS, OLMOE_LAYERS)
+        OLMOE_ARGS, OLMOE_SERVE_LAYERS)
     rec["olmoe"]["params"] = n
     rec["olmoe"]["expert_bytes"] = expert_bytes
     rec["olmoe"]["init_s"] = init_s
@@ -3519,15 +3619,15 @@ def phase_train_moe(smi: str) -> dict:
 
 
 def phase_serve_mla(smi: str, path: Path) -> dict:
-    """minicpm3-4b at its published widths and full depth (62 layers,
-    4,262,025,728 params, f32 weights from seed 0, bf16 compute) on the
-    paged latent pools (ckv 256 + k_rope 32 a token and layer): 16 of
+    """minicpm3-4b at its published widths and ``MINICPM_LAYERS`` of its 62
+    layers (f32 weights from seed 0, bf16 compute) on the paged latent
+    pools (ckv 256 + k_rope 32 a token and layer): 16 of
     phase 8's requests whole-prompt, then 8 over int8 pools, through
     ``repro_torch.launch.serve`` (every request at its length; B4 and B5
     never launch: MLA's latent pages are read by gather and its prefill
     takes the plain core, as in the reference); the latent token bytes
-    beside qwen3-0.6b's; two decode bursts profiled (0 host syncs).  Then,
-    at its published widths cut to 8 of its 62 layers, phase 12's 32
+    (at all 62 layers) beside qwen3-0.6b's; two decode bursts profiled (0 host syncs).  Then,
+    at its published widths cut to 4 of its 62 layers, phase 12's 32
     requests behind the 392-token system prompt with ``--prefill-chunk
     128 --prefix-cache`` against the cold chunked run: greedy tokens
     bitwise, >= 31 hits, >= 1 copy-on-write, fewer pages (block tables as
@@ -3538,8 +3638,9 @@ def phase_serve_mla(smi: str, path: Path) -> dict:
     from repro_torch.models.cache import PagedLayout
     from repro_torch.models.transformer import Model
     rec = {}
-    args = serve.build_argparser().parse_args(MINICPM_ARGS + ["--requests",
-                                                              str(path)])
+    args = serve.build_argparser().parse_args(
+        MINICPM_ARGS + ["--layers", str(MINICPM_LAYERS), "--requests",
+                        str(path)])
     model, params, _ = serve.build(args)
     n = _params_count(params)
     check(n == MINICPM_PARAMS and [st.kinds for st in model.stages]
@@ -3552,13 +3653,15 @@ def phase_serve_mla(smi: str, path: Path) -> dict:
         (model, params, None), MINICPM_ARGS, MINICPM_LAYERS,
         attention_kernels=False)
     kw = dict(n_slots=16, num_pages=641, page_size=PAGE, max_pages=640)
-    mla_bytes = PagedLayout(model, **kw).kv_bytes_per_token()
+    mla_bytes = PagedLayout(Model(get_config("minicpm3-4b")),
+                            **kw).kv_bytes_per_token()
     qwen_bytes = PagedLayout(Model(get_config("qwen3-0.6b")),
                              **kw).kv_bytes_per_token()
     print(f"[serve-minicpm3] latent pool bytes a token (bf16, 62 layers x "
           f"(256 + 32) x 2): {mla_bytes} B, against qwen3-0.6b's k + v "
-          f"{qwen_bytes} B ({qwen_bytes / mla_bytes:.2f}x); int8: "
-          f"{rec['int8']['kv_bytes_per_token']} B [{smi}]")
+          f"{qwen_bytes} B ({qwen_bytes / mla_bytes:.2f}x); int8 at "
+          f"{MINICPM_LAYERS} layers: {rec['int8']['kv_bytes_per_token']} B "
+          f"[{smi}]")
     check(mla_bytes == MINICPM_TOKEN_BYTES and qwen_bytes ==
           QWEN3_TOKEN_BYTES, f"token bytes {mla_bytes} {qwen_bytes}")
     rec["token_bytes"] = {"minicpm3": mla_bytes, "qwen3": qwen_bytes}
@@ -3653,11 +3756,15 @@ def phase_c5(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 VLM_LAYERS = 28
-VLM_PARAMS = 7_628_332_544           # the reference's init, 28 layers
+# the served depth: 28 -> 8 since PR 26 (for the script's 1,200 s limit;
+# the decode steps are host-bound); B5 / B4 are timed at all 28 below
+VLM_SERVE_LAYERS = 8
+VLM_PARAMS = 2_967_268_864           # 7,628,332,544 at 28 layers
 VLM_BATCH, VLM_PROMPT, VLM_GEN = 4, 128, 32
 VLM_PATCHES = 1024
-VLM_ARGS = ["--arch", "qwen2-vl-7b", "--batch", str(VLM_BATCH),
-            "--prompt-len", str(VLM_PROMPT), "--gen", str(VLM_GEN)]
+VLM_ARGS = ["--arch", "qwen2-vl-7b", "--layers", str(VLM_SERVE_LAYERS),
+            "--batch", str(VLM_BATCH), "--prompt-len", str(VLM_PROMPT),
+            "--gen", str(VLM_GEN)]
 WHISPER_LAYERS = 32                  # the decoder's; the encoder's too
 WHISPER_PARAMS = 1_601_459_200
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 8, 64, 64
@@ -3834,16 +3941,17 @@ def _mm_routes(smi: str, model, params, batch: dict, offset: int, gen: int,
 
 
 def phase_serve_vlm(smi: str) -> dict:
-    """qwen2-vl-7b at its published widths and full depth (28 layers,
-    7,628,332,544 params, f32 weights from seed 0, bf16 compute): 4
-    prompts of 1,024 stub patch positions + 128 tokens, 32 generated,
-    greedy, one-shot through ``repro_torch.launch.serve`` (B5 28 times,
-    causal at KV 4, G 7, hd 128), then the same batch through
-    `PagedLayout` over f32 pools (B4 28 times a decode step, M-RoPE
+    """qwen2-vl-7b at its published widths and ``VLM_SERVE_LAYERS`` of its
+    28 layers (f32 weights from seed 0, bf16 compute): 4 prompts of 1,024
+    stub patch positions + 128 tokens, 32 generated, greedy, one-shot
+    through ``repro_torch.launch.serve`` (B5 once per layer, causal at KV
+    4, G 7, hd 128), then the same batch through `PagedLayout` over f32
+    pools (B4 once per layer and decode step, M-RoPE
     positions (3, B, 1)), kernel route == plain route, two steps
     profiled."""
     from repro_torch.launch import serve
-    rec = {"oneshot": _mm_oneshot(smi, VLM_ARGS, "serve-vlm", VLM_LAYERS)}
+    rec = {"oneshot": _mm_oneshot(smi, VLM_ARGS, "serve-vlm",
+                                  VLM_SERVE_LAYERS)}
     args = serve.build_argparser().parse_args(VLM_ARGS)
     t0 = time.perf_counter()
     model, params, _ = serve.build(args)
@@ -3855,7 +3963,7 @@ def phase_serve_vlm(smi: str) -> dict:
           and cfg.vlm.mrope_sections == (16, 24, 24)
           and cfg.n_heads // cfg.n_kv_heads == 7,
           f"qwen2-vl-7b: {n} params, {cfg.vlm}")
-    print(f"[serve-vlm] qwen2-vl-7b x{VLM_LAYERS}: {n} params "
+    print(f"[serve-vlm] qwen2-vl-7b x{VLM_SERVE_LAYERS}: {n} params "
           f"({n * 4 / 1e9:.2f} GB f32), init {init_s:.1f} s [{smi}]")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab_size, (VLM_BATCH, VLM_PROMPT),
@@ -3864,7 +3972,7 @@ def phase_serve_vlm(smi: str) -> dict:
                                                     VLM_PROMPT, gen)}
     torch.cuda.reset_peak_memory_stats()
     routes = _mm_routes(smi, model, params, batch, VLM_PATCHES, VLM_GEN,
-                        VLM_LAYERS, VLM_LAYERS, "serve-vlm",
+                        VLM_SERVE_LAYERS, VLM_SERVE_LAYERS, "serve-vlm",
                         "profile_serve_vlm.txt")
     routes["peak_bytes"] = torch.cuda.max_memory_allocated()
     for k in ("layout", "cache", "next"):
@@ -4289,7 +4397,7 @@ def phase_new_settings(smi: str) -> dict:
     return rec
 
 
-AUTOTUNE_SERVE_LAYERS = 14
+AUTOTUNE_SERVE_LAYERS = 4
 
 
 def phase_autotune(smi: str) -> dict:
@@ -4437,6 +4545,7 @@ MESH_STEPS = 3
 MESH_TIMED = 3               # further steps on the host clock, not compared
 MESH_TOL = 1e-5              # two ranks vs one process, of each leaf's scale
 MESH_RANKS = 2
+RANKS_LIMIT_S = 300          # a group of spawned ranks is killed after this
 DRYRUN_COMBO = ("qwen3-0.6b", "decode_32k", "pod")
 
 
@@ -4495,11 +4604,76 @@ def _mesh_main_run(smi: str, mesh, overlap: bool) -> dict:
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     peak = torch.cuda.max_memory_allocated()
     check(math.isfinite(float(m["loss"])), "[mesh] loss not finite")
+    # the run's teardown waits for the last step's issue: an asynchronous
+    # collective never waited on keeps its tensors (one set of bucket sums)
+    # in c10d until a later collective retires it
+    alg.drain()
     del state
     return {"kept": kept, "launches": launches,
             "step_ms": statistics.median(walls) * 1e3,
             "host_syncs": syncs, "peak_bytes": peak,
             "allocated_before": before}
+
+
+def _leftover_probe(smi: str, mesh) -> dict:
+    """What device memory outlives a training run: one more inline run of
+    the main cell (2 steps, ``mesh=None`` or on ``mesh``) under the
+    allocator's history, then ``drain`` and the run's teardown.  The
+    blocks allocated during the run and still alive are named by the
+    frames that allocated them; then counted again after a garbage
+    collection (a reference cycle's) and after 2 s more (a collective's
+    stash that c10d's watchdog releases)."""
+    import gc
+    from repro_torch.launch import train
+    from repro_torch.launch.engine import Engine
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=100_000,
+                                             stacks="python")
+    try:
+        args = train.build_argparser().parse_args(
+            MAIN_ARGS + ["--steps", "2", "--use-kernels"])
+        model, alg, state, batch_fn = train.build(args)
+        engine = Engine(model, alg, mesh=mesh)
+        state, _, _ = engine.fit(state, batch_fn, steps=2, log_every=1)
+        alg.drain()
+        torch.cuda.synchronize()
+        del state, engine, alg, model, batch_fn
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - base
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    holders = {}
+    for seg in snap["segments"]:
+        for b in seg["blocks"]:
+            if b["state"] != "active_allocated" or not b.get("frames"):
+                continue
+            frames = [f"{Path(f['filename']).name}:{f['line']} {f['name']}"
+                      for f in b["frames"]
+                      if "repro_torch" in f["filename"]
+                      or "chip_smoke" in f["filename"]][:4]
+            key = " < ".join(frames) or "no python frame"
+            holders[key] = holders.get(key, 0) + b["size"]
+    del snap
+    gc.collect()
+    torch.cuda.synchronize()
+    after_gc = torch.cuda.memory_allocated() - base
+    time.sleep(2.0)
+    torch.cuda.synchronize()
+    later = torch.cuda.memory_allocated() - base
+    top = sorted(holders.items(), key=lambda kv: -kv[1])[:6]
+    which = "mesh=None" if mesh is None else "NCCL mesh"
+    print(f"[mesh] leftover after a 2-step {which} run, drain and "
+          f"teardown: {left} B ({left / 2**30:.3f} GiB); {after_gc} B after"
+          f" gc.collect(), {later} B 2 s later; blocks alive before the "
+          f"collection by allocating frames: "
+          + ("; ".join(f"{v} B at {k}" for k, v in top) or "none")
+          + f" [{smi}]")
+    return {"left_bytes": left, "after_gc_bytes": after_gc,
+            "left_bytes_2s": later,
+            "holders": [{"bytes": v, "frames": k} for k, v in top]}
 
 
 def phase_mesh_nccl(smi: str) -> dict:
@@ -4557,15 +4731,21 @@ def phase_mesh_nccl(smi: str) -> dict:
                       f"{ref['allocated_before'] / 2**30:.3f}: the "
                       f"mesh=None run's kept state) [{smi}]")
                 torch.cuda.empty_cache()
+            rec["leftover"] = {"none": _leftover_probe(smi, None),
+                               "mesh": _leftover_probe(smi, mesh)}
         finally:
             dist.destroy_process_group()
+    torch.cuda.synchronize()
+    rec["leftover"]["after_destroy_bytes"] = torch.cuda.memory_allocated()
+    print(f"[mesh] allocated after the process group's destruction: "
+          f"{rec['leftover']['after_destroy_bytes']} B [{smi}]")
     return rec
 
 
-def _mesh_cnn(mesh_ranks: int, rank: int, store: str, out: str) -> None:
+def _mesh_cnn(rank: int, store: str, out: str) -> None:
     """One rank of phase (b) (a spawned process): ResNet-18's layout, W =
     8, ``MESH_STEPS`` DC-S3GD steps through the example twin's build, 4
-    buckets, fused tail, on a gloo mesh of ``mesh_ranks`` ranks on the
+    buckets, fused tail, on a gloo mesh of ``MESH_RANKS`` ranks on the
     one card; writes its metrics, its launch counts and (rank 0) the
     gathered params."""
     import torch.distributed as dist
@@ -4581,9 +4761,9 @@ def _mesh_cnn(mesh_ranks: int, rank: int, store: str, out: str) -> None:
     # NCCL refuses two ranks of one communicator on one device: gloo,
     # which all-reduces and broadcasts CUDA tensors through host copies
     dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=mesh_ranks)
+                            rank=rank, world_size=MESH_RANKS)
     try:
-        mesh = M.make_debug_mesh(mesh_ranks, 1, device_type="cuda")
+        mesh = M.make_debug_mesh(MESH_RANKS, 1, device_type="cuda")
         with _cudnn_deterministic():
             model, alg, state, batch_fn, _ = _cnn_twin(steps=MESH_STEPS)
             del state
@@ -4605,6 +4785,80 @@ def _mesh_cnn(mesh_ranks: int, rank: int, store: str, out: str) -> None:
         dist.destroy_process_group()
 
 
+def _wait_ranks(procs, limit: float = RANKS_LIMIT_S) -> list:
+    """Wait for spawned ranks; once one exits with an error, or ``limit``
+    seconds have passed, kill the rest (a rank left in a collective whose
+    peer died would wait for gloo's 30 min timeout).  Their exit codes."""
+    deadline = time.perf_counter() + limit
+    while any(p.is_alive() for p in procs):
+        if time.perf_counter() > deadline or any(
+                p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    return [p.exitcode for p in procs]
+
+
+def _start_pair(target, world: int = MESH_RANKS, extra=(),
+                gated: bool = False):
+    """Start ``target(rank, store, out, *extra)`` on ``world`` spawned
+    ranks (a ``file://`` store in a temporary directory of their own;
+    daemons, so that a failing parent leaves none behind).  ``gated``:
+    the ranks reach the card and then wait in `_await_gate` until
+    `_open_gate`, so that their start overlaps the parent's work."""
+    import multiprocessing as mp
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    if not gated:
+        Path(tmp, "go").touch()
+    outs = [f"{tmp}/rank{r}.pt" for r in range(world)]
+    procs = [mp.get_context("spawn").Process(
+        target=target, args=(r, f"{tmp}/store", outs[r], *extra),
+        daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, outs, tmp
+
+
+def _open_gate(started) -> None:
+    """Let a gated `_start_pair`'s ranks go on."""
+    Path(started[2], "go").touch()
+
+
+def _await_gate(store: str) -> None:
+    """In a spawned rank, after its imports and its CUDA context: wait
+    until the parent opens the gate (at most 900 s)."""
+    gate = Path(store).parent / "go"
+    deadline = time.perf_counter() + 900
+    while not gate.exists():
+        check(time.perf_counter() < deadline, "the gate never opened")
+        time.sleep(0.1)
+
+
+def _join_pair(started) -> tuple:
+    """Wait for a `_start_pair`'s ranks (`_wait_ranks`) and remove their
+    directory: ``(results in rank order or None, exit codes)``."""
+    import shutil
+    procs, outs, tmp = started
+    try:
+        codes = _wait_ranks(procs)
+        res = [torch.load(o, weights_only=False) for o in outs] \
+            if all(c == 0 for c in codes) else None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res, codes
+
+
+def _spawn_pair(target, tag: str) -> list:
+    """`_start_pair` then `_join_pair`; the results in rank order."""
+    res, codes = _join_pair(_start_pair(target))
+    check(res is not None, f"[{tag}] gloo ranks exited {codes}")
+    return res
+
+
 def phase_mesh_gloo(smi: str) -> dict:
     """(b) Two ranks on the one card over gloo: the paper's CNN at
     ResNet-18's layout, W = 8 (4 workers a rank), 3 DC-S3GD steps with the
@@ -4613,8 +4867,6 @@ def phase_mesh_gloo(smi: str) -> dict:
     ``MESH_TOL`` relative; A1 and A2 18 times a rank (6 buckets x 3
     steps).  The ranks copy through the host: the wall is no speed
     figure."""
-    import multiprocessing as mp
-    import tempfile
     from repro_torch import tree as T
     from repro_torch.launch.engine import Engine
     with _cudnn_deterministic():
@@ -4624,25 +4876,9 @@ def phase_mesh_gloo(smi: str) -> dict:
         ref = T.map(lambda x: x.cpu(), state.params)
     del state, model, alg
     torch.cuda.empty_cache()
-    ctx = mp.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        outs = [f"{tmp}/rank{r}.pt" for r in range(MESH_RANKS)]
-        t0 = time.perf_counter()
-        procs = [ctx.Process(target=_mesh_cnn,
-                             args=(MESH_RANKS, r, f"{tmp}/store", outs[r]))
-                 for r in range(MESH_RANKS)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(300)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        wall = time.perf_counter() - t0
-        check(all(p.exitcode == 0 for p in procs),
-              f"[mesh] gloo ranks exited {[p.exitcode for p in procs]}")
-        res = [torch.load(o, weights_only=False) for o in outs]
+    t0 = time.perf_counter()
+    res = _spawn_pair(_mesh_cnn, "mesh")
+    wall = time.perf_counter() - t0
     worst = 0.0
     for a, b in zip(T.leaves(res[0]["params"]), T.leaves(ref)):
         scale = float(b.abs().max())
@@ -4676,19 +4912,38 @@ def phase_mesh_gloo(smi: str) -> dict:
             "fit_s": [r["wall_s"] for r in res]}
 
 
-def phase_dryrun(smi: str) -> dict:
+def _start_dryrun() -> tuple:
+    """Start (c)'s dry-run subprocess on a thread of its own: it places
+    nothing on the card, so it runs beside (a) and (b); `phase_dryrun`
+    joins it.  (thread, a dict that gets ``r`` and ``wall``)."""
+    import threading
+    arch, shape, mesh = DRYRUN_COMBO
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        box["r"] = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out",
+             str(ROOT / "chiprun_out" / "dryrun_torch")],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        box["wall"] = time.perf_counter() - t0
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, box
+
+
+def phase_dryrun(smi: str, started: tuple) -> dict:
     """(c) One dry-run combo as a subprocess in the card's environment
-    (it places nothing on the device): ``status: ok`` and its per-device
+    (`_start_dryrun`'s, joined here): ``status: ok`` and its per-device
     argument bytes."""
     arch, shape, mesh = DRYRUN_COMBO
     out = ROOT / "chiprun_out" / "dryrun_torch"
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--mesh", mesh, "--out", str(out)],
-        capture_output=True, text=True, timeout=600, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    wall = time.perf_counter() - t0
+    thread, box = started
+    thread.join()
+    check("r" in box, "[dryrun] the subprocess did not run")
+    r, wall = box["r"], box["wall"]
     check(r.returncode == 0, f"[dryrun] exit {r.returncode}: "
           f"{r.stderr[-2000:]}")
     rec = json.loads((out / f"{arch}__{shape}__{mesh}__dc_s3gd.json")
@@ -4700,7 +4955,8 @@ def phase_dryrun(smi: str) -> dict:
           f"{m['argument_bytes']} B of arguments a device "
           f"({m['argument_bytes'] / 2**30:.3f} GiB), {m['output_bytes']} B "
           f"out; roofline {rec['roofline']['bottleneck']}-bound; "
-          f"{wall:.1f} s wall (the subprocess) [{smi}]")
+          f"{wall:.1f} s wall (the subprocess, beside (a) and (b)) "
+          f"[{smi}]")
     return {"record": rec, "wall_s": wall}
 
 
@@ -4847,11 +5103,11 @@ def _tp_cell(mesh, argv, compute: str) -> dict:
 TP_METRICS = ("loss", "lambda", "distance_norm", "delta_norm")
 
 
-def _tp_rank(world: int, shape, rank: int, store: str, out: str,
+def _tp_rank(rank: int, store: str, out: str, world: int, shape,
              cells) -> None:
-    """One spawned rank of phase 18: a gloo process group (NCCL refuses
-    two ranks on one device), a ('data', 'model') mesh of ``shape`` on the
-    card, then `_tp_cell` of each of ``cells``."""
+    """One spawned rank of phase 18 (`_start_pair`'s): a gloo process
+    group (NCCL refuses two ranks on one device), a ('data', 'model') mesh
+    of ``shape`` on the card, then `_tp_cell` of each of ``cells``."""
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import mesh as M
@@ -4869,26 +5125,12 @@ def _tp_rank(world: int, shape, rank: int, store: str, out: str,
 
 
 def _tp_spawn(shape, cells) -> list:
-    import multiprocessing as mp
-    import tempfile
+    """Run the ranks of a phase-18 mesh of ``shape``: their records."""
     world = shape[0] * shape[1]
-    ctx = mp.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        outs = [f"{tmp}/rank{r}.pt" for r in range(world)]
-        procs = [ctx.Process(target=_tp_rank,
-                             args=(world, shape, r, f"{tmp}/store", outs[r],
-                                   cells)) for r in range(world)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(600)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        check(all(p.exitcode == 0 for p in procs),
-              f"[tp] gloo ranks {shape} exited {[p.exitcode for p in procs]}")
-        return [torch.load(o, weights_only=False) for o in outs]
+    res, codes = _join_pair(_start_pair(_tp_rank, world,
+                                        (world, shape, cells)))
+    check(res is not None, f"[tp] gloo ranks {shape} exited {codes}")
+    return res
 
 
 def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
@@ -4997,11 +5239,519 @@ def phase_tensor_parallel(smi: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the paper's worker axis across ranks for every reducer,
+# dynamic_ssp, DC-ASGD and elastic resize
+# ---------------------------------------------------------------------------
+
+WA_STEPS = 3
+WA_SKEW = (3.0, 1.0)     # worker 0 three times slower than the rest
+# (a) the main cell on an NCCL mesh of one rank, each bitwise mesh=None
+WA_MAIN = (("gossip", ["--reducer", "gossip"]),
+           ("hierarchical", ["--reducer", "hierarchical"]),
+           ("topk", COMPRESSED),
+           ("topk_exact", ["--reducer", "topk_exact"]),
+           ("randk", ["--reducer", "randk"]),
+           ("powersgd", ["--reducer", "powersgd"]),
+           ("dynamic_ssp", ["--staleness", "dynamic_ssp",
+                            "--ssp-threshold", "1"]),
+           ("dc_asgd", ["--algo", "dc_asgd"]))
+WA_ELASTIC = [{"step": s, "kind": "leave", "worker": w}
+              for s, w in ((1, "w1"), (1, "w5"), (2, "w2"), (2, "w6"))]
+# (b) the CNN on two gloo ranks: tag -> (algo, registry keywords, reducer
+# knobs, config overrides, fit options, held bitwise?)
+WA_CNN = (
+    ("gossip", "dc_s3gd", {"reducer": "gossip"}, None, {}, {}, True),
+    ("hierarchical g1", "dc_s3gd", {"reducer": "hierarchical"},
+     {"groups": 1}, {}, {}, True),
+    ("hierarchical g2", "dc_s3gd", {"reducer": "hierarchical"},
+     {"groups": 2}, {}, {}, True),
+    ("hierarchical g4", "dc_s3gd", {"reducer": "hierarchical"},
+     {"groups": 4}, {}, {}, True),
+    ("topk_exact", "dc_s3gd", {"reducer": "topk_exact"}, None, {}, {},
+     False),
+    ("powersgd", "dc_s3gd", {"reducer": "powersgd"}, None, {}, {}, False),
+    ("dynamic_ssp", "dc_s3gd", {"staleness": "dynamic_ssp"}, None,
+     {"ssp_threshold": 1}, {"skew": True}, False),
+    ("dc_asgd", "dc_asgd", {}, None, {}, {}, True),
+    # stale (λ0 = 0): after a resize to 6, D is the rounding noise of a
+    # mean of 6 equal rows, which dc_s3gd's λ scales to λ0‖g‖ (PERF.md)
+    ("elastic 8-6-4", "stale", {}, None, {}, {"elastic": True}, False),
+)
+
+
+def _skew_probe(n_workers: int):
+    return lambda it, dt: [WA_SKEW[0]] + [WA_SKEW[1]] * (n_workers - 1)
+
+
+def _rel_err(a, b, scales=None) -> float:
+    """The largest over leaves of max|a - b| / max(max|b|, scale), in f32
+    on ``a``'s device (``b``'s leaf moved there)."""
+    import numpy as np
+    from repro_torch import tree as T
+    worst = 0.0
+    lb = T.leaves(b)
+    for x, y, s in zip(T.leaves(a), lb, scales or [0.0] * len(lb)):
+        if isinstance(x, torch.Tensor):
+            y = y.to(x.device)
+            scale = max(float(y.abs().max()) if y.numel() else 0.0, s)
+            d = float((x.float() - y.float()).abs().max()) \
+                if y.numel() else 0.0
+        else:
+            x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+            scale = max(float(np.abs(y).max()) if y.size else 0.0, s)
+            d = float(np.abs(x - y).max()) if y.size else 0.0
+        if scale:
+            worst = max(worst, d / scale)
+    return worst
+
+
+def _state_err(a, b, whole: bool = False) -> dict:
+    """Per part of two gathered states, `_rel_err`; an error-feedback
+    residual at its bucket's payload scale (the carried delta's): its own
+    largest value is about the selection threshold.  ``whole``: every
+    leaf at its part's largest magnitude instead of its own."""
+    from repro_torch import tree as T
+
+    def err(x, y):
+        if not whole:
+            return _rel_err(x, y)
+        top = max((float(v.abs().max()) for v in T.leaves(y)
+                   if isinstance(v, torch.Tensor) and v.numel()),
+                  default=0.0)
+        return _rel_err(x, y, [top] * len(T.leaves(y)))
+    out = {"params": err(a.params, b.params), "opt": err(a.opt, b.opt)}
+    comm = {k: v for k, v in b.comm.items() if k not in ("pipeline",
+                                                          "reducer")}
+    out["comm"] = err({k: a.comm[k] for k in comm}, comm)
+    if "reducer" in b.comm:
+        res = b.comm["reducer"]
+        scales = [float(d.abs().max()) for d in b.comm["delta_prev"]] \
+            if "delta_prev" in b.comm else None
+        out["comm"] = max(out["comm"], _rel_err(
+            a.comm["reducer"]["residual"], res["residual"], scales),
+            _rel_err({k: a.comm["reducer"][k] for k in res
+                      if k != "residual"},
+                     {k: v for k, v in res.items() if k != "residual"}))
+    return out
+
+
+def _wa_main_run(mesh, extra) -> dict:
+    """The main cell (``MAIN_ARGS``, fused tail) + ``extra`` for
+    ``WA_STEPS`` steps through ``Engine(model, alg, mesh=mesh)`` under
+    deterministic algorithms, counts zeroed just before and read just
+    after; a ``dynamic_ssp`` run measures skew with `_skew_probe`."""
+    from repro_torch.launch import train
+    from repro_torch.launch.engine import Engine
+    args = train.build_argparser().parse_args(
+        MAIN_ARGS + ["--steps", str(WA_STEPS), "--use-kernels"] + extra)
+    model, alg, state, batch_fn = train.build(args)
+    engine = Engine(model, alg, mesh=mesh)
+    if mesh is not None:
+        del state
+        state = engine.init_state(model.init(
+            torch.Generator(device="cuda").manual_seed(args.seed)))
+    kw = {} if args.staleness == "fixed" else dict(
+        measure_skew=True, skew_probe=_skew_probe(W))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _zero_counts()
+        state, hist, _ = engine.fit(state, batch_fn, steps=WA_STEPS,
+                                    log_every=1, **kw)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if hasattr(engine.alg, "drain"):
+        engine.alg.drain()
+    return {"state": state, "launches": launches,
+            "hist": [{k: v for k, v in h.items() if k != "wall_s"}
+                     for h in hist],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "allocated_before": before}
+
+
+def phase_wa_nccl(smi: str) -> dict:
+    """(a) The main cell on an NCCL mesh of one rank under each reducer
+    that runs across ranks since this slice, then dynamic_ssp (a scripted
+    straggler revokes step 2) and dc_asgd: ``mesh=None`` and the mesh in
+    turn (two runs do not fit together), each bitwise in params, opt,
+    comm and the metrics; B3 12 launches a topk / topk_exact run, A1 /
+    A2 12 each a DC-S3GD run."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    rec = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        M.init_process_group(device_type="cuda",
+                             init_method=f"file://{tmp}/store", rank=0,
+                             world_size=1)
+        try:
+            mesh = M.make_debug_mesh(1, 1, device_type="cuda")
+            for tag, extra in WA_MAIN:
+                t0 = time.perf_counter()
+                ref = _wa_main_run(None, extra)
+                got = _wa_main_run(mesh, extra)
+                for what in ("params", "opt", "comm"):
+                    check(_bitwise(getattr(got["state"], what),
+                                   getattr(ref["state"], what)),
+                          f"[wa] NCCL 1 rank {tag}: {what} differs from "
+                          f"mesh=None")
+                check(got["hist"] == ref["hist"],
+                      f"[wa] NCCL 1 rank {tag}: metrics differ")
+                fused = tag != "dc_asgd"
+                for r, which in ((ref, "mesh=None"), (got, "mesh")):
+                    for name, n in r["launches"].items():
+                        want = WA_STEPS * N_BUCKETS if (
+                            name in ("dc_norms", "dc_fused_update") and fused
+                            or name == "select_ef_mean"
+                            and tag in ("topk", "topk_exact")) else 0
+                        check(n == want, f"[wa] {tag} {which}: {name} "
+                              f"launched {n} times, expected {want}")
+                admits = [h.get("ssp_admit") for h in got["hist"]]
+                if tag == "dynamic_ssp":
+                    check(admits == [1.0, 1.0, 0.0],
+                          f"[wa] dynamic_ssp admits {admits}")
+                del ref["state"], got["state"]
+                torch.cuda.empty_cache()
+                # the mesh run's peak counts the kept mesh=None state: the
+                # run's own share is the peak above what it found allocated
+                rise = {k: r["peak_bytes"] - r["allocated_before"]
+                        for k, r in (("mesh", got), ("none", ref))}
+                rec[tag] = {"launches": got["launches"],
+                            "peak_bytes": got["peak_bytes"],
+                            "none_peak_bytes": ref["peak_bytes"],
+                            "peak_rise_bytes": rise,
+                            "losses": [h["loss"] for h in got["hist"]],
+                            "admits": admits,
+                            "s": time.perf_counter() - t0}
+                print(f"[wa] (a) NCCL mesh (1, 1) {tag}: bitwise mesh=None "
+                      f"in params, opt, comm and metrics over {WA_STEPS} "
+                      f"steps; A1 / A2 / B3 {got['launches']['dc_norms']} / "
+                      f"{got['launches']['dc_fused_update']} / "
+                      f"{got['launches']['select_ef_mean']}"
+                      + (f"; admits {admits}" if tag == "dynamic_ssp"
+                         else "")
+                      + f"; peak above what each run found allocated "
+                      f"{rise['mesh'] / 2**30:.3f} GiB vs mesh=None "
+                      f"{rise['none'] / 2**30:.3f}; {rec[tag]['s']:.1f} s "
+                      f"both runs [{smi}]")
+        finally:
+            dist.destroy_process_group()
+    return rec
+
+
+def _wa_cnn_build(algo, make, opts, cfg_kw):
+    """The example twin's build of the (b) case on ResNet-18's layout."""
+    from repro_torch.core import registry
+    from repro_torch.examples import cnn_paper_repro as twin
+    cfg = dataclasses.replace(twin.recipe(CNN_W, WA_STEPS), **cfg_kw)
+    make = dict(make)
+    if opts is not None:
+        make["reducer"] = registry.make_reducer(make["reducer"], cfg, **opts)
+    return twin.build(algo, cfg, CNN_W, WA_STEPS, net=RESNET18,
+                      image_size=CNN_IMAGE, per_worker=CNN_PER_WORKER,
+                      use_kernels=True, buckets=N_BUCKETS, **make)
+
+
+def _wa_cnn_case(case, mesh=None) -> dict:
+    """One (b) case through ``Engine.fit``: the gathered state on the
+    host, the metrics, the elastic pins (``eval_params`` bitwise across
+    each resize) and the launch counts."""
+    from repro_torch import tree as T
+    from repro_torch.cluster import FaultSchedule, Membership
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.cnn import init_resnet
+    tag, algo, make, opts, cfg_kw, fit, _ = case
+    model, alg, state, batch_fn, _ = _wa_cnn_build(algo, make, opts, cfg_kw)
+    engine = Engine(model, alg, mesh=mesh)
+    if mesh is not None:
+        del state
+        state = engine.init_state(init_resnet(
+            torch.Generator(device="cuda").manual_seed(0), **RESNET18))
+    kw, pins = {}, []
+    if fit.get("skew"):
+        kw = dict(measure_skew=True, skew_probe=_skew_probe(CNN_W))
+    if fit.get("elastic"):
+        class Pinned(Membership):
+            def apply(self, events, st, *, step):
+                old = self.alg
+                before = old.eval_params(st)
+                st, changed = super().apply(events, st, step=step)
+                if changed:
+                    pins.append(_bitwise(before, old.eval_params(st)))
+                return st, changed
+        kw["membership"] = Pinned(alg, faults=FaultSchedule.from_json(
+            {"seed": 0, "events": WA_ELASTIC}))
+    _zero_counts()
+    state, hist, _ = engine.fit(state, batch_fn, steps=WA_STEPS,
+                                log_every=1, **kw)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    full = engine.gather_state(state)
+    host = T.map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x,
+                 full)
+    return {"state": host._replace(comm={
+                k: v for k, v in host.comm.items() if k != "pipeline"}),
+            "hist": [{k: v for k, v in h.items() if k != "wall_s"}
+                     for h in hist],
+            "launches": launches, "pins": pins,
+            "log": kw["membership"].log if "membership" in kw else None}
+
+
+def _wa_cnn_verdict(case, got, one) -> dict:
+    """A (b) case's mesh run against its one-process run: the state's
+    parts (`_state_err`, bitwise or not), the metrics where one process's
+    are not rounding noise, the pins, the transition log and the admits;
+    ``problems`` lists what fails."""
+    tag, bitwise, fit = case[0], case[-1], case[5]
+    problems = []
+    err = _state_err(got["state"], one["state"])
+    # the elastic run: each leaf at its part's scale, since the resizes'
+    # consensus rounding reaches leaves whose own scale is only the few
+    # steps' updates (a zero-initialised bias's momentum: 2.5e-5 of the
+    # part's 0.06, 8e-10 apart, 3.2e-5 of itself; PERF.md PR 26)
+    held = _state_err(got["state"], one["state"], whole=True) \
+        if fit.get("elastic") else err
+    same = {p: _bitwise(getattr(got["state"], p), getattr(one["state"], p))
+            for p in ("params", "opt", "comm")}
+    if bitwise and not all(same.values()):
+        problems.append(f"{tag}: not bitwise one process {same}, {err}")
+    if max(held.values()) > MESH_TOL:
+        problems.append(f"{tag}: {held} of scale from one process")
+    m_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(got["hist"], one["hist"])
+                for k in ("loss", "distance_norm") if k in b
+                and abs(b[k]) > 1e-6 * max(abs(h[k]) for h in one["hist"]))
+    if m_err > MESH_TOL:
+        problems.append(f"{tag}: metrics {m_err:.3g} apart")
+    if fit.get("elastic") and (got["pins"] != [True, True]
+                               or got["log"] != one["log"]):
+        problems.append(f"{tag}: pins {got['pins']}, log {got['log']} vs "
+                        f"{one['log']}")
+    adm = [h.get("ssp_admit") for h in got["hist"]]
+    if fit.get("skew") and adm != [1.0, 1.0, 0.0]:
+        problems.append(f"{tag}: admits {adm}")
+    return {"err": err, "held": held, "bitwise": same, "metrics_err": m_err,
+            "problems": problems}
+
+
+def _wa_cnn_rank(rank: int, store: str, out: str) -> None:
+    """One spawned rank of (b): a gloo group of 2 on the card.  Each rank
+    first runs every other `WA_CNN` case in one process (rank r the cases
+    i with i % 2 == r), keeping the states on the host; then both run each
+    case on the mesh, and the rank that kept a case's one-process state
+    holds the gathered state to it (only the verdicts travel back).
+    Gated (`_await_gate`)."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.examples import cnn_paper_repro  # noqa: F401
+    from repro_torch.launch import engine, mesh as M  # noqa: F401
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _await_gate(store)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=MESH_RANKS)
+    try:
+        mesh = M.make_debug_mesh(MESH_RANKS, 1, device_type="cuda")
+        res = {}
+        with _cudnn_deterministic():
+            ones = {case[0]: _wa_cnn_case(case)
+                    for i, case in enumerate(WA_CNN)
+                    if i % MESH_RANKS == rank}
+            torch.cuda.empty_cache()
+            dist.barrier()
+            for case in WA_CNN:
+                got = _wa_cnn_case(case, mesh)
+                r = {k: got[k] for k in ("hist", "launches", "pins")}
+                if case[0] in ones:
+                    r.update(_wa_cnn_verdict(case, got, ones.pop(case[0])))
+                res[case[0]] = r
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_wa_gloo(smi: str, res: list) -> dict:
+    """(b) Two gloo ranks sharing the card (``res``: their results), the
+    CNN at ResNet-18's layout, W = 8 (4 rows a rank), ``WA_STEPS`` steps
+    of each `WA_CNN` case: the gathered state within ``MESH_TOL`` of the
+    one-process run (bitwise where the case says so), the metrics within
+    ``MESH_TOL`` and the same on both ranks, the elastic pins and
+    transition log.  The ranks copy through the host: no wall is a speed
+    figure."""
+    rec, problems = {}, []
+    for i, case in enumerate(WA_CNN):
+        tag = case[0]
+        got = res[i % MESH_RANKS][tag]
+        problems += got["problems"]
+        if any(r[tag]["hist"] != got["hist"] for r in res):
+            problems.append(f"{tag}: the ranks' metrics differ")
+        err = got["err"]
+        rec[tag] = {k: got[k] for k in ("err", "held", "bitwise",
+                                        "metrics_err", "pins")}
+        rec[tag]["launches"] = [r[tag]["launches"] for r in res]
+        print(f"[wa] (b) gloo x2 ResNet-18 layout W={CNN_W} {tag}: "
+              f"params / opt / comm {err['params']:.3g} / {err['opt']:.3g}"
+              f" / {err['comm']:.3g} of scale (bitwise "
+              f"{all(got['bitwise'].values())}), metrics "
+              f"{got['metrics_err']:.3g}; A1 / A2 "
+              f"{[r[tag]['launches']['dc_norms'] for r in res]}"
+              + (f"; pins {got['pins']}; at each part's scale "
+                 f"{max(got['held'].values()):.3g}" if got["pins"] else "")
+              + f" [{smi}]")
+    check(not problems, "[wa] (b) " + "; ".join(problems))
+    return rec
+
+
+def _wa_qwen3_rank(rank: int, store: str, out: str) -> None:
+    """One spawned rank of (c): topk_exact on the main cell over two gloo
+    ranks (one worker row each).  First rank 0 makes the ``mesh=None``
+    run (rank 1 waits: two such runs do not fit the card) and keeps each
+    row of its state on the host; then the mesh run, counts zeroed just
+    before and read just after; then rank 0 sends rank r its row r, and
+    each rank holds its rows to the kept row.  Gated (`_await_gate`)."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import tree as T
+    from repro_torch.launch import engine, mesh as M, train  # noqa: F401
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _await_gate(store)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=MESH_RANKS)
+    extra = ["--reducer", "topk_exact"]
+
+    def tensors(state):
+        return [x for x in T.leaves(state) if isinstance(x, torch.Tensor)]
+    try:
+        mesh = M.make_debug_mesh(MESH_RANKS, 1, device_type="cuda")
+        t0 = time.perf_counter()
+        rows = []
+        if rank == 0:
+            s = _wa_main_run(None, extra)["state"]
+            rows = [T.map(lambda x: x[r:r + 1].cpu()
+                          if isinstance(x, torch.Tensor) and x.dim() else x,
+                          s) for r in range(MESH_RANKS)]
+            del s
+            torch.cuda.empty_cache()
+        dist.barrier()
+        t1 = time.perf_counter()
+        got = _wa_main_run(mesh, extra)
+        t2 = time.perf_counter()
+        s = got.pop("state")
+        if rank == 0:
+            kept = rows[0]
+            for r in range(1, MESH_RANKS):
+                for x in tensors(rows[r]):
+                    dist.send(x.contiguous(), dst=r)
+        else:
+            # this rank's state has its row's structure and shapes
+            kept = T.map(lambda x: torch.empty(x.shape, dtype=x.dtype)
+                         if isinstance(x, torch.Tensor) else x, s)
+            for x in tensors(kept):
+                dist.recv(x, src=0)
+        del rows
+        got["err"] = _state_err(s, kept)
+        got["rows"] = T.leaves(s.params)[0].shape[0]
+        got["one_s"], got["mesh_s"] = t1 - t0, t2 - t1
+        del s
+        torch.save(got, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_wa_qwen3(smi: str, res: list) -> dict:
+    """(c) topk_exact on the main cell (qwen3-0.6b x4, W = 2) over two
+    gloo ranks (``res``: their results), one worker row a rank: B3 with
+    the cross-rank union mask at the main cell's bucket sizes, 12
+    launches a rank; each rank's rows within ``MESH_TOL`` of the
+    one-process run's; each rank's peak."""
+    problems = []
+    for r in res:
+        if r["launches"]["select_ef_mean"] != WA_STEPS * N_BUCKETS:
+            problems.append(f"B3 launched {r['launches']['select_ef_mean']}")
+        if max(r["err"].values()) > MESH_TOL:
+            problems.append(f"rows {r['err']} of scale from one process")
+    if res[0]["hist"] != res[1]["hist"]:
+        problems.append("the ranks' metrics differ")
+    print(f"[wa] (c) topk_exact qwen3-0.6b x4 W={W} on 2 gloo ranks (1 row "
+          f"a rank): state {[r['err'] for r in res]} of scale from one "
+          f"process; B3 {[r['launches']['select_ef_mean'] for r in res]}, "
+          f"A1 / A2 {[r['launches']['dc_norms'] for r in res]} a rank; "
+          f"peak a rank {[round(r['peak_bytes'] / 2**30, 3) for r in res]}"
+          f" GiB; {res[0]['one_s']:.1f} s the one-process run, "
+          f"{res[0]['mesh_s']:.1f} s the mesh run (no speed figure) "
+          f"[{smi}]")
+    check(not problems, "[wa] (c) " + "; ".join(problems))
+    return {"ranks": [{k: r[k] for k in ("err", "launches", "peak_bytes",
+                                         "rows")} for r in res],
+            "losses": [h["loss"] for h in res[0]["hist"]]}
+
+
+def phase_worker_axis(smi: str) -> dict:
+    """Phase 19: (a) `phase_wa_nccl`, (b) `phase_wa_gloo`, (c)
+    `phase_wa_qwen3`."""
+    t0 = time.perf_counter()
+    # (b) and (c) at once: two pairs of gloo ranks, each its own group,
+    # together under 80 GB ((c)'s one-process run peaks at ~59 GiB); they
+    # start here and wait at their gates while (a) runs
+    b = _start_pair(_wa_cnn_rank, gated=True)
+    c = _start_pair(_wa_qwen3_rank, gated=True)
+    rec = {"nccl": phase_wa_nccl(smi)}
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _open_gate(b)
+    _open_gate(c)
+    (res_c, codes_c), (res_b, codes_b) = _join_pair(c), _join_pair(b)
+    wall = time.perf_counter() - t1
+    check(res_b is not None and res_c is not None,
+          f"[wa] gloo ranks exited (b) {codes_b}, (c) {codes_c}")
+    rec["gloo"] = phase_wa_gloo(smi, res_b)
+    rec["qwen3"] = phase_wa_qwen3(smi, res_c)
+    rec["gloo_wall_s"] = wall
+    print(f"[wa] (b) and (c) together, 4 gloo ranks: {wall:.1f} s wall "
+          f"from their gates (no speed figure) [{smi}]")
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[wa] phase 19 took {rec['phase_s']:.1f} s with the ranks' "
+          f"starts [{smi}]")
+    return rec
+
+
+def _lap_phases(t0: float) -> None:
+    """Wrap every ``phase_*`` function of this module so that each call
+    prints its own wall time and the time since ``t0`` (the script must
+    end within 1,200 s; these lines say where the time went).  Phases
+    that call phases print nested laps."""
+    import functools
+    g = globals()
+    for name, fn in list(g.items()):
+        if not (name.startswith("phase_") and callable(fn)):
+            continue
+
+        def lapped(*a, __fn=fn, __name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return __fn(*a, **kw)
+            finally:
+                now = time.perf_counter()
+                print(f"[lap] {__name}: {now - t:.1f} s, {now - t0:.1f} s "
+                      f"since the start", flush=True)
+        g[name] = functools.wraps(fn)(lapped)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    _lap_phases(t_start)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import tree as T
     from repro_torch.configs import get_config
@@ -5032,6 +5782,7 @@ def main() -> int:
 
     kern = phase_kernels(plan.bucket_sizes, smi)
     threshold_ms = kern["select_ef_mean"].pop("threshold_ms")
+    b3_modes = {"qwen3": phase_select_modes(plan.bucket_sizes, W, smi)}
     launches, step_s, peak = phase_main(smi)
     c_launches, c_step_s, c_peak = phase_main(smi, COMPRESSED, "compressed")
     launches["select_ef_mean"] = c_launches["select_ef_mean"]
@@ -5058,6 +5809,8 @@ def main() -> int:
           f"{cnn_plan.bucket_sizes} decay {cnn_plan.bucket_decay}")
     cnn_kern = phase_kernels(cnn_plan.bucket_sizes, smi, W=CNN_W,
                              select=False, tag="kernels-cnn")
+    b3_modes["cnn"] = phase_select_modes(cnn_plan.bucket_sizes, CNN_W, smi,
+                                         "kernels-cnn")
     cnn = phase_cnn_main(smi)
     cnn["fused_vs_unfused_worst"] = phase_cnn_fused_vs_unfused(smi)
     cnn["profile"] = phase_cnn_profile(smi)
@@ -5086,13 +5839,13 @@ def main() -> int:
                                     [r.prompt for r in reqs[:4]],
                                     "prefill-routes qwen3", 10)
     s_prof = phase_serve_profile(smi, model, params, reqs)
+    del model, params
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    prefix = phase_serve_prefix(smi, model, params)
+    prefix = phase_serve_prefix(smi)
     prefix["phase_s"] = time.perf_counter() - t0
     print(f"[prefix] the prefix-cache phase took {prefix['phase_s']:.1f} s "
           f"[{smi}]")
-    del model, params
-    torch.cuda.empty_cache()
     fm = phase_serve_ssm(smi, requests)
     launches["ssm_scan"] = fm["launches"]["ssm_scan"]
     torch.cuda.empty_cache()
@@ -5151,14 +5904,17 @@ def main() -> int:
           f"phases took {s13['phase_s']:.1f} s [{smi}]")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    dry = _start_dryrun()
     s14 = {"nccl": phase_mesh_nccl(smi)}
     s14["gloo"] = phase_mesh_gloo(smi)
-    s14["dryrun"] = phase_dryrun(smi)
+    s14["dryrun"] = phase_dryrun(smi, dry)
     s14["phase_s"] = time.perf_counter() - t0
     print(f"[mesh] the NCCL mesh, two gloo ranks and dry-run phases took "
           f"{s14['phase_s']:.1f} s [{smi}]")
     torch.cuda.empty_cache()
     s15 = phase_tensor_parallel(smi)
+    torch.cuda.empty_cache()
+    s19 = phase_worker_axis(smi)
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -5251,7 +6007,7 @@ def main() -> int:
           f"{hs['step_ms']:.3f} ms/decode step, TTFT p50/p95 "
           f"{hs['p50_ttft_s'] * 1e3:.1f}/{hs['p95_ttft_s'] * 1e3:.1f} ms, "
           f"peak {hs['peak_bytes'] / 2**30:.3f} GiB; flash_attention "
-          f"{hs['launches']['flash_attention']} launches = {RG_LOCAL} x "
+          f"{hs['launches']['flash_attention']} launches = {RG_SERVE_LOCAL} x "
           f"{hs['prefills']} prefills [{smi}]")
     ft = hybrid["train"]["falcon_mamba"]
     print(f"[times] train falcon-mamba-7b x{FM_TRAIN_LAYERS}, W={W}: step "
@@ -5263,7 +6019,7 @@ def main() -> int:
               f"{k['ms']:.4f} ms per step ({len(ft['bucket_sizes'])} "
               f"launches, W={W}), plain {k['plain_ms']:.4f} ms, byte bound "
               f"{k['bound_ms']:.4f} ms, max abs err {k['err']:.3g} [{smi}]")
-    for key, what in (("olmoe", f"olmoe-1b-7b x{OLMOE_LAYERS}"),
+    for key, what in (("olmoe", f"olmoe-1b-7b x{OLMOE_SERVE_LAYERS}"),
                       ("phi", f"phi3.5-moe x{PHI_LAYERS}")):
         r = moe["serve"][key]
         print(f"[times] serve {what}, 16 slots, bf16 KV, paged kernel: "
@@ -5290,7 +6046,7 @@ def main() -> int:
               f"({len(ot['bucket_sizes'])} launches, W={W}), plain "
               f"{k['plain_ms']:.4f} ms, byte bound {k['bound_ms']:.4f} ms, "
               f"max abs err {k['err']:.3g} [{smi}]")
-    for key, what in (("vlm", f"qwen2-vl-7b x{VLM_LAYERS}"),
+    for key, what in (("vlm", f"qwen2-vl-7b x{VLM_SERVE_LAYERS}"),
                       ("whisper", f"whisper-large-v3 x{WHISPER_LAYERS} + "
                                   f"encoder x{WHISPER_LAYERS}")):
         r = mm[key]["routes"]
@@ -5312,7 +6068,7 @@ def main() -> int:
               f"peak {r['mesh']['peak_bytes'] / 2**30:.3f} GiB vs "
               f"{r['none']['peak_bytes'] / 2**30:.3f} GiB, host syncs "
               f"{r['mesh']['host_syncs']} [{smi}]")
-    print(f"[times] serve falcon-mamba-7b x64, 16 slots: "
+    print(f"[times] serve falcon-mamba-7b x{FM_LAYERS}, 16 slots: "
           f"{fm['decode_tokens_per_s']:.1f} decode tok/s, "
           f"{fm['step_ms']:.3f} ms/decode step, inter-token p50/p95 "
           f"{fm['p50_token_latency_s'] * 1e3:.3f}/"
@@ -5350,7 +6106,8 @@ def main() -> int:
              "serve stablelm-3b chunked":
                  dense["stablelm_chunked"]["launches"],
              "serve granite-20b x12": dense["granite"]["launches"],
-             "serve olmoe-1b-7b x16": moe["serve"]["olmoe"]["launches"],
+             f"serve olmoe-1b-7b x{OLMOE_SERVE_LAYERS}":
+                 moe["serve"]["olmoe"]["launches"],
              "serve phi3.5-moe x8": moe["serve"]["phi"]["launches"]}
     shapes = {"paged_attention": {**paged_shapes,
                                   **moe["kernels"]["paged"],
@@ -5362,7 +6119,8 @@ def main() -> int:
                   for k, v in hybrid["flash"].items()},
                **moe["kernels"]["flash"], **mm["kernels"]["flash"]}}
     # minicpm3's paths (latent pages by gather, the plain prefill core)
-    mla_paths = {"serve minicpm3-4b x62": moe["mla"]["whole"]["launches"],
+    mla_paths = {f"serve minicpm3-4b x{MINICPM_LAYERS}":
+                 moe["mla"]["whole"]["launches"],
                  "serve minicpm3-4b int8": moe["mla"]["int8"]["launches"],
                  "prefix minicpm3 hot": moe["mla"]["hot"]["launches"],
                  "prefix minicpm3 cold": moe["mla"]["cold"]["launches"]}
@@ -5425,6 +6183,22 @@ def main() -> int:
             "launches_nccl_overlap": s14["nccl"]["overlap"]["mesh"][
                 "launches"][name],
             "launches_gloo_ranks": [r[name] for r in s14["gloo"]["launches"]]}
+    # slice 16: the worker axis across ranks for every reducer (counts
+    # zeroed before each run and read after): (a) the main cell on the
+    # NCCL mesh of one rank per reducer / policy / algorithm, (b) each gloo
+    # rank's CNN cases, (c) each gloo rank's topk_exact on the main cell
+    for entry in kernels:
+        name = entry["name"]
+        entry["worker_axis"] = {
+            "launches_nccl": {t: r["launches"][name]
+                              for t, r in s19["nccl"].items()},
+            "launches_gloo_cnn": {t: [n[name] for n in r["launches"]]
+                                  for t, r in s19["gloo"].items()
+                                  if isinstance(r, dict)},
+            "launches_gloo_qwen3_topk_exact": [
+                r["launches"][name] for r in s19["qwen3"]["ranks"]]}
+        if name == "select_ef_mean":
+            entry["modes_checked"] = b3_modes
     for entry in kernels:
         # A1 and A2 on the CNN main path: its launches (dc_s3gd, 6 steps)
         # and the per-step sums over its 6 bucket sizes at W = 8
@@ -5483,7 +6257,8 @@ def main() -> int:
               "paged_shapes": paged_shapes, "serve_prefix": prefix,
               "dense_family": dense, "hybrid": hybrid, "moe_mla": moe,
               "vlm_encdec": mm, "analysis": s13, "multi_device": s14,
-              "tensor_parallel": s15,
+              "tensor_parallel": s15, "worker_axis": s19,
+              "select_modes": b3_modes,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start
     print(f"[times] chip_smoke.py: {record['total_s']:.1f} s, the build "

@@ -21,6 +21,13 @@ They carry state across steps in ``TrainState.comm["reducer"]``:
   so all workers select the same coordinates;
 * ``q`` (powersgd): the warm-started (cols, rank) projection per bucket.
 
+On a mesh (the algorithm binds ``workers``, a `repro_torch.core.reduce.
+Workers`) each rank keeps the residual rows of its own W / R workers and
+selects on them; the worker mean is the local row sum of the wire-cast
+payload, one ``all_reduce(SUM)`` and a division by the global W, and
+topk_exact's union is the OR of every worker's mask (an ``all_reduce
+(MAX)`` of a (1, n) uint8 mask).
+
 The reference draws randk's support and powersgd's initial Q from
 ``jax.random``, which torch cannot reproduce: here they come from a
 ``torch.Generator`` seeded from ``seed`` (and randk's step and the bucket
@@ -37,7 +44,8 @@ import torch
 
 from repro_torch.core import quant as Q
 from repro_torch.core import registry
-from repro_torch.core.reduce import _row_sum, quantized_mean, wire_mean
+from repro_torch.core.reduce import LOCAL, Workers, quantized_mean, \
+    wire_mean
 
 Tree = Any
 
@@ -141,6 +149,8 @@ class _ErrorFeedbackMean:
     # then run each bucket's select + wire cast + mean + residual as one
     # kernel launch (repro_torch.kernels.compress)
     use_kernels = False
+    # the worker-axis seam; the algorithm binds a process group's
+    workers: Workers = LOCAL
 
     def __init__(self, cfg=None, *, comm_dtype: str | None = None):
         self.comm_dtype = comm_dtype if comm_dtype is not None else \
@@ -151,8 +161,10 @@ class _ErrorFeedbackMean:
     # -- carried state ------------------------------------------------------
 
     def init(self, n_workers: int, plan, *, device=None) -> Tree:
+        """Zero residuals for this rank's rows of the ``n_workers``."""
         _require_buckets(self.name, plan)
-        return {"residual": [torch.zeros((n_workers, n), dtype=torch.float32,
+        rows = self.workers.rows(n_workers)
+        return {"residual": [torch.zeros((rows, n), dtype=torch.float32,
                                          device=device)
                              for n in plan.bucket_sizes]}
 
@@ -187,13 +199,14 @@ class _ErrorFeedbackMean:
                 o, r = fused
             else:
                 c = compress(b, a)
+                wk = self.workers
                 if quantized:
                     # the sparse payload crosses the wire quantized; the
                     # residual absorbs selection AND quantization error
                     cq = _quantized_roundtrip(c, self.comm_dtype)
-                    o, r = _row_sum(cq) / cq.shape[0], a - cq
+                    o, r = wk.sum_rows(cq) / wk.count(cq), a - cq
                 else:
-                    o, r = wire_mean(c, dt), a - c
+                    o, r = wire_mean(c, dt, wk), a - c
             out.append(o)
             new_res.append(r)
         new_state = dict(rstate)
@@ -222,12 +235,15 @@ class _ErrorFeedbackMean:
         """Elastic resize of the carried EF state: the summed residual is
         spread equally over the ``n_new`` workers, so the mass per bucket
         is conserved (up to one f32 rounding).  Counters and warm starts
-        are worker-count independent and carry over."""
+        are worker-count independent and carry over.  On a mesh the sum
+        runs over every rank's rows and each rank keeps ``n_new / R``."""
         n_new = int(n_new)
+        wk = self.workers
+        rows = wk.rows(n_new)
         out = dict(rstate)
         out["residual"] = [
-            (_row_sum(r) / n_new).expand((n_new,) + r.shape[1:]).contiguous()
-            for r in rstate["residual"]]
+            (wk.sum_rows(r) / n_new).expand((rows,) + r.shape[1:])
+            .contiguous() for r in rstate["residual"]]
         return out
 
     def _compress(self, b: int, a: torch.Tensor, rstate: Tree
@@ -270,7 +286,9 @@ class TopKReduce(_ErrorFeedbackMean):
     Under ``use_kernels`` each bucket's select + wire cast + mean +
     residual update is one launch of `repro_torch.kernels.compress.
     select_ef_mean` (any bucket size, any plain-cast wire); the threshold
-    stays in torch."""
+    stays in torch.  On a mesh the launch writes the partial row sum, and
+    the mean is finished after the all-reduce (topk_exact's union mask
+    comes in from the all-reduce of every rank's OR)."""
 
     name = "topk"
     _union = False  # per-worker supports; topk_exact means on the union
@@ -311,7 +329,16 @@ class TopKReduce(_ErrorFeedbackMean):
         from repro_torch.kernels import compress as kc
         k = _k_of(a.shape[-1], self.density)
         thresh = magnitude_threshold(a.abs(), k)
-        return kc.select_ef_mean(a, thresh, comm_dtype=dt, union=self._union)
+        wk = self.workers
+        if not wk.distributed:
+            return kc.select_ef_mean(a, thresh, comm_dtype=dt,
+                                     union=self._union)
+        mask = wk.any_rows(a.abs() >= thresh.reshape(-1, 1)) \
+            if self._union else None
+        part, res = kc.select_ef_mean(a, thresh, comm_dtype=dt,
+                                      union=self._union, mask=mask,
+                                      partial=True)
+        return kc.finish_mean(wk.sum_rows(part), wk.count(a), dt), res
 
 
 @registry.register(registry.REDUCER, "topk_exact")
@@ -366,7 +393,7 @@ class TopKExactReduce(TopKReduce):
         k = _k_of(a.shape[-1], self.density)
         mag = a.abs()
         thresh = magnitude_threshold(mag, k)
-        union = (mag >= thresh).any(dim=0, keepdim=True)
+        union = self.workers.any_rows(mag >= thresh).bool()
         return torch.where(union, a, 0.0)
 
 
@@ -529,11 +556,15 @@ class PowerSGDReduce(_ErrorFeedbackMean):
         quantized = Q.is_quantized(self.comm_dtype)
         dt = None if quantized else Q.float_wire(self.comm_dtype)
 
+        wk = self.workers
+
         def factor_mean(f):
-            # one wire crossing of a (W, ., r) factor payload
+            # one wire crossing of a (W, ., r) factor payload: on a mesh an
+            # all-reduce, whose result (and so the QR after it and the
+            # warm start q) is the same bits on every rank
             if quantized:
-                return quantized_mean(f, self.comm_dtype)[0]
-            return wire_mean(f, dt)[0]
+                return quantized_mean(f, self.comm_dtype, wk)[0]
+            return wire_mean(f, dt, wk)[0]
 
         out, new_res, new_q = [], [], []
         for b, d in enumerate(buckets):
@@ -585,6 +616,14 @@ class DenseWindowReduce:
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
+    @property
+    def workers(self) -> Workers:
+        return self.inner.workers
+
+    @workers.setter
+    def workers(self, workers: Workers) -> None:
+        self.inner.workers = workers
+
     def wire_model(self, sizes: Sequence[int], n_workers: int) -> dict:
         """Not delegated: inside the window the wire is dense (the whole
         (W, bucket) buffers go through `wire_mean`), so both accountings
@@ -604,14 +643,15 @@ class DenseWindowReduce:
         quantized = Q.is_quantized(self.inner.comm_dtype)
         dt = None if quantized else Q.float_wire(self.inner.comm_dtype)
         out, new_res = [], []
+        wk = self.workers
         for b, d in enumerate(buckets):
             a = d.float() + rstate["residual"][b]
             if quantized:
                 cq = _quantized_roundtrip(a, self.inner.comm_dtype)
-                out.append(_row_sum(cq) / cq.shape[0])
+                out.append(wk.sum_rows(cq) / wk.count(cq))
                 new_res.append(a - cq)
             else:
-                out.append(wire_mean(a, dt))
+                out.append(wire_mean(a, dt, wk))
                 new_res.append(torch.zeros_like(a))
         new_state = dict(rstate)
         new_state["residual"] = new_res

@@ -14,6 +14,13 @@ batch as the other algorithms and performs ONE PS transaction for worker
 ``step mod W`` — a host int, so choosing it reads nothing from the
 device.  It shares the `Compensator` and `LocalOptimizer` pieces with
 DC-S3GD.
+
+On a mesh (`bind_workers`) the state is replicated and the batch rows
+are split over the ranks: the transaction runs on the rank that holds
+worker ``step mod W``'s row (a host int picks it), which then broadcasts
+the new PS copy, the optimizer state and the metrics; every rank writes
+that worker's stale copy from the broadcast PS copy.  Each rank then
+holds bitwise the one-process state.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core import registry
 from repro_torch.core.api import LossFn, Metrics, TrainState
+from repro_torch.core.reduce import LOCAL
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.optim import local as local_opt
 
@@ -46,6 +54,12 @@ class DCASGD:
             else registry.make_local_optimizer(local_optimizer, cfg))
         self.compensator = registry.make_compensator(
             "dc" if compensator is None else compensator, cfg)
+        self.workers = LOCAL
+
+    def bind_workers(self, workers) -> None:
+        """Split the batch rows over ``workers``' ranks: each transaction
+        runs where its worker's row is, and the result is broadcast."""
+        self.workers = workers
 
     def init(self, params: Tree) -> TrainState:
         wp = T.map(lambda p: p.unsqueeze(0).expand(
@@ -60,8 +74,34 @@ class DCASGD:
         worker's (b, ...) shard of the stacked batch (the other shards
         are not used)."""
         wid = state.step % self.n_workers
-        return self._transaction(state, wid, T.map(lambda x: x[wid], batch),
-                                 loss_fn=loss_fn)
+        wk = self.workers
+        if not wk.distributed:
+            return self._transaction(state, wid,
+                                     T.map(lambda x: x[wid], batch),
+                                     loss_fn=loss_fn)
+        rows = wk.rows(self.n_workers)
+        owner = wid // rows
+        if wk.rank == owner:
+            new, metrics = self._transaction(
+                state, wid, T.map(lambda x: x[wid - owner * rows], batch),
+                loss_fn=loss_fn)
+            ps, opt = new.params, new.opt
+            scalars = torch.stack([metrics[k].float().reshape(())
+                                   for k in _BROADCAST])
+        else:
+            ps = T.map(torch.empty_like, state.params)
+            opt = T.map(torch.empty_like, state.opt)
+            scalars = torch.empty(len(_BROADCAST), dtype=torch.float32,
+                                  device=T.leaves(state.params)[0].device)
+        wk.broadcast_from(T.leaves(ps) + T.leaves(opt) + [scalars], owner)
+        if wk.rank != owner:
+            # the PS sends its fresh weights back to that worker only
+            new = TrainState(ps, opt, {"worker_params": T.map(
+                lambda wp, p: _receive(wp, p, wid),
+                state.comm["worker_params"], ps)}, state.step + 1)
+        lr, wd = _rates(self.cfg)
+        return new, {"loss": scalars[0], "lr": lr, "wd": wd,
+                     "lambda": scalars[1], "staleness_dist": scalars[2]}
 
     def _transaction(self, state: TrainState, wid: int, batch_i: Tree, *,
                      loss_fn: LossFn) -> Tuple[TrainState, Metrics]:
@@ -81,19 +121,13 @@ class DCASGD:
         D = T.map(lambda ps, wi: ps.float() - wi.float(), state.params, w_i)
         g, lam = self.compensator(g, D)
 
-        lr = float(np.float32(cfg.learning_rate))
-        wd = float(np.float32(cfg.weight_decay))
+        lr, wd = _rates(cfg)
         delta, opt = self.local_optimizer(g, state.opt, state.params,
                                           {"lr": lr, "weight_decay": wd})
         new_ps = T.map(lambda w, dw: (w.float() + dw.float()).to(w.dtype),
                        state.params, delta)
-
-        def receive(wp, ps):
-            out = wp.clone()
-            out[wid] = ps.to(wp.dtype)
-            return out
-
-        new_workers = T.map(receive, worker_params, new_ps)
+        new_workers = T.map(lambda wp, ps: _receive(wp, ps, wid),
+                            worker_params, new_ps)
         if isinstance(lam, torch.Tensor):
             lam_metric = lam.float().mean()
         else:   # per-tensor λ: the mean of the leaves' λ
@@ -122,6 +156,23 @@ class DCASGD:
 
     def eval_params(self, state: TrainState) -> Tree:
         return state.params
+
+
+# the device metrics the transaction's rank broadcasts, in this order
+_BROADCAST = ("loss", "lambda", "staleness_dist")
+
+
+def _rates(cfg: DCS3GDConfig):
+    """(lr, wd): the constant rates, f32 values as host floats."""
+    return (float(np.float32(cfg.learning_rate)),
+            float(np.float32(cfg.weight_decay)))
+
+
+def _receive(wp: torch.Tensor, ps: torch.Tensor, wid: int) -> torch.Tensor:
+    """The stale copies with worker ``wid``'s replaced by the PS copy."""
+    out = wp.clone()
+    out[wid] = ps.to(wp.dtype)
+    return out
 
 
 def _dist(a: Tree, b: Tree) -> torch.Tensor:

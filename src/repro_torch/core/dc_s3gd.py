@@ -62,7 +62,7 @@ from repro_torch import tree as T
 from repro_torch.core import registry
 from repro_torch.core.api import LossFn, Metrics, TrainState
 from repro_torch.core.correction import worker_sq_sum
-from repro_torch.core.reduce import LOCAL, _row_sum
+from repro_torch.core.reduce import LAYOUT_ITEM, LOCAL
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
@@ -497,21 +497,34 @@ class DCS3GD:
         the kernels take contiguous operands and an in-place update of an
         expanded view would write every worker at once.  ``self`` still
         targets the old count: rebuild it for ``n_new`` with
-        `repro_torch.cluster.membership.rebuild_algorithm`."""
-        if self.workers.size > 1:
-            raise ValueError(
-                "resize_state across ranks is not ported: elastic resize "
-                "runs in one process (ROADMAP queue A item 6, 'dynamic_ssp, "
-                "dc_asgd and elastic resize across ranks')")
+        `repro_torch.cluster.membership.rebuild_algorithm` (and bind the
+        rebuilt one to the same workers).
+
+        On a mesh the consensus runs over every rank's rows (worker 0's
+        row broadcast, the sum all-reduced, as `consensus_mean` does) and
+        each rank restacks its ``n_new / R`` rows of it: after the
+        collapse every row is the same, so no row moves between ranks.
+        A count the ranks cannot split evenly would leave a rank without
+        its share: refused."""
+        wk = self.workers
         n_new = int(n_new)
+        if n_new % wk.size:
+            raise ValueError(
+                f"resize to {n_new} workers over {wk.size} ranks: the rows "
+                f"do not split evenly, and a membership that leaves ranks "
+                f"out needs its own process group ({LAYOUT_ITEM})")
+        # an in-flight overlap reduce of the old rows lands first
+        self.drain()
+        rows = wk.rows(n_new)
 
         def restack(x):
             if x.dim() == 0:
                 return x
             a = x.float()
-            avg = a[0] + _row_sum(a - a[:1])[0] / a.shape[0]
+            a0 = wk.anchor(a)
+            avg = a0[0] + wk.sum_rows(a - a0)[0] / wk.count(a)
             return avg.to(x.dtype).unsqueeze(0) \
-                .expand((n_new,) + avg.shape).contiguous()
+                .expand((rows,) + avg.shape).contiguous()
 
         params = T.map(restack, state.params)
         opt = T.map(restack, state.opt)

@@ -17,7 +17,11 @@ Input trees carry a leading worker axis W on every leaf.
   exact mean inside each of ``groups`` groups followed by ring gossip
   between the group means; both give (W, ...) leaves and mix the weights
   (``reduces_weights``).  A ring hop is ``torch.roll`` over axis 0, as
-  ``jnp.roll`` is in the reference.
+  ``jnp.roll`` is in the reference; on a mesh it is `Workers.roll`, one
+  ``batch_isend_irecv`` per ring offset that brings each rank the rows
+  it needs from the (at most two) ranks that hold them, as the
+  reference's rolls lower to collective-permutes.  No sum crosses rows,
+  so both are bitwise the one-process result on any number of ranks.
 
 A quantized wire (int8/fp8, `repro_torch.core.quant`) carries each row as
 values plus one f32 scale (the rolls move both), and the sums run on the
@@ -49,6 +53,26 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
     for i in range(1, x.shape[0]):
         acc += x[i:i + 1]
     return acc
+
+
+def _as_bytes(tensors) -> torch.Tensor:
+    """Tensors sharing a leading axis as one (rows, bytes) uint8 payload
+    (one message a rank pair, whatever the dtypes)."""
+    rows = tensors[0].shape[0]
+    return torch.cat([t.contiguous().view(torch.uint8).reshape(rows, -1)
+                      for t in tensors], dim=1)
+
+
+def _from_bytes(payload: torch.Tensor, like) -> tuple:
+    """`_as_bytes` undone into tensors of ``like``'s dtypes and trailing
+    shapes, with ``payload``'s rows."""
+    out, at = [], 0
+    for t in like:
+        width = t[:1].numel() * t.element_size()
+        piece = payload[:, at:at + width].contiguous().view(t.dtype)
+        out.append(piece.reshape((payload.shape[0],) + t.shape[1:]))
+        at += width
+    return tuple(out)
 
 
 class Workers:
@@ -92,8 +116,38 @@ class Workers:
         """Worker 0's row, (1, ...), on every rank."""
         return x[:1]
 
+    def any_rows(self, mask: torch.Tensor) -> torch.Tensor:
+        """The OR over every worker row of a (W / R, n) bool mask: a
+        (1, n) uint8 mask, the same on every rank."""
+        return mask.any(dim=0, keepdim=True).to(torch.uint8)
+
+    def roll(self, tensors, off: int, n: int, span: int = 1) -> tuple:
+        """This rank's rows of ``torch.roll(X, off, 0)`` for each tensor
+        ``X`` of ``tensors``, whose global leading axis holds ``n`` items;
+        this rank holds its block of them (``span`` ranks in a row hold
+        the same block: `ProcessWorkers.roll`).  Only moves values."""
+        del n, span
+        return tuple(torch.roll(t, off, 0) for t in tensors)
+
+    def check_blocks(self, groups: int) -> int:
+        """How many ranks in a row share one of ``groups`` consecutive
+        worker groups (1 when each rank holds whole groups); raises when
+        the groups and the ranks do not nest."""
+        del groups
+        return 1
+
+    def gather_block(self, x: torch.Tensor, span: int) -> torch.Tensor:
+        """The rows of the ``span`` ranks in a row that hold this rank's
+        block, in worker order (this rank's own rows at ``span`` 1)."""
+        del span
+        return x
+
 
 LOCAL = Workers()
+
+# the ROADMAP item a layout the worker axis cannot carry across ranks names
+LAYOUT_ITEM = ("ROADMAP queue A item 6.8: a process group per membership "
+               "and per worker layout")
 
 
 class ProcessWorkers(Workers):
@@ -114,6 +168,25 @@ class ProcessWorkers(Workers):
         self.group = group
         self.rank = int(rank)
         self.size = int(size)
+        # sub-groups of `span` ranks in a row, built once (`check_blocks`)
+        self._blocks: dict = {}
+
+    @property
+    def host(self) -> bool:
+        """gloo sends, receives and gathers host tensors only: a CUDA
+        payload is staged through the host."""
+        import torch.distributed as dist
+        return dist.get_backend(self.group) == "gloo"
+
+    def _ranks(self) -> list:
+        """The global rank of each worker index of the group."""
+        import torch.distributed as dist
+        return dist.get_process_group_ranks(self.group)
+
+    def _staged(self, x: torch.Tensor) -> torch.Tensor:
+        # the host copy gloo's point-to-point ops and gathers need; no
+        # step reads it on the host
+        return x.cpu() if self.host else x  # lint: allow(host-pull-in-traced)
 
     def start_sum(self, x: torch.Tensor):
         import torch.distributed as dist
@@ -138,19 +211,140 @@ class ProcessWorkers(Workers):
         dist.broadcast(a, group_src=0, group=self.group)
         return a
 
+    def any_rows(self, mask: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        m = super().any_rows(mask)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        return m
 
-def wire_mean(d: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    def broadcast_from(self, tensors, owner: int) -> None:
+        """Broadcast each of ``tensors`` in place from worker rank
+        ``owner``."""
+        import torch.distributed as dist
+        for t in tensors:
+            dist.broadcast(t, group_src=owner, group=self.group)
+
+    def roll(self, tensors, off: int, n: int, span: int = 1) -> tuple:
+        """Worker rank p holds items ``[b·c, (b+1)·c)`` of the ``n``,
+        where ``b = p // span`` and ``c = n·span / R``.  For the roll by
+        ``off`` this rank needs items ``(b·c + j − off) mod n``, j < c:
+        each comes from its own rows or from the holder at this rank's
+        position in the holding block.  Every rank derives every rank's
+        needs, so all post matching sends and receives, in one
+        ``batch_isend_irecv``, at most one message a rank pair, holding
+        the values and (quantized wire) the scales as bytes."""
+        if self.size == 1:
+            return super().roll(tensors, off, n)
+        import torch.distributed as dist
+        R, me = self.size, self.rank
+        c = n * span // R
+        if c * R != n * span or c < 1:
+            raise ValueError(f"{n} ring items do not lie in blocks over "
+                             f"{R} ranks ({LAYOUT_ITEM})")
+
+        def sources(q):
+            # (source rank, its local index) of each item rank q needs
+            base = (q // span) * c
+            out = []
+            for j in range(c):
+                i = (base + j - off) % n
+                out.append(((i // c) * span + q % span, i % c))
+            return out
+
+        payload = _as_bytes(tensors)
+        mine = sources(me)
+        ranks = self._ranks()
+        ops, recvs = [], []
+        for q in range(R):
+            if q == me:
+                continue
+            want = [k for p, k in sources(q) if p == me]
+            if want:
+                idx = torch.tensor(want, device=payload.device)
+                ops.append(dist.P2POp(dist.isend, self._staged(
+                    payload.index_select(0, idx)), ranks[q],
+                    group=self.group))
+            got = [j for j, (p, _) in enumerate(mine) if p == q]
+            if got:
+                buf = torch.empty((len(got), payload.shape[1]),
+                                  dtype=payload.dtype,
+                                  device="cpu" if self.host
+                                  else payload.device)
+                recvs.append((got, buf))
+                ops.append(dist.P2POp(dist.irecv, buf, ranks[q],
+                                      group=self.group))
+        out = torch.empty_like(payload)
+        local = [(j, k) for j, (p, k) in enumerate(mine) if p == me]
+        if local:
+            dst = torch.tensor([j for j, _ in local], device=out.device)
+            src = torch.tensor([k for _, k in local], device=out.device)
+            out.index_copy_(0, dst, payload.index_select(0, src))
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        for got, buf in recvs:
+            out.index_copy_(0, torch.tensor(got, device=out.device),
+                            buf.to(out.device))
+        return _from_bytes(out, tensors)
+
+    def check_blocks(self, groups: int) -> int:
+        """``groups`` a multiple of R: each rank holds whole groups (span
+        1).  R a multiple of ``groups``: a group spans ``R / groups``
+        ranks in a row, whose sub-group is built here, once, by every
+        rank for every block in the same order (``new_group`` is
+        collective over the default group).  Otherwise the groups cut
+        through a rank's rows: refused."""
+        groups = int(groups)
+        if groups % self.size == 0:
+            return 1
+        if self.size % groups:
+            raise ValueError(
+                f"hierarchical: {groups} groups over {self.size} ranks cut "
+                f"through a rank's rows ({LAYOUT_ITEM})")
+        span = self.size // groups
+        if span not in self._blocks:
+            if span == self.size:
+                self._blocks[span] = self.group
+            else:
+                import torch.distributed as dist
+                ranks = self._ranks()
+                for b in range(self.size // span):
+                    g = dist.new_group(ranks[b * span:(b + 1) * span])
+                    if b == self.rank // span:
+                        self._blocks[span] = g
+        return span
+
+    def gather_block(self, x: torch.Tensor, span: int) -> torch.Tensor:
+        """An all-gather over the block's sub-group, the members
+        concatenated in worker order (so a sum over them can add the rows
+        in the one-process order)."""
+        if span == 1:
+            return x
+        import torch.distributed as dist
+        self.check_blocks(self.size // span)
+        src = self._staged(x.contiguous())
+        parts = [torch.empty_like(src) for _ in range(span)]
+        dist.all_gather(parts, src, group=self._blocks[span])
+        return torch.cat(parts, dim=0).to(x.device)
+
+
+def wire_mean(d: torch.Tensor, dt: torch.dtype,
+              workers: Workers = LOCAL) -> torch.Tensor:
     """The mean over the leading (worker) axis on a ``dt`` float wire,
     keepdims, f32 out.  jnp.mean of a bf16/f16 array sums in f32 and
-    rounds the mean back to bf16/f16; of an f32 array it stays f32."""
-    return (_row_sum(d.to(dt).float()) / d.shape[0]).to(dt).float()
+    rounds the mean back to bf16/f16; of an f32 array it stays f32.  On a
+    mesh the sum runs over every rank's rows and the divisor is the
+    global W."""
+    return (workers.sum_rows(d.to(dt).float()) / workers.count(d)) \
+        .to(dt).float()
 
 
-def quantized_mean(d: torch.Tensor, comm_dtype: str) -> torch.Tensor:
+def quantized_mean(d: torch.Tensor, comm_dtype: str,
+                   workers: Workers = LOCAL) -> torch.Tensor:
     """The mean over the leading axis of what a quantized wire delivers:
     each row quantized with its own scale, dequantized, summed in f32."""
     qv, s = Q.quantize(d, comm_dtype)
-    return _row_sum(Q.dequantize(qv, s)) / d.shape[0]
+    return workers.sum_rows(Q.dequantize(qv, s)) / workers.count(d)
 
 
 @registry.register(registry.REDUCER, "mean_allreduce")
@@ -275,23 +469,27 @@ def _ring_offsets(n: int, k: int):
     return sorted({s % n for s in range(-k, k + 1)})
 
 
-def _ring_mix(x: torch.Tensor, k: int, comm_dtype: str) -> torch.Tensor:
+def _ring_mix(x: torch.Tensor, k: int, comm_dtype: str,
+              workers: Workers = LOCAL, n: int | None = None,
+              span: int = 1) -> torch.Tensor:
     """Mean of each row with its ring neighbours over axis 0, f32 out.
     Only the neighbour terms cross the wire in ``comm_dtype``; a row's
-    own term stays f32."""
-    offs = _ring_offsets(x.shape[0], k)
+    own term stays f32.  On a mesh ``x`` is this rank's block of the
+    ``n`` ring items (`Workers.roll`): the same terms, added in the same
+    offset order."""
+    offs = _ring_offsets(x.shape[0] if n is None else n, k)
     acc = x.float()
     if Q.is_quantized(comm_dtype):
         qv, sc = Q.quantize(x, comm_dtype)
         for off in offs:
             if off:
-                acc = acc + Q.dequantize(torch.roll(qv, off, 0),
-                                         torch.roll(sc, off, 0))
+                acc = acc + Q.dequantize(*workers.roll((qv, sc), off, n,
+                                                       span))
     else:
         wire = x.to(Q.float_wire(comm_dtype))
         for off in offs:
             if off:
-                acc = acc + torch.roll(wire, off, 0).float()
+                acc = acc + workers.roll((wire,), off, n, span)[0].float()
     return acc / float(len(offs))
 
 
@@ -314,6 +512,8 @@ class GossipReduce:
 
     name = "gossip"
     reduces_weights = True
+    # the worker-axis seam; the algorithm binds a process group's
+    workers: Workers = LOCAL
 
     def __init__(self, cfg=None, *, comm_dtype: str | None = None,
                  neighbors: int | None = None):
@@ -342,8 +542,9 @@ class GossipReduce:
                     2 * self.neighbors * _hop_bytes(sizes, self.comm_dtype)}
 
     def __call__(self, tree: Tree) -> Tree:
-        return T.map(lambda d: _ring_mix(d, self.neighbors, self.comm_dtype),
-                     tree)
+        wk = self.workers
+        return T.map(lambda d: _ring_mix(d, self.neighbors, self.comm_dtype,
+                                         wk, wk.count(d)), tree)
 
 
 @registry.register(registry.REDUCER, "hierarchical")
@@ -355,6 +556,7 @@ class HierarchicalReduce:
 
     name = "hierarchical"
     reduces_weights = True
+    _workers: Workers = LOCAL
 
     def __init__(self, cfg=None, *, comm_dtype: str | None = None,
                  groups: int | None = None, neighbors: int | None = None):
@@ -387,30 +589,56 @@ class HierarchicalReduce:
                 "accounted_bytes": (1 + 2 * self.neighbors)
                 * _hop_bytes(sizes, self.comm_dtype)}
 
+    @property
+    def workers(self) -> Workers:
+        """The worker-axis seam.  Binding a process group settles how the
+        groups lie over its ranks (`Workers.check_blocks`): whole groups
+        on each rank, or each group over a block of ranks whose sub-group
+        is built here, at bind time; groups that cut through a rank's
+        rows are refused."""
+        return self._workers
+
+    @workers.setter
+    def workers(self, workers: Workers) -> None:
+        workers.check_blocks(self.groups)
+        self._workers = workers
+
     def __call__(self, tree: Tree) -> Tree:
-        G = self.groups
+        """On a mesh a group inside a rank takes its mean locally; a
+        group over a block of ranks gathers its members from the block's
+        sub-group and adds them in worker order; the ring between the
+        group means is gossip's exchange.  Either way every term and its
+        order are the one-process ones: bitwise on any number of ranks."""
+        G, wk = self.groups, self.workers
 
         def red(d):
-            W = d.shape[0]
+            W = wk.count(d)
             if W % G:
                 raise ValueError(f"hierarchical: {W} workers do not split "
                                  f"into {G} groups")
-            x = d.float().reshape((G, W // G) + d.shape[1:])
+            span = wk.check_blocks(G)
+            x = wk.gather_block(d.float(), span)
+            x = x.reshape((x.shape[0] * G // W, W // G) + d.shape[1:])
             # exact intra-group mean, members added in order (keepdims)
             intra = x[:, :1].clone()
             for j in range(1, W // G):
                 intra += x[:, j:j + 1]
             intra = intra / (W // G)
-            mixed = _ring_mix(intra, self.neighbors, self.comm_dtype)
-            return mixed.expand(x.shape).reshape(d.shape)
+            mixed = _ring_mix(intra, self.neighbors, self.comm_dtype, wk, G,
+                              span)
+            return mixed.expand((mixed.shape[0], d.shape[0] // mixed.shape[0])
+                                + d.shape[1:]).reshape(d.shape)
 
         return T.map(red, tree)
 
 
-def collapse_worker_axis(tree: Tree) -> Tree:
+def collapse_worker_axis(tree: Tree, workers: Workers = LOCAL) -> Tree:
     """A reducer's output at canonical (unstacked) shapes: the mean over
-    whatever worker dim remains (exact for the keepdims mean)."""
-    return T.map(lambda x: _row_sum(x.float())[0] / x.shape[0], tree)
+    whatever worker dim remains (exact for the keepdims mean).  A
+    weight-mixing reducer's (W / R, ...) rows on a mesh pass their
+    ``workers``; a mean-style (1, ...) output is already global."""
+    return T.map(lambda x: workers.sum_rows(x.float())[0]
+                 / workers.count(x), tree)
 
 
 def consensus_mean(tree: Tree, workers: Workers = LOCAL) -> Tree:

@@ -10,7 +10,8 @@ over the generic `TrainState`, with no worker axis on params and opt.
 ``comm`` is empty, or holds a compressed reducer's state under
 ``comm["reducer"]`` (per-worker residuals, worker axis first).  On a
 mesh (`bind_workers`) every rank holds the shared params and W / R rows
-of the batch; the gradient mean runs over the worker process group.
+of the batch; the gradient mean runs over the worker process group (a
+weight-mixing reducer's rows are averaged over every rank's).
 Under tensor parallelism (`bind_model_axis`) the params are the rank's
 shards over the mesh's 'model' axis: the step takes no norm, so the
 shards go through the same gradient mean as whole leaves.
@@ -124,8 +125,10 @@ class SSGD:
         del grads
         # blocking all-reduce over workers, on the critical path;
         # collapse_worker_axis folds the reducer's (1, ...) output back to
-        # canonical shapes
+        # canonical shapes (the mean of a weight-mixing reducer's rows)
         comm = {}
+        wk = self.workers if getattr(self.reducer, "reduces_weights", False) \
+            else LOCAL
         if self.buckets:
             plan = self._plan(state.params)
             wire = plan.pack(g32)
@@ -136,7 +139,7 @@ class SSGD:
                 else:
                     red, comm["reducer"] = self.reducer(
                         wire, state.comm["reducer"])
-            reduced = plan.unpack(collapse_worker_axis(red))
+            reduced = plan.unpack(collapse_worker_axis(red, wk))
         else:
             if not self._reducer_stateless:
                 raise ValueError(
@@ -144,7 +147,7 @@ class SSGD:
                     f"wire: construct with buckets > 0")
             with scope("wire"):
                 red = self.reducer(g32)
-            reduced = collapse_worker_axis(red)
+            reduced = collapse_worker_axis(red, wk)
         delta, opt = self.local_optimizer(reduced, state.opt, state.params,
                                           {"lr": lr, "weight_decay": wd})
         new_params = T.map(

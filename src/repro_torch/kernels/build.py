@@ -42,8 +42,8 @@ SIGNATURES = {
         "dc_fused_update_bf16w": _UPDATE,
     },
     "compress": {
-        "select_ef_mean_f32": [_P, _P, _I64, _I64, _I32, _I32, _F32, _I32,
-                               _I32, _P, _P, _P],
+        "select_ef_mean_f32": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                               _F32, _I32, _I32, _P, _P, _P],
     },
     "paged_attention": {
         f"paged_attention_{pool}": _PAGED

@@ -17,6 +17,12 @@ thresholds are read from device memory, so the step never waits on the
 host.  The thresholds themselves are computed outside, in torch
 (`repro_torch.core.compress.magnitude_threshold`).
 
+On a worker axis split over ranks one launch holds W / R rows: with
+``partial=True`` it writes the f32 row sum instead of the mean, and
+`finish_mean` completes it after the all-reduce with the operations the
+full mode runs in the kernel (so one rank gives the same bits); ``mask``,
+a (1, n) uint8 union from every rank, replaces the OR over the local rows.
+
 The kernel takes any n (the reference's needs n % BLOCK == 0 and leaves
 other buckets to XLA) and the plain-cast wires f32, bf16 and f16.  On a
 CPU tensor the wrapper runs the plain version
@@ -27,7 +33,7 @@ the plain version's.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,28 +45,55 @@ from repro_torch.kernels.ref import select_ef_mean_plain
 _WIRE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def select_ef_mean_cost(a, thresh, *, comm_dtype, union) -> dict:
+def select_ef_mean_cost(a, thresh, *, comm_dtype, union, mask=None,
+                        partial=False) -> dict:
     # select, cast, sum and residual per element; the (W, n) payload and
-    # the (1, n) mean cross the wire dtype, as `wire_mean`'s casts do
+    # the (1, n) mean cross the wire dtype, as `wire_mean`'s casts do (a
+    # partial sum is not cast: `finish_mean` casts it, outside); a union
+    # mask adds its n bytes read
     W, n = a.shape
+    rows = W if partial else W + 1
     casts = () if comm_dtype == torch.float32 else (
-        ("float32", str(comm_dtype).replace("torch.", ""), (W + 1) * n),)
-    return {"flops": 4 * W * n, "bytes_read": nbytes(a, thresh),
+        ("float32", str(comm_dtype).replace("torch.", ""), rows * n),)
+    return {"flops": 4 * W * n,
+            "bytes_read": nbytes(a, thresh, mask),
             "bytes_written": 4 * (W + 1) * n, "casts": casts}
+
+
+def _inv(n_workers: int) -> float:
+    """The f32 reciprocal of the worker count, as a host float."""
+    return float(torch.tensor(1.0) / torch.tensor(float(n_workers)))
+
+
+def finish_mean(acc: torch.Tensor, n_workers: int,
+                comm_dtype: torch.dtype) -> torch.Tensor:
+    """The mean of a ``partial=True`` row sum all-reduced over the ranks:
+    (1, n) f32 over the global ``n_workers``, rounded to the wire.  On the
+    card the f32 reciprocal multiply the full mode does in the kernel; on
+    the CPU `wire_mean`'s division, which the plain version's full mode
+    does.  (PyTorch on CUDA divides by a Python scalar through that same
+    reciprocal, so both are each device's one-process mean.)"""
+    if acc.device.type == "cuda":
+        return (acc * _inv(n_workers)).to(comm_dtype).float()
+    return (acc / n_workers).to(comm_dtype).float()
 
 
 @traced_kernel("select_ef_mean", select_ef_mean_cost)
 def select_ef_mean(a: torch.Tensor, thresh: torch.Tensor, *,
-                   comm_dtype: torch.dtype, union: bool
+                   comm_dtype: torch.dtype, union: bool,
+                   mask: Optional[torch.Tensor] = None,
+                   partial: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused select + wire cast + worker mean + residual for one bucket.
 
     a: (W, n) f32; thresh: (W,) or (W, 1) f32 on a's device; comm_dtype:
-    torch.float32, bfloat16 or float16.  Returns ``(mean, residual)``:
-    (1, n) f32 and (W, n) f32, bitwise the plain version."""
+    torch.float32, bfloat16 or float16; mask: None or a (1, n) uint8
+    union (with ``union=True``); partial: the row sum in place of the
+    mean.  Returns ``(mean, residual)``: (1, n) f32 and (W, n) f32,
+    bitwise the plain version in every mode."""
     if a.device.type == "cpu":
         return select_ef_mean_plain(a, thresh, comm_dtype=comm_dtype,
-                                    union=union)
+                                    union=union, mask=mask, partial=partial)
     if a.device.type != "cuda":
         raise ValueError(f"select_ef_mean: no kernel for device {a.device}")
     thresh = thresh.reshape(-1).contiguous()    # W floats
@@ -70,6 +103,13 @@ def select_ef_mean(a: torch.Tensor, thresh: torch.Tensor, *,
             or thresh.shape != (a.shape[0],) or comm_dtype not in _WIRE_CODE:
         raise ValueError("select_ef_mean: a (W, n) f32, thresh (W,) f32, "
                          "comm_dtype float32/bfloat16/float16")
+    if mask is not None:
+        mask = mask.reshape(-1).contiguous()    # n bytes
+        _check("select_ef_mean", a, mask)
+        if not union or mask.dtype != torch.uint8 \
+                or mask.shape != (a.shape[1],):
+            raise ValueError("select_ef_mean: a union mask is (1, n) uint8 "
+                             "and needs union=True")
     from repro_torch.kernels.build import library
     W, n = a.shape
     mean = torch.empty((1, n), dtype=torch.float32, device=a.device)
@@ -79,13 +119,14 @@ def select_ef_mean(a: torch.Tensor, thresh: torch.Tensor, *,
     # PyTorch on CUDA divides by a Python scalar through its reciprocal, so
     # the kernel multiplies by the same f32 reciprocal (exactly the
     # division when W is a power of two)
-    inv_w = float(torch.tensor(1.0) / torch.tensor(float(W)))
+    inv_w = _inv(W)
     with torch.cuda.device(a.device):
         err = library("compress").select_ef_mean_f32(
-            a.data_ptr(), thresh.data_ptr(), W, n, _WIRE_CODE[comm_dtype],
-            int(bool(union)), inv_w, int(vec), _grid(n, n % 4 == 0),
-            mean.data_ptr(), res.data_ptr(),
-            torch.cuda.current_stream(a.device).cuda_stream)
+            a.data_ptr(), thresh.data_ptr(),
+            None if mask is None else mask.data_ptr(), W, n,
+            _WIRE_CODE[comm_dtype], int(bool(union)), int(bool(partial)),
+            inv_w, int(vec), _grid(n, n % 4 == 0), mean.data_ptr(),
+            res.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(err, "select_ef_mean")
     select_ef_mean.launches += 1
     return mean, res

@@ -12,6 +12,15 @@
 // and writes mean (1, n) f32 and res (W, n) f32.  The thresholds t (W,) f32
 // come from device memory, so the caller never reads them on the host.
 //
+// Two modes serve a worker axis split over ranks, where one launch sees
+// only its rank's W / R rows:
+//   partial  writes the f32 row sum c_0 + ... (no multiply, no cast); the
+//            caller all-reduces it, multiplies by the f32 reciprocal of the
+//            global W and rounds to the wire, the same operations the full
+//            mode does here, so at one rank the result is the same bits;
+//   mask     a (1, n) uint8 union mask (the OR over every rank's rows) read
+//            in place of the OR over the local rows.
+//
 // Bound on an H100 SXM (3.35 TB/s): bytes.  Per column it reads 4W bytes
 // and writes 4 + 4W, a compare, a select and W adds: 20 B per column at
 // W = 2.  So the design is one streaming pass: a grid-stride loop over
@@ -67,6 +76,12 @@ __device__ __forceinline__ void store4(float* p, float4 v, int vec) {
 }
 
 // One column: c from a, the threshold test and the union mask.
+// Mean of the column: partial -> the row sum; else wire_cast(acc * inv_w).
+template <int WIRE>
+__device__ __forceinline__ float finish(float acc, float inv_w, int partial) {
+  return partial ? acc : wire_cast<WIRE>(acc * inv_w);
+}
+
 __device__ __forceinline__ float select1(float a, float t, int union_,
                                          bool any) {
   const bool keep = union_ ? any : (fabsf(a) >= t);
@@ -76,12 +91,15 @@ __device__ __forceinline__ float select1(float a, float t, int union_,
 template <int WIRE>
 __device__ __forceinline__ void column(const float* __restrict__ a,
                                        const float* __restrict__ thresh,
+                                       const uint8_t* __restrict__ mask,
                                        int64_t rows, int64_t n, int64_t j,
-                                       int union_, float inv_w,
+                                       int union_, int partial, float inv_w,
                                        float* __restrict__ mean,
                                        float* __restrict__ res) {
   bool any = false;
-  if (union_) {
+  if (mask != nullptr) {
+    any = __ldg(mask + j) != 0;
+  } else if (union_) {
     for (int64_t w = 0; w < rows; ++w)
       any = any || (fabsf(__ldg(a + w * n + j)) >= __ldg(thresh + w));
   }
@@ -93,19 +111,25 @@ __device__ __forceinline__ void column(const float* __restrict__ a,
     const float cw = wire_cast<WIRE>(c);
     acc = (w == 0) ? cw : acc + cw;
   }
-  mean[j] = wire_cast<WIRE>(acc * inv_w);
+  mean[j] = finish<WIRE>(acc, inv_w, partial);
 }
 
 // Groups of four columns (n % 4 == 0); vec: 16-byte accesses.
 template <int WIRE>
 __device__ __forceinline__ void column4(const float* __restrict__ a,
                                         const float* __restrict__ thresh,
+                                        const uint8_t* __restrict__ mask,
                                         int64_t rows, int64_t n, int64_t j,
-                                        int union_, int vec, float inv_w,
-                                        float* __restrict__ mean,
+                                        int union_, int partial, int vec,
+                                        float inv_w, float* __restrict__ mean,
                                         float* __restrict__ res) {
   bool ax = false, ay = false, az = false, aw = false;
-  if (union_) {
+  if (mask != nullptr) {
+    ax = __ldg(mask + j) != 0;
+    ay = __ldg(mask + j + 1) != 0;
+    az = __ldg(mask + j + 2) != 0;
+    aw = __ldg(mask + j + 3) != 0;
+  } else if (union_) {
     for (int64_t w = 0; w < rows; ++w) {
       const float4 x = load4(a + w * n + j, vec);
       const float t = __ldg(thresh + w);
@@ -137,10 +161,10 @@ __device__ __forceinline__ void column4(const float* __restrict__ a,
     }
   }
   store4(mean + j,
-         make_float4(wire_cast<WIRE>(acc.x * inv_w),
-                     wire_cast<WIRE>(acc.y * inv_w),
-                     wire_cast<WIRE>(acc.z * inv_w),
-                     wire_cast<WIRE>(acc.w * inv_w)),
+         make_float4(finish<WIRE>(acc.x, inv_w, partial),
+                     finish<WIRE>(acc.y, inv_w, partial),
+                     finish<WIRE>(acc.z, inv_w, partial),
+                     finish<WIRE>(acc.w, inv_w, partial)),
          vec);
 }
 
@@ -149,27 +173,31 @@ __device__ __forceinline__ void column4(const float* __restrict__ a,
 template <int WIRE>
 __global__ void __launch_bounds__(kThreads)
     select_ef_mean(const float* __restrict__ a,
-                   const float* __restrict__ thresh, int64_t rows, int64_t n,
-                   int union_, float inv_w, int groups4, int vec,
+                   const float* __restrict__ thresh,
+                   const uint8_t* __restrict__ mask, int64_t rows, int64_t n,
+                   int union_, int partial, float inv_w, int groups4, int vec,
                    float* __restrict__ mean, float* __restrict__ res) {
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   const int64_t start = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (groups4) {
     for (int64_t i = start; i < n / 4; i += stride)
-      column4<WIRE>(a, thresh, rows, n, 4 * i, union_, vec, inv_w, mean,
-                    res);
+      column4<WIRE>(a, thresh, mask, rows, n, 4 * i, union_, partial, vec,
+                    inv_w, mean, res);
   } else {
     for (int64_t j = start; j < n; j += stride)
-      column<WIRE>(a, thresh, rows, n, j, union_, inv_w, mean, res);
+      column<WIRE>(a, thresh, mask, rows, n, j, union_, partial, inv_w, mean,
+                   res);
   }
 }
 
 template <int WIRE>
-void launch(const float* a, const float* thresh, int64_t rows, int64_t n,
-            int union_, float inv_w, int vec, int nblocks, float* mean,
-            float* res, cudaStream_t stream) {
+void launch(const float* a, const float* thresh, const uint8_t* mask,
+            int64_t rows, int64_t n, int union_, int partial, float inv_w,
+            int vec, int nblocks, float* mean, float* res,
+            cudaStream_t stream) {
   select_ef_mean<WIRE><<<nblocks, kThreads, 0, stream>>>(
-      a, thresh, rows, n, union_, inv_w, (int)(n % 4 == 0), vec, mean, res);
+      a, thresh, mask, rows, n, union_, partial, inv_w, (int)(n % 4 == 0),
+      vec, mean, res);
 }
 
 }  // namespace
@@ -177,25 +205,28 @@ void launch(const float* a, const float* thresh, int64_t rows, int64_t n,
 extern "C" {
 
 // a: (rows, n) f32 contiguous; thresh: (rows,) f32 on the device;
+// mask: null, or (n,) uint8 on the device, the union to use (with union_);
 // wire: 0 f32, 1 bf16, 2 f16; union_: OR the masks over the rows;
-// inv_w: the f32 reciprocal of rows; vec: n % 4 == 0 and a, mean, res
-// 16-byte aligned; mean: (n,) f32; res: (rows, n) f32.
-int select_ef_mean_f32(const float* a, const float* thresh, int64_t rows,
-                       int64_t n, int wire, int union_, float inv_w, int vec,
+// partial: write the row sum, not the mean; inv_w: the f32 reciprocal of
+// rows; vec: n % 4 == 0 and a, mean, res 16-byte aligned; mean: (n,) f32;
+// res: (rows, n) f32.
+int select_ef_mean_f32(const float* a, const float* thresh,
+                       const uint8_t* mask, int64_t rows, int64_t n, int wire,
+                       int union_, int partial, float inv_w, int vec,
                        int nblocks, float* mean, float* res,
                        cudaStream_t stream) {
   switch (wire) {
     case kF32:
-      launch<kF32>(a, thresh, rows, n, union_, inv_w, vec, nblocks, mean, res,
-                   stream);
+      launch<kF32>(a, thresh, mask, rows, n, union_, partial, inv_w, vec,
+                   nblocks, mean, res, stream);
       break;
     case kBF16:
-      launch<kBF16>(a, thresh, rows, n, union_, inv_w, vec, nblocks, mean,
-                    res, stream);
+      launch<kBF16>(a, thresh, mask, rows, n, union_, partial, inv_w, vec,
+                    nblocks, mean, res, stream);
       break;
     case kF16:
-      launch<kF16>(a, thresh, rows, n, union_, inv_w, vec, nblocks, mean, res,
-                   stream);
+      launch<kF16>(a, thresh, mask, rows, n, union_, partial, inv_w, vec,
+                   nblocks, mean, res, stream);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -12,11 +12,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.reduce import wire_mean
+from repro_torch.core.reduce import _row_sum, wire_mean
 
 
 def select_ef_mean_plain(a: torch.Tensor, thresh: torch.Tensor, *,
-                         comm_dtype: torch.dtype, union: bool
+                         comm_dtype: torch.dtype, union: bool,
+                         mask: Optional[torch.Tensor] = None,
+                         partial: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One bucket of the error-feedback compression body:
 
@@ -28,12 +30,24 @@ def select_ef_mean_plain(a: torch.Tensor, thresh: torch.Tensor, *,
     a: (W, n) f32 accumulated payload; thresh: (W,) or (W, 1) f32.  The
     mean adds the worker rows in worker order and divides by W, as
     `repro_torch.core.reduce.MeanAllReduce` does, so at a zero threshold
-    this is bitwise the dense mean."""
+    this is bitwise the dense mean.
+
+    The worker axis split over ranks: ``mask`` (union only), a (1, n)
+    uint8 union from every rank, replaces the OR over ``a``'s rows;
+    ``partial`` returns the f32 row sum of the wire-cast rows in place of
+    the mean (`repro_torch.kernels.compress.finish_mean` finishes it)."""
     a32 = a.float()
-    keep = a32.abs() >= thresh.reshape(-1, 1)
-    if union:
-        keep = keep.any(dim=0, keepdim=True)
+    if mask is not None:
+        if not union:
+            raise ValueError("select_ef_mean: a union mask needs union=True")
+        keep = mask.reshape(1, -1) != 0
+    else:
+        keep = a32.abs() >= thresh.reshape(-1, 1)
+        if union:
+            keep = keep.any(dim=0, keepdim=True)
     c = torch.where(keep, a32, 0.0)
+    if partial:
+        return _row_sum(c.to(comm_dtype).float()), a32 - c
     return wire_mean(c, comm_dtype), a32 - c
 
 

@@ -15,12 +15,15 @@ rank holds its shards of the leaves the partition rules shard over
 Megatron-style over the axis (`models.transformer.Model.with_model_axis`)
 and the algorithm sums its norms over it (``bind_model_axis``);
 `gather_state`, `save` and `restore` cross both axes, so a checkpoint is
-the one-process state.  What the port cannot yet run across ranks is
-refused here, at construction, never run silently in one process: on
-more than one rank the weight-mixing and compressed reducers, a stateful
-staleness policy, an algorithm without the worker seam (dc_asgd) and
-elastic resize; over 'model' also the other families, serving, the
-overlap pipeline and the optimizers and λ modes that take per-leaf
+the one-process state.  Every algorithm of the registry trains across
+the worker ranks, under every reducer and staleness policy, and an
+elastic run resizes across them (each rank keeps ``W / R`` rows of the
+live W).  What the port cannot yet run across ranks is refused, at
+construction or at the resize, never run silently in one process: a
+membership whose W the ranks cannot split evenly, hierarchical groups
+that cut through a rank's rows; over 'model' the stateful and
+weight-mixing reducers, ``dynamic_ssp``, the other families, serving,
+the overlap pipeline and the optimizers and λ modes that take per-leaf
 norms (``specs_only=True`` keeps any mesh's specs for the dry-run).
 
 PyTorch runs eagerly, so there is nothing to jit: ``fit`` calls the
@@ -77,6 +80,18 @@ def _synchronize(metrics: Dict[str, Any]) -> None:
             return
 
 
+def _gather_floats(workers, x: float) -> List[float]:
+    """Every worker rank's host float ``x``, in worker order (one small
+    all-gather; over NCCL through the current device)."""
+    import torch.distributed as dist
+    dev = "cpu" if workers.host else torch.device(
+        "cuda", torch.cuda.current_device())
+    mine = torch.tensor([x], dtype=torch.float64, device=dev)
+    parts = [torch.empty_like(mine) for _ in range(workers.size)]
+    dist.all_gather(parts, mine, group=workers.group)
+    return torch.cat(parts).tolist()
+
+
 # the ROADMAP item every refusal of a multi-rank layout names
 _MULTI_DEVICE_ITEM = ("ROADMAP queue A item 6: what the multi-device slice "
                       "leaves")
@@ -120,28 +135,19 @@ class Engine:
                 self.model = self.model.with_model_axis(self.model_axis)
             self.alg.bind_model_axis(self.model_axis,
                                      getattr(self.model, "cfg", None))
+        self._bind_alg()
+
+    def _bind_alg(self) -> None:
+        """Bind the algorithm (a rebuilt one too) to the worker group."""
         alg = self.alg
-        if alg is None or self.workers.size == 1:
-            if alg is not None and hasattr(alg, "bind_workers"):
-                alg.bind_workers(self.workers)
+        if alg is None or self.workers is None:
             return
-        red = getattr(alg, "reducer", None)
-        why = None
         if not hasattr(alg, "bind_workers"):
-            why = f"{alg.name} has no worker seam (dc_asgd across ranks)"
-        elif getattr(red, "reduces_weights", False):
-            why = (f"the weight-mixing reducer {red.name!r} (gossip's ring "
-                   f"as send / recv pairs, hierarchical over pod groups)")
-        elif not getattr(red, "stateless", True):
-            why = f"the compressed reducer {red.name!r}"
-        elif not getattr(getattr(alg, "staleness", None), "stateless",
-                         True):
-            why = f"the staleness policy {alg.staleness.name!r}"
-        if why is not None:
+            if self.workers.size == 1:
+                return
             raise ValueError(
-                f"{why} is refused on a worker group of "
-                f"{self.workers.size} ranks: not ported across ranks "
-                f"({_MULTI_DEVICE_ITEM}); it runs with mesh=None")
+                f"{alg.name} has no worker seam and is refused on a worker "
+                f"group of {self.workers.size} ranks ({_MULTI_DEVICE_ITEM})")
         alg.bind_workers(self.workers)
 
     def _refuse_over_model(self, model_size: int) -> None:
@@ -468,15 +474,19 @@ class Engine:
         (``alg.resize_state`` + `rebuild_algorithm`), after which the loop
         steps with the controller's rebuilt algorithm.  Elastic runs call
         ``batch_fn(it, n_workers)``, so the batch follows the live worker
-        count; a scripted slowdown multiplies the measured durations."""
+        count; a scripted slowdown multiplies the measured durations.
+
+        On a mesh each rank times its own step; one small all-gather
+        brings every rank every rank's time, so all advance the same
+        clocks (a worker's duration is its rank's, or ``skew_probe(it,
+        the slowest rank's time)``) and take the same admit decisions.
+        An elastic run re-binds each rebuilt algorithm to the worker
+        group, and every rank takes its ``W / R`` rows of the live W."""
         elastic = membership is not None
-        if elastic and self.workers is not None and self.workers.size > 1:
-            raise ValueError(
-                "elastic resize across ranks is not ported "
-                f"({_MULTI_DEVICE_ITEM}); run it with mesh=None")
         self._fit_rejits = 0
         if elastic:
             self.alg = membership.alg
+            self._bind_alg()
         cur_w = getattr(self.alg, "n_workers", 1)
 
         def stateful_policy():
@@ -499,6 +509,7 @@ class Engine:
                                                       step=it)
                     if changed:
                         self.alg = membership.alg
+                        self._bind_alg()
                         self._fit_rejits += 1
                         cur_w = membership.n_workers
                         stateful = stateful_policy()
@@ -516,9 +527,16 @@ class Engine:
             if measuring:
                 _synchronize(metrics)
                 dt = time.perf_counter() - ts
+                if self.workers is not None and self.workers.size > 1:
+                    dts = _gather_floats(self.workers, dt)
+                    dt = max(dts)
+                else:
+                    dts = [dt]
                 if it >= warm_until:
+                    rows = n_workers // len(dts)
                     durs = list(skew_probe(it, dt)) \
-                        if skew_probe is not None else [dt] * n_workers
+                        if skew_probe is not None \
+                        else [dts[w // rows] for w in range(n_workers)]
                     if len(durs) != n_workers:
                         raise ValueError(f"skew_probe gave {len(durs)} "
                                          f"durations for {n_workers} workers")

@@ -137,10 +137,16 @@ def model_axis(mesh):
 
 
 def make_workers(mesh):
-    """The algorithms' worker seam over ``mesh``'s worker axes."""
+    """The algorithms' worker seam over ``mesh``'s worker axes, one per
+    mesh (the sub-groups it builds for hierarchical blocks are
+    collective to build, so every Engine on the mesh shares them)."""
     from repro_torch.core.reduce import ProcessWorkers
-    return ProcessWorkers(worker_group(mesh), rank=worker_index(mesh),
-                          size=n_workers(mesh))
+    seam = getattr(mesh, "_worker_seam", None)
+    if seam is None:
+        seam = ProcessWorkers(worker_group(mesh), rank=worker_index(mesh),
+                              size=n_workers(mesh))
+        mesh._worker_seam = seam
+    return seam
 
 
 def shape_for_spec(spec, *, model: int = 1, n_devices: int
@@ -176,6 +182,6 @@ def mesh_for_spec(spec, *, model: int = 1, device_type: str = "cuda"):
         raise ValueError(
             f"membership of {spec.n_workers} workers lays out as "
             f"{dict(zip(axes, shape))} = {math.prod(shape)} ranks, not the "
-            f"world's {world}: resizing across ranks is not ported "
-            f"(ROADMAP queue A item 6)")
+            f"world's {world}: a membership that leaves ranks out needs "
+            f"its own process group (ROADMAP queue A item 6.8)")
     return _device_mesh(device_type, shape, axes)

@@ -18,8 +18,13 @@ store under ``tmp_path``).  JAX runs only in this, the parent, process.
 * One 2-rank run against the JAX trajectory at `tests/test_torch_dc_s3gd.
   py`'s ``TOL`` and ``RTOL_METRICS``.
 * Overlap == inline bitwise at 2 ranks.
-* Each refusal raises at `Engine` construction and names the ROADMAP
-  item.
+* The worker-axis pieces that were refused across ranks until the slice
+  that ported them (gossip, hierarchical, topk, dynamic_ssp, dc_asgd,
+  elastic resize) now construct on a stand-in mesh of 2 ranks and run on
+  spawned ones (`tests/test_torch_mesh_reducers.py` holds each to one
+  process).  What stays refused raises at `Engine` construction or at the
+  resize and names its ROADMAP item: over 'model' (item 6.7), and a
+  membership whose rows the ranks cannot split (item 6.8).
 """
 import functools
 import types
@@ -49,6 +54,9 @@ FUSED = {"buckets": 2, "use_kernels": True}
 # (model, algorithm spec, W) of each run a group of ranks makes
 R1 = [("lm", FUSED, 2), ("lm", {**FUSED, "overlap": True}, 2),
       ("lm", {"algo": "ssgd"}, 2)]
+ELASTIC_RUN = ("cnn", {"algo": "stale", **FUSED, "elastic": [
+    {"step": s, "kind": "leave", "worker": w}
+    for s, w in ((1, "w1"), (1, "w5"), (2, "w2"), (2, "w6"))]}, 8)
 R2 = [("lm", FUSED, 4), ("lm", {**FUSED, "overlap": True}, 4),
       ("lm", {"algo": "stale", **FUSED}, 4),
       ("lm", {"algo": "ssgd", "buckets": 2}, 4), ("lm", {}, 4),
@@ -65,8 +73,21 @@ def _weights():
                         JModel(cfg, remat=False).init(jax.random.PRNGKey(0)))
 
 
+# the spawned run of `ranks("r2")` each lifted piece is held by here (the
+# reducers and dc_asgd: `tests/test_torch_mesh_reducers.py`)
+LIFTED_RUN = {"gossip": ("lm", {**FUSED, "reducer": "gossip"}, 4),
+              "hierarchical": ("lm", {**FUSED, "reducer": "hierarchical"},
+                               4),
+              "topk": ("lm", {**FUSED, "reducer": "topk"}, 4),
+              "dynamic_ssp": ("lm", {**FUSED, "staleness": "dynamic_ssp",
+                                     "cfg": {"ssp_threshold": 1},
+                                     "skew": (3.0, 1.0)}, 4),
+              "dc_asgd": ("lm", {"algo": "dc_asgd"}, 4)}
+LIFTED = list(LIFTED_RUN.values()) + [ELASTIC_RUN]
+
 # world size and runs of each group; the 4 ranks lay out as pods (2, 2, 1)
-GROUPS = {"r1": (1, dict(runs=R1)), "r2": (2, dict(runs=R2, keep=(0, 1))),
+GROUPS = {"r1": (1, dict(runs=R1)),
+          "r2": (2, dict(runs=R2 + LIFTED, keep=(0, 1))),
           "r4": (4, dict(runs=R4, layout="pods"))}
 
 
@@ -117,8 +138,9 @@ def test_one_rank_mesh_is_bitwise_one_process(ranks, i):
     assert got["hist"] == got["hist_one"]
 
 
-CASES = [(g, i) for g in ("r2", "r4")
-         for i in range(len(GROUPS[g][1]["runs"]))]
+# (the lifted pieces' runs in "r2" are read by the refusal tests)
+CASES = [(g, i) for g, runs in (("r2", R2), ("r4", R4))
+         for i in range(len(runs))]
 
 
 @pytest.mark.parametrize("group,i", CASES,
@@ -211,52 +233,83 @@ class _Mesh:
         self.shape = tuple(shape.values())
 
 
+# name -> (algorithm spec, stand-in mesh, the words a refusal names, or
+# None where the piece now constructs across ranks)
 REFUSED = {
     # a 'model' axis above 1 trains the dense and MoE families since the
-    # tensor-parallel slice; the overlap pipeline over it stays refused
+    # tensor-parallel slice; the overlap pipeline over it stays refused,
+    # and so do the stateful and weight-mixing reducers (item 6.7)
     "model_axis": ({"overlap": True, "buckets": 2}, dict(data=2, model=2),
                    "tensor-parallel"),
+    "model_axis_topk": ({"reducer": "topk", "buckets": 2},
+                        dict(data=1, model=2), "reducer 'topk'"),
+    "model_axis_gossip": ({"reducer": "gossip"}, dict(data=1, model=2),
+                          "reducer 'gossip'"),
+    "model_axis_dynamic_ssp": ({"staleness": "dynamic_ssp"},
+                               dict(data=1, model=2), "dynamic_ssp"),
+    # hierarchical groups that cut through a rank's rows (3 groups over 2)
+    "hierarchical_layout": ({"reducer": "hierarchical",
+                             "reducer_opts": {"groups": 3}},
+                            dict(data=2, model=1), "cut through"),
+    # ported across the worker ranks: they construct, and run spawned
     "gossip": ({"reducer": "gossip", "buckets": 2}, dict(data=2, model=1),
-               "gossip"),
+               None),
     "hierarchical": ({"reducer": "hierarchical"}, dict(data=2, model=1),
-                     "hierarchical"),
-    "topk": ({"reducer": "topk", "buckets": 2}, dict(data=2, model=1),
-             "compressed reducer 'topk'"),
+                     None),
+    "topk": ({"reducer": "topk", "buckets": 2}, dict(data=2, model=1), None),
     "dynamic_ssp": ({"staleness": "dynamic_ssp"}, dict(data=2, model=1),
-                    "dynamic_ssp"),
-    "dc_asgd": ({"algo": "dc_asgd"}, dict(data=2, model=1), "dc_asgd"),
+                    None),
+    "dc_asgd": ({"algo": "dc_asgd"}, dict(data=2, model=1), None),
 }
+def _stand_in_workers(monkeypatch):
+    from repro_torch.core.reduce import ProcessWorkers
+    from repro_torch.launch import mesh as M
+    monkeypatch.setattr(M, "make_workers", lambda mesh: ProcessWorkers(
+        None, rank=0, size=M.n_workers(mesh)))
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
-def test_refusals_raise_at_construction(monkeypatch, name):
-    from repro_torch.core.reduce import ProcessWorkers
-    from repro_torch.launch import mesh as M
+def test_refusals_raise_at_construction(ranks, monkeypatch, name):
+    """What stays refused raises at construction naming its ROADMAP item;
+    what was refused until the worker-axis slice constructs on 2 ranks,
+    and its spawned 2-rank run (`LIFTED_RUN`) tracks one process."""
     from repro_torch.launch.engine import Engine
     spec, shape, words = REFUSED[name]
-    monkeypatch.setattr(M, "make_workers", lambda mesh: ProcessWorkers(
-        None, rank=0, size=M.n_workers(mesh)))
-    alg = MW._make(spec, 4)
+    _stand_in_workers(monkeypatch)
+    model = types.SimpleNamespace(loss=None, cfg=None)
+    if words is None:
+        eng = Engine(model, MW._make(spec, 4), mesh=_Mesh(**shape))
+        assert eng.workers.size == 2 and eng.alg.workers is eng.workers
+        run = ranks("r2")[0]["runs"][
+            GROUPS["r2"][1]["runs"].index(LIFTED_RUN[name])]
+        for part in MW.PARTS:
+            assert run["diff"][part][0] <= TOL_MESH, (part, run["diff"])
+        return
     with pytest.raises(ValueError, match="ROADMAP queue A item 6") as e:
-        Engine(types.SimpleNamespace(loss=None), alg, mesh=_Mesh(**shape))
+        Engine(model, MW._make(spec, 4), mesh=_Mesh(**shape))
     assert words in str(e.value)
     # the same algorithm on one rank, or with mesh=None, is accepted
     Engine(types.SimpleNamespace(loss=None), MW._make(spec, 4))
 
 
-def test_elastic_fit_and_resize_refused_across_ranks(monkeypatch):
-    from repro_torch.core.reduce import ProcessWorkers
-    from repro_torch.launch import mesh as M
+def test_elastic_fit_and_resize_refused_across_ranks(ranks, monkeypatch):
+    """Elastic resize runs across ranks (the spawned 8 → 6 → 4 run of
+    `ranks("r2")`: ``eval_params`` bitwise across each resize); a W the
+    ranks cannot split evenly stays refused at the resize, naming item
+    6.8 (a process group per membership)."""
     from repro_torch.launch.engine import Engine
-    monkeypatch.setattr(M, "make_workers", lambda mesh: ProcessWorkers(
-        None, rank=0, size=M.n_workers(mesh)))
+    _stand_in_workers(monkeypatch)
     alg = MW._make({}, 4)
-    eng = Engine(types.SimpleNamespace(loss=None), alg,
-                 mesh=_Mesh(data=2, model=1))
-    with pytest.raises(ValueError, match="ROADMAP queue A item 6"):
-        eng.fit(None, None, steps=1, membership=object())
-    with pytest.raises(ValueError, match="ROADMAP queue A item 6"):
-        alg.resize_state(None, 2)
+    Engine(types.SimpleNamespace(loss=None), alg,
+           mesh=_Mesh(data=2, model=1))
+    with pytest.raises(ValueError, match="ROADMAP queue A item 6.8"):
+        alg.resize_state(None, 3)
+    run = ranks("r2")[0]["runs"][GROUPS["r2"][1]["runs"].index(ELASTIC_RUN)]
+    assert run["pins"] == [True, True]
+    assert [h["n_workers"] for h in run["hist"]] == [8, 6, 4]
+    assert run["log"] == run["log_one"]
+    for part in MW.PARTS:
+        assert run["diff"][part][0] <= TOL_MESH, (part, run["diff"])
     # a model axis above 1 keeps its specs for the dry-run
     Engine(types.SimpleNamespace(loss=None, cfg=None), MW._make({}, 4),
            mesh=_Mesh(data=2, model=2), specs_only=True)

@@ -1,5 +1,6 @@
-"""The spawned ranks of `tests/test_torch_mesh.py` (not a test file; it
-imports no jax, so the ranks never load it).
+"""The spawned ranks of `tests/test_torch_mesh.py` and
+`tests/test_torch_mesh_reducers.py` (not a test file; it imports no jax,
+so the ranks never load it).
 
 `spawn` starts ``world`` processes, each with one torch thread and a gloo
 process group met through a ``file://`` store under the test's
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.cluster import FaultSchedule, Membership
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import registry
 from repro_torch.core.types import DCS3GDConfig
@@ -43,21 +45,80 @@ def _numpy(tree):
                  if isinstance(x, torch.Tensor) else np.asarray(x), tree)
 
 
+# the keys of a run's spec that drive `Engine.fit`, not the algorithm
+RUN_KEYS = ("skew", "elastic", "spread")
+
+
 def _make(spec: dict, W: int):
-    kw = dict(spec)
+    """The algorithm of a run's spec: ``algo`` (default dc_s3gd), ``cfg``
+    (overrides of `HP`), ``reducer_opts`` (the reducer's constructor
+    knobs), the rest registry keywords."""
+    kw = {k: v for k, v in spec.items() if k not in RUN_KEYS}
     algo = kw.pop("algo", "dc_s3gd")
-    return registry.make(algo, DCS3GDConfig(**HP), n_workers=W, **kw)
+    cfg = DCS3GDConfig(**{**HP, **kw.pop("cfg", {})})
+    opts = kw.pop("reducer_opts", None)
+    if opts is not None:
+        kw["reducer"] = registry.make_reducer(kw.get("reducer"), cfg, **opts)
+    return registry.make(algo, cfg, n_workers=W, **kw)
 
 
-def _run(model, alg, params, batch_of, mesh, steps, ckpt=None):
+class _PinnedMembership(Membership):
+    """`Membership` that records, at each transition, whether
+    ``eval_params`` after the resize is bitwise the value before it (on
+    the resizing algorithm's own workers)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.pins = []
+
+    def apply(self, events, state, *, step):
+        old = self.alg
+        before = old.eval_params(state)
+        state, changed = super().apply(events, state, step=step)
+        if changed:
+            after = old.eval_params(state)
+            self.pins.append(all(torch.equal(x, y) for x, y in
+                                 zip(T.leaves(before), T.leaves(after))))
+        return state, changed
+
+
+def _fit_options(spec: dict, alg) -> dict:
+    """`Engine.fit` keywords of a run's spec: ``skew`` = (slow, fast)
+    scripted durations (worker 0 slow) under ``measure_skew``; ``elastic``
+    = the events of a `FaultSchedule`."""
+    kw = {}
+    if "skew" in spec:
+        slow, fast = spec["skew"]
+        kw.update(measure_skew=True, skew_probe=lambda it, dt: [slow] + [
+            fast] * (alg.n_workers - 1))
+    if "elastic" in spec:
+        kw["membership"] = _PinnedMembership(
+            alg, faults=FaultSchedule.from_json(
+                {"seed": 0, "events": spec["elastic"]}))
+    return kw
+
+
+def _run(model, alg, params, batch_of, mesh, steps, ckpt=None, fit=None):
     """``steps`` steps through `Engine.fit` (which takes this rank's rows
     of each global batch); returns the gathered state as numpy and the
     per-step metrics.  With ``ckpt`` (a path) the state also goes through
     `Engine.save` / `Engine.restore`, and ``restored`` says whether this
-    rank got its shards back bit for bit."""
+    rank got its shards back bit for bit.  ``fit``: the run's spec, whose
+    `RUN_KEYS` become `Engine.fit` keywords (an elastic run also reports
+    its ``pins`` and its ``log``)."""
     engine = Engine(model, alg, mesh=mesh)
     state = engine.init_state(params)
-    state, hist, _ = engine.fit(state, batch_of, steps=steps, log_every=1)
+    if (fit or {}).get("spread") is not None:
+        # per-worker starting weights (W, ...): this rank's rows
+        rows = alg.workers.rows(alg.n_workers)
+        lo = alg.workers.rank * rows
+        state = state._replace(params=T.map(
+            lambda x: x[lo:lo + rows].clone(),
+            params_from_numpy(fit["spread"], device="cpu")))
+    kw = _fit_options(fit or {}, alg)
+    state, hist, _ = engine.fit(state, batch_of, steps=steps, log_every=1,
+                                **kw)
+    alg = engine.alg
     full = engine.gather_state(state)
     out = {"params": _numpy(full.params), "opt": _numpy(full.opt),
            "comm": _numpy({k: v for k, v in full.comm.items()
@@ -65,6 +126,9 @@ def _run(model, alg, params, batch_of, mesh, steps, ckpt=None):
            "eval": _numpy(alg.eval_params(state)),
            "hist": [{k: v for k, v in m.items() if k != "wall_s"}
                     for m in hist]}
+    if "membership" in kw:
+        out["pins"] = kw["membership"].pins
+        out["log"] = kw["membership"].log
     if ckpt is not None:
         engine.save(ckpt, state, step=steps)
         back = engine.restore(ckpt, state)
@@ -76,7 +140,7 @@ def _run(model, alg, params, batch_of, mesh, steps, ckpt=None):
 
 
 def run_lm(spec: dict, W: int, weights, mesh=None, steps: int = STEPS,
-           ckpt=None):
+           ckpt=None, spread=None):
     """The reduced qwen3-0.6b from ``weights`` (a numpy tree), ``W``
     workers, tests/test_torch_dc_s3gd.py's batches."""
     cfg = reduced(get_config("qwen3-0.6b"))
@@ -84,8 +148,9 @@ def run_lm(spec: dict, W: int, weights, mesh=None, steps: int = STEPS,
     data = SyntheticLMDataset(cfg.vocab_size, SEQ, seed=0)
     return _run(model, _make(spec, W), params_from_numpy(weights,
                                                          device="cpu"),
-                lambda t: worker_batches(data, t, W, BPW, device="cpu"),
-                mesh, steps, ckpt)
+                lambda t, w=W: worker_batches(data, t, w, BPW, device="cpu"),
+                mesh, steps, ckpt,
+                {**spec, "spread": spread} if spec.get("spread") else spec)
 
 
 def run_cnn(spec: dict, W: int, mesh=None, steps: int = STEPS):
@@ -95,9 +160,9 @@ def run_cnn(spec: dict, W: int, mesh=None, steps: int = STEPS):
                                  seed=0, noise=0.4)
     model = types.SimpleNamespace(loss=cnn_loss_fn(resnet_apply))
     return _run(model, _make(spec, W), params,
-                lambda t: worker_batches(data, t, W, CNN_PER_WORKER,
-                                         device="cpu"),
-                mesh, steps)
+                lambda t, w=W: worker_batches(data, t, w, CNN_PER_WORKER,
+                                              device="cpu"),
+                mesh, steps, fit=spec)
 
 
 def _mesh(layout, world):
@@ -112,16 +177,37 @@ def _mesh(layout, world):
 PARTS = ("params", "opt", "comm", "eval")
 
 
-def _compare(a, b) -> tuple:
-    """(the largest over leaves of max|a − b| / max|b|, bitwise equal?)."""
+def _compare(a, b, scales=None) -> tuple:
+    """(the largest over leaves of max|a − b| / max|b|, bitwise equal?);
+    ``scales``: per leaf, a larger scale to divide by."""
     worst, same = 0.0, True
-    for x, y in zip(T.leaves(a), T.leaves(b)):
+    lb = T.leaves(b)
+    scales = scales or [0.0] * len(lb)
+    for x, y, s in zip(T.leaves(a), lb, scales):
         same = same and x.dtype == y.dtype and np.array_equal(x, y)
         x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
-        scale = float(np.abs(y).max()) if y.size else 0.0
+        scale = max(float(np.abs(y).max()) if y.size else 0.0, s)
         if scale:
             worst = max(worst, float(np.abs(x - y).max()) / scale)
     return worst, bool(same)
+
+
+def _compare_comm(a, b) -> tuple:
+    """`_compare` of the carried wire state, where an error-feedback
+    residual (what compression left of the payload Δw + residual, whose
+    own largest value is about the selection threshold) is held at the
+    scale of its bucket's payload, the carried delta's."""
+    if "reducer" not in b or "delta_prev" not in b:
+        return _compare(a, b)
+    rest = [k for k in b if k != "reducer"]
+    w0, s0 = _compare({k: a[k] for k in rest}, {k: b[k] for k in rest})
+    scales = [float(np.abs(np.asarray(d)).max()) for d in b["delta_prev"]]
+    w1, s1 = _compare(a["reducer"]["residual"], b["reducer"]["residual"],
+                      scales)
+    keys = [k for k in b["reducer"] if k != "residual"]
+    w2, s2 = _compare({k: a["reducer"][k] for k in keys},
+                      {k: b["reducer"][k] for k in keys})
+    return max(w0, w1, w2), s0 and s1 and s2
 
 
 def _digest(res) -> str:
@@ -134,7 +220,7 @@ def _digest(res) -> str:
 
 
 def case_runs(world, *, runs, layout="data", weights=None, keep=(),
-              ckpt_dir=None):
+              ckpt_dir=None, spread=None):
     """Every ``(model, spec, W)`` of ``runs`` (``model``: "lm" or "cnn")
     on this rank's mesh: each rank's metrics and a digest of the
     gathered state; rank 0 adds, per part, `_compare` against the
@@ -147,8 +233,8 @@ def case_runs(world, *, runs, layout="data", weights=None, keep=(),
     out = []
 
     def one(model, spec, W, m, ckpt=None):
-        return run_lm(spec, W, weights, m, ckpt=ckpt) if model == "lm" \
-            else run_cnn(spec, W, m)
+        return run_lm(spec, W, weights, m, ckpt=ckpt, spread=spread) \
+            if model == "lm" else run_cnn(spec, W, m)
     for i, (model, spec, W) in enumerate(runs):
         ckpt = f"{ckpt_dir}/run{i}.npz" \
             if ckpt_dir is not None and i in keep else None
@@ -158,11 +244,14 @@ def case_runs(world, *, runs, layout="data", weights=None, keep=(),
             if worker_index(mesh) == 0:
                 Path(ckpt).unlink()
         rec = {"hist": got["hist"], "digest": _digest(got),
-               "restored": got.get("restored")}
+               "restored": got.get("restored"), "pins": got.get("pins"),
+               "log": got.get("log")}
         if worker_index(mesh) == 0:
             want = one(model, spec, W, None)
-            rec["diff"] = {p: _compare(got[p], want[p]) for p in PARTS}
+            rec["diff"] = {p: (_compare_comm if p == "comm" else _compare)(
+                got[p], want[p]) for p in PARTS}
             rec["hist_one"] = want["hist"]
+            rec["log_one"] = want.get("log")
             if i in keep:
                 rec["state"] = got
         out.append(rec)
@@ -170,7 +259,110 @@ def case_runs(world, *, runs, layout="data", weights=None, keep=(),
             "mesh": dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))}
 
 
-CASES = {"runs": case_runs}
+# ---------------------------------------------------------------------------
+# one call of each reducer on a seeded wire (tests/test_torch_mesh_reducers.py)
+# ---------------------------------------------------------------------------
+
+
+class _Plan:
+    def __init__(self, sizes):
+        self.bucket_sizes = tuple(sizes)
+
+
+def _reducer_inputs(W: int, sizes, seed: int):
+    """The (W, n) wire and residual buckets, from a numpy seed: heavy
+    tailed, so the top-k selections are not ties."""
+    rng = np.random.default_rng(seed)
+
+    def draw(n):
+        return torch.from_numpy((rng.standard_normal((W, n))
+                                 * rng.random((W, n)) ** 3)
+                                .astype(np.float32))
+    return [draw(n) for n in sizes], [draw(n) * 0.1 for n in sizes]
+
+
+def _reducer_call(name, opts, W, sizes, seed, workers):
+    """One call of reducer ``name`` (with ``opts``; ``use_kernels`` routes
+    topk / topk_exact through B3's wrapper) bound to ``workers``, on this
+    rank's rows of the seeded wire: ``(out, new_state)``."""
+    from repro_torch.core.reduce import LOCAL
+    opts = dict(opts)
+    kernels = opts.pop("use_kernels", False)
+    red = registry.make_reducer(name, DCS3GDConfig(**HP), **opts)
+    red.workers = workers
+    if kernels:
+        red.use_kernels = True
+    wire, res = _reducer_inputs(W, sizes, seed)
+    lo = workers.rank * workers.rows(W) if workers is not LOCAL else 0
+    hi = lo + workers.rows(W)
+    wire = [w[lo:hi] for w in wire]
+    if getattr(red, "stateless", True):
+        return red(wire), None
+    state = red.init(W, _Plan(sizes))
+    state["residual"] = [r[lo:hi].clone() for r in res]
+    return red(wire, state)
+
+
+def _rows_of(x, mesh_workers, mean_style: bool):
+    """The global rows of a rank's (W / R, n) tensor (all-gathered);
+    a mean-style (1, n) output is already global."""
+    import torch.distributed as dist
+    if mean_style:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh_workers.size)]
+    dist.all_gather(parts, x.contiguous(), group=mesh_workers.group)
+    return torch.cat(parts)
+
+
+def case_reducers(world, *, reducers, W, sizes, seed=0, layout="data"):
+    """Every ``name: (registry name, opts)`` of ``reducers`` once on the
+    seeded wire: rank 0 reports, per reducer, `_compare` of the gathered
+    output and new residual against the one-process call; every rank the
+    digests of what must be the same on every rank (a mean-style output,
+    powersgd's warm start)."""
+    from repro_torch.core.reduce import LOCAL
+    from repro_torch.launch import mesh as M
+    mesh = _mesh(layout, world)
+    wk = M.make_workers(mesh)
+    out = {}
+    for key, (name, opts) in reducers.items():
+        got, st = _reducer_call(name, opts, W, sizes, seed, wk)
+        red = registry.make_reducer(name, DCS3GDConfig(**HP))
+        mean_style = not getattr(red, "reduces_weights", False)
+        rec = {"shared": _digest_tree(
+            (got if mean_style else []) + list((st or {}).get("q", [])))}
+        got = [_rows_of(o, wk, mean_style) for o in T.leaves(got)]
+        res = [] if st is None else [_rows_of(r, wk, False)
+                                      for r in st["residual"]]
+        if wk.rank == 0:
+            want, wst = _reducer_call(name, opts, W, sizes, seed, LOCAL)
+            rec["out"] = _compare(_numpy(got), _numpy(T.leaves(want)))
+            if st is not None:
+                rec["res"] = _compare(_numpy(res), _numpy(wst["residual"]))
+            if st is not None and "q" in st:
+                rec["q"] = _compare(_numpy(st["q"]), _numpy(wst["q"]))
+        out[key] = rec
+    return out
+
+
+def _digest_tree(tree) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for x in T.leaves(tree):
+        h.update(np.ascontiguousarray(x.detach().cpu().numpy()).tobytes())
+    return h.hexdigest()
+
+
+def case_suite(world, *, reducers=None, reducer_kw=None, **runs_kw):
+    """`case_reducers` and `case_runs` in one group of ranks (one spawn
+    per world size)."""
+    res = {"reducers": case_reducers(world, reducers=reducers,
+                                     **reducer_kw)} if reducers else {}
+    res.update(case_runs(world, **runs_kw))
+    return res
+
+
+CASES = {"runs": case_runs, "reducers": case_reducers, "suite": case_suite}
 
 
 def _entry(rank, world, store, case, kwargs, out, module=None):
