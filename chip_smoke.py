@@ -4061,6 +4061,33 @@ def phase_serve_whisper(smi: str) -> dict:
     return rec
 
 
+def _mm_batches(cfg, workers: int, per_worker: int):
+    """``batch_fn(it)``: (workers, per_worker) sequences of ``MM_SEQ``
+    random tokens and labels (seed 1000 + it) carrying their stub inputs:
+    a VLM's patches and tiled M-RoPE positions, an encoder-decoder's
+    frames."""
+    d, V = cfg.d_model, cfg.vocab_size
+
+    def batch_fn(it, n_workers=None):
+        g = torch.Generator(device="cuda").manual_seed(1000 + it)
+        lead = (workers, per_worker)
+        b = {"tokens": torch.randint(0, V, lead + (MM_SEQ,), generator=g,
+                                     device="cuda"),
+             "labels": torch.randint(0, V, lead + (MM_SEQ,), generator=g,
+                                     device="cuda")}
+        if cfg.vlm is not None:
+            n = cfg.vlm.n_patches
+            b["patches"] = torch.randn(lead + (n, d), generator=g,
+                                       device="cuda")
+            b["mrope_positions"] = torch.arange(
+                n + MM_SEQ, device="cuda").expand(workers, 3, n + MM_SEQ)
+        if cfg.encoder is not None:
+            b["frames"] = torch.randn(lead + (cfg.encoder.n_frames, d),
+                                      generator=g, device="cuda")
+        return b
+    return batch_fn
+
+
 def _mm_train(smi: str, cfg, steps: int, per_worker: int, tag: str) -> dict:
     """dc_s3gd at W = 2, 4 buckets, the fused tail (A1/A2), ``steps``
     steps through `Engine.fit` (the launcher's loop) with batches whose
@@ -4085,25 +4112,7 @@ def _mm_train(smi: str, cfg, steps: int, per_worker: int, tag: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     state = alg.init(model.init(torch.Generator(device="cuda")
                                 .manual_seed(0)))
-    d, V = cfg.d_model, cfg.vocab_size
-
-    def batch_fn(it, n_workers=None):
-        g = torch.Generator(device="cuda").manual_seed(1000 + it)
-        lead = (W, per_worker)
-        b = {"tokens": torch.randint(0, V, lead + (MM_SEQ,), generator=g,
-                                     device="cuda"),
-             "labels": torch.randint(0, V, lead + (MM_SEQ,), generator=g,
-                                     device="cuda")}
-        if cfg.vlm is not None:
-            n = cfg.vlm.n_patches
-            b["patches"] = torch.randn(lead + (n, d), generator=g,
-                                       device="cuda")
-            b["mrope_positions"] = torch.arange(
-                n + MM_SEQ, device="cuda").expand(W, 3, n + MM_SEQ)
-        if cfg.encoder is not None:
-            b["frames"] = torch.randn(lead + (cfg.encoder.n_frames, d),
-                                      generator=g, device="cuda")
-        return b
+    batch_fn = _mm_batches(cfg, W, per_worker)
     _zero_counts()
     state, hist, _ = Engine(model, alg).fit(state, batch_fn, steps=steps,
                                             log_every=1)
@@ -4546,6 +4555,7 @@ MESH_TIMED = 3               # further steps on the host clock, not compared
 MESH_TOL = 1e-5              # two ranks vs one process, of each leaf's scale
 MESH_RANKS = 2
 RANKS_LIMIT_S = 300          # a group of spawned ranks is killed after this
+RANKS_GRACE_S = 30           # ... or this long after one of them failed
 DRYRUN_COMBO = ("qwen3-0.6b", "decode_32k", "pod")
 
 
@@ -4786,14 +4796,18 @@ def _mesh_cnn(rank: int, store: str, out: str) -> None:
 
 
 def _wait_ranks(procs, limit: float = RANKS_LIMIT_S) -> list:
-    """Wait for spawned ranks; once one exits with an error, or ``limit``
-    seconds have passed, kill the rest (a rank left in a collective whose
-    peer died would wait for gloo's 30 min timeout).  Their exit codes."""
+    """Wait for spawned ranks; ``RANKS_GRACE_S`` after one exits with an
+    error, or once ``limit`` seconds have passed, kill the rest (a rank
+    left in a collective whose peer died would wait for gloo's 30 min
+    timeout; the grace lets a rank that failed too finish printing its
+    own error).  Their exit codes."""
     deadline = time.perf_counter() + limit
     while any(p.is_alive() for p in procs):
-        if time.perf_counter() > deadline or any(
-                p.exitcode not in (None, 0) for p in procs):
+        now = time.perf_counter()
+        if now > deadline:
             break
+        if any(p.exitcode not in (None, 0) for p in procs):
+            deadline = min(deadline, now + RANKS_GRACE_S)
         time.sleep(0.2)
     for p in procs:
         if p.is_alive():
@@ -4838,13 +4852,13 @@ def _await_gate(store: str) -> None:
         time.sleep(0.1)
 
 
-def _join_pair(started) -> tuple:
+def _join_pair(started, limit: float = RANKS_LIMIT_S) -> tuple:
     """Wait for a `_start_pair`'s ranks (`_wait_ranks`) and remove their
     directory: ``(results in rank order or None, exit codes)``."""
     import shutil
     procs, outs, tmp = started
     try:
-        codes = _wait_ranks(procs)
+        codes = _wait_ranks(procs, limit)
         res = [torch.load(o, weights_only=False) for o in outs] \
             if all(c == 0 for c in codes) else None
     finally:
@@ -4965,6 +4979,15 @@ def phase_dryrun(smi: str, started: tuple) -> dict:
 # ---------------------------------------------------------------------------
 
 TP_STEPS = 3
+TP_RANKS_LIMIT_S = 600   # the (1, 2) pair runs every cell of TP_PAIR
+# cells whose ranks run the allocator with expandable segments: with
+# fixed ones the one-process turns of olmoe and falcon-mamba reserved
+# 73.3 / 74.0 GiB (65.4 / 66.6 GiB of tensors), within 2.5 GiB of what
+# the card had free beside the other rank and the parent, once less
+# than it; expandable segments reserve ~1 GiB above the tensors but map
+# and unmap the card's pages at every growth and `empty_cache`, which
+# made every cell 1.2-1.5x slower, so only these two take them
+TP_EXPANDABLE = ("c", "mamba")
 TP_TOL = 1e-5       # of each leaf's scale, the CPU tests' f32 bound
                     # (measured 3.1e-6 there); the metrics relative
 # The published configs compute in bf16: the embedding's rows enter the
@@ -4984,20 +5007,120 @@ TP_TOL_BF16_UPDATE = 1e-3
 # (cell, the launcher's arguments (their step count is TP_STEPS), the
 # compute dtype: the published configs' bf16, or f32 for the cell that
 # holds every leaf to TP_TOL)
-TP_PAIR = (("a", MAIN_ARGS, "bfloat16"), ("c", OLMOE_TRAIN, "bfloat16"))
+TP_FAMILY_ARGS = ["--algo", "dc_s3gd", "--workers", str(W),
+                  "--batch-per-worker", "2", "--seq", "256", "--buckets",
+                  str(N_BUCKETS), "--seed", "0", "--log-every", "1"]
+# the other families over (1, 2), f32 compute (every leaf to TP_TOL):
+# falcon-mamba-7b x1, minicpm3-4b x2 and whisper-large-v3 x2 + 2 at their
+# published widths; recurrentgemma-9b and qwen2-vl-7b reduced (one unit
+# of recurrentgemma at full width holds 2.8 B params and qwen2-vl's
+# embedding and unembedding 1.09 B: at ~14 worker-stacked copies of the
+# params, more than the card's 80 GB for the two ranks together)
+TP_FAMILIES = (
+    ("mamba", ["--arch", "falcon-mamba-7b", "--layers", "1"]
+     + TP_FAMILY_ARGS, "float32"),
+    ("mla", ["--arch", "minicpm3-4b", "--layers", "2"] + TP_FAMILY_ARGS,
+     "float32"),
+    ("whisper", ["--arch", "whisper-large-v3", "--layers", "2"]
+     + TP_FAMILY_ARGS, "float32"),
+    ("hybrid", ["--arch", "recurrentgemma-9b", "--reduced"]
+     + TP_FAMILY_ARGS, "float32"),
+    ("vlm", ["--arch", "qwen2-vl-7b", "--reduced"] + TP_FAMILY_ARGS,
+     "float32"))
+# the training pieces on qwen3-0.6b at its widths, depth 28 -> 2, f32
+# compute: the local optimizers and per-tensor λ take the plain tail (the
+# fused one is momentum with global λ only), the rest the fused one
+TP_QWEN2 = ["--arch", "qwen3-0.6b", "--layers", "2"] + TP_FAMILY_ARGS
+TP_PIECES = (
+    ("nesterov", TP_QWEN2 + ["--local-optimizer", "nesterov"], "float32"),
+    ("adam", TP_QWEN2 + ["--local-optimizer", "adam"], "float32"),
+    ("lars", TP_QWEN2 + ["--local-optimizer", "lars"], "float32"),
+    ("per_tensor", TP_QWEN2, "float32"),
+    ("overlap", TP_QWEN2 + ["--overlap"], "float32"),
+    ("gossip", TP_QWEN2 + ["--reducer", "gossip"], "float32"),
+    ("hierarchical", TP_QWEN2 + ["--reducer", "hierarchical"], "float32"),
+    ("dynamic_ssp", TP_QWEN2 + ["--staleness", "dynamic_ssp"], "float32"),
+    ("dc_asgd", TP_QWEN2 + ["--algo", "dc_asgd"], "float32"))
+TP_PAIR = (("a", MAIN_ARGS, "bfloat16"), ("c", OLMOE_TRAIN, "bfloat16")) \
+    + TP_FAMILIES + TP_PIECES
 TP_FOUR = (("b", MAIN_ARGS + ["--layers", "2"], "float32"),)
+# Adam at eps 1: at its default 1e-8 the first step is lr·sign(g), and a
+# gradient at the rounding floor flips its sign, so no rounding-order
+# twin tracks it; at eps 1 its update's derivative in g is at most 1 / eps
+TP_ADAM_EPS = 1.0
+# the weight-mixing reducers and dynamic_ssp's revoked step (D = R(w) − w,
+# or the pull mean(w) − w, cancels down to the weights' last bits) and
+# DC-ASGD (Eq. 17's λ reaches ~1e4) are ill-conditioned in one process
+# already: their one-process run is made twice more, from weights one
+# ulp up and one ulp down, and each leaf (each metric) is held to the
+# larger of TP_TOL of its scale and twice the larger of the two runs'
+# moves, the nudge rule of the CPU tests (which nudge up only: on the
+# card one direction moved DC-ASGD's ln1/scale momentum by 7.4e-5 and
+# the other by 2.0e-4, which of its elements flip a quantum of D being
+# chance); the move itself must stay within TP_NUDGE_CAP of the leaf's
+# scale, so the bound stays tight
+TP_ILL = ("gossip", "hierarchical", "dynamic_ssp", "dc_asgd")
+TP_NUDGE_CAP = 1e-3
+TP_NUDGES = (float("inf"), float("-inf"))   # one ulp up, one ulp down
+# dynamic_ssp's cell runs one `Engine.fit` over its steps with a scripted
+# straggler (worker 0 eight times slower): step 2's window is revoked
+TP_SKEW = (8.0, 1.0)
+TP_REVOKED = [1.0, 1.0, 0.0]
 
 
-def _tp_cell(mesh, argv, compute: str) -> dict:
+def _tp_fused(tag: str, argv) -> bool:
+    """Whether a cell takes the fused tail (A1 / A2): momentum with
+    global λ, DC-S3GD."""
+    return tag != "per_tensor" and not any(
+        f in argv for f in ("--local-optimizer", "dc_asgd"))
+
+
+def _tp_build(args):
+    """``train.build``'s (model, algorithm, state, batch_fn) for a
+    phase-18 cell; an encoder-decoder or a VLM (which the launcher's
+    token stream cannot feed) the same way from `_mm_batches`, whisper's
+    encoder cut to the decoder's depth."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import registry
+    from repro_torch.core.types import DCS3GDConfig
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import Model
+    cfg = get_config(args.arch)
+    if cfg.encoder is None and cfg.vlm is None:
+        return train.build(args)
+    cfg = reduced(cfg) if args.reduced else cfg
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        if cfg.encoder is not None:
+            cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+                cfg.encoder, n_layers=args.layers))
+    model = Model(cfg, loss_chunk=256)
+    dc = DCS3GDConfig(learning_rate=args.lr, momentum=args.momentum,
+                      lambda0=args.lambda0, total_steps=args.steps,
+                      warmup_steps=max(int(args.warmup_frac * args.steps),
+                                       1))
+    alg = registry.make(args.algo, dc, n_workers=args.workers,
+                        use_kernels=args.use_kernels, buckets=args.buckets)
+    state = alg.init(model.init(torch.Generator(device="cuda")
+                                .manual_seed(args.seed)))
+    return model, alg, state, _mm_batches(cfg, args.workers,
+                                          args.batch_per_worker)
+
+
+def _tp_cell(mesh, tag: str, argv, compute: str) -> dict:
     """One rank's share of a phase-18 cell: the one-process run of
     ``argv`` (one rank at a time: two of qwen3 x4's ~36 GiB runs do not
-    fit the card together), keeping on the host the slices of
-    its params, momentum and carried deltas that this rank holds; then
+    fit the card together), keeping on the host the slices of its params,
+    momentum and carried deltas that this rank holds; then
     ``Engine(model, alg, mesh)`` for ``TP_STEPS`` steps from the same
     weights, counts zeroed just before and read just after, a digest of
-    the replicated leaves after every step; then each leaf's largest
-    difference from the kept slices and the slices' own scale.  The
-    model computes in ``compute``."""
+    the replicated leaves after every step (after the one `Engine.fit`
+    of the straggler cell); then each leaf's largest difference from the
+    kept slices and the slices' own scale.  A `TP_ILL` cell's
+    one-process run is made again from weights one ulp up and one ulp
+    down (`TP_NUDGES`), and each leaf's (each metric's) larger move under
+    the two nudges is kept beside.  The model computes in
+    ``compute``."""
     import hashlib
     import torch.distributed as dist
     from repro_torch import tree as T
@@ -5008,42 +5131,125 @@ def _tp_cell(mesh, argv, compute: str) -> dict:
     from repro_torch.models.transformer import Model
     from repro_torch.parallel import sharding as shd
     args = train.build_argparser().parse_args(argv)
-    args.steps, args.use_kernels = TP_STEPS, True
+    args.steps, args.use_kernels = TP_STEPS, _tp_fused(tag, argv)
     sizes, coord = M.axis_sizes(mesh), M.coordinate(mesh)
     me, world = dist.get_rank(), dist.get_world_size()
+    fit = {} if tag != "dynamic_ssp" else dict(
+        measure_skew=True, skew_probe=lambda it, dt: [TP_SKEW[0]] + [
+            TP_SKEW[1]] * (W - 1))
 
-    def mine(tree, cfg):
+    def adjust(alg):
+        # the launcher has no flag for either
+        if tag == "adam":
+            alg.local_optimizer.eps = TP_ADAM_EPS
+        if tag == "per_tensor":
+            alg.compensator.mode = "per_tensor"
+        return alg
+
+    def mine(tree, cfg, stacked):
         specs = dict(shd.flat_specs(shd.param_specs(
-            cfg, tree, model_size=sizes["model"], worker_axes="data"), tree))
+            cfg, tree, model_size=sizes["model"],
+            worker_axes="data" if stacked else None), tree))
         return shd.map_with_path(lambda p, x: x[shd.local_slices(
             tuple(x.shape), specs[p], sizes, coord)], tree)
 
     def parts(alg, state):
-        plan = alg._plan(state.params)
-        return {"params": state.params, "m": state.opt["m"],
-                "delta": plan.unpack(state.comm["delta_prev"])}
-    rec, ref = {}, None
+        out = {"params": state.params, "m": state.opt["m"]}
+        if "delta_prev" in state.comm:
+            out["delta"] = alg._plan(state.params).unpack(
+                state.comm["delta_prev"])
+        return out
+
+    def run(engine, state, batch_fn):
+        """``TP_STEPS`` steps; (state, metric history, digests of the
+        replicated leaves or None without a mesh)."""
+        hist, digests = [], []
+        for t in ([TP_STEPS - 1] if fit else range(TP_STEPS)):
+            state, h, _ = engine.fit(state, batch_fn, steps=t + 1,
+                                     start=0 if fit else t, log_every=1,
+                                     **fit)
+            hist += h
+            if engine.model_axis is None:
+                continue
+            flags = shd.sharded_over_model(model.cfg, state.params,
+                                           model_size=sizes["model"])
+            whole = [x for f, x in zip(flags, T.leaves(state.params))
+                     if not f] + [x for f, x in zip(
+                         flags, T.leaves(state.opt["m"])) if not f]
+            if "delta_prev" in state.comm:
+                plan = engine.alg._plan(state.params)
+                whole += [b for f, b in zip(plan.sharded,
+                                            state.comm["delta_prev"])
+                          if not f]
+            digest = hashlib.sha256()
+            for x in whole:
+                digest.update(x.detach().cpu().numpy().tobytes())
+            digests.append(digest.hexdigest())
+        return state, hist, digests
+    rec, ref, t_cell = {}, None, time.perf_counter()
+    with warnings.catch_warnings():
+        # deprecated in favour of a private torch._C call; same effect
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings(
+            f"expandable_segments:{tag in TP_EXPANDABLE}")
     for turn in range(world):
         if turn == me:
-            model, alg, state, batch_fn = train.build(args)
+            t_turn = time.perf_counter()
+            _free_card()
+            rec["free_at_turn"] = torch.cuda.mem_get_info()[0]
+            model, alg, state, batch_fn = _tp_build(args)
+            alg = adjust(alg)
             model = Model(dataclasses.replace(model.cfg,
                                               compute_dtype=compute),
                           loss_chunk=model.loss_chunk,
                           moe_dense=model.moe_dense)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            state, hist, _ = Engine(model, alg).fit(state, batch_fn,
-                                                    steps=TP_STEPS,
-                                                    log_every=1)
+            state, hist, _ = run(Engine(model, alg), state, batch_fn)
             torch.cuda.synchronize()
             rec["peak_none"] = torch.cuda.max_memory_allocated()
-            rec["hist_none"] = [{k: h[k] for k in TP_METRICS}
+            rec["reserved_none"] = torch.cuda.max_memory_reserved()
+            rec["hist_none"] = [{k: h[k] for k in TP_METRICS if k in h}
                                 for h in hist]
-            ref = {k: T.map(lambda x: x.cpu(), mine(v, model.cfg))
+            rec["admit_none"] = [h.get("ssp_admit") for h in hist]
+            stacked = getattr(alg, "worker_stacked", False)
+            ref = {k: T.map(lambda x: x.cpu(), mine(v, model.cfg, stacked))
                    for k, v in parts(alg, state).items()}
             del state
-            alg = rebuild_algorithm(alg, args.workers)
+            alg = adjust(rebuild_algorithm(alg, args.workers))
             torch.cuda.empty_cache()
+            for way in (TP_NUDGES if tag in TP_ILL else ()):
+                nudged = T.map(lambda x: torch.nextafter(
+                    x, torch.full_like(x, way)), model.init(
+                        torch.Generator(device="cuda")
+                        .manual_seed(args.seed)))
+                state, hist_up, _ = run(Engine(model, alg),
+                                        alg.init(nudged), batch_fn)
+                del nudged
+                moves = {
+                    k: [float((a.to(b.device).float() - b.float()).abs()
+                              .max()) for a, b in zip(
+                        T.leaves(ref[k]), T.leaves(mine(
+                            v, model.cfg, stacked)))]
+                    for k, v in parts(alg, state).items()}
+                hist_moves = [{k: abs(a[k] - b[k]) for k in TP_METRICS
+                               if k in a} for a, b in zip(hist, hist_up)]
+                rec.setdefault("moves_by_way", []).append(moves)
+                # the larger move of the two directions, leaf by leaf
+                old = rec.get("moves", moves)
+                rec["moves"] = {k: list(map(max, old[k], v))
+                                for k, v in moves.items()}
+                old = rec.get("hist_moves", hist_moves)
+                rec["hist_moves"] = [{k: max(a[k], b[k]) for k in a}
+                                     for a, b in zip(old, hist_moves)]
+                del state
+                alg = adjust(rebuild_algorithm(alg, args.workers))
+                torch.cuda.empty_cache()
+            # what this rank keeps on the card while the others take
+            # their turns
+            _free_card()
+            rec["held"] = torch.cuda.memory_reserved()
+            rec["turn_s"] = time.perf_counter() - t_turn
         dist.barrier()
     params = model.init(torch.Generator(device="cuda")
                         .manual_seed(args.seed))
@@ -5055,32 +5261,20 @@ def _tp_cell(mesh, argv, compute: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        flags = shd.sharded_over_model(model.cfg, state.params,
-                                       model_size=sizes["model"])
         _zero_counts()
-        hist, digests, t0 = [], [], time.perf_counter()
-        for t in range(TP_STEPS):
-            state, h, _ = engine.fit(state, batch_fn, steps=t + 1, start=t,
-                                     log_every=1)
-            hist += h
-            plan = alg._plan(state.params)
-            whole = [x for f, x in zip(flags, T.leaves(state.params))
-                     if not f] + [x for f, x in zip(
-                         flags, T.leaves(state.opt["m"])) if not f] + [
-                b for f, b in zip(plan.sharded, state.comm["delta_prev"])
-                if not f]
-            digest = hashlib.sha256()
-            for x in whole:
-                digest.update(x.detach().cpu().numpy().tobytes())
-            digests.append(digest.hexdigest())
+        t0 = time.perf_counter()
+        state, hist, digests = run(engine, state, batch_fn)
         torch.cuda.synchronize()
         rec["fit_s"] = time.perf_counter() - t0
         rec["launches"] = _read_counts()
         rec["peak"] = torch.cuda.max_memory_allocated()
     finally:
         torch.use_deterministic_algorithms(False)
-    rec["n_buckets"] = alg._plan(state.params).n_buckets
-    rec["hist"] = [{k: h[k] for k in TP_METRICS} for h in hist]
+    rec["fused"] = bool(args.use_kernels)
+    rec["n_buckets"] = alg._plan(state.params).n_buckets \
+        if getattr(alg, "buckets", 0) else 0
+    rec["hist"] = [{k: h[k] for k in TP_METRICS if k in h} for h in hist]
+    rec["admit"] = [h.get("ssp_admit") for h in hist]
     rec["digests"] = digests
     rec["model_index"], rec["worker_index"] = M.model_index(mesh), \
         M.worker_index(mesh)
@@ -5094,13 +5288,30 @@ def _tp_cell(mesh, argv, compute: str) -> dict:
             rec["diff"][part].append(("/".join(map(str, p)),
                                       float(d.max()), scale))
             del d, r
-    rec["n_params_local"] = sum(x[0].numel() for x in T.leaves(state.params))
+    lead = 1 if getattr(alg, "worker_stacked", False) else 0
+    rec["n_params_local"] = sum(x[0].numel() if lead else x.numel()
+                                for x in T.leaves(state.params))
     del state, engine, ref
-    torch.cuda.empty_cache()
+    # the next cell's first one-process turn starts once every rank has
+    # let go of this cell's state
+    _free_card()
+    rec["cell_s"] = time.perf_counter() - t_cell
+    dist.barrier()
     return rec
 
 
-TP_METRICS = ("loss", "lambda", "distance_norm", "delta_norm")
+# DC-S3GD's metrics, and DC-ASGD's staleness distance in place of the
+# last two
+TP_METRICS = ("loss", "lambda", "distance_norm", "delta_norm",
+              "staleness_dist")
+
+
+def _free_card() -> None:
+    """Collect garbage (tensors held in reference cycles), then return
+    the allocator's free blocks to the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _tp_rank(rank: int, store: str, out: str, world: int, shape,
@@ -5118,7 +5329,7 @@ def _tp_rank(rank: int, store: str, out: str, world: int, shape,
                             rank=rank, world_size=world)
     try:
         mesh = M.make_debug_mesh(*shape, device_type="cuda")
-        torch.save({tag: _tp_cell(mesh, argv, compute)
+        torch.save({tag: _tp_cell(mesh, tag, argv, compute)
                     for tag, argv, compute in cells}, out)
     finally:
         dist.destroy_process_group()
@@ -5128,7 +5339,8 @@ def _tp_spawn(shape, cells) -> list:
     """Run the ranks of a phase-18 mesh of ``shape``: their records."""
     world = shape[0] * shape[1]
     res, codes = _join_pair(_start_pair(_tp_rank, world,
-                                        (world, shape, cells)))
+                                        (world, shape, cells)),
+                            TP_RANKS_LIMIT_S)
     check(res is not None, f"[tp] gloo ranks {shape} exited {codes}")
     return res
 
@@ -5140,7 +5352,8 @@ def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
     recs = [r[tag] for r in res]
     bf16_cell = dict((t, c) for t, _, c in TP_PAIR + TP_FOUR)[tag] \
         == "bfloat16"
-    worst, worst_bf16, top = {}, 0.0, {}
+    worst, worst_bf16, top, moves = {}, 0.0, {}, []
+    ways = [0.0] * len(TP_NUDGES)
     for part in recs[0]["diff"]:
         rows = []
         for i, (path, *_) in enumerate(recs[0]["diff"][part]):
@@ -5152,6 +5365,16 @@ def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
             bf16 = bf16_cell and path.endswith(TP_BF16_LEAVES)
             tol = TP_TOL_BF16 if bf16 else TP_TOL_BF16_UPDATE \
                 if bf16_cell and part != "params" else TP_TOL
+            if tag in TP_ILL:
+                move = max(r["moves"][part][i] for r in recs)
+                moves.append((move / scale, path))
+                ways = [max(max(r["moves_by_way"][w][part][i] for r in recs)
+                            / scale, ways[w]) for w in range(len(TP_NUDGES))]
+                if move > TP_NUDGE_CAP * scale:
+                    problems.append(f"({tag}) {part} {path} moves "
+                                    f"{move / scale:.3g} of scale under "
+                                    f"the nudge")
+                tol = max(tol, 2 * move / scale)
             if rel > tol:
                 problems.append(f"({tag}) {part} {path} {rel:.3g} of scale "
                                 f"from mesh=None")
@@ -5163,10 +5386,19 @@ def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
         top[part] = [f"{p} {r:.3g}" for r, p in sorted(rows)[-2:][::-1]]
     hist_none = recs[0]["hist_none"]
     m_err = max(abs(a[k] - b[k]) / abs(b[k]) for r in recs
-                for a, b in zip(r["hist"], hist_none) for k in TP_METRICS
-                if b[k])
-    if m_err > TP_TOL:
-        problems.append(f"({tag}) metrics {m_err:.3g} from mesh=None")
+                for a, b in zip(r["hist"], hist_none) for k in b if b[k])
+    hist_moves = recs[0].get("hist_moves") or [{} for _ in hist_none]
+    off = [(k, abs(a[k] - b[k])) for r in recs
+           for a, b, hm in zip(r["hist"], hist_none, hist_moves) for k in b
+           if abs(a[k] - b[k]) > max(TP_TOL * abs(b[k]), 2 * hm.get(k, 0.0))]
+    if off:
+        problems.append(f"({tag}) metrics {m_err:.3g} from mesh=None "
+                        f"({off[:3]})")
+    if tag == "dynamic_ssp" and not all(
+            r["admit"] == r["admit_none"] == TP_REVOKED for r in recs):
+        problems.append(f"({tag}) admits {[r['admit'] for r in recs]}, "
+                        f"mesh=None {recs[0]['admit_none']}, expected "
+                        f"{TP_REVOKED}")
     if not all(r["hist"] == recs[0]["hist"] for r in recs):
         problems.append(f"({tag}) ranks report different metrics")
     by_worker = {}
@@ -5177,8 +5409,8 @@ def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
                         f"model ranks")
     for r in recs:
         for name, n in r["launches"].items():
-            want = TP_STEPS * r["n_buckets"] \
-                if name in ("dc_norms", "dc_fused_update") else 0
+            want = TP_STEPS * r["n_buckets"] if r["fused"] and name in (
+                "dc_norms", "dc_fused_update") else 0
             if n != want:
                 problems.append(f"({tag}) rank: {name} launched {n} times,"
                                 f" expected {want}")
@@ -5186,9 +5418,15 @@ def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
     peak_none = max(r["peak_none"] for r in recs)
     emb = f"; {', '.join(TP_BF16_LEAVES)} {worst_bf16:.3g}" \
         if bf16_cell else ""
+    worst_move = max(moves) if moves else (0.0, "")
+    if moves:
+        emb += (f"; held to twice the larger one-ulp nudge's move, up to "
+                f"{worst_move[0]:.3g} of scale ({worst_move[1]}; one ulp up "
+                f"/ down at worst {ways[0]:.3g} / {ways[1]:.3g})")
     print(f"[tp] ({tag}) mesh {shape} of gloo ranks on one card, "
           f"{TP_STEPS} steps: params / momentum / deltas within "
-          f"{worst['params']:.3g} / {worst['m']:.3g} / {worst['delta']:.3g} "
+          f"{worst['params']:.3g} / {worst['m']:.3g} / "
+          f"{worst.get('delta', 0.0):.3g} "
           f"of each leaf's scale from mesh=None at "
           f"{'bf16' if bf16_cell else 'f32'} compute (largest: {top}"
           f"{emb}), metrics within "
@@ -5199,15 +5437,29 @@ def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
           f"({recs[0]['n_buckets']} local buckets); params a rank "
           f"{[r['n_params_local'] for r in recs]}; peak a rank "
           f"{[round(p / 2**30, 3) for p in peaks]} GiB vs mesh=None "
-          f"{peak_none / 2**30:.3f} GiB; fit "
-          f"{[round(r['fit_s'], 2) for r in recs]} s [{smi}]")
+          f"{peak_none / 2**30:.3f} GiB (reserved "
+          f"{[round(r['reserved_none'] / 2**30, 3) for r in recs]}; the card "
+          f"free at each one-process turn's start "
+          f"{[round(r['free_at_turn'] / 2**30, 3) for r in recs]} GiB, each "
+          f"rank keeping {[round(r['held'] / 2**30, 3) for r in recs]} GiB "
+          f"through the others' turns); fit "
+          f"{[round(r['fit_s'], 2) for r in recs]} s, the one-process turn "
+          f"{[round(r['turn_s'], 2) for r in recs]} s, the cell "
+          f"{[round(r['cell_s'], 2) for r in recs]} s [{smi}]")
     return {"worst": worst, "worst_bf16": worst_bf16, "top": top,
             "compute": "bfloat16" if bf16_cell else "float32",
-            "metrics_err": m_err, "peaks": peaks,
+            "metrics_err": m_err, "worst_move": worst_move[0],
+            "worst_move_up_down": ways,
+            "peaks": peaks,
             "peak_none": peak_none, "launches": [r["launches"] for r in recs],
+            "reserved_none": [r["reserved_none"] for r in recs],
+            "free_at_turn": [r["free_at_turn"] for r in recs],
+            "held": [r["held"] for r in recs],
             "n_buckets": recs[0]["n_buckets"],
             "losses": [h["loss"] for h in recs[0]["hist"]],
             "fit_s": [r["fit_s"] for r in recs],
+            "turn_s": [r["turn_s"] for r in recs],
+            "cell_s": [r["cell_s"] for r in recs],
             "n_params_local": [r["n_params_local"] for r in recs]}
 
 
@@ -5215,23 +5467,40 @@ def phase_tensor_parallel(smi: str) -> dict:
     """Phase 18: (a) qwen3-0.6b at its published widths, depth 28 -> 4,
     W = 2, on a (1, 2) mesh of two gloo ranks sharing the card, 3 steps;
     (c) olmoe-1b-7b, depth 1, W = 2, 32 experts a rank, on the same two
-    ranks; (b) qwen3 at depth 2, computing in f32, on a (2, 2) mesh of
-    four ranks.  Each
+    ranks, then the other families (`TP_FAMILIES`) and the training
+    pieces on qwen3 x2 (`TP_PIECES`) there; (b) qwen3 at depth 2,
+    computing in f32, on a (2, 2) mesh of four ranks.  Each
     against ``mesh=None`` from the same weights (params, momentum and
     deltas within ``TP_TOL`` of each leaf's scale, the metrics within
     ``TP_TOL`` relative; at bf16 compute the momentum and deltas within
     ``TP_TOL_BF16_UPDATE`` and ``TP_BF16_LEAVES`` within ``TP_TOL_BF16``;
+    the `TP_ILL` cells each leaf and metric within the larger of
+    ``TP_TOL`` and twice its one-process move from weights one ulp up or
+    down;
     (b) at f32 compute), the replicated leaves bitwise equal across the
     model ranks after every step, A1 / A2 once per local bucket and step
     on every rank.  The ranks copy through the host: the walls are no
     speed figure."""
-    torch.cuda.empty_cache()
+    _free_card()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[tp] before the ranks start: this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card "
+          f"({torch.cuda.memory_reserved() / 2**30:.3f} reserved), "
+          f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB free [{smi}]")
     rec, t0, problems = {}, time.perf_counter(), []
     pair = _tp_spawn((1, 2), TP_PAIR)
     for tag, _, _ in TP_PAIR:
         rec[tag] = _tp_verdict(smi, tag, (1, 2), pair, problems)
+        rec[tag]["fit_mean_s"] = sum(rec[tag]["fit_s"]) / 2
     four = _tp_spawn((2, 2), TP_FOUR)
     rec["b"] = _tp_verdict(smi, "b", (2, 2), four, problems)
+    # the card's room left at a one-process turn's peak
+    rec["headroom"] = min(
+        (f - r, tag) for tag in rec for f, r in zip(
+            rec[tag]["free_at_turn"], rec[tag]["reserved_none"]))
+    print(f"[tp] headroom: the card had at least "
+          f"{rec['headroom'][0] / 2**30:.3f} GiB left at a one-process "
+          f"turn's peak ({rec['headroom'][1]}) [{smi}]")
     rec["phase_s"] = time.perf_counter() - t0
     print(f"[tp] phase 18 took {rec['phase_s']:.1f} s with the ranks' "
           f"starts [{smi}]")

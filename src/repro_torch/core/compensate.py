@@ -30,11 +30,13 @@ class DelayCompensation:
             (cfg.lambda_norm if cfg is not None else "global")
 
     def __call__(self, grads: Tree, distance: Tree, *,
-                 axis0_is_worker: bool = False,
-                 sum_sq=None) -> Tuple[Tree, torch.Tensor]:
-        """``sum_sq``: see `dc_correct` (the tensor-parallel norms)."""
+                 axis0_is_worker: bool = False, sum_sq=None,
+                 leaf_sums=None) -> Tuple[Tree, torch.Tensor]:
+        """``sum_sq`` / ``leaf_sums``: see `dc_correct` (the
+        tensor-parallel norms)."""
         return dc_correct(grads, distance, self.lambda0, mode=self.mode,
-                          axis0_is_worker=axis0_is_worker, sum_sq=sum_sq)
+                          axis0_is_worker=axis0_is_worker, sum_sq=sum_sq,
+                          leaf_sums=leaf_sums)
 
 
 @registry.register(registry.COMPENSATOR, "none")

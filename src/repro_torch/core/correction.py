@@ -17,6 +17,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.parallel.tensor import sum_parts
 
 Tree = Any
 EPS = 1e-30
@@ -33,23 +34,25 @@ def worker_sq_sum(x: torch.Tensor) -> torch.Tensor:
     return x.square().sum(dim=tuple(range(1, x.dim())))
 
 
-def _tree_sq_norm(tree: Tree, axis0_is_worker: bool) -> torch.Tensor:
-    """Sum of squares over all dims (except the leading worker axis when
-    ``axis0_is_worker``): a scalar or (W,)."""
-    if axis0_is_worker:
-        return sum(worker_sq_sum(x) for x in T.leaves(tree))
-    return sum(x.float().square().sum() for x in T.leaves(tree))
+def _sq_sum(x: torch.Tensor, axis0_is_worker: bool) -> torch.Tensor:
+    """A leaf's sum of squares: per worker (W,), or a scalar."""
+    return worker_sq_sum(x) if axis0_is_worker \
+        else x.float().square().sum()
 
 
 def dc_correct(grads: Tree, distance: Tree, lambda0: float, *,
                mode: str = "global", axis0_is_worker: bool = False,
-               sum_sq=None) -> Tuple[Tree, Any]:
+               sum_sq=None, leaf_sums=None) -> Tuple[Tree, Any]:
     """Returns (corrected grads g̃, λ used): a scalar or (W,) for
     'global', a tree of per-leaf λ for 'per_tensor' ((W, 1, ...) per leaf
-    under ``axis0_is_worker``).  ``sum_sq`` (global mode, worker-stacked)
-    adds up the per-leaf ``(‖g‖², ‖c‖²)`` pairs: under tensor parallelism
-    the step's helper that sums the sharded leaves' partials over the
-    mesh's 'model' axis (`repro_torch.parallel.tensor.sum_parts`)."""
+    under ``axis0_is_worker``).  Under tensor parallelism the caller
+    passes the helpers that sum the model-sharded leaves' partials over
+    the mesh's 'model' axis: ``sum_sq`` (global mode) adds up the
+    per-leaf ``(‖g‖², ‖c‖²)`` pairs (`repro_torch.parallel.tensor.
+    sum_parts`), ``leaf_sums`` (per-tensor mode) takes the per-leaf
+    stacked pairs and returns each leaf's own sum
+    (`repro_torch.parallel.tensor.sum_each`, one collective); left out,
+    the leaves are whole."""
     if mode not in ("global", "per_tensor"):
         raise ValueError(f"lambda_norm={mode!r}: 'global' or 'per_tensor'")
     first = T.leaves(grads)[0]
@@ -74,21 +77,19 @@ def dc_correct(grads: Tree, distance: Tree, lambda0: float, *,
 
     if mode == "per_tensor":
         gl, treedef = T.flatten(grads)
+        pairs = [torch.stack([_sq_sum(g, axis0_is_worker),
+                              _sq_sum(ci, axis0_is_worker)])
+                 for g, ci in zip(gl, T.leaves(c))]
+        pairs = (leaf_sums or list)(pairs)
         out, lams = [], []
-        for g, ci in zip(gl, T.leaves(c)):
-            if axis0_is_worker:
-                lam = bcast(lam_of(worker_sq_sum(g), worker_sq_sum(ci)), g)
-            else:
-                lam = lam_of(g.float().square().sum(), ci.square().sum())
+        for g, ci, pair in zip(gl, T.leaves(c), pairs):
+            lam = bcast(lam_of(pair[0], pair[1]), g)
             out.append(apply(g, ci, lam))
             lams.append(lam)
         return T.unflatten(treedef, out), T.unflatten(treedef, lams)
 
-    if sum_sq is not None:
-        lam = lam_of(*sum_sq([(worker_sq_sum(g), worker_sq_sum(ci))
-                              for g, ci in zip(T.leaves(grads),
-                                               T.leaves(c))]))
-    else:
-        lam = lam_of(_tree_sq_norm(grads, axis0_is_worker),
-                     _tree_sq_norm(c, axis0_is_worker))
+    lam = lam_of(*(sum_sq or sum_parts)([(_sq_sum(g, axis0_is_worker),
+                                          _sq_sum(ci, axis0_is_worker))
+                                         for g, ci in zip(T.leaves(grads),
+                                                          T.leaves(c))]))
     return T.map(lambda g, ci: apply(g, ci, bcast(lam, g)), grads, c), lam

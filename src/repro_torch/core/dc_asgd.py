@@ -20,7 +20,11 @@ are split over the ranks: the transaction runs on the rank that holds
 worker ``step mod W``'s row (a host int picks it), which then broadcasts
 the new PS copy, the optimizer state and the metrics; every rank writes
 that worker's stale copy from the broadcast PS copy.  Each rank then
-holds bitwise the one-process state.
+holds bitwise the one-process state.  Over a 'model' axis
+(`bind_model_axis`) each rank holds its shards of the PS copy, the
+optimizer state and the stale copies; the transaction's norms sum the
+shards over the axis, and the broadcast stays within the worker group of
+the rank's 'model' coordinate.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from repro_torch.core.api import LossFn, Metrics, TrainState
 from repro_torch.core.reduce import LOCAL
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.optim import local as local_opt
+from repro_torch.parallel.tensor import norm_helpers
 
 Tree = Any
 
@@ -55,11 +60,24 @@ class DCASGD:
         self.compensator = registry.make_compensator(
             "dc" if compensator is None else compensator, cfg)
         self.workers = LOCAL
+        # the 'model' axis and the model's config (`bind_model_axis`)
+        self.model_axis = None
+        self._model_cfg = None
 
     def bind_workers(self, workers) -> None:
         """Split the batch rows over ``workers``' ranks: each transaction
         runs where its worker's row is, and the result is broadcast."""
         self.workers = workers
+
+    def bind_model_axis(self, axis, model_cfg) -> None:
+        """Hold this rank's shards over ``axis`` (a `repro_torch.parallel.
+        tensor.ModelAxis`) of the leaves the partition rules for
+        ``model_cfg`` shard over 'model': every norm of a transaction
+        (Eq. 17's, LARS's, the staleness distance) sums the shards'
+        partials over the axis, and the owner's broadcast runs within
+        the worker group of this rank's 'model' coordinate."""
+        self.model_axis = axis
+        self._model_cfg = model_cfg
 
     def init(self, params: Tree) -> TrainState:
         wp = T.map(lambda p: p.unsqueeze(0).expand(
@@ -119,11 +137,14 @@ class DCASGD:
 
         # DC-ASGD Eq. 6: correct toward the PS copy
         D = T.map(lambda ps, wi: ps.float() - wi.float(), state.params, w_i)
-        g, lam = self.compensator(g, D)
+        sum_sq, leaf_sums = norm_helpers(self.model_axis,
+                                          self._model_cfg, state.params)
+        g, lam = self.compensator(g, D, sum_sq=sum_sq, leaf_sums=leaf_sums)
 
         lr, wd = _rates(cfg)
         delta, opt = self.local_optimizer(g, state.opt, state.params,
-                                          {"lr": lr, "weight_decay": wd})
+                                          {"lr": lr, "weight_decay": wd},
+                                          leaf_sums=leaf_sums)
         new_ps = T.map(lambda w, dw: (w.float() + dw.float()).to(w.dtype),
                        state.params, delta)
         new_workers = T.map(lambda wp, ps: _receive(wp, ps, wid),
@@ -134,7 +155,7 @@ class DCASGD:
             lam_metric = torch.stack([v.mean() for v in T.leaves(lam)]).mean()
         metrics = {"loss": loss.detach(), "lr": lr, "wd": wd,
                    "lambda": lam_metric,
-                   "staleness_dist": _dist(new_ps, w_i)}
+                   "staleness_dist": _dist(new_ps, w_i, sum_sq)}
         return TrainState(new_ps, opt, {"worker_params": new_workers},
                           state.step + 1), metrics
 
@@ -175,6 +196,9 @@ def _receive(wp: torch.Tensor, ps: torch.Tensor, wid: int) -> torch.Tensor:
     return out
 
 
-def _dist(a: Tree, b: Tree) -> torch.Tensor:
-    return torch.sqrt(sum((x.float() - y.float()).square().sum()
-                          for x, y in zip(T.leaves(a), T.leaves(b))))
+def _dist(a: Tree, b: Tree, sum_sq) -> torch.Tensor:
+    """‖a − b‖ over the tree; ``sum_sq`` adds up the per-leaf squares
+    (over the model axis for the sharded leaves, `norm_helpers`)."""
+    return torch.sqrt(sum_sq([((x.float() - y.float()).square().sum(),)
+                              for x, y in zip(T.leaves(a),
+                                              T.leaves(b))])[0])

@@ -44,8 +44,11 @@ carried state to another worker count (elastic membership,
 each rank holds its shards of the leaves the partition rules shard over
 the mesh's 'model' axis: the buckets are planned over the local shards,
 sharded and whole leaves apart, and every norm the step takes (Eq. 17's,
-the metrics') sums the sharded partials over the axis
-(`repro_torch.parallel.tensor.sum_parts`).
+per tensor too, LARS's per leaf, the metrics') sums the sharded partials
+over the axis (`repro_torch.parallel.tensor.sum_parts` / ``sum_each``),
+one collective for each set of norms.  The reducers, the staleness
+policy and the overlap pipeline act on the local shards and buckets
+within the worker group of the rank's 'model' coordinate.
 
 The first iteration of Algorithm 1 (the plain step before the loop) is
 ``delta_prev = 0``: then D = 0, λ = 0 and the step is plain momentum SGD.
@@ -67,7 +70,8 @@ from repro_torch.core.types import DCS3GDConfig
 from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
 from repro_torch.optim.schedules import linear_warmup_linear_decay
-from repro_torch.parallel.tensor import sum_parts
+from repro_torch.parallel.tensor import (leaf_flags, norm_helpers,
+                                         sum_parts)
 
 Tree = object
 
@@ -172,16 +176,7 @@ class DCS3GD:
     def _sharded(self, tree: Tree):
         """Per leaf of a (W, ...) param-shaped tree, whether this rank
         holds a shard of it over 'model' (None without the axis)."""
-        if self.model_axis is None:
-            return None
-        from repro_torch.parallel import sharding as shd
-        return shd.sharded_over_model(self._model_cfg, tree,
-                                      model_size=self.model_axis.size)
-
-    def _sum_sq(self, parts, sharded):
-        """Every norm of the step: per-part (W,) squares summed, over the
-        'model' axis for the sharded parts."""
-        return sum_parts(parts, sharded, self.model_axis)
+        return leaf_flags(self.model_axis, self._model_cfg, tree)
 
     def drain(self) -> None:
         """Wait for the in-flight overlap reduce, filling the landed
@@ -346,15 +341,16 @@ class DCS3GD:
 
         # --- g̃_i = g_i + λ_i g_i⊙g_i⊙D_i  (Eq. 10 + 17)
         flags = self._sharded(state.params)
-        g_t, lam = self.compensator(
-            grads, D, axis0_is_worker=True,
-            sum_sq=lambda parts: self._sum_sq(parts, flags))
+        sum_sq, leaf_sums = norm_helpers(self.model_axis, self._model_cfg,
+                                         state.params)
+        g_t, lam = self.compensator(grads, D, axis0_is_worker=True,
+                                    sum_sq=sum_sq, leaf_sums=leaf_sums)
 
         # --- Δw_i = U(g̃_i, η, μ)  (Eq. 11); the decay mask judges the
         # per-worker rank
         delta, opt = self.local_optimizer(
             g_t, state.opt, state.params, {"lr": lr, "weight_decay": wd},
-            axis0_is_worker=True)
+            axis0_is_worker=True, leaf_sums=leaf_sums)
 
         # --- w_i = w_i + D_i + Δw_i  (Eq. 12)
         new_params = T.map(
@@ -381,9 +377,10 @@ class DCS3GD:
         all-reduce on a mesh, identical on every rank).  ``sharded``: per
         leaf (bucket) of ``D`` / ``delta``, whether it is a shard over
         'model'."""
-        dn, deltan = self._sum_sq(
+        dn, deltan = sum_parts(
             [(worker_sq_sum(d), worker_sq_sum(x))
-             for d, x in zip(T.leaves(D), T.leaves(delta))], sharded)
+             for d, x in zip(T.leaves(D), T.leaves(delta))], sharded,
+            self.model_axis)
         m = self.workers.means({
             "loss": loss, "lambda": lam_rows,
             "distance_norm": torch.sqrt(dn),
@@ -458,7 +455,8 @@ class DCS3GD:
         if "pipeline" in state.comm:
             from repro_torch.parallel import pipeline as PL
             overrides["pipeline"] = PL.specs(
-                self.reducer, self._plan(state.params), axes.worker_spec)
+                self.reducer, len(state.comm["pipeline"]["reduced"]),
+                axes.worker_spec)
         return shd.train_state_specs(
             model_cfg, state, model_size=axes.model_size,
             worker_axes=axes.worker_spec, comm_overrides=overrides)

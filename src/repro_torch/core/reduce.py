@@ -292,8 +292,11 @@ class ProcessWorkers(Workers):
         1).  R a multiple of ``groups``: a group spans ``R / groups``
         ranks in a row, whose sub-group is built here, once, by every
         rank for every block in the same order (``new_group`` is
-        collective over the default group).  Otherwise the groups cut
-        through a rank's rows: refused."""
+        collective over the default group: where the world holds other
+        worker groups too, those of the other 'model' coordinates, every
+        rank builds every group's blocks, group by group in the order of
+        their first ranks).  Otherwise the groups cut through a rank's
+        rows: refused."""
         groups = int(groups)
         if groups % self.size == 0:
             return 1
@@ -308,10 +311,17 @@ class ProcessWorkers(Workers):
             else:
                 import torch.distributed as dist
                 ranks = self._ranks()
-                for b in range(self.size // span):
-                    g = dist.new_group(ranks[b * span:(b + 1) * span])
-                    if b == self.rank // span:
-                        self._blocks[span] = g
+                every = [ranks]
+                if dist.get_world_size() > self.size:
+                    seen = [None] * dist.get_world_size()
+                    dist.all_gather_object(seen, ranks)
+                    every = sorted({tuple(r) for r in seen})
+                for rs in every:
+                    for b in range(self.size // span):
+                        g = dist.new_group(list(rs[b * span:(b + 1) * span]))
+                        if list(rs) == list(ranks) \
+                                and b == self.rank // span:
+                            self._blocks[span] = g
         return span
 
     def gather_block(self, x: torch.Tensor, span: int) -> torch.Tensor:

@@ -13,8 +13,9 @@ mesh (`bind_workers`) every rank holds the shared params and W / R rows
 of the batch; the gradient mean runs over the worker process group (a
 weight-mixing reducer's rows are averaged over every rank's).
 Under tensor parallelism (`bind_model_axis`) the params are the rank's
-shards over the mesh's 'model' axis: the step takes no norm, so the
-shards go through the same gradient mean as whole leaves.
+shards over the mesh's 'model' axis: the shards go through the same
+gradient mean as whole leaves, and LARS's per-leaf norms sum them over
+the axis.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.core.reduce import LOCAL, collapse_worker_axis
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
+from repro_torch.parallel.tensor import norm_helpers
 
 Tree = Any
 
@@ -75,6 +77,8 @@ class SSGD:
         self.plan_block = None if plan_block is None else int(plan_block)
         self._plan_cache: dict = {}
         self.workers = LOCAL
+        self.model_axis = None
+        self._model_cfg = None
 
     def bind_workers(self, workers) -> None:
         """Run the worker axis (the batch's rows) over ``workers``: the
@@ -84,10 +88,11 @@ class SSGD:
             self.reducer.workers = workers
 
     def bind_model_axis(self, axis, model_cfg) -> None:
-        """Hold this rank's shards over ``axis``: the step takes no norm,
-        and the model's own collectives carry the axis, so nothing
-        changes here."""
-        del axis, model_cfg
+        """Hold this rank's shards over ``axis``: the model's own
+        collectives carry the axis; LARS's per-leaf norms, the step's
+        only norms, sum their shards over it."""
+        self.model_axis = axis
+        self._model_cfg = model_cfg
 
     def _plan(self, params: Tree):
         from repro_torch.parallel import buckets as B
@@ -148,8 +153,10 @@ class SSGD:
             with scope("wire"):
                 red = self.reducer(g32)
             reduced = collapse_worker_axis(red, wk)
-        delta, opt = self.local_optimizer(reduced, state.opt, state.params,
-                                          {"lr": lr, "weight_decay": wd})
+        delta, opt = self.local_optimizer(
+            reduced, state.opt, state.params, {"lr": lr, "weight_decay": wd},
+            leaf_sums=norm_helpers(self.model_axis, self._model_cfg,
+                                   state.params)[1])
         new_params = T.map(
             lambda w, dw: (w.float() + dw.float()).to(w.dtype),
             state.params, delta)

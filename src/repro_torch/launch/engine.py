@@ -21,10 +21,9 @@ elastic run resizes across them (each rank keeps ``W / R`` rows of the
 live W).  What the port cannot yet run across ranks is refused, at
 construction or at the resize, never run silently in one process: a
 membership whose W the ranks cannot split evenly, hierarchical groups
-that cut through a rank's rows; over 'model' the stateful and
-weight-mixing reducers, ``dynamic_ssp``, the other families, serving,
-the overlap pipeline and the optimizers and λ modes that take per-leaf
-norms (``specs_only=True`` keeps any mesh's specs for the dry-run).
+that cut through a rank's rows; over 'model' serving, the compressed
+wires and a quantized ``comm_dtype`` (``specs_only=True`` keeps any
+mesh's specs for the dry-run).
 
 PyTorch runs eagerly, so there is nothing to jit: ``fit`` calls the
 algorithm's ``step`` directly, and where the reference lowers a step for
@@ -48,7 +47,8 @@ from repro_torch.checkpoint import (checkpoint_meta, restore_pytree,
 from repro_torch.core import registry
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.parallel import sharding as shd
-from repro_torch.parallel.tensor import TP_ITEM
+from repro_torch.parallel.tensor import (SERVE_ITEM, UNEVEN_ITEM,
+                                         WIRE_ITEM)
 from repro_torch.serve.oneshot import OneShotGenerator
 
 Tree = Any
@@ -91,6 +91,20 @@ def _gather_floats(workers, x: float) -> List[float]:
     dist.all_gather(parts, mine, group=workers.group)
     return torch.cat(parts).tolist()
 
+
+def _max_float(axis, x: float) -> float:
+    """The largest of a host float ``x`` over the 'model' axis ``axis``
+    (one small all-reduce; over NCCL through the current device)."""
+    import torch.distributed as dist
+    dev = "cpu" if dist.get_backend(axis.group) == "gloo" else \
+        torch.device("cuda", torch.cuda.current_device())
+    return float(axis.max(torch.tensor([x], dtype=torch.float64,
+                                       device=dev))[0])
+
+
+# comm entries that live on the host, outside the param layout (a
+# staleness policy's counters): never gathered or cut over 'model'
+_HOST_COMM = ("staleness",)
 
 # the ROADMAP item every refusal of a multi-rank layout names
 _MULTI_DEVICE_ITEM = ("ROADMAP queue A item 6: what the multi-device slice "
@@ -152,39 +166,26 @@ class Engine:
 
     def _refuse_over_model(self, model_size: int) -> None:
         """Raise for what does not train over a 'model' axis of
-        ``model_size``: serving, an algorithm without the model-axis seam,
-        the wires and policies that carry state or mix weights, the
-        overlap pipeline, a local optimizer other than momentum (LARS
-        takes per-leaf norms), per-tensor λ, a block kind or leaf the
-        tensor-parallel model lacks, a sharded dim that does not divide
-        the axis."""
+        ``model_size``, naming its ROADMAP item: serving, the compressed
+        (stateful, error-feedback) wires and a quantized ``comm_dtype``
+        (each selects, counts or scales over a bucket, and the ranks'
+        local bucket plans are not the reference's global ones), a
+        sharded dim that does not divide the axis."""
+        from repro_torch.core import quant as Q
         alg, model = self.alg, self.model
         red = getattr(alg, "reducer", None)
-        why = None
         if alg is None:
-            why = "serving"
-        elif not hasattr(alg, "bind_model_axis"):
-            why = f"{alg.name} (no model-axis seam)"
-        elif getattr(red, "reduces_weights", False) \
-                or not getattr(red, "stateless", True):
-            why = f"the reducer {red.name!r}"
-        elif not getattr(getattr(alg, "staleness", None), "stateless", True):
-            why = f"the staleness policy {alg.staleness.name!r}"
-        elif getattr(alg, "overlap", False):
-            why = "the overlap pipeline"
-        elif getattr(alg.local_optimizer, "name", None) != "momentum":
-            why = f"the local optimizer {alg.local_optimizer.name!r}"
-        elif getattr(getattr(alg, "compensator", None), "mode",
-                     "global") != "global":
-            why = "per-tensor λ"
+            raise ValueError(f"tensor-parallel serving over a 'model' axis "
+                             f"of {model_size} is not ported ({SERVE_ITEM})")
+        why = None
+        if not getattr(red, "stateless", True):
+            why = f"the compressed reducer {red.name!r}"
+        elif Q.is_quantized(getattr(red, "comm_dtype", "float32")):
+            why = f"the quantized wire comm_dtype={red.comm_dtype!r}"
         if why is not None:
             raise ValueError(f"tensor-parallel execution over a 'model' "
                              f"axis of {model_size} of {why} is not "
-                             f"ported ({TP_ITEM})")
-        why = model.model_axis_refusal() \
-            if hasattr(model, "model_axis_refusal") else None
-        if why is not None:
-            raise ValueError(why)
+                             f"ported ({WIRE_ITEM})")
         cfg = getattr(model, "cfg", None)
         if cfg is not None:
             from repro_torch.launch import specs as S
@@ -192,7 +193,8 @@ class Engine:
                 shd.validate_model_axis(cfg, S.abstract_params(model),
                                         model_size=model_size)
             except ValueError as e:
-                raise ValueError(f"{cfg.name}: {e} ({TP_ITEM})") from None
+                raise ValueError(f"{cfg.name}: {e} ({UNEVEN_ITEM})") \
+                    from None
 
     def mesh_axes(self):
         if self.mesh is None:
@@ -317,12 +319,41 @@ class Engine:
 
     def _model_trees(self, state, fn):
         """``state`` with ``fn(tree)`` applied to each of its param-shaped
-        trees: params, each optimizer slot, each comm entry (the callers
-        unpack a bucketed ``delta_prev`` into its tree first)."""
+        trees: params, each optimizer slot but a 0-d one (Adam's step
+        count), each comm entry but a staleness policy's host counters
+        (the callers unpack the bucket lists into their trees first,
+        `_unpack_comm`)."""
         return state._replace(
             params=fn(state.params),
-            opt={k: fn(v) for k, v in state.opt.items()},
-            comm={k: fn(v) for k, v in state.comm.items()})
+            opt={k: fn(v) if isinstance(v, dict) else v
+                 for k, v in state.opt.items()},
+            comm={k: v if k in _HOST_COMM else fn(v)
+                  for k, v in state.comm.items()})
+
+    def _unpack_comm(self, state, plan):
+        """``state`` with its bucket lists (the carried ``delta_prev``,
+        the overlap pipeline's landed buffers) unpacked by ``plan`` into
+        param-shaped trees."""
+        comm = dict(state.comm)
+        if self._bucketed(state):
+            comm["delta_prev"] = plan.unpack(comm["delta_prev"])
+        if "pipeline" in comm:
+            comm["pipeline"] = plan.unpack(comm["pipeline"]["reduced"])
+        return state._replace(comm=comm)
+
+    def _pack_comm(self, state, plan, like):
+        """The inverse of `_unpack_comm` by ``plan``, for the entries
+        ``like`` (the state before it) held as bucket lists."""
+        comm = dict(state.comm)
+        if self._bucketed(like):
+            comm["delta_prev"] = plan.pack(comm["delta_prev"])
+        if "pipeline" in comm:
+            comm["pipeline"] = {"reduced": plan.pack(comm["pipeline"])}
+        return state._replace(comm=comm)
+
+    def _has_buckets(self, state) -> bool:
+        """Whether ``state`` holds bucket lists (`_unpack_comm`)."""
+        return self._bucketed(state) or "pipeline" in state.comm
 
     def _model_dims(self, tree):
         """{path: the dim the rules shard over 'model', or None}."""
@@ -341,11 +372,9 @@ class Engine:
         import torch.distributed as dist
         axis = self.model_axis
         host = dist.get_backend(axis.group) == "gloo"
-        bucketed = self._bucketed(state)
-        if bucketed:
-            state = state._replace(comm={**state.comm, "delta_prev":
-                                         self.alg._plan(state.params).unpack(
-                                             state.comm["delta_prev"])})
+        like = state
+        if self._has_buckets(state):
+            state = self._unpack_comm(state, self.alg._plan(state.params))
 
         def whole(tree):
             dims = self._model_dims(tree)
@@ -360,29 +389,37 @@ class Engine:
                 return torch.cat(parts, dim=d)
             return shd.map_with_path(gather, tree)
         out = self._model_trees(state, whole)
-        if bucketed:
-            plan = self.alg._plan(out.params, whole=True)
-            out = out._replace(comm={**out.comm, "delta_prev": plan.pack(
-                out.comm["delta_prev"])})
+        if self._has_buckets(like):
+            out = self._pack_comm(out, self.alg._plan(out.params, whole=True),
+                                  like)
         return out
 
     def _shard_whole(self, full):
         """This rank's shards, on both axes, of a whole state (the
         inverse of `gather_state`)."""
         alg = self.alg
-        bucketed = self._bucketed(full)
-        if bucketed:
-            full = full._replace(comm={**full.comm, "delta_prev": alg._plan(
-                full.params, whole=True).unpack(full.comm["delta_prev"])})
+        like = full
+        if self._has_buckets(full):
+            full = self._unpack_comm(full, alg._plan(full.params, whole=True))
+        cfg = getattr(self.model, "cfg", None)
         wa = self.mesh_axes().worker_spec \
             if getattr(alg, "worker_stacked", False) else None
-        out = self._model_trees(full, lambda tree: self.shard(
-            tree, shd.param_specs(getattr(self.model, "cfg", None), tree,
-                                  model_size=self.model_axis.size,
-                                  worker_axes=wa)))
-        if bucketed:
-            out = out._replace(comm={**out.comm, "delta_prev": alg._plan(
-                out.params).pack(out.comm["delta_prev"])})
+
+        def cut(tree, workers=wa):
+            return self.shard(tree, shd.param_specs(
+                cfg, tree, model_size=self.model_axis.size,
+                worker_axes=workers))
+        # what is not cut as a param tree: the host counters (whole on
+        # every rank) and a mean-style pipeline's (1, n) buffers
+        apart = {k: v for k, v in full.comm.items() if k in _HOST_COMM}
+        if "pipeline" in full.comm and not getattr(
+                getattr(alg, "reducer", None), "reduces_weights", False):
+            apart["pipeline"] = cut(full.comm["pipeline"], None)
+        out = self._model_trees(full._replace(comm={
+            k: v for k, v in full.comm.items() if k not in apart}), cut)
+        out = out._replace(comm={**out.comm, **apart})
+        if self._has_buckets(like):
+            out = self._pack_comm(out, alg._plan(out.params), like)
         return out
 
     # -- the analysis seam (repro_torch.analysis) ----------------------------
@@ -476,9 +513,10 @@ class Engine:
         ``batch_fn(it, n_workers)``, so the batch follows the live worker
         count; a scripted slowdown multiplies the measured durations.
 
-        On a mesh each rank times its own step; one small all-gather
-        brings every rank every rank's time, so all advance the same
-        clocks (a worker's duration is its rank's, or ``skew_probe(it,
+        On a mesh each rank times its own step (over a 'model' axis the
+        worker's time is the slowest of its model ranks', one small
+        all-reduce); one small all-gather brings every rank every
+        worker rank's time, so all advance the same clocks (a worker's duration is its rank's, or ``skew_probe(it,
         the slowest rank's time)``) and take the same admit decisions.
         An elastic run re-binds each rebuilt algorithm to the worker
         group, and every rank takes its ``W / R`` rows of the live W."""
@@ -527,6 +565,11 @@ class Engine:
             if measuring:
                 _synchronize(metrics)
                 dt = time.perf_counter() - ts
+                if self.model_axis is not None:
+                    # the model ranks of a worker each time their own
+                    # share of its step: one time per worker (their
+                    # slowest), or they would admit different windows
+                    dt = _max_float(self.model_axis, dt)
                 if self.workers is not None and self.workers.size > 1:
                     dts = _gather_floats(self.workers, dt)
                     dt = max(dts)

@@ -44,7 +44,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        init_rmsnorm, matmul, promoted,
-                                       rmsnorm)
+                                       rmsnorm, row_matmul)
 
 NEG_INF = -1e30
 MLA_KEY_BLOCK = 256  # keys per block of an MLA chunk's attention
@@ -176,20 +176,23 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
     ``"flash"`` (the flash-attention kernel's wrapper, forward only).
 
     With ``tp`` (a `repro_torch.parallel.tensor.ModelAxis`; training
-    self-attention only) ``wq`` and ``wo`` hold this rank's heads: q on
-    the local heads, ``wo`` row-parallel, its partials summed over the
-    axis.  ``kv_sharded`` says whether ``wk`` / ``wv`` hold local KV heads
-    too; where they cannot (granite-20b: one KV head) they stay whole,
-    every rank computes the whole k and v, and each takes the KV heads its
-    query heads read.  The replicated q / k norm scales enter the sharded
-    heads through `ModelAxis.copy`, as do x (in each product,
-    `layers.matmul`) and a whole k / v, so each gradient is summed over
-    the axis exactly once."""
+    only) ``wq`` and ``wo`` hold this rank's heads: q on the local heads,
+    ``wo`` row-parallel, its partials summed over the axis.
+    ``kv_sharded`` says whether ``wk`` / ``wv`` hold local KV heads too;
+    where they cannot (granite-20b, recurrentgemma: one KV head) they
+    stay whole, every rank computes the whole k and v, and each takes the
+    KV heads its query heads read.  A ``kv_override`` is the local heads'
+    k and v, which the caller projected through its local columns (the
+    cross-attention's ``wk`` / ``wv`` of the encoder output).  The
+    replicated q / k norm scales enter the sharded heads through
+    `ModelAxis.copy`, as do x (in each product, `layers.matmul`) and a
+    whole k / v, so each gradient is summed over the axis exactly
+    once."""
     if core not in ("plain", "flash"):
         raise ValueError(f"attention core {core!r}: 'plain' or 'flash'")
-    if tp is not None and (kv_override is not None or return_kv):
+    if tp is not None and return_kv:
         raise ValueError("attention over 'model' is ported for training "
-                         "self-attention only")
+                         "only")
     B, S, _ = x.shape
     q = project(x, params["wq"], tp)
     if kv_override is None:
@@ -210,7 +213,7 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
         else:
             q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
-    if tp is not None and not kv_sharded:
+    if tp is not None and not kv_sharded and kv_override is None:
         k, v = _local_kv(tp.copy(k), tp.copy(v), q.shape[2], tp)
     H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
     qg = q.reshape(B, S, KV, H // KV, hd)
@@ -219,9 +222,8 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         out = causal_attention(qg, k, v, window, causal)
     wo = params["wo"]
-    o2, w2 = out.reshape(B, S, H * hd), wo.reshape(H * hd, wo.shape[-1])
-    y = matmul(o2, w2) if tp is None else \
-        tp.row_matmul(o2, w2, torch.promote_types(o2.dtype, w2.dtype))
+    y = row_matmul(out.reshape(B, S, H * hd),
+                   wo.reshape(H * hd, wo.shape[-1]), tp)
     return (y, k, v) if return_kv else y
 
 
@@ -424,10 +426,12 @@ def init_mla(gen: torch.Generator, lead, d: int, n_heads: int, mla_cfg,
 
 
 def _mla_query(params: dict, x: torch.Tensor, positions: torch.Tensor,
-               m, rope_theta: float, norm_eps: float):
-    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope) roped)."""
+               m, rope_theta: float, norm_eps: float, tp=None):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope) roped); with
+    ``tp`` H is this rank's heads, the replicated latent entering
+    ``w_uq``'s local heads through `ModelAxis.copy`."""
     q_lat = rmsnorm(params["q_norm"], matmul(x, params["w_dq"]), norm_eps)
-    q = project(q_lat, params["w_uq"])
+    q = project(q_lat, params["w_uq"], tp)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, apply_rope(q_rope, positions, rope_theta)
 
@@ -443,45 +447,55 @@ def mla_latents(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     return ckv, k_rope
 
 
-def _mla_expand(params: dict, q_nope, q_rope, ckv, k_rope):
+def _mla_expand(params: dict, q_nope, q_rope, ckv, k_rope, tp=None):
     """The multi-query form: keys and values expanded from the latents
     through ``w_uk`` / ``w_uv``, the rope key broadcast over the heads.
-    Returns (q (B, Sq, H, 1, qk), k (B, Sk, H, qk), v (B, Sk, H, vd))."""
-    k_nope = project(ckv, params["w_uk"])
-    v = project(ckv, params["w_uv"])
+    Returns (q (B, Sq, H, 1, qk), k (B, Sk, H, qk), v (B, Sk, H, vd)).
+    With ``tp`` H is this rank's heads: the replicated latents ``ckv``
+    and ``k_rope`` enter them through `ModelAxis.copy`."""
+    if tp is not None:
+        k_rope = tp.copy(k_rope)
+    k_nope = project(ckv, params["w_uk"], tp)
+    v = project(ckv, params["w_uv"], tp)
     H = q_nope.shape[2]
     kr = k_rope[:, :, None, :].expand(-1, -1, H, -1).to(k_nope.dtype)
     q = torch.cat([q_nope, q_rope], dim=-1)
     return q[:, :, :, None, :], torch.cat([k_nope, kr], dim=-1), v
 
 
-def _mla_out(params: dict, out: torch.Tensor, dtype=None):
+def _mla_out(params: dict, out: torch.Tensor, dtype=None, tp=None):
     """(B, S, H, vd) attention output -> (B, S, d) through ``wo``, cast
-    to ``dtype`` first where the reference casts (the chunk path)."""
+    to ``dtype`` first where the reference casts (the chunk path); with
+    ``tp`` ``wo`` is row-parallel over the local heads."""
     B, S, H, vd = out.shape
     wo = params["wo"]
     out = out.reshape(B, S, H * vd)
-    return matmul(out if dtype is None else out.to(dtype),
-                  wo.reshape(H * vd, wo.shape[-1]))
+    return row_matmul(out if dtype is None else out.to(dtype),
+                      wo.reshape(H * vd, wo.shape[-1]), tp)
 
 
 def mla_train(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
               mla_cfg, rope_theta: float, norm_eps: float = 1e-6,
-              return_latents: bool = False):
+              return_latents: bool = False, tp=None):
     """x: (B, S, d) -> (B, S, d), causal, through the plain core
     (`causal_attention`: the q·k head is nope + rope wide, v is
     ``v_head_dim`` wide, so no kernel of the port takes it; the reference
     too runs MLA through its plain blocked attention).  With
-    ``return_latents`` also the (ckv, k_rope) the decode cache stores."""
+    ``return_latents`` also the (ckv, k_rope) the decode cache stores.
+    ``tp`` (training): ``w_uq`` / ``w_uk`` / ``w_uv`` hold this rank's
+    heads and ``wo`` is row-parallel; the down-projections, the latents
+    and their norms stay whole on every rank."""
+    if tp is not None and return_latents:
+        raise ValueError("MLA over 'model' is ported for training only")
     m = mla_cfg
     B, S, _ = x.shape
     q_nope, q_rope = _mla_query(params, x, positions, m, rope_theta,
-                                norm_eps)
+                                norm_eps, tp)
     ckv, k_rope = mla_latents(params, x, positions, rope_theta=rope_theta,
                               norm_eps=norm_eps)
-    qg, k, v = _mla_expand(params, q_nope, q_rope, ckv, k_rope)
+    qg, k, v = _mla_expand(params, q_nope, q_rope, ckv, k_rope, tp)
     out = causal_attention(qg, k, v)[:, :, :, 0]
-    y = _mla_out(params, out)
+    y = _mla_out(params, out, tp=tp)
     return (y, ckv, k_rope) if return_latents else y
 
 

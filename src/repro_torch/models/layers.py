@@ -84,6 +84,16 @@ def matmul(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
     return x @ w
 
 
+def row_matmul(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """``matmul(x, w)``; with ``tp`` a row-parallel product (``x`` and
+    ``w`` this rank's block of the contracted dim), its f32 partials
+    summed over the axis and cast once to the promoted dtype
+    (`repro_torch.parallel.tensor.ModelAxis.row_matmul`)."""
+    if tp is None:
+        return matmul(x, w)
+    return tp.row_matmul(x, w, torch.promote_types(x.dtype, w.dtype))
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -217,10 +227,7 @@ def mlp(params: dict, x: torch.Tensor, activation: str,
     up = matmul(x, params["w_up"], tp)
     up = act(matmul(x, params["w_gate"], tp)) * up if "w_gate" in params \
         else act(up)
-    if tp is not None:
-        return tp.row_matmul(up, params["w_down"], torch.promote_types(
-            up.dtype, params["w_down"].dtype))
-    return matmul(up, params["w_down"])
+    return row_matmul(up, params["w_down"], tp)
 
 
 # ---------------------------------------------------------------------------

@@ -158,15 +158,28 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg, activation: str,
     return out.reshape(B, S, d), aux_loss(probs, idx, cfg)
 
 
-def moe_ffn_dense(params: dict, x: torch.Tensor, cfg, activation: str
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn_dense(params: dict, x: torch.Tensor, cfg, activation: str,
+                  tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The oracle: every expert on every token, masked by the gates (E/K
-    times the products of `moe_ffn`).  Returns ((B, S, d), aux)."""
+    times the products of `moe_ffn`).  Returns ((B, S, d), aux).
+
+    With ``tp`` (a `repro_torch.parallel.tensor.ModelAxis`) the expert
+    weights are this rank's E / M experts, as in `dispatch`: the router
+    and the gates stay whole on every rank, x and the local experts'
+    gates enter the local products through `ModelAxis.copy`, and the
+    local experts' f32 sum is summed over the axis and cast once."""
     B, S, d = x.shape
     E = cfg.n_experts
     probs, gates, idx = route(params, x.reshape(B * S, d), cfg)
     full = torch.zeros((B * S, E), dtype=torch.float32, device=x.device) \
         .scatter(1, idx, gates).reshape(B, S, E)
+    aux = aux_loss(probs.reshape(B, S, E), idx.reshape(B, S, -1), cfg)
+    if tp is not None:
+        E_l = params["w_up"].shape[0]
+        lo = tp.shard_start(E_l)
+        # the whole gates through the edge, then the local experts'
+        # columns: each rank's gradient lands on its own columns
+        x, full = tp.copy(x), tp.copy(full)[..., lo:lo + E_l]
     act = act_fn(activation)
     up = torch.einsum("bsd,edf->bsef", *promoted(x, params["w_up"]))
     if "w_gate" in params:
@@ -178,4 +191,6 @@ def moe_ffn_dense(params: dict, x: torch.Tensor, cfg, activation: str
                               *promoted(up, params["w_down"]))
     out = torch.einsum("bsed,bse->bsd",
                        *promoted(per_expert, full.to(x.dtype)))
-    return out, aux_loss(probs.reshape(B, S, E), idx.reshape(B, S, -1), cfg)
+    if tp is not None:
+        out = tp.reduce(out.float()).to(out.dtype)
+    return out, aux

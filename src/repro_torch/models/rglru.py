@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (act_fn, causal_conv1d,
                                        causal_conv1d_update, conv_state,
-                                       dense_init, matmul)
+                                       dense_init, matmul, row_matmul)
 from repro_torch.models.ssm import ssm_scan_chunked
 
 _C = 8.0  # Griffin's fixed exponent scale
@@ -59,24 +59,31 @@ def init_rglru_block(gen: torch.Generator, lead, d: int, cfg,
     }
 
 
-def _gates(params: dict, xi: torch.Tensor):
-    """(a, beta * i * xi), both f32: the recurrence's decay and input."""
-    r = torch.sigmoid(matmul(xi, params["w_a"]).float())
-    i = torch.sigmoid(matmul(xi, params["w_i"]).float())
+def _gates(params: dict, xi: torch.Tensor, tp=None):
+    """(a, beta * i * xi), both f32: the recurrence's decay and input.
+    With ``tp`` xi holds this rank's channels and ``w_a`` / ``w_i`` their
+    columns (w, w / M): the whole xi is gathered over the axis to enter
+    them, its gradient summed over the axis before the rank's channels
+    are taken (`ModelAxis.gather_reduce`)."""
+    xw = xi if tp is None else tp.gather_reduce(xi, -1)
+    r = torch.sigmoid(matmul(xw, params["w_a"]).float())
+    i = torch.sigmoid(matmul(xw, params["w_i"]).float())
     log_a = -_C * F.softplus(params["lam"]) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return a, beta * i * xi.float()
 
 
-def _forward(params: dict, x: torch.Tensor, chunk: int):
+def _forward(params: dict, x: torch.Tensor, chunk: int, tp=None):
     """(out (B, S, d), h after the last position (B, w) f32, the pre-conv
-    xi (B, S, w)) of the full-sequence pass."""
+    xi (B, S, w)) of the full-sequence pass.  With ``tp`` w is this
+    rank's channels: ``w_x`` / ``w_gate`` column-parallel, the conv, the
+    gates and the scan per channel, ``w_out`` row-parallel."""
     B, S, _ = x.shape
-    xi_raw = matmul(x, params["w_x"])
-    gate = act_fn("gelu")(matmul(x, params["w_gate"]))
+    xi_raw = matmul(x, params["w_x"], tp)
+    gate = act_fn("gelu")(matmul(x, params["w_gate"], tp))
     xi = causal_conv1d(xi_raw, params["conv_w"], params["conv_b"])
-    a, bx = _gates(params, xi)                       # (B, S, w) each
+    a, bx = _gates(params, xi, tp)                   # (B, S, w) each
     chunk = min(chunk, S)
     pad = (-S) % chunk
     if pad:   # identity steps: a = 1, bx = 0 leave h as it is
@@ -87,13 +94,15 @@ def _forward(params: dict, x: torch.Tensor, chunk: int):
         torch.zeros((B, a.shape[-1], 1), dtype=torch.float32,
                     device=x.device), chunk)
     h = hs[:, :S, :, 0].to(x.dtype)
-    return matmul(h * gate, params["w_out"]), h_last[..., 0], xi_raw
+    return row_matmul(h * gate, params["w_out"], tp), h_last[..., 0], \
+        xi_raw
 
 
 def rglru_forward(params: dict, x: torch.Tensor, cfg, *,
-                  chunk: int = 256) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d); differentiable."""
-    return _forward(params, x, chunk)[0]
+                  chunk: int = 256, tp=None) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d); differentiable.  ``tp``: the params are
+    this rank's shards over 'model' (`_forward`)."""
+    return _forward(params, x, chunk, tp)[0]
 
 
 def rglru_prefill(params: dict, x: torch.Tensor, cfg, *,

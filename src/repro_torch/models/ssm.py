@@ -35,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.ref import ssm_scan_plain
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_update,
-                                       conv_state, dense_init, matmul)
+                                       conv_state, dense_init, matmul,
+                                       row_matmul)
 
 
 def dt_rank_of(d_model: int, cfg) -> int:
@@ -67,17 +68,37 @@ def init_mamba(gen: torch.Generator, lead, d: int, cfg, dtype) -> dict:
     }
 
 
-def _project_in(params: dict, x: torch.Tensor):
-    """x (B, S, d) -> (xi pre-conv, z), each (B, S, e)."""
-    xz = matmul(x, params["w_in"])
-    return xz.chunk(2, dim=-1)
+def _project_in(params: dict, x: torch.Tensor, tp=None):
+    """x (B, S, d) -> (xi pre-conv, z), each (B, S, e).
+
+    With ``tp`` ``w_in`` holds this rank's contiguous block of the 2e
+    columns, which the reference lays out x branch first: on two ranks
+    rank 0 holds all of xi's columns and rank 1 all of z's.  The product
+    is gathered over the axis and each rank keeps its e / M channels of
+    xi and of z, the channels its ``conv_w`` / ``a_log`` / ``d_skip``
+    shards belong to; the gathered tensor's gradient is summed over the
+    axis before the rank's columns are taken (`ModelAxis.gather_reduce`:
+    each rank reads other slices of it)."""
+    xz = matmul(x, params["w_in"], tp)
+    if tp is None:
+        return xz.chunk(2, dim=-1)
+    xi, z = tp.gather_reduce(xz, -1).chunk(2, dim=-1)
+    e_l = xz.shape[-1] // 2
+    lo = tp.shard_start(e_l)
+    return xi[..., lo:lo + e_l], z[..., lo:lo + e_l]
 
 
-def _dt_b_c(params: dict, xi: torch.Tensor, cfg, d: int):
+def _dt_b_c(params: dict, xi: torch.Tensor, cfg, d: int, tp=None):
     """Post-conv xi -> (dt f32, B, C) as the reference splits ``xi @
-    w_x`` into dt_low, B and C."""
+    w_x`` into dt_low, B and C.  With ``tp`` xi holds this rank's
+    channels: ``xi @ w_x`` is a row-parallel partial summed over the axis
+    in f32, and the replicated sum enters the local channels (``w_dt``'s
+    columns, the scan's B and C) through one `ModelAxis.copy`."""
     r, n = dt_rank_of(d, cfg), cfg.state_dim
-    dt_low, bm, cm = matmul(xi, params["w_x"]).split([r, n, n], dim=-1)
+    xbc = row_matmul(xi, params["w_x"], tp)
+    if tp is not None:
+        xbc = tp.copy(xbc)
+    dt_low, bm, cm = xbc.split([r, n, n], dim=-1)
     dt = F.softplus(matmul(dt_low, params["w_dt"]).float()
                     + params["dt_bias"])
     return dt, bm, cm
@@ -183,13 +204,14 @@ def _scan_chunked(a_log, dt, dtx, bm, cm, chunk: int):
 
 
 def _forward(params: dict, x: torch.Tensor, cfg, use_kernel: bool,
-             chunk: Optional[int] = None):
+             chunk: Optional[int] = None, tp=None):
     """(out (B, S, d), final ssm state (B, E, N) f32, pre-conv xi (B, S,
-    E)) of the full-sequence pass."""
+    E)) of the full-sequence pass; with ``tp`` E is this rank's channels
+    and ``w_out`` is row-parallel."""
     d = x.shape[-1]
-    xi_raw, z = _project_in(params, x)
+    xi_raw, z = _project_in(params, x, tp)
     xi = F.silu(causal_conv1d(xi_raw, params["conv_w"], params["conv_b"]))
-    dt, bm, cm = _dt_b_c(params, xi, cfg, d)
+    dt, bm, cm = _dt_b_c(params, xi, cfg, d, tp)
     dtx = dt * xi.float()
     if chunk is not None:
         y, h_last = _scan_chunked(params["a_log"], dt, dtx, bm, cm, chunk)
@@ -198,20 +220,23 @@ def _forward(params: dict, x: torch.Tensor, cfg, use_kernel: bool,
         y, h_last = scan(params["a_log"], dt, dtx, bm, cm)
     y = y + params["d_skip"] * xi.float()
     y = y.to(x.dtype) * F.silu(z)
-    return matmul(y, params["w_out"]), h_last, xi_raw
+    return row_matmul(y, params["w_out"], tp), h_last, xi_raw
 
 
 def mamba_forward(params: dict, x: torch.Tensor, cfg, *,
                   return_state: bool = False, use_kernel: bool = True,
-                  chunk: Optional[int] = None):
+                  chunk: Optional[int] = None, tp=None):
     """x: (B, S, d) -> (B, S, d) [, final ssm state (B, E, N) f32].
 
     With ``chunk`` (the reference's argument) the scan is the
     differentiable chunked one, the training route.  Without it the scan
     goes through the kernel wrapper (the CUDA kernel on the card, its plain
     version on the CPU); ``use_kernel=False`` runs the plain version on any
-    device, the route the kernel is checked against."""
-    out, h_last, _ = _forward(params, x, cfg, use_kernel, chunk)
+    device, the route the kernel is checked against.  ``tp`` (a
+    `repro_torch.parallel.tensor.ModelAxis`; training): the params are
+    this rank's shards over 'model', the inner dim's channels (`_forward`);
+    the scan runs per channel on the local ones."""
+    out, h_last, _ = _forward(params, x, cfg, use_kernel, chunk, tp)
     return (out, h_last) if return_state else out
 
 

@@ -44,12 +44,15 @@ rank's shards of the parameter tree, as the partition
 rules (`repro_torch.parallel.sharding`) lay them over the mesh's 'model'
 axis (``axis``, a `repro_torch.parallel.tensor.ModelAxis`): the
 vocabulary-parallel embedding (`_embed`) and loss (`chunked_xent`),
-attention on the local heads (`attention.attention_train`), the
-column- / row-parallel MLP (`layers.mlp`) and the local experts
-(`moe.dispatch`).  The norms and the router stay whole on every rank.
-The dense and moe families' ``attention`` blocks are ported; the other
-kinds, the vision projection, the MoE oracle and serving are refused
-(`with_model_axis`).
+attention on the local heads (`attention.attention_train`: full,
+windowed, bidirectional in the encoder, and cross-attention over the
+encoder output), MLA on the local heads (`attention.mla_train`), the
+column- / row-parallel MLP (`layers.mlp`), the local experts (routed
+`moe.dispatch` and the oracle `moe.moe_ffn_dense`), the Mamba and RG-LRU
+blocks on the local channels of their inner dims (`ssm.mamba_forward`,
+`rglru.rglru_forward`) and the column-parallel vision projection.  The
+norms, the router and MLA's down-projections stay whole on every rank.
+Every family trains so; serving over 'model' is refused (`_serving`).
 
 Serving: ``prefill`` runs the prompt and returns the last position's
 logits with the dense cache tree, one entry per stage and block mirroring
@@ -103,7 +106,7 @@ from repro_torch.models.layers import (dense_init, embed_init,
                                        init_rmsnorm, layernorm, matmul, mlp,
                                        rmsnorm, sinusoidal,
                                        sinusoidal_positions)
-from repro_torch.parallel.tensor import TP_ITEM
+from repro_torch.parallel.tensor import SERVE_ITEM
 
 Tree = Any
 
@@ -181,42 +184,27 @@ class Model:
     def with_model_axis(self, tp) -> "Model":
         """This model over ``tp``, the 'model' axis of a mesh: a copy that
         trains on one rank's shards (``tp.size`` 1: the model itself).
-        Raises, naming ROADMAP queue A item 6.7, for what that path does
-        not run: block kinds other than ``attention``, the vision
-        projection and the all-experts MoE oracle."""
+        The heads shard where the partition rules shard them (their count
+        divides the axis); otherwise the attention weights stay whole and
+        every rank computes every head."""
         from repro_torch.parallel.sharding import _attn_shardable
         if tp is None or tp.size == 1:
             return self
-        why = self.model_axis_refusal()
-        if why is not None:
-            raise ValueError(why)
         out = copy.copy(self)
         out.tp = tp
         out._heads_tp = _attn_shardable(self.cfg.eff_n_heads, tp.size)
         out._kv_tp = _attn_shardable(self.cfg.eff_n_kv_heads, tp.size)
         return out
 
-    def model_axis_refusal(self) -> Optional[str]:
-        """Why this model cannot train over a 'model' axis (None: it
-        can)."""
-        kinds = {k for st in self.stages for k in st.kinds}
-        unported = [what for what, no in (
-            ("mamba", "mamba" in kinds), ("recurrent", "recurrent" in kinds),
-            ("attention_local", "attention_local" in kinds),
-            ("MLA", "mla" in kinds), ("cross", "cross" in kinds),
-            ("vision_proj", self.cfg.vlm is not None),
-            ("the all-experts MoE oracle (moe_dense)", self.moe_dense))
-            if no]
-        if not unported:
-            return None
-        return (f"{self.cfg.name}: tensor-parallel execution over 'model' "
-                f"of its {', '.join(unported)} leaves is not ported "
-                f"({TP_ITEM})")
+    @property
+    def _tp_heads(self):
+        """The axis the attention heads shard over (None: whole)."""
+        return self.tp if self._heads_tp else None
 
     def _serving(self) -> None:
         if self.tp is not None:
             raise ValueError(f"tensor-parallel serving over 'model' is "
-                             f"not ported ({TP_ITEM})")
+                             f"not ported ({SERVE_ITEM})")
 
     # -------------------------------------------------- init
 
@@ -305,6 +293,10 @@ class Model:
         x = _lookup(params["embed"]["tok"], batch["tokens"], self.tp).to(cd)
         if cfg.vlm is not None and "patches" in batch:
             pe = batch["patches"].to(cd) @ params["vision_proj"].to(cd)
+            if self.tp is not None:
+                # this rank's columns, joining the replicated stream: the
+                # narrow backward of `gather` is the right edge here
+                pe = self.tp.gather(pe, -1)
             x = torch.cat([pe, x], dim=1)
         if cfg.rope_theta == 0.0:
             pe = sinusoidal_positions(x.shape[1], cfg.d_model, x.device) \
@@ -326,9 +318,12 @@ class Model:
             p = T.map(lambda a: a[r], enc["blocks"])
             h = attn.attention_train(p["attn"], _norm(cfg, p["ln1"], x),
                                      positions, rope_theta=0.0,
-                                     causal=False, core=core)
+                                     causal=False, core=core,
+                                     tp=self._tp_heads,
+                                     kv_sharded=self._kv_tp)
             x = x + h
-            x = x + mlp(p["mlp"], _norm(cfg, p["ln2"], x), cfg.activation)
+            x = x + mlp(p["mlp"], _norm(cfg, p["ln2"], x), cfg.activation,
+                        self.tp)
         return _norm(cfg, enc["final_norm"], x)
 
     def _context(self, params, batch, core: str) -> dict:
@@ -353,7 +348,7 @@ class Model:
             return mlp(p["mlp"], h, self.cfg.activation, self.tp)
         if self.moe_dense:
             h, a = moe_mod.moe_ffn_dense(p["moe"], h, self.cfg.moe,
-                                         self.cfg.activation)
+                                         self.cfg.activation, self.tp)
         else:
             h, a = moe_mod.moe_ffn(p["moe"], h, self.cfg.moe,
                                    self.cfg.activation,
@@ -384,7 +379,7 @@ class Model:
                 cache_out.append(entry)
             else:
                 h = ssm_mod.mamba_forward(p["mamba"], h, cfg.ssm,
-                                          chunk=self.scan_chunk)
+                                          chunk=self.scan_chunk, tp=self.tp)
             return x + h
         h = _norm(cfg, p["ln1"], x)
         if kind == "recurrent":
@@ -394,11 +389,13 @@ class Model:
                 cache_out.append(entry)
             else:
                 h = rglru_mod.rglru_forward(p["rglru"], h, cfg.rglru,
-                                            chunk=self.scan_chunk)
+                                            chunk=self.scan_chunk,
+                                            tp=self.tp)
         elif kind == "mla":
             h = attn.mla_train(p["attn"], h, positions, mla_cfg=cfg.mla,
                                rope_theta=cfg.rope_theta,
-                               norm_eps=cfg.norm_eps, return_latents=prefill)
+                               norm_eps=cfg.norm_eps, return_latents=prefill,
+                               tp=self._tp_heads)
             if prefill:
                 h, ckv, k_rope = h
                 cache_out.append({"ckv": ckv, "k_rope": k_rope})
@@ -408,21 +405,22 @@ class Model:
                 window=resolved_window(cfg, kind), qk_norm=cfg.qk_norm,
                 norm_eps=cfg.norm_eps, mrope_positions=ctx.get("mrope"),
                 mrope_sections=cfg.vlm.mrope_sections if cfg.vlm else None,
-                return_kv=prefill, core=core,
-                tp=self.tp if self._heads_tp else None,
+                return_kv=prefill, core=core, tp=self._tp_heads,
                 kv_sharded=self._kv_tp)
             if prefill:
                 h, k, v = h
                 entry = {"k": k, "v": v}
         x = x + h
         if kind == "cross":
-            enc = ctx["enc"]
-            xk = attn.project(enc, p["xattn"]["wk"])
-            xv = attn.project(enc, p["xattn"]["wv"])
+            # the replicated encoder output enters the local heads'
+            # columns through `ModelAxis.copy` (`layers.matmul`)
+            enc, tk = ctx["enc"], self.tp if self._kv_tp else None
+            xk = attn.project(enc, p["xattn"]["wk"], tk)
+            xv = attn.project(enc, p["xattn"]["wv"], tk)
             h = attn.attention_train(p["xattn"], _norm(cfg, p["ln_x"], x),
                                      positions, rope_theta=0.0,
                                      causal=False, kv_override=(xk, xv),
-                                     core=core)
+                                     core=core, tp=self._tp_heads)
             x = x + h
             if prefill:
                 entry.update(xk=xk, xv=xv)

@@ -38,18 +38,6 @@ def _decay_mask(params: Tree, axis0_is_worker: bool = False) -> Tree:
     return T.map(lambda p: 1.0 if p.dim() > rank0 else 0.0, params)
 
 
-def _norm(x: torch.Tensor, axis0_is_worker: bool) -> torch.Tensor:
-    """Euclidean norm of a leaf: per worker (keepdims, (W, 1, ...)) when
-    ``axis0_is_worker``, else a scalar.  A (W,) leaf of 0-d tensors is
-    its own per-worker norm's argument: |x| (torch would sum over every
-    axis for an empty axis list)."""
-    if not axis0_is_worker:
-        return x.square().sum().sqrt()
-    if x.dim() == 1:
-        return x.abs()
-    return x.square().sum(dim=tuple(range(1, x.dim())), keepdim=True).sqrt()
-
-
 def init_local_state(params: Tree, optimizer: str = "momentum") -> Tree:
     """Zeroed slots: ``{"m"}``, and for Adam ``{"m", "v", "t"}`` with ``t``
     a 0-d int32 step count on the params' device."""
@@ -79,20 +67,40 @@ def momentum_update(grads: Tree, state: Tree, params: Tree, *, lr: float,
     return T.unflatten(treedef, deltas), {"m": T.unflatten(treedef, slots)}
 
 
+def _sq(x: torch.Tensor, axis0_is_worker: bool) -> torch.Tensor:
+    """A leaf's sum of squares: per worker (keepdims, (W, 1, ...)) when
+    ``axis0_is_worker``, else a scalar.  A (W,) leaf of 0-d tensors is
+    its own per-worker sum's argument (torch would sum over every axis
+    for an empty axis list)."""
+    if not axis0_is_worker:
+        return x.square().sum()
+    if x.dim() == 1:
+        return x.square()
+    return x.square().sum(dim=tuple(range(1, x.dim())), keepdim=True)
+
+
 def lars_update(grads: Tree, state: Tree, params: Tree, *, lr: float,
                 momentum: float, weight_decay: float, trust: float = 0.001,
-                axis0_is_worker: bool = False, **_) -> Tuple[Tree, Tree]:
+                axis0_is_worker: bool = False, leaf_sums=None,
+                **_) -> Tuple[Tree, Tree]:
     """LARS (You et al. 2017) — paper §V suggested local optimizer.  The
     trust ratio ``trust·‖w‖/‖g‖`` is per worker under ``axis0_is_worker``
-    (see the module docstring)."""
+    (see the module docstring).  ``leaf_sums`` (tensor parallelism: each
+    rank holds shards of some leaves) takes the per-leaf stacked
+    (‖w‖², ‖g‖²) pairs and returns each summed over the mesh's 'model'
+    axis (`repro_torch.parallel.tensor.sum_each`, one collective); left
+    out, each rank's pairs are the whole ones."""
     mask = T.leaves(_decay_mask(params, axis0_is_worker))
     gl, treedef = T.flatten(grads)
+    g32s = [g.float() + (weight_decay * msk) * p.float()
+            for g, p, msk in zip(gl, T.leaves(params), mask)]
+    norms = [pair.sqrt() for pair in (leaf_sums or list)([
+        torch.stack([_sq(p.float(), axis0_is_worker),
+                     _sq(g32, axis0_is_worker)])
+        for p, g32 in zip(T.leaves(params), g32s)])]
     deltas, slots = [], []
-    for g, m, p, msk in zip(gl, T.leaves(state["m"]), T.leaves(params),
-                            mask):
-        g32 = g.float() + (weight_decay * msk) * p.float()
-        w_norm = _norm(p.float(), axis0_is_worker)
-        g_norm = _norm(g32, axis0_is_worker)
+    for g32, m, p, (w_norm, g_norm) in zip(g32s, T.leaves(state["m"]),
+                                           T.leaves(params), norms):
         ratio = torch.where((w_norm > 0) & (g_norm > 0),
                             trust * w_norm / (g_norm + 1e-9),
                             torch.ones_like(w_norm))
@@ -152,8 +160,9 @@ class Momentum:
         return init_local_state(params, "momentum")
 
     def __call__(self, grads: Tree, slots: Tree, params: Tree,
-                 schedules: Schedules, *, axis0_is_worker: bool = False
-                 ) -> Tuple[Tree, Tree]:
+                 schedules: Schedules, *, axis0_is_worker: bool = False,
+                 leaf_sums=None) -> Tuple[Tree, Tree]:
+        del leaf_sums   # elementwise: shards update as whole leaves do
         return momentum_update(grads, slots, params, lr=schedules["lr"],
                                momentum=self.momentum,
                                weight_decay=schedules["weight_decay"],
@@ -187,12 +196,13 @@ class LARS:
         return init_local_state(params, "momentum")
 
     def __call__(self, grads: Tree, slots: Tree, params: Tree,
-                 schedules: Schedules, *, axis0_is_worker: bool = False
-                 ) -> Tuple[Tree, Tree]:
+                 schedules: Schedules, *, axis0_is_worker: bool = False,
+                 leaf_sums=None) -> Tuple[Tree, Tree]:
         return lars_update(grads, slots, params, lr=schedules["lr"],
                            momentum=self.momentum,
                            weight_decay=schedules["weight_decay"],
-                           trust=self.trust, axis0_is_worker=axis0_is_worker)
+                           trust=self.trust, axis0_is_worker=axis0_is_worker,
+                           leaf_sums=leaf_sums)
 
 
 @registry.register(registry.LOCAL_OPTIMIZER, "adam")
@@ -209,8 +219,9 @@ class Adam:
         return init_local_state(params, "adam")
 
     def __call__(self, grads: Tree, slots: Tree, params: Tree,
-                 schedules: Schedules, *, axis0_is_worker: bool = False
-                 ) -> Tuple[Tree, Tree]:
+                 schedules: Schedules, *, axis0_is_worker: bool = False,
+                 leaf_sums=None) -> Tuple[Tree, Tree]:
+        del leaf_sums   # elementwise: shards update as whole leaves do
         return adam_update(grads, slots, params, lr=schedules["lr"],
                            weight_decay=schedules["weight_decay"],
                            b1=self.b1, b2=self.b2, eps=self.eps,

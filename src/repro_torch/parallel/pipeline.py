@@ -39,7 +39,11 @@ State contract (``comm["pipeline"]``):
 discards the landed value); with a stateful one it is rejected (see
 `validate`).  An elastic resize drains a stateless reducer's buffers (a
 fresh reduce of the resized wire) and keeps a stateful reducer's
-worker-count-independent (1, n) payload (see `resize`).
+worker-count-independent (1, n) payload (see `resize`).  Over a mesh's
+'model' axis the in-flight buckets are the rank's plan over its local
+shards; `repro_torch.launch.engine.Engine` repacks them by the whole
+tree's plan when it gathers a state (a checkpoint holds the one-process
+layout).
 """
 from __future__ import annotations
 
@@ -115,13 +119,15 @@ def landed(comm: dict) -> List:
     return comm["pipeline"]["reduced"]
 
 
-def specs(reducer, plan, worker_spec) -> dict:
-    """Specs for ``comm["pipeline"]``: mean-style landed buffers are
-    (1, n) and replicated; ``reduces_weights`` buffers are (W, n) and
-    lead with the worker axes, like the packed weights they mix."""
+def specs(reducer, n_buckets: int, worker_spec) -> dict:
+    """Specs for ``comm["pipeline"]`` of ``n_buckets`` landed buffers
+    (the state's own list: a rank's plan over its 'model' shards, or the
+    whole plan of a gathered state): mean-style ones are (1, n) and
+    replicated; ``reduces_weights`` buffers are (W, n) and lead with the
+    worker axes, like the packed weights they mix."""
     lead = worker_spec if getattr(reducer, "reduces_weights", False) \
         else None
-    return {"reduced": [(lead, None) for _ in plan.bucket_sizes]}
+    return {"reduced": [(lead, None) for _ in range(n_buckets)]}
 
 
 def resize(reducer, pstate: dict, wire: List) -> dict:

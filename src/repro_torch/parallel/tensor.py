@@ -5,8 +5,8 @@ has no module for them).
 A `ModelAxis` is the explicit context a tensor-parallel model and
 algorithm carry: the process group of the ranks that share this rank's
 'data' coordinates, this rank's index on 'model' and the axis size
-(`repro_torch.launch.mesh.model_axis` builds it from a mesh).  Its three
-autograd functions are Megatron's edges:
+(`repro_torch.launch.mesh.model_axis` builds it from a mesh).  Its
+autograd edges are Megatron's three and one more:
 
 * `ModelAxis.copy` (``copy_to_model``): identity forward, all-reduce
   backward.  It marks where a replicated tensor enters computation
@@ -18,14 +18,31 @@ autograd functions are Megatron's edges:
   identity backward: the sum of a row-parallel product's partials (or of
   any per-shard partial), replicated after it;
 * `ModelAxis.gather` (``gather_from_model``): all-gather forward along a
-  dim, the rank's slice backward.
+  dim, the rank's slice backward.  The narrow backward is right only
+  where every rank consumes the gathered tensor alike (a replicated
+  consumer: a column-parallel output joining the replicated residual
+  stream, as ``vision_proj``'s does), so each rank's gradient of it is
+  already the whole one;
+* `ModelAxis.gather_reduce`: all-gather forward, and backward the
+  all-reduce of the gathered tensor's gradient before the rank's slice
+  is taken (``copy`` after ``gather``).  It is the edge where the ranks
+  consume different slices of the gathered tensor, or the same tensor
+  through different shards of a weight: the Mamba block's ``x @ w_in``
+  (the reference's contiguous column shards put the x branch on the
+  first ranks and z on the last, so every rank gathers both and keeps
+  its channels of each) and the RG-LRU gates (the whole post-conv x
+  through the local columns of ``w_a`` / ``w_i``).  Each rank's
+  gradient of the gathered tensor is then a partial, and only their sum
+  is the gradient.
 
 Only all-reduce and all-gather are used (gloo, which the CPU and the
 card's shared-card ranks run, has no reduce-scatter), and every
 collective runs under ``scope("tp")``, so an op trace counts them apart
 from the worker-axis wire.  `sum_parts` is the one helper every norm of
 a step goes through: the partial sums over model-sharded parts are
-all-reduced over the group, the replicated parts counted once.
+all-reduced over the group, the replicated parts counted once;
+`sum_each` is its per-part twin for the per-leaf norms, and
+`norm_helpers` binds both to an algorithm's axis and tree.
 """
 from __future__ import annotations
 
@@ -36,9 +53,11 @@ import torch
 
 from repro_torch.instrument import scope
 
-# the ROADMAP item every refusal of a tensor-parallel layout names
-TP_ITEM = ("ROADMAP queue A item 6.7: what tensor parallelism over "
-           "'model' leaves")
+# the ROADMAP items the refusals of a tensor-parallel layout name
+SERVE_ITEM = "ROADMAP queue A item 6.4: sharded serving over 'model'"
+WIRE_ITEM = ("ROADMAP queue A item 6.7.6: compressed and quantized wires "
+             "over 'model'")
+UNEVEN_ITEM = "ROADMAP queue A item 6.8: uneven layouts over 'model'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +80,18 @@ class ModelAxis:
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """``gather_from_model``: every rank's ``x`` concatenated along
-        ``dim`` in rank order (forward); the rank's slice backward."""
+        ``dim`` in rank order (forward); the rank's slice of the gradient
+        backward.  Right only for a replicated consumer, which leaves
+        every rank the whole gradient; where the ranks consume different
+        slices (or different weight shards) use `gather_reduce`."""
         return _GatherFromModel.apply(x, self, dim)
+
+    def gather_reduce(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """`gather` whose backward first sums the gathered gradient over
+        the axis (``copy`` after ``gather``), then takes the rank's
+        slice: the edge for ranks that consume different parts of the
+        gathered tensor."""
+        return self.copy(self.gather(x, dim))
 
     def row_matmul(self, x: torch.Tensor, w: torch.Tensor,
                    out_dtype: torch.dtype) -> torch.Tensor:
@@ -159,3 +188,49 @@ def sum_parts(parts: Sequence[Tuple[torch.Tensor, ...]],
             tgt[j] = tgt[j] + x
     summed = _all_reduce(torch.stack(sh), axis)
     return tuple(summed[j] + rep[j] for j in range(k))
+
+
+def sum_each(parts: Sequence[torch.Tensor],
+             sharded: Optional[Sequence[bool]] = None,
+             axis: Optional[ModelAxis] = None) -> List[torch.Tensor]:
+    """Each part's own sum over the axis, not added across parts: the
+    per-leaf norms of LARS and of per-tensor λ.  A model-sharded part
+    (``sharded[i]``) is a partial sum, all-reduced over the group; the
+    sharded parts travel flattened in one collective (the ranks hold the
+    same parts, so they issue the same one), and the replicated parts
+    come back as they are.  Without an axis (or at size 1) the parts
+    are returned unchanged."""
+    out = list(parts)
+    if axis is None or axis.size == 1 or sharded is None:
+        return out
+    idx = [i for i, s in zip(range(len(out)), sharded) if s]
+    if not idx:
+        return out
+    flat = _all_reduce(torch.cat([out[i].float().reshape(-1) for i in idx]),
+                       axis)
+    for i, x in zip(idx, flat.split([out[i].numel() for i in idx])):
+        out[i] = x.reshape(out[i].shape)
+    return out
+
+
+def leaf_flags(axis: Optional[ModelAxis], model_cfg,
+               tree) -> Optional[Tuple[bool, ...]]:
+    """Per leaf of a param-shaped ``tree`` (a leading worker axis
+    allowed), whether this rank holds a shard of it over ``axis``: the
+    partition rules for ``model_cfg`` shard it over 'model'.  None
+    without an axis."""
+    if axis is None:
+        return None
+    from repro_torch.parallel import sharding as shd
+    return shd.sharded_over_model(model_cfg, tree, model_size=axis.size)
+
+
+def norm_helpers(axis: Optional[ModelAxis], model_cfg, tree):
+    """A step's two norm helpers over the leaves of ``tree``
+    (`leaf_flags`): ``sum_sq(parts)``, `sum_parts` of per-leaf parts (a
+    global norm), and ``leaf_sums(parts)``, `sum_each` of them (per-leaf
+    norms).  Without an axis they are the ordered fold and the
+    identity."""
+    flags = leaf_flags(axis, model_cfg, tree)
+    return (lambda parts: sum_parts(parts, flags, axis),
+            lambda parts: sum_each(parts, flags, axis))

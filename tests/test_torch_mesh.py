@@ -23,7 +23,7 @@ store under ``tmp_path``).  JAX runs only in this, the parent, process.
   elastic resize) now construct on a stand-in mesh of 2 ranks and run on
   spawned ones (`tests/test_torch_mesh_reducers.py` holds each to one
   process).  What stays refused raises at `Engine` construction or at the
-  resize and names its ROADMAP item: over 'model' (item 6.7), and a
+  resize and names its ROADMAP item: over 'model' (item 6.7.6), and a
   membership whose rows the ranks cannot split (item 6.8).
 """
 import functools
@@ -236,17 +236,21 @@ class _Mesh:
 # name -> (algorithm spec, stand-in mesh, the words a refusal names, or
 # None where the piece now constructs across ranks)
 REFUSED = {
-    # a 'model' axis above 1 trains the dense and MoE families since the
-    # tensor-parallel slice; the overlap pipeline over it stays refused,
-    # and so do the stateful and weight-mixing reducers (item 6.7)
-    "model_axis": ({"overlap": True, "buckets": 2}, dict(data=2, model=2),
+    # a 'model' axis above 1 trains every family under every piece but
+    # the compressed and quantized wires (item 6.7.6): the overlap
+    # pipeline, gossip and dynamic_ssp construct over it since the second
+    # tensor-parallel slice, and are refused here only with such a wire
+    "model_axis": ({"overlap": True, "buckets": 2,
+                    "cfg": {"comm_dtype": "int8"}}, dict(data=2, model=2),
                    "tensor-parallel"),
     "model_axis_topk": ({"reducer": "topk", "buckets": 2},
                         dict(data=1, model=2), "reducer 'topk'"),
-    "model_axis_gossip": ({"reducer": "gossip"}, dict(data=1, model=2),
-                          "reducer 'gossip'"),
-    "model_axis_dynamic_ssp": ({"staleness": "dynamic_ssp"},
-                               dict(data=1, model=2), "dynamic_ssp"),
+    "model_axis_gossip": ({"reducer": "gossip",
+                           "cfg": {"comm_dtype": "fp8"}},
+                          dict(data=1, model=2), "comm_dtype='fp8'"),
+    "model_axis_dynamic_ssp": ({"staleness": "dynamic_ssp",
+                                "reducer": "randk", "buckets": 2},
+                               dict(data=1, model=2), "reducer 'randk'"),
     # hierarchical groups that cut through a rank's rows (3 groups over 2)
     "hierarchical_layout": ({"reducer": "hierarchical",
                              "reducer_opts": {"groups": 3}},

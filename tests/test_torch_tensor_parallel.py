@@ -35,8 +35,9 @@ and in one subprocess of its own.
   devices (GSPMD), in a subprocess.
 * Vocab-parallel `chunked_xent` equals the one-process loss, padded
   columns included; a checkpoint saved under (1, 2) or (2, 2) restores
-  under ``mesh=None`` to the gathered state bitwise; every layout
-  outside the slice raises at `Engine` construction, naming the ROADMAP
+  under ``mesh=None`` to the gathered state bitwise; what stays
+  refused over 'model' (serving, the compressed and quantized wires, an
+  indivisible dim) raises at `Engine` construction, naming its ROADMAP
   item.
 """
 import functools
@@ -76,7 +77,8 @@ TOL, RTOL_METRICS = 1e-4, 1e-5        # tests/test_torch_dc_s3gd.py's
 METRICS = ("loss", "lambda", "distance_norm", "delta_norm")
 
 FUSED = {"buckets": 2, "use_kernels": True}
-NAMES = tuple(TW.ARCHS)
+# the dense and MoE families (the others: tests/test_torch_tp_families.py)
+NAMES = ("qwen3", "granite", "stablelm", "olmoe")
 # (config, algorithm spec, W) of each run a mesh makes
 RUNS = [(n, FUSED, 2) for n in NAMES] + [
     ("qwen3_bf16", FUSED, 2),
@@ -319,21 +321,32 @@ class _Mesh:
         self.shape = tuple(shape.values())
 
 
+# name -> (architecture, algorithm spec (None: serving), the words the
+# refusal names, the ROADMAP item it names).  Every family, local
+# optimizer, λ mode, weight-mixing reducer, staleness policy, DC-ASGD
+# and the overlap pipeline train over 'model' (tests/test_torch_tp_
+# families.py, tests/test_torch_tp_pieces.py); what stays refused is
+# serving, the compressed wires and a quantized comm_dtype (each
+# selects, counts or scales over a bucket, and the ranks' local plans
+# are not the reference's buckets: tests/test_torch_tp_reference.py
+# shows the int8 wire's difference), and an indivisible dim.
+WIRE = "ROADMAP queue A item 6.7.6"
 REFUSED = {
-    "mamba": ("falcon-mamba-7b", {}, "mamba"),
-    "recurrent": ("recurrentgemma-9b", {}, "recurrent"),
-    "mla": ("minicpm3-4b", {}, "MLA"),
-    "cross": ("whisper-large-v3", {}, "cross"),
-    "vision_proj": ("qwen2-vl-7b", {}, "vision_proj"),
-    "serving": ("qwen3-0.6b", None, "serving"),
-    "gossip": ("qwen3-0.6b", {"reducer": "gossip", "buckets": 2}, "gossip"),
-    "topk": ("qwen3-0.6b", {"reducer": "topk", "buckets": 2}, "topk"),
-    "dynamic_ssp": ("qwen3-0.6b", {"staleness": "dynamic_ssp"},
-                    "dynamic_ssp"),
-    "dc_asgd": ("qwen3-0.6b", {"algo": "dc_asgd"}, "dc_asgd"),
-    "overlap": ("qwen3-0.6b", {**FUSED, "overlap": True}, "overlap"),
-    "lars": ("qwen3-0.6b", {"local_optimizer": "lars"}, "lars"),
-    "indivisible": ("qwen3-0.6b", {}, "does not divide"),
+    "serving": ("qwen3-0.6b", None, "serving", "ROADMAP queue A item 6.4"),
+    "topk": ("qwen3-0.6b", {"reducer": "topk", "buckets": 2}, "'topk'",
+             WIRE),
+    "topk_exact": ("qwen3-0.6b", {"reducer": "topk_exact", "buckets": 2},
+                   "'topk_exact'", WIRE),
+    "randk": ("qwen3-0.6b", {"reducer": "randk", "buckets": 2}, "'randk'",
+              WIRE),
+    "powersgd": ("qwen3-0.6b", {"reducer": "powersgd", "buckets": 2},
+                 "'powersgd'", WIRE),
+    "int8": ("qwen3-0.6b", {"cfg": {"comm_dtype": "int8"}, **FUSED},
+             "comm_dtype='int8'", WIRE),
+    "fp8": ("falcon-mamba-7b", {"cfg": {"comm_dtype": "fp8"}},
+            "comm_dtype='fp8'", WIRE),
+    "indivisible": ("qwen3-0.6b", {}, "does not divide",
+                    "ROADMAP queue A item 6.8"),
 }
 
 
@@ -344,18 +357,17 @@ def test_refusals_raise_at_construction(monkeypatch, name):
     from repro_torch.launch import mesh as M
     from repro_torch.launch.engine import Engine
     from repro_torch.models.transformer import Model
-    arch, spec, words = REFUSED[name]
+    arch, spec, words, item = REFUSED[name]
     monkeypatch.setattr(M, "make_workers", lambda mesh: ProcessWorkers(
         None, rank=0, size=M.n_workers(mesh)))
     model = Model(reduced(get_config(arch)))
     alg = None if spec is None else MW._make(spec, 4)
     # the reduced vocabulary (512 rows of `tok`) does not divide over 1024
     size = 1024 if name == "indivisible" else 2
-    with pytest.raises(ValueError, match="ROADMAP queue A item 6.7") as e:
+    with pytest.raises(ValueError, match=item) as e:
         Engine(model, alg, mesh=_Mesh(data=1, model=size))
     assert words in str(e.value)
-    if alg is not None and name not in ("mamba", "recurrent", "mla",
-                                        "cross", "vision_proj"):
+    if alg is not None:
         # the same algorithm and model with mesh=None are accepted
         Engine(model, MW._make(spec, 4))
 

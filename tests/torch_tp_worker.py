@@ -29,18 +29,67 @@ from repro_torch.parallel import sharding as shd
 
 import torch_mesh_worker as MW
 
-# the four configurations of the slice, reduced: qk norm and GQA; one KV
-# head (replicated k / v); layernorm; routed experts
+# the configurations, reduced: qk norm and GQA; one KV head (replicated
+# k / v); layernorm; routed experts; Mamba; RG-LRU + windowed attention
+# on one KV head; MLA; an encoder-decoder (bidirectional encoder, cross
+# attention); a VLM (the patch projection, M-RoPE)
 ARCHS = {"qwen3": "qwen3-0.6b", "granite": "granite-20b",
-         "stablelm": "stablelm-3b", "olmoe": "olmoe-1b-7b"}
+         "stablelm": "stablelm-3b", "olmoe": "olmoe-1b-7b",
+         "mamba": "falcon-mamba-7b", "rgemma": "recurrentgemma-9b",
+         "minicpm": "minicpm3-4b", "whisper": "whisper-large-v3",
+         "qwen2vl": "qwen2-vl-7b"}
 
 
 def config(name: str):
     """A reduced config by name; ``<name>_bf16`` computes in bf16 (the
-    published configs' compute dtype) from the same f32 weights."""
-    base, _, dt = name.partition("_")
+    published configs' compute dtype) from the same f32 weights;
+    ``<name>_dense`` is the same config (the model takes the MoE
+    oracle, `make_model`)."""
+    base, _, var = name.partition("_")
     cfg = reduced(get_config(ARCHS[base]))
-    return dataclasses.replace(cfg, compute_dtype="bfloat16") if dt else cfg
+    return dataclasses.replace(cfg, compute_dtype="bfloat16") \
+        if var == "bf16" else cfg
+
+
+def make_model(name: str) -> Model:
+    """The port's model of ``name``: ``<name>_dense`` takes the
+    all-experts MoE oracle (``moe_dense``)."""
+    return Model(config(name), moe_dense=name.endswith("_dense"))
+
+
+def extras(cfg, t: int, W: int) -> dict:
+    """The batch's inputs besides the tokens, numpy from a seed of the
+    step ``t``: an encoder-decoder's frames (W, b, n_frames, d); a VLM's
+    patch embeddings (W, b, n_patches, d) and M-RoPE positions (W, 3,
+    n_patches + S), their t / h / w components distinct."""
+    rng = np.random.default_rng(1000 + t)
+    out = {}
+    if cfg.encoder is not None:
+        out["frames"] = rng.standard_normal(
+            (W, MW.BPW, cfg.encoder.n_frames, cfg.d_model)).astype(
+                np.float32)
+    if cfg.vlm is not None:
+        n = cfg.vlm.n_patches
+        out["patches"] = rng.standard_normal(
+            (W, MW.BPW, n, cfg.d_model)).astype(np.float32)
+        pos = np.arange(n + MW.SEQ)
+        out["mrope_positions"] = np.broadcast_to(
+            np.stack([pos, pos // 2, pos % 5]), (W, 3, n + MW.SEQ)).copy()
+    return out
+
+
+def batches(name: str, W: int):
+    """``batch_of(t)``: the step's token batch (`worker_batches`) and
+    `extras`, torch on the CPU."""
+    cfg = config(name)
+    data = SyntheticLMDataset(cfg.vocab_size, MW.SEQ, seed=0)
+
+    def batch_of(t):
+        b = worker_batches(data, t, W, MW.BPW, device="cpu")
+        b.update({k: torch.from_numpy(v) for k, v in extras(cfg, t,
+                                                            W).items()})
+        return b
+    return batch_of
 
 
 def _digest(xs) -> str:
@@ -106,15 +155,24 @@ def _grads(model, params, batch):
 
 def _run(name, spec, W, weights, mesh, steps, ckpt):
     """One configuration ``steps`` steps through `Engine.fit` on ``mesh``;
-    returns (what this rank reports, the gathered state as numpy)."""
+    returns (what this rank reports, the gathered state as numpy).  A
+    spec with ``skew`` (a scripted straggler, `MW._fit_options`) runs
+    one `Engine.fit` over every step, so the measured clocks carry
+    across them, and reports its staleness counters."""
     cfg = config(name)
     params = params_from_numpy(weights, device="cpu")
-    data = SyntheticLMDataset(cfg.vocab_size, MW.SEQ, seed=0)
-
-    def batch_of(t):
-        return worker_batches(data, t, W, MW.BPW, device="cpu")
-    alg = MW._make(spec, W)
-    engine = Engine(Model(cfg), alg, mesh=mesh)
+    batch_of = batches(name, W)
+    alg = _alg(spec, W)
+    if spec.get("unrefused") and mesh is not None:
+        # what the port refuses over 'model', run anyway to show why
+        saved = Engine._refuse_over_model
+        Engine._refuse_over_model = lambda self, model_size: None
+        try:
+            engine = Engine(make_model(name), alg, mesh=mesh)
+        finally:
+            Engine._refuse_over_model = saved
+    else:
+        engine = Engine(make_model(name), alg, mesh=mesh)
     state = engine.init_state(params)
     rec = {}
     if mesh is not None:
@@ -142,21 +200,32 @@ def _run(name, spec, W, weights, mesh, steps, ckpt):
         with torch.no_grad():
             rec["logits"] = engine.model.logits(p0, b0).numpy()
     hist, digests = [], []
-    for t in range(steps):
-        state, h, _ = engine.fit(state, batch_of, steps=t + 1, start=t,
-                                 log_every=1)
+    fit = MW._fit_options(spec, alg)
+    for t in range(steps) if not fit else (steps - 1,):
+        state, h, _ = engine.fit(state, batch_of, steps=t + 1,
+                                 start=0 if fit else t, log_every=1, **fit)
         hist += [{k: v for k, v in m.items() if k != "wall_s"} for m in h]
         if mesh is not None:
             digests.append(_replicated_digest(engine, state))
+    if "staleness" in state.comm:
+        rec["worker_steps"] = state.comm["staleness"][
+            "worker_steps"].tolist()
     full = engine.gather_state(state)
     out = {"params": MW._numpy(full.params), "opt": MW._numpy(full.opt),
            "comm": MW._numpy(full.comm)}
     rec.update(hist=hist, digests=digests,
-               digest=MW._digest({**out, "eval": {}}))
+               digest=MW._digest({**out, "eval": {}}),
+               # the trajectory without the overlap pipeline's buffers
+               trajectory=MW._digest({
+                   "params": out["params"], "opt": out["opt"],
+                   "comm": {k: v for k, v in out["comm"].items()
+                            if k != "pipeline"}, "eval": {}}))
     if ckpt is not None:
         engine.save(ckpt, state, step=steps)
         back = engine.restore(ckpt, state)
-        rec["restored"] = all(torch.equal(a, b) for a, b in zip(
+        rec["restored"] = all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor)
+            else bool(np.array_equal(a, b)) for a, b in zip(
             T.leaves(back.params) + T.leaves(back.opt)
             + T.leaves(back.comm), T.leaves(state.params)
             + T.leaves(state.opt) + T.leaves(state.comm)))
@@ -168,34 +237,57 @@ def _one_process(name, spec, W, weights, steps, ckpt):
     first batch; with ``ckpt`` also the file the mesh wrote, restored
     into this run's structure."""
     rec, state = _run(name, spec, W, weights, None, steps, None)
-    cfg = config(name)
     if ckpt is not None:
-        engine = Engine(Model(cfg), MW._make(spec, W))
+        engine = Engine(make_model(name), _alg(spec, W))
         tmpl = engine.init_state(params_from_numpy(weights, device="cpu"))
         back = engine.restore(ckpt, tmpl)
         rec["restored_state"] = {"params": MW._numpy(back.params),
                                  "opt": MW._numpy(back.opt),
                                  "comm": MW._numpy(back.comm)}
-    data = SyntheticLMDataset(cfg.vocab_size, MW.SEQ, seed=0)
     params = params_from_numpy(weights, device="cpu")
-    b0 = T.map(lambda x: x[0], worker_batches(data, 0, W, MW.BPW,
-                                             device="cpu"))
-    grads, loss = _grads(Model(cfg), params, b0)
+    b0 = T.map(lambda x: x[0], batches(name, W)(0))
+    grads, loss = _grads(make_model(name), params, b0)
     rec["grads"] = MW._numpy(grads)
     rec["grad_loss"] = float(loss)
     with torch.no_grad():
-        rec["logits"] = Model(cfg).logits(params, b0).numpy()
+        rec["logits"] = make_model(name).logits(params, b0).numpy()
     return rec, state
 
 
-def case_tp(world, *, shape, runs, weights, keep=(), ckpt_dir=None,
-            steps=MW.STEPS):
+# the keys of a run's spec that this module reads, not the algorithm:
+# ``nudge`` (rank 0 also makes the one-process run from weights one ulp
+# up, `_nudged_moves`), ``unrefused`` (construct what `Engine` refuses
+# over 'model'), ``steps`` (this run's step count, for the case's)
+SPEC_KEYS = ("nudge", "unrefused", "steps")
+
+
+def _alg(spec: dict, W: int):
+    """The algorithm of a run's spec, without this module's keys."""
+    return MW._make({k: v for k, v in spec.items() if k not in SPEC_KEYS},
+                    W)
+
+
+def _nudged_moves(one, nudged):
+    """How far the one-process trajectory moves when every weight starts
+    one ulp up: per part, each leaf's max|a − b|; per step, each
+    metric's |a − b|."""
+    moves = {p: [float(np.abs(np.asarray(a, np.float64)
+                              - np.asarray(b, np.float64)).max())
+                 if np.asarray(b).size else 0.0
+                 for a, b in zip(T.leaves(one[p]), T.leaves(nudged[p]))]
+             for p in ("params", "opt", "comm")}
+    return moves
+
+
+def case_tp(world, *, shape, runs, weights, keep=(), states=(),
+            ckpt_dir=None, steps=MW.STEPS):
     """Every ``(config, spec, W)`` of ``runs`` on a ('data', 'model') mesh
     of ``shape``.  Each rank: its records (`_run`); rank 0 adds, per part,
     the distance from the one-process run, that run's metrics and
-    gradients' distance, and the gathered states of ``keep``'s runs, which
-    (with ``ckpt_dir``) are also saved under the mesh and restored with
-    ``mesh=None``."""
+    gradients' distance, and the gathered states of ``keep``'s and
+    ``states``' runs (``states``' with the one-process run's beside);
+    ``keep``'s (with ``ckpt_dir``) are also saved under the mesh and
+    restored with ``mesh=None``."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as M
     mesh = M.make_debug_mesh(*shape, device_type="cpu")
@@ -204,22 +296,40 @@ def case_tp(world, *, shape, runs, weights, keep=(), ckpt_dir=None,
     for i, (name, spec, W) in enumerate(runs):
         ckpt = f"{ckpt_dir}/tp{i}.npz" \
             if ckpt_dir is not None and i in keep else None
-        rec, got = _run(name, spec, W, weights[name], mesh, steps, ckpt)
+        n = spec.get("steps", steps)
+        rec, got = _run(name, spec, W, weights[name], mesh, n, ckpt)
         if first:
-            one, want = _one_process(name, spec, W, weights[name], steps,
-                                     ckpt)
+            one, want = _one_process(name, spec, W, weights[name], n, ckpt)
             rec["diff"] = {p: MW._compare(got[p], want[p])
                            for p in ("params", "opt", "comm")}
             rec["grad_diff"] = _rel(rec.pop("grads"), one["grads"])
             rec["logits_diff"] = _rel(rec.pop("logits"), one["logits"])
             rec["grad_loss_one"] = one["grad_loss"]
             rec["hist_one"] = one["hist"]
+            rec["worker_steps_one"] = one.get("worker_steps")
+            if spec.get("nudge"):
+                up = T.map(lambda x: np.nextafter(x, np.float32(np.inf)),
+                           weights[name])
+                two, nudged = _run(name, spec, W, up, None, n, None)
+                rec["moves"] = _nudged_moves(want, nudged)
+                rec["hist_moves"] = [{k: abs(a[k] - b[k]) for k in a}
+                                     for a, b in zip(one["hist"],
+                                                     two["hist"])]
+                rec["leaf_diff"] = {p: [
+                    (float(np.abs(np.asarray(a, np.float64)
+                                  - np.asarray(b, np.float64)).max()),
+                     float(np.abs(np.asarray(b, np.float64)).max()))
+                    if np.asarray(b).size else (0.0, 0.0)
+                    for a, b in zip(T.leaves(got[p]), T.leaves(want[p]))]
+                    for p in ("params", "opt", "comm")}
             if ckpt is not None:
                 rec["ckpt_bitwise"] = all(
                     MW._compare(got[p], one["restored_state"][p])[1]
                     for p in ("params", "opt", "comm"))
-            if i in keep:
+            if i in keep or i in states:
                 rec["state"] = got
+            if i in states:
+                rec["state_one"] = want
         else:
             rec.pop("grads", None)
             rec.pop("logits", None)
@@ -277,4 +387,46 @@ def case_cnn(world, *, spec, W):
     return rec
 
 
-CASES = {"tp": case_tp, "xent": case_xent, "cnn": case_cnn}
+def case_edge(world):
+    """The Mamba block's in-projection pattern on a (1, ``world``) mesh:
+    x @ w (d, 2e) with each rank holding a contiguous block of the 2e
+    columns, the product gathered, each rank keeping its e / world
+    channels of the x half and of the z half and adding up its own part
+    of a loss.  Per edge (``gather_reduce`` and the narrow-only
+    ``gather``), the largest relative distance of this rank's gradients
+    (x's, its block of w's) from one-process autograd of the whole
+    loss."""
+    from repro_torch.launch import mesh as M
+    mesh = M.make_debug_mesh(1, world, device_type="cpu")
+    axis = M.model_axis(mesh)
+    gen = torch.Generator().manual_seed(0)
+    B, S, d, e = 2, 5, 6, 4 * world
+    x = torch.randn(B, S, d, generator=gen)
+    w = torch.randn(d, 2 * e, generator=gen)
+    c = torch.randn(e, generator=gen)
+
+    def part(xi, z, cc):
+        return (xi * torch.nn.functional.silu(z) * cc).sum()
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    xi, z = (xa @ wa).chunk(2, dim=-1)
+    gx, gw = torch.autograd.grad(part(xi, z, c), (xa, wa))
+    n = 2 * e // world
+    lo = axis.shard_start(n)
+    e_l = e // world
+    out = {}
+    for edge in ("gather_reduce", "gather"):
+        xb = x.clone().requires_grad_()
+        wb = w[:, lo:lo + n].clone().requires_grad_()
+        full = getattr(axis, edge)(axis.copy(xb) @ wb, -1)
+        xi, z = full.chunk(2, dim=-1)
+        k = axis.shard_start(e_l)
+        loss = part(xi[..., k:k + e_l], z[..., k:k + e_l], c[k:k + e_l])
+        hx, hw = torch.autograd.grad(loss, (xb, wb))
+        out[edge] = max(float((hx - gx).abs().max() / gx.abs().max()),
+                        float((hw - gw[:, lo:lo + n]).abs().max()
+                              / gw.abs().max()))
+    return out
+
+
+CASES = {"tp": case_tp, "xent": case_xent, "cnn": case_cnn,
+         "edge": case_edge}
