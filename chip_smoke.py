@@ -287,6 +287,29 @@ Phases (any failure exits non-zero before the result line):
    modes are held bitwise to the plain version in the kernel phases, at
    the main cell's and the CNN's bucket sizes.
 
+20. serving over the mesh (gloo ranks sharing the card, spawned; each
+   cell's one-process twin first, in this process): B5 at the local
+   shapes of a 'model' axis of 2 (qwen3's 4 of 8 KV heads, granite's G
+   24, whisper's encoder and cross-attention on 10 of 20 heads) and B6
+   on falcon-mamba's 4,096 of 8,192 channels, against their plain
+   versions, timed beside bound, plain version and SDPA; then (a)
+   qwen3-0.6b at its widths and 28 layers over (1, 2), 4 prompts of 512
+   tokens and 64 generated, at f32 and at the served bf16 compute, and
+   each family at the smallest depth that holds its block kinds
+   (granite-20b x1: KV by position; falcon-mamba-7b x1; recurrentgemma-9b
+   x3: a ring by position; minicpm3-4b x1: latents by position;
+   olmoe-1b-7b x1: 32 of 64 experts a rank; whisper-large-v3 1 + 1;
+   qwen2-vl-7b x1), f32, over (1, 2); (b) qwen3 at 4 of 28 layers over
+   (2, 2), four ranks, a pair of rows a data rank.  Through
+   ``Engine(model, mesh=mesh)`` without an algorithm: each rank's logits
+   (teacher-forced on the twin's tokens) within 1e-5 of each step's
+   scale (bf16: 2^-9, tokens up to the first position of low twin
+   margin and wherever the margin clears twice the bound), its greedy
+   tokens and ``Engine.generate``'s (f32) equal to the twin's, its cache
+   bytes equal to
+   ``shard_bytes`` under ``cache_specs``, B5 / B6 once per attention /
+   Mamba block and prefill; each rank's peak beside the twin's.
+
 The CPU twins of these checks are the ``tests/test_torch_*.py`` files
 (``PYTHONPATH=src python -m pytest -q tests/test_torch_moe.py
 tests/test_torch_mla.py``; the C5 cases: ``-k short_prompt`` in
@@ -5993,6 +6016,480 @@ def phase_worker_axis(smi: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 20: serving over the mesh
+# ---------------------------------------------------------------------------
+
+SV_TOL = 1e-5            # of each step's largest logit, f32 compute
+# The published configs compute in bf16 from f32 weights: the embedding's
+# rows enter the first block in bf16, whose attention output is rounded
+# to bf16 before `wo`.  A rank's column-parallel q, k, v agree with one
+# process's product only to the last f32 bits (another GEMM over a
+# column slice), and where that lands an output element on the other
+# side of a bf16 rounding boundary the two runs part by one bf16 ulp
+# (2^-8 of the element) from the first block on.  The bound stated for
+# that cell is half an ulp of each step's largest logit, 2^-9 of it
+# (measured 2.6e-4 = 2^-11.9 on an H100).  A logit off by at
+# most that much on each side cannot change an argmax whose top-2 margin
+# in the twin exceeds twice it: the cell's greedy tokens are compared up
+# to the first position whose twin margin is below 2 * SV_BF16_TOL *
+# scale (printed with the least margin), and, the loop being
+# teacher-forced, its argmax at every later (row, position) whose twin
+# margin clears that too.
+SV_BF16_TOL = 2.0 ** -9
+SV_RANKS_LIMIT_S = 600
+# cell -> (arch, layers (0: all), batch, prompt tokens, generated tokens,
+# compute dtype).  (a) qwen3-0.6b at its widths and depth over (1, 2), f32
+# and the served bf16; (c) each family at the smallest depth that holds
+# its block kinds, f32, over (1, 2); (b) qwen3 over (2, 2), four ranks, one
+# pair of rows a data rank, f32, cut to 4 of 28 layers (at 28 the cell
+# took 30 s of a 153 s phase on an H100, the script 1,029 s: (a) holds
+# the depth)
+SV_MAIN = {"a": ("qwen3-0.6b", 0, 4, 512, 64, "float32"),
+           "a_bf16": ("qwen3-0.6b", 0, 4, 512, 64, "bfloat16")}
+SV_FAMILIES = {
+    "granite": ("granite-20b", 1, 2, 128, 16, "float32"),
+    "mamba": ("falcon-mamba-7b", 1, 2, 128, 16, "float32"),
+    "rgemma": ("recurrentgemma-9b", 3, 2, 128, 16, "float32"),
+    "mla": ("minicpm3-4b", 1, 2, 128, 16, "float32"),
+    "olmoe": ("olmoe-1b-7b", 1, 2, 128, 16, "float32"),
+    "whisper": ("whisper-large-v3", 1, 2, 64, 16, "float32"),
+    "vlm": ("qwen2-vl-7b", 1, 2, 128, 16, "float32")}
+SV_FOUR = {"b": ("qwen3-0.6b", 4, 4, 512, 32, "float32")}
+SV_PAIR = {**SV_MAIN, **SV_FAMILIES}
+
+
+def _sv_config(cell):
+    """The cell's config: the published one, cut to ``layers`` (whisper's
+    encoder too), computing in ``compute``."""
+    from repro_torch.configs import get_config
+    arch, layers, _, _, _, compute = cell
+    cfg = dataclasses.replace(get_config(arch), compute_dtype=compute)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        if cfg.encoder is not None:
+            cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+                cfg.encoder, n_layers=layers))
+    return cfg
+
+
+def _sv_inputs(cfg, cell) -> dict:
+    """The cell's whole batch on the card, from seed 1: token ids and what
+    the prompt carries besides (`serve.stub_inputs`)."""
+    from repro_torch.launch import serve
+    _, _, B, P, _, _ = cell
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device="cuda")
+    return {"tokens": tokens, **serve.stub_inputs(cfg, B, P, gen)}
+
+
+def _sv_cache_len(cfg, cell, model_size: int = 2) -> int:
+    """The cell's cache length: the one-shot loop's (prompt, patches, the
+    generated tokens and one), rounded up to a multiple of the 'model'
+    axis as `OneShotGenerator` rounds it."""
+    _, _, _, P, gen, _ = cell
+    n = cfg.vlm.n_patches if cfg.vlm is not None else 0
+    return -(-(P + n + gen + 1) // model_size) * model_size
+
+
+def _sv_loop(model, params, batch: dict, cache_len: int, gen: int,
+             forced=None):
+    """The one-shot loop (`OneShotGenerator`'s prefill, then ``gen - 1``
+    decode steps), teacher-forced on ``forced`` (B, gen) when given, so
+    that every step's logits are comparable whatever the argmax: (the
+    prefill's and each step's logits (B, vocab) f32 on the host, this
+    run's own argmax at each position (B, gen), the cache's bytes, the
+    cache)."""
+    vlm = model.cfg.vlm is not None
+    logits, cache = model.prefill(params, batch, cache_len=cache_len)
+    out, own = [logits[:, :model.cfg.vocab_size].cpu()], [logits.argmax(-1)]
+    pos = torch.full((), batch["tokens"].shape[1]
+                     + (batch["patches"].shape[1] if vlm else 0),
+                     dtype=torch.long, device="cuda")
+    for t in range(gen - 1):
+        tok = own[-1] if forced is None else forced[:, t]
+        step = {"tokens": tok[:, None], "pos": pos}
+        if vlm:
+            step["mrope_positions"] = pos.expand(3, 1)
+        logits, cache = model.decode_step(params, cache, step)
+        out.append(logits[:, :model.cfg.vocab_size].cpu())
+        own.append(logits.argmax(-1))
+        pos = pos + 1
+    from repro_torch import tree as T
+    nbytes = sum(x.numel() * x.element_size() for x in T.leaves(cache))
+    return out, torch.stack(own, dim=1), nbytes, cache
+
+
+def _sv_gathered(cfg, cache, model_size: int) -> int:
+    """Bytes a rank receives per layer and decode step from the caches
+    the specs shard by position (`ModelAxis.gather_positions`): the
+    other ranks' blocks of one layer's k / v (or latents), (M − 1) / M of
+    the whole ``cache``'s layer; 0 where they shard by head or
+    channel."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.sharding import _attn_shardable
+    kv_ok = _attn_shardable(cfg.eff_n_kv_heads, model_size)
+    per_layer = {}
+    for path, x in shd.leaves_with_path(cache):
+        name = str(path[-1])
+        if name in ("ckv", "k_rope") or (name in ("k", "v", "xk", "xv")
+                                         and not kv_ok):
+            layer = x[0]
+            per_layer[path[:-1]] = per_layer.get(path[:-1], 0) + \
+                layer.numel() * layer.element_size() * (model_size - 1) \
+                // model_size
+    return max(per_layer.values(), default=0)
+
+
+def _sv_twin(smi: str, tag: str, cell) -> dict:
+    """One process's run of a cell (this process, before the ranks):
+    its logits and greedy tokens, its peak, and the bytes a rank's cache
+    must hold under `cache_specs` on (1, 2) (and (2, 2) for qwen3)."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.parallel import sharding as shd
+    cfg = _sv_config(cell)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = _sv_inputs(cfg, cell)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, tokens, nbytes, cache = _sv_loop(
+            model, params, batch, _sv_cache_len(cfg, cell), cell[4])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    B = cell[2]
+    want = {}
+    for shape in ((1, 2),) + (((2, 2),) if cfg.name.startswith("qwen3")
+                              else ()):
+        da = ("data",) if B % shape[0] == 0 else None
+        specs = shd.cache_specs(cfg, cache, model_size=shape[1],
+                                data_axes=da)
+        want[shape] = shd.shard_bytes(cache, specs, {"data": shape[0],
+                                                     "model": shape[1]})
+    gathered = _sv_gathered(cfg, cache, 2)
+    top2 = [lg.topk(2, dim=-1).values for lg in logits]
+    rows = torch.stack([v[:, 0] - v[:, 1] for v in top2], dim=1)
+    rec = {"logits": logits, "tokens": tokens.cpu(), "peak": peak,
+           "cache_bytes": nbytes, "shard_bytes": want,
+           "gathered_per_layer": gathered, "margin_rows": rows,
+           "margins": [float(m) for m in rows.min(dim=0).values],
+           "scales": [float(lg.abs().max()) for lg in logits],
+           "s": time.perf_counter() - t0}
+    print(f"[sv] twin ({tag}) {cfg.name} x{cfg.n_layers} {cell[5]}: "
+          f"{B} x {cell[3]} prompt tokens, {cell[4]} generated, cache "
+          f"{nbytes} B, a (1, 2) rank's shard {want[(1, 2)]} B, gathered "
+          f"per layer and step {gathered} B a rank; peak "
+          f"{peak / 2**30:.3f} GiB; {rec['s']:.1f} s [{smi}]")
+    del model, params, batch, cache
+    _free_card()
+    return rec
+
+
+def _sv_cell(mesh, tag: str, cell, forced) -> dict:
+    """One rank's share of a phase-20 cell: the cell's weights from seed
+    0 built whole one rank at a time and cut to the rank's serve shards
+    (`Engine.serve_params`), then, counts zeroed just before and read
+    just after, the one-shot loop over the rank's rows teacher-forced on
+    the twin's tokens (its logits, its own argmax) and, at f32,
+    `Engine.generate` of the whole batch (its greedy tokens, every
+    rank's alike; at bf16 the greedy stream leaves the twin's at the
+    first position of low twin margin, so the cell is read from the
+    teacher-forced loop alone)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.transformer import Model
+    t_cell = time.perf_counter()
+    cfg = _sv_config(cell)
+    engine = Engine(Model(cfg), mesh=mesh)
+    me, world = dist.get_rank(), dist.get_world_size()
+    for turn in range(world):
+        if turn == me:
+            params = Model(cfg).init(torch.Generator(device="cuda")
+                                     .manual_seed(0))
+            local = engine.serve_params(params)
+            del params
+            _free_card()
+        dist.barrier()
+    batch = _sv_inputs(cfg, cell)
+    rows = engine.serve_batch(batch)
+    forced = engine.serve_batch({"tokens": forced.cuda()})["tokens"]
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, own, nbytes, cache = _sv_loop(
+            engine.model, local, rows, _sv_cache_len(cfg, cell), cell[4],
+            forced)
+        del cache
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        generated = None if cell[5] == "bfloat16" else engine.generate(
+            local, batch["tokens"], gen=cell[4],
+            extra_batch=extra or None).cpu()
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    first = M.model_index(mesh) == 0
+    rec = {"logits": logits if first else None, "own": own.cpu(),
+           "generated": generated, "cache_bytes": nbytes,
+           "launches": launches, "peak": torch.cuda.max_memory_allocated(),
+           "loop_s": loop_s, "model_index": M.model_index(mesh),
+           "worker_index": M.worker_index(mesh),
+           "rows": rows["tokens"].shape[0]}
+    del local, batch, rows, engine
+    _free_card()
+    rec["cell_s"] = time.perf_counter() - t_cell
+    dist.barrier()
+    return rec
+
+
+def _sv_rank(rank: int, store: str, out: str, world: int, shape, cells,
+             twins: str) -> None:
+    """One spawned rank of phase 20 (`_start_pair`'s, gated): a gloo
+    process group on the card (NCCL refuses two ranks on one device), a
+    ('data', 'model') mesh of ``shape``, then `_sv_cell` of each of
+    ``cells`` against the twins' tokens in the file ``twins``."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import engine, mesh as M  # noqa: F401
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    forced = torch.load(twins)
+    _await_gate(store)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = M.make_debug_mesh(*shape, device_type="cuda")
+        torch.save({tag: _sv_cell(mesh, tag, cell, forced[tag])
+                    for tag, cell in cells.items()}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sv_start(shape, cells, twins: dict):
+    """Start the gated ranks of a phase-20 mesh of ``shape`` (they reach
+    the card, then wait for `_open_gate`), the twins' tokens in a file
+    of their directory."""
+    import tempfile
+    path = f"{tempfile.mkdtemp()}/twins.pt"
+    torch.save({t: twins[t]["tokens"][:, :cells[t][4]] for t in cells}, path)
+    world = shape[0] * shape[1]
+    return _start_pair(_sv_rank, world, (world, shape, cells, path),
+                       gated=True), path
+
+
+def _sv_join(shape, started) -> list:
+    """Open a `_sv_start`'s gate, wait for its ranks: their records."""
+    import shutil
+    started, path = started
+    _open_gate(started)
+    try:
+        res, codes = _join_pair(started, SV_RANKS_LIMIT_S)
+    finally:
+        shutil.rmtree(Path(path).parent, ignore_errors=True)
+    check(res is not None, f"[sv] gloo ranks {shape} exited {codes}")
+    return res
+
+
+# the flash-attention (B5) and selective-scan (B6) launches a prefill
+# makes on a rank, per cell (the dense decode reads its cache without a
+# kernel): one per attention block, whisper's encoder and cross blocks
+# too; one scan per Mamba block
+def _sv_want(cfg) -> dict:
+    from repro_torch.models.transformer import stage_plan
+    kinds = [k for st in stage_plan(cfg) for k in st.kinds * st.repeats]
+    b5 = sum(k in ("attention", "attention_local") for k in kinds) \
+        + 2 * kinds.count("cross") \
+        + (cfg.encoder.n_layers if cfg.encoder is not None else 0)
+    return {"flash_attention": b5, "ssm_scan": kinds.count("mamba")}
+
+
+def _sv_verdict(smi: str, tag: str, cell, shape, res: list, twin: dict,
+                problems: list) -> dict:
+    """Hold one cell's ranks to its twin, print it, append what fails to
+    ``problems``."""
+    cfg = _sv_config(cell)
+    recs = [r[tag] for r in res]
+    bf16 = cell[5] == "bfloat16"
+    tol = SV_BF16_TOL if bf16 else SV_TOL
+    gen, B = cell[4], cell[2]
+    # the positions held to the twin's tokens: all at f32; at bf16 up to
+    # the first whose twin margin is within twice the bound
+    upto = gen
+    if bf16:
+        upto = next((t for t in range(gen) if twin["margins"][t]
+                     <= 2 * tol * twin["scales"][t]), gen)
+    # teacher-forced: each (row, position) whose twin margin clears twice
+    # the bound is held to the twin's token on its own
+    clear = twin["margin_rows"][:, :gen] > 2 * tol * torch.tensor(
+        twin["scales"][:gen])
+    clear[:, :upto] = True
+    worst, at = 0.0, 0
+    for r in recs:
+        n = r["rows"]
+        lo = r["worker_index"] * n if n < B else 0
+        mask = clear[lo:lo + n]
+        if not torch.equal(r["own"][mask],
+                           twin["tokens"][lo:lo + n, :gen][mask]):
+            problems.append(f"({tag}) rank {r['model_index']}/"
+                            f"{r['worker_index']}: greedy tokens differ "
+                            f"from the twin's before position {upto} or "
+                            f"where its margin clears twice the bound")
+        for t, lg in enumerate(r["logits"] or ()):
+            want = twin["logits"][t][lo:lo + n]
+            rel = float((lg - want).abs().max()) / twin["scales"][t]
+            if rel > worst:
+                worst, at = rel, t
+    if worst > tol:
+        problems.append(f"({tag}) logits {worst:.3g} of scale from the "
+                        f"twin at step {at} (bound {tol:g})")
+    gen_same = None if bf16 else all(
+        torch.equal(r["generated"], twin["tokens"][:, :gen]) for r in recs)
+    if gen_same is False:
+        problems.append(f"({tag}) Engine.generate's tokens differ from the "
+                        f"twin's")
+    shard = twin["shard_bytes"][shape]
+    if any(r["cache_bytes"] != shard for r in recs):
+        problems.append(f"({tag}) cache bytes a rank "
+                        f"{[r['cache_bytes'] for r in recs]} != shard_bytes "
+                        f"{shard}")
+    prefills = 1 if bf16 else 2
+    want = {k: prefills * v for k, v in _sv_want(cfg).items()}
+    for r in recs:
+        for name in ("flash_attention", "ssm_scan"):
+            if r["launches"][name] != want[name]:
+                problems.append(f"({tag}) {name} launched "
+                                f"{r['launches'][name]} times on a rank, "
+                                f"expected {want[name]} ({prefills} "
+                                f"prefills)")
+        others = {k: n for k, n in r["launches"].items()
+                  if k not in want and n}
+        if others:
+            problems.append(f"({tag}) launched {others}")
+    note = f"the ranks' greedy tokens equal the twin's up to position " \
+        f"{upto} of {gen} (the first whose twin top-2 margin is within " \
+        f"2 x {tol:g} of scale; the least margin " \
+        f"{min(twin['margins'][:gen]):.4g}, at scale " \
+        f"{max(twin['scales'][:gen]):.4g}), and the loop's argmax at " \
+        f"{int(clear.sum())} of {clear.numel()} (row, position) pairs " \
+        f"whose twin margin clears twice the bound" if bf16 \
+        else f"the ranks' greedy tokens and Engine.generate's equal the " \
+        f"twin's at all {gen} positions"
+    print(f"[sv] ({tag}) {cfg.name} x{cfg.n_layers} {cell[5]} over {shape}"
+          f" of gloo ranks on one card, {B} x {cell[3]} tokens: {note}; "
+          f"logits within {worst:.3g} of each step's scale (step {at}; "
+          f"bound {tol:g}); cache bytes a rank "
+          f"{[r['cache_bytes'] for r in recs]} (shard_bytes {shard}); "
+          f"gathered per layer and step {twin['gathered_per_layer']} B a "
+          f"rank; B5 / B6 launches a rank "
+          f"{[r['launches']['flash_attention'] for r in recs]} / "
+          f"{[r['launches']['ssm_scan'] for r in recs]} ({prefills} "
+          f"prefills); "
+          f"peak a rank {[round(r['peak'] / 2**30, 3) for r in recs]} GiB "
+          f"vs the twin's {twin['peak'] / 2**30:.3f} GiB; loop "
+          f"{[round(r['loop_s'], 2) for r in recs]} s, the cell "
+          f"{[round(r['cell_s'], 2) for r in recs]} s [{smi}]")
+    return {"worst": worst, "worst_step": at, "tol": tol,
+            "tokens_upto": upto, "tokens_clear": int(clear.sum()),
+            "generate_equal": gen_same,
+            "cache_bytes": [r["cache_bytes"] for r in recs],
+            "shard_bytes": shard,
+            "gathered_per_layer": twin["gathered_per_layer"],
+            "launches": [r["launches"] for r in recs],
+            "peaks": [r["peak"] for r in recs], "peak_twin": twin["peak"],
+            "loop_s": [r["loop_s"] for r in recs],
+            "cell_s": [r["cell_s"] for r in recs],
+            "twin_s": twin["s"], "min_margin": min(twin["margins"])}
+
+
+def phase_sv_kernels(smi: str) -> dict:
+    """B5 and B6 at the local shapes the served path gives them over a
+    'model' axis of 2, against their plain versions, timed beside bound,
+    plain version and SDPA (`_flash_case`; B6 as `phase_ssm_kernel`):
+    qwen3's prefill (4 of 8 KV heads, G 2, 4 x 512), granite's (its one
+    KV head, G 24, 2 x 128), whisper's encoder (10 of 20 heads, 2 x
+    1,500 frames, bidirectional) and cross-attention (2 x 64 queries over
+    1,500 frames); falcon-mamba's scan on 4,096 of 8,192 channels (2 x
+    128)."""
+    from repro_torch.kernels.ref import ssm_scan_plain
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_cost
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    f32 = torch.float32
+    rec = {}
+    for name, KV, G, hd, B, sq, sk, causal in (
+            ("qwen3 local", 4, 2, 128, 4, 512, 512, True),
+            ("granite local G 24", 1, 24, 128, 2, 128, 128, True),
+            ("whisper encoder local", 10, 1, 64, 2, 1500, 1500, False),
+            ("whisper cross local", 10, 1, 64, 2, 64, 1500, False)):
+        rec[name] = _flash_case(smi, gen, name, KV, G, hd, 1, sq, sk, 0,
+                                f32, "sv-kernels", batch=B, causal=causal,
+                                plain_reps=3)
+    args = _ssm_case(gen, 2, 128, SSM_E // 2)
+    y, h = ssm_scan(*args)
+    yr, hr = ssm_scan_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
+    check(err <= 1e-4, f"ssm_scan local: max abs err {err} > 1e-4")
+    ms = median_ms(lambda: ssm_scan(*args))
+    plain_ms = median_ms(lambda: ssm_scan_plain(*args), reps=3)
+    bound, by, nbytes, flops = _bound(ssm_scan_cost(*args))
+    print(f"[sv-kernels] ssm_scan falcon-mamba local: B=2 S=128 E="
+          f"{SSM_E // 2} N={SSM_N}: {ms:.4f} ms/launch; plain "
+          f"{plain_ms:.4f} ms; bound {bound:.4f} ms by {by} ({nbytes} B, "
+          f"{flops} flops); max abs err {err:.3g} [{smi}]")
+    rec["falcon-mamba local"] = {"ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound, "bound_by": by,
+                                 "err": err, "library_ms": None}
+    del args, y, h, yr, hr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_mesh(smi: str) -> dict:
+    """Phase 20: serving over the mesh.  Each cell's one-process twin
+    runs first in this process (its logits, tokens, peak; freed before
+    the ranks start), then two gloo ranks sharing the card serve (a)
+    qwen3-0.6b at its widths and 28 layers over (1, 2), 4 prompts of 512
+    tokens and 64 generated, at f32 and at the served bf16 compute, and
+    each family at the smallest depth that holds its block kinds
+    (`SV_FAMILIES`), f32; then four ranks serve (b) qwen3 at 4 of 28
+    layers over (2, 2), a pair of rows a data rank.  Every rank: its
+    logits within ``SV_TOL`` (bf16: ``SV_BF16_TOL``) of each step's scale
+    from the twin's, its greedy tokens and `Engine.generate`'s (f32)
+    equal to the twin's (bf16: the loop's argmax up to the first position
+    of low twin margin and wherever the margin clears twice the bound),
+    its cache bytes equal to `shard_bytes` under `cache_specs`, B5 / B6
+    once per attention / Mamba block and prefill; peak a rank beside the
+    twin's.  The ranks copy through the host: the walls are no speed
+    figure."""
+    t0 = time.perf_counter()
+    kern = phase_sv_kernels(smi)
+    twins = {tag: _sv_twin(smi, tag, cell)
+             for tag, cell in {**SV_PAIR, **SV_FOUR}.items()}
+    problems, rec = [], {"kernels": kern}
+    # the four ranks of (b) reach the card while the pair serves
+    started = {shape: _sv_start(shape, cells, twins) for shape, cells in (
+        ((1, 2), SV_PAIR), ((2, 2), SV_FOUR))}
+    pair = _sv_join((1, 2), started[(1, 2)])
+    for tag, cell in SV_PAIR.items():
+        rec[tag] = _sv_verdict(smi, tag, cell, (1, 2), pair, twins[tag],
+                               problems)
+    four = _sv_join((2, 2), started[(2, 2)])
+    rec["b"] = _sv_verdict(smi, "b", SV_FOUR["b"], (2, 2), four,
+                           twins["b"], problems)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[sv] phase 20 took {rec['phase_s']:.1f} s with the ranks' "
+          f"starts [{smi}]")
+    check(not problems, "[sv] " + "; ".join(problems))
+    return rec
+
+
 def _lap_phases(t0: float) -> None:
     """Wrap every ``phase_*`` function of this module so that each call
     prints its own wall time and the time since ``t0`` (the script must
@@ -6184,6 +6681,8 @@ def main() -> int:
     s15 = phase_tensor_parallel(smi)
     torch.cuda.empty_cache()
     s19 = phase_worker_axis(smi)
+    torch.cuda.empty_cache()
+    s20 = phase_serve_mesh(smi)
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -6468,6 +6967,21 @@ def main() -> int:
                 r["launches"][name] for r in s19["qwen3"]["ranks"]]}
         if name == "select_ef_mean":
             entry["modes_checked"] = b3_modes
+    # slice 18: B5 and B6 on the served path over the mesh (counts zeroed
+    # before each cell's loop and generate, read after, per rank) and at
+    # the local shapes, each beside its bound, plain version and SDPA
+    for entry in kernels:
+        name = entry["name"]
+        entry["serve_mesh"] = {
+            "launches_by_cell": {t: [n[name] for n in r["launches"]]
+                                 for t, r in s20.items()
+                                 if isinstance(r, dict) and "launches" in r}}
+        if name in ("flash_attention", "ssm_scan"):
+            entry["serve_mesh"]["local_shapes"] = {
+                c: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "err")}
+                for c, r in s20["kernels"].items()
+                if (c == "falcon-mamba local") == (name == "ssm_scan")}
     for entry in kernels:
         # A1 and A2 on the CNN main path: its launches (dc_s3gd, 6 steps)
         # and the per-step sums over its 6 bucket sizes at W = 8
@@ -6527,6 +7041,7 @@ def main() -> int:
               "dense_family": dense, "hybrid": hybrid, "moe_mla": moe,
               "vlm_encdec": mm, "analysis": s13, "multi_device": s14,
               "tensor_parallel": s15, "worker_axis": s19,
+              "serve_mesh": s20,
               "select_modes": b3_modes,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start

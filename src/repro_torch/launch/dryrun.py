@@ -27,10 +27,13 @@ the same questions another way:
   (``roofline.note``).  ``lower_s`` is the seconds spent building the
   abstract inputs and their specs, ``compile_s`` the traced step's;
 * **tensor parallelism**: on a small ('data', 'model') mesh named
-  ``DxM`` (``--mesh 1x2``) with M > 1 a training step is instead one
-  rank's tensor-parallel step, run through a bound `Engine` on its local
-  shards of fake tensors: the collectives it issues over 'model' (the
-  ``tp`` scope) are recorded, and the roofline prices their payload at
+  ``DxM`` (``--mesh 1x2``) with M > 1 a step is instead one rank's
+  tensor-parallel step, run through a bound `Engine` on its local shards
+  of fake tensors: a training step, or a serving one (the prefill or a
+  decode step on the rank's serve params, batch rows and cache shard):
+  the collectives it issues over 'model' (the ``tp`` scope: a serving
+  step's row-parallel sums, vocabulary gather and gathered cache
+  positions) are recorded, and the roofline prices their payload at
   NVLink's rate (``tp_bytes``, ``collective_tp_s``) beside the
   worker-axis wire; nothing is split, the trace is one device's.  The
   production meshes keep the whole-mesh trace.
@@ -82,10 +85,10 @@ ROOFLINE_NOTE = ("optrace of the step under FakeTensorMode on the plain "
                  "counted: collective_s at NVLink's rate, collective_net_s "
                  "at the node network's (DGX H100, 50 GB/s a GPU), which "
                  "the worker axis crosses on both production meshes; on a "
-                 "DxM debug mesh with M > 1 the train step is one rank's "
-                 "tensor-parallel step, unsplit, and tp_bytes / "
-                 "collective_tp_s price its collectives over 'model' at "
-                 "NVLink's rate")
+                 "DxM debug mesh with M > 1 the train, prefill or decode "
+                 "step is one rank's tensor-parallel step, unsplit, and "
+                 "tp_bytes / collective_tp_s price its collectives over "
+                 "'model' at NVLink's rate")
 
 
 def start_fake_world(world_size: int) -> None:
@@ -156,38 +159,51 @@ def build_train(cfg, shape, mesh, dc_cfg, algo: str, tp: bool = False):
     return step, (state, batch), (st_sp, b_sp)
 
 
-def build_prefill(cfg, shape, mesh):
+def build_prefill(cfg, shape, mesh, tp: bool = False):
     model = Model(cfg, kernels=False)
-    engine = Engine(model, mesh=mesh, specs_only=True)
+    engine = Engine(model, mesh=mesh, specs_only=not tp)
     params = S.abstract_params(model)
     batch = S.prefill_batch_specs(cfg, shape)
     p_sp, b_sp, _ = engine.serve_shardings(params, batch=batch,
                                            global_batch=shape.global_batch)
+    run_params, run_batch = params, batch
+    if tp:
+        with S.fake_mode():
+            run_params = engine.serve_params(params)
+            run_batch = engine.serve_batch(batch)
 
     def step():
         with optrace.trace() as tr:
-            logits, cache = model.prefill(params, batch,
-                                          cache_len=shape.seq_len)
+            logits, cache = engine.model.prefill(run_params, run_batch,
+                                                 cache_len=shape.seq_len)
         _, _, c_sp = engine.serve_shardings(
             params, cache=cache, global_batch=shape.global_batch)
-        return tr, (logits, cache), (_replicated(logits), c_sp)
+        return tr, (logits, cache), (_replicated(logits),
+                                     _replicated(cache) if tp else c_sp)
 
     return step, (params, batch), (p_sp, b_sp)
 
 
-def build_decode(cfg, shape, mesh):
+def build_decode(cfg, shape, mesh, tp: bool = False):
     model = Model(cfg, kernels=False)
-    engine = Engine(model, mesh=mesh, specs_only=True)
+    engine = Engine(model, mesh=mesh, specs_only=not tp)
     params = S.abstract_params(model)
     cache = S.abstract_cache(model, shape)
     batch = S.decode_batch_specs(cfg, shape)
     p_sp, b_sp, c_sp = engine.serve_shardings(
         params, batch=batch, cache=cache, global_batch=shape.global_batch)
+    run = (params, cache, batch)
+    if tp:
+        with S.fake_mode():
+            run = (engine.serve_params(params), engine.shard(cache, c_sp),
+                   engine.serve_batch(batch))
 
     def step():
         with optrace.trace() as tr:
-            logits, new_cache = model.decode_step(params, cache, batch)
-        return tr, (logits, new_cache), (_replicated(logits), c_sp)
+            logits, new_cache = engine.model.decode_step(*run)
+        return tr, (logits, new_cache), (_replicated(logits),
+                                         _replicated(new_cache) if tp
+                                         else c_sp)
 
     return step, (params, cache, batch), (p_sp, c_sp, b_sp)
 
@@ -234,8 +250,8 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
         mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
     sizes = axis_sizes(mesh)
     n_chips = mesh.size()
-    # a tensor-parallel train step is traced on one rank: nothing to split
-    tp = bool(debug) and shape.kind == "train" and model_size(mesh) > 1
+    # a tensor-parallel step is traced on one rank: nothing to split
+    tp = bool(debug) and model_size(mesh) > 1
     split = 1 if tp else n_chips
     dc_cfg = DCS3GDConfig(total_steps=10_000, warmup_steps=1_500,
                           microbatches=int(
@@ -249,9 +265,9 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
     if shape.kind == "train":
         step, args, in_sp = build_train(cfg, shape, mesh, dc_cfg, algo, tp)
     elif shape.kind == "prefill":
-        step, args, in_sp = build_prefill(cfg, shape, mesh)
+        step, args, in_sp = build_prefill(cfg, shape, mesh, tp)
     else:
-        step, args, in_sp = build_decode(cfg, shape, mesh)
+        step, args, in_sp = build_decode(cfg, shape, mesh, tp)
     # the type check: every sharded dim divides by its axes
     arg_bytes = shd.shard_bytes(tuple(args), tuple(in_sp), sizes)
     t_lower = time.time() - t0

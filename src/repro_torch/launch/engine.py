@@ -15,14 +15,19 @@ rank holds its shards of the leaves the partition rules shard over
 Megatron-style over the axis (`models.transformer.Model.with_model_axis`)
 and the algorithm sums its norms over it (``bind_model_axis``);
 `gather_state`, `save` and `restore` cross both axes, so a checkpoint is
-the one-process state.  Every algorithm of the registry trains across
-the worker ranks, under every reducer and staleness policy, and an
-elastic run resizes across them (each rank keeps ``W / R`` rows of the
-live W).  What the port cannot yet run across ranks is refused, at
+the one-process state.  An Engine built only to serve (``alg=None``)
+binds the same axes: each rank holds its serve shards of the params
+(`serve_params`) and its data rows of a batch (`serve_batch`), the model
+prefills and decodes over 'model' on them, and `generate` gathers every
+data rank's tokens, so every rank returns the whole batch.  Every
+algorithm of the registry trains across the worker ranks, under every
+reducer and staleness policy, and an elastic run resizes across them
+(each rank keeps ``W / R`` rows of the live W).  What the port cannot yet run across ranks is refused, at
 construction or at the resize, never run silently in one process: a
 membership whose W the ranks cannot split evenly, hierarchical groups
-that cut through a rank's rows; over 'model' serving, the compressed
-wires and a quantized ``comm_dtype`` (``specs_only=True`` keeps any
+that cut through a rank's rows; over 'model' the compressed wires and a
+quantized ``comm_dtype``, and the paged serving seam, which the
+reference runs in one process only (``specs_only=True`` keeps any
 mesh's specs for the dry-run).
 
 PyTorch runs eagerly, so there is nothing to jit: ``fit`` calls the
@@ -47,8 +52,7 @@ from repro_torch.checkpoint import (checkpoint_meta, restore_pytree,
 from repro_torch.core import registry
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.parallel import sharding as shd
-from repro_torch.parallel.tensor import (SERVE_ITEM, UNEVEN_ITEM,
-                                         WIRE_ITEM)
+from repro_torch.parallel.tensor import UNEVEN_ITEM, WIRE_ITEM
 from repro_torch.serve.oneshot import OneShotGenerator
 
 Tree = Any
@@ -137,7 +141,8 @@ class Engine:
 
     def _bind(self, mesh) -> None:
         """Refuse what cannot run across this mesh's ranks, then bind the
-        algorithm to its worker process group."""
+        model to the 'model' axis and the algorithm (when there is one)
+        to its worker process group."""
         from repro_torch.launch import mesh as M
         model_size = M.model_size(mesh)
         if model_size > 1:
@@ -147,8 +152,9 @@ class Engine:
             self.model_axis = M.model_axis(mesh)
             if hasattr(self.model, "with_model_axis"):
                 self.model = self.model.with_model_axis(self.model_axis)
-            self.alg.bind_model_axis(self.model_axis,
-                                     getattr(self.model, "cfg", None))
+            if self.alg is not None:
+                self.alg.bind_model_axis(self.model_axis,
+                                         getattr(self.model, "cfg", None))
         self._bind_alg()
 
     def _bind_alg(self) -> None:
@@ -165,18 +171,16 @@ class Engine:
         alg.bind_workers(self.workers)
 
     def _refuse_over_model(self, model_size: int) -> None:
-        """Raise for what does not train over a 'model' axis of
-        ``model_size``, naming its ROADMAP item: serving, the compressed
-        (stateful, error-feedback) wires and a quantized ``comm_dtype``
-        (each selects, counts or scales over a bucket, and the ranks'
-        local bucket plans are not the reference's global ones), a
-        sharded dim that does not divide the axis."""
+        """Raise for what does not run over a 'model' axis of
+        ``model_size``, naming its ROADMAP item: the compressed (stateful,
+        error-feedback) wires and a quantized ``comm_dtype`` (each
+        selects, counts or scales over a bucket, and the ranks' local
+        bucket plans are not the reference's global ones), a sharded dim
+        that does not divide the axis.  Serving (``alg=None``) checks the
+        dims only."""
         from repro_torch.core import quant as Q
         alg, model = self.alg, self.model
         red = getattr(alg, "reducer", None)
-        if alg is None:
-            raise ValueError(f"tensor-parallel serving over a 'model' axis "
-                             f"of {model_size} is not ported ({SERVE_ITEM})")
         why = None
         if not getattr(red, "stateless", True):
             why = f"the compressed reducer {red.name!r}"
@@ -257,11 +261,36 @@ class Engine:
 
     def local_batch(self, batch):
         """A global (W, b, ...) batch's rows of this rank (the batch
-        itself without a bound mesh)."""
+        itself without a bound mesh); an Engine without an algorithm
+        takes a serving batch's rows (`serve_batch`)."""
         if self.workers is None:
             return batch
+        if self.alg is None:
+            return self.serve_batch(batch)
         return self.shard(batch, self.alg.batch_specs(
             getattr(self.model, "cfg", None), batch, self.mesh_axes()))
+
+    def serve_params(self, params):
+        """This rank's serve shards of a whole parameter tree: the
+        partition rules minus the worker axis (`serve_shardings`), so
+        every data rank holds the same shards (the tree itself without a
+        bound mesh)."""
+        if self.workers is None:
+            return params
+        specs, _, _ = self.serve_shardings(params, global_batch=1)
+        return self.shard(params, specs)
+
+    def serve_batch(self, batch):
+        """This rank's rows of a global serving batch (B, ...): the data
+        ranks split the rows when they divide B, else every rank takes
+        every row (the reference's ``_data_axes``: long_500k's batch of
+        1 stays replicated); ``pos`` and a VLM's ``mrope_positions`` are
+        every rank's (the batch itself without a bound mesh)."""
+        if self.workers is None:
+            return batch
+        rows = batch["tokens"].shape[0]
+        return self.shard(batch, shd.batch_specs(
+            self.model.cfg, batch, data_axes=self._data_axes(rows)))
 
     def init_state(self, params):
         """The algorithm's state from ``params`` (the whole tree); over a
@@ -691,12 +720,31 @@ class Engine:
         above, drawing from ``generator``.  ``extra_batch``: a VLM's
         ``patches`` and ``mrope_positions``, an encoder-decoder's
         ``frames``.  For request streams (continuous batching, paged KV)
-        use `repro_torch.serve.scheduler.Scheduler`."""
+        use `repro_torch.serve.scheduler.Scheduler`, one process's only.
+
+        On a bound mesh ``params`` are this rank's serve shards
+        (`serve_params`) and ``prompts`` / ``extra_batch`` the whole
+        batch: each data rank generates its rows (`serve_batch`) over the
+        'model' axis, the (B, gen) tokens are all-gathered over the worker
+        group in rank order, and every rank returns the whole batch.
+        Greedy tokens are one process's; ``categorical`` draws each data
+        rank's rows from its own ``generator`` (seed the model ranks'
+        alike)."""
         if self._oneshot is None:
             self._oneshot = OneShotGenerator(self.model)
-        return self._oneshot(params, prompts, gen=gen, sampler=sampler,
-                             temperature=temperature, generator=generator,
-                             cache_len=cache_len, extra_batch=extra_batch)
+        local = self.serve_batch({"tokens": prompts, **(extra_batch or {})})
+        out = self._oneshot(params, local.pop("tokens"), gen=gen,
+                            sampler=sampler, temperature=temperature,
+                            generator=generator, cache_len=cache_len,
+                            extra_batch=local or None)
+        if self.workers is None or self.workers.size == 1 \
+                or self._data_axes(prompts.shape[0]) is None:
+            return out
+        import torch.distributed as dist
+        src = out.cpu() if self.workers.host else out
+        parts = [torch.empty_like(src) for _ in range(self.workers.size)]
+        dist.all_gather(parts, src.contiguous(), group=self.workers.group)
+        return torch.cat(parts).to(out.device)
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        init_rmsnorm, matmul, promoted,
                                        rmsnorm, row_matmul)
+from repro_torch.parallel.tensor import write_owned
 
 NEG_INF = -1e30
 MLA_KEY_BLOCK = 256  # keys per block of an MLA chunk's attention
@@ -175,24 +176,23 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
     ``core``: ``"plain"`` (`causal_attention`, differentiable) or
     ``"flash"`` (the flash-attention kernel's wrapper, forward only).
 
-    With ``tp`` (a `repro_torch.parallel.tensor.ModelAxis`; training
-    only) ``wq`` and ``wo`` hold this rank's heads: q on the local heads,
-    ``wo`` row-parallel, its partials summed over the axis.
+    With ``tp`` (a `repro_torch.parallel.tensor.ModelAxis`) ``wq`` and
+    ``wo`` hold this rank's heads: q on the local heads, ``wo``
+    row-parallel, its partials summed over the axis.
     ``kv_sharded`` says whether ``wk`` / ``wv`` hold local KV heads too;
     where they cannot (granite-20b, recurrentgemma: one KV head) they
     stay whole, every rank computes the whole k and v, and each takes the
-    KV heads its query heads read.  A ``kv_override`` is the local heads'
-    k and v, which the caller projected through its local columns (the
-    cross-attention's ``wk`` / ``wv`` of the encoder output).  The
+    KV heads its query heads read; ``return_kv`` then returns the whole k
+    and v (the prefill cuts them by position), else the local KV
+    heads'.  A ``kv_override`` is the local heads' k and v, which the
+    caller projected through its local columns (the cross-attention's
+    ``wk`` / ``wv`` of the encoder output).  The
     replicated q / k norm scales enter the sharded heads through
     `ModelAxis.copy`, as do x (in each product, `layers.matmul`) and a
     whole k / v, so each gradient is summed over the axis exactly
     once."""
     if core not in ("plain", "flash"):
         raise ValueError(f"attention core {core!r}: 'plain' or 'flash'")
-    if tp is not None and return_kv:
-        raise ValueError("attention over 'model' is ported for training "
-                         "only")
     B, S, _ = x.shape
     q = project(x, params["wq"], tp)
     if kv_override is None:
@@ -213,6 +213,7 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
         else:
             q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
+    kv = (k, v)
     if tp is not None and not kv_sharded and kv_override is None:
         k, v = _local_kv(tp.copy(k), tp.copy(v), q.shape[2], tp)
     H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
@@ -224,7 +225,7 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
     wo = params["wo"]
     y = row_matmul(out.reshape(B, S, H * hd),
                    wo.reshape(H * hd, wo.shape[-1]), tp)
-    return (y, k, v) if return_kv else y
+    return (y, *kv) if return_kv else y
 
 
 def _edge(norm: dict, tp) -> dict:
@@ -295,7 +296,8 @@ def attention_decode(params: dict, cache: dict, x: torch.Tensor,
                      window: int = 0, qk_norm: bool = False,
                      norm_eps: float = 1e-6, mrope_positions=None,
                      mrope_sections=None, cross: bool = False,
-                     cache_ops=None):
+                     cache_ops=None, tp=None, kv_sharded: bool = True,
+                     seq=None):
     """One-token decode.  x: (B, 1, d); pos: 0-d int tensor (the dense
     layout) or a per-row (B,) vector under a paged layout, on x's device;
     ``mrope_positions`` ((3, 1) dense, (3, B, 1) paged) rotates q and the
@@ -308,24 +310,37 @@ def attention_decode(params: dict, cache: dict, x: torch.Tensor,
     ``None`` is the dense path, which writes at ``pos`` (or its ring slot)
     in place.  ``cross=True`` is whisper's cross-attention: the cache's k
     and v (B, n_frames, KV, hd) are the encoder's, static and all live; no
-    RoPE on q, nothing written.  Returns ((B, 1, d), the cache)."""
+    RoPE on q, nothing written.  Returns ((B, 1, d), the cache).
+
+    Over a 'model' axis (serving, the dense layout): ``tp`` as in
+    `attention_train` (q on the local heads, ``wo`` row-parallel,
+    ``kv_sharded``: ``wk`` / ``wv`` hold local KV heads), and ``seq`` the
+    axis whose ranks each hold a block of the cache's positions (the
+    cache specs shard the sequence where the KV heads do not divide the
+    axis): the new k / v go to the rank that owns the position (or its
+    ring slot) only, and the attend reads the whole row, gathered for
+    this layer (`ModelAxis.gather_positions`), so its softmax runs over
+    the same keys as in one process."""
     B = x.shape[0]
-    q = project(x, params["wq"])
+    q = project(x, params["wq"], tp)
     if qk_norm:
         q = rmsnorm(params["q_norm"], q, norm_eps)
+    H, hd = q.shape[2], q.shape[3]
+    wo = params["wo"]
     if cross:
-        k_cache, v_cache = cache["k"], cache["v"]
-        H, KV, hd = q.shape[2], k_cache.shape[2], q.shape[3]
+        k_cache, v_cache = _whole_row(cache["k"], cache["v"], seq, tp,
+                                      kv_sharded, H)
         valid = torch.ones(k_cache.shape[1], dtype=torch.bool,
                            device=x.device)
+        KV = k_cache.shape[2]
         out = attend_one(q.reshape(B, KV, H // KV, hd), k_cache, v_cache,
                          valid)
         out = out.reshape(B, 1, H * hd).to(x.dtype)
-        wo = params["wo"]
-        return matmul(out, wo.reshape(H * hd, wo.shape[-1])), cache
+        return row_matmul(out, wo.reshape(H * hd, wo.shape[-1]), tp), cache
     positions = decode_positions(pos)
-    k_new = project(x, params["wk"])
-    v_new = project(x, params["wv"])
+    tk = tp if kv_sharded else None
+    k_new = project(x, params["wk"], tk)
+    v_new = project(x, params["wv"], tk)
     if qk_norm:
         k_new = rmsnorm(params["k_norm"], k_new, norm_eps)
     if rope_theta > 0:
@@ -336,24 +351,40 @@ def attention_decode(params: dict, cache: dict, x: torch.Tensor,
         else:
             q = apply_rope(q, positions, rope_theta)
             k_new = apply_rope(k_new, positions, rope_theta)
-    H, KV, hd = q.shape[2], k_new.shape[2], q.shape[3]
-    qg = q.reshape(B, KV, H // KV, hd)
     if cache_ops is not None:
-        out, cache = cache_ops.kv_attend(cache, qg, k_new, v_new,
-                                         window=window)
+        KV = k_new.shape[2]
+        out, cache = cache_ops.kv_attend(
+            cache, q.reshape(B, KV, H // KV, hd), k_new, v_new,
+            window=window)
     else:
         rows = torch.arange(B, device=x.device)
-        cache_len = cache["k"].shape[1]
+        cache_len = cache["k"].shape[1] * (1 if seq is None else seq.size)
         slot = (pos.long() % cache_len if window > 0 else pos.long()) \
             .expand(B)
-        cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+        write_owned(cache["k"], rows, slot, k_new[:, 0], seq)
+        write_owned(cache["v"], rows, slot, v_new[:, 0], seq)
+        k_cache, v_cache = _whole_row(cache["k"], cache["v"], seq, tp,
+                                      kv_sharded, H)
+        KV = k_cache.shape[2]
         # a ring that has wrapped is live in every slot
         valid = torch.arange(cache_len, device=x.device) <= pos
-        out = attend_one(qg, cache["k"], cache["v"], valid)
+        out = attend_one(q.reshape(B, KV, H // KV, hd), k_cache, v_cache,
+                         valid)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
-    wo = params["wo"]
-    return matmul(out, wo.reshape(H * hd, wo.shape[-1])), cache
+    return row_matmul(out, wo.reshape(H * hd, wo.shape[-1]), tp), cache
+
+
+def _whole_row(k: torch.Tensor, v: torch.Tensor, seq, tp, kv_sharded: bool,
+               h_local: int):
+    """The k / v caches a decode step's local heads attend over: the
+    whole row of positions (gathered over ``seq`` where the ranks hold
+    blocks of it), of the KV heads those heads read (``_local_kv`` where
+    the caches hold every KV head and the heads are sharded)."""
+    if seq is not None:
+        k, v = seq.gather_positions(k, v, dim=1)
+    if tp is not None and not kv_sharded:
+        k, v = _local_kv(k, v, h_local, tp)
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -482,11 +513,9 @@ def mla_train(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     ``v_head_dim`` wide, so no kernel of the port takes it; the reference
     too runs MLA through its plain blocked attention).  With
     ``return_latents`` also the (ckv, k_rope) the decode cache stores.
-    ``tp`` (training): ``w_uq`` / ``w_uk`` / ``w_uv`` hold this rank's
-    heads and ``wo`` is row-parallel; the down-projections, the latents
-    and their norms stay whole on every rank."""
-    if tp is not None and return_latents:
-        raise ValueError("MLA over 'model' is ported for training only")
+    ``tp``: ``w_uq`` / ``w_uk`` / ``w_uv`` hold this rank's heads and
+    ``wo`` is row-parallel; the down-projections, the latents (those
+    returned too) and their norms stay whole on every rank."""
     m = mla_cfg
     B, S, _ = x.shape
     q_nope, q_rope = _mla_query(params, x, positions, m, rope_theta,
@@ -540,16 +569,23 @@ def mla_attend_one(params: dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
 
 def mla_decode(params: dict, cache: dict, x: torch.Tensor,
                pos: torch.Tensor, *, mla_cfg, rope_theta: float,
-               norm_eps: float = 1e-6, cache_ops=None):
+               norm_eps: float = 1e-6, cache_ops=None, tp=None, seq=None):
     """One-token absorbed MLA decode.  x: (B, 1, d); pos 0-d (the dense
     layout) or per row (B,) under a paged layout, whose ``cache_ops``
     takes over the latent write and view.  The dense path writes at
-    ``pos`` in place.  Returns ((B, 1, d), the cache)."""
+    ``pos`` in place.  Returns ((B, 1, d), the cache).
+
+    Over a 'model' axis: ``tp`` as in `mla_train` (``w_uq`` / ``w_uk`` /
+    ``w_uv`` the local heads, ``wo`` row-parallel), and ``seq`` the axis
+    whose ranks each hold a block of the latents' positions (the cache
+    specs always shard them so): the new latents go to the rank that owns
+    the position only, and the local heads attend over the whole row,
+    gathered for this layer (`ModelAxis.gather_positions`)."""
     m = mla_cfg
     B = x.shape[0]
     positions = decode_positions(pos)
     q_nope, q_rope = _mla_query(params, x, positions, m, rope_theta,
-                                norm_eps)
+                                norm_eps, tp)
     ckv_t, k_rope_t = mla_latents(params, x, positions,
                                   rope_theta=rope_theta, norm_eps=norm_eps)
     ckv_t, k_rope_t = ckv_t[:, 0], k_rope_t[:, 0]
@@ -559,13 +595,15 @@ def mla_decode(params: dict, cache: dict, x: torch.Tensor,
     else:
         rows = torch.arange(B, device=x.device)
         slot = pos.long().expand(B)
-        cache["ckv"][rows, slot] = ckv_t.to(cache["ckv"].dtype)
-        cache["k_rope"][rows, slot] = k_rope_t.to(cache["k_rope"].dtype)
+        write_owned(cache["ckv"], rows, slot, ckv_t, seq)
+        write_owned(cache["k_rope"], rows, slot, k_rope_t, seq)
         ckv, k_rope = cache["ckv"], cache["k_rope"]
+        if seq is not None:
+            ckv, k_rope = seq.gather_positions(ckv, k_rope, dim=1)
         valid = torch.arange(ckv.shape[1], device=x.device) <= pos
     out = mla_attend_one(params, q_nope[:, 0], q_rope[:, 0], ckv, k_rope,
                          valid, mla_cfg=m, out_dtype=x.dtype)
-    return _mla_out(params, out[:, None]), cache
+    return _mla_out(params, out[:, None], tp=tp), cache
 
 
 def mla_prefill_chunk(params: dict, cache: dict, x: torch.Tensor,

@@ -379,6 +379,7 @@ class PagedLayout:
                  page_size: int, max_pages: int,
                  use_kernel: Optional[bool] = None,
                  kv_dtype: Optional[str] = None):
+        model._refuse_paged("a paged layout")
         self.model = model
         self.n_slots = int(n_slots)
         self.num_pages = int(num_pages)

@@ -106,14 +106,15 @@ def rglru_forward(params: dict, x: torch.Tensor, cfg, *,
 
 
 def rglru_prefill(params: dict, x: torch.Tensor, cfg, *,
-                  chunk: int = 256) -> Tuple[torch.Tensor, dict]:
+                  chunk: int = 256, tp=None) -> Tuple[torch.Tensor, dict]:
     """`rglru_forward` that also returns the decode state after the prompt
     (the reference's ``_rglru_with_state``): ``{"conv"``: the raw, pre-conv
     xi of the last K-1 positions in x's dtype (zero rows before a
     prompt shorter than that), ``"h"``: the final state
     (B, w) f32}.  The reference runs the scan twice (once for y, once for
-    h_last); here both come from the one pass."""
-    out, h_last, xi_raw = _forward(params, x, chunk)
+    h_last); here both come from the one pass.  ``tp``: the params are
+    this rank's shards over 'model', the state the rank's channels."""
+    out, h_last, xi_raw = _forward(params, x, chunk, tp)
     conv = conv_state(xi_raw, cfg.conv_kernel).to(x.dtype)
     return out, {"conv": conv, "h": h_last}
 
@@ -129,18 +130,20 @@ def init_rglru_state(batch: int, d: int, cfg, dtype, device) -> dict:
     }
 
 
-def rglru_decode(params: dict, state: dict, x: torch.Tensor, cfg
-                 ) -> Tuple[torch.Tensor, dict]:
+def rglru_decode(params: dict, state: dict, x: torch.Tensor, cfg, *,
+                 tp=None) -> Tuple[torch.Tensor, dict]:
     """One-token step.  x: (B, 1, d).  Returns ((B, 1, d), ``state``
-    updated in place; the conv state at its buffer's dtype)."""
+    updated in place; the conv state at its buffer's dtype).  ``tp``: the
+    params and the state are this rank's channels, the gates read the
+    gathered xi (`_forward`'s edges)."""
     xt = x[:, 0]
-    xi = matmul(xt, params["w_x"])
-    gate = act_fn("gelu")(matmul(xt, params["w_gate"]))
+    xi = matmul(xt, params["w_x"], tp)
+    gate = act_fn("gelu")(matmul(xt, params["w_gate"], tp))
     xi, conv = causal_conv1d_update(state["conv"], xi, params["conv_w"],
                                     params["conv_b"])
-    a, bx = _gates(params, xi)
+    a, bx = _gates(params, xi, tp)
     h = a * state["h"] + bx
-    out = matmul(h.to(x.dtype) * gate, params["w_out"])[:, None]
+    out = row_matmul(h.to(x.dtype) * gate, params["w_out"], tp)[:, None]
     state["conv"].copy_(conv)
     state["h"].copy_(h)
     return out, state

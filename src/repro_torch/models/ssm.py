@@ -241,14 +241,17 @@ def mamba_forward(params: dict, x: torch.Tensor, cfg, *,
 
 
 def mamba_prefill(params: dict, x: torch.Tensor, cfg, *,
-                  use_kernel: bool = True) -> Tuple[torch.Tensor, dict]:
+                  use_kernel: bool = True,
+                  tp=None) -> Tuple[torch.Tensor, dict]:
     """`mamba_forward` that also returns the decode state after the prompt
     (the reference's ``_mamba_with_state``): ``{"conv"``: the raw, pre-conv
     xi of the last K-1 positions in x's dtype (zero rows before a
     prompt shorter than that), ``"ssm"``: the final
     state}.  The reference recomputes xi for the conv state; here it is
-    the forward pass's own, the same values."""
-    out, h_last, xi_raw = _forward(params, x, cfg, use_kernel)
+    the forward pass's own, the same values.  ``tp``: the params are this
+    rank's shards over 'model' (`_forward`), so is the state: its E is
+    the rank's channels, as the cache specs shard it."""
+    out, h_last, xi_raw = _forward(params, x, cfg, use_kernel, tp=tp)
     conv = conv_state(xi_raw, cfg.conv_kernel).to(x.dtype)
     return out, {"conv": conv, "ssm": h_last}
 
@@ -265,18 +268,21 @@ def init_mamba_state(batch: int, d: int, cfg, dtype, device) -> dict:
     }
 
 
-def mamba_decode(params: dict, state: dict, x: torch.Tensor, cfg
-                 ) -> Tuple[torch.Tensor, dict]:
+def mamba_decode(params: dict, state: dict, x: torch.Tensor, cfg, *,
+                 tp=None) -> Tuple[torch.Tensor, dict]:
     """One-token step.  x: (B, 1, d).  Returns ((B, 1, d), ``state``
     updated in place).  The reference returns a new state whose conv part
     is promoted to the step's dtype; here it is written into the caller's
-    buffer at that buffer's dtype (a bf16 slot state rounds it)."""
+    buffer at that buffer's dtype (a bf16 slot state rounds it).  ``tp``:
+    the params and the state are this rank's channels (`_forward`'s
+    edges: ``w_in``'s product gathered, ``w_x`` and ``w_out``
+    row-parallel)."""
     d = x.shape[-1]
-    xi, z = _project_in(params, x[:, 0])
+    xi, z = _project_in(params, x[:, 0], tp)
     xi, conv = causal_conv1d_update(state["conv"], xi, params["conv_w"],
                                     params["conv_b"])
     xi = F.silu(xi)
-    dt, bm, cm = _dt_b_c(params, xi, cfg, d)
+    dt, bm, cm = _dt_b_c(params, xi, cfg, d, tp)
     A = -torch.exp(params["a_log"])
     dA = torch.exp(dt[..., None] * A)                   # (B, e, n)
     dbx = (dt * xi.float())[..., None] * bm.float()[:, None, :]
@@ -284,7 +290,7 @@ def mamba_decode(params: dict, state: dict, x: torch.Tensor, cfg
     y = torch.einsum("ben,bn->be", h, cm.float())
     y = y + params["d_skip"] * xi.float()
     y = y.to(x.dtype) * F.silu(z)
-    out = matmul(y, params["w_out"])[:, None]
+    out = row_matmul(y, params["w_out"], tp)[:, None]
     state["conv"].copy_(conv)
     state["ssm"].copy_(h)
     return out, state

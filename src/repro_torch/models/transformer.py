@@ -52,7 +52,18 @@ column- / row-parallel MLP (`layers.mlp`), the local experts (routed
 blocks on the local channels of their inner dims (`ssm.mamba_forward`,
 `rglru.rglru_forward`) and the column-parallel vision projection.  The
 norms, the router and MLA's down-projections stay whole on every rank.
-Every family trains so; serving over 'model' is refused (`_serving`).
+Every family trains so, and serves so over the dense layout: the
+prefill and the decode step run the same sharded blocks, the logits are
+the vocabulary's columns gathered in rank order, and each rank's cache
+is its shard under the cache specs
+(`repro_torch.parallel.sharding.cache_specs`): the KV heads the rank
+computes, or where the KV heads do not divide the axis (and always for
+MLA's latents) its block of ``cache_len / M`` positions (a windowed
+kind's ring: of ``window / M`` slots), which each decode step writes on
+the owning rank and gathers whole for the attend; the Mamba and RG-LRU
+states of the rank's channels.  The paged seam (``cache_ops``,
+``prefill_chunk``) stays one process's, as the reference's
+(`_refuse_paged`).
 
 Serving: ``prefill`` runs the prompt and returns the last position's
 logits with the dense cache tree, one entry per stage and block mirroring
@@ -106,7 +117,7 @@ from repro_torch.models.layers import (dense_init, embed_init,
                                        init_rmsnorm, layernorm, matmul, mlp,
                                        rmsnorm, sinusoidal,
                                        sinusoidal_positions)
-from repro_torch.parallel.tensor import SERVE_ITEM
+from repro_torch.parallel.tensor import PAGED_ONE_PROCESS, UNEVEN_ITEM
 
 Tree = Any
 
@@ -201,10 +212,42 @@ class Model:
         """The axis the attention heads shard over (None: whole)."""
         return self.tp if self._heads_tp else None
 
-    def _serving(self) -> None:
+    @property
+    def _seq_tp(self):
+        """The axis a KV cache's positions shard over (None: its KV heads
+        shard, or one process): the cache specs cut the sequence where
+        the KV heads do not divide the axis."""
+        return self.tp if self.tp is not None and not self._kv_tp else None
+
+    def _refuse_paged(self, what: str) -> None:
         if self.tp is not None:
-            raise ValueError(f"tensor-parallel serving over 'model' is "
-                             f"not ported ({SERVE_ITEM})")
+            raise ValueError(f"{what} over a 'model' axis of {self.tp.size}: "
+                             f"{PAGED_ONE_PROCESS}")
+
+    def _check_cache_dims(self, cache_len: int) -> None:
+        """Over a 'model' axis, raise where a cache dim the specs shard
+        by position does not divide the axis."""
+        tp = self.tp
+        if tp is None:
+            return
+        kinds = {k for st in self.stages for k in st.kinds}
+        dims = {}
+        if "mla" in kinds:
+            dims["the MLA latents' cache_len"] = cache_len
+        if self._seq_tp is not None:
+            for kind in kinds & set(_ATTENTION):
+                w = resolved_window(self.cfg, kind)
+                what = "ring" if w > 0 else "cache_len"
+                dims[f"the {kind} cache's {what}"] = w if w > 0 \
+                    else cache_len
+            if "cross" in kinds:
+                dims["the encoder cache's n_frames"] = \
+                    self.cfg.encoder.n_frames
+        bad = [f"{k} {n}" for k, n in dims.items() if n % tp.size]
+        if bad:
+            raise ValueError(
+                f"{self.cfg.name}: {', '.join(bad)} does not divide over "
+                f"the 'model' axis of {tp.size} ({UNEVEN_ITEM})")
 
     # -------------------------------------------------- init
 
@@ -375,7 +418,8 @@ class Model:
             h = _norm(cfg, p["ln"], x)
             if prefill:
                 h, entry = ssm_mod.mamba_prefill(p["mamba"], h, cfg.ssm,
-                                                 use_kernel=self.kernels)
+                                                 use_kernel=self.kernels,
+                                                 tp=self.tp)
                 cache_out.append(entry)
             else:
                 h = ssm_mod.mamba_forward(p["mamba"], h, cfg.ssm,
@@ -385,7 +429,8 @@ class Model:
         if kind == "recurrent":
             if prefill:
                 h, entry = rglru_mod.rglru_prefill(p["rglru"], h, cfg.rglru,
-                                                   chunk=self.scan_chunk)
+                                                   chunk=self.scan_chunk,
+                                                   tp=self.tp)
                 cache_out.append(entry)
             else:
                 h = rglru_mod.rglru_forward(p["rglru"], h, cfg.rglru,
@@ -444,8 +489,11 @@ class Model:
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """Post-final-norm (..., d) -> f32 logits, the padded vocabulary's
-        columns masked to -1e30."""
-        logits = matmul(x, params["unembed"].to(x.dtype)).float()
+        columns masked to -1e30; over a 'model' axis this rank's vocab
+        columns, gathered in rank order."""
+        logits = matmul(x, params["unembed"].to(x.dtype), self.tp).float()
+        if self.tp is not None:
+            logits = self.tp.gather(logits, -1)
         return self._mask_pad_logits(logits)
 
     def _mask_pad_logits(self, logits: torch.Tensor) -> torch.Tensor:
@@ -484,11 +532,7 @@ class Model:
         x = self._backbone(params, self._embed(params, batch),
                            ctx=self._context(params, batch, "plain"))
         x = _norm(self.cfg, params["final_norm"], x)
-        if self.tp is None:
-            return self._logits(params, x)
-        # this rank's vocab columns, gathered in rank order
-        part = matmul(x, params["unembed"].to(x.dtype), self.tp).float()
-        return self._mask_pad_logits(self.tp.gather(part, -1))
+        return self._logits(params, x)
 
     # -------------------------------------------------- prefill / decode
 
@@ -538,8 +582,12 @@ class Model:
         prompt, whose size does not depend on ``cache_len``; a cross
         block's also holds the encoder's xk / xv).  The encoder and every
         attention core take the flash-attention kernel on the kernel
-        route."""
-        self._serving()
+        route.
+
+        Over a 'model' axis each rank returns its shard of that tree
+        under the cache specs (the module's docstring); a dim they cut by
+        position must divide the axis."""
+        self._check_cache_dims(cache_len)
         entries = [{f"b{j}": [] for j in range(len(st.kinds))}
                    for st in self.stages]
         core = "flash" if self.kernels else "plain"
@@ -552,14 +600,15 @@ class Model:
             for j, kind in enumerate(stage.kinds):
                 e = unit[f"b{j}"]
                 if kind in _ATTENTION:
-                    built[f"b{j}"] = _kv_cache_from_seq(
-                        e, cache_len, resolved_window(self.cfg, kind))
+                    c = _kv_cache_from_seq(e, cache_len,
+                                           resolved_window(self.cfg, kind))
                     if kind == "cross":
-                        built[f"b{j}"].update(
-                            {n: torch.stack([x[n] for x in e])
-                             for n in ("xk", "xv")})
+                        c.update({n: torch.stack([x[n] for x in e])
+                                  for n in ("xk", "xv")})
+                    built[f"b{j}"] = _positions(c, self._seq_tp)
                 elif kind == "mla":
-                    built[f"b{j}"] = _mla_cache_from_seq(e, cache_len)
+                    built[f"b{j}"] = _positions(
+                        _mla_cache_from_seq(e, cache_len), self.tp)
                 else:
                     built[f"b{j}"] = _stack(e)
             caches.append(built)
@@ -572,8 +621,10 @@ class Model:
         ((B, vocab_padded) f32 logits, ``caches`` updated in place).
         ``cache_ops`` (a `repro_torch.models.cache` layout's step ops)
         reroutes the attention cache update + attend: the paged-KV and
-        slot-ring seam."""
-        self._serving()
+        slot-ring seam, one process's only (`_refuse_paged`).  Over a
+        'model' axis ``caches`` is this rank's shard (`prefill`)."""
+        if cache_ops is not None:
+            self._refuse_paged("a paged decode step (cache_ops)")
         pos = batch["pos"]
         x = self._embed(params, batch, pos.reshape(-1, 1))
         mrope = batch.get("mrope_positions") if self.cfg.vlm else None
@@ -593,7 +644,7 @@ class Model:
         updated in place).  Full-attention and mla blocks only, the MoE
         FFN through the oracle: the layout's ``chunkable`` gate refuses
         the rest before dispatch."""
-        self._serving()
+        self._refuse_paged("chunked prefill")
         kinds = {k for st in self.stages for k in st.kinds}
         if not kinds <= {"attention", "mla"} \
                 or (self.cfg.moe is not None and not self.moe_dense):
@@ -633,18 +684,20 @@ class Model:
     def _decode_block(self, kind: str, p: dict, cache: dict,
                       x: torch.Tensor, pos: torch.Tensor, cache_ops,
                       mrope: Optional[torch.Tensor] = None) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         if kind == "mamba":   # slot-indexed state: no cache_ops seam
             h = _norm(cfg, p["ln"], x)
-            h, _ = ssm_mod.mamba_decode(p["mamba"], cache, h, cfg.ssm)
+            h, _ = ssm_mod.mamba_decode(p["mamba"], cache, h, cfg.ssm, tp=tp)
             return x + h
         h = _norm(cfg, p["ln1"], x)
         if kind == "recurrent":
-            h, _ = rglru_mod.rglru_decode(p["rglru"], cache, h, cfg.rglru)
+            h, _ = rglru_mod.rglru_decode(p["rglru"], cache, h, cfg.rglru,
+                                          tp=tp)
         elif kind == "mla":
             h, _ = attn.mla_decode(p["attn"], cache, h, pos, mla_cfg=cfg.mla,
                                    rope_theta=cfg.rope_theta,
-                                   norm_eps=cfg.norm_eps, cache_ops=cache_ops)
+                                   norm_eps=cfg.norm_eps, cache_ops=cache_ops,
+                                   tp=self._tp_heads, seq=tp)
         else:
             # a cross block's self part: its k / v (and their scales)
             self_c = {n: cache[n] for n in _SELF if n in cache}
@@ -653,12 +706,14 @@ class Model:
                 window=resolved_window(cfg, kind), qk_norm=cfg.qk_norm,
                 norm_eps=cfg.norm_eps, mrope_positions=mrope,
                 mrope_sections=cfg.vlm.mrope_sections if cfg.vlm else None,
-                cache_ops=cache_ops)
+                cache_ops=cache_ops, tp=self._tp_heads,
+                kv_sharded=self._kv_tp, seq=self._seq_tp)
         x = x + h
         if kind == "cross":
             h, _ = attn.attention_decode(
                 p["xattn"], {"k": cache["xk"], "v": cache["xv"]},
-                _norm(cfg, p["ln_x"], x), pos, rope_theta=0.0, cross=True)
+                _norm(cfg, p["ln_x"], x), pos, rope_theta=0.0, cross=True,
+                tp=self._tp_heads, kv_sharded=self._kv_tp, seq=self._seq_tp)
             x = x + h
         h = _norm(cfg, p["ln2"], x)
         # dropless at decode: a dropped token would corrupt generation
@@ -704,6 +759,20 @@ def _mla_cache_from_seq(entries, cache_len: int) -> Dict[str, torch.Tensor]:
     return {name: torch.stack([F.pad(e[name], (0, 0, 0, cache_len - S))
                                for e in entries])
             for name in ("ckv", "k_rope")}
+
+
+def _positions(cache: Dict[str, torch.Tensor],
+               tp) -> Dict[str, torch.Tensor]:
+    """A stacked cache entry (R, B, positions, ...) cut to this rank's
+    block of positions over ``tp`` (the entry itself without one)."""
+    if tp is None:
+        return cache
+    out = {}
+    for name, x in cache.items():
+        n = x.shape[2] // tp.size
+        lo = tp.shard_start(n)
+        out[name] = x[:, :, lo:lo + n].clone()
+    return out
 
 
 def _stack(entries) -> Dict[str, torch.Tensor]:

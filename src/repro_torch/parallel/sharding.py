@@ -21,7 +21,8 @@ Spec trees mirror their tree's containers; since a spec is itself a
 tuple, read them back along the tree they describe (`flat_specs`), never
 by flattening the spec tree alone.  `placements` turns a spec into
 DTensor placements on a `DeviceMesh`, `local_shape` / `local_slices`
-give one rank's shard.  `model_dim` / `sharded_over_model` say which
+give one rank's shard, `gather_shards` the whole tree of every rank's
+shards.  `model_dim` / `sharded_over_model` say which
 leaves the tensor-parallel path holds in shards, and `model_shard` cuts
 a whole tree to one model rank's shards, refusing a leaf whose sharded
 dim does not divide the axis by name.
@@ -438,6 +439,36 @@ def model_shard(cfg: Optional[ModelConfig], params: Tree, *,
         return x[local_slices(tuple(x.shape), spec, sizes,
                               {"model": rank})].clone()
     return map_with_path(take, params)
+
+
+def gather_shards(tree: Tree, specs: Tree, mesh) -> Tree:
+    """The whole tree of this rank's shards ``tree`` under ``specs`` on
+    ``mesh`` (a `DeviceMesh`): every sharded dim all-gathered over each
+    of its axes, the minor axis first, so that a ('pod', 'data') entry
+    comes back pod-major as `local_slices` cut it.  The inverse of
+    `repro_torch.launch.engine.Engine.shard` (a serving rank's cache
+    under `cache_specs`, its serve params).  Collective: every rank of
+    the mesh calls it with its own shards.  Over gloo a device tensor
+    travels through a host copy and comes back on its device."""
+    import torch
+    import torch.distributed as dist
+    flat = dict(flat_specs(specs, tree))
+
+    def whole(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        for d, entry in enumerate(flat[path]):
+            for a in reversed(_axes_of(entry)):
+                group = mesh.get_group(a)
+                # gloo gathers host tensors; never called inside a step
+                host = dist.get_backend(group) == "gloo"
+                src = x.cpu() if host else x  # lint: allow(host-pull-in-traced)
+                parts = [torch.empty_like(src)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, src.contiguous(), group=group)
+                x = torch.cat(parts, dim=d).to(x.device)
+        return x
+    return map_with_path(whole, tree)
 
 
 def shard_bytes(tree: Tree, specs: Tree, mesh_shape: Dict[str, int]) -> int:

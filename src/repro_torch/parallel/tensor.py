@@ -43,6 +43,15 @@ a step goes through: the partial sums over model-sharded parts are
 all-reduced over the group, the replicated parts counted once;
 `sum_each` is its per-part twin for the per-leaf norms, and
 `norm_helpers` binds both to an algorithm's axis and tree.
+
+Serving over the axis keeps a cache that the partition rules shard by
+sequence position (the KV cache of a model whose KV heads do not divide
+the axis, MLA's latents, a windowed kind's ring over one KV head) as
+each rank's block of positions: `write_owned` writes a new token's entry
+on the rank that owns its position only, and `gather_positions` gathers
+a layer's blocks into the whole row for one attend, which then runs over
+the same row as in one process (the gathered copy is freed with the
+attend's locals).
 """
 from __future__ import annotations
 
@@ -54,7 +63,10 @@ import torch
 from repro_torch.instrument import scope
 
 # the ROADMAP items the refusals of a tensor-parallel layout name
-SERVE_ITEM = "ROADMAP queue A item 6.4: sharded serving over 'model'"
+PAGED_ONE_PROCESS = ("the reference serves its paged layouts, chunked "
+                     "prefill and its scheduler in one process only "
+                     "(repro.launch.serve builds Engine(model) without a "
+                     "mesh); over a mesh it serves the dense layout")
 WIRE_ITEM = ("ROADMAP queue A item 6.7.6: compressed and quantized wires "
              "over 'model'")
 UNEVEN_ITEM = "ROADMAP queue A item 6.8: uneven layouts over 'model'"
@@ -112,6 +124,44 @@ class ModelAxis:
         """The first index of this rank's block of a dim sharded in
         ``n_local``-long blocks."""
         return self.rank * n_local
+
+    def gather_positions(self, *xs: torch.Tensor, dim: int = 1
+                         ) -> Tuple[torch.Tensor, ...]:
+        """Each of ``xs`` (one dtype, equal but in the last dim; e.g. a
+        layer's k and v cache blocks (B, C / M, KV, hd), or MLA's ckv and
+        k_rope (B, C / M, r)) gathered along the sequence dim ``dim`` in
+        rank order: one all-gather of the tensors joined on their last
+        dim.  Forward only (serving).  Each rank receives (M − 1) / M of
+        the whole rows' bytes."""
+        import torch.distributed as dist
+        widths = [x.shape[-1] for x in xs]
+        src = torch.cat(xs, dim=-1).contiguous() if len(xs) > 1 \
+            else xs[0].contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        with torch.no_grad(), scope("tp"):
+            dist.all_gather(parts, src, group=self.group)
+        whole = torch.cat(parts, dim=dim)
+        return tuple(whole.split(widths, dim=-1)) if len(xs) > 1 \
+            else (whole,)
+
+
+def write_owned(buf: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor,
+                value: torch.Tensor, axis: Optional[ModelAxis]) -> None:
+    """``buf[rows, slot] = value`` in place, for ``buf`` (B, n, ...) a
+    cache whose dim 1 is this rank's block of ``n`` positions of a
+    sequence sharded over ``axis`` (the whole sequence without one):
+    only the rank that owns ``slot`` (B,) writes; the others write back
+    what they hold (no host sync on ``slot``)."""
+    value = value.to(buf.dtype)
+    if axis is None:
+        buf[rows, slot] = value
+        return
+    n = buf.shape[1]
+    local = slot - axis.shard_start(n)
+    mine = (local >= 0) & (local < n)
+    at = local.clamp(0, n - 1)
+    mine = mine.reshape(mine.shape + (1,) * (value.dim() - 1))
+    buf[rows, at] = torch.where(mine, value, buf[rows, at])
 
 
 def _all_reduce(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:

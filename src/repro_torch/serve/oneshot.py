@@ -12,6 +12,13 @@ for the tokens.  The continuous-batching path for request streams is
 Samplers take ``(logits, generator, temperature)``.  ``categorical`` draws
 with the Gumbel-max trick from the caller's `torch.Generator`: the same
 distribution as the reference's ``jax.random.categorical``, not its bits.
+
+Over a 'model' axis (a model ``with_model_axis``) every rank runs the
+loop on its shards and samples from the whole logits, which the model
+gathers over the axis: greedy picks the same token on every rank, and
+so does ``categorical`` when every rank seeds its generator alike (the
+ranks then draw the same noise).  Only greedy is held to the reference,
+whose draws are ``jax.random``'s.
 """
 from __future__ import annotations
 
@@ -69,7 +76,9 @@ class OneShotGenerator:
         ``cache_len`` (>= n_patches + P + gen + 1) overrides the cache
         allocation; the result does not depend on it (positions past the
         current one are masked), and parity tests use it to match a paged
-        layout's linearized length."""
+        layout's linearized length.  Over a 'model' axis of M it is
+        rounded up to a multiple of M, so that the ranks' blocks of
+        positions divide it."""
         model = self.model
         vlm = model.cfg.vlm is not None
         sample = SAMPLERS[resolve_sampler(sampler, temperature)]
@@ -82,6 +91,8 @@ class OneShotGenerator:
         if cache_len < need:
             raise ValueError(f"cache_len {cache_len} < prompt + gen + 1 = "
                              f"{need}")
+        if getattr(model, "tp", None) is not None:
+            cache_len = -(-cache_len // model.tp.size) * model.tp.size
         logits, cache = model.prefill(params, batch, cache_len=cache_len)
         tok = sample(logits, generator, temperature)
         pos = torch.full((), P + offset, dtype=torch.long,

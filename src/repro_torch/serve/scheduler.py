@@ -98,6 +98,7 @@ class Scheduler:
                  use_kernel: Optional[bool] = None, decode_burst: int = 1,
                  prefill_chunk: int = 0, prefix_cache: bool = False,
                  kv_dtype: Optional[str] = None):
+        model._refuse_paged("the Scheduler")
         if model.cfg.encoder is not None or model.cfg.vlm is not None:
             raise NotImplementedError(
                 "continuous batching serves text-only requests; "

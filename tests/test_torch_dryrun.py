@@ -296,3 +296,38 @@ def test_tensor_parallel_collectives_are_the_hand_count(tmp_path):
     assert ro["collective_tp_s"] == pytest.approx(ro["tp_bytes"] / 450e9)
     assert ro["coll_breakdown"]["tp"] == ro["tp_bytes"]
     assert "tensor-parallel" in ro["note"]
+
+
+def test_tensor_parallel_decode_collectives_are_the_hand_count(tmp_path):
+    """On a (1, 2) fake mesh the dry-run traces one rank's serving decode
+    step at decode_32k (b 128, a 32,768-position cache, bf16) through an
+    Engine without an algorithm, on the rank's serve shards, batch and
+    cache shard, and prices its ``tp`` collectives.  By hand: the
+    embedding's sum (b·d bf16), each layer's two row-parallel sums
+    (``wo``, ``w_down``: b·d f32), the rank's vocabulary columns gathered
+    (b·V/2 f32); granite (one KV head, its cache by position) adds each
+    layer's k and v blocks gathered for the attend (b·C/2·KV·2·hd
+    bf16), the reduced qwen3 (its cache by KV head) nothing."""
+    out = tmp_path / "dr"
+    r = _python("import torch; torch.set_num_threads(1)\n"
+                "from pathlib import Path\n"
+                "from repro_torch.launch import dryrun\n"
+                + "".join(f"dryrun.run_one({a!r}, 'decode_32k', '1x2', "
+                          f"out_dir=Path({str(out)!r}), cut=True)\n"
+                          for a in ("qwen3-0.6b", "granite-20b")), tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    shape = INPUT_SHAPES["decode_32k"]
+    b, C = shape.global_batch, shape.seq_len
+    for arch, by_position in (("qwen3-0.6b", False), ("granite-20b", True)):
+        rec = json.loads((out / f"{arch}__decode_32k__1x2__dc_s3gd.json")
+                         .read_text())
+        cfg = reduced(get_config(arch))
+        d, L, hd = cfg.d_model, cfg.n_layers, cfg.resolved_head_dim
+        vp = -(-cfg.vocab_size // 256) * 256
+        want = b * d * 2 + L * 2 * b * d * 4 + b * (vp // 2) * 4
+        if by_position:
+            want += L * b * (C // 2) * cfg.n_kv_heads * 2 * hd * 2
+        ro = rec["roofline"]
+        assert rec["status"] == "ok" and rec["n_chips"] == 2
+        assert ro["tp_bytes"] == want, arch
+        assert ro["collective_tp_s"] == pytest.approx(want / 450e9)

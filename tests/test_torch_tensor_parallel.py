@@ -36,9 +36,12 @@ and in one subprocess of its own.
 * Vocab-parallel `chunked_xent` equals the one-process loss, padded
   columns included; a checkpoint saved under (1, 2) or (2, 2) restores
   under ``mesh=None`` to the gathered state bitwise; what stays
-  refused over 'model' (serving, the compressed and quantized wires, an
+  refused over 'model' (the compressed and quantized wires, an
   indivisible dim) raises at `Engine` construction, naming its ROADMAP
-  item.
+  item; an Engine without an algorithm binds the model to the axis
+  (serving: `tests/test_torch_tp_serve.py`), and the paged serving seam
+  (a paged layout, its decode ops, chunked prefill, the Scheduler) is
+  refused over 'model', naming the reference's one-process serving.
 """
 import functools
 import os
@@ -321,18 +324,18 @@ class _Mesh:
         self.shape = tuple(shape.values())
 
 
-# name -> (architecture, algorithm spec (None: serving), the words the
-# refusal names, the ROADMAP item it names).  Every family, local
-# optimizer, λ mode, weight-mixing reducer, staleness policy, DC-ASGD
-# and the overlap pipeline train over 'model' (tests/test_torch_tp_
-# families.py, tests/test_torch_tp_pieces.py); what stays refused is
-# serving, the compressed wires and a quantized comm_dtype (each
-# selects, counts or scales over a bucket, and the ranks' local plans
-# are not the reference's buckets: tests/test_torch_tp_reference.py
-# shows the int8 wire's difference), and an indivisible dim.
+# name -> (architecture, algorithm spec, the words the refusal names,
+# the ROADMAP item it names).  Every family, local optimizer, λ mode,
+# weight-mixing reducer, staleness policy, DC-ASGD and the overlap
+# pipeline train over 'model' (tests/test_torch_tp_families.py,
+# tests/test_torch_tp_pieces.py), and every family serves over it
+# (tests/test_torch_tp_serve.py); what stays refused is the compressed
+# wires and a quantized comm_dtype (each selects, counts or scales over
+# a bucket, and the ranks' local plans are not the reference's buckets:
+# tests/test_torch_tp_reference.py shows the int8 wire's difference),
+# and an indivisible dim.
 WIRE = "ROADMAP queue A item 6.7.6"
 REFUSED = {
-    "serving": ("qwen3-0.6b", None, "serving", "ROADMAP queue A item 6.4"),
     "topk": ("qwen3-0.6b", {"reducer": "topk", "buckets": 2}, "'topk'",
              WIRE),
     "topk_exact": ("qwen3-0.6b", {"reducer": "topk_exact", "buckets": 2},
@@ -361,15 +364,76 @@ def test_refusals_raise_at_construction(monkeypatch, name):
     monkeypatch.setattr(M, "make_workers", lambda mesh: ProcessWorkers(
         None, rank=0, size=M.n_workers(mesh)))
     model = Model(reduced(get_config(arch)))
-    alg = None if spec is None else MW._make(spec, 4)
+    alg = MW._make(spec, 4)
     # the reduced vocabulary (512 rows of `tok`) does not divide over 1024
     size = 1024 if name == "indivisible" else 2
     with pytest.raises(ValueError, match=item) as e:
         Engine(model, alg, mesh=_Mesh(data=1, model=size))
     assert words in str(e.value)
-    if alg is not None:
-        # the same algorithm and model with mesh=None are accepted
-        Engine(model, MW._make(spec, 4))
+    # the same algorithm and model with mesh=None are accepted
+    Engine(model, MW._make(spec, 4))
+
+
+def _stand_in_axes(monkeypatch):
+    """`launch.mesh`'s worker seam and 'model' axis over a stand-in mesh
+    (no process group)."""
+    from repro_torch.core.reduce import ProcessWorkers
+    from repro_torch.launch import mesh as M
+    from repro_torch.parallel.tensor import ModelAxis
+    monkeypatch.setattr(M, "make_workers", lambda mesh: ProcessWorkers(
+        None, rank=0, size=M.n_workers(mesh)))
+    monkeypatch.setattr(M, "model_axis", lambda mesh: ModelAxis(
+        None, rank=0, size=M.model_size(mesh)))
+
+
+def test_serving_binds_the_model_axis_without_an_algorithm(monkeypatch):
+    """An Engine built only to serve binds the model to the 'model' axis
+    (and still refuses an indivisible dim)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.transformer import Model
+    _stand_in_axes(monkeypatch)
+    model = Model(reduced(get_config("qwen3-0.6b")))
+    engine = Engine(model, mesh=_Mesh(data=1, model=2))
+    assert engine.model.tp.size == 2 and engine.model_axis.size == 2
+    with pytest.raises(ValueError, match="ROADMAP queue A item 6.8"):
+        Engine(model, mesh=_Mesh(data=1, model=1024))
+
+
+def _paged(model):
+    from repro_torch.models.cache import PagedLayout
+    return PagedLayout(model, n_slots=2, num_pages=4, page_size=8,
+                       max_pages=2)
+
+
+def _scheduler(model):
+    from repro_torch.serve.scheduler import Scheduler
+    return Scheduler(model, None)
+
+
+# the paged serving seam, one process's in the reference
+# (repro.launch.serve builds Engine(model) without a mesh): each entry
+# point given a model over a 'model' axis of 2
+PAGED = {
+    "cache_ops": lambda model: model.decode_step(
+        None, None, {"pos": None}, cache_ops=object()),
+    "prefill_chunk": lambda model: model.prefill_chunk(
+        None, None, {}, positions=None, cache_ops=None),
+    "paged_layout": _paged,
+    "scheduler": _scheduler,
+}
+
+
+@pytest.mark.parametrize("what", sorted(PAGED))
+def test_paged_serving_refused_over_model(what):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.transformer import Model
+    from repro_torch.parallel.tensor import ModelAxis
+    model = Model(reduced(get_config("qwen3-0.6b"))).with_model_axis(
+        ModelAxis(None, rank=0, size=2))
+    with pytest.raises(ValueError, match="one process only") as e:
+        PAGED[what](model)
+    assert "repro.launch.serve" in str(e.value)
 
 
 def test_the_cnn_runs_replicated_over_model(tmp_path):

@@ -171,3 +171,103 @@ def assert_close(a, b, tol, what, base=None):
         np.testing.assert_allclose(x, y, rtol=0,
                                    atol=tol * float(np.abs(y).max()),
                                    err_msg=what)
+
+
+_REFERENCE_SERVE_MESH = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_config, reduced
+from repro.launch.engine import Engine, mesh_context
+from repro.models.transformer import Model
+mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(1, 2),
+                         ("data", "model"))
+assert len(jax.devices()) == 2
+for i, (arch, cache_len, gen) in enumerate({runs}):
+    cfg = reduced(get_config(arch))
+    model = Model(cfg, remat=False)
+    engine = Engine(model, mesh=mesh)
+    params = model.init(jax.random.PRNGKey(0))
+    batch = {{k: jnp.asarray(v) for k, v in
+              np.load(f"{{sys.argv[1]}}/prompt{{i}}.npz").items()}}
+    batch["tokens"] = batch["tokens"].astype(jnp.int32)
+    B = batch["tokens"].shape[0]
+    p_sh, b_sh, _ = engine.serve_shardings(params, batch=batch,
+                                           global_batch=B)
+    with mesh_context(mesh):
+        logits, cache = jax.jit(
+            lambda p, b: model.prefill(p, b, cache_len=cache_len),
+            in_shardings=(p_sh, b_sh))(params, batch)
+        step = {{"tokens": jnp.zeros((B, 1), jnp.int32),
+                 "pos": jnp.int32(0)}}
+        _, s_sh, c_sh = engine.serve_shardings(params, batch=step,
+                                               cache=cache, global_batch=B)
+        decode = jax.jit(lambda p, c, b: model.decode_step(p, c, b),
+                         in_shardings=(p_sh, c_sh, s_sh),
+                         out_shardings=(None, c_sh), donate_argnums=1)
+        cache = jax.device_put(cache, c_sh)
+        out, tok = [np.asarray(logits)], jnp.argmax(logits, -1)
+        toks = [np.asarray(tok)]
+        pos = batch["tokens"].shape[1]
+        for t in range(gen - 1):
+            logits, cache = decode(params, cache, {{
+                "tokens": tok[:, None].astype(jnp.int32),
+                "pos": jnp.int32(pos + t)}})
+            tok = jnp.argmax(logits, -1)
+            out.append(np.asarray(logits))
+            toks.append(np.asarray(tok))
+    np.savez(f"{{sys.argv[1]}}/serve{{i}}.npz", tokens=np.stack(toks, 1),
+             **{{f"logits{{j}}": x for j, x in enumerate(out)}})
+"""
+
+
+class Pending:
+    """A subprocess running while the caller does other work: `wait`
+    returns ``read()`` once it has exited 0 (the same object on every
+    call); `close` kills it if it still runs."""
+
+    def __init__(self, proc, read):
+        self.proc, self.read, self._res = proc, read, None
+
+    def wait(self):
+        if self._res is None:
+            _, err = self.proc.communicate(timeout=900)
+            assert self.proc.returncode == 0, err[-3000:]
+            self._res = self.read()
+        return self._res
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def reference_serve_mesh(runs, out: Path) -> Pending:
+    """Start the reference's greedy one-shot loop with its
+    ``model.prefill`` and ``model.decode_step`` jitted under its own
+    ``serve_shardings`` (params by the partition rules, the batch's rows,
+    the caches by ``cache_specs``) on a (1, 2) mesh of two forced host
+    CPU devices, for each ``(name, prompt batch (numpy dict), cache_len,
+    gen)`` of ``runs``, in one subprocess.  Its `Pending.wait` gives, per
+    run, ``logits`` (the prefill's, then each decode step's (B,
+    vocab_padded)) and the (B, gen) greedy ``tokens``."""
+    for i, (_, batch, _, _) in enumerate(runs):
+        np.savez(out / f"prompt{i}.npz", **batch)
+    code = _REFERENCE_SERVE_MESH.format(
+        runs=repr([(_arch(n), int(c), int(g)) for n, _, c, g in runs]))
+    proc = subprocess.Popen([sys.executable, "-c", code, str(out)],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True, cwd=out,
+                            env={**os.environ,
+                                 "PYTHONPATH": str(ROOT / "src"),
+                                 "OMP_NUM_THREADS": "1"})
+
+    def read() -> list:
+        res = []
+        for i, (_, _, _, gen) in enumerate(runs):
+            f = np.load(out / f"serve{i}.npz")
+            res.append({"logits": [f[f"logits{j}"] for j in range(gen)],
+                        "tokens": f["tokens"]})
+        return res
+    return Pending(proc, read)

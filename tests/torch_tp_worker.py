@@ -32,12 +32,12 @@ import torch_mesh_worker as MW
 # the configurations, reduced: qk norm and GQA; one KV head (replicated
 # k / v); layernorm; routed experts; Mamba; RG-LRU + windowed attention
 # on one KV head; MLA; an encoder-decoder (bidirectional encoder, cross
-# attention); a VLM (the patch projection, M-RoPE)
+# attention); a VLM (the patch projection, M-RoPE); a second MoE (GQA)
 ARCHS = {"qwen3": "qwen3-0.6b", "granite": "granite-20b",
          "stablelm": "stablelm-3b", "olmoe": "olmoe-1b-7b",
          "mamba": "falcon-mamba-7b", "rgemma": "recurrentgemma-9b",
          "minicpm": "minicpm3-4b", "whisper": "whisper-large-v3",
-         "qwen2vl": "qwen2-vl-7b"}
+         "qwen2vl": "qwen2-vl-7b", "phi": "phi3.5-moe-42b-a6.6b"}
 
 
 def config(name: str):
