@@ -268,6 +268,14 @@ Phases (any failure exits non-zero before the result line):
    (`tok` and the first norm within 2e-2); the replicated leaves bitwise
    equal across the model ranks after every step, A1 / A2 once per local
    bucket and step on every rank; each rank's peak beside mesh=None's.
+   Since slice 19 also the compressed and quantized wires on qwen3 x2
+   at f32 (the dense wire, topk 1 %, topk_exact, randk, powersgd, int8,
+   fp8 per leaf): each reduces the whole buckets gathered over 'model',
+   is held to its twin by a count of flipped coordinates, its reducer
+   state bitwise across the model ranks, B3 12 = 3 x 4 whole buckets a
+   rank under topk / topk_exact (its cross-rank modes first held to its
+   plain version at the whole size the main cell's check lacks), each
+   cell's peak a rank printed beside the dense wire's.
 
 19. the paper's worker axis across ranks for every reducer: (a) the main
    cell on an NCCL mesh of one rank under gossip, hierarchical, topk 1 %,
@@ -293,7 +301,8 @@ Phases (any failure exits non-zero before the result line):
    24, whisper's encoder and cross-attention on 10 of 20 heads) and B6
    on falcon-mamba's 4,096 of 8,192 channels, against their plain
    versions, timed beside bound, plain version and SDPA; then (a)
-   qwen3-0.6b at its widths and 28 layers over (1, 2), 4 prompts of 512
+   qwen3-0.6b at its widths and 8 of 28 layers (28 until slice 19 made
+   room for phase 18's wire cells) over (1, 2), 4 prompts of 512
    tokens and 64 generated, at f32 and at the served bf16 compute, and
    each family at the smallest depth that holds its block kinds
    (granite-20b x1: KV by position; falcon-mamba-7b x1; recurrentgemma-9b
@@ -5064,8 +5073,37 @@ TP_PIECES = (
     ("hierarchical", TP_QWEN2 + ["--reducer", "hierarchical"], "float32"),
     ("dynamic_ssp", TP_QWEN2 + ["--staleness", "dynamic_ssp"], "float32"),
     ("dc_asgd", TP_QWEN2 + ["--algo", "dc_asgd"], "float32"))
+# the compressed and quantized wires over 'model' (slice 19) on the same
+# qwen3 x2, f32 compute, beside the dense wire's cell: each reduces the
+# whole buckets, gathered over the axis (fp8 per leaf: the per-leaf fused
+# tail, A1 / A2 once per leaf and step)
+TP_WIRES = (
+    ("dense", TP_QWEN2, "float32"),
+    ("topk", TP_QWEN2 + COMPRESSED, "float32"),
+    ("topk_exact", TP_QWEN2 + ["--reducer", "topk_exact"], "float32"),
+    ("randk", TP_QWEN2 + ["--reducer", "randk"], "float32"),
+    ("powersgd", TP_QWEN2 + ["--reducer", "powersgd"], "float32"),
+    ("int8", TP_QWEN2 + ["--comm-dtype", "int8"], "float32"),
+    ("fp8", TP_QWEN2 + ["--comm-dtype", "fp8", "--buckets", "0"],
+     "float32"))
+TP_WIRE_TAGS = tuple(t for t, _, _ in TP_WIRES if t != "dense")
+# the flip-count rule of the CPU tests (tests/test_torch_tp_wires.py,
+# tests/test_torch_tp_reference.py): a coordinate more than TP_WIRE_TOL
+# of its leaf's scale (of a weight's update, for params) off its twin's
+# counts as flipped (a selection threshold or a quantum boundary crossed
+# by last-bit differences of the gathered gradients), and a part of a
+# rank may hold TP_WIRE_FLIPS[tag] of its coordinates so: the larger of
+# the CPU tests' bound (300 of the reduced qwen3's 2,886,656 update
+# coordinates) and four times the worst share these cells flipped in the
+# CPU rehearsal at the reduced size (int8 16 and fp8 per leaf 84 of a
+# rank's 1,444,864 params; none under the compressed wires), fixed before
+# the first card run
+TP_WIRE_TOL = 1e-4
+TP_WIRE_FLIPS = {t: max(300 / 2_886_656, 4 * n / 1_444_864) for t, n in (
+    ("topk", 0), ("topk_exact", 0), ("randk", 0), ("powersgd", 0),
+    ("int8", 16), ("fp8", 84))}
 TP_PAIR = (("a", MAIN_ARGS, "bfloat16"), ("c", OLMOE_TRAIN, "bfloat16")) \
-    + TP_FAMILIES + TP_PIECES
+    + TP_FAMILIES + TP_PIECES + TP_WIRES
 TP_FOUR = (("b", MAIN_ARGS + ["--layers", "2"], "float32"),)
 # Adam at eps 1: at its default 1e-8 the first step is lr·sign(g), and a
 # gradient at the rounding floor flips its sign, so no rounding-order
@@ -5142,9 +5180,13 @@ def _tp_cell(mesh, tag: str, argv, compute: str) -> dict:
     kept slices and the slices' own scale.  A `TP_ILL` cell's
     one-process run is made again from weights one ulp up and one ulp
     down (`TP_NUDGES`), and each leaf's (each metric's) larger move under
-    the two nudges is kept beside.  The model computes in
-    ``compute``."""
+    the two nudges is kept beside.  A `TP_WIRE_TAGS` cell also counts,
+    per part, the coordinates flipped against the kept slices (the
+    params' as moves from the rank's initial weights) and digests its
+    whole-layout ``comm["reducer"]`` with the replicated leaves.  The
+    model computes in ``compute``."""
     import hashlib
+    import numpy as np
     import torch.distributed as dist
     from repro_torch import tree as T
     from repro_torch.cluster.membership import rebuild_algorithm
@@ -5178,9 +5220,11 @@ def _tp_cell(mesh, tag: str, argv, compute: str) -> dict:
 
     def parts(alg, state):
         out = {"params": state.params, "m": state.opt["m"]}
-        if "delta_prev" in state.comm:
-            out["delta"] = alg._plan(state.params).unpack(
-                state.comm["delta_prev"])
+        dp = state.comm.get("delta_prev")
+        if isinstance(dp, list):
+            out["delta"] = alg._plan(state.params).unpack(dp)
+        elif dp is not None:    # the per-leaf wire
+            out["delta"] = dp
         return out
 
     def run(engine, state, batch_fn):
@@ -5199,14 +5243,24 @@ def _tp_cell(mesh, tag: str, argv, compute: str) -> dict:
             whole = [x for f, x in zip(flags, T.leaves(state.params))
                      if not f] + [x for f, x in zip(
                          flags, T.leaves(state.opt["m"])) if not f]
-            if "delta_prev" in state.comm:
+            dp = state.comm.get("delta_prev")
+            if isinstance(dp, list):
                 plan = engine.alg._plan(state.params)
-                whole += [b for f, b in zip(plan.sharded,
-                                            state.comm["delta_prev"])
-                          if not f]
+                whole += [b for f, b in zip(plan.sharded, dp) if not f]
+            elif dp is not None:
+                whole += [x for f, x in zip(flags, T.leaves(dp)) if not f]
             digest = hashlib.sha256()
             for x in whole:
                 digest.update(x.detach().cpu().numpy().tobytes())
+            if "reducer" in state.comm:
+                # the whole-layout residuals (and powersgd's warm start),
+                # the same on every model rank: summed on the card
+                digest.update(_bits_sums([
+                    x for x in T.leaves(state.comm["reducer"])
+                    if isinstance(x, torch.Tensor)]).cpu().numpy()
+                    .tobytes())
+                digest.update(str(state.comm["reducer"].get("step"))
+                              .encode())
             digests.append(digest.hexdigest())
         return state, hist, digests
     rec, ref, t_cell = {}, None, time.perf_counter()
@@ -5276,6 +5330,10 @@ def _tp_cell(mesh, tag: str, argv, compute: str) -> dict:
         dist.barrier()
     params = model.init(torch.Generator(device="cuda")
                         .manual_seed(args.seed))
+    # a wire cell's initial weights, this rank's slices: the params'
+    # flips count moves from them
+    w0 = T.map(lambda x: x.cpu(), mine(params, model.cfg, False)) \
+        if tag in TP_WIRE_TAGS else None
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         engine = Engine(model, alg, mesh=mesh)
@@ -5296,20 +5354,43 @@ def _tp_cell(mesh, tag: str, argv, compute: str) -> dict:
     rec["fused"] = bool(args.use_kernels)
     rec["n_buckets"] = alg._plan(state.params).n_buckets \
         if getattr(alg, "buckets", 0) else 0
+    # the fused tail's launches a step: one a local bucket, or a leaf
+    rec["n_units"] = rec["n_buckets"] or len(T.leaves(state.params))
+    # the reducer's whole buckets over 'model' (B3's launches a step)
+    wire = alg._whole_wire(state.params) \
+        if hasattr(alg, "_whole_wire") else None
+    rec["whole_sizes"] = list(wire.sizes) if wire is not None else []
     rec["hist"] = [{k: h[k] for k in TP_METRICS if k in h} for h in hist]
     rec["admit"] = [h.get("ssp_admit") for h in hist]
     rec["digests"] = digests
     rec["model_index"], rec["worker_index"] = M.model_index(mesh), \
         M.worker_index(mesh)
-    rec["diff"] = {}
+    rec["diff"], rec["flips"], rec["counted"] = {}, {}, {}
     for part, tree in parts(alg, state).items():
         rec["diff"][part] = []
-        for (p, x), r in zip(shd.leaves_with_path(tree),
-                             T.leaves(ref[part])):
+        rec["flips"][part] = rec["counted"][part] = 0
+        bases = T.leaves(w0) if part == "params" and w0 is not None \
+            else None
+        for j, ((p, x), r) in enumerate(zip(shd.leaves_with_path(tree),
+                                            T.leaves(ref[part]))):
             r = r.to(x.device).float()
             d, scale = (x.float() - r).abs(), float(r.abs().max())
             rec["diff"][part].append(("/".join(map(str, p)),
                                       float(d.max()), scale))
+            if w0 is not None:
+                # the flip count: the twin's move from the initial
+                # weights sets a param leaf's scale (at least one ulp of
+                # its largest weight), its own values any other leaf's
+                floor, move = 0.0, scale
+                if bases is not None:
+                    b = bases[j].to(x.device).float()
+                    move = float((r - b).abs().max())
+                    floor = float(np.spacing(np.float32(
+                        float(b.abs().max()))))
+                    del b
+                tol = max(TP_WIRE_TOL * move, floor)
+                rec["flips"][part] += int((d > tol).sum())
+                rec["counted"][part] += d.numel()
             del d, r
     lead = 1 if getattr(alg, "worker_stacked", False) else 0
     rec["n_params_local"] = sum(x[0].numel() if lead else x.numel()
@@ -5327,6 +5408,32 @@ def _tp_cell(mesh, tag: str, argv, compute: str) -> dict:
 # last two
 TP_METRICS = ("loss", "lambda", "distance_norm", "delta_norm",
               "staleness_dist")
+
+
+def _tp_whole_sizes() -> tuple:
+    """The whole plan's bucket sizes of the `TP_WIRES` cells' qwen3 x2
+    (f32 params, ``N_BUCKETS``), which their wires reduce."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models.transformer import Model
+    from repro_torch.parallel.buckets import plan_buckets
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
+    return plan_buckets(S.abstract_params(Model(cfg)), N_BUCKETS) \
+        .bucket_sizes
+
+
+def _bits_sums(xs) -> torch.Tensor:
+    """Two int64 sums of the int32 bit patterns of the f32 tensors
+    ``xs`` (their values and their squares, wrapping): a digest taken on
+    the card, which any changed bit of a one-off element moves."""
+    acc = torch.zeros(2, dtype=torch.int64, device=xs[0].device)
+    for x in xs:
+        bits = x.detach().float().contiguous().view(-1).view(torch.int32)
+        for c in bits.split(1 << 24):
+            c = c.to(torch.int64)
+            acc[0] += c.sum()
+            acc[1] += (c * c).sum()
+    return acc
 
 
 def _free_card() -> None:
@@ -5398,7 +5505,7 @@ def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
                                     f"{move / scale:.3g} of scale under "
                                     f"the nudge")
                 tol = max(tol, 2 * move / scale)
-            if rel > tol:
+            if rel > tol and tag not in TP_WIRE_TAGS:
                 problems.append(f"({tag}) {part} {path} {rel:.3g} of scale "
                                 f"from mesh=None")
             if bf16:
@@ -5432,11 +5539,38 @@ def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
                         f"model ranks")
     for r in recs:
         for name, n in r["launches"].items():
-            want = TP_STEPS * r["n_buckets"] if r["fused"] and name in (
+            want = TP_STEPS * r["n_units"] if r["fused"] and name in (
                 "dc_norms", "dc_fused_update") else 0
+            if name == "select_ef_mean" and r["fused"] \
+                    and tag in ("topk", "topk_exact"):
+                # B3 once a whole bucket and step on every model rank
+                want = TP_STEPS * len(r["whole_sizes"])
             if n != want:
                 problems.append(f"({tag}) rank: {name} launched {n} times,"
                                 f" expected {want}")
+    flips = None
+    if tag in TP_WIRE_TAGS:
+        # the flip-count rule, per rank and part
+        flips = {part: [r["flips"][part] for r in recs]
+                 for part in recs[0]["flips"]}
+        for r in recs:
+            for part, n in r["flips"].items():
+                if n > TP_WIRE_FLIPS[tag] * r["counted"][part]:
+                    problems.append(
+                        f"({tag}) {part}: {n} of {r['counted'][part]} "
+                        f"coordinates flipped (bound "
+                        f"{TP_WIRE_FLIPS[tag] * r['counted'][part]:.0f})")
+        if len({tuple(r["whole_sizes"]) for r in recs}) != 1 \
+                or not recs[0]["whole_sizes"]:
+            problems.append(f"({tag}) whole buckets "
+                            f"{[r['whole_sizes'] for r in recs]}")
+        print(f"[tp] ({tag}) the wire over the whole buckets (leaves) "
+              f"{recs[0]['whole_sizes']}: flipped coordinates a rank "
+              f"{flips} of {[r['counted'] for r in recs]} (bound "
+              f"{TP_WIRE_FLIPS[tag]:.3g} of a part's; the worst leaf "
+              f"{ {p: float(f'{v:.3g}') for p, v in worst.items()} } of "
+              f"scale), B3 {[r['launches']['select_ef_mean'] for r in recs]}"
+              f" a rank [{smi}]")
     peaks = [r["peak"] for r in recs]
     peak_none = max(r["peak_none"] for r in recs)
     emb = f"; {', '.join(TP_BF16_LEAVES)} {worst_bf16:.3g}" \
@@ -5479,6 +5613,7 @@ def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
             "free_at_turn": [r["free_at_turn"] for r in recs],
             "held": [r["held"] for r in recs],
             "n_buckets": recs[0]["n_buckets"],
+            "whole_sizes": recs[0]["whole_sizes"], "flips": flips,
             "losses": [h["loss"] for h in recs[0]["hist"]],
             "fit_s": [r["fit_s"] for r in recs],
             "turn_s": [r["turn_s"] for r in recs],
@@ -5490,8 +5625,12 @@ def phase_tensor_parallel(smi: str) -> dict:
     """Phase 18: (a) qwen3-0.6b at its published widths, depth 28 -> 4,
     W = 2, on a (1, 2) mesh of two gloo ranks sharing the card, 3 steps;
     (c) olmoe-1b-7b, depth 1, W = 2, 32 experts a rank, on the same two
-    ranks, then the other families (`TP_FAMILIES`) and the training
-    pieces on qwen3 x2 (`TP_PIECES`) there; (b) qwen3 at depth 2,
+    ranks, then the other families (`TP_FAMILIES`), the training
+    pieces on qwen3 x2 (`TP_PIECES`) and the compressed and quantized
+    wires on qwen3 x2 (`TP_WIRES`: over the whole buckets, each held to
+    its twin by the flip-count rule, B3 once a whole bucket and step
+    under topk / topk_exact, after B3's cross-rank modes are held to its
+    plain version at those buckets' sizes) there; (b) qwen3 at depth 2,
     computing in f32, on a (2, 2) mesh of four ranks.  Each
     against ``mesh=None`` from the same weights (params, momentum and
     deltas within ``TP_TOL`` of each leaf's scale, the metrics within
@@ -5511,10 +5650,31 @@ def phase_tensor_parallel(smi: str) -> dict:
           f"({torch.cuda.memory_reserved() / 2**30:.3f} reserved), "
           f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB free [{smi}]")
     rec, t0, problems = {}, time.perf_counter(), []
+    whole = _tp_whole_sizes()
+    # B3's cross-rank modes at the whole sizes the main cell's check
+    # (phase 3, the same W) did not hold
+    b3 = phase_select_modes([n for n in whole if n not in EXPECTED_BUCKETS],
+                            W, smi, "tp")
     pair = _tp_spawn((1, 2), TP_PAIR)
     for tag, _, _ in TP_PAIR:
         rec[tag] = _tp_verdict(smi, tag, (1, 2), pair, problems)
         rec[tag]["fit_mean_s"] = sum(rec[tag]["fit_s"]) / 2
+    for tag in TP_WIRE_TAGS:
+        if tag != "fp8" and tuple(rec[tag]["whole_sizes"]) != whole:
+            problems.append(f"({tag}) whole buckets "
+                            f"{rec[tag]['whole_sizes']}, the plan's {whole}")
+    gib = 2 ** 30
+    print(f"[tp] peak a rank over (1, 2), qwen3 x2 f32: the dense wire "
+          f"{[round(p / gib, 3) for p in rec['dense']['peaks']]} GiB "
+          f"(mesh=None {rec['dense']['peak_none'] / gib:.3f}); "
+          + "; ".join(f"{t} {[round(p / gib, 3) for p in rec[t]['peaks']]}"
+                      f" ({rec[t]['peak_none'] / gib:.3f})"
+                      for t in TP_WIRE_TAGS) + f" [{smi}]")
+    # the wire cells' share of the phase: the slowest rank's cells
+    wires = {"whole_sizes": list(whole), "b3_modes": b3,
+             "cells_s": sum(max(rec[t]["cell_s"]) for t, _, _ in TP_WIRES)}
+    print(f"[lap] phase 18's wire cells ({len(TP_WIRES)}, the dense one "
+          f"included): {wires['cells_s']:.1f} s [{smi}]")
     four = _tp_spawn((2, 2), TP_FOUR)
     rec["b"] = _tp_verdict(smi, "b", (2, 2), four, problems)
     # the card's room left at a one-process turn's peak
@@ -5524,6 +5684,7 @@ def phase_tensor_parallel(smi: str) -> dict:
     print(f"[tp] headroom: the card had at least "
           f"{rec['headroom'][0] / 2**30:.3f} GiB left at a one-process "
           f"turn's peak ({rec['headroom'][1]}) [{smi}]")
+    rec["wires"] = wires
     rec["phase_s"] = time.perf_counter() - t0
     print(f"[tp] phase 18 took {rec['phase_s']:.1f} s with the ranks' "
           f"starts [{smi}]")
@@ -6039,14 +6200,15 @@ SV_TOL = 1e-5            # of each step's largest logit, f32 compute
 SV_BF16_TOL = 2.0 ** -9
 SV_RANKS_LIMIT_S = 600
 # cell -> (arch, layers (0: all), batch, prompt tokens, generated tokens,
-# compute dtype).  (a) qwen3-0.6b at its widths and depth over (1, 2), f32
-# and the served bf16; (c) each family at the smallest depth that holds
-# its block kinds, f32, over (1, 2); (b) qwen3 over (2, 2), four ranks, one
-# pair of rows a data rank, f32, cut to 4 of 28 layers (at 28 the cell
-# took 30 s of a 153 s phase on an H100, the script 1,029 s: (a) holds
-# the depth)
-SV_MAIN = {"a": ("qwen3-0.6b", 0, 4, 512, 64, "float32"),
-           "a_bf16": ("qwen3-0.6b", 0, 4, 512, 64, "bfloat16")}
+# compute dtype).  (a) qwen3-0.6b at its widths over (1, 2), f32 and the
+# served bf16, cut to 8 of 28 layers since slice 19 (its host-bound
+# loops took 37.4 / 17.0 s at 28, and phase 18's wire cells ~115 s); (c)
+# each family at the smallest depth that holds its block kinds, f32,
+# over (1, 2); (b) qwen3 over (2, 2), four ranks, one pair of rows a data
+# rank, f32, cut to 4 of 28 layers (at 28 the cell took 30 s of a 153 s
+# phase on an H100, the script 1,029 s)
+SV_MAIN = {"a": ("qwen3-0.6b", 8, 4, 512, 64, "float32"),
+           "a_bf16": ("qwen3-0.6b", 8, 4, 512, 64, "bfloat16")}
 SV_FAMILIES = {
     "granite": ("granite-20b", 1, 2, 128, 16, "float32"),
     "mamba": ("falcon-mamba-7b", 1, 2, 128, 16, "float32"),
@@ -6455,7 +6617,8 @@ def phase_serve_mesh(smi: str) -> dict:
     """Phase 20: serving over the mesh.  Each cell's one-process twin
     runs first in this process (its logits, tokens, peak; freed before
     the ranks start), then two gloo ranks sharing the card serve (a)
-    qwen3-0.6b at its widths and 28 layers over (1, 2), 4 prompts of 512
+    qwen3-0.6b at its widths and 8 of 28 layers over (1, 2), 4 prompts
+    of 512
     tokens and 64 generated, at f32 and at the served bf16 compute, and
     each family at the smallest depth that holds its block kinds
     (`SV_FAMILIES`), f32; then four ranks serve (b) qwen3 at 4 of 28
@@ -6967,6 +7130,15 @@ def main() -> int:
                 r["launches"][name] for r in s19["qwen3"]["ranks"]]}
         if name == "select_ef_mean":
             entry["modes_checked"] = b3_modes
+    # slice 19: each kernel's launches a rank in phase 18's wire cells
+    # (counts zeroed before each cell's mesh run, read after); B3's at the
+    # whole buckets, whose cross-rank modes were held to its plain version
+    for entry in kernels:
+        name = entry["name"]
+        entry["tp_wires"] = {"launches_by_cell": {
+            t: [n[name] for n in s15[t]["launches"]] for t, _, _ in TP_WIRES}}
+        if name == "select_ef_mean":
+            entry["tp_wires"]["whole_sizes"] = s15["wires"]["whole_sizes"]
     # slice 18: B5 and B6 on the served path over the mesh (counts zeroed
     # before each cell's loop and generate, read after, per rank) and at
     # the local shapes, each beside its bound, plain version and SDPA

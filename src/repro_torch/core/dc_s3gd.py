@@ -22,7 +22,8 @@ the same calls run their plain versions.  ``buckets > 0`` packs the wire
 state and the fused tail into a few flat buffers
 (`repro_torch.parallel.buckets`); within the port the bucketed and
 per-leaf trajectories are bitwise equal.  A stateful (compressed) reducer
-carries its state in ``comm["reducer"]`` and needs ``buckets > 0``.
+carries its state in ``comm["reducer"]`` and needs ``buckets > 0``; its
+layout is the whole tree's plan (`reducer_plan`).
 
 A weight-mixing reducer (``gossip``, ``hierarchical``: ``reduces_weights``)
 mixes the carried weights instead of the deltas (D-PSGD), D = R(w) − w,
@@ -47,8 +48,16 @@ sharded and whole leaves apart, and every norm the step takes (Eq. 17's,
 per tensor too, LARS's per leaf, the metrics') sums the sharded partials
 over the axis (`repro_torch.parallel.tensor.sum_parts` / ``sum_each``),
 one collective for each set of norms.  The reducers, the staleness
-policy and the overlap pipeline act on the local shards and buckets
-within the worker group of the rank's 'model' coordinate.
+policy and the overlap pipeline act within the worker group of the
+rank's 'model' coordinate, on the local shards and buckets where the
+reduction is elementwise; a compressed wire or a quantized
+``comm_dtype`` (`repro_torch.core.reduce.layout_bound`) reduces the
+reference's whole buckets instead (the per-leaf wire its whole leaves),
+gathered over the axis and cut back after the reduce
+(`repro_torch.parallel.tensor.WholeWire`), so its threshold, ``k``,
+index draw, matrix shape and row scales are one process's, and its
+``comm["reducer"]`` lives in the whole plan's layout, replicated over
+'model', as the reference's specs place it.
 
 The first iteration of Algorithm 1 (the plain step before the loop) is
 ``delta_prev = 0``: then D = 0, λ = 0 and the step is plain momentum SGD.
@@ -65,13 +74,13 @@ from repro_torch import tree as T
 from repro_torch.core import registry
 from repro_torch.core.api import LossFn, Metrics, TrainState
 from repro_torch.core.correction import worker_sq_sum
-from repro_torch.core.reduce import LAYOUT_ITEM, LOCAL
+from repro_torch.core.reduce import LAYOUT_ITEM, LOCAL, layout_bound
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
 from repro_torch.optim.schedules import linear_warmup_linear_decay
 from repro_torch.parallel.tensor import (leaf_flags, norm_helpers,
-                                         sum_parts)
+                                         sum_parts, whole_wire)
 
 Tree = object
 
@@ -149,6 +158,8 @@ class DCS3GD:
             PL.validate(buckets=self.buckets, reducer=self.reducer,
                         staleness=self.staleness)
         self._plan_cache: dict = {}
+        # the `WholeWire` of each state layout (`_whole_wire`)
+        self._wire_cache: dict = {}
         self.workers = LOCAL
         # the overlap pipeline's in-flight reduce on a mesh (a
         # `PendingMean` and the landed buffers it fills)
@@ -199,6 +210,31 @@ class DCS3GD:
                              sharded=None if whole
                              else self._sharded(worker_params))
 
+    def _whole_wire(self, worker_params: Tree):
+        """The `WholeWire` of a (W, ...) state tree's layout when the wire
+        reduces the whole buckets (leaves) over the 'model' axis: a
+        reducer whose result depends on the bucket it reduces
+        (`layout_bound`) under a bound axis; else None."""
+        if self.model_axis is None or not layout_bound(self.reducer):
+            return None
+        key = tuple((tuple(x.shape), x.dtype)
+                    for x in T.leaves(worker_params))
+        if key not in self._wire_cache:
+            self._wire_cache[key] = whole_wire(
+                self.model_axis, self._model_cfg, worker_params, lead=1,
+                local=self._plan(worker_params) if self.buckets else None,
+                plan_of=lambda tree: self._plan(tree, whole=True))
+        return self._wire_cache[key]
+
+    def reducer_plan(self, worker_params: Tree):
+        """The bucket plan of the reducer's wire and carried state: the
+        whole tree's under `_whole_wire`, else this rank's (None without
+        buckets)."""
+        if not self.buckets:
+            return None
+        wire = self._whole_wire(worker_params)
+        return wire.whole if wire is not None else self._plan(worker_params)
+
     def init(self, params: Tree) -> TrainState:
         sdt = _STATE_DTYPES[self.cfg.state_dtype]
         rows = self.workers.rows(self.n_workers)
@@ -220,8 +256,7 @@ class DCS3GD:
         # warm-started factors across steps under comm["reducer"]
         if not self._reducer_stateless:
             comm["reducer"] = self.reducer.init(
-                self.n_workers, self._plan(wp) if self.buckets else None,
-                device=device)
+                self.n_workers, self.reducer_plan(wp), device=device)
         if self.overlap:
             # prime the pipeline with the call the inline schedule makes on
             # step 0: the reduce of the zero payload (the packed initial
@@ -229,19 +264,22 @@ class DCS3GD:
             from repro_torch.parallel import pipeline as PL
             wire0 = self._plan(wp).pack(wp) if self._reduces_weights \
                 else comm["delta_prev"]
-            comm["pipeline"], rs = self._issue(wire0, comm.get("reducer"))
+            comm["pipeline"], rs = self._issue(wire0, comm.get("reducer"),
+                                               wp)
             if rs is not None:
                 comm["reducer"] = rs
         return TrainState(params=wp, opt=opt, comm=comm, step=0)
 
-    def _issue(self, wire, rstate):
-        """The overlap pipeline's issue: synchronous in one process, an
+    def _issue(self, wire, rstate, params):
+        """The overlap pipeline's issue: synchronous in one process (and
+        over the whole buckets, `_whole_wire` of ``params``' layout), an
         asynchronous all-reduce on a mesh (the handle stays here)."""
         from repro_torch.parallel import pipeline as PL
         if self._async_wire:
             pstate, self._inflight = PL.issue_async(self.reducer, wire)
             return pstate, None
-        return PL.issue(self.reducer, wire, rstate)
+        return PL.issue(self.reducer, wire, rstate,
+                        whole=self._whole_wire(params))
 
     @property
     def _reducer_stateless(self) -> bool:
@@ -251,9 +289,12 @@ class DCS3GD:
     def _async_wire(self) -> bool:
         """The wire is an asynchronous collective: a process group's
         worker axis under a reducer with the ``start`` / ``finish``
-        split (``mean_allreduce``)."""
+        split (``mean_allreduce``), on the rank's own buckets (a wire
+        over the whole buckets waits on its gather anyway)."""
         return self.workers.distributed and self._reducer_stateless \
-            and hasattr(self.reducer, "start")
+            and hasattr(self.reducer, "start") \
+            and not (self.model_axis is not None
+                     and layout_bound(self.reducer))
 
     @property
     def _reduces_weights(self) -> bool:
@@ -268,6 +309,7 @@ class DCS3GD:
         cfg = self.cfg
         lr, wd = schedules(state.step, cfg)
         plan = self._plan(state.params) if self.buckets else None
+        whole = self._whole_wire(state.params)
 
         # --- MPI_Iallreduce of the carried deltas (bucketed when buckets>0),
         # or of the weights themselves for a weight-mixing reducer; depends
@@ -279,18 +321,23 @@ class DCS3GD:
             r_in = state.comm["delta_prev"]
         rstate = pending = reduced = None
         if not self.overlap:
+            # over 'model', the whole buckets this reduce runs over
+            w_in = r_in if whole is None else whole.gather(r_in)
             # the `wire` scope marks the wire's ops in an op trace
             # (repro_torch.analysis.lint), as the reference's named scope
             # marks its HLO
             with scope("wire"):
                 if self._async_wire:
                     # on a mesh: issued here, waited on after the grads
-                    pending = self.reducer.start(r_in)
+                    pending = self.reducer.start(w_in)
                 elif self._reducer_stateless:
-                    reduced = self.reducer(r_in)
+                    reduced = self.reducer(w_in)
                 else:
-                    reduced, rstate = self.reducer(r_in,
+                    reduced, rstate = self.reducer(w_in,
                                                    state.comm["reducer"])
+            if whole is not None and reduced is not None:
+                # the rank's shards of the whole result: static slices
+                reduced = whole.scatter(reduced)
 
         # --- g_i = ∇l(w_i): per-worker gradients
         with scope("model"):
@@ -325,7 +372,7 @@ class DCS3GD:
                 if rstate is not None and hasattr(self.reducer, "revoke"):
                     # the compressed payload never reached the trajectory:
                     # it returns to the error-feedback residual
-                    rstate = self.reducer.revoke(r_in, state.comm["reducer"],
+                    rstate = self.reducer.revoke(w_in, state.comm["reducer"],
                                                  rstate)
             pol_metrics = {"ssp_admit": float(admit)}
 
@@ -415,7 +462,7 @@ class DCS3GD:
                 else comm["delta_prev"]
             rs_in = None if self._reducer_stateless \
                 else prev_comm["reducer"]
-            comm["pipeline"], rs_out = self._issue(wire, rs_in)
+            comm["pipeline"], rs_out = self._issue(wire, rs_in, params)
             if rs_out is not None:
                 comm["reducer"] = rs_out
         return comm
@@ -443,8 +490,11 @@ class DCS3GD:
         if "staleness" in state.comm:
             overrides["staleness"] = self.staleness.state_specs(axes)
         if "reducer" in state.comm:
+            # the reducer's own buckets (the whole plan's over 'model',
+            # replicated there, in a rank's state as in a gathered one)
+            from repro_torch.parallel.buckets import BucketSizes
             overrides["reducer"] = self.reducer.state_specs(
-                axes, self._plan(state.params) if self.buckets else None)
+                axes, BucketSizes.of(state.comm["reducer"]["residual"]))
         if self.buckets and "delta_prev" in state.comm:
             # (W, bucket) buffers: worker axes on the leading dim, the
             # contiguous flat dim never split mid-leaf (one spec per
@@ -540,7 +590,8 @@ class DCS3GD:
             wire = self._plan(params).pack(params) \
                 if self._reduces_weights else comm["delta_prev"]
             comm["pipeline"] = PL.resize(self.reducer,
-                                         state.comm["pipeline"], wire)
+                                         state.comm["pipeline"], wire,
+                                         whole=self._whole_wire(params))
         return TrainState(params, opt, comm, state.step)
 
     def _fused_tail(self, state: TrainState, grads, D, loss, lr: float,

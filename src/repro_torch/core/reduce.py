@@ -338,6 +338,17 @@ class ProcessWorkers(Workers):
         return torch.cat(parts, dim=0).to(x.device)
 
 
+def layout_bound(reducer) -> bool:
+    """Whether ``reducer``'s result depends on the bucket or leaf it
+    reduces, not on each element's W values alone: an error-feedback
+    compressor (its threshold, ``k``, index draw or matrix shape) and a
+    quantized wire (each row's scale).  Over a 'model' axis such a wire
+    reduces the whole buckets (`repro_torch.parallel.tensor.WholeWire`);
+    any other is elementwise and reduces each rank's own."""
+    return not getattr(reducer, "stateless", True) or Q.is_quantized(
+        getattr(reducer, "comm_dtype", "float32"))
+
+
 def wire_mean(d: torch.Tensor, dt: torch.dtype,
               workers: Workers = LOCAL) -> torch.Tensor:
     """The mean over the leading (worker) axis on a ``dt`` float wire,

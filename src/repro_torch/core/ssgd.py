@@ -15,7 +15,10 @@ weight-mixing reducer's rows are averaged over every rank's).
 Under tensor parallelism (`bind_model_axis`) the params are the rank's
 shards over the mesh's 'model' axis: the shards go through the same
 gradient mean as whole leaves, and LARS's per-leaf norms sum them over
-the axis.
+the axis.  A compressed wire or a quantized ``comm_dtype`` reduces the
+whole buckets (leaves) instead, gathered over the axis and cut back
+after the reduce (`repro_torch.parallel.tensor.WholeWire`), its
+``comm["reducer"]`` in the whole plan's layout, as DC-S3GD's.
 """
 from __future__ import annotations
 
@@ -27,11 +30,12 @@ from repro_torch import tree as T
 from repro_torch.core import registry
 from repro_torch.core.api import LossFn, Metrics, TrainState
 from repro_torch.core.dc_s3gd import _vgrads, schedules
-from repro_torch.core.reduce import LOCAL, collapse_worker_axis
+from repro_torch.core.reduce import (LOCAL, collapse_worker_axis,
+                                     layout_bound)
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
-from repro_torch.parallel.tensor import norm_helpers
+from repro_torch.parallel.tensor import norm_helpers, whole_wire
 
 Tree = Any
 
@@ -76,6 +80,7 @@ class SSGD:
         # bucket padding granularity (the autotuner's knob; None = BLOCK)
         self.plan_block = None if plan_block is None else int(plan_block)
         self._plan_cache: dict = {}
+        self._wire_cache: dict = {}
         self.workers = LOCAL
         self.model_axis = None
         self._model_cfg = None
@@ -101,6 +106,29 @@ class SSGD:
                              wire_dtype=getattr(self.reducer, "comm_dtype",
                                                 None))
 
+    def _whole_wire(self, params: Tree):
+        """The `WholeWire` of the params' layout when the gradient wire
+        reduces the whole buckets (leaves) over the 'model' axis
+        (`layout_bound`); else None."""
+        if self.model_axis is None or not layout_bound(self.reducer):
+            return None
+        key = tuple((tuple(x.shape), x.dtype) for x in T.leaves(params))
+        if key not in self._wire_cache:
+            self._wire_cache[key] = whole_wire(
+                self.model_axis, self._model_cfg, params, lead=0,
+                local=self._plan(params) if self.buckets else None,
+                plan_of=self._plan)
+        return self._wire_cache[key]
+
+    def reducer_plan(self, params: Tree):
+        """The bucket plan of the reducer's wire and carried state: the
+        whole tree's under `_whole_wire`, else this rank's (None without
+        buckets)."""
+        if not self.buckets:
+            return None
+        wire = self._whole_wire(params)
+        return wire.whole if wire is not None else self._plan(params)
+
     @property
     def _reducer_stateless(self) -> bool:
         return bool(getattr(self.reducer, "stateless", True))
@@ -111,7 +139,7 @@ class SSGD:
         # across steps in comm["reducer"], the same seam as DC-S3GD
         if not self._reducer_stateless:
             comm["reducer"] = self.reducer.init(
-                self.n_workers, self._plan(params) if self.buckets else None,
+                self.n_workers, self.reducer_plan(params),
                 device=T.leaves(params)[0].device)
         return TrainState(params=params,
                           opt=self.local_optimizer.init(params),
@@ -134,25 +162,32 @@ class SSGD:
         comm = {}
         wk = self.workers if getattr(self.reducer, "reduces_weights", False) \
             else LOCAL
+        # over 'model', the whole buckets (leaves) the reduce runs over
+        whole = self._whole_wire(state.params)
         if self.buckets:
             plan = self._plan(state.params)
             wire = plan.pack(g32)
-            # the `wire` scope marks the simulated wire in an op trace
-            with scope("wire"):
-                if self._reducer_stateless:
-                    red = self.reducer(wire)
-                else:
-                    red, comm["reducer"] = self.reducer(
-                        wire, state.comm["reducer"])
-            reduced = plan.unpack(collapse_worker_axis(red, wk))
         else:
             if not self._reducer_stateless:
                 raise ValueError(
                     f"reducer {self.reducer.name!r} needs the bucketed "
                     f"wire: construct with buckets > 0")
-            with scope("wire"):
-                red = self.reducer(g32)
-            reduced = collapse_worker_axis(red, wk)
+            wire = g32
+        if whole is not None:
+            wire = whole.gather(wire)
+        # the `wire` scope marks the simulated wire in an op trace
+        with scope("wire"):
+            if self._reducer_stateless:
+                red = self.reducer(wire)
+            else:
+                red, comm["reducer"] = self.reducer(
+                    wire, state.comm["reducer"])
+        del wire
+        if whole is not None:
+            red = whole.scatter(red)
+        reduced = collapse_worker_axis(red, wk)
+        if self.buckets:
+            reduced = plan.unpack(reduced)
         delta, opt = self.local_optimizer(
             reduced, state.opt, state.params, {"lr": lr, "weight_decay": wd},
             leaf_sums=norm_helpers(self.model_axis, self._model_cfg,
@@ -176,8 +211,10 @@ class SSGD:
         from repro_torch.parallel import sharding as shd
         overrides = {}
         if "reducer" in state.comm:
+            # the reducer's own buckets (the whole plan's over 'model')
+            from repro_torch.parallel.buckets import BucketSizes
             overrides["reducer"] = self.reducer.state_specs(
-                axes, self._plan(state.params) if self.buckets else None)
+                axes, BucketSizes.of(state.comm["reducer"]["residual"]))
         return shd.train_state_specs(model_cfg, state,
                                      model_size=axes.model_size,
                                      worker_axes=None,

@@ -35,7 +35,11 @@ the same questions another way:
   step's row-parallel sums, vocabulary gather and gathered cache
   positions) are recorded, and the roofline prices their payload at
   NVLink's rate (``tp_bytes``, ``collective_tp_s``) beside the
-  worker-axis wire; nothing is split, the trace is one device's.  The
+  worker-axis wire; nothing is split, the trace is one device's.  A
+  compressed wire or a quantized ``comm_dtype`` reduces the whole
+  buckets there (`repro_torch.parallel.tensor.WholeWire`): the wire is
+  the whole plan's, as in one process, and the gather of the rank's
+  payload is one of the ``tp`` collectives, printed apart.  The
   production meshes keep the whole-mesh trace.
 
 This is the one entry point that places nothing on any device.
@@ -118,6 +122,10 @@ def debug_shape(mesh_kind: str):
     return None if m is None else (int(m.group(1)), int(m.group(2)))
 
 
+# the bucket count of a compressed (error-feedback) reducer's wire
+COMPRESSED_BUCKETS = 4
+
+
 def build_train(cfg, shape, mesh, dc_cfg, algo: str, tp: bool = False):
     """(step, inputs, their specs); ``step()`` runs the traced step and
     returns (trace, outputs, their specs).  So do `build_prefill` and
@@ -126,11 +134,15 @@ def build_train(cfg, shape, mesh, dc_cfg, algo: str, tp: bool = False):
     and its outputs are one device's (their specs replicated)."""
     model = Model(cfg, kernels=False)
     W = n_workers(mesh)
-    alg = registry.make(algo, dc_cfg, n_workers=W,
-                        reducer=os.environ.get("DRYRUN_REDUCER",
-                                               "mean_allreduce"),
+    reducer = registry.make_reducer(
+        os.environ.get("DRYRUN_REDUCER", "mean_allreduce"), dc_cfg)
+    # an error-feedback reducer compresses per bucket: the launcher's
+    # documented --buckets 4
+    buckets = {} if getattr(reducer, "stateless", True) \
+        else {"buckets": COMPRESSED_BUCKETS}
+    alg = registry.make(algo, dc_cfg, n_workers=W, reducer=reducer,
                         staleness=os.environ.get("DRYRUN_STALENESS",
-                                                 "fixed"))
+                                                 "fixed"), **buckets)
     engine = Engine(model, alg, mesh=mesh, specs_only=not tp)
     state = S.abstract_train_state(model, W, dc_cfg, alg)
     batch = S.train_batch_specs(cfg, shape, W)
@@ -301,6 +313,12 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
               f"tp={roof.collective_tp_s*1e3:.2f}ms "
               f"-> {roof.bottleneck}-bound; useful-flops "
               f"{roof.useful_flops_ratio:.2f}")
+        wire = tr.meta.get("wire")
+        if tp and wire:
+            print(f"  wire: {wire['bytes']} B a step over "
+                  f"{len(wire['sizes'])} buckets / leaves of "
+                  f"{sum(wire['sizes'])} elements a worker; gathered "
+                  f"over 'model' first: {tr.coll_bytes('whole_wire')} B")
     _write(out_dir, rec, algo)
     return rec
 

@@ -22,13 +22,16 @@ prefills and decodes over 'model' on them, and `generate` gathers every
 data rank's tokens, so every rank returns the whole batch.  Every
 algorithm of the registry trains across the worker ranks, under every
 reducer and staleness policy, and an elastic run resizes across them
-(each rank keeps ``W / R`` rows of the live W).  What the port cannot yet run across ranks is refused, at
-construction or at the resize, never run silently in one process: a
-membership whose W the ranks cannot split evenly, hierarchical groups
-that cut through a rank's rows; over 'model' the compressed wires and a
-quantized ``comm_dtype``, and the paged serving seam, which the
-reference runs in one process only (``specs_only=True`` keeps any
-mesh's specs for the dry-run).
+(each rank keeps ``W / R`` rows of the live W); over 'model' a
+compressed wire or a quantized ``comm_dtype`` reduces the whole buckets
+on every model rank, and its ``comm["reducer"]`` is whole there, so
+`gather_state` and `restore` move it over the worker axis only.  What
+the port cannot yet run across ranks is refused, at construction or at
+the resize, never run silently in one process: a membership whose W
+the ranks cannot split evenly, hierarchical groups that cut through a
+rank's rows, a sharded dim that does not divide the 'model' axis, and
+the paged serving seam, which the reference runs in one process only
+(``specs_only=True`` keeps any mesh's specs for the dry-run).
 
 PyTorch runs eagerly, so there is nothing to jit: ``fit`` calls the
 algorithm's ``step`` directly, and where the reference lowers a step for
@@ -52,7 +55,8 @@ from repro_torch.checkpoint import (checkpoint_meta, restore_pytree,
 from repro_torch.core import registry
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.parallel import sharding as shd
-from repro_torch.parallel.tensor import UNEVEN_ITEM, WIRE_ITEM
+from repro_torch.parallel.tensor import (UNEVEN_ITEM, gather_leaves,
+                                         model_dims)
 from repro_torch.serve.oneshot import OneShotGenerator
 
 Tree = Any
@@ -109,6 +113,10 @@ def _max_float(axis, x: float) -> float:
 # comm entries that live on the host, outside the param layout (a
 # staleness policy's counters): never gathered or cut over 'model'
 _HOST_COMM = ("staleness",)
+# comm entries whole on every model rank (a compressed reducer's state in
+# the whole plan's layout): never gathered or cut over 'model', moved
+# over the worker axis by their own specs
+_WHOLE_COMM = ("reducer",)
 
 # the ROADMAP item every refusal of a multi-rank layout names
 _MULTI_DEVICE_ITEM = ("ROADMAP queue A item 6: what the multi-device slice "
@@ -152,16 +160,17 @@ class Engine:
             self.model_axis = M.model_axis(mesh)
             if hasattr(self.model, "with_model_axis"):
                 self.model = self.model.with_model_axis(self.model_axis)
-            if self.alg is not None:
-                self.alg.bind_model_axis(self.model_axis,
-                                         getattr(self.model, "cfg", None))
         self._bind_alg()
 
     def _bind_alg(self) -> None:
-        """Bind the algorithm (a rebuilt one too) to the worker group."""
+        """Bind the algorithm (a rebuilt one too) to the 'model' axis and
+        the worker group."""
         alg = self.alg
         if alg is None or self.workers is None:
             return
+        if self.model_axis is not None:
+            alg.bind_model_axis(self.model_axis,
+                                getattr(self.model, "cfg", None))
         if not hasattr(alg, "bind_workers"):
             if self.workers.size == 1:
                 return
@@ -172,29 +181,16 @@ class Engine:
 
     def _refuse_over_model(self, model_size: int) -> None:
         """Raise for what does not run over a 'model' axis of
-        ``model_size``, naming its ROADMAP item: the compressed (stateful,
-        error-feedback) wires and a quantized ``comm_dtype`` (each
-        selects, counts or scales over a bucket, and the ranks' local
-        bucket plans are not the reference's global ones), a sharded dim
-        that does not divide the axis.  Serving (``alg=None``) checks the
-        dims only."""
-        from repro_torch.core import quant as Q
-        alg, model = self.alg, self.model
-        red = getattr(alg, "reducer", None)
-        why = None
-        if not getattr(red, "stateless", True):
-            why = f"the compressed reducer {red.name!r}"
-        elif Q.is_quantized(getattr(red, "comm_dtype", "float32")):
-            why = f"the quantized wire comm_dtype={red.comm_dtype!r}"
-        if why is not None:
-            raise ValueError(f"tensor-parallel execution over a 'model' "
-                             f"axis of {model_size} of {why} is not "
-                             f"ported ({WIRE_ITEM})")
-        cfg = getattr(model, "cfg", None)
+        ``model_size``, naming its ROADMAP item: a sharded dim that does
+        not divide the axis.  Every algorithm, reducer and wire runs over
+        it (a compressed wire or a quantized ``comm_dtype`` over the
+        whole buckets, `repro_torch.parallel.tensor.WholeWire`), and so
+        does serving (``alg=None``)."""
+        cfg = getattr(self.model, "cfg", None)
         if cfg is not None:
             from repro_torch.launch import specs as S
             try:
-                shd.validate_model_axis(cfg, S.abstract_params(model),
+                shd.validate_model_axis(cfg, S.abstract_params(self.model),
                                         model_size=model_size)
             except ValueError as e:
                 raise ValueError(f"{cfg.name}: {e} ({UNEVEN_ITEM})") \
@@ -350,13 +346,13 @@ class Engine:
         """``state`` with ``fn(tree)`` applied to each of its param-shaped
         trees: params, each optimizer slot but a 0-d one (Adam's step
         count), each comm entry but a staleness policy's host counters
-        (the callers unpack the bucket lists into their trees first,
-        `_unpack_comm`)."""
+        and the entries whole over 'model' (the callers unpack the bucket
+        lists into their trees first, `_unpack_comm`)."""
         return state._replace(
             params=fn(state.params),
             opt={k: fn(v) if isinstance(v, dict) else v
                  for k, v in state.opt.items()},
-            comm={k: v if k in _HOST_COMM else fn(v)
+            comm={k: v if k in _HOST_COMM + _WHOLE_COMM else fn(v)
                   for k, v in state.comm.items()})
 
     def _unpack_comm(self, state, plan):
@@ -384,40 +380,35 @@ class Engine:
         """Whether ``state`` holds bucket lists (`_unpack_comm`)."""
         return self._bucketed(state) or "pipeline" in state.comm
 
-    def _model_dims(self, tree):
-        """{path: the dim the rules shard over 'model', or None}."""
-        specs = shd.param_specs(getattr(self.model, "cfg", None), tree,
-                                model_size=self.model_axis.size)
-        return {p: shd.model_dim(s) for p, s in shd.flat_specs(specs, tree)}
-
     def _bucketed(self, state) -> bool:
         return isinstance(state.comm.get("delta_prev"), list)
 
     def _whole_over_model(self, state):
         """This rank's rows of the whole state: every leaf sharded over
         'model' all-gathered over the axis along its sharded dim, the
-        carried delta buckets repacked by the whole tree's plan (over gloo
+        carried delta buckets repacked by the whole tree's plan, a
+        compressed reducer's state (whole already) as it is (over gloo
         through host copies, back on the CPU)."""
         import torch.distributed as dist
         axis = self.model_axis
+        cfg = getattr(self.model, "cfg", None)
         host = dist.get_backend(axis.group) == "gloo"
         like = state
         if self._has_buckets(state):
             state = self._unpack_comm(state, self.alg._plan(state.params))
 
         def whole(tree):
-            dims = self._model_dims(tree)
-
-            def gather(path, x):
-                src = x.cpu() if host else x
-                d = dims[path]
-                if d is None:
-                    return src
-                parts = [torch.empty_like(src) for _ in range(axis.size)]
-                dist.all_gather(parts, src.contiguous(), group=axis.group)
-                return torch.cat(parts, dim=d)
-            return shd.map_with_path(gather, tree)
+            leaves, treedef = T.flatten(tree)
+            if host:
+                leaves = [x.cpu() for x in leaves]
+            return T.unflatten(treedef, gather_leaves(
+                axis, leaves, model_dims(axis, cfg, tree)))
         out = self._model_trees(state, whole)
+        if host:
+            out = out._replace(comm={
+                k: T.map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
+                         else x, v) if k in _WHOLE_COMM else v
+                for k, v in out.comm.items()})
         if self._has_buckets(like):
             out = self._pack_comm(out, self.alg._plan(out.params, whole=True),
                                   like)
@@ -439,8 +430,14 @@ class Engine:
                 cfg, tree, model_size=self.model_axis.size,
                 worker_axes=workers))
         # what is not cut as a param tree: the host counters (whole on
-        # every rank) and a mean-style pipeline's (1, n) buffers
+        # every rank), a compressed reducer's state (cut over the worker
+        # axis by its own specs) and a mean-style pipeline's (1, n)
+        # buffers
         apart = {k: v for k, v in full.comm.items() if k in _HOST_COMM}
+        if "reducer" in full.comm:
+            specs, _ = self.train_shardings(like, {})
+            apart["reducer"] = self.shard(full.comm["reducer"],
+                                          specs.comm["reducer"])
         if "pipeline" in full.comm and not getattr(
                 getattr(alg, "reducer", None), "reduces_weights", False):
             apart["pipeline"] = cut(full.comm["pipeline"], None)
@@ -456,8 +453,15 @@ class Engine:
     def _wire_sizes(self, state) -> List[int]:
         """Per-worker element counts the reducer moves each step: the
         padded `BucketPlan` sizes when bucketed, else the leaves' sizes
-        (per worker for a worker-stacked state)."""
+        (per worker for a worker-stacked state); over 'model' a wire of
+        the whole buckets (`WholeWire`) counts the whole plan's, as the
+        reference's accounting does."""
         alg = self.alg
+        wire = alg._whole_wire(state.params) \
+            if hasattr(alg, "_whole_wire") else None
+        if wire is not None:
+            # over 'model': the whole buckets (leaves) the reducer moves
+            return list(wire.sizes)
         if getattr(alg, "buckets", 0):
             return [int(n) for n in alg._plan(state.params).bucket_sizes]
         stacked = getattr(alg, "worker_stacked", False)

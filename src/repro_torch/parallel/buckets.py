@@ -17,7 +17,9 @@ contiguous flat buckets:
   a shard of it over the mesh's 'model' axis) the plan is built over the
   rank's local shards and the sharded flag joins the group key, so that
   a bucket's norms are known to be partial (summed over the axis) or
-  whole (``bucket_sharded``).
+  whole (``bucket_sharded``); a reducer whose result depends on the
+  bucket it reduces takes the whole tree's plan instead
+  (`repro_torch.parallel.tensor.WholeWire`).
 
 ``pack``/``unpack`` accept leaves with extra *leading* axes (the worker
 axis W): a plan built from per-worker shapes packs a (W, ...) tree into
@@ -129,6 +131,19 @@ class BucketPlan:
         if worker_spec is None:
             return [(None,) for _ in self.bucket_sizes]
         return [(worker_spec, None) for _ in self.bucket_sizes]
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketSizes:
+    """The padded sizes of a list of (..., n) bucket buffers, all of a
+    `BucketPlan` that a spec builder reads (``bucket_sizes``): specs of
+    a state's own buckets, whichever plan laid them out."""
+
+    bucket_sizes: Tuple[int, ...]
+
+    @classmethod
+    def of(cls, buckets: Sequence[torch.Tensor]) -> "BucketSizes":
+        return cls(tuple(int(b.shape[-1]) for b in buckets))
 
 
 def cached_plan(cache: dict, tree: Tree, n_buckets: int, *,

@@ -41,9 +41,11 @@ discards the landed value); with a stateful one it is rejected (see
 fresh reduce of the resized wire) and keeps a stateful reducer's
 worker-count-independent (1, n) payload (see `resize`).  Over a mesh's
 'model' axis the in-flight buckets are the rank's plan over its local
-shards; `repro_torch.launch.engine.Engine` repacks them by the whole
-tree's plan when it gathers a state (a checkpoint holds the one-process
-layout).
+shards (a wire that reduces the whole buckets, a `repro_torch.parallel.
+tensor.WholeWire` passed as ``whole``, is gathered before the reduce and
+its result cut back to them); `repro_torch.launch.engine.Engine`
+repacks them by the whole tree's plan when it gathers a state (a
+checkpoint holds the one-process layout).
 """
 from __future__ import annotations
 
@@ -81,17 +83,23 @@ def validate(*, buckets: int, reducer, staleness=None) -> None:
             "with the compressed reducer")
 
 
-def issue(reducer, wire: List, rstate: Optional[Tree] = None
-          ) -> Tuple[dict, Optional[Tree]]:
+def issue(reducer, wire: List, rstate: Optional[Tree] = None,
+          whole=None) -> Tuple[dict, Optional[Tree]]:
     """Put the next payload on the wire: reduce the bucket list now and
     carry the result as the in-flight state.  Returns ``(pipeline_state,
-    new_reducer_state)``, the latter None for a stateless reducer."""
+    new_reducer_state)``, the latter None for a stateless reducer.
+    ``whole``: the `WholeWire` the reduce runs over (None: the buckets
+    as they are)."""
+    if whole is not None:
+        wire = whole.gather(wire)
     # the same `wire` scope the inline schedule puts around its reduce
     with scope("wire"):
         if rstate is None:
             reduced = reducer(wire)
         else:
             reduced, rstate = reducer(wire, rstate)
+    if whole is not None:
+        reduced = whole.scatter(reduced)
     return {"reduced": list(reduced)}, rstate
 
 
@@ -130,7 +138,7 @@ def specs(reducer, n_buckets: int, worker_spec) -> dict:
     return {"reduced": [(lead, None) for _ in range(n_buckets)]}
 
 
-def resize(reducer, pstate: dict, wire: List) -> dict:
+def resize(reducer, pstate: dict, wire: List, whole=None) -> dict:
     """Drain or keep the in-flight buckets across an elastic resize.
 
     ``wire`` is the already-resized payload (the restacked ``delta_prev``
@@ -140,8 +148,7 @@ def resize(reducer, pstate: dict, wire: List) -> dict:
     schedule makes on its first step after the resize.  A stateful
     reducer keeps its landed (1, n) payload, which does not depend on the
     worker count and whose mass the resized residual already accounts
-    for."""
+    for.  ``whole``: as for `issue`."""
     if getattr(reducer, "stateless", True):
-        with scope("wire"):
-            return {"reduced": list(reducer(wire))}
+        return issue(reducer, wire, whole=whole)[0]
     return dict(pstate)

@@ -44,6 +44,17 @@ all-reduced over the group, the replicated parts counted once;
 `sum_each` is its per-part twin for the per-leaf norms, and
 `norm_helpers` binds both to an algorithm's axis and tree.
 
+A reducer whose result depends on the bucket or leaf it reduces (an
+error-feedback compressor's threshold, ``k``, index draw and matrix
+shape; a quantized wire's row scale) reduces the reference's whole
+buckets on every rank of the axis, as GSPMD does with their flat dim
+replicated over 'model': a `WholeWire` gathers them from the rank's
+wire (`gather_leaves` under ``scope("tp")``, outside the ``wire``
+scope, so an op trace prices the gather apart from the worker-axis
+wire) and cuts the reducer's result back to the rank's shards
+(`shard_leaves`, static slices).  `repro_torch.launch.engine.Engine`
+gathers a checkpointed state through `gather_leaves` too.
+
 Serving over the axis keeps a cache that the partition rules shard by
 sequence position (the KV cache of a model whose KV heads do not divide
 the axis, MLA's latents, a windowed kind's ring over one KV head) as
@@ -56,10 +67,12 @@ attend's locals).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple
+import math
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import tree as T
 from repro_torch.instrument import scope
 
 # the ROADMAP items the refusals of a tensor-parallel layout name
@@ -67,8 +80,6 @@ PAGED_ONE_PROCESS = ("the reference serves its paged layouts, chunked "
                      "prefill and its scheduler in one process only "
                      "(repro.launch.serve builds Engine(model) without a "
                      "mesh); over a mesh it serves the dense layout")
-WIRE_ITEM = ("ROADMAP queue A item 6.7.6: compressed and quantized wires "
-             "over 'model'")
 UNEVEN_ITEM = "ROADMAP queue A item 6.8: uneven layouts over 'model'"
 
 
@@ -284,3 +295,122 @@ def norm_helpers(axis: Optional[ModelAxis], model_cfg, tree):
     flags = leaf_flags(axis, model_cfg, tree)
     return (lambda parts: sum_parts(parts, flags, axis),
             lambda parts: sum_each(parts, flags, axis))
+
+
+def model_dims(axis: ModelAxis, model_cfg, tree) -> Tuple[Optional[int], ...]:
+    """Per leaf of a param-shaped ``tree`` (flatten order; any leading
+    dims), the dim of the leaf as it is that the partition rules for
+    ``model_cfg`` shard over ``axis``, or None where it is whole."""
+    from repro_torch.parallel import sharding as shd
+    specs = shd.param_specs(model_cfg, tree, model_size=axis.size)
+    return tuple(shd.model_dim(s) for _, s in shd.flat_specs(specs, tree))
+
+
+def gather_leaves(axis: ModelAxis, leaves: Sequence[torch.Tensor],
+                  dims: Sequence[Optional[int]]) -> List[torch.Tensor]:
+    """Each of ``leaves`` whose ``dims`` entry is not None all-gathered
+    over ``axis`` along that dim, the ranks' blocks in rank order (one
+    collective a leaf, under ``scope("tp")``); the others as they are."""
+    import torch.distributed as dist
+    out = []
+    for x, d in zip(leaves, dims):
+        if d is None:
+            out.append(x)
+            continue
+        src = x.contiguous()
+        parts = [torch.empty_like(src) for _ in range(axis.size)]
+        with scope("tp"):
+            dist.all_gather(parts, src, group=axis.group)
+        out.append(torch.cat(parts, dim=d))
+    return out
+
+
+def shard_leaves(axis: ModelAxis, leaves: Sequence[torch.Tensor],
+                 dims: Sequence[Optional[int]]) -> List[torch.Tensor]:
+    """The inverse of `gather_leaves`: this rank's block of each leaf
+    along its ``dims`` entry (a static slice, so bitwise), the others as
+    they are."""
+    out = []
+    for x, d in zip(leaves, dims):
+        if d is None:
+            out.append(x)
+            continue
+        n = x.shape[d] // axis.size
+        out.append(x.narrow(d, axis.shard_start(n), n))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class WholeWire:
+    """A reducer's wire over the whole buckets (or leaves) on every rank of
+    the 'model' axis: what the reference's GSPMD step reduces.
+
+    `gather` assembles the whole wire from this rank's: the local buckets
+    unpacked by the rank's plan ``local``, each sharded leaf all-gathered
+    along its dim, the tree packed by the whole tree's plan ``whole`` (a
+    per-leaf wire, ``local`` None, stays a tree); the reducer then runs
+    on it unchanged and alike on every model rank, and `scatter` cuts
+    its result back to the rank's shards and local plan.  ``dims`` /
+    ``ndims``: per leaf, the dim of the per-worker leaf sharded over
+    'model' (None where it is whole) and the per-worker leaf's rank; the
+    wire's leaves may lead with the worker rows.  ``sizes``: the whole
+    wire's per-worker element counts (the whole plan's padded bucket
+    sizes, or the whole leaves'), what the reducer's accounting reads."""
+
+    axis: ModelAxis
+    dims: Tuple[Optional[int], ...]
+    ndims: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+    local: Any = None
+    whole: Any = None
+
+    def _at(self, leaves) -> List[Optional[int]]:
+        return [None if d is None else d + x.dim() - n
+                for x, d, n in zip(leaves, self.dims, self.ndims)]
+
+    def gather(self, wire):
+        """This rank's wire (bucket list or tree) -> the whole wire (its
+        collectives under ``scope("whole_wire")`` too, so an op trace
+        tells them from the model's)."""
+        tree = wire if self.local is None else self.local.unpack(wire)
+        leaves, treedef = T.flatten(tree)
+        with scope("whole_wire"):
+            tree = T.unflatten(treedef, gather_leaves(self.axis, leaves,
+                                                      self._at(leaves)))
+        return tree if self.whole is None else self.whole.pack(tree)
+
+    def scatter(self, out):
+        """The reducer's whole result -> this rank's layout."""
+        tree = out if self.whole is None else self.whole.unpack(out)
+        leaves, treedef = T.flatten(tree)
+        tree = T.unflatten(treedef, shard_leaves(self.axis, leaves,
+                                                 self._at(leaves)))
+        return tree if self.local is None else self.local.pack(tree)
+
+
+def whole_wire(axis: ModelAxis, model_cfg, params, *, lead: int,
+               local=None, plan_of: Optional[Callable] = None
+               ) -> WholeWire:
+    """The `WholeWire` of a rank's param tree ``params`` (its shards over
+    ``axis``; ``lead`` leading worker dims on every leaf): ``local`` is
+    the rank's bucket plan of it (None: a per-leaf wire) and
+    ``plan_of(tree)`` plans a whole tree alike (here one of meta tensors
+    of the whole shapes)."""
+    leaves, treedef = T.flatten(params)
+    at = model_dims(axis, model_cfg, params)
+    meta = []
+    for x, d in zip(leaves, at):
+        shape = list(x.shape)
+        if d is not None:
+            shape[d] *= axis.size
+        meta.append(torch.empty(shape, dtype=x.dtype, device="meta"))
+    whole = None
+    if local is not None:
+        whole = plan_of(T.unflatten(treedef, meta))
+        sizes = tuple(int(n) for n in whole.bucket_sizes)
+    else:
+        sizes = tuple(math.prod(m.shape[lead:]) for m in meta)
+    return WholeWire(axis=axis,
+                     dims=tuple(None if d is None else d - lead for d in at),
+                     ndims=tuple(x.dim() - lead for x in leaves),
+                     sizes=sizes, local=local, whole=whole)

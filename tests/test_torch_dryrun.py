@@ -331,3 +331,55 @@ def test_tensor_parallel_decode_collectives_are_the_hand_count(tmp_path):
         assert rec["status"] == "ok" and rec["n_chips"] == 2
         assert ro["tp_bytes"] == want, arch
         assert ro["collective_tp_s"] == pytest.approx(want / 450e9)
+
+
+# (DRYRUN_REDUCER, DRYRUN_COMM_DTYPE) of the wires whose result depends on
+# the bucket or leaf they reduce: bucketed topk (the dry-run's 4 buckets)
+# and the per-leaf int8 mean
+WHOLE_WIRES = (("topk", "float32"), ("mean_allreduce", "int8"))
+
+
+def test_tensor_parallel_wire_is_the_whole_plans(tmp_path):
+    """On a (1, 2) fake mesh a compressed or quantized wire reduces the
+    whole buckets (leaves): the dry-run's wire is the one-process one's
+    (``mesh`` 1x1, the same config), and its ``tp`` collectives grow by
+    the gather of the rank's payload (each model-sharded leaf's local
+    f32 delta of its one worker row), printed on the record's ``wire``
+    line."""
+    out = tmp_path / "dr"
+    calls = "".join(
+        f"os.environ.update(DRYRUN_REDUCER={red!r}, "
+        f"DRYRUN_COMM_DTYPE={dt!r})\n"
+        + "".join(f"shutil.rmtree(OUT, ignore_errors=True)\n"
+                  f"rec = dryrun.run_one('qwen3-0.6b', 'train_4k', {m!r}, "
+                  f"out_dir=OUT, cut=True)\n"
+                  f"print('REC', {red!r}, {dt!r}, {m!r}, "
+                  f"json.dumps(rec['roofline']['coll_breakdown']))\n"
+                  for m in ("1x2", "1x1"))
+        for red, dt in WHOLE_WIRES + (("mean_allreduce", "float32"),))
+    r = _python("import json, os, shutil, torch\n"
+                "torch.set_num_threads(1)\n"
+                "from pathlib import Path\n"
+                "from repro_torch.launch import dryrun\n"
+                f"OUT = Path({str(out)!r})\n" + calls, tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    recs = {tuple(ln.split()[1:4]): json.loads(ln.split(maxsplit=4)[4])
+            for ln in r.stdout.splitlines() if ln.startswith("REC ")}
+    gathered = [int(ln.rsplit(":", 1)[1].split()[0])
+                for ln in r.stdout.splitlines()
+                if ln.strip().startswith("wire:")]
+    cfg = S.variant_for_shape(S.dryrun_model_config(
+        reduced(get_config("qwen3-0.6b")), model_axis=2),
+        INPUT_SHAPES["train_4k"])
+    params = S.abstract_params(Model(cfg))
+    flags = shd.sharded_over_model(cfg, params, model_size=2)
+    leaves = [x for x in shd.leaves_with_path(params)]
+    want = sum(x.numel() // 2 * 4 for (_, x), f in zip(leaves, flags) if f)
+    assert want > 0
+    # the wire line of the two whole wires, then the plain mean's
+    assert gathered == [want, want, 0]
+    plain = recs[("mean_allreduce", "float32", "1x2")]
+    for red, dt in WHOLE_WIRES:
+        tp, one = recs[(red, dt, "1x2")], recs[(red, dt, "1x1")]
+        assert tp["wire"] == one["wire"] > 0, red
+        assert tp["tp"] == plain["tp"] + want, red

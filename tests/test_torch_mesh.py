@@ -22,8 +22,10 @@ store under ``tmp_path``).  JAX runs only in this, the parent, process.
   that ported them (gossip, hierarchical, topk, dynamic_ssp, dc_asgd,
   elastic resize) now construct on a stand-in mesh of 2 ranks and run on
   spawned ones (`tests/test_torch_mesh_reducers.py` holds each to one
-  process).  What stays refused raises at `Engine` construction or at the
-  resize and names its ROADMAP item: over 'model' (item 6.7.6), and a
+  process).  Over a 'model' axis the compressed and quantized wires, the
+  overlap pipeline, gossip and dynamic_ssp construct too
+  (`tests/test_torch_tp_wires.py` runs them).  What stays refused raises
+  at `Engine` construction or at the resize and names its ROADMAP item: a
   membership whose rows the ranks cannot split (item 6.8).
 """
 import functools
@@ -233,24 +235,24 @@ class _Mesh:
         self.shape = tuple(shape.values())
 
 
-# name -> (algorithm spec, stand-in mesh, the words a refusal names, or
-# None where the piece now constructs across ranks)
+# name -> (algorithm spec, stand-in mesh, the words a refusal names,
+# None where the piece now constructs across ranks, or MODEL where it
+# constructs over a 'model' axis)
+MODEL = "model"
 REFUSED = {
-    # a 'model' axis above 1 trains every family under every piece but
-    # the compressed and quantized wires (item 6.7.6): the overlap
-    # pipeline, gossip and dynamic_ssp construct over it since the second
-    # tensor-parallel slice, and are refused here only with such a wire
+    # a 'model' axis above 1 trains every family under every piece, the
+    # compressed and quantized wires too (they reduce the whole buckets)
     "model_axis": ({"overlap": True, "buckets": 2,
                     "cfg": {"comm_dtype": "int8"}}, dict(data=2, model=2),
-                   "tensor-parallel"),
+                   MODEL),
     "model_axis_topk": ({"reducer": "topk", "buckets": 2},
-                        dict(data=1, model=2), "reducer 'topk'"),
+                        dict(data=1, model=2), MODEL),
     "model_axis_gossip": ({"reducer": "gossip",
                            "cfg": {"comm_dtype": "fp8"}},
-                          dict(data=1, model=2), "comm_dtype='fp8'"),
+                          dict(data=1, model=2), MODEL),
     "model_axis_dynamic_ssp": ({"staleness": "dynamic_ssp",
                                 "reducer": "randk", "buckets": 2},
-                               dict(data=1, model=2), "reducer 'randk'"),
+                               dict(data=1, model=2), MODEL),
     # hierarchical groups that cut through a rank's rows (3 groups over 2)
     "hierarchical_layout": ({"reducer": "hierarchical",
                              "reducer_opts": {"groups": 3}},
@@ -276,11 +278,21 @@ def _stand_in_workers(monkeypatch):
 def test_refusals_raise_at_construction(ranks, monkeypatch, name):
     """What stays refused raises at construction naming its ROADMAP item;
     what was refused until the worker-axis slice constructs on 2 ranks,
-    and its spawned 2-rank run (`LIFTED_RUN`) tracks one process."""
+    and its spawned 2-rank run (`LIFTED_RUN`) tracks one process; what
+    was refused over 'model' constructs there and binds to the axis."""
+    from repro_torch.launch import mesh as M
     from repro_torch.launch.engine import Engine
+    from repro_torch.parallel.tensor import ModelAxis
     spec, shape, words = REFUSED[name]
     _stand_in_workers(monkeypatch)
     model = types.SimpleNamespace(loss=None, cfg=None)
+    if words == MODEL:
+        monkeypatch.setattr(M, "model_axis", lambda mesh: ModelAxis(
+            None, rank=0, size=M.model_size(mesh)))
+        eng = Engine(model, MW._make(spec, 4), mesh=_Mesh(**shape))
+        assert eng.alg.model_axis is eng.model_axis
+        assert eng.model_axis.size == 2
+        return
     if words is None:
         eng = Engine(model, MW._make(spec, 4), mesh=_Mesh(**shape))
         assert eng.workers.size == 2 and eng.alg.workers is eng.workers

@@ -35,8 +35,10 @@ and in one subprocess of its own.
   devices (GSPMD), in a subprocess.
 * Vocab-parallel `chunked_xent` equals the one-process loss, padded
   columns included; a checkpoint saved under (1, 2) or (2, 2) restores
-  under ``mesh=None`` to the gathered state bitwise; what stays
-  refused over 'model' (the compressed and quantized wires, an
+  under ``mesh=None`` to the gathered state bitwise; the compressed and
+  quantized wires construct over 'model' for ``dc_s3gd``, ``stale`` and
+  ``ssgd``, bucketed and per leaf (they run in
+  `tests/test_torch_tp_wires.py`); what stays refused over 'model' (an
   indivisible dim) raises at `Engine` construction, naming its ROADMAP
   item; an Engine without an algorithm binds the model to the axis
   (serving: `tests/test_torch_tp_serve.py`), and the paged serving seam
@@ -326,28 +328,13 @@ class _Mesh:
 
 # name -> (architecture, algorithm spec, the words the refusal names,
 # the ROADMAP item it names).  Every family, local optimizer, λ mode,
-# weight-mixing reducer, staleness policy, DC-ASGD and the overlap
-# pipeline train over 'model' (tests/test_torch_tp_families.py,
-# tests/test_torch_tp_pieces.py), and every family serves over it
-# (tests/test_torch_tp_serve.py); what stays refused is the compressed
-# wires and a quantized comm_dtype (each selects, counts or scales over
-# a bucket, and the ranks' local plans are not the reference's buckets:
-# tests/test_torch_tp_reference.py shows the int8 wire's difference),
-# and an indivisible dim.
-WIRE = "ROADMAP queue A item 6.7.6"
+# reducer (the compressed and quantized wires too), staleness policy,
+# DC-ASGD and the overlap pipeline train over 'model'
+# (tests/test_torch_tp_families.py, tests/test_torch_tp_pieces.py,
+# tests/test_torch_tp_wires.py), and every family serves over it
+# (tests/test_torch_tp_serve.py); what stays refused is an indivisible
+# dim.
 REFUSED = {
-    "topk": ("qwen3-0.6b", {"reducer": "topk", "buckets": 2}, "'topk'",
-             WIRE),
-    "topk_exact": ("qwen3-0.6b", {"reducer": "topk_exact", "buckets": 2},
-                   "'topk_exact'", WIRE),
-    "randk": ("qwen3-0.6b", {"reducer": "randk", "buckets": 2}, "'randk'",
-              WIRE),
-    "powersgd": ("qwen3-0.6b", {"reducer": "powersgd", "buckets": 2},
-                 "'powersgd'", WIRE),
-    "int8": ("qwen3-0.6b", {"cfg": {"comm_dtype": "int8"}, **FUSED},
-             "comm_dtype='int8'", WIRE),
-    "fp8": ("falcon-mamba-7b", {"cfg": {"comm_dtype": "fp8"}},
-            "comm_dtype='fp8'", WIRE),
     "indivisible": ("qwen3-0.6b", {}, "does not divide",
                     "ROADMAP queue A item 6.8"),
 }
@@ -366,12 +353,50 @@ def test_refusals_raise_at_construction(monkeypatch, name):
     model = Model(reduced(get_config(arch)))
     alg = MW._make(spec, 4)
     # the reduced vocabulary (512 rows of `tok`) does not divide over 1024
-    size = 1024 if name == "indivisible" else 2
     with pytest.raises(ValueError, match=item) as e:
-        Engine(model, alg, mesh=_Mesh(data=1, model=size))
+        Engine(model, alg, mesh=_Mesh(data=1, model=1024))
     assert words in str(e.value)
     # the same algorithm and model with mesh=None are accepted
     Engine(model, MW._make(spec, 4))
+
+
+# name -> (architecture, algorithm spec): the compressed and quantized
+# wires, refused over 'model' until they reduced the reference's whole
+# buckets, for each algorithm with a reducer, bucketed and per leaf
+WIRES = {
+    "topk": ("qwen3-0.6b", {"reducer": "topk", "buckets": 2}),
+    "topk_exact": ("qwen3-0.6b", {"reducer": "topk_exact", "buckets": 2}),
+    "randk": ("qwen3-0.6b", {"reducer": "randk", "buckets": 2}),
+    "powersgd": ("qwen3-0.6b", {"reducer": "powersgd", "buckets": 2}),
+    "int8": ("qwen3-0.6b", {"cfg": {"comm_dtype": "int8"}, **FUSED}),
+    "fp8": ("falcon-mamba-7b", {"cfg": {"comm_dtype": "fp8"}}),
+    "stale_topk": ("qwen3-0.6b", {"algo": "stale", "reducer": "topk",
+                                  "buckets": 2}),
+    "stale_int8_leaves": ("qwen3-0.6b", {"algo": "stale",
+                                         "cfg": {"comm_dtype": "int8"}}),
+    "ssgd_powersgd": ("qwen3-0.6b", {"algo": "ssgd", "reducer": "powersgd",
+                                     "buckets": 2}),
+    "ssgd_fp8_leaves": ("qwen3-0.6b", {"algo": "ssgd",
+                                       "cfg": {"comm_dtype": "fp8"}}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIRES))
+def test_wires_accepted_at_construction(monkeypatch, name):
+    """Each wire constructs over a 'model' axis of 2 and binds the
+    algorithm to it: its wire then reduces the whole buckets (leaves),
+    whose plan the reducer's state takes."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.reduce import layout_bound
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.transformer import Model
+    arch, spec = WIRES[name]
+    _stand_in_axes(monkeypatch)
+    engine = Engine(Model(reduced(get_config(arch))), MW._make(spec, 4),
+                    mesh=_Mesh(data=1, model=2))
+    assert engine.alg.model_axis is engine.model_axis
+    assert engine.model_axis.size == 2
+    assert layout_bound(engine.alg.reducer)
 
 
 def _stand_in_axes(monkeypatch):

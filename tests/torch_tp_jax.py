@@ -80,11 +80,11 @@ from repro.models.transformer import Model
 mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(1, 2),
                          ("data", "model"))
 assert len(jax.devices()) == 2
-for i, (arch, algo, hp, nudge) in enumerate({runs}):
+for i, (arch, algo, hp, nudge, reducer) in enumerate({runs}):
     cfg = reduced(get_config(arch))
     model = Model(cfg, remat=False)
     alg = registry.make(algo, DCS3GDConfig(**{{**{hp0}, **hp}}),
-                        n_workers=2, buckets=2)
+                        n_workers=2, buckets=2, reducer=reducer)
     engine = Engine(model, alg, mesh=mesh)
     params = model.init(jax.random.PRNGKey(0))
     data = SyntheticLMDataset(cfg.vocab_size, {seq}, seed=0)
@@ -111,17 +111,19 @@ for i, (arch, algo, hp, nudge) in enumerate({runs}):
 def reference_mesh(runs, out: Path) -> list:
     """The reference's own step on a (1, 2) mesh of two forced host CPU
     devices (its partition rules, its GSPMD collectives, its unfused
-    tail), W = 2 at 2 buckets, 3 steps, for each ``(name, hp)`` or
-    ``(name, hp, algo, nudge)`` of ``runs`` (hp: `DCS3GDConfig`
-    overrides of `MW.HP`; algo: dc_s3gd by default), in one subprocess.
+    tail), W = 2 at 2 buckets, 3 steps, for each ``(name, hp)``,
+    ``(name, hp, algo, nudge)`` or ``(name, hp, algo, nudge, reducer)``
+    of ``runs`` (hp: `DCS3GDConfig` overrides of `MW.HP`; algo: dc_s3gd
+    and reducer: mean_allreduce by default), in one subprocess.
     Per run, the npz of its state leaves (params, opt, comm) and losses,
     and with ``nudge`` the npz of the same run from weights one ulp up
     and from weights one ulp down (else an empty list)."""
-    runs = [(n, hp, *rest) if rest else (n, hp, "dc_s3gd", False)
+    runs = [(n, hp, *rest, *("dc_s3gd", False, "mean_allreduce")[len(rest):])
             for n, hp, *rest in runs]
     code = _REFERENCE_MESH.format(
-        runs=repr([(_arch(n), algo, hp, nudge)
-                   for n, hp, algo, nudge in runs]), hp0=repr(MW.HP),
+        runs=repr([(_arch(n), algo, hp, nudge, reducer)
+                   for n, hp, algo, nudge, reducer in runs]),
+        hp0=repr(MW.HP),
         seq=MW.SEQ, bpw=MW.BPW, steps=MW.STEPS)
     r = subprocess.run([sys.executable, "-c", code, str(out)],
                        capture_output=True, text=True, timeout=900,

@@ -26,6 +26,7 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.launch.engine import Engine
 from repro_torch.models.transformer import Model, chunked_xent
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.tensor import gather_leaves, model_dims
 
 import torch_mesh_worker as MW
 
@@ -79,15 +80,16 @@ def extras(cfg, t: int, W: int) -> dict:
 
 
 def batches(name: str, W: int):
-    """``batch_of(t)``: the step's token batch (`worker_batches`) and
-    `extras`, torch on the CPU."""
+    """``batch_of(t, w=W)``: the step's token batch (`worker_batches`) of
+    ``w`` workers (an elastic run's live count) and `extras`, torch on
+    the CPU."""
     cfg = config(name)
     data = SyntheticLMDataset(cfg.vocab_size, MW.SEQ, seed=0)
 
-    def batch_of(t):
-        b = worker_batches(data, t, W, MW.BPW, device="cpu")
+    def batch_of(t, w=W):
+        b = worker_batches(data, t, w, MW.BPW, device="cpu")
         b.update({k: torch.from_numpy(v) for k, v in extras(cfg, t,
-                                                            W).items()})
+                                                            w).items()})
         return b
     return batch_of
 
@@ -102,7 +104,9 @@ def _digest(xs) -> str:
 def _replicated_digest(engine, state) -> str:
     """A digest of every leaf (bucket) this rank holds whole: params, opt
     and the carried deltas of the leaves the rules replicate over
-    'model'."""
+    'model', a compressed reducer's state (whole on every model rank:
+    residuals, randk's counter and the coordinates of its last draw,
+    powersgd's warm start)."""
     alg = engine.alg
     flags = shd.sharded_over_model(engine.model.cfg, state.params,
                                    model_size=engine.model_axis.size)
@@ -114,23 +118,23 @@ def _replicated_digest(engine, state) -> str:
                if not f]
     elif dp is not None:
         xs += [x for f, x in zip(flags, T.leaves(dp)) if not f]
+    rs = state.comm.get("reducer")
+    if rs is not None:
+        xs += [x if isinstance(x, torch.Tensor) else torch.tensor(x)
+               for x in T.leaves(rs)]
+        if hasattr(alg.reducer, "support"):
+            xs += [alg.reducer.support(b, r.shape[-1], rs["step"] - 1,
+                                       r.device)
+                   for b, r in enumerate(rs["residual"])]
     return _digest(xs)
 
 
 def _whole_tree(engine, tree):
     """A (local) param-shaped tree gathered over 'model'."""
-    import torch.distributed as dist
     axis = engine.model_axis
-    dims = engine._model_dims(tree)
-
-    def gather(path, x):
-        d = dims[path]
-        if d is None:
-            return x
-        parts = [torch.empty_like(x) for _ in range(axis.size)]
-        dist.all_gather(parts, x.contiguous(), group=axis.group)
-        return torch.cat(parts, dim=d)
-    return shd.map_with_path(gather, tree)
+    leaves, treedef = T.flatten(tree)
+    return T.unflatten(treedef, gather_leaves(
+        axis, leaves, model_dims(axis, engine.model.cfg, tree)))
 
 
 def _rel(a, b) -> float:
@@ -163,16 +167,7 @@ def _run(name, spec, W, weights, mesh, steps, ckpt):
     params = params_from_numpy(weights, device="cpu")
     batch_of = batches(name, W)
     alg = _alg(spec, W)
-    if spec.get("unrefused") and mesh is not None:
-        # what the port refuses over 'model', run anyway to show why
-        saved = Engine._refuse_over_model
-        Engine._refuse_over_model = lambda self, model_size: None
-        try:
-            engine = Engine(make_model(name), alg, mesh=mesh)
-        finally:
-            Engine._refuse_over_model = saved
-    else:
-        engine = Engine(make_model(name), alg, mesh=mesh)
+    engine = Engine(make_model(name), alg, mesh=mesh)
     state = engine.init_state(params)
     rec = {}
     if mesh is not None:
@@ -216,10 +211,13 @@ def _run(name, spec, W, weights, mesh, steps, ckpt):
     rec.update(hist=hist, digests=digests,
                digest=MW._digest({**out, "eval": {}}),
                # the trajectory without the overlap pipeline's buffers
+               # and a stateful reducer's state (one call ahead of the
+               # inline run's under overlap)
                trajectory=MW._digest({
                    "params": out["params"], "opt": out["opt"],
                    "comm": {k: v for k, v in out["comm"].items()
-                            if k != "pipeline"}, "eval": {}}))
+                            if k not in ("pipeline", "reducer")},
+                   "eval": {}}))
     if ckpt is not None:
         engine.save(ckpt, state, step=steps)
         back = engine.restore(ckpt, state)
@@ -256,15 +254,45 @@ def _one_process(name, spec, W, weights, steps, ckpt):
 
 # the keys of a run's spec that this module reads, not the algorithm:
 # ``nudge`` (rank 0 also makes the one-process run from weights one ulp
-# up, `_nudged_moves`), ``unrefused`` (construct what `Engine` refuses
-# over 'model'), ``steps`` (this run's step count, for the case's)
-SPEC_KEYS = ("nudge", "unrefused", "steps")
+# up, `_nudged_moves`), ``steps`` (this run's step count, for the case's)
+SPEC_KEYS = ("nudge", "steps")
 
 
 def _alg(spec: dict, W: int):
     """The algorithm of a run's spec, without this module's keys."""
     return MW._make({k: v for k, v in spec.items() if k not in SPEC_KEYS},
                     W)
+
+
+# a coordinate more than TOL of its leaf's scale (of a weight's update,
+# for params) from the one-process run's counts as flipped
+TOL = 1e-4
+
+
+def flips(got, want, base) -> dict:
+    """Per part of two gathered states, the coordinates more than ``TOL``
+    of their leaf's scale apart: params as moves from the weights
+    ``base`` (at least one ulp of the leaf's largest weight), opt and
+    comm as they are; ``total`` the coordinates counted."""
+    out = {"total": 0}
+    for part in ("params", "opt", "comm"):
+        n = 0
+        bs = T.leaves(base) if part == "params" else None
+        for j, (a, b) in enumerate(zip(T.leaves(got[part]),
+                                       T.leaves(want[part]))):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            if not b.size:
+                continue
+            tol = 0.0
+            if bs is not None:
+                w0 = np.asarray(bs[j], np.float64)
+                a, b = a - w0, b - w0
+                tol = float(np.spacing(np.abs(w0).max()))
+            tol = max(tol, TOL * float(np.abs(b).max()))
+            n += int((np.abs(a - b) > tol).sum())
+            out["total"] += b.size
+        out[part] = n
+    return out
 
 
 def _nudged_moves(one, nudged):
@@ -302,6 +330,7 @@ def case_tp(world, *, shape, runs, weights, keep=(), states=(),
             one, want = _one_process(name, spec, W, weights[name], n, ckpt)
             rec["diff"] = {p: MW._compare(got[p], want[p])
                            for p in ("params", "opt", "comm")}
+            rec["flips"] = flips(got, want, weights[name])
             rec["grad_diff"] = _rel(rec.pop("grads"), one["grads"])
             rec["logits_diff"] = _rel(rec.pop("logits"), one["logits"])
             rec["grad_loss_one"] = one["grad_loss"]
