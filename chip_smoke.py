@@ -5730,7 +5730,30 @@ WA_CNN = (
     # stale (λ0 = 0): after a resize to 6, D is the rounding noise of a
     # mean of 6 equal rows, which dc_s3gd's λ scales to λ0‖g‖ (PERF.md)
     ("elastic 8-6-4", "stale", {}, None, {}, {"elastic": True}, False),
+    # 3 hierarchical groups of 2 over 2 ranks of 3 rows: group 1 is rank
+    # 0's row 2 and rank 1's row 0
+    ("hierarchical G3 W6", "dc_s3gd", {"reducer": "hierarchical"},
+     {"groups": 3}, {}, {"W": 6}, True),
+    # each membership on the mesh launch.mesh.mesh_for_spec lays it on: 8
+    # (4 rows a rank), 6 (3), 3 on rank 0 alone (rank 1 idle), 4 (2 a
+    # rank, rank 1 rejoined from the consensus); stale, as above;
+    # `WA_RELAYOUT_PER` steps a membership
+    ("elastic 8-6-3-4", "stale", {}, None, {}, {"relayout": True}, False),
 )
+# one step a membership: at two (8 steps) the card's run drifted 2.0e-5
+# of a part's scale from one process.  scripts/mesh_drift.py shows the
+# resizes add no drift (the state right after each is as close as before
+# it) and W = 8 on the fixed (2, 1) mesh, no resize, drifts 1.8e-3 by its
+# 8th step: two ranks leave one process within 5-8 steps at ResNet-18 and
+# the recipe's lr (PERF.md §6, §7)
+WA_RELAYOUT_PER = 1
+WA_RELAYOUT = (
+    [{"step": WA_RELAYOUT_PER, "kind": "leave", "worker": w}
+     for w in ("w1", "w5")]
+    + [{"step": 2 * WA_RELAYOUT_PER, "kind": "leave", "worker": w}
+       for w in ("w2", "w4", "w6")]
+    + [{"step": 3 * WA_RELAYOUT_PER, "kind": "join", "count": 1}])
+WA_RELAYOUT_STEPS = 4 * WA_RELAYOUT_PER
 
 
 def _skew_probe(n_workers: int):
@@ -5898,17 +5921,66 @@ def phase_wa_nccl(smi: str) -> dict:
     return rec
 
 
-def _wa_cnn_build(algo, make, opts, cfg_kw):
+def _wa_cnn_build(algo, make, opts, cfg_kw, W=CNN_W, steps=WA_STEPS):
     """The example twin's build of the (b) case on ResNet-18's layout."""
     from repro_torch.core import registry
     from repro_torch.examples import cnn_paper_repro as twin
-    cfg = dataclasses.replace(twin.recipe(CNN_W, WA_STEPS), **cfg_kw)
+    cfg = dataclasses.replace(twin.recipe(W, steps), **cfg_kw)
     make = dict(make)
     if opts is not None:
         make["reducer"] = registry.make_reducer(make["reducer"], cfg, **opts)
-    return twin.build(algo, cfg, CNN_W, WA_STEPS, net=RESNET18,
+    return twin.build(algo, cfg, W, steps, net=RESNET18,
                       image_size=CNN_IMAGE, per_worker=CNN_PER_WORKER,
                       use_kernels=True, buckets=N_BUCKETS, **make)
+
+
+def _in_order(batch_fn):
+    """``batch_fn`` for a rank that may skip steps (outside a sub-mesh):
+    the steps it skips are drawn and dropped, so the twin's prefetch stays
+    in step order."""
+    nxt = [0]
+
+    def get(it, n=None):
+        while nxt[0] < it:
+            batch_fn(nxt[0])
+            nxt[0] += 1
+        nxt[0] = it + 1
+        return batch_fn(it, n)
+    return get
+
+
+def _wa_relayout(model, alg, state, batch_fn, membership) -> tuple:
+    """The (b) elastic case across meshes, on both ranks: ``Engine.fit``
+    to each transition, then `Membership.sync`, ``poll``, ``preview``,
+    the mesh ``launch.mesh.mesh_for_spec`` lays the new membership on,
+    ``apply`` onto its worker seam, a new Engine over it.  Returns the
+    last (state, Engine), the metrics and per membership this rank's
+    ``{W, steps, launches, holds}`` (counts zeroed before its ``fit``)."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.engine import Engine
+    mesh = M.mesh_for_spec(membership.spec, device_type="cuda")
+    engine = Engine(model, alg, mesh=mesh)
+    hist, segs, t = [], [], 0
+    for b in sorted({e["step"] for e in WA_RELAYOUT}) + [WA_RELAYOUT_STEPS]:
+        _zero_counts()
+        state, h, _ = engine.fit(state, batch_fn, steps=b, start=t,
+                                 log_every=1, membership=membership)
+        torch.cuda.synchronize()
+        segs.append({"W": membership.n_workers, "steps": len(h),
+                     "launches": _read_counts(),
+                     "holds": M.holds_rows(mesh)})
+        hist += h
+        if b == WA_RELAYOUT_STEPS:
+            break
+        membership.sync()
+        events = membership.poll(b)
+        mesh = M.mesh_for_spec(membership.preview(events),
+                               device_type="cuda")
+        state, _ = membership.apply(events, state, step=b,
+                                    workers=M.make_workers(mesh))
+        engine = Engine(model, membership.alg, mesh=mesh)
+        t = b
+    return state, engine, hist, segs
 
 
 def _wa_cnn_case(case, mesh=None) -> dict:
@@ -5920,31 +5992,50 @@ def _wa_cnn_case(case, mesh=None) -> dict:
     from repro_torch.launch.engine import Engine
     from repro_torch.models.cnn import init_resnet
     tag, algo, make, opts, cfg_kw, fit, _ = case
-    model, alg, state, batch_fn, _ = _wa_cnn_build(algo, make, opts, cfg_kw)
+    relayout = fit.get("relayout", False)
+    steps = WA_RELAYOUT_STEPS if relayout else WA_STEPS
+    W = fit.get("W", CNN_W)
+    model, alg, state, batch_fn, _ = _wa_cnn_build(algo, make, opts, cfg_kw,
+                                                   W, steps)
     engine = Engine(model, alg, mesh=mesh)
     if mesh is not None:
         del state
-        state = engine.init_state(init_resnet(
-            torch.Generator(device="cuda").manual_seed(0), **RESNET18))
+        state = init_resnet(torch.Generator(device="cuda").manual_seed(0),
+                            **RESNET18)
+        if relayout:
+            from repro_torch.launch import mesh as M
+            engine = Engine(model, alg, mesh=M.mesh_for_spec(
+                Membership(alg).spec, device_type="cuda"))
+        state = engine.init_state(state)
     kw, pins = {}, []
     if fit.get("skew"):
-        kw = dict(measure_skew=True, skew_probe=_skew_probe(CNN_W))
-    if fit.get("elastic"):
+        kw = dict(measure_skew=True, skew_probe=_skew_probe(W))
+    if fit.get("elastic") or relayout:
         class Pinned(Membership):
-            def apply(self, events, st, *, step):
+            def apply(self, events, st, *, step, workers=None):
                 old = self.alg
-                before = old.eval_params(st)
-                st, changed = super().apply(events, st, step=step)
-                if changed:
-                    pins.append(_bitwise(before, old.eval_params(st)))
+                before = None if st is None else old.eval_params(st)
+                st, changed = super().apply(events, st, step=step,
+                                            workers=workers)
+                after = None if st is None else old.eval_params(st)
+                if changed and before is not None and after is not None:
+                    pins.append(_bitwise(before, after))
                 return st, changed
         kw["membership"] = Pinned(alg, faults=FaultSchedule.from_json(
-            {"seed": 0, "events": WA_ELASTIC}))
-    _zero_counts()
-    state, hist, _ = engine.fit(state, batch_fn, steps=WA_STEPS,
-                                log_every=1, **kw)
-    torch.cuda.synchronize()
-    launches = _read_counts()
+            {"seed": 0, "events": WA_RELAYOUT if relayout
+             else WA_ELASTIC}))
+    segs = None
+    if relayout and mesh is not None:
+        state, engine, hist, segs = _wa_relayout(
+            model, alg, state, _in_order(batch_fn), kw["membership"])
+        launches = {k: sum(s["launches"][k] for s in segs)
+                    for k in segs[0]["launches"]}
+    else:
+        _zero_counts()
+        state, hist, _ = engine.fit(state, batch_fn, steps=steps,
+                                    log_every=1, **kw)
+        torch.cuda.synchronize()
+        launches = _read_counts()
     full = engine.gather_state(state)
     host = T.map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x,
                  full)
@@ -5952,7 +6043,7 @@ def _wa_cnn_case(case, mesh=None) -> dict:
                 k: v for k, v in host.comm.items() if k != "pipeline"}),
             "hist": [{k: v for k, v in h.items() if k != "wall_s"}
                      for h in hist],
-            "launches": launches, "pins": pins,
+            "launches": launches, "pins": pins, "segments": segs,
             "log": kw["membership"].log if "membership" in kw else None}
 
 
@@ -5969,21 +6060,36 @@ def _wa_cnn_verdict(case, got, one) -> dict:
     # steps' updates (a zero-initialised bias's momentum: 2.5e-5 of the
     # part's 0.06, 8e-10 apart, 3.2e-5 of itself; PERF.md PR 26)
     held = _state_err(got["state"], one["state"], whole=True) \
-        if fit.get("elastic") else err
+        if fit.get("elastic") or fit.get("relayout") else err
     same = {p: _bitwise(getattr(got["state"], p), getattr(one["state"], p))
             for p in ("params", "opt", "comm")}
     if bitwise and not all(same.values()):
         problems.append(f"{tag}: not bitwise one process {same}, {err}")
     if max(held.values()) > MESH_TOL:
         problems.append(f"{tag}: {held} of scale from one process")
+    # across meshes every step but the first follows a resize, where D is
+    # the rounding noise of a mean of equal rows (another sum order on
+    # the ranks, another noise): its norm is held at 1e-6 of the step's
+    # delta_norm, the scale of the deltas whose mean it rounds
+    live = [h.get("n_workers") for h in one["hist"]]
+    noise = {t for t in range(1, len(live)) if live[t] != live[t - 1]} \
+        if fit.get("relayout") else set()
     m_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
-                for a, b in zip(got["hist"], one["hist"])
+                for t, (a, b) in enumerate(zip(got["hist"], one["hist"]))
                 for k in ("loss", "distance_norm") if k in b
+                and not (k == "distance_norm" and t in noise)
                 and abs(b[k]) > 1e-6 * max(abs(h[k]) for h in one["hist"]))
-    if m_err > MESH_TOL:
-        problems.append(f"{tag}: metrics {m_err:.3g} apart")
-    if fit.get("elastic") and (got["pins"] != [True, True]
-                               or got["log"] != one["log"]):
+    d_err = max([abs(a["distance_norm"] - b["distance_norm"])
+                 / max(b["delta_norm"], 1e-30)
+                 for t, (a, b) in enumerate(zip(got["hist"], one["hist"]))
+                 if t in noise] or [0.0])
+    if m_err > MESH_TOL or d_err > 1e-6:
+        problems.append(f"{tag}: metrics {m_err:.3g} apart (D's norm after "
+                        f"a resize {d_err:.3g} of delta_norm)")
+    moves = len({e["step"] for e in (WA_RELAYOUT if fit.get("relayout")
+                                     else WA_ELASTIC)})
+    if (fit.get("elastic") or fit.get("relayout")) and (
+            got["pins"] != [True] * moves or got["log"] != one["log"]):
         problems.append(f"{tag}: pins {got['pins']}, log {got['log']} vs "
                         f"{one['log']}")
     adm = [h.get("ssp_admit") for h in got["hist"]]
@@ -6020,8 +6126,11 @@ def _wa_cnn_rank(rank: int, store: str, out: str) -> None:
             torch.cuda.empty_cache()
             dist.barrier()
             for case in WA_CNN:
+                torch.cuda.reset_peak_memory_stats()
                 got = _wa_cnn_case(case, mesh)
-                r = {k: got[k] for k in ("hist", "launches", "pins")}
+                r = {k: got[k] for k in ("hist", "launches", "pins",
+                                         "segments")}
+                r["peak_bytes"] = torch.cuda.max_memory_allocated()
                 if case[0] in ones:
                     r.update(_wa_cnn_verdict(case, got, ones.pop(case[0])))
                 res[case[0]] = r
@@ -6030,25 +6139,61 @@ def _wa_cnn_rank(rank: int, store: str, out: str) -> None:
         dist.destroy_process_group()
 
 
+def _wa_relayout_verdict(tag: str, ranks: list, smi: str) -> list:
+    """Per membership of the elastic case across meshes: a rank inside
+    the mesh takes its `WA_RELAYOUT_PER` steps and launches A1 and A2
+    once a bucket a step, a rank outside takes none and launches
+    neither."""
+    problems = []
+    for j, seg in enumerate(ranks[0]["segments"]):
+        row = [r["segments"][j] for r in ranks]
+        for rank, sg in enumerate(row):
+            steps = WA_RELAYOUT_PER if sg["holds"] else 0
+            want = steps * len(CNN_BUCKETS)
+            got = (sg["launches"]["dc_norms"],
+                   sg["launches"]["dc_fused_update"])
+            if sg["steps"] != steps or \
+                    got != (want, want):
+                problems.append(f"{tag}: W={sg['W']} rank {rank} holds "
+                                f"{sg['holds']}, {sg['steps']} steps, A1 / "
+                                f"A2 {got}")
+        print(f"[wa] (b) {tag}: W={seg['W']} rows a rank "
+              f"{[seg['W'] // sum(x['holds'] for x in row) if x['holds'] else 0 for x in row]}"
+              f", steps {[x['steps'] for x in row]}, A1 / A2 "
+              f"{[(x['launches']['dc_norms'], x['launches']['dc_fused_update']) for x in row]}"
+              f" a rank [{smi}]")
+    return problems
+
+
 def phase_wa_gloo(smi: str, res: list) -> dict:
     """(b) Two gloo ranks sharing the card (``res``: their results), the
-    CNN at ResNet-18's layout, W = 8 (4 rows a rank), ``WA_STEPS`` steps
-    of each `WA_CNN` case: the gathered state within ``MESH_TOL`` of the
-    one-process run (bitwise where the case says so), the metrics within
-    ``MESH_TOL`` and the same on both ranks, the elastic pins and
-    transition log.  The ranks copy through the host: no wall is a speed
-    figure."""
+    CNN at ResNet-18's layout, W = 8 (4 rows a rank; "hierarchical G3 W6"
+    at W = 6), ``WA_STEPS`` steps of each `WA_CNN` case ("elastic
+    8-6-3-4": `WA_RELAYOUT_STEPS` over the meshes ``mesh_for_spec`` lays,
+    `_wa_relayout_verdict`): the gathered state within ``MESH_TOL`` of
+    the one-process run (bitwise where the case says so), the metrics
+    within ``MESH_TOL`` and the same on every rank that took the step,
+    the elastic pins and transition log, each case's peak a rank.  The
+    ranks copy through the host: no wall is a speed figure."""
     rec, problems = {}, []
     for i, case in enumerate(WA_CNN):
         tag = case[0]
         got = res[i % MESH_RANKS][tag]
         problems += got["problems"]
-        if any(r[tag]["hist"] != got["hist"] for r in res):
+        # every rank logs the steps it took (a rank outside a sub-mesh
+        # takes none of its steps)
+        if any(r[tag]["hist"] != [h for h in got["hist"] if h["step"] in {
+                m["step"] for m in r[tag]["hist"]}] for r in res):
             problems.append(f"{tag}: the ranks' metrics differ")
+        if case[5].get("relayout"):
+            problems += _wa_relayout_verdict(tag, [r[tag] for r in res],
+                                             smi)
         err = got["err"]
         rec[tag] = {k: got[k] for k in ("err", "held", "bitwise",
                                         "metrics_err", "pins")}
+        rec[tag]["segments"] = [r[tag]["segments"] for r in res]
         rec[tag]["launches"] = [r[tag]["launches"] for r in res]
+        rec[tag]["peak_bytes"] = [r[tag]["peak_bytes"] for r in res]
         print(f"[wa] (b) gloo x2 ResNet-18 layout W={CNN_W} {tag}: "
               f"params / opt / comm {err['params']:.3g} / {err['opt']:.3g}"
               f" / {err['comm']:.3g} of scale (bitwise "
@@ -6057,7 +6202,9 @@ def phase_wa_gloo(smi: str, res: list) -> dict:
               f"{[r[tag]['launches']['dc_norms'] for r in res]}"
               + (f"; pins {got['pins']}; at each part's scale "
                  f"{max(got['held'].values()):.3g}" if got["pins"] else "")
-              + f" [{smi}]")
+              + f"; peak a rank "
+              f"{[round(r[tag]['peak_bytes'] / 2**30, 3) for r in res]} GiB"
+              f" [{smi}]")
     check(not problems, "[wa] (b) " + "; ".join(problems))
     return rec
 
@@ -6653,6 +6800,96 @@ def phase_serve_mesh(smi: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the example twins
+# ---------------------------------------------------------------------------
+
+LM100M_STEPS = 20
+
+
+def _example(fn):
+    """(fn's result, its seconds, its peak device bytes, the kernels'
+    launches in it): counts zeroed and the peak reset just before."""
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t, torch.cuda.max_memory_allocated(),
+            _read_counts())
+
+
+def phase_examples(smi: str) -> dict:
+    """Phase 21: the three example twins on the card as a user runs them:
+    quickstart (the reduced qwen3, W = 4, 60 steps, Eq. 8's averaged
+    weights evaluated), serve_batched (the six reduced archs' greedy
+    tokens, then 6 staggered requests over 2 slots) and train_lm_100m at
+    its full 12 layers (~100 M params, W = 4 x 4 x 256 tokens,
+    ``LM100M_STEPS`` steps, its one checkpoint read back and held to
+    ``eval_params`` bitwise); each one's losses or tokens, seconds and
+    peak."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.examples import quickstart, serve_batched, \
+        train_lm_100m
+    problems, rec = [], {}
+    q, sec, peak, n = _example(lambda: quickstart.run(device="cuda"))
+    losses = [h["loss"] for h in q["history"]]
+    if not (all(math.isfinite(x) for x in losses + [q["eval_loss"]])
+            and losses[-1] < losses[0]):
+        problems.append(f"quickstart: losses {losses}, eval "
+                        f"{q['eval_loss']}")
+    rec["quickstart"] = {"losses": losses, "eval_loss": q["eval_loss"],
+                         "s": sec, "peak_bytes": peak, "launches": n}
+    print(f"[examples] quickstart: losses {[round(x, 4) for x in losses]}, "
+          f"averaged-weight eval loss {q['eval_loss']:.4f}; {sec:.1f} s, "
+          f"peak {peak / 2**30:.3f} GiB [{smi}]")
+    del q
+    sv, sec, peak, n = _example(lambda: serve_batched.main([]))
+    for arch, ids in sv["ids"].items():
+        if tuple(ids.shape) != (serve_batched.BATCH, 8):
+            problems.append(f"serve_batched {arch}: ids {tuple(ids.shape)}")
+    lens = [len(r.out) for r in sorted(sv["done"], key=lambda r: r.rid)]
+    if lens != [3 + 3 * i for i in range(6)]:
+        problems.append(f"serve_batched: stream lengths {lens}")
+    rec["serve_batched"] = {
+        "first_tokens": {a: ids[0, :6].tolist()
+                         for a, ids in sv["ids"].items()},
+        "stream_tokens": lens, "s": sec, "peak_bytes": peak,
+        "launches": n}
+    print(f"[examples] serve_batched: {len(sv['ids'])} archs x (4, 8) "
+          f"greedy tokens, the stream's {lens} tokens; {sec:.1f} s, peak "
+          f"{peak / 2**30:.3f} GiB [{smi}]")
+    del sv
+    with _scratch_dir(2 * 10**9) as tmp:
+        tr, sec, peak, n = _example(lambda: train_lm_100m.main(
+            ["--steps", str(LM100M_STEPS), "--out", str(tmp)]))
+        ev = tr["alg"].eval_params(tr["state"])
+        n_params = sum(x.numel() for x in T.leaves(ev))
+        if [p.name for p in tr["ckpts"]] != ["final.npz"]:
+            problems.append(f"train_lm_100m: checkpoints {tr['ckpts']}")
+        back = restore_pytree(tr["ckpts"][-1], ev)
+        same = _bitwise(T.map(lambda x: x.cpu(), back),
+                        T.map(lambda x: x.cpu(), ev))
+    losses = [h["loss"] for h in tr["history"]]
+    if not same or not all(math.isfinite(x) for x in losses):
+        problems.append(f"train_lm_100m: checkpoint bitwise {same}, "
+                        f"losses {losses}")
+    rec["train_lm_100m"] = {"params": n_params, "losses": losses,
+                            "checkpoint_bitwise": same, "s": sec,
+                            "train_s": tr["wall_s"], "peak_bytes": peak,
+                            "launches": n}
+    print(f"[examples] train_lm_100m x12 ({n_params} params), "
+          f"{LM100M_STEPS} steps: losses {[round(x, 4) for x in losses]}, "
+          f"checkpoint read back bitwise {same}; {sec:.1f} s "
+          f"({tr['wall_s']:.1f} s of steps), peak {peak / 2**30:.3f} GiB "
+          f"[{smi}]")
+    del tr, ev, back
+    check(not problems, "[examples] " + "; ".join(problems))
+    return rec
+
+
 def _lap_phases(t0: float) -> None:
     """Wrap every ``phase_*`` function of this module so that each call
     prints its own wall time and the time since ``t0`` (the script must
@@ -6846,6 +7083,8 @@ def main() -> int:
     s19 = phase_worker_axis(smi)
     torch.cuda.empty_cache()
     s20 = phase_serve_mesh(smi)
+    torch.cuda.empty_cache()
+    ex = phase_examples(smi)
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -7127,7 +7366,15 @@ def main() -> int:
                                   for t, r in s19["gloo"].items()
                                   if isinstance(r, dict)},
             "launches_gloo_qwen3_topk_exact": [
-                r["launches"][name] for r in s19["qwen3"]["ranks"]]}
+                r["launches"][name] for r in s19["qwen3"]["ranks"]],
+            # the elastic case across meshes: per membership, each rank's
+            "launches_gloo_cnn_relayout": [
+                {"W": seg[0]["W"], "ranks": [x["launches"][name]
+                                             for x in seg]}
+                for seg in zip(*s19["gloo"]["elastic 8-6-3-4"]
+                               ["segments"])],
+            "launches_examples": {k: v["launches"][name]
+                                  for k, v in ex.items()}}
         if name == "select_ef_mean":
             entry["modes_checked"] = b3_modes
     # slice 19: each kernel's launches a rank in phase 18's wire cells
@@ -7213,7 +7460,7 @@ def main() -> int:
               "dense_family": dense, "hybrid": hybrid, "moe_mla": moe,
               "vlm_encdec": mm, "analysis": s13, "multi_device": s14,
               "tensor_parallel": s15, "worker_axis": s19,
-              "serve_mesh": s20,
+              "serve_mesh": s20, "examples": ex,
               "select_modes": b3_modes,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start

@@ -236,14 +236,14 @@ class _ErrorFeedbackMean:
         spread equally over the ``n_new`` workers, so the mass per bucket
         is conserved (up to one f32 rounding).  Counters and warm starts
         are worker-count independent and carry over.  On a mesh the sum
-        runs over every rank's rows and each rank keeps ``n_new / R``."""
+        runs over every rank's rows.  Each residual comes back as one row,
+        a worker's share: the algorithm's ``resize_state`` expands it to
+        the rows each rank of the (possibly new) mesh holds."""
         n_new = int(n_new)
         wk = self.workers
-        rows = wk.rows(n_new)
         out = dict(rstate)
-        out["residual"] = [
-            (wk.sum_rows(r) / n_new).expand((rows,) + r.shape[1:])
-            .contiguous() for r in rstate["residual"]]
+        out["residual"] = [wk.sum_rows(r) / n_new
+                           for r in rstate["residual"]]
         return out
 
     def _compress(self, b: int, a: torch.Tensor, rstate: Tree

@@ -74,7 +74,7 @@ from repro_torch import tree as T
 from repro_torch.core import registry
 from repro_torch.core.api import LossFn, Metrics, TrainState
 from repro_torch.core.correction import worker_sq_sum
-from repro_torch.core.reduce import LAYOUT_ITEM, LOCAL, layout_bound
+from repro_torch.core.reduce import LOCAL, layout_bound
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.instrument import scope
 from repro_torch.optim import local as local_opt
@@ -518,11 +518,15 @@ class DCS3GD:
 
     def eval_params(self, state: TrainState) -> Tree:
         """w̄ for evaluation (paper Eq. 8), anchor-form consensus mean
-        (over every rank's rows on a mesh)."""
+        (over every rank's rows on a mesh; None on a rank outside it,
+        which holds no rows)."""
         from repro_torch.core.reduce import consensus_mean
+        if not self.workers.holds:
+            return None
         return consensus_mean(state.params, self.workers)
 
-    def resize_state(self, state: TrainState, n_new: int) -> TrainState:
+    def resize_state(self, state: TrainState, n_new: int, *,
+                     workers=None) -> TrainState:
         """Reshard the carried state to ``n_new`` workers (elastic resize).
 
         A membership transition is a barrier: every worker-stacked piece
@@ -552,33 +556,49 @@ class DCS3GD:
         row broadcast, the sum all-reduced, as `consensus_mean` does) and
         each rank restacks its ``n_new / R`` rows of it: after the
         collapse every row is the same, so no row moves between ranks.
-        A count the ranks cannot split evenly would leave a rank without
-        its share: refused."""
-        wk = self.workers
+        A count the live ranks cannot split evenly needs the mesh that
+        carries it (`repro_torch.launch.mesh.mesh_for_spec`, the first R′
+        ranks of the world): pass its seam as ``workers``
+        (`repro_torch.launch.mesh.make_workers`).  Every rank of the world
+        then calls this: the ranks that hold rows collapse, the consensus
+        reaches the new mesh's ranks that held none (`hand_over`), each
+        rank of the new mesh restacks its ``n_new / R′`` rows, and ``self``
+        is bound to ``workers``.  A rank outside the new mesh gets None;
+        one outside the old passes None (or its state) and takes part only
+        in the hand-over."""
+        from repro_torch.core.reduce import check_rows, hand_over
+        src = self.workers
+        dst = src if workers is None else workers
         n_new = int(n_new)
-        if n_new % wk.size:
-            raise ValueError(
-                f"resize to {n_new} workers over {wk.size} ranks: the rows "
-                f"do not split evenly, and a membership that leaves ranks "
-                f"out needs its own process group ({LAYOUT_ITEM})")
+        check_rows(n_new, dst)
+        held = None
+        if state is not None and src.holds:
+            held = self._collapse(state, n_new)
+        held = hand_over(held, src, dst)
+        self.bind_workers(dst)
+        return None if held is None else self._restack(held, n_new)
+
+    def _collapse(self, state: TrainState, n_new: int) -> TrainState:
+        """The barrier half of `resize_state`, on the old workers: every
+        worker-stacked leaf at its consensus, one row of it; the
+        staleness counters resized, the reducer's state resized with one
+        row of residual (a worker's share); a stateful pipeline kept (a
+        stateless one is re-issued by `_restack`)."""
+        wk = self.workers
         # an in-flight overlap reduce of the old rows lands first
         self.drain()
-        rows = wk.rows(n_new)
 
-        def restack(x):
+        def collapse(x):
             if x.dim() == 0:
                 return x
             a = x.float()
             a0 = wk.anchor(a)
-            avg = a0[0] + wk.sum_rows(a - a0)[0] / wk.count(a)
-            return avg.to(x.dtype).unsqueeze(0) \
-                .expand((rows,) + avg.shape).contiguous()
+            return (a0[0] + wk.sum_rows(a - a0)[0] / wk.count(a)) \
+                .to(x.dtype).unsqueeze(0)
 
-        params = T.map(restack, state.params)
-        opt = T.map(restack, state.opt)
         comm = {}
         if "delta_prev" in state.comm:
-            comm["delta_prev"] = T.map(restack, state.comm["delta_prev"])
+            comm["delta_prev"] = T.map(collapse, state.comm["delta_prev"])
         if "staleness" in state.comm:
             comm["staleness"] = self.staleness.resize(
                 state.comm["staleness"], n_new)
@@ -586,13 +606,39 @@ class DCS3GD:
             comm["reducer"] = self.reducer.resize(state.comm["reducer"],
                                                   n_new)
         if "pipeline" in state.comm:
+            comm["pipeline"] = None if getattr(self.reducer, "stateless",
+                                               True) \
+                else state.comm["pipeline"]
+        return TrainState(T.map(collapse, state.params),
+                          T.map(collapse, state.opt), comm, state.step)
+
+    def _restack(self, held: TrainState, n_new: int) -> TrainState:
+        """The other half of `resize_state`, on the (new) bound workers:
+        each consensus row and the residual share expanded to this rank's
+        ``n_new / R`` rows, materialised; the pipeline against the resized
+        wire (`repro_torch.parallel.pipeline.resize`)."""
+        rows = self.workers.rows(n_new)
+
+        def restack(x):
+            if x.dim() == 0:
+                return x
+            return x.expand((rows,) + x.shape[1:]).contiguous()
+
+        params = T.map(restack, held.params)
+        comm = dict(held.comm)
+        if "delta_prev" in comm:
+            comm["delta_prev"] = T.map(restack, comm["delta_prev"])
+        if "reducer" in comm:
+            comm["reducer"] = dict(comm["reducer"])
+            comm["reducer"]["residual"] = [
+                restack(r) for r in comm["reducer"]["residual"]]
+        if "pipeline" in comm:
             from repro_torch.parallel import pipeline as PL
             wire = self._plan(params).pack(params) \
                 if self._reduces_weights else comm["delta_prev"]
-            comm["pipeline"] = PL.resize(self.reducer,
-                                         state.comm["pipeline"], wire,
-                                         whole=self._whole_wire(params))
-        return TrainState(params, opt, comm, state.step)
+            comm["pipeline"] = PL.resize(self.reducer, comm["pipeline"],
+                                         wire, whole=self._whole_wire(params))
+        return TrainState(params, T.map(restack, held.opt), comm, held.step)
 
     def _fused_tail(self, state: TrainState, grads, D, loss, lr: float,
                     wd: float, *, plan=None, rstate=None, pstate=None,

@@ -85,6 +85,8 @@ class Workers:
     size = 1            # ranks sharing the worker axis
     rank = 0            # this rank's index among them (pod-major)
     distributed = False
+    holds = True        # this rank holds rows (not outside the mesh)
+    span = 1            # ranks of the world the worker axis covers
 
     def rows(self, n_workers: int) -> int:
         """This rank's share of ``n_workers`` rows."""
@@ -121,33 +123,34 @@ class Workers:
         (1, n) uint8 mask, the same on every rank."""
         return mask.any(dim=0, keepdim=True).to(torch.uint8)
 
-    def roll(self, tensors, off: int, n: int, span: int = 1) -> tuple:
+    def roll(self, tensors, off: int, n: int, held=None) -> tuple:
         """This rank's rows of ``torch.roll(X, off, 0)`` for each tensor
         ``X`` of ``tensors``, whose global leading axis holds ``n`` items;
-        this rank holds its block of them (``span`` ranks in a row hold
-        the same block: `ProcessWorkers.roll`).  Only moves values."""
-        del n, span
+        ``held(q)`` gives the range ``[lo, hi)`` of them that rank ``q``
+        holds (by default an even block a rank: `ProcessWorkers.roll`).
+        Only moves values."""
+        del n, held
         return tuple(torch.roll(t, off, 0) for t in tensors)
 
-    def check_blocks(self, groups: int) -> int:
-        """How many ranks in a row share one of ``groups`` consecutive
-        worker groups (1 when each rank holds whole groups); raises when
-        the groups and the ranks do not nest."""
-        del groups
-        return 1
-
-    def gather_block(self, x: torch.Tensor, span: int) -> torch.Tensor:
-        """The rows of the ``span`` ranks in a row that hold this rank's
-        block, in worker order (this rank's own rows at ``span`` 1)."""
-        del span
+    def gather_groups(self, x: torch.Tensor, size: int) -> torch.Tensor:
+        """The rows of every group of ``size`` consecutive workers that
+        this rank's rows touch, in worker order (`group_span`): here
+        every row."""
+        del size
         return x
 
 
 LOCAL = Workers()
 
-# the ROADMAP item a layout the worker axis cannot carry across ranks names
-LAYOUT_ITEM = ("ROADMAP queue A item 6.8: a process group per membership "
-               "and per worker layout")
+
+def group_span(rank: int, rows: int, size: int) -> tuple:
+    """``[first, last + 1)``: the groups of ``size`` consecutive workers
+    that worker rank ``rank``'s ``rows`` rows touch.  Groups that nest in
+    the ranks' blocks (or blocks in groups) give whole groups or one;
+    otherwise a group can lie across two or more ranks' rows, and a rank
+    can touch a group at either end of its block."""
+    lo = rank * rows
+    return lo // size, (lo + rows - 1) // size + 1
 
 
 class ProcessWorkers(Workers):
@@ -160,16 +163,33 @@ class ProcessWorkers(Workers):
     caller computes under it; `means` reduces a step's metric sums in one
     small all-reduce, so every rank reports the same global numbers and
     nothing waits on the host.  At one rank every result is bitwise the
-    one-process one: the same row order, the same division by W."""
+    one-process one: the same row order, the same division by W.
+
+    ``model`` / ``model_rank``: the mesh's 'model' axis and this rank's
+    coordinate on it; the mesh spans ``span = size · model`` ranks, the
+    first of the world (`repro_torch.launch.mesh.mesh_for_spec`).  On a
+    rank outside the mesh ``holds`` is False: it holds no rows, belongs
+    to no group and runs none of the seam's collectives; only
+    `hand_over` (a resize onto a mesh that reaches it) involves it."""
 
     distributed = True
 
-    def __init__(self, group, *, rank: int, size: int):
+    def __init__(self, group, *, rank: int, size: int, model: int = 1,
+                 model_rank: int = 0, holds: bool = True):
         self.group = group
         self.rank = int(rank)
         self.size = int(size)
-        # sub-groups of `span` ranks in a row, built once (`check_blocks`)
-        self._blocks: dict = {}
+        self.model = int(model)
+        self.model_rank = int(model_rank)
+        self.holds = bool(holds)
+
+    @property
+    def span(self) -> int:
+        """The ranks of the world the mesh covers (its first ones)."""
+        return self.size * self.model
+
+    def rows(self, n_workers: int) -> int:
+        return int(n_workers) // self.size if self.holds else 0
 
     @property
     def host(self) -> bool:
@@ -224,41 +244,41 @@ class ProcessWorkers(Workers):
         for t in tensors:
             dist.broadcast(t, group_src=owner, group=self.group)
 
-    def roll(self, tensors, off: int, n: int, span: int = 1) -> tuple:
-        """Worker rank p holds items ``[b·c, (b+1)·c)`` of the ``n``,
-        where ``b = p // span`` and ``c = n·span / R``.  For the roll by
-        ``off`` this rank needs items ``(b·c + j − off) mod n``, j < c:
-        each comes from its own rows or from the holder at this rank's
-        position in the holding block.  Every rank derives every rank's
-        needs, so all post matching sends and receives, in one
-        ``batch_isend_irecv``, at most one message a rank pair, holding
-        the values and (quantized wire) the scales as bytes."""
-        if self.size == 1:
-            return super().roll(tensors, off, n)
+    def _exchange(self, payload: torch.Tensor, held, needs
+                  ) -> torch.Tensor:
+        """The items ``needs(self.rank)`` (global indices, in order) of a
+        leading axis whose items ``[lo, hi) = held(q)`` lie on rank ``q``
+        (``payload``: this rank's, as (items, bytes)).  An item comes from
+        this rank's own where it holds it, else from one of its holders,
+        the ``q mod h``-th of the ``h`` for rank ``q`` (so ranks that
+        hold the same block fetch from different ones).  Every rank
+        derives every rank's plan, so all post matching sends and
+        receives in one ``batch_isend_irecv``, at most one message a rank
+        pair."""
         import torch.distributed as dist
         R, me = self.size, self.rank
-        c = n * span // R
-        if c * R != n * span or c < 1:
-            raise ValueError(f"{n} ring items do not lie in blocks over "
-                             f"{R} ranks ({LAYOUT_ITEM})")
+        spans = [held(q) for q in range(R)]
 
-        def sources(q):
+        def plan(q):
             # (source rank, its local index) of each item rank q needs
-            base = (q // span) * c
             out = []
-            for j in range(c):
-                i = (base + j - off) % n
-                out.append(((i // c) * span + q % span, i % c))
+            for i in needs(q):
+                lo, hi = spans[q]
+                if lo <= i < hi:
+                    out.append((q, i - lo))
+                    continue
+                hs = [p for p in range(R) if spans[p][0] <= i < spans[p][1]]
+                p = hs[q % len(hs)]
+                out.append((p, i - spans[p][0]))
             return out
 
-        payload = _as_bytes(tensors)
-        mine = sources(me)
+        mine = plan(me)
         ranks = self._ranks()
         ops, recvs = [], []
         for q in range(R):
             if q == me:
                 continue
-            want = [k for p, k in sources(q) if p == me]
+            want = [k for p, k in plan(q) if p == me]
             if want:
                 idx = torch.tensor(want, device=payload.device)
                 ops.append(dist.P2POp(dist.isend, self._staged(
@@ -273,7 +293,7 @@ class ProcessWorkers(Workers):
                 recvs.append((got, buf))
                 ops.append(dist.P2POp(dist.irecv, buf, ranks[q],
                                       group=self.group))
-        out = torch.empty_like(payload)
+        out = payload.new_empty((len(mine), payload.shape[1]))
         local = [(j, k) for j, (p, k) in enumerate(mine) if p == me]
         if local:
             dst = torch.tensor([j for j, _ in local], device=out.device)
@@ -285,57 +305,46 @@ class ProcessWorkers(Workers):
         for got, buf in recvs:
             out.index_copy_(0, torch.tensor(got, device=out.device),
                             buf.to(out.device))
+        return out
+
+    def roll(self, tensors, off: int, n: int, held=None) -> tuple:
+        """Rank q holds items ``held(q) = [lo, hi)`` of the ``n`` (by
+        default ``[q·n/R, (q+1)·n/R)``; ranges may overlap, as the group
+        means of hierarchical groups that cross ranks do).  For the roll
+        by ``off`` this rank needs items ``(lo + j − off) mod n``, j <
+        hi − lo, from its own or from a holder (`_exchange`), the values
+        and (quantized wire) the scales as one byte payload."""
+        if self.size == 1:
+            return super().roll(tensors, off, n)
+        R = self.size
+        if held is None:
+            def held(q):
+                return q * n // R, (q + 1) * n // R
+
+        def needs(q):
+            lo, hi = held(q)
+            return [(lo + j - off) % n for j in range(hi - lo)]
+        out = self._exchange(_as_bytes(tensors), held, needs)
         return _from_bytes(out, tensors)
 
-    def check_blocks(self, groups: int) -> int:
-        """``groups`` a multiple of R: each rank holds whole groups (span
-        1).  R a multiple of ``groups``: a group spans ``R / groups``
-        ranks in a row, whose sub-group is built here, once, by every
-        rank for every block in the same order (``new_group`` is
-        collective over the default group: where the world holds other
-        worker groups too, those of the other 'model' coordinates, every
-        rank builds every group's blocks, group by group in the order of
-        their first ranks).  Otherwise the groups cut through a rank's
-        rows: refused."""
-        groups = int(groups)
-        if groups % self.size == 0:
-            return 1
-        if self.size % groups:
-            raise ValueError(
-                f"hierarchical: {groups} groups over {self.size} ranks cut "
-                f"through a rank's rows ({LAYOUT_ITEM})")
-        span = self.size // groups
-        if span not in self._blocks:
-            if span == self.size:
-                self._blocks[span] = self.group
-            else:
-                import torch.distributed as dist
-                ranks = self._ranks()
-                every = [ranks]
-                if dist.get_world_size() > self.size:
-                    seen = [None] * dist.get_world_size()
-                    dist.all_gather_object(seen, ranks)
-                    every = sorted({tuple(r) for r in seen})
-                for rs in every:
-                    for b in range(self.size // span):
-                        g = dist.new_group(list(rs[b * span:(b + 1) * span]))
-                        if list(rs) == list(ranks) \
-                                and b == self.rank // span:
-                            self._blocks[span] = g
-        return span
-
-    def gather_block(self, x: torch.Tensor, span: int) -> torch.Tensor:
-        """An all-gather over the block's sub-group, the members
-        concatenated in worker order (so a sum over them can add the rows
-        in the one-process order)."""
-        if span == 1:
+    def gather_groups(self, x: torch.Tensor, size: int) -> torch.Tensor:
+        """The rows of the groups of ``size`` workers that this rank's
+        ``c`` rows touch (`group_span`), in worker order: each from the
+        one rank that holds it (`_exchange`), in shares of whatever size
+        the layout gives, so a sum over a group can add its rows in the
+        one-process order.  A rank that holds only whole groups moves
+        nothing."""
+        c = x.shape[0]
+        g0, g1 = group_span(self.rank, c, size)
+        if g0 * size == self.rank * c and g1 * size == (self.rank + 1) * c:
             return x
-        import torch.distributed as dist
-        self.check_blocks(self.size // span)
-        src = self._staged(x.contiguous())
-        parts = [torch.empty_like(src) for _ in range(span)]
-        dist.all_gather(parts, src, group=self._blocks[span])
-        return torch.cat(parts, dim=0).to(x.device)
+
+        def needs(q):
+            a, b = group_span(q, c, size)
+            return range(a * size, b * size)
+        out = self._exchange(_as_bytes((x.contiguous(),)),
+                             lambda q: (q * c, (q + 1) * c), needs)
+        return _from_bytes(out, (x,))[0]
 
 
 def layout_bound(reducer) -> bool:
@@ -492,12 +501,12 @@ def _ring_offsets(n: int, k: int):
 
 def _ring_mix(x: torch.Tensor, k: int, comm_dtype: str,
               workers: Workers = LOCAL, n: int | None = None,
-              span: int = 1) -> torch.Tensor:
+              held=None) -> torch.Tensor:
     """Mean of each row with its ring neighbours over axis 0, f32 out.
     Only the neighbour terms cross the wire in ``comm_dtype``; a row's
-    own term stays f32.  On a mesh ``x`` is this rank's block of the
-    ``n`` ring items (`Workers.roll`): the same terms, added in the same
-    offset order."""
+    own term stays f32.  On a mesh ``x`` is this rank's range of the
+    ``n`` ring items (``held``, `Workers.roll`): the same terms, added in
+    the same offset order."""
     offs = _ring_offsets(x.shape[0] if n is None else n, k)
     acc = x.float()
     if Q.is_quantized(comm_dtype):
@@ -505,12 +514,12 @@ def _ring_mix(x: torch.Tensor, k: int, comm_dtype: str,
         for off in offs:
             if off:
                 acc = acc + Q.dequantize(*workers.roll((qv, sc), off, n,
-                                                       span))
+                                                       held))
     else:
         wire = x.to(Q.float_wire(comm_dtype))
         for off in offs:
             if off:
-                acc = acc + workers.roll((wire,), off, n, span)[0].float()
+                acc = acc + workers.roll((wire,), off, n, held)[0].float()
     return acc / float(len(offs))
 
 
@@ -577,7 +586,8 @@ class HierarchicalReduce:
 
     name = "hierarchical"
     reduces_weights = True
-    _workers: Workers = LOCAL
+    # the worker-axis seam; the algorithm binds a process group's
+    workers: Workers = LOCAL
 
     def __init__(self, cfg=None, *, comm_dtype: str | None = None,
                  groups: int | None = None, neighbors: int | None = None):
@@ -610,26 +620,17 @@ class HierarchicalReduce:
                 "accounted_bytes": (1 + 2 * self.neighbors)
                 * _hop_bytes(sizes, self.comm_dtype)}
 
-    @property
-    def workers(self) -> Workers:
-        """The worker-axis seam.  Binding a process group settles how the
-        groups lie over its ranks (`Workers.check_blocks`): whole groups
-        on each rank, or each group over a block of ranks whose sub-group
-        is built here, at bind time; groups that cut through a rank's
-        rows are refused."""
-        return self._workers
-
-    @workers.setter
-    def workers(self, workers: Workers) -> None:
-        workers.check_blocks(self.groups)
-        self._workers = workers
-
     def __call__(self, tree: Tree) -> Tree:
-        """On a mesh a group inside a rank takes its mean locally; a
-        group over a block of ranks gathers its members from the block's
-        sub-group and adds them in worker order; the ring between the
-        group means is gossip's exchange.  Either way every term and its
-        order are the one-process ones: bitwise on any number of ranks."""
+        """On a mesh each rank takes the mean of every group its rows
+        touch (`group_span`): over its own rows where it holds the whole
+        group, else over the group's rows gathered from the ranks that
+        hold them (`Workers.gather_groups`, shares of any size: a group
+        may lie inside a rank, span a block of ranks or cut through two
+        ranks' rows), added in worker order; the ring between the group
+        means is gossip's exchange over the ranks' ranges of groups,
+        which overlap where a group lies across ranks.  Every term and
+        its order are the one-process ones: bitwise on any number of
+        ranks and any layout."""
         G, wk = self.groups, self.workers
 
         def red(d):
@@ -637,18 +638,21 @@ class HierarchicalReduce:
             if W % G:
                 raise ValueError(f"hierarchical: {W} workers do not split "
                                  f"into {G} groups")
-            span = wk.check_blocks(G)
-            x = wk.gather_block(d.float(), span)
-            x = x.reshape((x.shape[0] * G // W, W // G) + d.shape[1:])
+            size, c = W // G, d.shape[0]
+            g0, g1 = group_span(wk.rank, c, size)
+            x = wk.gather_groups(d.float(), size)
+            x = x.reshape((g1 - g0, size) + d.shape[1:])
             # exact intra-group mean, members added in order (keepdims)
             intra = x[:, :1].clone()
-            for j in range(1, W // G):
+            for j in range(1, size):
                 intra += x[:, j:j + 1]
-            intra = intra / (W // G)
+            intra = intra / size
             mixed = _ring_mix(intra, self.neighbors, self.comm_dtype, wk, G,
-                              span)
-            return mixed.expand((mixed.shape[0], d.shape[0] // mixed.shape[0])
-                                + d.shape[1:]).reshape(d.shape)
+                              lambda q: group_span(q, c, size))
+            # each of this rank's rows takes its group's mixed mean
+            group = torch.div(torch.arange(c, device=d.device) + wk.rank * c,
+                              size, rounding_mode="floor") - g0
+            return mixed.index_select(0, group).reshape(d.shape)
 
         return T.map(red, tree)
 
@@ -673,3 +677,74 @@ def consensus_mean(tree: Tree, workers: Workers = LOCAL) -> Tree:
         a = workers.anchor(x)
         return a[0] + workers.sum_rows(x - a)[0] / workers.count(x)
     return T.map(red, tree)
+
+
+def check_rows(n_new: int, workers: Workers) -> None:
+    """Raise unless ``workers``' ranks split ``n_new`` rows evenly (the
+    reference's `validate_worker_count` at a resize)."""
+    if int(n_new) % workers.size:
+        raise ValueError(
+            f"resize to {n_new} workers over {workers.size} worker ranks: "
+            f"the rows do not split evenly; lay the membership over the "
+            f"ranks that carry it (launch.mesh.mesh_for_spec) and pass that "
+            f"mesh's seam (workers=launch.mesh.make_workers(mesh))")
+
+
+class _TensorMeta:
+    """A tensor's shape, dtype and device type: what a rank that holds
+    none of it needs to receive it (`hand_over`)."""
+
+    def __init__(self, x: torch.Tensor):
+        self.shape = tuple(x.shape)
+        self.dtype = x.dtype
+        self.device_type = x.device.type
+
+    def device(self) -> torch.device:
+        if self.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.device_type)
+
+
+def hand_over(tree: Tree, src: Workers, dst: Workers) -> Tree:
+    """``tree`` (what every rank that holds rows under ``src`` holds
+    alike: a consensus, a replicated leaf, host counters; None on a rank
+    that held none) on every rank that holds rows under ``dst``, and None
+    on the others.  Meshes lie over the first ranks of the world
+    (`repro_torch.launch.mesh.mesh_for_spec`), so only a ``dst`` that
+    reaches further (``dst.span > src.span``) has ranks without it; then
+    rank 0 broadcasts the tree's structure and host values over the
+    world, and each tensor travels from worker 0 at each 'model'
+    coordinate m (global rank m) to the ranks at coordinate m.  Every rank
+    of the world calls this, in the same order."""
+    if dst.span > src.span:
+        import torch.distributed as dist
+        if src.model != dst.model:
+            raise ValueError(f"a resize keeps the 'model' axis: "
+                             f"{src.model} ranks, then {dst.model}")
+        me = dist.get_rank()
+        host = dist.get_backend() == "gloo"
+        held = tree is not None and src.holds
+        leaves = T.flatten(tree)[0] if held else None
+        skel = [None, None]
+        if me == 0:
+            leaves_, treedef = T.flatten(tree)
+            skel = [treedef, [_TensorMeta(x) if isinstance(x, torch.Tensor)
+                              else x for x in leaves_]]
+        dist.broadcast_object_list(skel, src=0)
+        treedef, metas = skel
+        out = []
+        for j, meta in enumerate(metas):
+            if not isinstance(meta, _TensorMeta):
+                out.append(meta)
+                continue
+            dev = torch.device("cpu") if host else meta.device()
+            got = leaves[j] if held else None
+            for m in range(dst.model):
+                buf = leaves[j].to(dev) if me == m else \
+                    torch.empty(meta.shape, dtype=meta.dtype, device=dev)
+                dist.broadcast(buf, src=m)
+                if got is None and dst.holds and dst.model_rank == m:
+                    got = buf.to(meta.device())
+            out.append(got)
+        tree = T.unflatten(treedef, out) if dst.holds else None
+    return tree if dst.holds else None

@@ -200,7 +200,8 @@ class SSGD:
                  "lr": lr, "wd": wd})
 
     def eval_params(self, state: TrainState) -> Tree:
-        return state.params
+        """The shared params (None on a rank outside the mesh)."""
+        return state.params if self.workers.holds else None
 
     # -- sharding hooks -----------------------------------------------------
 
@@ -225,13 +226,34 @@ class SSGD:
         return shd.batch_specs(model_cfg, batch,
                                worker_axes=axes.worker_spec)
 
-    def resize_state(self, state: TrainState, n_new: int) -> TrainState:
+    def resize_state(self, state: TrainState, n_new: int, *,
+                     workers=None) -> TrainState:
         """Elastic resize: params and opt are shared (already the
         consensus, so ``eval_params`` is unchanged); only a stateful
         reducer's per-worker residuals carry a worker axis, and they go
-        through the reducer's own ``resize`` (mass-conserving)."""
-        comm = dict(state.comm)
-        if "reducer" in comm:
-            comm["reducer"] = self.reducer.resize(comm["reducer"],
-                                                  int(n_new))
-        return state._replace(comm=comm)
+        through the reducer's own ``resize`` (mass-conserving).
+        ``workers``: the seam of the mesh that carries ``n_new``, as for
+        `repro_torch.core.dc_s3gd.DCS3GD.resize_state` (every rank of the
+        world calls it; the shared state and a worker's residual share
+        reach the new mesh's ranks, ``self`` is bound to it, a rank outside
+        it gets None)."""
+        from repro_torch.core.reduce import check_rows, hand_over
+        src = self.workers
+        dst = src if workers is None else workers
+        n_new = int(n_new)
+        check_rows(n_new, dst)
+        held = None
+        if state is not None and src.holds:
+            comm = dict(state.comm)
+            if "reducer" in comm:
+                comm["reducer"] = self.reducer.resize(comm["reducer"], n_new)
+            held = state._replace(comm=comm)
+        held = hand_over(held, src, dst)
+        self.bind_workers(dst)
+        if held is None or "reducer" not in held.comm:
+            return held
+        rows = dst.rows(n_new)
+        red = dict(held.comm["reducer"])
+        red["residual"] = [r.expand((rows,) + r.shape[1:]).contiguous()
+                           for r in red["residual"]]
+        return held._replace(comm={**held.comm, "reducer": red})

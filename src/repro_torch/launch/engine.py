@@ -21,17 +21,32 @@ binds the same axes: each rank holds its serve shards of the params
 prefills and decodes over 'model' on them, and `generate` gathers every
 data rank's tokens, so every rank returns the whole batch.  Every
 algorithm of the registry trains across the worker ranks, under every
-reducer and staleness policy, and an elastic run resizes across them
-(each rank keeps ``W / R`` rows of the live W); over 'model' a
-compressed wire or a quantized ``comm_dtype`` reduces the whole buckets
-on every model rank, and its ``comm["reducer"]`` is whole there, so
-`gather_state` and `restore` move it over the worker axis only.  What
-the port cannot yet run across ranks is refused, at construction or at
-the resize, never run silently in one process: a membership whose W
-the ranks cannot split evenly, hierarchical groups that cut through a
-rank's rows, a sharded dim that does not divide the 'model' axis, and
-the paged serving seam, which the reference runs in one process only
-(``specs_only=True`` keeps any mesh's specs for the dry-run).
+reducer and staleness policy (hierarchical groups in any layout over
+the ranks), and an elastic run resizes across them (each rank keeps
+``W / R`` rows of the live W); over 'model' a compressed wire or a
+quantized ``comm_dtype`` reduces the whole buckets on every model rank,
+and its ``comm["reducer"]`` is whole there, so `gather_state` and
+`restore` move it over the worker axis only.
+
+A mesh that `repro_torch.launch.mesh.mesh_for_spec` laid over fewer
+ranks than the world (a membership the world's ranks cannot split)
+leaves the other ranks outside it: there the Engine holds no rows,
+`init_state`, `gather_state`, `restore` and the algorithm's
+``eval_params`` return None, `save` writes nothing and `fit` takes no
+step; the mesh's own ranks train, gather, save (its first rank writes)
+and restore among themselves.  ``fit`` keeps its mesh, as the
+reference's does: a transition to a W the live ranks cannot split
+raises before any rank changes state, naming ``mesh_for_spec``, and the
+run goes on through ``Membership.apply(..., workers=...)`` and a new
+Engine over the new mesh (`repro_torch.cluster.membership`).
+
+Refused at construction, never run silently in one process: a W that
+does not divide the mesh's worker capacity (the reference's
+`validate_worker_count`), a sharded dim that does not divide the
+'model' axis (the reference's GSPMD refuses the same sharding), and the
+paged serving seam over 'model', which the reference runs in one
+process only (``specs_only=True`` keeps any mesh's specs for the
+dry-run).
 
 PyTorch runs eagerly, so there is nothing to jit: ``fit`` calls the
 algorithm's ``step`` directly, and where the reference lowers a step for
@@ -55,7 +70,7 @@ from repro_torch.checkpoint import (checkpoint_meta, restore_pytree,
 from repro_torch.core import registry
 from repro_torch.core.types import DCS3GDConfig
 from repro_torch.parallel import sharding as shd
-from repro_torch.parallel.tensor import (UNEVEN_ITEM, gather_leaves,
+from repro_torch.parallel.tensor import (UNEVEN_LIMIT, gather_leaves,
                                          model_dims)
 from repro_torch.serve.oneshot import OneShotGenerator
 
@@ -156,7 +171,7 @@ class Engine:
         if model_size > 1:
             self._refuse_over_model(model_size)
         self.workers = M.make_workers(mesh)
-        if model_size > 1:
+        if model_size > 1 and self.workers.holds:
             self.model_axis = M.model_axis(mesh)
             if hasattr(self.model, "with_model_axis"):
                 self.model = self.model.with_model_axis(self.model_axis)
@@ -181,11 +196,12 @@ class Engine:
 
     def _refuse_over_model(self, model_size: int) -> None:
         """Raise for what does not run over a 'model' axis of
-        ``model_size``, naming its ROADMAP item: a sharded dim that does
-        not divide the axis.  Every algorithm, reducer and wire runs over
-        it (a compressed wire or a quantized ``comm_dtype`` over the
-        whole buckets, `repro_torch.parallel.tensor.WholeWire`), and so
-        does serving (``alg=None``)."""
+        ``model_size``: a sharded dim that does not divide the axis,
+        which the reference's GSPMD refuses as well.  Every algorithm,
+        reducer and wire runs over it (a compressed wire or a quantized
+        ``comm_dtype`` over the whole buckets,
+        `repro_torch.parallel.tensor.WholeWire`), and so does serving
+        (``alg=None``)."""
         cfg = getattr(self.model, "cfg", None)
         if cfg is not None:
             from repro_torch.launch import specs as S
@@ -193,7 +209,7 @@ class Engine:
                 shd.validate_model_axis(cfg, S.abstract_params(self.model),
                                         model_size=model_size)
             except ValueError as e:
-                raise ValueError(f"{cfg.name}: {e} ({UNEVEN_ITEM})") \
+                raise ValueError(f"{cfg.name}: {e} ({UNEVEN_LIMIT})") \
                     from None
 
     def mesh_axes(self):
@@ -288,11 +304,17 @@ class Engine:
         return self.shard(batch, shd.batch_specs(
             self.model.cfg, batch, data_axes=self._data_axes(rows)))
 
+    def _idle(self) -> bool:
+        """This rank lies outside the bound mesh: it holds no rows."""
+        return self.workers is not None and not self.workers.holds
+
     def init_state(self, params):
         """The algorithm's state from ``params`` (the whole tree); over a
         'model' axis each rank keeps its shards of it, and on a mesh every
         rank then takes worker rank 0's params (a broadcast), so all start
-        from bitwise the same weights."""
+        from bitwise the same weights.  None on a rank outside the mesh."""
+        if self._idle():
+            return None
         if self.model_axis is not None:
             params = shd.model_shard(getattr(self.model, "cfg", None), params,
                                      model_size=self.model_axis.size,
@@ -308,7 +330,9 @@ class Engine:
         all-gathered over the worker group along its sharded dim (the
         state itself without a bound mesh).  Over gloo the leaves travel
         through host copies (gloo gathers CPU tensors only) and come back
-        on the CPU."""
+        on the CPU.  None on a rank outside the mesh."""
+        if self._idle():
+            return None
         if self.workers is None or (self.workers.size == 1
                                     and self.model_axis is None):
             return state
@@ -552,7 +576,13 @@ class Engine:
         worker rank's time, so all advance the same clocks (a worker's duration is its rank's, or ``skew_probe(it,
         the slowest rank's time)``) and take the same admit decisions.
         An elastic run re-binds each rebuilt algorithm to the worker
-        group, and every rank takes its ``W / R`` rows of the live W."""
+        group, and every rank takes its ``W / R`` rows of the live W.  A
+        transition to a W the live ranks cannot split raises before it is
+        applied (the run goes on over the mesh that carries it:
+        `repro_torch.cluster.membership`).  On a rank outside the mesh
+        ``fit`` takes no step and returns ``(state, [], 0.0)``."""
+        if self._idle():
+            return state, [], 0.0
         elastic = membership is not None
         self._fit_rejits = 0
         if elastic:
@@ -574,6 +604,9 @@ class Engine:
         t0 = time.perf_counter()
         for it in range(start, steps):
             if elastic:
+                events = membership.peek(it)
+                if events:
+                    self._check_carried(membership.preview(events), it)
                 events = membership.poll(it)
                 if events:
                     state, changed = membership.apply(events, state,
@@ -644,6 +677,19 @@ class Engine:
                     f"{k}={m[k]:.4g}" for k in _SHOWN if k in m))
         return state, history, time.perf_counter() - t0
 
+    def _check_carried(self, spec, step: int) -> None:
+        """Raise where the live ranks cannot split the membership ``spec``
+        (before anything changes): the reference's ``fit`` keeps its mesh
+        and fails there in its jit."""
+        if self.workers is not None and spec.n_workers % self.workers.size:
+            raise ValueError(
+                f"step {step}: the membership of {spec.n_workers} workers "
+                f"does not split over this mesh's {self.workers.size} worker"
+                f" ranks; rebuild the mesh for it "
+                f"(launch.mesh.mesh_for_spec), resize onto its seam "
+                f"(Membership.apply(..., workers=launch.mesh.make_workers("
+                f"mesh))) and fit on with an Engine over it")
+
     # -- checkpoints with the algorithm's metadata ---------------------------
 
     def ckpt_meta(self) -> dict:
@@ -676,7 +722,9 @@ class Engine:
         """Save ``state`` with the metadata `algorithm_for_checkpoint`
         reads; returns the path written.  An in-flight overlap reduce is
         waited on first; on a mesh the global state is gathered and worker
-        rank 0 writes it."""
+        rank 0 writes it (a rank outside the mesh writes nothing)."""
+        if self._idle():
+            return path
         if hasattr(self.alg, "drain"):
             self.alg.drain()
         if self.workers is None or (self.workers.size == 1
@@ -690,15 +738,19 @@ class Engine:
         if self.workers.rank == 0 and first:
             out = save_pytree(path, full, step=step,
                               extra_meta=self.ckpt_meta())
-        if self.model_axis is None:
-            dist.barrier(group=self.workers.group)
-        else:
-            dist.barrier()
+        # the writer's worker group, then each worker's model group: no
+        # rank returns before the file is written
+        dist.barrier(group=self.workers.group)
+        if self.model_axis is not None:
+            dist.barrier(group=self.model_axis.group)
         return out
 
     def restore(self, path, state):
         """``path``'s state in the structure (and on the devices) of the
-        template ``state``; on a mesh, this rank's shard of it."""
+        template ``state``; on a mesh, this rank's shard of it (None on a
+        rank outside the mesh)."""
+        if self._idle():
+            return None
         if self.workers is None or (self.workers.size == 1
                                     and self.model_axis is None):
             return restore_pytree(path, state)

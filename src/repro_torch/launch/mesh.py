@@ -18,6 +18,16 @@ coordinate is its index on those axes, pod-major (`worker_index`), and
 this rank's worker coordinates, and `model_axis` gives the
 tensor-parallel context (`repro_torch.parallel.tensor.ModelAxis`) over
 it.
+
+`mesh_for_spec` lays a cluster membership over the first ranks of the
+world, as the reference lays it over ``devices[:used]``: a membership
+that fewer ranks carry (6 workers on 4 ranks: a (2, 1) mesh) leaves the
+other ranks outside the mesh.  Such a rank holds no rows
+(`holds_rows` is False; torch's ``get_coordinate()`` is None there): its
+worker seam says so (``ProcessWorkers.holds``), and an `Engine` over the
+mesh takes no step on it.  Every rank of the world builds every mesh
+(``new_group`` is collective over the default group), in one order, and
+each mesh is built once: a membership that comes back reuses its groups.
 """
 from __future__ import annotations
 
@@ -136,15 +146,29 @@ def model_axis(mesh):
                      size=model_size(mesh))
 
 
+def holds_rows(mesh) -> bool:
+    """Whether this rank lies inside ``mesh`` (a rank outside a mesh that
+    `mesh_for_spec` laid over fewer ranks than the world holds no rows)."""
+    return mesh.get_coordinate() is not None
+
+
 def make_workers(mesh):
     """The algorithms' worker seam over ``mesh``'s worker axes, one per
-    mesh (the sub-groups it builds for hierarchical blocks are
-    collective to build, so every Engine on the mesh shares them)."""
+    mesh (so every Engine on the mesh shares it).  On a rank outside the
+    mesh the seam holds no rows: it knows the mesh's size and joins no
+    group."""
     from repro_torch.core.reduce import ProcessWorkers
     seam = getattr(mesh, "_worker_seam", None)
     if seam is None:
-        seam = ProcessWorkers(worker_group(mesh), rank=worker_index(mesh),
-                              size=n_workers(mesh))
+        if holds_rows(mesh):
+            seam = ProcessWorkers(worker_group(mesh),
+                                  rank=worker_index(mesh),
+                                  size=n_workers(mesh),
+                                  model=model_size(mesh),
+                                  model_rank=model_index(mesh))
+        else:
+            seam = ProcessWorkers(None, rank=-1, size=n_workers(mesh),
+                                  model=model_size(mesh), holds=False)
         mesh._worker_seam = seam
     return seam
 
@@ -170,18 +194,45 @@ def shape_for_spec(spec, *, model: int = 1, n_devices: int
     return shape, axes
 
 
+# the meshes `mesh_for_spec` built, by (default group, device type,
+# shape, axes): a membership that comes back reuses its mesh and groups
+_MESHES: dict = {}
+
+
 def mesh_for_spec(spec, *, model: int = 1, device_type: str = "cuda"):
-    """Rebuild the mesh for a cluster membership over the started process
-    group (the reference's shape arithmetic, `shape_for_spec`).  A mesh
-    is built only when it spans every rank of the world: otherwise this
-    raises (a rank outside the mesh would have no rows)."""
+    """The mesh that carries a cluster membership on the started process
+    group (the reference's shape arithmetic, `shape_for_spec`), laid over
+    the first ``prod(shape)`` ranks of the world in row-major order, as
+    the reference lays it over ``devices[:used]``.  The ranks after them
+    lie outside the mesh and hold no rows (`holds_rows`).
+
+    Every rank of the world must call this, in the same order: building
+    a mesh's groups is collective over the default group.  A mesh is
+    built once per world and layout and then reused, groups and worker
+    seam with it (8 → 6 → 8 workers builds two meshes, not three).  A
+    mesh larger than the world is refused, as the reference's reshape of
+    ``devices[:used]`` fails."""
+    import torch
     import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
     world = dist.get_world_size() if dist.is_initialized() else 1
     shape, axes = shape_for_spec(spec, model=model, n_devices=world)
-    if math.prod(shape) != world:
+    used = math.prod(shape)
+    if used > world:
         raise ValueError(
-            f"membership of {spec.n_workers} workers lays out as "
-            f"{dict(zip(axes, shape))} = {math.prod(shape)} ranks, not the "
-            f"world's {world}: a membership that leaves ranks out needs "
-            f"its own process group (ROADMAP queue A item 6.8)")
-    return _device_mesh(device_type, shape, axes)
+            f"membership of {spec.n_workers} workers at 'model' = {model} "
+            f"lays out as {dict(zip(axes, shape))} = {used} ranks; the "
+            f"world has {world}")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a mesh for {spec.n_workers} workers needs a started process "
+            f"group (launch.mesh.init_process_group)")
+    pg = dist.distributed_c10d._get_default_group()
+    key = (id(pg), device_type, shape, axes)
+    hit = _MESHES.get(key)
+    if hit is None or hit[0] is not pg:
+        hit = (pg, DeviceMesh(device_type,
+                              torch.arange(used).reshape(shape),
+                              mesh_dim_names=axes))
+        _MESHES[key] = hit
+    return hit[1]

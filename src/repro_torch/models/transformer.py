@@ -117,7 +117,7 @@ from repro_torch.models.layers import (dense_init, embed_init,
                                        init_rmsnorm, layernorm, matmul, mlp,
                                        rmsnorm, sinusoidal,
                                        sinusoidal_positions)
-from repro_torch.parallel.tensor import PAGED_ONE_PROCESS, UNEVEN_ITEM
+from repro_torch.parallel.tensor import PAGED_ONE_PROCESS, UNEVEN_LIMIT
 
 Tree = Any
 
@@ -247,7 +247,7 @@ class Model:
         if bad:
             raise ValueError(
                 f"{self.cfg.name}: {', '.join(bad)} does not divide over "
-                f"the 'model' axis of {tp.size} ({UNEVEN_ITEM})")
+                f"the 'model' axis of {tp.size} ({UNEVEN_LIMIT})")
 
     # -------------------------------------------------- init
 

@@ -75,12 +75,14 @@ import torch
 from repro_torch import tree as T
 from repro_torch.instrument import scope
 
-# the ROADMAP items the refusals of a tensor-parallel layout name
+# what the refusals of a tensor-parallel layout name: the reference's
+# own limits
 PAGED_ONE_PROCESS = ("the reference serves its paged layouts, chunked "
                      "prefill and its scheduler in one process only "
                      "(repro.launch.serve builds Engine(model) without a "
                      "mesh); over a mesh it serves the dense layout")
-UNEVEN_ITEM = "ROADMAP queue A item 6.8: uneven layouts over 'model'"
+UNEVEN_LIMIT = ("the reference's GSPMD refuses the same sharding: a "
+                "sharded dim must divide the 'model' axis")
 
 
 @dataclasses.dataclass(frozen=True)

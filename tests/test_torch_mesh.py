@@ -20,16 +20,41 @@ store under ``tmp_path``).  JAX runs only in this, the parent, process.
 * Overlap == inline bitwise at 2 ranks.
 * The worker-axis pieces that were refused across ranks until the slice
   that ported them (gossip, hierarchical, topk, dynamic_ssp, dc_asgd,
-  elastic resize) now construct on a stand-in mesh of 2 ranks and run on
-  spawned ones (`tests/test_torch_mesh_reducers.py` holds each to one
-  process).  Over a 'model' axis the compressed and quantized wires, the
-  overlap pipeline, gossip and dynamic_ssp construct too
-  (`tests/test_torch_tp_wires.py` runs them).  What stays refused raises
-  at `Engine` construction or at the resize and names its ROADMAP item: a
-  membership whose rows the ranks cannot split (item 6.8).
+  elastic resize, hierarchical groups that cut through a rank's rows)
+  now construct on a stand-in mesh of 2 ranks and run on spawned ones
+  (`tests/test_torch_mesh_reducers.py` holds each to one process).  Over
+  a 'model' axis the compressed and quantized wires, the overlap
+  pipeline, gossip and dynamic_ssp construct too
+  (`tests/test_torch_tp_wires.py` runs them).
+* Hierarchical groups that cut through a rank's rows (W = 6, 3 groups
+  over 2 ranks): bitwise one process, and within ``TOL_MESH`` of the
+  reference's own GSPMD step on the (2, 1) mesh its ``mesh_for_spec``
+  lays 6 workers on from 4 forced host devices.
+* A membership over fewer ranks than the world (`SUBMESH`, 4 ranks): 8
+  workers on all 4, 6 on the first 2, 5 on the first 1, 8 on all 4
+  again, each mesh from ``mesh_for_spec`` (the first one reused at the
+  end); the ranks outside a mesh take no step.  Over a 'model' axis of
+  2 the reduced qwen3 goes 4 → 3 → 4 workers, (2, 2) → (1, 2) → (2, 2),
+  within ``TOL_MESH`` of one process.  Under ``stale`` and
+  under dc_s3gd through power-of-two counts (8 → 2 → 1 → 8) the
+  gathered state is within ``TOL_MESH`` of one process through the same
+  transitions; dc_s3gd through 6, 5 and back to 8 is held to its
+  ``eval_params`` pins and transition log only: after a resize to 6 (or
+  to 8: a sum of 8 equal f32 rows in row order is inexact for 44 % of
+  values, in pairs over 4 ranks it is exact) its D is the rounding noise
+  of a mean of equal rows, which Eq. 17's λ scales to λ0‖g‖
+  (`tests/test_torch_mesh_reducers.py`), so 8 → 2 → 1 → 4 holds it.
+* What stays refused names the reference's own limit: a resize to a W
+  the live ranks cannot split without the seam of the mesh that carries
+  it, ``fit`` through such a transition (both name
+  ``launch.mesh.mesh_for_spec``), and a mesh larger than the world.
 """
 import functools
+import os
+import subprocess
+import sys
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -75,11 +100,31 @@ def _weights():
                         JModel(cfg, remat=False).init(jax.random.PRNGKey(0)))
 
 
+SPREAD_W = 6
+
+
+@functools.lru_cache(maxsize=None)
+def _spread_weights():
+    """Per-worker weights (6, ...): the init plus 1e-2 x a per-worker
+    standard normal draw (numpy, seed 5).  From equal workers the first
+    mix of 3 group means is the rounding noise of (3w)/3, which Eq. 17's
+    λ scales to λ0‖g‖ (gossip's case, ROADMAP queue C)."""
+    rng = np.random.default_rng(5)
+    return jax.tree.map(
+        lambda p: (p[None] + 1e-2 * rng.standard_normal((SPREAD_W,)
+                                                        + p.shape))
+        .astype(np.float32), _weights())
+
+
 # the spawned run of `ranks("r2")` each lifted piece is held by here (the
 # reducers and dc_asgd: `tests/test_torch_mesh_reducers.py`)
 LIFTED_RUN = {"gossip": ("lm", {**FUSED, "reducer": "gossip"}, 4),
               "hierarchical": ("lm", {**FUSED, "reducer": "hierarchical"},
                                4),
+              "hierarchical_layout": ("lm", {**FUSED,
+                                             "reducer": "hierarchical",
+                                             "reducer_opts": {"groups": 3},
+                                             "spread": True}, 6),
               "topk": ("lm", {**FUSED, "reducer": "topk"}, 4),
               "dynamic_ssp": ("lm", {**FUSED, "staleness": "dynamic_ssp",
                                      "cfg": {"ssp_threshold": 1},
@@ -87,10 +132,49 @@ LIFTED_RUN = {"gossip": ("lm", {**FUSED, "reducer": "gossip"}, 4),
               "dc_asgd": ("lm", {"algo": "dc_asgd"}, 4)}
 LIFTED = list(LIFTED_RUN.values()) + [ELASTIC_RUN]
 
+
+def _leave(step, *ids):
+    return [{"step": step, "kind": "leave", "worker": w} for w in ids]
+
+
+# elastic runs over the meshes `mesh_for_spec` lays each membership on (4
+# ranks: 8 on all, 6 on 2, 5 on 1, 8 on all; 8 on all, 2 on 2, 1 on 1, 4
+# on all), 2 steps a membership; (id, algorithm spec, events, what is
+# held): dc_s3gd's 8 → 2 → 1 → 4 with the overlap pipeline (re-issued on
+# each new mesh), SSGD with topk (a worker's residual share handed over);
+# and the lm over 'model' = 2: 4 workers on (2, 2), 3 on (1, 2) (ranks 2
+# and 3 outside), 4 again (each model coordinate's shards handed over)
+E8658 = _leave(2, "w1", "w5") + _leave(4, "w2") + [
+    {"step": 6, "kind": "join", "count": 3}]
+E8214 = _leave(2, *(f"w{i}" for i in range(1, 7))) + _leave(4, "w7") + [
+    {"step": 6, "kind": "join", "count": 3}]
+E434 = _leave(2, "w1") + [{"step": 4, "kind": "join", "count": 1}]
+SUBMESH_RUNS = [
+    ("stale-8-6-5-8", "cnn", {"algo": "stale", **FUSED}, 8, E8658, "tol"),
+    ("dc_s3gd-8-6-5-8", "cnn", FUSED, 8, E8658, "pins"),
+    ("dc_s3gd-overlap-8-2-1-4", "cnn", {**FUSED, "overlap": True}, 8,
+     E8214, "tol"),
+    ("ssgd-topk-8-6-5-8", "cnn", {"algo": "ssgd", "buckets": 2,
+                                  "reducer": "topk"}, 8, E8658, "tol"),
+    ("stale-model2-4-3-4", "lm", {"algo": "stale", **FUSED, "model": 2}, 4,
+     E434, "tol")]
+SUBMESH_STEPS = 8
+SUBMESH = [(m, {**spec, "elastic": ev, "relayout": True,
+                "steps": SUBMESH_STEPS}, W)
+           for _, m, spec, W, ev, _ in SUBMESH_RUNS]
+
+
+def _segments(events) -> list:
+    """The steps of each membership of an elastic run."""
+    bounds = [0] + sorted({e["step"] for e in events}) + [SUBMESH_STEPS]
+    return [b - a for a, b in zip(bounds, bounds[1:])]
+
+CUT_RUN = len(R2) + list(LIFTED_RUN).index("hierarchical_layout")
+
 # world size and runs of each group; the 4 ranks lay out as pods (2, 2, 1)
 GROUPS = {"r1": (1, dict(runs=R1)),
-          "r2": (2, dict(runs=R2 + LIFTED, keep=(0, 1))),
-          "r4": (4, dict(runs=R4, layout="pods"))}
+          "r2": (2, dict(runs=R2 + LIFTED, keep=(0, 1, CUT_RUN))),
+          "r4": (4, dict(runs=R4 + SUBMESH, layout="pods"))}
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +186,8 @@ def ranks(tmp_path_factory):
         if name not in cache:
             world, kw = GROUPS[name]
             tmp = tmp_path_factory.mktemp(name)
-            kw = dict(kw, weights=_weights(), ckpt_dir=str(tmp))
+            kw = dict(kw, weights=_weights(), ckpt_dir=str(tmp),
+                      spread=_spread_weights())
             cache[name] = MW.spawn(world, "runs", kw, tmp)
         return cache[name]
     return get
@@ -224,6 +309,90 @@ def test_checkpoint_round_trip_on_two_ranks(ranks, i):
     assert [r["runs"][i]["restored"] for r in res] == [True, True]
 
 
+ROOT = Path(__file__).resolve().parents[1]
+
+_REFERENCE_CUT = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax, numpy as np
+from repro.cluster import ClusterSpec
+from repro.configs import get_config, reduced
+from repro.core import registry
+from repro.core.types import DCS3GDConfig
+from repro.data import SyntheticLMDataset, worker_batches
+from repro.launch.engine import Engine
+from repro.launch.mesh import mesh_for_spec
+from repro.models.transformer import Model
+mesh = mesh_for_spec(ClusterSpec.uniform(6))
+assert dict(mesh.shape) == {{"data": 2, "model": 1}}, mesh.shape
+cfg = reduced(get_config("qwen3-0.6b"))
+model = Model(cfg, remat=False)
+dc = DCS3GDConfig(**{hp})
+alg = registry.make("dc_s3gd", dc, n_workers=6, buckets=2,
+                    reducer=registry.make_reducer("hierarchical", dc,
+                                                  groups=3))
+engine = Engine(model, alg, mesh=mesh)
+params = model.init(jax.random.PRNGKey(0))
+data = SyntheticLMDataset(cfg.vocab_size, {seq}, seed=0)
+step = engine.jit_train_step(alg.init(params), worker_batches(data, 0, 6, {bpw}),
+                             donate=False)
+spread = np.load(sys.argv[2])
+state = alg.init(params)
+state = state._replace(params=jax.tree.unflatten(
+    jax.tree.structure(params),
+    [spread[f"l{{i}}"] for i in range(len(spread.files))]))
+losses = []
+for t in range({steps}):
+    state, m = step(state, worker_batches(data, t, 6, {bpw}))
+    losses.append(float(m["loss"]))
+leaves = jax.tree.leaves(state.params) + jax.tree.leaves(state.opt) + \\
+    jax.tree.leaves(state.comm)
+np.savez(sys.argv[1], losses=np.asarray(losses),
+         **{{f"l{{i}}": np.asarray(x) for i, x in enumerate(leaves)}})
+"""
+
+
+def test_hierarchical_groups_across_ranks_match_the_reference_mesh(
+        ranks, tmp_path):
+    """3 hierarchical groups of 2 over 2 ranks of 3 rows (group 1 is rank
+    0's row 2 and rank 1's row 0), fused bucketed, 3 steps from spread
+    per-worker weights: bitwise one process, and within the parity
+    tests' ``TOL`` of the reference's own GSPMD step (its unfused tail)
+    on the (2, 1) mesh its ``mesh_for_spec`` lays 6 workers on from 4
+    forced host devices (bitwise its own one-process step there), each
+    leaf at its own largest magnitude (the params' moves from the
+    weights): 1.8e-5 measured, XLA's rounding against torch's, as in
+    every parity test."""
+    got = ranks("r2")[0]["runs"][CUT_RUN]
+    for part in ("params", "opt", "comm"):
+        assert got["diff"][part] == (0.0, True), (part, got["diff"][part])
+    out = tmp_path / "ref.npz"
+    np.savez(tmp_path / "spread.npz", **{
+        f"l{i}": x for i, x in enumerate(_leaves(_spread_weights()))})
+    code = _REFERENCE_CUT.format(hp=repr(MW.HP), seq=MW.SEQ, bpw=MW.BPW,
+                                 steps=MW.STEPS)
+    r = subprocess.run([sys.executable, "-c", code, str(out),
+                        str(tmp_path / "spread.npz")],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=tmp_path,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                            "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    ref = np.load(out)
+    state = got["state"]
+    mine = _leaves(state["params"]) + _leaves(state["opt"]) + \
+        _leaves(state["comm"])
+    assert len(ref.files) == len(mine) + 1
+    theirs = [ref[f"l{i}"] for i in range(len(mine))]
+    n = len(_leaves(state["params"]))
+    _assert_close(mine[:n], theirs[:n], TOL, "params",
+                  base=_spread_weights())
+    _assert_close(mine[n:], theirs[n:], TOL, "opt, delta_prev")
+    np.testing.assert_allclose([h["loss"] for h in got["hist"]],
+                               ref["losses"], rtol=RTOL_METRICS)
+
+
 # ---------------------------------------------------------------------------
 # refusals, at Engine construction (a stand-in mesh: no process group)
 # ---------------------------------------------------------------------------
@@ -235,9 +404,9 @@ class _Mesh:
         self.shape = tuple(shape.values())
 
 
-# name -> (algorithm spec, stand-in mesh, the words a refusal names,
-# None where the piece now constructs across ranks, or MODEL where it
-# constructs over a 'model' axis)
+# name -> (algorithm spec, stand-in mesh, None where the piece now
+# constructs across ranks, or MODEL where it constructs over a 'model'
+# axis)
 MODEL = "model"
 REFUSED = {
     # a 'model' axis above 1 trains every family under every piece, the
@@ -256,7 +425,7 @@ REFUSED = {
     # hierarchical groups that cut through a rank's rows (3 groups over 2)
     "hierarchical_layout": ({"reducer": "hierarchical",
                              "reducer_opts": {"groups": 3}},
-                            dict(data=2, model=1), "cut through"),
+                            dict(data=2, model=1), None),
     # ported across the worker ranks: they construct, and run spawned
     "gossip": ({"reducer": "gossip", "buckets": 2}, dict(data=2, model=1),
                None),
@@ -276,10 +445,10 @@ def _stand_in_workers(monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refusals_raise_at_construction(ranks, monkeypatch, name):
-    """What stays refused raises at construction naming its ROADMAP item;
-    what was refused until the worker-axis slice constructs on 2 ranks,
-    and its spawned 2-rank run (`LIFTED_RUN`) tracks one process; what
-    was refused over 'model' constructs there and binds to the axis."""
+    """What was refused until the worker-axis slices constructs on 2
+    ranks, and its spawned 2-rank run (`LIFTED_RUN`) tracks one process;
+    what was refused over 'model' constructs there and binds to the
+    axis."""
     from repro_torch.launch import mesh as M
     from repro_torch.launch.engine import Engine
     from repro_torch.parallel.tensor import ModelAxis
@@ -293,42 +462,103 @@ def test_refusals_raise_at_construction(ranks, monkeypatch, name):
         assert eng.alg.model_axis is eng.model_axis
         assert eng.model_axis.size == 2
         return
-    if words is None:
-        eng = Engine(model, MW._make(spec, 4), mesh=_Mesh(**shape))
-        assert eng.workers.size == 2 and eng.alg.workers is eng.workers
-        run = ranks("r2")[0]["runs"][
-            GROUPS["r2"][1]["runs"].index(LIFTED_RUN[name])]
-        for part in MW.PARTS:
-            assert run["diff"][part][0] <= TOL_MESH, (part, run["diff"])
-        return
-    with pytest.raises(ValueError, match="ROADMAP queue A item 6") as e:
-        Engine(model, MW._make(spec, 4), mesh=_Mesh(**shape))
-    assert words in str(e.value)
-    # the same algorithm on one rank, or with mesh=None, is accepted
-    Engine(types.SimpleNamespace(loss=None), MW._make(spec, 4))
+    assert words is None
+    eng = Engine(model, MW._make(spec, 4), mesh=_Mesh(**shape))
+    assert eng.workers.size == 2 and eng.alg.workers is eng.workers
+    run = ranks("r2")[0]["runs"][
+        GROUPS["r2"][1]["runs"].index(LIFTED_RUN[name])]
+    for part in MW.PARTS:
+        assert run["diff"][part][0] <= TOL_MESH, (part, run["diff"])
 
 
 def test_elastic_fit_and_resize_refused_across_ranks(ranks, monkeypatch):
     """Elastic resize runs across ranks (the spawned 8 → 6 → 4 run of
-    `ranks("r2")`: ``eval_params`` bitwise across each resize); a W the
-    ranks cannot split evenly stays refused at the resize, naming item
-    6.8 (a process group per membership)."""
+    `ranks("r2")`: ``eval_params`` bitwise across each resize) and onto
+    the mesh that carries a W the live ranks cannot split (`SUBMESH`).
+    Without that mesh's seam such a resize is refused, and so is ``fit``
+    through such a transition, before any state changes: both name
+    ``launch.mesh.mesh_for_spec``, the reference's own advice."""
+    from repro_torch.cluster import FaultSchedule, Membership
     from repro_torch.launch.engine import Engine
     _stand_in_workers(monkeypatch)
     alg = MW._make({}, 4)
-    Engine(types.SimpleNamespace(loss=None), alg,
-           mesh=_Mesh(data=2, model=1))
-    with pytest.raises(ValueError, match="ROADMAP queue A item 6.8"):
+    engine = Engine(types.SimpleNamespace(loss=None), alg,
+                    mesh=_Mesh(data=2, model=1))
+    with pytest.raises(ValueError, match="mesh_for_spec") as e:
         alg.resize_state(None, 3)
+    assert "workers=launch.mesh.make_workers(mesh)" in str(e.value)
+    mem = Membership(alg, faults=FaultSchedule.from_json(
+        {"seed": 0, "events": _leave(0, "w1")}))
+    with pytest.raises(ValueError, match="mesh_for_spec") as e:
+        engine.fit("state", lambda it, w: None, steps=2, membership=mem)
+    assert "3 workers does not split over this mesh's 2" in str(e.value)
+    assert mem.n_workers == 4 and mem.log == [] and engine.alg is alg
     run = ranks("r2")[0]["runs"][GROUPS["r2"][1]["runs"].index(ELASTIC_RUN)]
     assert run["pins"] == [True, True]
     assert [h["n_workers"] for h in run["hist"]] == [8, 6, 4]
     assert run["log"] == run["log_one"]
     for part in MW.PARTS:
         assert run["diff"][part][0] <= TOL_MESH, (part, run["diff"])
+    sub = ranks("r4")[0]["runs"][len(R4)]
+    assert [h["n_workers"] for h in sub["hist"]] == [8, 8, 6, 6, 5, 5, 8, 8]
     # a model axis above 1 keeps its specs for the dry-run
     Engine(types.SimpleNamespace(loss=None, cfg=None), MW._make({}, 4),
            mesh=_Mesh(data=2, model=2), specs_only=True)
+
+
+@pytest.mark.parametrize("i", range(len(SUBMESH_RUNS)),
+                         ids=[r[0] for r in SUBMESH_RUNS])
+def test_membership_over_fewer_ranks_matches_one_process(ranks, i):
+    """Each membership on the ranks ``mesh_for_spec`` lays it on: the
+    same metrics on every rank that took the step, ``eval_params``
+    bitwise across every resize (the hand-over of the consensus to the
+    ranks that rejoin included), the transition log one process's, and
+    the gathered state within ``TOL_MESH`` of one process's (see the
+    module docstring for dc_s3gd through 6 workers)."""
+    res = ranks("r4")
+    events, what = SUBMESH_RUNS[i][4:]
+    j = len(R4) + i
+    got = res[0]["runs"][j]
+    for r in res:
+        mine = r["runs"][j]["hist"]
+        taken = {h["step"] for h in mine}
+        assert mine == [h for h in got["hist"] if h["step"] in taken]
+        assert r["runs"][j]["digest"] == got["digest"]
+    assert len(got["hist"]) == len(got["hist_one"]) == SUBMESH_STEPS
+    assert got["pins"] == [True] * (len(_segments(events)) - 1), got["pins"]
+    assert got["log"] == got["log_one"]
+    assert [h["n_workers"] for h in got["hist"]] == \
+        [h["n_workers"] for h in got["hist_one"]]
+    if what == "pins":
+        return
+    for part in MW.PARTS:
+        assert got["diff"][part][0] <= TOL_MESH, (part, got["diff"][part])
+
+
+@pytest.mark.parametrize("i", range(len(SUBMESH_RUNS)),
+                         ids=[r[0] for r in SUBMESH_RUNS])
+def test_ranks_outside_the_mesh_take_no_step(ranks, i):
+    """Per membership, the ranks ``mesh_for_spec`` leaves outside the
+    mesh hold no rows, take no step and launch neither A1 nor A2 (their
+    counters stay 0; on the CPU no kernel launches anywhere, the card's
+    run counts them); the ranks inside take every step."""
+    from repro_torch.cluster import ClusterSpec
+    from repro_torch.launch.mesh import shape_for_spec
+    res = ranks("r4")
+    j = len(R4) + i
+    tp = SUBMESH_RUNS[i][2].get("model", 1)
+    lengths = _segments(SUBMESH_RUNS[i][4])
+    for rank, r in enumerate(res):
+        segs = r["runs"][j]["segments"]
+        assert len(segs) == len(lengths)
+        for (W, steps, a1, a2, holds, shape, _), n in zip(segs, lengths):
+            used = int(np.prod(shape_for_spec(ClusterSpec.uniform(W),
+                                              model=tp,
+                                              n_devices=len(res))[0]))
+            assert holds == (rank < used), (rank, W)
+            assert steps == (n if holds else 0), (rank, W, steps)
+            if not holds:
+                assert a1 == a2 == 0, (rank, W, a1, a2)
 
 
 def test_mesh_module_touches_no_process_group():
@@ -355,10 +585,24 @@ def test_shape_for_spec_follows_the_reference_arithmetic(W, pods, devices,
                           n_devices=devices) == want
 
 
-def test_mesh_for_spec_refuses_a_mesh_that_misses_ranks():
-    """A membership whose mesh would not span every rank of the world is
-    refused (here 2 model ranks asked of a one-rank world)."""
+def test_mesh_for_spec_refuses_a_mesh_that_misses_ranks(ranks):
+    """A membership is laid over the first ranks of the world (4 ranks: 6
+    workers on a (2, 1) mesh of ranks 0 and 1, 5 on rank 0 alone), the
+    others outside it; a mesh that comes back is the one built before.  A
+    mesh larger than the world is refused, naming the numbers (here 2
+    model ranks asked of a one-rank world)."""
+    import torch.distributed as dist
     from repro_torch.cluster import ClusterSpec
     from repro_torch.launch.mesh import mesh_for_spec
-    with pytest.raises(ValueError, match="ROADMAP queue A item 6"):
+    segs = [r["runs"][len(R4)]["segments"] for r in ranks("r4")]
+    assert [s[:2] + s[4:] for s in segs[0]] == [
+        [8, 2, True, {"data": 4, "model": 1}, False],
+        [6, 2, True, {"data": 2, "model": 1}, False],
+        [5, 2, True, {"data": 1, "model": 1}, False],
+        [8, 2, True, {"data": 4, "model": 1}, True]]
+    assert [[s[4] for s in r] for r in segs] == [
+        [True, True, True, True], [True, True, False, True],
+        [True, False, False, True], [True, False, False, True]]
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="= 2 ranks; the world has 1"):
         mesh_for_spec(ClusterSpec.uniform(4), model=2, device_type="cpu")

@@ -8,7 +8,9 @@ store under ``tmp_path``); JAX runs only in this, the parent, process.
   one-process call.  gossip and hierarchical (every layout: groups that
   lie inside a rank, align with ranks or span 2 or 4 of them) are
   bitwise: no sum crosses rows, and a spanning group adds its gathered
-  members in worker order.  The means add per-rank partial sums, an f32
+  members in worker order; groups that cut through a rank's rows (12
+  workers: 3 or 6 groups over 2 or 4 ranks) gather their rows from both
+  ranks' shares.  The means add per-rank partial sums, an f32
   rounding away from the one-process row order: within ``TOL_MESH``.
   The residuals of the selecting wires are bitwise (each rank selects on
   its own rows; topk_exact's union is the all-reduced OR); powersgd's
@@ -135,6 +137,10 @@ R2 = [
     ("cnn-ssgd-topk-elastic-8-6-4", "cnn", {
         "algo": "ssgd", "buckets": 2, "reducer": "topk", "elastic": E864},
      8, "tol"),
+    # 3 groups over 2 ranks of 3 rows: group 1 lies across both ranks
+    ("lm-hierarchical-cut-int8", "lm", {
+        **F, "reducer": "hierarchical",
+        "reducer_opts": {"groups": 3, "comm_dtype": "int8"}}, 6, "bitwise"),
 ]
 # 4 ranks laid out as pods (2, 2, 1): the lm at W = 4 (one row a rank),
 # the CNN at W = 8 (two)
@@ -169,6 +175,10 @@ R4 = [
     ("cnn-dynamic_ssp", "cnn", {**F, **SSP}, 8, "tol"),
     ("cnn-dc_asgd", "cnn", {"algo": "dc_asgd"}, 8, "bitwise"),
     ("cnn-elastic-8-4", "cnn", {**F, "elastic": E84}, 8, "tol"),
+    # 3 groups of 4 over 4 ranks of 3 rows
+    ("cnn-hierarchical-cut-w12", "cnn", {
+        **F, "reducer": "hierarchical", "reducer_opts": {"groups": 3}}, 12,
+     "bitwise"),
 ]
 
 # one call of each reducer: name -> (registry name, constructor knobs)
@@ -199,6 +209,16 @@ REDUCERS = {
 }
 BITWISE_OUT = ("gossip", "hierarchical")
 REDUCER_KW = dict(W=8, sizes=(1000, 96), seed=0)
+# hierarchical groups that cut through a rank's rows, at W = 12 (groups
+# of 4 or 2 over ranks of 6 or 3 rows; 6 groups of 2 on 2 ranks nest)
+CUT = {
+    "g3": ("hierarchical", {"groups": 3}),
+    "g3-k2": ("hierarchical", {"groups": 3, "neighbors": 2}),
+    "g3-int8": ("hierarchical", {"groups": 3, "comm_dtype": "int8"}),
+    "g6": ("hierarchical", {"groups": 6}),
+    "g6-bf16": ("hierarchical", {"groups": 6, "comm_dtype": "bfloat16"}),
+}
+CUT_KW = dict(W=12, sizes=(1000, 96), seed=1)
 
 GROUPS = {"r2": (2, dict(runs=R2, layout="data", keep=(0, 1, 2, 3, 4))),
           "r4": (4, dict(runs=R4, layout="pods"))}
@@ -235,7 +255,8 @@ def ranks(tmp_path_factory):
             tmp = tmp_path_factory.mktemp(name)
             kw = dict(kw, runs=[r[1:4] for r in kw["runs"]],
                       weights=_weights(), reducers=REDUCERS,
-                      reducer_kw=REDUCER_KW, spread=_spread_weights())
+                      reducer_kw=REDUCER_KW, spread=_spread_weights(),
+                      cut=(CUT, CUT_KW))
             cache[name] = MW.spawn(world, "suite", kw, tmp, timeout=600.0)
         return cache[name]
     return get
@@ -268,6 +289,21 @@ def test_reducer_call_matches_one_process(ranks, group, key):
             assert got["q"][0] <= TOL_MESH, got["q"]
         else:
             assert got["res"] == (0.0, True), got["res"]
+
+
+CUT_CASES = [(g, k) for g in GROUPS for k in CUT]
+
+
+@pytest.mark.parametrize("group,key", CUT_CASES,
+                         ids=[f"{g}-{k}" for g, k in CUT_CASES])
+def test_hierarchical_groups_across_ranks_are_bitwise(ranks, group, key):
+    """Groups that cut through a rank's rows: each rank takes the mean of
+    every group its rows touch over the rows gathered from the ranks that
+    hold them, added in worker order, and the ring between the group
+    means runs over the ranks' overlapping ranges of groups: bitwise the
+    one-process call, values and scales on a quantized wire."""
+    got = ranks(group)[0]["cut"][key]
+    assert got["out"] == (0.0, True), got["out"]
 
 
 # ---------------------------------------------------------------------------

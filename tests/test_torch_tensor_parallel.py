@@ -47,6 +47,7 @@ and in one subprocess of its own.
 """
 import functools
 import os
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -327,7 +328,7 @@ class _Mesh:
 
 
 # name -> (architecture, algorithm spec, the words the refusal names,
-# the ROADMAP item it names).  Every family, local optimizer, λ mode,
+# the limit it names: the reference's own).  Every family, local optimizer, λ mode,
 # reducer (the compressed and quantized wires too), staleness policy,
 # DC-ASGD and the overlap pipeline train over 'model'
 # (tests/test_torch_tp_families.py, tests/test_torch_tp_pieces.py,
@@ -336,7 +337,7 @@ class _Mesh:
 # dim.
 REFUSED = {
     "indivisible": ("qwen3-0.6b", {}, "does not divide",
-                    "ROADMAP queue A item 6.8"),
+                    "the reference's GSPMD refuses the same sharding"),
 }
 
 
@@ -421,8 +422,76 @@ def test_serving_binds_the_model_axis_without_an_algorithm(monkeypatch):
     model = Model(reduced(get_config("qwen3-0.6b")))
     engine = Engine(model, mesh=_Mesh(data=1, model=2))
     assert engine.model.tp.size == 2 and engine.model_axis.size == 2
-    with pytest.raises(ValueError, match="ROADMAP queue A item 6.8"):
+    with pytest.raises(ValueError,
+                       match="the reference's GSPMD refuses the same"):
         Engine(model, mesh=_Mesh(data=1, model=1024))
+
+
+_REFERENCE_UNEVEN = """
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax, numpy as np
+from jax.sharding import NamedSharding
+from repro.configs import get_config, reduced
+from repro.models.transformer import Model
+from repro.parallel.sharding import param_specs
+cfg = reduced(get_config("olmoe-1b-7b"))
+mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(1, 8),
+                         ("data", "model"))
+params = jax.eval_shape(Model(cfg, remat=False).init, jax.random.PRNGKey(0))
+specs = param_specs(cfg, params, model_size=8)
+out = []
+for (path, x), spec in zip(jax.tree_util.tree_flatten_with_path(params)[0],
+                           jax.tree.leaves(specs, is_leaf=lambda s: isinstance(
+                               s, jax.sharding.PartitionSpec))):
+    names = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
+    try:
+        jax.device_put(np.zeros(x.shape, x.dtype), NamedSharding(mesh, spec))
+    except ValueError as e:
+        out.append({"path": [str(n) for n in names], "shape": list(x.shape),
+                    "error": str(e)})
+print(json.dumps(out))
+"""
+
+
+def test_reference_refuses_the_same_indivisible_leaf(monkeypatch, tmp_path):
+    """The reduced olmoe's experts (4) over 'model' = 8: the reference's
+    own partition rules place ``moe/w_down``, ``w_gate`` and ``w_up`` on
+    a (1, 8) mesh of eight forced host devices and JAX refuses each
+    sharding; the port's rules find the same leaves indivisible and no
+    other, and its refusal names the first with that limit."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.transformer import Model
+    from repro_torch.parallel import sharding as shd
+    r = subprocess.run([sys.executable, "-c", _REFERENCE_UNEVEN],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=tmp_path,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                            "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    refused = json.loads(r.stdout.strip().splitlines()[-1])
+    assert all("should be divisible by 8, but it is equal to 4" in x["error"]
+               for x in refused)
+    cfg = reduced(get_config("olmoe-1b-7b"))
+    model = Model(cfg)
+    params = S.abstract_params(model)
+    specs = shd.param_specs(cfg, params, model_size=8)
+    mine = [[str(k) for k in path] for (path, x), (_, sp) in zip(
+        shd.leaves_with_path(params), shd.flat_specs(specs, params))
+        if shd.model_dim(sp) is not None
+        and x.shape[shd.model_dim(sp)] % 8]
+    assert [x["path"] for x in refused] == mine
+    assert [x[-2:] for x in mine] == [["moe", "w_down"], ["moe", "w_gate"],
+                                      ["moe", "w_up"]]
+    _stand_in_axes(monkeypatch)
+    with pytest.raises(ValueError,
+                       match="the reference's GSPMD refuses the same") as e:
+        Engine(model, mesh=_Mesh(data=1, model=8))
+    assert "moe/w_down" in str(e.value)
+    assert str(tuple(refused[0]["shape"])) in str(e.value)
 
 
 def _paged(model):

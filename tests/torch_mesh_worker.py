@@ -46,7 +46,7 @@ def _numpy(tree):
 
 
 # the keys of a run's spec that drive `Engine.fit`, not the algorithm
-RUN_KEYS = ("skew", "elastic", "spread")
+RUN_KEYS = ("skew", "elastic", "spread", "relayout", "steps", "model")
 
 
 def _make(spec: dict, W: int):
@@ -65,20 +65,25 @@ def _make(spec: dict, W: int):
 class _PinnedMembership(Membership):
     """`Membership` that records, at each transition, whether
     ``eval_params`` after the resize is bitwise the value before it (on
-    the resizing algorithm's own workers)."""
+    the resizing algorithm's own workers, which a resize onto another
+    mesh binds to that mesh's), where this rank holds rows both before
+    and after."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         self.pins = []
 
-    def apply(self, events, state, *, step):
+    def apply(self, events, state, *, step, workers=None):
         old = self.alg
-        before = old.eval_params(state)
-        state, changed = super().apply(events, state, step=step)
+        before = None if state is None else old.eval_params(state)
+        state, changed = super().apply(events, state, step=step,
+                                       workers=workers)
         if changed:
-            after = old.eval_params(state)
-            self.pins.append(all(torch.equal(x, y) for x, y in
-                                 zip(T.leaves(before), T.leaves(after))))
+            after = None if state is None else old.eval_params(state)
+            if before is not None and after is not None:
+                self.pins.append(all(
+                    torch.equal(x, y) for x, y in
+                    zip(T.leaves(before), T.leaves(after))))
         return state, changed
 
 
@@ -98,6 +103,48 @@ def _fit_options(spec: dict, alg) -> dict:
     return kw
 
 
+def _relayout(model, alg, params, batch_of, steps, spec) -> dict:
+    """An elastic run over the mesh `launch.mesh.mesh_for_spec` lays each
+    membership on, on every rank of the world: ``Engine.fit`` to each
+    transition step, then `Membership.sync`, ``poll``, ``preview``, the
+    new mesh, ``apply`` onto its worker seam and a new Engine over it.
+    Returns the last segment's state and Engine, the metrics, and per
+    segment this rank's ``[W, steps taken, A1 launches, A2 launches,
+    whether it holds rows, the mesh's shape, whether the mesh is one
+    built earlier in the run]``."""
+    from repro_torch.kernels import dc_update as KD
+    from repro_torch.launch import mesh as M
+    mem = _fit_options(spec, alg)["membership"]
+    tp = spec.get("model", 1)
+    mesh = M.mesh_for_spec(mem.spec, model=tp, device_type="cpu")
+    engine = Engine(model, alg, mesh=mesh)
+    state = engine.init_state(params)
+    hist, segments, t, built = [], [], 0, []
+    for b in sorted({e["step"] for e in spec["elastic"]
+                     if e["step"] < steps}) + [steps]:
+        KD.dc_norms.launches = KD.dc_fused_update.launches = 0
+        state, h, _ = engine.fit(state, batch_of, steps=b, start=t,
+                                 log_every=1, membership=mem)
+        segments.append([mem.n_workers, len(h), KD.dc_norms.launches,
+                         KD.dc_fused_update.launches, M.holds_rows(mesh),
+                         dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))),
+                         any(mesh is m for m in built)])
+        built.append(mesh)
+        hist += h
+        if b == steps:
+            break
+        mem.sync()
+        events = mem.poll(b)
+        mesh = M.mesh_for_spec(mem.preview(events), model=tp,
+                               device_type="cpu")
+        state, _ = mem.apply(events, state, step=b,
+                             workers=M.make_workers(mesh))
+        engine = Engine(model, mem.alg, mesh=mesh)
+        t = b
+    return {"state": state, "engine": engine, "hist": hist,
+            "segments": segments, "membership": mem}
+
+
 def _run(model, alg, params, batch_of, mesh, steps, ckpt=None, fit=None):
     """``steps`` steps through `Engine.fit` (which takes this rank's rows
     of each global batch); returns the gathered state as numpy and the
@@ -106,6 +153,27 @@ def _run(model, alg, params, batch_of, mesh, steps, ckpt=None, fit=None):
     rank got its shards back bit for bit.  ``fit``: the run's spec, whose
     `RUN_KEYS` become `Engine.fit` keywords (an elastic run also reports
     its ``pins`` and its ``log``)."""
+    if mesh is not None and (fit or {}).get("relayout"):
+        got = _relayout(model, alg, params, batch_of, steps, fit)
+        engine, state = got["engine"], got["state"]
+        full = engine.gather_state(state)
+        ev = engine.alg.eval_params(state)
+        if engine.model_axis is not None:
+            # the consensus of this rank's shards, whole over 'model'
+            from repro_torch.parallel.tensor import gather_leaves, model_dims
+            leaves, treedef = T.flatten(ev)
+            ev = T.unflatten(treedef, gather_leaves(
+                engine.model_axis, leaves,
+                model_dims(engine.model_axis, engine.model.cfg, ev)))
+        return {"params": _numpy(full.params), "opt": _numpy(full.opt),
+                "comm": _numpy({k: v for k, v in full.comm.items()
+                                if k != "pipeline"}),
+                "eval": _numpy(ev),
+                "hist": [{k: v for k, v in m.items() if k != "wall_s"}
+                         for m in got["hist"]],
+                "pins": got["membership"].pins,
+                "log": got["membership"].log,
+                "segments": got["segments"]}
     engine = Engine(model, alg, mesh=mesh)
     state = engine.init_state(params)
     if (fit or {}).get("spread") is not None:
@@ -139,10 +207,12 @@ def _run(model, alg, params, batch_of, mesh, steps, ckpt=None, fit=None):
     return out
 
 
-def run_lm(spec: dict, W: int, weights, mesh=None, steps: int = STEPS,
+def run_lm(spec: dict, W: int, weights, mesh=None, steps: int = None,
            ckpt=None, spread=None):
     """The reduced qwen3-0.6b from ``weights`` (a numpy tree), ``W``
-    workers, tests/test_torch_dc_s3gd.py's batches."""
+    workers, tests/test_torch_dc_s3gd.py's batches, for ``steps``
+    (default: the spec's ``steps``, else `STEPS`)."""
+    steps = spec.get("steps", STEPS) if steps is None else steps
     cfg = reduced(get_config("qwen3-0.6b"))
     model = Model(cfg)
     data = SyntheticLMDataset(cfg.vocab_size, SEQ, seed=0)
@@ -153,8 +223,10 @@ def run_lm(spec: dict, W: int, weights, mesh=None, steps: int = STEPS,
                 {**spec, "spread": spread} if spec.get("spread") else spec)
 
 
-def run_cnn(spec: dict, W: int, mesh=None, steps: int = STEPS):
-    """The reduced ResNet of the CNN example, seed 0, ``W`` workers."""
+def run_cnn(spec: dict, W: int, mesh=None, steps: int = None):
+    """The reduced ResNet of the CNN example, seed 0, ``W`` workers, for
+    ``steps`` (default: the spec's ``steps``, else `STEPS`)."""
+    steps = spec.get("steps", STEPS) if steps is None else steps
     params = init_resnet(torch.Generator().manual_seed(0), **CNN_NET)
     data = SyntheticImageDataset(CNN_NET["n_classes"], image_size=16,
                                  seed=0, noise=0.4)
@@ -245,7 +317,7 @@ def case_runs(world, *, runs, layout="data", weights=None, keep=(),
                 Path(ckpt).unlink()
         rec = {"hist": got["hist"], "digest": _digest(got),
                "restored": got.get("restored"), "pins": got.get("pins"),
-               "log": got.get("log")}
+               "log": got.get("log"), "segments": got.get("segments")}
         if worker_index(mesh) == 0:
             want = one(model, spec, W, None)
             rec["diff"] = {p: (_compare_comm if p == "comm" else _compare)(
@@ -353,11 +425,15 @@ def _digest_tree(tree) -> str:
     return h.hexdigest()
 
 
-def case_suite(world, *, reducers=None, reducer_kw=None, **runs_kw):
+def case_suite(world, *, reducers=None, reducer_kw=None, cut=None,
+               **runs_kw):
     """`case_reducers` and `case_runs` in one group of ranks (one spawn
-    per world size)."""
+    per world size); ``cut``: a second set of reducer calls, ``(reducers,
+    reducer_kw)`` at another W (hierarchical groups across ranks)."""
     res = {"reducers": case_reducers(world, reducers=reducers,
                                      **reducer_kw)} if reducers else {}
+    if cut:
+        res["cut"] = case_reducers(world, reducers=cut[0], **cut[1])
     res.update(case_runs(world, **runs_kw))
     return res
 
