@@ -248,9 +248,11 @@ Phases (any failure exits non-zero before the result line):
    two gloo ranks on the one card (spawned; NCCL refuses two ranks on
    one device): ResNet-18's layout at W = 8, 3 steps, the gathered params
    and losses within 1e-5 of the one-process run, A1 / A2 18 times a
-   rank; (c) ``repro_torch.launch.dryrun`` for qwen3-0.6b x decode_32k x
-   pod in a subprocess (nothing placed on the card): ``status: ok``, its
-   per-device argument bytes (record in ``chiprun_out/dryrun_torch``).
+   rank; (c) ``repro_torch.launch.dryrun`` for qwen3-0.6b x decode_32k
+   and x train_4k on the pod mesh, rank 0's step at 'model' 16, in
+   subprocesses started with the script (nothing placed on the card):
+   ``status: ok``, the per-device argument, temp and peak bytes and the
+   collectives over 'model' (records in ``chiprun_out/dryrun_torch``).
    After (a), what device memory outlives a training run, named from the
    allocator's history (`_leftover_probe`).
 
@@ -259,15 +261,18 @@ Phases (any failure exits non-zero before the result line):
    -> 4, W = 2, on a (1, 2) mesh, 3 steps through ``Engine(model, alg,
    mesh)``; (c) olmoe-1b-7b at depth 1, W = 2, 32 of its 64 experts a
    rank, on the same ranks; (b) qwen3 at depth 2, computing in f32, on a
-   (2, 2) mesh of four ranks.  Each rank first runs the cell with
-   ``mesh=None`` (one rank at a time) and keeps the slices it holds; its
-   shards of the weights then lie within 1e-5 of each leaf's scale from
-   them and the metrics within 1e-5; the updates (momentum, deltas)
-   within 1e-5 at f32 compute, within 1e-3 at the published bf16
-   compute, where the embedding's rows enter the first block in bf16
-   (`tok` and the first norm within 2e-2); the replicated leaves bitwise
-   equal across the model ranks after every step, A1 / A2 once per local
-   bucket and step on every rank; each rank's peak beside mesh=None's.
+   (2, 2) mesh of four ranks; the launcher's Model (no remat, attention
+   in blocks of 64 x 64 on each rank's local heads).  Each rank first
+   runs the cell with ``mesh=None`` (one rank at a time; in (a) and (b)
+   rank 0 alone, which sends each rank its slices) and keeps the slices
+   it holds; its shards of the weights then lie within 1e-5 of each
+   leaf's scale from them and the metrics within 1e-5; the updates
+   (momentum, deltas) within 1e-5 at f32 compute, within 1e-3 at the
+   published bf16 compute, where the embedding's rows enter the first
+   block in bf16 (`tok` and the first norm within 2e-2); the replicated
+   leaves bitwise equal across the model ranks after every step, A1 / A2
+   once per local bucket and step on every rank; each rank's peak beside
+   mesh=None's.
    Since slice 19 also the compressed and quantized wires on qwen3 x2
    at f32 (the dense wire, topk 1 %, topk_exact, randk, powersgd, int8,
    fp8 per leaf): each reduces the whole buckets gathered over 'model',
@@ -318,6 +323,20 @@ Phases (any failure exits non-zero before the result line):
    bytes equal to
    ``shard_bytes`` under ``cache_specs``, B5 / B6 once per attention /
    Mamba block and prefill; each rank's peak beside the twin's.
+
+21. the example twins (quickstart, serve_batched, train_lm_100m) as a
+   user runs them.
+
+22. long-sequence training: the main cell at train_4k's 4,096-token
+   sequences, the Model at the reference's defaults (attention in blocks
+   of 512 x 1,024, loss chunks of 2,048): (i) one sequence a worker,
+   ``remat`` off and on, 3 steps each on the fused tail, bitwise the
+   same state, each run's peak, step time and A1 / A2 launches; (ii) the
+   largest batch ``remat`` fits, by arithmetic from the peaks, and
+   whether ``remat`` off fits it, then a step at it; (iii) the plain
+   tail's traced step on the card beside the dry-run's fake-mode peak of
+   the same step, within 10 %; then the plain core at one key block,
+   its online softmax and the plain softmax it takes, timed.
 
 The CPU twins of these checks are the ``tests/test_torch_*.py`` files
 (``PYTHONPATH=src python -m pytest -q tests/test_torch_moe.py
@@ -4134,7 +4153,10 @@ def _mm_train(smi: str, cfg, steps: int, per_worker: int, tag: str) -> dict:
     from repro_torch.launch.engine import Engine
     from repro_torch.models.transformer import Model
     from repro_torch.parallel.buckets import plan_buckets
-    model = Model(cfg, loss_chunk=256)
+    # no remat, as the launcher; the Model's own attention blocks (the
+    # launcher refuses whisper; its 64 x 64 blocks over 1,500 frames cost
+    # ~60 s more here)
+    model = Model(cfg, remat=False, loss_chunk=256)
     dc = DCS3GDConfig(learning_rate=0.05, momentum=0.9, lambda0=0.2,
                       warmup_steps=1, total_steps=steps)
     alg = registry.make("dc_s3gd", dc, n_workers=W, use_kernels=True,
@@ -4588,7 +4610,10 @@ MESH_TOL = 1e-5              # two ranks vs one process, of each leaf's scale
 MESH_RANKS = 2
 RANKS_LIMIT_S = 300          # a group of spawned ranks is killed after this
 RANKS_GRACE_S = 30           # ... or this long after one of them failed
-DRYRUN_COMBO = ("qwen3-0.6b", "decode_32k", "pod")
+# (c)'s combos, rank 0's step at 'model' 16 on the pod mesh; train_4k's
+# trace takes ~2 min of one CPU core, so (c) starts with the script
+DRYRUN_COMBOS = (("qwen3-0.6b", "decode_32k", "pod"),
+                 ("qwen3-0.6b", "train_4k", "pod"))
 
 
 def _mesh_main_run(smi: str, mesh, overlap: bool) -> dict:
@@ -4671,22 +4696,40 @@ def _leftover_probe(smi: str, mesh) -> dict:
     torch.cuda.synchronize()
     gc.collect()
     base = torch.cuda.memory_allocated()
-    torch.cuda.memory._record_memory_history(max_entries=100_000,
-                                             stacks="python")
+
+    def run(context):
+        torch.cuda.memory._record_memory_history(
+            max_entries=100_000, context=context, stacks="python")
+        # the backward pass on this thread (it does not cure the failure
+        # below; the history is the same)
+        torch.autograd.set_multithreading_enabled(False)
+        try:
+            args = train.build_argparser().parse_args(
+                MAIN_ARGS + ["--steps", "2", "--use-kernels"])
+            model, alg, state, batch_fn = train.build(args)
+            engine = Engine(model, alg, mesh=mesh)
+            state, _, _ = engine.fit(state, batch_fn, steps=2, log_every=1)
+            alg.drain()
+            torch.cuda.synchronize()
+            del state, engine, alg, model, batch_fn
+            torch.cuda.synchronize()
+            return (torch.cuda.memory_allocated() - base,
+                    torch.cuda.memory._snapshot())
+        finally:
+            torch.autograd.set_multithreading_enabled(True)
+            torch.cuda.memory._record_memory_history(enabled=None)
     try:
-        args = train.build_argparser().parse_args(
-            MAIN_ARGS + ["--steps", "2", "--use-kernels"])
-        model, alg, state, batch_fn = train.build(args)
-        engine = Engine(model, alg, mesh=mesh)
-        state, _, _ = engine.fit(state, batch_fn, steps=2, log_every=1)
-        alg.drain()
-        torch.cuda.synchronize()
-        del state, engine, alg, model, batch_fn
-        torch.cuda.synchronize()
-        left = torch.cuda.memory_allocated() - base
-        snap = torch.cuda.memory._snapshot()
-    finally:
-        torch.cuda.memory._record_memory_history(enabled=None)
+        left, snap = run("all")
+    except SystemError as e:
+        # with stacks for every event, a backward through the loss chunks'
+        # recompute fails with a SystemError without a message (torch
+        # 2.11 on the card); the history of allocations alone still names
+        # the allocating frames
+        print(f"[mesh] the allocator history with stacks failed the run "
+              f"({e!r}); again without stacks [{smi}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        left, snap = run(None)
     holders = {}
     for seg in snap["segments"]:
         for b in seg["blocks"]:
@@ -4959,51 +5002,69 @@ def phase_mesh_gloo(smi: str) -> dict:
 
 
 def _start_dryrun() -> tuple:
-    """Start (c)'s dry-run subprocess on a thread of its own: it places
-    nothing on the card, so it runs beside (a) and (b); `phase_dryrun`
-    joins it.  (thread, a dict that gets ``r`` and ``wall``)."""
+    """Start (c)'s dry-run subprocesses, one combo of `DRYRUN_COMBOS`
+    after the other, then phase 22's fake-mode trace
+    (`main_long_fake_peak`), on a thread of their own: they place nothing
+    on the card, so they run beside the card's phases; `phase_dryrun` and
+    `phase_long_seq` join them.  (thread, a dict that gets each one's
+    ``r`` and ``wall``)."""
     import threading
-    arch, shape, mesh = DRYRUN_COMBO
     box = {}
 
     def run():
+        for arch, shape, mesh in DRYRUN_COMBOS:
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh, "--out",
+                 str(ROOT / "chiprun_out" / "dryrun_torch")],
+                capture_output=True, text=True, timeout=600, cwd=ROOT,
+                env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+            box[shape] = {"r": r, "wall": time.perf_counter() - t0}
+        # phase 22's fake-mode peak (~40 s of one core)
         t0 = time.perf_counter()
-        box["r"] = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", mesh, "--out",
-             str(ROOT / "chiprun_out" / "dryrun_torch")],
+        r = subprocess.run(
+            [sys.executable, "-c",
+             "import chip_smoke as cs; cs.main_long_fake_peak()"],
             capture_output=True, text=True, timeout=600, cwd=ROOT,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        box["wall"] = time.perf_counter() - t0
+            env={**os.environ, "PYTHONPATH": f"{ROOT}:{ROOT / 'src'}"})
+        box["long_fake"] = {"r": r, "wall": time.perf_counter() - t0}
     thread = threading.Thread(target=run, daemon=True)
     thread.start()
     return thread, box
 
 
 def phase_dryrun(smi: str, started: tuple) -> dict:
-    """(c) One dry-run combo as a subprocess in the card's environment
-    (`_start_dryrun`'s, joined here): ``status: ok`` and its per-device
-    argument bytes."""
-    arch, shape, mesh = DRYRUN_COMBO
+    """(c) The dry-run combos as subprocesses in the card's environment
+    (`_start_dryrun`'s, joined here): ``status: ok``, rank 0's per-device
+    argument, temp and peak bytes and its collectives over 'model'."""
     out = ROOT / "chiprun_out" / "dryrun_torch"
     thread, box = started
     thread.join()
-    check("r" in box, "[dryrun] the subprocess did not run")
-    r, wall = box["r"], box["wall"]
-    check(r.returncode == 0, f"[dryrun] exit {r.returncode}: "
-          f"{r.stderr[-2000:]}")
-    rec = json.loads((out / f"{arch}__{shape}__{mesh}__dc_s3gd.json")
-                     .read_text())
-    check(rec["status"] == "ok" and rec["n_chips"] == 256,
-          f"[dryrun] record {rec.get('status')}")
-    m = rec["memory"]
-    print(f"[dryrun] {arch} x {shape} x {mesh}: ok, "
-          f"{m['argument_bytes']} B of arguments a device "
-          f"({m['argument_bytes'] / 2**30:.3f} GiB), {m['output_bytes']} B "
-          f"out; roofline {rec['roofline']['bottleneck']}-bound; "
-          f"{wall:.1f} s wall (the subprocess, beside (a) and (b)) "
-          f"[{smi}]")
-    return {"record": rec, "wall_s": wall}
+    recs = {}
+    for arch, shape, mesh in DRYRUN_COMBOS:
+        check(shape in box, f"[dryrun] {shape}: the subprocess did not run")
+        r, wall = box[shape]["r"], box[shape]["wall"]
+        check(r.returncode == 0, f"[dryrun] {shape} exit {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        rec = json.loads((out / f"{arch}__{shape}__{mesh}__dc_s3gd.json")
+                         .read_text())
+        m, ro = rec["memory"], rec["roofline"]
+        check(rec["status"] == "ok" and rec["n_chips"] == 256
+              and m["peak_bytes"] > m["argument_bytes"] > 0
+              and ro["tp_bytes"] > 0, f"[dryrun] {shape} record {rec}")
+        print(f"[dryrun] {arch} x {shape} x {mesh}, rank 0's step at "
+              f"'model' 16: ok, {m['argument_bytes']} B of arguments a "
+              f"device ({m['argument_bytes'] / 2**30:.3f} GiB), "
+              f"{m['output_bytes']} B out, temp {m['temp_bytes']} B, peak "
+              f"{m['peak_bytes']} B ({m['peak_bytes'] / 2**30:.3f} GiB); "
+              f"'model' collectives {ro['tp_bytes']:.0f} B "
+              f"({ro['collective_tp_s'] * 1e3:.2f} ms at NVLink's rate), "
+              f"the wire {ro['coll_bytes']:.0f} B; roofline "
+              f"{ro['bottleneck']}-bound; {wall:.1f} s wall (a subprocess "
+              f"beside the card's phases) [{smi}]")
+        recs[shape] = {"record": rec, "wall_s": wall}
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -5105,6 +5166,14 @@ TP_WIRE_FLIPS = {t: max(300 / 2_886_656, 4 * n / 1_444_864) for t, n in (
 TP_PAIR = (("a", MAIN_ARGS, "bfloat16"), ("c", OLMOE_TRAIN, "bfloat16")) \
     + TP_FAMILIES + TP_PIECES + TP_WIRES
 TP_FOUR = (("b", MAIN_ARGS + ["--layers", "2"], "float32"),)
+# the cells whose one-process run is made once, on rank 0, which sends
+# each rank its slices over gloo (through the host): where that run is
+# long against its state (a card run, NVIDIA H100 80GB
+# HBM3 at 700 W: a's run 14-19 s against 3.7 GB a rank; b's four runs
+# 17-24 s each against three ranks' 2 GB).  Every other cell's ranks run
+# it in turn, which is quicker there (a qwen3 x2 cell's turn 0.5-1.8 s,
+# its slices kept on the card, against 4.1 GB a rank to send)
+TP_SHARED = ("a", "b")
 # Adam at eps 1: at its default 1e-8 the first step is lr·sign(g), and a
 # gradient at the rounding floor flips its sign, so no rounding-order
 # twin tracks it; at eps 1 its update's derivative in g is at most 1 / eps
@@ -5148,6 +5217,7 @@ def _tp_build(args):
     from repro_torch.models.transformer import Model
     cfg = get_config(args.arch)
     if cfg.encoder is None and cfg.vlm is None:
+        # the launcher's own Model: no remat, attention in 64 x 64 blocks
         return train.build(args)
     cfg = reduced(cfg) if args.reduced else cfg
     if args.layers:
@@ -5155,7 +5225,9 @@ def _tp_build(args):
         if cfg.encoder is not None:
             cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
                 cfg.encoder, n_layers=args.layers))
-    model = Model(cfg, loss_chunk=256)
+    # no remat, as the launcher; the Model's own attention blocks (the
+    # launcher's 64 x 64 over whisper's 1,500 frames cost ~60 s more)
+    model = Model(cfg, remat=False, loss_chunk=256)
     dc = DCS3GDConfig(learning_rate=args.lr, momentum=args.momentum,
                       lambda0=args.lambda0, total_steps=args.steps,
                       warmup_steps=max(int(args.warmup_frac * args.steps),
@@ -5170,9 +5242,10 @@ def _tp_build(args):
 
 def _tp_cell(mesh, tag: str, argv, compute: str) -> dict:
     """One rank's share of a phase-18 cell: the one-process run of
-    ``argv`` (one rank at a time: two of qwen3 x4's ~36 GiB runs do not
-    fit the card together), keeping on the host the slices of its params,
-    momentum and carried deltas that this rank holds; then
+    ``argv`` (one at a time: two of qwen3 x4's ~36 GiB runs do not fit
+    the card together; in a `TP_SHARED` cell once, on rank 0, which sends
+    each rank its slices), keeping the slices of its params, momentum and
+    carried deltas that this rank holds; then
     ``Engine(model, alg, mesh)`` for ``TP_STEPS`` steps from the same
     weights, counts zeroed just before and read just after, a digest of
     the replicated leaves after every step (after the one `Engine.fit`
@@ -5211,12 +5284,12 @@ def _tp_cell(mesh, tag: str, argv, compute: str) -> dict:
             alg.compensator.mode = "per_tensor"
         return alg
 
-    def mine(tree, cfg, stacked):
+    def mine(tree, cfg, stacked, at=coord):
         specs = dict(shd.flat_specs(shd.param_specs(
             cfg, tree, model_size=sizes["model"],
             worker_axes="data" if stacked else None), tree))
         return shd.map_with_path(lambda p, x: x[shd.local_slices(
-            tuple(x.shape), specs[p], sizes, coord)], tree)
+            tuple(x.shape), specs[p], sizes, at)], tree)
 
     def parts(alg, state):
         out = {"params": state.params, "m": state.opt["m"]}
@@ -5263,71 +5336,117 @@ def _tp_cell(mesh, tag: str, argv, compute: str) -> dict:
                               .encode())
             digests.append(digest.hexdigest())
         return state, hist, digests
-    rec, ref, t_cell = {}, None, time.perf_counter()
+    rec, t_cell = {}, time.perf_counter()
+    coords = [None] * world
+    dist.all_gather_object(coords, coord)
     with warnings.catch_warnings():
         # deprecated in favour of a private torch._C call; same effect
         warnings.simplefilter("ignore", FutureWarning)
         torch.cuda.memory._set_allocator_settings(
             f"expandable_segments:{tag in TP_EXPANDABLE}")
-    for turn in range(world):
-        if turn == me:
-            t_turn = time.perf_counter()
-            _free_card()
-            rec["free_at_turn"] = torch.cuda.mem_get_info()[0]
-            model, alg, state, batch_fn = _tp_build(args)
-            alg = adjust(alg)
-            model = Model(dataclasses.replace(model.cfg,
-                                              compute_dtype=compute),
-                          loss_chunk=model.loss_chunk,
-                          moe_dense=model.moe_dense)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            state, hist, _ = run(Engine(model, alg), state, batch_fn)
-            torch.cuda.synchronize()
-            rec["peak_none"] = torch.cuda.max_memory_allocated()
-            rec["reserved_none"] = torch.cuda.max_memory_reserved()
-            rec["hist_none"] = [{k: h[k] for k in TP_METRICS if k in h}
-                                for h in hist]
-            rec["admit_none"] = [h.get("ssp_admit") for h in hist]
-            stacked = getattr(alg, "worker_stacked", False)
-            ref = {k: T.map(lambda x: x.cpu(), mine(v, model.cfg, stacked))
-                   for k, v in parts(alg, state).items()}
-            del state
-            alg = adjust(rebuild_algorithm(alg, args.workers))
-            torch.cuda.empty_cache()
-            for way in (TP_NUDGES if tag in TP_ILL else ()):
-                nudged = T.map(lambda x: torch.nextafter(
-                    x, torch.full_like(x, way)), model.init(
-                        torch.Generator(device="cuda")
-                        .manual_seed(args.seed)))
-                state, hist_up, _ = run(Engine(model, alg),
-                                        alg.init(nudged), batch_fn)
-                del nudged
+
+    def build():
+        model, alg, state, batch_fn = _tp_build(args)
+        model = Model(dataclasses.replace(model.cfg, compute_dtype=compute),
+                      remat=model.remat, q_chunk=model.q_chunk,
+                      kv_chunk=model.kv_chunk, scan_chunk=model.scan_chunk,
+                      loss_chunk=model.loss_chunk, moe_dense=model.moe_dense)
+        return model, adjust(alg), state, batch_fn
+    # the one-process run: in a `TP_SHARED` cell once, on rank 0 while
+    # the others wait, which sends each rank its slices of the params,
+    # momentum and carried deltas (flat lists of leaves) and of the
+    # nudged runs' moves over the gloo group; in any other cell each rank
+    # runs it in turn and keeps its own slices
+    shared = tag in TP_SHARED
+    targets, refs = (coords if shared else [coord]), None
+    # a turn's own slices stay on the card (the other ranks' turns and the
+    # mesh run have the room; copying them out and back cost ~2 s a rank
+    # and cell), but where they travel over gloo or the card is tight
+    keep = (lambda x: x.cpu().contiguous()) \
+        if shared or tag in TP_EXPANDABLE \
+        else (lambda x: x.clone(memory_format=torch.contiguous_format))
+    for turn in range(1 if shared else world):
+        if turn != me:
+            dist.barrier()
+            continue
+        t_turn = time.perf_counter()
+        _free_card()
+        twin = {"free_at_turn": torch.cuda.mem_get_info()[0]}
+        model, alg, state, batch_fn = build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, hist, _ = run(Engine(model, alg), state, batch_fn)
+        torch.cuda.synchronize()
+        twin["peak_none"] = torch.cuda.max_memory_allocated()
+        twin["reserved_none"] = torch.cuda.max_memory_reserved()
+        twin["hist_none"] = [{k: h[k] for k in TP_METRICS if k in h}
+                             for h in hist]
+        twin["admit_none"] = [h.get("ssp_admit") for h in hist]
+        stacked = getattr(alg, "worker_stacked", False)
+        refs = [{k: [keep(x) for x in T.leaves(
+                     mine(v, model.cfg, stacked, at))]
+                 for k, v in parts(alg, state).items()} for at in targets]
+        del state
+        alg = adjust(rebuild_algorithm(alg, args.workers))
+        torch.cuda.empty_cache()
+        metas = [{} for _ in targets]
+        for way in (TP_NUDGES if tag in TP_ILL else ()):
+            nudged = T.map(lambda x: torch.nextafter(
+                x, torch.full_like(x, way)), model.init(
+                    torch.Generator(device="cuda").manual_seed(args.seed)))
+            state, hist_up, _ = run(Engine(model, alg), alg.init(nudged),
+                                    batch_fn)
+            del nudged
+            for at, ref, got in zip(targets, refs, metas):
                 moves = {
                     k: [float((a.to(b.device).float() - b.float()).abs()
                               .max()) for a, b in zip(
-                        T.leaves(ref[k]), T.leaves(mine(
-                            v, model.cfg, stacked)))]
+                        ref[k], T.leaves(mine(v, model.cfg, stacked, at)))]
                     for k, v in parts(alg, state).items()}
-                hist_moves = [{k: abs(a[k] - b[k]) for k in TP_METRICS
-                               if k in a} for a, b in zip(hist, hist_up)]
-                rec.setdefault("moves_by_way", []).append(moves)
+                got.setdefault("moves_by_way", []).append(moves)
                 # the larger move of the two directions, leaf by leaf
-                old = rec.get("moves", moves)
-                rec["moves"] = {k: list(map(max, old[k], v))
+                old = got.get("moves", moves)
+                got["moves"] = {k: list(map(max, old[k], v))
                                 for k, v in moves.items()}
-                old = rec.get("hist_moves", hist_moves)
-                rec["hist_moves"] = [{k: max(a[k], b[k]) for k in a}
-                                     for a, b in zip(old, hist_moves)]
-                del state
-                alg = adjust(rebuild_algorithm(alg, args.workers))
-                torch.cuda.empty_cache()
-            # what this rank keeps on the card while the others take
-            # their turns
-            _free_card()
-            rec["held"] = torch.cuda.memory_reserved()
-            rec["turn_s"] = time.perf_counter() - t_turn
+            hist_moves = [{k: abs(a[k] - b[k]) for k in TP_METRICS
+                           if k in a} for a, b in zip(hist, hist_up)]
+            old = twin.get("hist_moves", hist_moves)
+            twin["hist_moves"] = [{k: max(a[k], b[k]) for k in a}
+                                  for a, b in zip(old, hist_moves)]
+            del state
+            alg = adjust(rebuild_algorithm(alg, args.workers))
+            torch.cuda.empty_cache()
+        twin["turn_s"] = time.perf_counter() - t_turn
+        metas = [{**twin, **got, "shapes": {
+            k: [(tuple(x.shape), x.dtype) for x in v] for k, v in r.items()}}
+            for r, got in zip(refs, metas)]
+        # what this rank keeps on the card while the others take theirs
+        _free_card()
+        twin["held"] = torch.cuda.memory_reserved()
+        if not shared:
+            rec.update(metas[0], held=twin["held"])
+            ref = refs.pop()
         dist.barrier()
+    if shared:
+        box = [None]
+        dist.scatter_object_list(box, metas if me == 0 else None, src=0)
+        rec.update(box[0], held=0)
+        if me == 0:
+            for r in range(1, world):
+                for x in (x for v in refs[r].values() for x in v):
+                    dist.send(x, r)
+            ref = refs[0]
+        else:
+            ref = {k: [torch.empty(s, dtype=d) for s, d in v]
+                   for k, v in rec["shapes"].items()}
+            for x in (x for v in ref.values() for x in v):
+                dist.recv(x, 0)
+            model, alg, state, batch_fn = build()
+            del state
+            alg = adjust(rebuild_algorithm(alg, args.workers))
+            _free_card()
+    del refs
+    rec.pop("shapes")
     params = model.init(torch.Generator(device="cuda")
                         .manual_seed(args.seed))
     # a wire cell's initial weights, this rank's slices: the params'
@@ -5601,7 +5720,9 @@ def _tp_verdict(smi: str, tag: str, shape, res: list, problems: list
           f"rank keeping {[round(r['held'] / 2**30, 3) for r in recs]} GiB "
           f"through the others' turns); fit "
           f"{[round(r['fit_s'], 2) for r in recs]} s, the one-process turn "
-          f"{[round(r['turn_s'], 2) for r in recs]} s, the cell "
+          f"{[round(r['turn_s'], 2) for r in recs]} s"
+          f"{' (one, on rank 0, its slices sent)' if tag in TP_SHARED else ''}"
+          f", the cell "
           f"{[round(r['cell_s'], 2) for r in recs]} s [{smi}]")
     return {"worst": worst, "worst_bf16": worst_bf16, "top": top,
             "compute": "bfloat16" if bf16_cell else "float32",
@@ -6890,6 +7011,321 @@ def phase_examples(smi: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 22: long-sequence training, the Model's memory knobs
+# ---------------------------------------------------------------------------
+
+LONG_SEQ = 4096        # train_4k's sequence length
+LONG_STEPS = 3
+# of the card's memory the largest batch's tensors may reach: the caching
+# allocator needs the rest (at 10 sequences, 92 %, it held 11.4 GiB
+# reserved but unallocated when the 11.6 GiB loss chunk asked for more)
+LONG_CAP = 0.80
+
+
+def _long_build(remat: bool, per_worker: int, kernels: bool = True):
+    """(engine, state, batch_fn) of the long cell: the main cell (qwen3-0.6b
+    x4, W = 2, 4 buckets, TF32 off, the fused tail unless ``kernels`` is
+    off) at ``per_worker`` sequences of `LONG_SEQ` tokens a worker, its
+    Model built as the reference's defaults build it (attention in blocks
+    of 512 queries x 1,024 keys, loss chunks of 2,048), with ``remat``."""
+    from repro_torch.launch import train
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.transformer import Model
+    argv = list(MAIN_ARGS)
+    argv[argv.index("--seq") + 1] = str(LONG_SEQ)
+    argv[argv.index("--batch-per-worker") + 1] = str(per_worker)
+    argv += ["--steps", str(LONG_STEPS)] + (["--use-kernels"] if kernels
+                                            else [])
+    model, alg, state, batch_fn = train.build(
+        train.build_argparser().parse_args(argv))
+    return Engine(Model(model.cfg, remat=remat), alg), state, batch_fn
+
+
+def _long_run(remat: bool, per_worker: int, steps: int = LONG_STEPS) -> dict:
+    """``steps`` steps of the long cell through ``Engine.fit`` under
+    deterministic algorithms, counts zeroed just before and read just
+    after: the final state, the losses, the median host-clock seconds of
+    steps 2-3, the peak after a reset and what was allocated before it
+    (the state), the launches."""
+    engine, state, batch_fn = _long_build(remat, per_worker)
+    _free_card()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        state, hist, _ = engine.fit(state, batch_fn, steps=steps,
+                                    log_every=1)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    walls = [h["wall_s"] for h in hist]
+    laps = [b - a for a, b in zip(walls, walls[1:])]
+    return {"state": state, "losses": [h["loss"] for h in hist],
+            "step_s": statistics.median(laps) if laps else None,
+            "peak": torch.cuda.max_memory_allocated(), "before": before,
+            "launches": _read_counts()}
+
+
+def _long_fake_peak() -> dict:
+    """The dry-run's fake-mode ``traced_peak`` of (iii)'s step: the long
+    cell's Model with remat, W = 2, 4 buckets, the plain tail, one
+    sequence of `LONG_SEQ` tokens a worker, through
+    ``Engine.trace_train_step`` on fake tensors (nothing on the card;
+    `_start_dryrun` runs it in a subprocess, `main_long_fake_peak`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import registry
+    from repro_torch.core.types import DCS3GDConfig
+    from repro_torch.data.pipeline import SyntheticLMDataset, worker_batches
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.dryrun import traced_peak
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=4)
+    model = Model(cfg, remat=True)
+    dc = DCS3GDConfig(warmup_steps=1, total_steps=LONG_STEPS)
+    alg = registry.make("dc_s3gd", dc, n_workers=W, use_kernels=False,
+                        buckets=N_BUCKETS)
+    engine = Engine(model, alg)
+    real = worker_batches(SyntheticLMDataset(cfg.vocab_size, LONG_SEQ,
+                                             seed=0), 0, W, 1, device="cpu")
+    t0 = time.perf_counter()
+    with S.fake_mode():
+        state = S.abstract_train_state(model, W, dc, alg)
+        batch = {k: torch.empty(v.shape, dtype=v.dtype)
+                 for k, v in real.items()}
+        _, peak = traced_peak(lambda: engine.trace_train_step(state, batch),
+                              (state, batch))
+    return {"fake_peak": peak, "trace_s": time.perf_counter() - t0}
+
+
+def main_long_fake_peak() -> None:
+    """`_long_fake_peak` as a subprocess's JSON line (torch on the CPU)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    print(json.dumps(_long_fake_peak()))
+
+
+def _long_traced_peaks(fake: dict) -> dict:
+    """(iii) The (i) step on the plain tail with remat, one step through
+    ``Engine.trace_train_step`` (what the dry-run traces): on the card
+    the inputs' bytes plus the peak above what was allocated before it
+    (``max_memory_allocated`` after a reset), beside ``fake``, the
+    dry-run's fake-mode ``traced_peak`` of the same config, batch and
+    route (`_long_fake_peak`)."""
+    from repro_torch import tree as T
+    engine, state, batch_fn = _long_build(True, 1, kernels=False)
+    batch = batch_fn(0)
+    inputs = sum(x.numel() * x.element_size()
+                 for x in T.leaves((state, batch))
+                 if isinstance(x, torch.Tensor))
+    _free_card()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = engine.trace_train_step(state, batch)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - before + inputs
+    del out, state
+    _free_card()
+    return {"card_peak": card_peak, "inputs": inputs, **fake}
+
+
+def _long_grad_peaks(params, remat: bool, counts=(1, 2)) -> dict:
+    """One worker's loss and gradients (what ``_vgrads`` holds for each
+    worker in turn) at each of ``counts`` sequences of `LONG_SEQ` tokens:
+    the peak above what was allocated before it, after a reset."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    model = Model(dataclasses.replace(get_config("qwen3-0.6b"), n_layers=4),
+                  remat=remat)
+    leaves = [x.detach().requires_grad_() for x in T.leaves(params)]
+    tree = T.unflatten(T.flatten(params)[1], leaves)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for n in counts:
+        tokens = torch.randint(0, model.cfg.vocab_size, (n, LONG_SEQ),
+                               generator=gen, device="cuda")
+        _free_card()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = torch.autograd.grad(
+            model.loss(tree, {"tokens": tokens, "labels": tokens}), leaves)
+        torch.cuda.synchronize()
+        out[n] = torch.cuda.max_memory_allocated() - before
+        del grads, tokens
+    return out
+
+
+def _one_block_ab(smi: str) -> dict:
+    """The plain core where one key block holds every key, the two ways
+    `blocked_attention` can take it: the online softmax over the one
+    block (``ordered=False``) and the plain softmax that ``ordered``
+    takes (`causal_attention`), the same function.  Forward and backward
+    at qwen3's heads (8 KV x 2, hd 128), f32, causal, medians of 10: at
+    phase 5's 4 x 256 tokens and at 1 x 1,024 (the Model's own
+    ``kv_chunk``)."""
+    from repro_torch.models.attention import blocked_attention
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec = {}
+    for B, S in ((4, 256), (1, 1024)):
+        q, k, v, g = (torch.randn(shape, device="cuda", generator=gen)
+                      for shape in ((B, S, 8, 2, 128), (B, S, 8, 128),
+                                    (B, S, 8, 128), (B, S, 8, 2, 128)))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        pos = torch.arange(S, device="cuda")
+
+        def core(ordered):
+            return blocked_attention(q, k, v, pos, pos, causal=True,
+                                     window=0, q_chunk=S, kv_chunk=S,
+                                     ordered=ordered)
+        ms = {o: median_ms(lambda o=o: torch.autograd.grad(
+            core(o), (q, k, v), g)) for o in (True, False)}
+        with torch.no_grad():
+            err = float((core(True) - core(False)).abs().max())
+        rec[f"{B}x{S}"] = {"softmax_ms": ms[True], "online_ms": ms[False],
+                           "max_abs_err": err}
+        print(f"[long] one key block, {B} x {S} tokens, forward and "
+              f"backward: the plain softmax {ms[True]:.3f} ms, the online "
+              f"softmax {ms[False]:.3f} ms, {err:.3g} apart [{smi}]")
+    return rec
+
+
+def phase_long_seq(smi: str, dry: tuple) -> dict:
+    """Phase 22: the main cell at train_4k's 4,096-token sequences.  (i)
+    one sequence a worker, ``remat`` off then on, `LONG_STEPS` steps each
+    on the fused tail: bitwise the same state (params, opt, comm), each
+    run's peak, step time and A1 / A2 launches a step; and one worker's
+    gradient pass alone at one and two sequences (`_long_grad_peaks`),
+    whose peak the activations set (the step's own peak at one sequence
+    is the fused tail's, the same with remat or without).  (ii) the
+    largest per-worker batch ``remat`` fits by arithmetic: the step's
+    state, ``_vgrads``'s gradient buffer (W x the params) and the
+    gradient pass at that batch (its peak linear in the sequences) within
+    `LONG_CAP` of the card's memory; whether ``remat`` off fits it, by the
+    same arithmetic; then a step at it.  (iii) the plain tail's traced
+    step on the card beside the dry-run's fake-mode peak of the same
+    config, batch and route (`_long_traced_peaks`), within 10 %."""
+    from repro_torch import tree as T
+    problems, rec = [], {}
+    runs = {}
+    for remat in (False, True):
+        r = _long_run(remat, 1)
+        runs[remat] = r
+        tag = "on" if remat else "off"
+        steps = len(r["losses"])
+        rec[f"remat_{tag}"] = {
+            "losses": r["losses"], "step_ms": r["step_s"] * 1e3,
+            "peak_bytes": r["peak"], "before_bytes": r["before"],
+            "launches": r["launches"],
+            "launches_per_step": {k: n / steps for k, n in
+                                  r["launches"].items() if n}}
+        if not all(map(math.isfinite, r["losses"])) or any(
+                r["launches"][k] != steps * N_BUCKETS
+                for k in ("dc_norms", "dc_fused_update")):
+            problems.append(f"remat {tag}: losses {r['losses']}, "
+                            f"launches {r['launches']}")
+        print(f"[long] qwen3-0.6b x4, W={W}, 1 x {LONG_SEQ} tokens a "
+              f"worker, remat {tag}: losses "
+              f"{[round(x, 6) for x in r['losses']]}; step "
+              f"{r['step_s'] * 1e3:.1f} ms (median of steps 2-3); peak "
+              f"{r['peak'] / 2**30:.3f} GiB ({r['peak']} B; "
+              f"{r['before'] / 2**30:.3f} GiB held before); A1 / A2 "
+              f"{r['launches']['dc_norms']} / "
+              f"{r['launches']['dc_fused_update']} [{smi}]")
+        if not remat:
+            # on the host, so that the next run's peak is its own
+            r["state"] = T.map(lambda x: x.cpu() if isinstance(
+                x, torch.Tensor) else x, r["state"])
+            _free_card()
+    on = T.map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x,
+               runs[True]["state"])
+    same = {p: _bitwise(getattr(on, p), getattr(runs[False]["state"], p))
+            for p in ("params", "opt", "comm")}
+    del on
+    rec["bitwise"] = same
+    if not all(same.values()):
+        problems.append(f"remat on != off: {same}")
+    print(f"[long] remat on == off after {LONG_STEPS} steps, bitwise: "
+          f"{same} [{smi}]")
+    params = T.map(lambda x: x[0].clone(), runs[True]["state"].params)
+    buffer = sum(x.numel() * 4 for x in T.leaves(runs[True]["state"]
+                                                    .params))
+    for r in runs.values():
+        del r["state"]
+    _free_card()
+    # (ii) the gradient pass's peak per sequence, with and without remat
+    grad = {remat: _long_grad_peaks(params, remat) for remat in (False,
+                                                                  True)}
+    del params
+    _free_card()
+    slope = {m: g[2] - g[1] for m, g in grad.items()}
+    base = {m: g[1] - slope[m] for m, g in grad.items()}
+    before = runs[False]["before"]
+    cap = LONG_CAP * torch.cuda.mem_get_info()[1]
+
+    def need(m, n):
+        return before + buffer + base[m] + n * slope[m]
+    most = int((cap - before - buffer - base[True]) // slope[True])
+    off_most = int((cap - before - buffer - base[False]) // slope[False])
+    rec["grad_pass"] = {f"remat_{'on' if m else 'off'}": {
+        "peak_1_bytes": g[1], "peak_2_bytes": g[2],
+        "slope_bytes": slope[m]} for m, g in grad.items()}
+    rec["batch"] = {"cap_bytes": cap, "buffer_bytes": buffer,
+                    "per_worker": most, "off_most": off_most,
+                    "predicted_peak": max(runs[True]["peak"],
+                                          need(True, most)),
+                    "off_need": need(False, most),
+                    "off_fits": need(False, most) <= cap}
+    for m in (False, True):
+        print(f"[long] one worker's gradient pass, remat "
+              f"{'on' if m else 'off'}: {grad[m][1] / 2**30:.3f} GiB at 1 "
+              f"sequence, {grad[m][2] / 2**30:.3f} GiB at 2 "
+              f"({slope[m] / 2**30:.3f} GiB a sequence) [{smi}]")
+    print(f"[long] within {cap / 2**30:.1f} GiB: remat fits {most} x "
+          f"{LONG_SEQ} tokens a worker, remat off {off_most}; at {most} "
+          f"remat off would need {need(False, most) / 2**30:.1f} GiB "
+          f"[{smi}]")
+    if most < 1:
+        problems.append(f"remat fits {most} sequences")
+    else:
+        big = _long_run(True, most, steps=1)
+        del big["state"]
+        _free_card()
+        rec["batch"].update(losses=big["losses"], peak_bytes=big["peak"],
+                            launches=big["launches"])
+        if big["peak"] > cap or not all(map(math.isfinite, big["losses"])):
+            problems.append(f"{most} sequences: peak {big['peak']}, losses "
+                            f"{big['losses']}")
+        print(f"[long] remat at {most} x {LONG_SEQ} tokens a worker, one "
+              f"step: loss {big['losses']}; peak "
+              f"{big['peak'] / 2**30:.3f} GiB (predicted "
+              f"{rec['batch']['predicted_peak'] / 2**30:.3f}) [{smi}]")
+    # (iii) the dry-run's fake-mode peak (traced in a subprocess since the
+    # script's start) against the card's
+    thread, box = dry
+    thread.join()
+    fake = box.get("long_fake")
+    check(fake is not None and fake["r"].returncode == 0,
+          f"[long] the fake-mode trace: {fake and fake['r'].stderr[-2000:]}")
+    tp = _long_traced_peaks(json.loads(
+        fake["r"].stdout.strip().splitlines()[-1]))
+    gap = (tp["card_peak"] - tp["fake_peak"]) / tp["card_peak"]
+    rec["traced"] = {**tp, "gap": gap}
+    if abs(gap) > 0.10:
+        problems.append(f"fake-mode peak {tp['fake_peak']} vs the card's "
+                        f"{tp['card_peak']}: {gap:.3g}")
+    print(f"[long] plain tail, remat on, 1 x {LONG_SEQ} tokens a worker, "
+          f"one traced step: the card's peak {tp['card_peak']} B "
+          f"({tp['card_peak'] / 2**30:.3f} GiB, inputs {tp['inputs']} B), "
+          f"the dry-run's fake-mode peak {tp['fake_peak']} B: the card "
+          f"{gap * 100:+.2f} % ({tp['trace_s']:.1f} s to trace) [{smi}]")
+    rec["one_block"] = _one_block_ab(smi)
+    check(not problems, "[long] " + "; ".join(problems))
+    return rec
+
+
 def _lap_phases(t0: float) -> None:
     """Wrap every ``phase_*`` function of this module so that each call
     prints its own wall time and the time since ``t0`` (the script must
@@ -6933,6 +7369,7 @@ def main() -> int:
           f"; tf32 off")
 
     phase_build(smi)
+    dry = _start_dryrun()
 
     cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=4)
     params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
@@ -7070,7 +7507,6 @@ def main() -> int:
           f"phases took {s13['phase_s']:.1f} s [{smi}]")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    dry = _start_dryrun()
     s14 = {"nccl": phase_mesh_nccl(smi)}
     s14["gloo"] = phase_mesh_gloo(smi)
     s14["dryrun"] = phase_dryrun(smi, dry)
@@ -7085,6 +7521,8 @@ def main() -> int:
     s20 = phase_serve_mesh(smi)
     torch.cuda.empty_cache()
     ex = phase_examples(smi)
+    torch.cuda.empty_cache()
+    long = phase_long_seq(smi, dry)
     bf16 = paged["bfloat16"]
     kern["paged_attention"] = {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                                "bound_ms": bf16["bound_ms"],
@@ -7401,6 +7839,13 @@ def main() -> int:
                                       "bound_by", "library_ms", "err")}
                 for c, r in s20["kernels"].items()
                 if (c == "falcon-mamba local") == (name == "ssm_scan")}
+    # slice 21: A1 and A2 on the long-sequence path (counts zeroed before
+    # each run, read after; the main cell's bucket sizes, held to their
+    # plain versions in phase 2)
+    for entry in kernels:
+        entry["long_seq"] = {"launches": {
+            f"remat {t}": long[f"remat_{t}"]["launches"][entry["name"]]
+            for t in ("off", "on")}}
     for entry in kernels:
         # A1 and A2 on the CNN main path: its launches (dc_s3gd, 6 steps)
         # and the per-step sums over its 6 bucket sizes at W = 8
@@ -7460,7 +7905,7 @@ def main() -> int:
               "dense_family": dense, "hybrid": hybrid, "moe_mla": moe,
               "vlm_encdec": mm, "analysis": s13, "multi_device": s14,
               "tensor_parallel": s15, "worker_axis": s19,
-              "serve_mesh": s20, "examples": ex,
+              "serve_mesh": s20, "examples": ex, "long_seq": long,
               "select_modes": b3_modes,
               "kernels": kernels}
     record["total_s"] = time.perf_counter() - t_start

@@ -198,6 +198,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _probe_model(device: torch.device, n_layers: Optional[int], **kw):
+    """The probes' qwen3 (`_qwen3`), without remat, as the reference's
+    probe model (src/repro/analysis/autotune.py); on the CPU its 16-wide
+    attention and scan blocks, on the card the Model's own sizes (the
+    card's, not the reference's: its 16 are a CPU smoke's)."""
+    from repro_torch.models.transformer import Model
+    blocks = {} if device.type == "cuda" else {
+        "q_chunk": 16, "kv_chunk": 16, "scan_chunk": 16}
+    return Model(_qwen3(device, n_layers), remat=False, **blocks, **kw)
+
+
 def _qwen3(device: torch.device, n_layers: Optional[int]):
     from repro_torch.configs import get_config, reduced
     cfg = get_config("qwen3-0.6b")
@@ -230,12 +241,11 @@ def probe_train(candidates: List[dict], *, model=None, algo: str = "dc_s3gd",
     from repro_torch.core.types import DCS3GDConfig, InputShape
     from repro_torch.data.pipeline import SyntheticLMDataset, worker_batches
     from repro_torch.launch.engine import Engine
-    from repro_torch.models.transformer import Model
 
     device = torch.device(device)
     cuda = device.type == "cuda"
     if model is None:
-        model = Model(_qwen3(device, 4), loss_chunk=256)
+        model = _probe_model(device, 4, loss_chunk=256 if cuda else 64)
     batch_per_worker = batch_per_worker or (4 if cuda else 2)
     seq = seq or (256 if cuda else 32)
     steps = steps or (10 if cuda else 3)
@@ -343,13 +353,12 @@ def probe_serve(candidates: List[dict], *, model=None, params=None,
     round.  The default runs once untimed first (the kernels' first
     calls, the allocator)."""
     from repro_torch import tree as T
-    from repro_torch.models.transformer import Model
     from repro_torch.serve import Scheduler
 
     device = torch.device(device)
     cuda = device.type == "cuda"
     if model is None:
-        model = Model(_qwen3(device, None))
+        model = _probe_model(device, None)
     if params is None:
         params = model.init(torch.Generator(device=device).manual_seed(0))
     slots = slots or (16 if cuda else 8)

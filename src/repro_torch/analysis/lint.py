@@ -158,10 +158,15 @@ def _transformer_setup(device: torch.device):
 
     cfg = get_config("qwen3-0.6b")
     if device.type == "cuda":
+        # the card's own size, the training cell's, and the Model's own
+        # blocks (the reference's 16-wide ones are its CPU smoke's)
         cfg, seq, per_worker = dataclasses.replace(cfg, n_layers=4), 256, 4
+        model = Model(cfg, remat=False, loss_chunk=256)
     else:
+        # the reference's lint model (src/repro/analysis/lint.py)
         cfg, seq, per_worker = reduced(cfg), 32, 2
-    model = Model(cfg, loss_chunk=256)
+        model = Model(cfg, remat=False, q_chunk=16, kv_chunk=16,
+                      scan_chunk=16, loss_chunk=64)
     data = SyntheticLMDataset(cfg.vocab_size, seq, seed=0)
     return model, worker_batches(data, 0, N_WORKERS, per_worker,
                                  device=device)

@@ -147,8 +147,8 @@ def load(mesh: str, directory: str = DRYRUN_DIR) -> dict:
 
 
 def fmt_mem(b) -> str:
-    """GiB with one decimal; ``-`` for a null (eager PyTorch has no
-    compiler memory analysis for temp / peak)."""
+    """GiB with one decimal; ``-`` for a null (a record without the
+    number)."""
     return "-" if b is None else f"{b/2**30:.1f}"
 
 

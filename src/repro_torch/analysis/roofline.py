@@ -104,16 +104,15 @@ def model_flops_per_step(cfg: ModelConfig, shape: InputShape,
 
 
 def analyze(trace, cfg: ModelConfig, shape: InputShape, n_chips: int,
-            wire_dtype: Optional[str] = None, split: int = 1) -> Roofline:
-    """The roofline of one traced call.  ``trace.meta["wire"]`` (set by
+            wire_dtype: Optional[str] = None) -> Roofline:
+    """The roofline of one traced call (one device's).
+    ``trace.meta["wire"]`` (set by
     `repro_torch.launch.engine.Engine.trace_train_step`) gives the wire:
     its element ``sizes`` and the reducer's ``wire_bytes``; ``wire_dtype``
     prices those elements at another wire dtype's width instead (one f32
-    scale per row on a quantized wire).  ``split`` spreads the traced
-    FLOPs, bytes and wire evenly over that many devices (the dry-run's
-    one-process trace of a whole mesh's step)."""
-    compute_s = sum(op_seconds(o.flops, o.math) for o in trace.ops) / split
-    hbm = float(trace.bytes) / split
+    scale per row on a quantized wire)."""
+    compute_s = sum(op_seconds(o.flops, o.math) for o in trace.ops)
+    hbm = float(trace.bytes)
     memory_s = hbm / HBM_BW
     wire = trace.meta.get("wire", {})
     if wire_dtype is not None and wire:
@@ -123,10 +122,9 @@ def analyze(trace, cfg: ModelConfig, shape: InputShape, n_chips: int,
             else 0)
     else:
         coll = wire.get("bytes", 0)
-    coll = coll / split
     coll_s = coll / NVLINK_BW
-    tp = float(trace.coll_bytes("tp")) / split
-    flops = float(trace.flops) / split
+    tp = float(trace.coll_bytes("tp"))
+    flops = float(trace.flops)
     mf = model_flops_per_step(cfg, shape, n_chips)
     return Roofline(
         flops=flops, hbm_bytes=hbm, coll_bytes=float(coll),
@@ -134,8 +132,7 @@ def analyze(trace, cfg: ModelConfig, shape: InputShape, n_chips: int,
         bottleneck="compute" if compute_s >= memory_s else "memory",
         model_flops=mf, useful_flops_ratio=mf / flops if flops else 0.0,
         coll_breakdown={"wire": float(coll), "tp": tp,
-                        "dot_flops": float(trace.dot_flops) / split,
-                        "elementwise_flops": float(trace.elem_flops)
-                        / split},
+                        "dot_flops": float(trace.dot_flops),
+                        "elementwise_flops": float(trace.elem_flops)},
         step_s=max(compute_s, memory_s), collective_net_s=coll / NET_BW,
         tp_bytes=tp, collective_tp_s=tp / NVLINK_BW)

@@ -32,7 +32,8 @@ def run(*, device="cuda", params=None, steps: int = 60) -> dict:
     device = resolve_device(device)
     # 1. pick an architecture (any of the 10 assigned ones) at smoke scale
     cfg = reduced(get_config("qwen3-0.6b"))
-    model = Model(cfg, scan_chunk=32, loss_chunk=64)
+    model = Model(cfg, remat=False, q_chunk=32, kv_chunk=32, scan_chunk=32,
+                  loss_chunk=64)
     params = model.init(torch.Generator(device=device).manual_seed(0)) \
         if params is None else params_from_numpy(params, device=device)
     print(f"model: {cfg.name}, "

@@ -46,7 +46,7 @@ def _on(x, device) -> torch.Tensor:
 
 def _model(arch: str, device, params):
     cfg = reduced(get_config(arch))
-    model = Model(cfg, scan_chunk=32)
+    model = Model(cfg, remat=False, q_chunk=32, kv_chunk=32, scan_chunk=32)
     params = model.init(torch.Generator(device=device).manual_seed(0)) \
         if params is None else params_from_numpy(params, device=device)
     return cfg, model, params

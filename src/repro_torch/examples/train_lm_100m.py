@@ -61,7 +61,7 @@ def main(argv=None, *, params=None) -> dict:
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = config_100m(args.layers)
-    model = Model(cfg, loss_chunk=256)
+    model = Model(cfg, remat=False, loss_chunk=256)
     params = model.init(torch.Generator(device=device).manual_seed(0)) \
         if params is None else params_from_numpy(params, device=device)
     n = sum(x.numel() for x in T.leaves(params))

@@ -16,31 +16,39 @@ the same questions another way:
 * **the type check** (the reference's compile): every sharded dim must
   divide by its axes (`parallel.sharding.local_shape`); a failure writes
   a FAIL record and exits 1;
+* **one rank's step**: on every mesh, the production ones (16, 16) and
+  (2, 16, 16) with 'model' 16 and the small ('data', 'model') debug
+  meshes named ``DxM`` (``--mesh 1x2``), the traced step is rank 0's,
+  run through a bound `Engine` on its local shards of fake tensors: a
+  training step on its worker rows, or a serving one (the prefill or a
+  decode step on the rank's serve params, batch rows and cache shard).
+  The Model is built as the reference's dry-run builds it: ``remat``
+  on for train and prefill (``seq_parallel`` from
+  ``DRYRUN_SEQ_PARALLEL`` for train), off for decode; the plain route
+  (``kernels=False``);
 * **memory**: ``argument_bytes`` / ``output_bytes`` are the per-device
   bytes of the local shards of the step's inputs / outputs (replicated
-  leaves whole); ``temp_bytes`` / ``peak_bytes`` are null: eager PyTorch
-  has no compiler memory analysis (the record's ``memory.note`` says so);
+  leaves whole); ``peak_bytes`` is the most the traced step holds at
+  once on the device, by ``torch.distributed._tools.mem_tracker.
+  MemTracker`` over the fake tensors (its inputs counted from the
+  start), and ``temp_bytes`` that peak less ``argument_bytes``
+  (``memory.note``);
 * **roofline**: `analysis.optrace` of the step run under the fake mode on
-  the plain route (no kernel), split evenly over the mesh's devices;
-  the collective term counts only the worker-axis wire (the reducer's
-  payload of all W workers), at NVLink's and at the node network's rate
-  (``roofline.note``).  ``lower_s`` is the seconds spent building the
-  abstract inputs and their specs, ``compile_s`` the traced step's;
-* **tensor parallelism**: on a small ('data', 'model') mesh named
-  ``DxM`` (``--mesh 1x2``) with M > 1 a step is instead one rank's
-  tensor-parallel step, run through a bound `Engine` on its local shards
-  of fake tensors: a training step, or a serving one (the prefill or a
-  decode step on the rank's serve params, batch rows and cache shard):
-  the collectives it issues over 'model' (the ``tp`` scope: a serving
-  step's row-parallel sums, vocabulary gather and gathered cache
-  positions) are recorded, and the roofline prices their payload at
-  NVLink's rate (``tp_bytes``, ``collective_tp_s``) beside the
-  worker-axis wire; nothing is split, the trace is one device's.  A
-  compressed wire or a quantized ``comm_dtype`` reduces the whole
-  buckets there (`repro_torch.parallel.tensor.WholeWire`): the wire is
-  the whole plan's, as in one process, and the gather of the rank's
-  payload is one of the ``tp`` collectives, printed apart.  The
-  production meshes keep the whole-mesh trace.
+  the plain route (no kernel), one device's: the FLOPs and bytes of the
+  rank's step; the worker-axis wire is the reducer's payload of the
+  rank's rows, at NVLink's and at the node network's rate; the
+  collectives the step issues over 'model' (the ``tp`` scope: the
+  row-parallel sums, the vocabulary-parallel loss's terms, a serving
+  step's vocabulary gather and gathered cache positions; under ``remat``
+  the ones the backward's recompute issues again) are priced at
+  NVLink's rate (``tp_bytes``, ``collective_tp_s``) beside the wire
+  (``roofline.note``).  A compressed wire or a quantized ``comm_dtype``
+  reduces the whole buckets (`repro_torch.parallel.tensor.WholeWire`):
+  the wire is the whole plan's, as in one process, and the gather of the
+  rank's payload is one of the ``tp`` collectives, printed apart.
+  ``lower_s`` is the seconds spent building the abstract inputs and
+  their specs, ``compile_s`` the traced step's.  A combo the bound path
+  cannot build writes a FAIL record naming the reason.
 
 This is the one entry point that places nothing on any device.
 
@@ -70,7 +78,7 @@ from repro_torch.core.types import DCS3GDConfig, INPUT_SHAPES
 from repro_torch.launch import specs as S
 from repro_torch.launch.engine import Engine
 from repro_torch.launch.mesh import (axis_sizes, make_debug_mesh,
-                                     make_production_mesh, model_size,
+                                     make_production_mesh,
                                      n_workers)
 from repro_torch.models.transformer import Model
 from repro_torch.parallel import sharding as shd
@@ -80,19 +88,25 @@ DEFAULT_OUT = Path("experiments/dryrun_torch")
 MEMORY_NOTE = ("argument_bytes / output_bytes: per-device bytes of the "
                "local shards under the Engine's specs (replicated leaves "
                "whole; the step counter as the int32 the reference "
-               "carries); temp_bytes / peak_bytes: null, eager PyTorch has "
-               "no compiler memory analysis")
-ROOFLINE_NOTE = ("optrace of the step under FakeTensorMode on the plain "
-                 "route (no kernel), FLOPs and bytes split evenly over "
-                 "n_chips; among collectives only the worker-axis wire "
-                 "(the reducer's payload of all W workers, per chip) is "
-                 "counted: collective_s at NVLink's rate, collective_net_s "
-                 "at the node network's (DGX H100, 50 GB/s a GPU), which "
-                 "the worker axis crosses on both production meshes; on a "
-                 "DxM debug mesh with M > 1 the train, prefill or decode "
-                 "step is one rank's tensor-parallel step, unsplit, and "
-                 "tp_bytes / collective_tp_s price its collectives over "
-                 "'model' at NVLink's rate")
+               "carries); peak_bytes: the most one rank's traced step "
+               "holds at once (MemTracker over its fake tensors, the "
+               "inputs counted from the start); temp_bytes: peak_bytes "
+               "less argument_bytes, the most the step holds beyond its "
+               "inputs (not XLA's temp, which leaves out aliased "
+               "outputs).  The reference donates the train state and the "
+               "decode cache; the port's functional train step holds the "
+               "old state and the new one together at its end, and the "
+               "peak shows it")
+ROOFLINE_NOTE = ("optrace of one rank's step under FakeTensorMode on the "
+                 "plain route (no kernel), unsplit: the FLOPs and bytes "
+                 "of one device; the worker-axis wire is the reducer's "
+                 "payload of the rank's rows: collective_s at NVLink's "
+                 "rate, collective_net_s at the node network's (DGX H100, "
+                 "50 GB/s a GPU), which the worker axis crosses on both "
+                 "production meshes; tp_bytes / collective_tp_s price the "
+                 "step's tensor-parallel collectives over 'model' "
+                 "(those the remat recompute issues again included) at "
+                 "NVLink's rate")
 
 
 def start_fake_world(world_size: int) -> None:
@@ -126,13 +140,13 @@ def debug_shape(mesh_kind: str):
 COMPRESSED_BUCKETS = 4
 
 
-def build_train(cfg, shape, mesh, dc_cfg, algo: str, tp: bool = False):
-    """(step, inputs, their specs); ``step()`` runs the traced step and
-    returns (trace, outputs, their specs).  So do `build_prefill` and
-    `build_decode`.  With ``tp`` (a debug mesh whose 'model' axis is above
-    1) the traced step is this rank's tensor-parallel one, on its shards,
-    and its outputs are one device's (their specs replicated)."""
-    model = Model(cfg, kernels=False)
+def build_train(cfg, shape, mesh, dc_cfg, algo: str):
+    """(step, inputs, their specs, the rank's inputs); ``step()`` runs
+    the rank's traced step, on its shards, and returns (trace, outputs,
+    their specs), one device's (replicated specs).  So do `build_prefill`
+    and `build_decode`."""
+    model = Model(cfg, remat=True, kernels=False,
+                  seq_parallel=bool(os.environ.get("DRYRUN_SEQ_PARALLEL")))
     W = n_workers(mesh)
     reducer = registry.make_reducer(
         os.environ.get("DRYRUN_REDUCER", "mean_allreduce"), dc_cfg)
@@ -143,18 +157,17 @@ def build_train(cfg, shape, mesh, dc_cfg, algo: str, tp: bool = False):
     alg = registry.make(algo, dc_cfg, n_workers=W, reducer=reducer,
                         staleness=os.environ.get("DRYRUN_STALENESS",
                                                  "fixed"), **buckets)
-    engine = Engine(model, alg, mesh=mesh, specs_only=not tp)
+    # the whole mesh's inputs and specs, then the engine bound to rank 0
+    # (binding narrows the algorithm to the rank's rows)
     state = S.abstract_train_state(model, W, dc_cfg, alg)
     batch = S.train_batch_specs(cfg, shape, W)
-    st_sp, b_sp = engine.train_shardings(state, batch)
-    # the rank's rows and shards (a bound engine) or every row (the
-    # whole mesh's step, split evenly afterwards)
-    run_state, run_batch, rows = state, batch, W
-    if tp:
-        with S.fake_mode():
-            run_state = engine.init_state(S.abstract_params(model))
-            run_batch = engine.local_batch(batch)
-        rows = W // engine.workers.size
+    st_sp, b_sp = Engine(model, alg, mesh=mesh,
+                         specs_only=True).train_shardings(state, batch)
+    engine = Engine(model, alg, mesh=mesh)
+    with S.fake_mode():
+        run_state = engine.init_state(S.abstract_params(model))
+        run_batch = engine.local_batch(batch)
+    rows = W // engine.workers.size
 
     def step():
         tr, new_state, metrics = engine.trace_train_step(run_state,
@@ -165,59 +178,67 @@ def build_train(cfg, shape, mesh, dc_cfg, algo: str, tp: bool = False):
         tensors = {k: v for k, v in metrics.items()
                    if isinstance(v, torch.Tensor)}
         outs = (new_state, tensors)
-        return tr, outs, (_replicated(new_state) if tp else st_sp,
-                          _replicated(tensors))
+        return tr, outs, (_replicated(new_state), _replicated(tensors))
 
-    return step, (state, batch), (st_sp, b_sp)
+    return step, (state, batch), (st_sp, b_sp), (run_state, run_batch)
 
 
-def build_prefill(cfg, shape, mesh, tp: bool = False):
-    model = Model(cfg, kernels=False)
-    engine = Engine(model, mesh=mesh, specs_only=not tp)
+def build_prefill(cfg, shape, mesh):
+    model = Model(cfg, remat=True, kernels=False)
+    engine = Engine(model, mesh=mesh)
     params = S.abstract_params(model)
     batch = S.prefill_batch_specs(cfg, shape)
     p_sp, b_sp, _ = engine.serve_shardings(params, batch=batch,
                                            global_batch=shape.global_batch)
-    run_params, run_batch = params, batch
-    if tp:
-        with S.fake_mode():
-            run_params = engine.serve_params(params)
-            run_batch = engine.serve_batch(batch)
+    with S.fake_mode():
+        run_params = engine.serve_params(params)
+        run_batch = engine.serve_batch(batch)
 
     def step():
         with optrace.trace() as tr:
             logits, cache = engine.model.prefill(run_params, run_batch,
                                                  cache_len=shape.seq_len)
-        _, _, c_sp = engine.serve_shardings(
-            params, cache=cache, global_batch=shape.global_batch)
         return tr, (logits, cache), (_replicated(logits),
-                                     _replicated(cache) if tp else c_sp)
+                                     _replicated(cache))
 
-    return step, (params, batch), (p_sp, b_sp)
+    return step, (params, batch), (p_sp, b_sp), (run_params, run_batch)
 
 
-def build_decode(cfg, shape, mesh, tp: bool = False):
-    model = Model(cfg, kernels=False)
-    engine = Engine(model, mesh=mesh, specs_only=not tp)
+def build_decode(cfg, shape, mesh):
+    model = Model(cfg, remat=False, kernels=False)
+    engine = Engine(model, mesh=mesh)
     params = S.abstract_params(model)
     cache = S.abstract_cache(model, shape)
     batch = S.decode_batch_specs(cfg, shape)
     p_sp, b_sp, c_sp = engine.serve_shardings(
         params, batch=batch, cache=cache, global_batch=shape.global_batch)
-    run = (params, cache, batch)
-    if tp:
-        with S.fake_mode():
-            run = (engine.serve_params(params), engine.shard(cache, c_sp),
-                   engine.serve_batch(batch))
+    with S.fake_mode():
+        run = (engine.serve_params(params), engine.shard(cache, c_sp),
+               engine.serve_batch(batch))
 
     def step():
         with optrace.trace() as tr:
             logits, new_cache = engine.model.decode_step(*run)
         return tr, (logits, new_cache), (_replicated(logits),
-                                         _replicated(new_cache) if tp
-                                         else c_sp)
+                                         _replicated(new_cache))
 
-    return step, (params, cache, batch), (p_sp, c_sp, b_sp)
+    return step, (params, cache, batch), (p_sp, c_sp, b_sp), run
+
+
+def traced_peak(step, inputs) -> tuple:
+    """(``step()``'s result, the most its tensors hold at once): a
+    ``MemTracker`` around the call, ``inputs`` (a tree) counted from the
+    start.  The same on fake tensors as on real ones (the dry-run's
+    ``peak_bytes``); the device whose peak is largest."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from repro_torch import tree as T
+    tracker = MemTracker()
+    tracker.track_external(*[x for x in T.leaves(inputs)
+                             if isinstance(x, torch.Tensor)])
+    with tracker:
+        out = step()
+    peaks = tracker.get_tracker_snapshot("peak")
+    return out, max((m["Total"] for m in peaks.values()), default=0)
 
 
 def _record_path(out_dir: Path, arch, shape_name, mesh_kind, algo) -> Path:
@@ -262,9 +283,6 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
         mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
     sizes = axis_sizes(mesh)
     n_chips = mesh.size()
-    # a tensor-parallel step is traced on one rank: nothing to split
-    tp = bool(debug) and model_size(mesh) > 1
-    split = 1 if tp else n_chips
     dc_cfg = DCS3GDConfig(total_steps=10_000, warmup_steps=1_500,
                           microbatches=int(
                               os.environ.get("DRYRUN_MICROBATCHES", "1")),
@@ -275,19 +293,20 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
 
     t0 = time.time()
     if shape.kind == "train":
-        step, args, in_sp = build_train(cfg, shape, mesh, dc_cfg, algo, tp)
+        step, args, in_sp, local = build_train(cfg, shape, mesh, dc_cfg,
+                                               algo)
     elif shape.kind == "prefill":
-        step, args, in_sp = build_prefill(cfg, shape, mesh, tp)
+        step, args, in_sp, local = build_prefill(cfg, shape, mesh)
     else:
-        step, args, in_sp = build_decode(cfg, shape, mesh, tp)
+        step, args, in_sp, local = build_decode(cfg, shape, mesh)
     # the type check: every sharded dim divides by its axes
     arg_bytes = shd.shard_bytes(tuple(args), tuple(in_sp), sizes)
     t_lower = time.time() - t0
     with S.fake_mode():
-        tr, outs, out_sp = step()
+        (tr, outs, out_sp), peak = traced_peak(step, local)
     out_bytes = shd.shard_bytes(tuple(outs), tuple(out_sp), sizes)
     t_compile = time.time() - t0 - t_lower
-    roof = rl.analyze(tr, cfg, shape, n_chips, split=split)
+    roof = rl.analyze(tr, cfg, shape, n_chips)
 
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "algo": algo,
@@ -296,7 +315,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
         "n_chips": n_chips,
         "lower_s": round(t_lower, 1), "compile_s": round(t_compile, 1),
         "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
-                   "temp_bytes": None, "peak_bytes": None,
+                   "temp_bytes": peak - arg_bytes, "peak_bytes": peak,
                    "note": MEMORY_NOTE},
         "roofline": {**roof.to_dict(), "note": ROOFLINE_NOTE},
     }
@@ -305,7 +324,8 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
         print(f"[dryrun] {arch} x {shape_name} x {mesh_kind} ({algo}) OK "
               f"trace={t_compile:.0f}s")
         print(f"  mem/device: args={_gb(m['argument_bytes'])} "
-              f"out={_gb(m['output_bytes'])} (temp / peak: not available)")
+              f"out={_gb(m['output_bytes'])} temp={_gb(m['temp_bytes'])} "
+              f"peak={_gb(m['peak_bytes'])}")
         print(f"  roofline: compute={roof.compute_s*1e3:.2f}ms "
               f"memory={roof.memory_s*1e3:.2f}ms "
               f"collective={roof.collective_s*1e3:.2f}ms NVLink / "
@@ -314,7 +334,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
               f"-> {roof.bottleneck}-bound; useful-flops "
               f"{roof.useful_flops_ratio:.2f}")
         wire = tr.meta.get("wire")
-        if tp and wire:
+        if wire:
             print(f"  wire: {wire['bytes']} B a step over "
                   f"{len(wire['sizes'])} buckets / leaves of "
                   f"{sum(wire['sizes'])} elements a worker; gathered "

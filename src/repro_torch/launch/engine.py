@@ -133,9 +133,12 @@ _HOST_COMM = ("staleness",)
 # over the worker axis by their own specs
 _WHOLE_COMM = ("reducer",)
 
-# the ROADMAP item every refusal of a multi-rank layout names
-_MULTI_DEVICE_ITEM = ("ROADMAP queue A item 6: what the multi-device slice "
-                      "leaves")
+# why an algorithm without a worker seam is refused across ranks: every
+# registered one has the seam; an algorithm built outside the registry
+# without ``bind_workers`` cannot split its worker rows over the ranks
+_NO_WORKER_SEAM = ("it has no bind_workers, so it cannot split its "
+                   "worker rows over the ranks; every registered algorithm "
+                   "has one")
 
 
 class Engine:
@@ -191,7 +194,7 @@ class Engine:
                 return
             raise ValueError(
                 f"{alg.name} has no worker seam and is refused on a worker "
-                f"group of {self.workers.size} ranks ({_MULTI_DEVICE_ITEM})")
+                f"group of {self.workers.size} ranks ({_NO_WORKER_SEAM})")
         alg.bind_workers(self.workers)
 
     def _refuse_over_model(self, model_size: int) -> None:

@@ -192,7 +192,8 @@ def build(args):
         cfg = reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    model = Model(cfg)            # routed MoE, as the reference serves
+    # routed MoE and the reference launcher's knobs, as it serves
+    model = Model(cfg, remat=False, q_chunk=64, kv_chunk=64, scan_chunk=64)
     if args.train_ckpt is not None:
         params, resolved = params_from_train_ckpt(
             model, args.train_ckpt, algo=args.algo, n_workers=args.workers,

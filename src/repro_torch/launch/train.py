@@ -245,7 +245,9 @@ def build(args, *, device=None):
             "whose batches carry frames")
     # the reduced MoE trains through the all-experts oracle, as the
     # reference's launcher does; the published widths route
-    model = Model(cfg, loss_chunk=256, moe_dense=args.reduced)
+    # the reference launcher's knobs (src/repro/launch/train.py)
+    model = Model(cfg, remat=False, moe_dense=args.reduced, q_chunk=64,
+                  kv_chunk=64, scan_chunk=64, loss_chunk=256)
     dc_cfg = DCS3GDConfig(
         learning_rate=args.lr, momentum=args.momentum, lambda0=args.lambda0,
         warmup_steps=max(int(args.warmup_frac * args.steps), 1),

@@ -6,11 +6,11 @@ decoding ``init_kv_cache`` / ``decode_positions`` / ``attend_one`` /
 chunked prefill ``_blocked_attention`` / ``attention_prefill_chunk``).
 
 The full-sequence attention core has two routes, chosen by the caller
-(``core``): ``"plain"`` (`causal_attention`, plain tensor code that takes
-the masked softmax over the whole sequence at once, where the reference's
-XLA path streams KV blocks through an online softmax: the same function,
-up to rounding) for training, whose gradients autograd takes through it;
-and ``"flash"``, the hand-written kernel
+(``core``): ``"plain"`` (`blocked_attention`, the reference's
+``_blocked_attention``: an online softmax over (``q_chunk`` x
+``kv_chunk``) blocks, so no (S, S) score tensor is ever whole) for
+training, whose gradients autograd takes through it; and ``"flash"``,
+the hand-written kernel
 `repro_torch.kernels.flash_attention` (its plain version on the CPU),
 forward only, for the prefill.  Both take the sliding ``window`` (keys
 ``window`` or more before the query are masked): a dense config's
@@ -90,9 +90,9 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: int = 0, causal: bool = True) -> torch.Tensor:
     """q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd).  Causal (Sq = Sk),
     and with ``window > 0`` keys ``window`` or more before the query
-    masked too; with ``causal=False`` every key is visible (the
-    encoder's and the cross-attention's core, Sq and Sk free).  Scores
-    and softmax in f32.  Returns (B, Sq, KV, G, hd) in q's dtype."""
+    masked too; with ``causal=False`` every key is visible (Sq and Sk
+    free).  Scores and softmax in f32 over the whole (Sq, Sk) at once.
+    Returns (B, Sq, KV, G, vd) in q's dtype."""
     S, hd = q.shape[1], q.shape[-1]
     s = torch.einsum("bqkgh,bckh->bkgqc", q.float(), k.float()) \
         * (hd ** -0.5)
@@ -109,18 +109,36 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                       causal: bool, window: int, q_chunk: int,
-                      kv_chunk: int) -> torch.Tensor:
+                      kv_chunk: int, ordered: bool = False) -> torch.Tensor:
     """The reference's ``_blocked_attention``: q (B, Sq, KV, G, hd); k, v
     (B, Sk, KV, hd); q_pos (Sq,) and k_pos (Sk,) absolute positions.  An
-    online softmax over key blocks of ``kv_chunk``, query chunks of
-    ``q_chunk`` one after another; scores, their scale and the softmax in
-    f32, the probabilities rounded to v's dtype before the PV product.
-    Padded queries sit at position -1, padded keys at 2^30 (masked).  A
-    wholly masked key block after a live one is an exact no-op, so a row's
-    result does not depend on how many blocks follow its last live key.
+    online softmax over key blocks of ``kv_chunk``, in order; each block
+    is taken by the rows of every query chunk at once (the reference
+    scans its query chunks with the same body), so the launches grow with
+    the key blocks only and no (Sq, Sk) score tensor is ever whole.
+    Scores, their scale and the softmax in f32, the probabilities rounded
+    to v's dtype before the PV product.  Padded queries sit at position
+    -1, padded keys at 2^30 (masked).  A wholly masked key block after a
+    live one is an exact no-op, so a row's result does not depend on how
+    many blocks follow its last live key; one before every live one is
+    wiped exactly by the first live block's correction, exp(-1e30 - m) =
+    0.  ``ordered``: q_pos and k_pos are 0 .. Sq - 1 and 0 .. Sk - 1 (a
+    training or prefill stream), so with ``causal`` the query chunks
+    before the one that holds key block j's first key are done at block
+    j: they leave the accumulators, and the blocks after it are not
+    computed for them (the same bits, forward and backward, for about
+    half the work).  The running maximum is held fixed in the backward
+    pass, as flash attention's is (the result does not depend on it).
+    With ``ordered`` and one key block (Sk <= ``kv_chunk``) the online
+    softmax is a plain softmax over the row, and it is computed as one
+    (`causal_attention`: the probabilities normalised before the PV
+    product, one softmax backward), the same function with fewer
+    launches (`chip_smoke.py`'s `_one_block_ab` times both on the card).
     Returns (B, Sq, KV, G, vd) in q's dtype."""
     B, Sq, KV, G, hd = q.shape
     Sk, vd = k.shape[1], v.shape[-1]
+    if ordered and Sk <= kv_chunk:
+        return causal_attention(q, k, v, window, causal)
     scale = hd ** -0.5
     pq, pk = (-Sq) % q_chunk, (-Sk) % kv_chunk
     if pq:
@@ -130,33 +148,52 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = F.pad(k, (0, 0, 0, 0, 0, pk))
         v = F.pad(v, (0, 0, 0, 0, 0, pk))
         k_pos = F.pad(k_pos, (0, pk), value=2 ** 30)
-    outs = []
-    for i0 in range(0, Sq + pq, q_chunk):
-        qc, qp = q[:, i0:i0 + q_chunk].float(), q_pos[i0:i0 + q_chunk]
-        m = torch.full((B, KV, G, q_chunk), NEG_INF, device=q.device)
-        l = torch.zeros((B, KV, G, q_chunk), device=q.device)
-        acc = torch.zeros((B, KV, G, q_chunk, vd), device=q.device)
-        for j0 in range(0, Sk + pk, kv_chunk):
-            kc, vc = k[:, j0:j0 + kv_chunk], v[:, j0:j0 + kv_chunk]
-            kp = k_pos[j0:j0 + kv_chunk]
-            s = torch.einsum("bqkgh,bckh->bkgqc", qc, kc.float()) * scale
-            mask = (kp < 2 ** 30)[None, :].expand(q_chunk, kv_chunk)
-            if causal:
-                mask = mask & (qp[:, None] >= kp[None, :])
-            if window > 0:
-                mask = mask & ((qp[:, None] - kp[None, :]) < window)
-            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(vc.dtype).float(),
-                              vc.float())
-            acc = acc * corr[..., None] + pv
-            m = m_new
-        out = acc / l.clamp_min(1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4))      # (B, qc, KV, G, vd)
-    return torch.cat(outs, dim=1)[:, :Sq].to(q.dtype)
+    dtype, q = q.dtype, q.float()
+    rows = Sq + pq
+    m = torch.full((B, KV, G, rows), NEG_INF, device=q.device)
+    l = torch.zeros((B, KV, G, rows), device=q.device)
+    acc = torch.zeros((B, KV, G, rows, vd), device=q.device)
+    done, lo = [], 0          # the finished rows' outputs; the first live row
+
+    def finish(n):
+        out = acc[..., :n, :] / l[..., :n].clamp_min(1e-30)[..., None]
+        done.append(out.permute(0, 3, 1, 2, 4))      # (B, n, KV, G, vd)
+
+    for j0 in range(0, Sk + pk, kv_chunk):
+        if ordered and causal:
+            # rows before the chunk of query j0 see no key from j0 on
+            start = min(j0 // q_chunk * q_chunk, rows)
+            if start > lo:
+                finish(start - lo)
+                m, l, acc = m[..., start - lo:], l[..., start - lo:], \
+                    acc[..., start - lo:, :]
+                lo = start
+            if lo == rows:
+                break
+        qp, kp = q_pos[lo:], k_pos[j0:j0 + kv_chunk]
+        # True where a key is hidden from a row
+        dead = (kp >= 2 ** 30)[None, :]
+        if causal:
+            dead = dead | (qp[:, None] < kp[None, :])
+        if window > 0:
+            dead = dead | ((qp[:, None] - kp[None, :]) >= window)
+        kc, vc = k[:, j0:j0 + kv_chunk], v[:, j0:j0 + kv_chunk]
+        s = torch.einsum("bqkgh,bckh->bkgqc", q[:, lo:], kc.float()) * scale
+        s = s.masked_fill(dead, NEG_INF)
+        # the running max carries no gradient: the result does not
+        # depend on it, so all that would flow through it is the
+        # cancellation noise of its exactly-zero gradient
+        m_new = torch.maximum(m, s.detach().amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(vc.dtype).float(),
+                          vc.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    if lo < rows:
+        finish(rows - lo)
+    return torch.cat(done, dim=1)[:, :Sq].to(dtype)
 
 
 def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -165,7 +202,8 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
                     norm_eps: float = 1e-6, mrope_positions=None,
                     mrope_sections=None, kv_override=None,
                     return_kv: bool = False, core: str = "plain",
-                    tp=None, kv_sharded: bool = True):
+                    tp=None, kv_sharded: bool = True, q_chunk: int = 512,
+                    kv_chunk: int = 1024):
     """x: (B, S, d); positions: (S,).  Self-attention, causal unless
     ``causal=False``, over the last ``window`` positions when ``window >
     0``; ``mrope_positions`` (3, S) rotates q and k by M-RoPE in place of
@@ -173,8 +211,10 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
     makes it cross-attention: keys at ``arange(Sk)``, no RoPE and no k
     norm on them.  Returns (B, S, d), and with ``return_kv`` also the
     (normed, roped) k and v (B, S, KV, hd) that a decode cache stores.
-    ``core``: ``"plain"`` (`causal_attention`, differentiable) or
-    ``"flash"`` (the flash-attention kernel's wrapper, forward only).
+    ``core``: ``"plain"`` (`blocked_attention` over blocks of
+    ``min(q_chunk, S)`` queries and ``min(kv_chunk, Sk)`` keys, as the
+    reference's ``attention_train``; differentiable) or ``"flash"`` (the
+    flash-attention kernel's wrapper, forward only).
 
     With ``tp`` (a `repro_torch.parallel.tensor.ModelAxis`) ``wq`` and
     ``wo`` hold this rank's heads: q on the local heads, ``wo``
@@ -221,7 +261,13 @@ def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
     if core == "flash":
         out = flash_attention(qg, k, v, causal=causal, window=window)
     else:
-        out = causal_attention(qg, k, v, window, causal)
+        Sk = k.shape[1]
+        k_pos = positions if kv_override is None \
+            else torch.arange(Sk, device=x.device)
+        # the stream's positions are 0 .. S - 1 (`Model._backbone`)
+        out = blocked_attention(qg, k, v, positions, k_pos, causal=causal,
+                                window=window, q_chunk=min(q_chunk, S),
+                                kv_chunk=min(kv_chunk, Sk), ordered=True)
     wo = params["wo"]
     y = row_matmul(out.reshape(B, S, H * hd),
                    wo.reshape(H * hd, wo.shape[-1]), tp)
@@ -507,9 +553,11 @@ def _mla_out(params: dict, out: torch.Tensor, dtype=None, tp=None):
 
 def mla_train(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
               mla_cfg, rope_theta: float, norm_eps: float = 1e-6,
-              return_latents: bool = False, tp=None):
+              return_latents: bool = False, tp=None, q_chunk: int = 512,
+              kv_chunk: int = 1024):
     """x: (B, S, d) -> (B, S, d), causal, through the plain core
-    (`causal_attention`: the q·k head is nope + rope wide, v is
+    (`blocked_attention` over blocks of ``min(q_chunk, S)`` queries and
+    ``min(kv_chunk, S)`` keys: the q·k head is nope + rope wide, v is
     ``v_head_dim`` wide, so no kernel of the port takes it; the reference
     too runs MLA through its plain blocked attention).  With
     ``return_latents`` also the (ckv, k_rope) the decode cache stores.
@@ -523,7 +571,10 @@ def mla_train(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     ckv, k_rope = mla_latents(params, x, positions, rope_theta=rope_theta,
                               norm_eps=norm_eps)
     qg, k, v = _mla_expand(params, q_nope, q_rope, ckv, k_rope, tp)
-    out = causal_attention(qg, k, v)[:, :, :, 0]
+    out = blocked_attention(qg, k, v, positions, positions, causal=True,
+                            window=0, q_chunk=min(q_chunk, S),
+                            kv_chunk=min(kv_chunk, S), ordered=True)[
+                                :, :, :, 0]
     y = _mla_out(params, out, tp=tp)
     return (y, ckv, k_rope) if return_latents else y
 

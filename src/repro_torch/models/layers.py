@@ -1,8 +1,9 @@
 """Shared building blocks (the port of ``repro.models.layers``): init
 helpers, rmsnorm and layernorm, rotary embeddings (plain RoPE and
 Qwen2-VL's multimodal M-RoPE), whisper's sinusoidal absolute positions,
-the MLP, gated or not (SiLU or tanh-GeLU), and the causal 1-d
-convolution of the Mamba and RG-LRU blocks.
+the MLP, gated or not (SiLU or tanh-GeLU), the causal 1-d
+convolution of the Mamba and RG-LRU blocks, and `checkpointed`, the
+rematerialisation every remat boundary of the models goes through.
 
 Parameters are nested dicts of tensors with the reference's names,
 shapes and layouts (``(d, f)`` weights, used as ``x @ w``), so weights
@@ -16,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -274,3 +276,27 @@ def causal_conv1d_update(conv_state: torch.Tensor, x_t: torch.Tensor,
     if bias is not None:
         y = y + bias
     return y, (window[:, 1:] if k > 1 else conv_state)
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation
+# ---------------------------------------------------------------------------
+
+
+def checkpointed(fn, *args, reads=()):
+    """``fn(*args)``, rematerialised in the backward pass when autograd
+    records it (the reference's ``jax.checkpoint``): only ``args`` are
+    kept for the backward pass, and ``fn`` runs again there to rebuild
+    what its backward reads (non-reentrant ``torch.utils.checkpoint``;
+    the recompute stops at the last tensor the backward needs).
+    ``reads``: tensors ``fn`` reads through its closure (a block's
+    weights), which switch it on too when they require gradients.
+    Without a gradient to record (a prefill, a decode step) ``fn`` just
+    runs.  No model draws a random number in its forward pass, so the
+    RNG state is not saved for the recompute."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (*args, *reads)):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)

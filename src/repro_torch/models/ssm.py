@@ -30,13 +30,12 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ref import ssm_scan_plain
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_update,
-                                       conv_state, dense_init, matmul,
-                                       row_matmul)
+                                       checkpointed, conv_state, dense_init,
+                                       matmul, row_matmul)
 
 
 def dt_rank_of(d_model: int, cfg) -> int:
@@ -138,14 +137,6 @@ def _chunk_y(h, a, b, c):
     return hs[:, -1], torch.einsum("bsen,bsn->bse", hs, c)
 
 
-def _checkpointed(fn, *args):
-    """``fn(*args)``, rematerialised in the backward pass when autograd
-    records it (the reference's ``jax.checkpoint`` of the chunk body)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
-
-
 def ssm_scan_chunked(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor,
                      chunk: int, C: Optional[torch.Tensor] = None):
     """The reference's ``_ssm_scan_chunked``: h_t = dA_t h_{t-1} + dBx_t
@@ -161,9 +152,9 @@ def ssm_scan_chunked(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor,
     for s0 in range(0, S, chunk):
         xs = (dA[:, s0:s0 + chunk], dBx[:, s0:s0 + chunk])
         if C is None:
-            h, out = _checkpointed(_chunk_hs, h, *xs)
+            h, out = checkpointed(_chunk_hs, h, *xs)
         else:
-            h, out = _checkpointed(_chunk_y, h, *xs, C[:, s0:s0 + chunk])
+            h, out = checkpointed(_chunk_y, h, *xs, C[:, s0:s0 + chunk])
         outs.append(out)
     return torch.cat(outs, dim=1), h
 
@@ -191,7 +182,7 @@ def _scan_chunked(a_log, dt, dtx, bm, cm, chunk: int):
                     device=dt.device)
     ys = []
     for s0 in range(0, S + pad, chunk):
-        h, y = _checkpointed(_mamba_chunk, h,
+        h, y = checkpointed(_mamba_chunk, h,
                              *(t[:, s0:s0 + chunk] for t in (dt, dtx, bm,
                                                             cm)), A)
         ys.append(y)

@@ -39,6 +39,16 @@ chunked prefill takes it always (the layout's ``chunkable`` gate admits
 only that model: routed MoE drops tokens by batch occupancy, so a chunk
 boundary would change the math).
 
+Memory, the reference's four knobs and defaults: ``remat`` (True)
+rematerialises each stage unit (every block kind of a stage at one
+repeat) and each encoder block in the backward pass, keeping only its
+input; ``q_chunk`` / ``kv_chunk`` (512 / 1,024) block the plain
+attention core (`attention.blocked_attention`); `chunked_xent` always
+rematerialises each loss chunk; ``seq_parallel`` (False) keeps the
+stream between units as each rank's S / M positions over a 'model'
+axis.  ``remat`` and ``seq_parallel`` change no bit of the loss or the
+gradients; the block sizes change only their rounding.
+
 Tensor parallelism: ``Model(cfg).with_model_axis(axis)`` trains on one
 rank's shards of the parameter tree, as the partition
 rules (`repro_torch.parallel.sharding`) lay them over the mesh's 'model'
@@ -112,8 +122,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.cache import resolved_window, stacked
-from repro_torch.models.layers import (dense_init, embed_init,
-                                       init_layernorm, init_mlp,
+from repro_torch.models.layers import (checkpointed, dense_init,
+                                       embed_init, init_layernorm, init_mlp,
                                        init_rmsnorm, layernorm, matmul, mlp,
                                        rmsnorm, sinusoidal,
                                        sinusoidal_positions)
@@ -167,9 +177,11 @@ def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 class Model:
     """Functional model wrapper over a nested-dict parameter tree."""
 
-    def __init__(self, cfg: ModelConfig, *, loss_chunk: int = 2048,
-                 scan_chunk: int = 256, kernels: bool = True,
-                 moe_dense: bool = False):
+    def __init__(self, cfg: ModelConfig, *, remat: bool = True,
+                 q_chunk: int = 512, kv_chunk: int = 1024,
+                 scan_chunk: int = 256, loss_chunk: int = 2048,
+                 moe_dense: bool = False, seq_parallel: bool = False,
+                 kernels: bool = True):
         if cfg.family not in _FAMILIES \
                 or cfg.norm not in ("rmsnorm", "layernorm") \
                 or cfg.activation not in ("silu", "gelu", "relu"):
@@ -179,8 +191,12 @@ class Model:
                 f"families {_FAMILIES}, rmsnorm or layernorm, silu, gelu or "
                 "relu")
         self.cfg = cfg
+        self.remat = bool(remat)
         self.moe_dense = bool(moe_dense)
+        self.seq_parallel = bool(seq_parallel)
         self.stages = stage_plan(cfg)
+        self.q_chunk = q_chunk
+        self.kv_chunk = kv_chunk
         self.loss_chunk = loss_chunk
         self.scan_chunk = scan_chunk
         self.kernels = bool(kernels)
@@ -356,18 +372,31 @@ class Model:
         x = frames.to(cd) + sinusoidal_positions(
             frames.shape[1], cfg.d_model, frames.device).to(cd)
         positions = torch.arange(x.shape[1], device=x.device)
+        chunks = self._chunks(x.shape[1])
         enc = params["encoder"]
         for r in range(T.leaves(enc["blocks"])[0].shape[0]):
             p = T.map(lambda a: a[r], enc["blocks"])
-            h = attn.attention_train(p["attn"], _norm(cfg, p["ln1"], x),
-                                     positions, rope_theta=0.0,
-                                     causal=False, core=core,
-                                     tp=self._tp_heads,
-                                     kv_sharded=self._kv_tp)
-            x = x + h
-            x = x + mlp(p["mlp"], _norm(cfg, p["ln2"], x), cfg.activation,
-                        self.tp)
+
+            def block(x, p=p):
+                h = attn.attention_train(p["attn"], _norm(cfg, p["ln1"], x),
+                                         positions, rope_theta=0.0,
+                                         causal=False, core=core,
+                                         tp=self._tp_heads,
+                                         kv_sharded=self._kv_tp, **chunks)
+                x = x + h
+                return x + mlp(p["mlp"], _norm(cfg, p["ln2"], x),
+                               cfg.activation, self.tp)
+            # each encoder block is a remat unit of its own
+            x = checkpointed(block, x, reads=T.leaves(p)) if self.remat \
+                else block(x)
         return _norm(cfg, enc["final_norm"], x)
+
+    def _chunks(self, S: int) -> dict:
+        """The attention blocks of a stream of S positions, as the
+        reference's ``_ctx``: ``min(q_chunk, S)`` x ``min(kv_chunk, S)``
+        (the attention narrows the keys' to its own key count)."""
+        return {"q_chunk": min(self.q_chunk, S),
+                "kv_chunk": min(self.kv_chunk, S)}
 
     def _context(self, params, batch, core: str) -> dict:
         """What the blocks read besides x: a VLM's ``mrope`` positions (3,
@@ -408,12 +437,13 @@ class Model:
         """One block; with ``cache_out`` (the prefill) the block's decode
         cache entry is appended to it and the kernel routes are taken; an
         MoE block's aux loss is appended to ``aux``; ``ctx`` is
-        `_context`'s."""
+        `_context`'s, with `_backbone`'s attention blocks."""
         # bf16 + f32 promotes to f32 in torch as in jnp: with f32 weights
         # the residual stream is f32 from the first block on
         cfg, ctx = self.cfg, ctx or {}
         prefill = cache_out is not None
         core = "flash" if prefill and self.kernels else "plain"
+        chunks = {k: ctx[k] for k in ("q_chunk", "kv_chunk")}
         if kind == "mamba":
             h = _norm(cfg, p["ln"], x)
             if prefill:
@@ -440,7 +470,7 @@ class Model:
             h = attn.mla_train(p["attn"], h, positions, mla_cfg=cfg.mla,
                                rope_theta=cfg.rope_theta,
                                norm_eps=cfg.norm_eps, return_latents=prefill,
-                               tp=self._tp_heads)
+                               tp=self._tp_heads, **chunks)
             if prefill:
                 h, ckv, k_rope = h
                 cache_out.append({"ckv": ckv, "k_rope": k_rope})
@@ -451,7 +481,7 @@ class Model:
                 norm_eps=cfg.norm_eps, mrope_positions=ctx.get("mrope"),
                 mrope_sections=cfg.vlm.mrope_sections if cfg.vlm else None,
                 return_kv=prefill, core=core, tp=self._tp_heads,
-                kv_sharded=self._kv_tp)
+                kv_sharded=self._kv_tp, **chunks)
             if prefill:
                 h, k, v = h
                 entry = {"k": k, "v": v}
@@ -465,7 +495,7 @@ class Model:
             h = attn.attention_train(p["xattn"], _norm(cfg, p["ln_x"], x),
                                      positions, rope_theta=0.0,
                                      causal=False, kv_override=(xk, xv),
-                                     core=core, tp=self._tp_heads)
+                                     core=core, tp=self._tp_heads, **chunks)
             x = x + h
             if prefill:
                 entry.update(xk=xk, xv=xv)
@@ -479,13 +509,57 @@ class Model:
                   ctx: Optional[dict] = None) -> torch.Tensor:
         """All blocks over x; with ``entries`` (the prefill) each block's
         cache entry is appended to ``entries[stage][block]``, and each MoE
-        block's aux loss to ``aux``; ``ctx`` is `_context`'s."""
-        positions = torch.arange(x.shape[1], device=x.device)
-        for si, name, kind, p in self._blocks(params):
-            x = self._block(kind, p, x, positions,
-                            None if entries is None else entries[si][name],
-                            aux, ctx)
-        return x
+        block's aux loss to ``aux``; ``ctx`` is `_context`'s.
+
+        Outside the prefill the blocks run unit by unit (`_unit`: every
+        block kind of a stage at one repeat, the reference's scan body),
+        each a remat unit under ``remat``; under ``seq_parallel`` over a
+        'model' axis that S divides, the stream between units is this
+        rank's S / M rows (the reference's ``_seq_constrain``), gathered
+        whole after the last unit."""
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        ctx = {**(ctx or {}), **self._chunks(S)}
+        if entries is not None:
+            for si, name, kind, p in self._blocks(params):
+                x = self._block(kind, p, x, positions, entries[si][name],
+                                aux, ctx)
+            return x
+        seq = self.tp if self.seq_parallel and self.tp is not None \
+            and S % self.tp.size == 0 else None
+        if seq is not None:
+            x = seq.seq_cut(x)
+        for si, stage in enumerate(self.stages):
+            for r in range(stage.repeats):
+                unit = [(kind, T.map(lambda a: a[r],
+                                     params[f"stage{si}"][f"b{j}"]))
+                        for j, kind in enumerate(stage.kinds)]
+                x, *unit_aux = self._unit(unit, x, positions, ctx, seq)
+                if aux is not None:
+                    aux.extend(unit_aux)
+        return x if seq is None else seq.seq_gather(x)
+
+    def _unit(self, unit, x: torch.Tensor, positions: torch.Tensor,
+              ctx: dict, seq) -> tuple:
+        """One remat unit: the blocks ``unit`` ((kind, params) in order)
+        over x; returns (x, each MoE block's aux loss).  The aux losses
+        leave the unit as outputs, so the recompute in the backward pass
+        appends nothing.  Under ``remat`` only the unit's input is kept
+        for the backward pass (`layers.checkpointed`), which runs the
+        unit again, its 'model' collectives included, in the same order
+        on every rank.  With ``seq`` x is this rank's rows: gathered
+        whole inside the unit, the output cut back to the rank's rows."""
+        def body(x):
+            if seq is not None:
+                x = seq.seq_gather(x)
+            aux: list = []
+            for kind, p in unit:
+                x = self._block(kind, p, x, positions, None, aux, ctx)
+            return (x if seq is None else seq.seq_cut(x), *aux)
+        if not self.remat:
+            return body(x)
+        return checkpointed(body, x, reads=[t for _, p in unit
+                                            for t in T.leaves(p)])
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """Post-final-norm (..., d) -> f32 logits, the padded vocabulary's
@@ -802,8 +876,11 @@ def chunked_xent(x: torch.Tensor, unembed: torch.Tensor,
     """x: (B, S, d) post-final-norm; unembed: (d, V_padded); labels (B, S),
     -1 = masked.  Logits come one sequence chunk at a time, in f32, and
     the logsumexp runs over all padded columns, as the reference's does.
-    (The reference also rematerialises each chunk in the backward pass;
-    here a chunk's logits stay alive until the backward pass.)
+    Each chunk's body is rematerialised in the backward pass, as the
+    reference's ``@jax.checkpoint`` body is (`layers.checkpointed`): only
+    one chunk's (B, chunk, V) logits are alive at a time, forward and
+    backward, and over 'model' the recompute issues the chunk's
+    collectives again.
 
     With ``tp`` ``unembed`` holds this rank's block of the padded
     vocabulary's columns: the logsumexp takes the maximum over the axis
@@ -813,8 +890,8 @@ def chunked_xent(x: torch.Tensor, unembed: torch.Tensor,
     chunk = min(chunk, S)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    for s0 in range(0, S, chunk):
-        xc, lc = x[:, s0:s0 + chunk], labels[:, s0:s0 + chunk]
+
+    def body(xc, lc):
         logits = matmul(xc, unembed.to(xc.dtype), tp).float()
         if tp is None:
             logz = torch.logsumexp(logits, dim=-1)
@@ -823,8 +900,13 @@ def chunked_xent(x: torch.Tensor, unembed: torch.Tensor,
         else:
             logz, gold = _vocab_parallel_terms(logits, lc, tp)
         mask = (lc >= 0).float()
-        tot = tot + ((logz - gold) * mask).sum()
-        cnt = cnt + mask.sum()
+        return ((logz - gold) * mask).sum(), mask.sum()
+
+    for s0 in range(0, S, chunk):
+        part, n = checkpointed(body, x[:, s0:s0 + chunk],
+                               labels[:, s0:s0 + chunk], reads=(unembed,))
+        tot = tot + part
+        cnt = cnt + n
     return tot / cnt.clamp_min(1.0)
 
 

@@ -23,6 +23,15 @@ autograd edges are Megatron's three and one more:
   consumer: a column-parallel output joining the replicated residual
   stream, as ``vision_proj``'s does), so each rank's gradient of it is
   already the whole one;
+* `ModelAxis.seq_cut` / `ModelAxis.seq_gather`: the sequence-parallel
+  pair (the reference's ``_seq_constrain``).  ``seq_cut`` keeps this
+  rank's block of S / M positions of a replicated stream (forward) and
+  all-gathers the blocks' gradients backward; ``seq_gather`` all-gathers
+  the blocks whole (forward) and cuts the rank's rows of the gradient
+  backward (`gather` along the sequence dim: the gathered stream's
+  consumers are replicated, so each rank's gradient of it is already
+  the whole one).  Between them a remat unit's input is the rank's rows
+  only;
 * `ModelAxis.gather_reduce`: all-gather forward, and backward the
   all-reduce of the gathered tensor's gradient before the rank's slice
   is taken (``copy`` after ``gather``).  It is the edge where the ranks
@@ -110,6 +119,18 @@ class ModelAxis:
         every rank the whole gradient; where the ranks consume different
         slices (or different weight shards) use `gather_reduce`."""
         return _GatherFromModel.apply(x, self, dim)
+
+    def seq_cut(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's block of ``dim`` (which the axis divides) of a
+        replicated ``x`` (forward); the blocks' gradients all-gathered in
+        rank order (backward): each gradient summed exactly once."""
+        return _CutToModel.apply(x, self, dim)
+
+    def seq_gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The ranks' blocks of ``dim`` gathered whole in rank order
+        (forward); the rank's block of the gradient (backward): `gather`
+        along the sequence dim, the inverse of `seq_cut`."""
+        return self.gather(x, dim)
 
     def gather_reduce(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """`gather` whose backward first sums the gathered gradient over
@@ -206,21 +227,37 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _all_gather(x: torch.Tensor, axis: ModelAxis, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+    src = x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(axis.size)]
+    with scope("tp"):
+        dist.all_gather(parts, src, group=axis.group)
+    return torch.cat(parts, dim=dim)
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, dim):
-        import torch.distributed as dist
         ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
-        src = x.contiguous()
-        parts = [torch.empty_like(src) for _ in range(axis.size)]
-        with scope("tp"):
-            dist.all_gather(parts, src, group=axis.group)
-        return torch.cat(parts, dim=dim)
+        return _all_gather(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
         lo = ctx.axis.rank * ctx.n
         return g.narrow(ctx.dim, lo, ctx.n), None, None
+
+
+class _CutToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        n = x.shape[dim] // axis.size
+        return x.narrow(dim, axis.rank * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.axis, ctx.dim), None, None
 
 
 def sum_parts(parts: Sequence[Tuple[torch.Tensor, ...]],

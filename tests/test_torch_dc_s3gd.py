@@ -97,7 +97,7 @@ def _jax_run(algo, W, form, reducer=None, **hp):
 def _torch_run(algo, W, form, reducer=None, **hp):
     buckets, kernels = FORMS[form]
     cfg = t_reduced(t_get_config("qwen3-0.6b"))
-    model = TModel(cfg)
+    model = TModel(cfg, remat=False)
     alg = treg.make(algo, TConfig(**HP, **hp), n_workers=W, buckets=buckets,
                     use_kernels=kernels, reducer=reducer)
     state = alg.init(params_from_numpy(_weights(), device="cpu"))

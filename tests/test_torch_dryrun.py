@@ -94,19 +94,25 @@ def test_record_schema_is_the_reference_one(records, shape, mesh):
     assert mem <= set(rec["memory"])
     assert rec["status"] == "ok" and rec["variant"] == "qwen3-0.6b-smoke"
     assert rec["n_chips"] == (512 if mesh == "multipod" else 256)
-    assert rec["memory"]["temp_bytes"] is None \
-        and rec["memory"]["peak_bytes"] is None
-    assert "compiler memory analysis" in rec["memory"]["note"]
+    # one rank's peak: its inputs and the most its step holds beyond them
+    m = rec["memory"]
+    assert m["peak_bytes"] > m["argument_bytes"] > 0
+    assert m["temp_bytes"] == m["peak_bytes"] - m["argument_bytes"]
+    assert "MemTracker" in m["note"] and "not XLA's temp" in m["note"]
     from repro.analysis.roofline import Roofline as JRoofline
     fields = set(JRoofline.__dataclass_fields__)
     assert fields <= set(rec["roofline"]) and \
         set(Roofline.__dataclass_fields__) <= set(rec["roofline"])
     assert "worker-axis wire" in rec["roofline"]["note"]
+    assert "one rank's step" in rec["roofline"]["note"]
     ro = rec["roofline"]
     assert ro["flops"] > 0 and ro["hbm_bytes"] > 0
+    # one rank's step at 'model' 16: its collectives over 'model' are
+    # priced beside the wire
+    assert ro["tp_bytes"] > 0
     if shape == "train_4k":
-        # only the worker-axis wire is counted: the per-chip share of all
-        # W workers' payloads, slower over the network than over NVLink
+        # the worker-axis wire: the rank's row's payload (its model
+        # shard), slower over the network than over NVLink
         assert ro["coll_bytes"] > 0
         assert ro["collective_net_s"] == pytest.approx(
             ro["collective_s"] * 450 / 50)
@@ -186,7 +192,10 @@ def test_roofline_table_renders(records):
     table = report.roofline_table("pod", str(out))
     rows = [r for r in table.splitlines() if r.startswith("| qwen3-0.6b")]
     assert len(rows) == 3
-    assert all(r.count("|") == 11 and "| - |" in r for r in rows)
+    assert all(r.count("|") == 11 and "| - |" not in r for r in rows)
+    temps = [r.split("|")[9].strip() for r in rows]
+    assert temps == [report.fmt_mem(recs[(s, "pod")]["memory"][
+        "temp_bytes"]) for s in ("decode_32k", "prefill_32k", "train_4k")]
     assert "256 GPUs (16,16)" in table
     assert report.dryrun_summary("multipod", str(out)).startswith(
         "mesh `multipod`: 1 built + traced OK")
@@ -258,6 +267,70 @@ def test_fake_trace_counts_what_a_real_trace_counts(kind):
                 and o.bytes_read + o.bytes_written]
 
 
+def test_fake_peak_is_the_real_tensors_peak():
+    """The dry-run's ``peak_bytes`` (`dryrun.traced_peak` around the
+    traced step on fake tensors) is, to the byte, the same tracker's peak
+    around the same step of the reduced qwen3 (remat on, as the dry-run
+    builds it; 64 tokens, W = 2) on real CPU tensors."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.dryrun import traced_peak
+    from repro_torch.launch.engine import Engine
+    cfg = S.dryrun_model_config(reduced(get_config("qwen3-0.6b")))
+    model = Model(cfg, remat=True, kernels=False)
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=64,
+                                global_batch=4)
+    alg = registry.make("dc_s3gd", DCS3GDConfig(), n_workers=2)
+    engine = Engine(model, alg)
+    fake_batch = S.train_batch_specs(cfg, shape, 2)
+    with S.fake_mode():
+        state = S.abstract_train_state(model, 2, DCS3GDConfig(), alg)
+        _, fake = traced_peak(
+            lambda: engine.trace_train_step(state, fake_batch),
+            (state, fake_batch))
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+             for k, v in fake_batch.items()}
+    real_state = alg.init(params)
+    del params
+    _, real = traced_peak(lambda: engine.trace_train_step(real_state, batch),
+                          (real_state, batch))
+    assert fake == real > 0
+
+
+def test_pod_one_rank_decode_collectives_are_the_hand_count(tmp_path):
+    """On the production pod mesh (16, 16) the dry-run traces rank 0's
+    decode step at 'model' 16: the reduced qwen3 (bf16, heads padded to
+    16, its 2 KV heads whole, so its cache shards by position), decode_32k
+    (128 rows over 16 data ranks: b = 8 a rank; a 32,768-position
+    cache).  Its ``tp`` payload by hand: the embedding's sum (b·d bf16),
+    each layer's two row-parallel sums (b·d f32), the rank's vocabulary
+    columns gathered (b·V/16 f32) and each layer's k and v blocks
+    gathered for the attend (b·C/16·KV·2·hd bf16)."""
+    out = tmp_path / "dr"
+    r = _python("import torch; torch.set_num_threads(1)\n"
+                "from pathlib import Path\n"
+                "from repro_torch.launch import dryrun\n"
+                f"dryrun.run_one('qwen3-0.6b', 'decode_32k', 'pod', "
+                f"out_dir=Path({str(out)!r}), cut=True)\n", tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rec = json.loads((out / "qwen3-0.6b__decode_32k__pod__dc_s3gd.json")
+                     .read_text())
+    cfg = S.dryrun_model_config(reduced(get_config("qwen3-0.6b")))
+    shape = INPUT_SHAPES["decode_32k"]
+    b, C = shape.global_batch // 16, shape.seq_len
+    d, L, hd = cfg.d_model, cfg.n_layers, cfg.resolved_head_dim
+    KV = cfg.eff_n_kv_heads
+    vp = -(-cfg.vocab_size // 256) * 256
+    assert (cfg.eff_n_heads, KV) == (16, 2)
+    want = (b * d * 2 + L * 2 * b * d * 4 + b * (vp // 16) * 4
+            + L * b * (C // 16) * KV * 2 * hd * 2)
+    ro = rec["roofline"]
+    assert rec["status"] == "ok" and rec["n_chips"] == 256
+    assert ro["tp_bytes"] == want
+    assert ro["collective_tp_s"] == pytest.approx(want / 450e9)
+
+
 def test_tensor_parallel_collectives_are_the_hand_count(tmp_path):
     """On a (1, 2) fake mesh the dry-run traces one rank's
     tensor-parallel step of the reduced qwen3 (bf16, 2 layers, W = 1) at
@@ -269,7 +342,12 @@ def test_tensor_parallel_collectives_are_the_hand_count(tmp_path):
     unembedding: bf16), the q / k norm scales (hd bf16 each); per loss
     chunk of 2,048 positions, the max (b·c f32) and the
     exponential sums with the label logits (2·b·c f32); the Eq. 17 and
-    metric norms (two (2, W) f32 sums)."""
+    metric norms (two (2, W) f32 sums).  The dry-run's train Model
+    rematerialises each layer in the backward pass, which issues its
+    attention's row-parallel sum again (the recompute stops at the MLP's
+    ``w_down``, the last product whose input the backward reads, before
+    the MLP's sum), and each checkpointed loss chunk, which issues the
+    chunk's max and sums again."""
     out = tmp_path / "dr"
     r = _python("import torch; torch.set_num_threads(1)\n"
                 "from pathlib import Path\n"
@@ -290,9 +368,10 @@ def test_tensor_parallel_collectives_are_the_hand_count(tmp_path):
     backward = L * 5 * act16 + act16 + L * 2 * hd * 2
     loss = (s // chunk) * (b * chunk * 4 + 2 * b * chunk * 4)
     norms = 2 * (2 * W * 4)
+    recompute = L * act32 + loss
     ro = rec["roofline"]
     assert rec["status"] == "ok" and rec["n_chips"] == 2
-    assert ro["tp_bytes"] == forward + backward + loss + norms
+    assert ro["tp_bytes"] == forward + backward + loss + norms + recompute
     assert ro["collective_tp_s"] == pytest.approx(ro["tp_bytes"] / 450e9)
     assert ro["coll_breakdown"]["tp"] == ro["tp_bytes"]
     assert "tensor-parallel" in ro["note"]
@@ -376,8 +455,9 @@ def test_tensor_parallel_wire_is_the_whole_plans(tmp_path):
     leaves = [x for x in shd.leaves_with_path(params)]
     want = sum(x.numel() // 2 * 4 for (_, x), f in zip(leaves, flags) if f)
     assert want > 0
-    # the wire line of the two whole wires, then the plain mean's
-    assert gathered == [want, want, 0]
+    # the wire line of each run (1x2, then 1x1): the two whole wires'
+    # gathers over 'model', nothing gathered on 1x1 nor for the plain mean
+    assert gathered == [want, 0, want, 0, 0, 0]
     plain = recs[("mean_allreduce", "float32", "1x2")]
     for red, dt in WHOLE_WIRES:
         tp, one = recs[(red, dt, "1x2")], recs[(red, dt, "1x1")]

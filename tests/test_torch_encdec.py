@@ -75,7 +75,8 @@ def _weights():
 def _models():
     jm = JModel(reduced(get_config(ARCH)), remat=False, q_chunk=16,
                 kv_chunk=16, scan_chunk=16, loss_chunk=16)
-    return jm, Model(t_reduced(t_get_config(ARCH)), loss_chunk=16)
+    return jm, Model(t_reduced(t_get_config(ARCH)), remat=False,
+                     loss_chunk=16)
 
 
 def _jp():

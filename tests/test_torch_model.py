@@ -68,7 +68,8 @@ def test_loss_and_grads_match_jax(seq):
         jax.tree.map(jax.numpy.asarray, np_params),
         jax.tree.map(jax.numpy.asarray, batch))
 
-    tm = TModel(t_reduced(t_get_config("qwen3-0.6b")), loss_chunk=32)
+    tm = TModel(t_reduced(t_get_config("qwen3-0.6b")), remat=False,
+                loss_chunk=32)
     tp = params_from_numpy(np_params, device="cpu")
     leaves = T.leaves(tp)
     for x in leaves:

@@ -78,7 +78,10 @@ def _weights(arch):
 def _models(arch, moe_dense=False):
     jm = JModel(reduced(get_config(arch)), remat=False, moe_dense=moe_dense,
                 q_chunk=16, kv_chunk=16, scan_chunk=16, loss_chunk=16)
-    tm = Model(t_reduced(t_get_config(arch)), loss_chunk=16,
+    # the reference's knobs: no remat (a recompute would route again),
+    # 16-wide attention blocks
+    tm = Model(t_reduced(t_get_config(arch)), remat=False, q_chunk=16,
+               kv_chunk=16, scan_chunk=16, loss_chunk=16,
                moe_dense=moe_dense)
     return jm, tm
 

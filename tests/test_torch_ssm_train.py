@@ -68,7 +68,8 @@ def _weights(arch):
 def _models(arch):
     jm = JModel(reduced(get_config(arch)), remat=False, q_chunk=16,
                 kv_chunk=16, scan_chunk=16, loss_chunk=16)
-    tm = TModel(t_reduced(t_get_config(arch)), loss_chunk=16, scan_chunk=16)
+    tm = TModel(t_reduced(t_get_config(arch)), remat=False, loss_chunk=16,
+                scan_chunk=16)
     return jm, tm
 
 

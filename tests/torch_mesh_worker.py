@@ -214,7 +214,7 @@ def run_lm(spec: dict, W: int, weights, mesh=None, steps: int = None,
     (default: the spec's ``steps``, else `STEPS`)."""
     steps = spec.get("steps", STEPS) if steps is None else steps
     cfg = reduced(get_config("qwen3-0.6b"))
-    model = Model(cfg)
+    model = Model(cfg, remat=False)
     data = SyntheticLMDataset(cfg.vocab_size, SEQ, seed=0)
     return _run(model, _make(spec, W), params_from_numpy(weights,
                                                          device="cpu"),

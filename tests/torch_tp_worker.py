@@ -55,7 +55,8 @@ def config(name: str):
 def make_model(name: str) -> Model:
     """The port's model of ``name``: ``<name>_dense`` takes the
     all-experts MoE oracle (``moe_dense``)."""
-    return Model(config(name), moe_dense=name.endswith("_dense"))
+    return Model(config(name), remat=False,
+                 moe_dense=name.endswith("_dense"))
 
 
 def extras(cfg, t: int, W: int) -> dict:
@@ -457,5 +458,42 @@ def case_edge(world):
     return out
 
 
+def case_remat(world, *, names, seq, chunk):
+    """Each config of ``names`` (``<name>_window``: a 12-token sliding
+    window) on a (1, ``world``) mesh: this rank's loss and gradients of
+    its shards (the serve specs' cut of one set of weights) under
+    ``remat`` x ``seq_parallel`` on and off, a digest each; attention in
+    blocks of ``chunk``, two tokens rows of ``seq``."""
+    from repro_torch.launch import mesh as M
+    mesh = M.make_debug_mesh(1, world, device_type="cpu")
+    out = {}
+    for name in names:
+        base, _, var = name.partition("_")
+        cfg = reduced(get_config(ARCHS[base]))
+        if var == "window":
+            cfg = dataclasses.replace(cfg, sliding_window=12)
+        engine = Engine(Model(cfg), mesh=mesh)
+        local = engine.serve_params(
+            engine.model.init(torch.Generator().manual_seed(0)))
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen)
+        batch = {"tokens": tokens, "labels": tokens}
+        if cfg.encoder is not None:
+            batch["frames"] = torch.randn(2, cfg.encoder.n_frames,
+                                          cfg.d_model, generator=gen)
+        variants = {}
+        for remat in (False, True):
+            for sp in (False, True):
+                model = Model(cfg, remat=remat, seq_parallel=sp,
+                              q_chunk=chunk, kv_chunk=chunk,
+                              loss_chunk=16).with_model_axis(
+                                  engine.model_axis)
+                grads, loss = _grads(model, local, batch)
+                variants[f"remat={remat} seq_parallel={sp}"] = _digest(
+                    [loss] + T.leaves(grads))
+        out[name] = variants
+    return out
+
+
 CASES = {"tp": case_tp, "xent": case_xent, "cnn": case_cnn,
-         "edge": case_edge}
+         "edge": case_edge, "remat": case_remat}
